@@ -7,9 +7,12 @@ tested against (`tests/test_torch_*.py`): both draw the same Threefry-2x32
 sample streams, so images agree path for path.
 
 Ported so far: the Cornell-box RGB main path (scene → compile → camera →
-RNG → brute-force intersection → `bounce_rgb`/`trace` → the RGB megakernel,
-a hand-written CUDA kernel in `csrc/`). Importing the package has no side
-effects; kernels are built at first use (`izpi_tpu_torch.ops._build`).
+RNG → brute-force intersection → `bounce_rgb`/`trace` → the RGB megakernel)
+and the spectral main path (the spectral Cornell pyramid: SPDs, CIE-Y λ
+sampling, `bounce_spectral` → the spectral megakernel → firefly rejection
+and ACEScg), each megakernel a hand-written CUDA kernel in `csrc/`.
+Importing the package has no side effects; kernels are built at first use
+(`izpi_tpu_torch.ops._build`).
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,8 @@ parameter table; the integrator gathers a ray's row and evaluates every lobe
 with tagged selects (`izpi_tpu_torch.integrator.path`).
 
 Kinds: 0 LAMBERT, 1 METAL, 2 DIELECTRIC, 3 DIFFUSE_LIGHT, 4 ISOTROPIC, 5 PBR.
-The port compiles kinds 0-3; isotropic (media) and PBR come with later
-slices.
+The port compiles kinds 0-3, each with its spectral columns; isotropic
+(media) and PBR come with a later slice (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -30,6 +30,19 @@ class Materials(NamedTuple):
     ref_idx: torch.Tensor         # (M,) f32 dielectric η (dielectric.go:33)
     absorption: torch.Tensor      # (M, 3) f32 Beer–Lambert α (dielectric.go:48)
     has_absorption: torch.Tensor  # (M,) bool
+    # Spectral columns (-1 = absent): rows of the scene's SPD table, or
+    # Gaussian parameters.
+    spec_albedo_id: torch.Tensor      # (M,) int32 albedo/emission SPD id
+    spec_albedo_gauss: torch.Tensor   # (M, 3) f32 (peak, center, width); width <= 0: unused
+    spec_ref_idx_id: torch.Tensor     # (M,) int32 η(λ) SPD id (dispersion)
+    spec_absorb_id: torch.Tensor      # (M,) int32 absorption SPD id
+    # Spectral checker (texture/spectral_checker.go): the second branch.
+    spec_checker: torch.Tensor        # (M,) bool
+    spec_albedo_id2: torch.Tensor     # (M,) int32
+    spec_albedo_gauss2: torch.Tensor  # (M, 3) f32
+    # RGB→spectral uplift of the albedo texture; the compiler raises on it
+    # until ROADMAP A11, so the column is all False.
+    spec_albedo_uplift: torch.Tensor  # (M,) bool
 
     @property
     def count(self) -> int:

@@ -1,7 +1,7 @@
 """Build the CUDA sources in `csrc/` at first use and load them with ctypes.
 
-`nvcc` compiles the sources into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), for sm_90a, with
+One `nvcc` call compiles every source into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds), for sm_90a, with
 IEEE rounding kept (`-fmad=false`, no fast math) so the kernels round like
 their plain PyTorch versions. The library lands in `build/izpi_tpu_torch/`
 at the repository root (git-ignored), named by a hash of the sources and
@@ -21,8 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
-SOURCES = ("megakernel_rgb.cu",)
-HEADERS = ("threefry.cuh",)
+SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu")
+HEADERS = ("threefry.cuh", "common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -39,6 +39,17 @@ _SIGNATURES = {
         _c_uint32, _c_uint32, _c_uint32,       # seed0, seed1, offset
         _c_int, _c_int, _c_int, _c_int, _c_int,  # nx, ny, spp_slot, n_slots, max_depth
         _c_float, _c_float, _c_float, _c_int,  # background, book
+        _c_void_p, _c_void_p, _c_void_p,       # acc, cnt, stream
+    ],
+    "izpi_megakernel_spectral": [
+        _c_void_p, _c_void_p, _c_int,          # prim_f, prim_i, n_prims
+        _c_void_p, _c_void_p,                  # mat_f, mat_i
+        _c_void_p, _c_void_p, _c_int,          # light_f, light_i, n_lights
+        _c_void_p, _c_void_p, _c_void_p,       # spec_f, spec_i, spd
+        _c_void_p, _c_void_p,                  # cie, cam
+        _c_uint32, _c_uint32, _c_uint32,       # seed0, seed1, offset
+        _c_int, _c_int, _c_int, _c_int, _c_int,  # nx, ny, spp_slot, n_slots, max_depth
+        _c_int, _c_int,                        # bg_spd, book
         _c_void_p, _c_void_p, _c_void_p,       # acc, cnt, stream
     ],
     "izpi_threefry_uniforms": [

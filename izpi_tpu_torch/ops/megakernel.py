@@ -111,6 +111,19 @@ def pack_tables(cs) -> SceneTables:
                        li.kind.int().contiguous(), cam.contiguous())
 
 
+def table_specs(tables: SceneTables, meta):
+    """(name, tensor, shape, dtype) of each table, as the kernels read them."""
+    n_p, n_m, n_l = meta.n_prims, meta.n_materials, meta.n_lights
+    return [(name, getattr(tables, name), shape, dtype) for name, shape, dtype in (
+        ("prim_f", (n_p, PRIM_F), torch.float32),
+        ("prim_i", (n_p, PRIM_I), torch.int32),
+        ("mat_f", (n_m, MAT_F), torch.float32),
+        ("mat_i", (n_m, MAT_I), torch.int32),
+        ("light_f", (n_l, LIGHT_F), torch.float32),
+        ("light_i", (n_l,), torch.int32),
+        ("cam", (CAM_F,), torch.float32))]
+
+
 def _key_words(key):
     words = [int(w) & tf.MASK for w in key.reshape(-1).tolist()]
     if len(words) != 2:
@@ -174,12 +187,19 @@ def render_slots_reference(cs, meta, settings, nx: int, ny: int, spp: int,
     return acc.reshape(repl, n_pix, 3).sum(dim=0), nrays
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be on a CUDA device, not {t.device}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape "
-                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+def check_tables(dev: torch.device, specs) -> None:
+    """Raise unless every (name, tensor, shape, dtype) of `specs` is a
+    contiguous tensor of that shape and type on the CUDA device `dev`."""
+    for name, t, shape, dtype in specs:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be on a CUDA device, not {t.device}")
+        if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                             f"shape {tuple(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the scene on {dev}")
 
 
 def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
@@ -206,23 +226,12 @@ def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
         raise ValueError("nx, ny must be positive and spp non-negative")
     if tables is None:
         tables = pack_tables(cs)
-    n_p, n_m, n_l = meta.n_prims, meta.n_materials, meta.n_lights
-    for name, shape, dtype in (
-            ("prim_f", (n_p, PRIM_F), torch.float32),
-            ("prim_i", (n_p, PRIM_I), torch.int32),
-            ("mat_f", (n_m, MAT_F), torch.float32),
-            ("mat_i", (n_m, MAT_I), torch.int32),
-            ("light_f", (n_l, LIGHT_F), torch.float32),
-            ("light_i", (n_l,), torch.int32),
-            ("cam", (CAM_F,), torch.float32)):
-        t = getattr(tables, name)
-        _check(t, name, dtype, shape)
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the scene on {dev}")
+    check_tables(dev, table_specs(tables, meta))
 
     from izpi_tpu_torch.ops import _build
 
     lib = _build.load()
+    n_p, n_l = meta.n_prims, meta.n_lights
     n_pix = nx * ny
     repl = pick_replication(n_pix, spp)
     spp_slot = spp // repl

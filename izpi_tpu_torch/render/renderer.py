@@ -1,18 +1,25 @@
 """Render entry point: pixels → paths → accumulated image.
 
-Counterpart of `izpi_tpu/render/renderer.py` for the RGB colour sampler.
-Pixel convention (render/rgb.go:30-40): film coords u=(x+ξ)/nx, v=(y+ξ)/ny
-with v up; the canvas is row-flipped so image[0] is the top row. Every
-per-sample colour is DeNAN'd before accumulation (rgb.go:36).
+Counterpart of `izpi_tpu/render/renderer.py` for the colour sampler of RGB
+and spectral scenes. Pixel convention (render/rgb.go:30-40): film coords
+u=(x+ξ)/nx, v=(y+ξ)/ny with v up; the canvas is row-flipped so image[0] is
+the top row. Every per-sample colour is DeNAN'd before accumulation
+(rgb.go:36).
 
 Modes:
-- "wavefront" (the default) and "mega": the RGB megakernel
-  (`ops.megakernel.render_slots`): the CUDA kernel on a CUDA device, its
-  plain twin on the CPU. A scene the megakernel does not take raises.
-- "simple": the lockstep oracle (`integrator.path.trace`), one batch of
-  every pixel per sample.
-- "pool": the XLA-style queue pool is not ported; it raises.
-Nothing falls back to another mode or another device.
+- "wavefront" (the default) and "mega": the megakernel, the CUDA kernel on
+  a CUDA device and its plain version on the CPU. An RGB scene goes to
+  `ops.megakernel.render_slots`; a spectral scene (`meta.spectral`) to
+  `ops.megakernel_spectral.render_slots_spectral`, whose XYZ canvas then
+  goes through firefly rejection and XYZ→ACEScg with the camera's exposure
+  (renderer.py:426-440). A scene the megakernel does not take raises.
+- "simple": the lockstep oracle (`integrator.path.trace`) of RGB scenes,
+  one batch of every pixel per sample.
+- "pool": the XLA-style queue pool is not ported; it raises, as "simple"
+  does on a spectral scene (the JAX package renders spectral scenes only
+  through the pool or the megakernel).
+Nothing falls back to another mode or another device. Entry points run on
+the card ("cuda") unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -28,9 +35,10 @@ from izpi_tpu_torch import camera as camera_mod
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.core import vecmath as vm
 from izpi_tpu_torch.integrator import path as path_mod
-from izpi_tpu_torch.ops import megakernel
+from izpi_tpu_torch.ops import megakernel, megakernel_spectral
 from izpi_tpu_torch.scene import types as st
 from izpi_tpu_torch.scene.compiler import compile_scene
+from izpi_tpu_torch.spectral import convert
 
 _POOL = ("the queue pool (izpi_tpu/integrator/wavefront.py:275) is not "
          "ported yet: ROADMAP A6")
@@ -38,10 +46,11 @@ _POOL = ("the queue pool (izpi_tpu/integrator/wavefront.py:275) is not "
 
 @dataclasses.dataclass
 class RenderResult:
-    image: np.ndarray  # (ny, nx, 3) float32, linear
+    image: np.ndarray  # (ny, nx, 3) float32, linear (ACEScg if spectral)
     rays_traced: int
     seconds: float
     device: str = "cpu"  # where the render ran: "cpu" or the CUDA card's name
+    xyz: Optional[np.ndarray] = None  # CIE XYZ canvas after firefly rejection (spectral)
 
     @property
     def mrays_per_sec(self) -> float:
@@ -60,10 +69,10 @@ def _device(device) -> torch.device:
 
 
 class RenderContext:
-    """A compiled scene on one device, plus the megakernel's packed tables
-    (built once, on first use)."""
+    """A compiled scene on one device ("cuda" unless the caller asks for
+    "cpu"), plus the megakernel's packed tables (built once, on first use)."""
 
-    def __init__(self, scene: st.Scene, *, device):
+    def __init__(self, scene: st.Scene, *, device="cuda"):
         self.device = _device(device)
         t0 = time_mod.perf_counter()
         self.cs, self.meta = compile_scene(scene, self.device)
@@ -71,11 +80,17 @@ class RenderContext:
         self._tables = None
 
     def mega_supported(self) -> bool:
+        if self.meta.spectral:
+            return megakernel_spectral.eligible(self.cs, self.meta)
         return megakernel.eligible(self.cs, self.meta)
 
-    def tables(self) -> megakernel.SceneTables:
+    def tables(self):
+        """The scene tables of the megakernel that renders it: RGB
+        `SceneTables` or `SpectralTables`."""
         if self._tables is None:
-            self._tables = megakernel.pack_tables(self.cs)
+            self._tables = (megakernel_spectral.pack_spectral_tables(self.cs)
+                            if self.meta.spectral
+                            else megakernel.pack_tables(self.cs))
         return self._tables
 
 
@@ -93,9 +108,11 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
            settings: Optional[path_mod.RenderSettings] = None,
            seed: int = 0, mode: str = "wavefront",
            context: Optional[RenderContext] = None, *,
-           device) -> RenderResult:
+           device="cuda") -> RenderResult:
     """Render `scene` (or `context`'s scene) at nx×ny with spp samples per
-    pixel on `device` ("cpu" or "cuda[:i]")."""
+    pixel on `device`: "cuda[:i]" (the default) or "cpu". A spectral scene's
+    `image` is ACEScg and its `xyz` the XYZ canvas after firefly
+    rejection; `seconds` covers the render, not that post-pass."""
     settings = settings or path_mod.RenderSettings()
     dev = _device(device)
     if context is None:
@@ -115,9 +132,11 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
         if not context.mega_supported():
             raise NotImplementedError(
                 f"scene not eligible for the megakernel and {_POOL}")
+        slots = (megakernel_spectral.render_slots_spectral if meta.spectral
+                 else megakernel.render_slots)
         sync()
         t0 = time_mod.perf_counter()
-        acc, nrays = megakernel.render_slots(
+        acc, nrays = slots(
             cs, meta, settings, nx, ny, spp, base_key, 0,
             tables=context.tables() if dev.type == "cuda" else None)
         # float64 host accumulator, as the JAX renderer keeps
@@ -126,13 +145,24 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
         acc_total += acc.cpu().numpy()
         rays = int(nrays)
         seconds = time_mod.perf_counter() - t0
-        image = (acc_total / spp).reshape(ny, nx, 3)[::-1].astype(np.float32)
-        return RenderResult(image=np.ascontiguousarray(image),
-                            rays_traced=rays, seconds=seconds, device=name)
+        canvas = (acc_total / spp).reshape(ny, nx, 3)[::-1].astype(np.float32)
+        if not meta.spectral:
+            return RenderResult(image=np.ascontiguousarray(canvas),
+                                rays_traced=rays, seconds=seconds, device=name)
+        # The spectral post-pass (leader.go:216-219): firefly rejection on
+        # XYZ, then XYZ→ACEScg with exposure.
+        xyz = convert.firefly_rejection(canvas.astype(np.float64))
+        image = convert.xyz_to_acescg(xyz, meta.exposure).astype(np.float32)
+        return RenderResult(image=image, rays_traced=rays, seconds=seconds,
+                            device=name, xyz=xyz.astype(np.float32))
     if mode == "pool":
         raise NotImplementedError(_POOL)
     if mode != "simple":
         raise ValueError(f"unknown mode {mode!r}")
+    if meta.spectral:
+        raise NotImplementedError(
+            f"mode 'simple' renders RGB scenes only; a spectral scene renders "
+            f"through the megakernel, or {_POOL}")
 
     sync()
     t0 = time_mod.perf_counter()

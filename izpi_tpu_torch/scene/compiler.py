@@ -1,13 +1,15 @@
 """Scene compiler: host-side description → flat float32/int32 tensors.
 
-Counterpart of `izpi_tpu/scene/compiler.py` for the slice's subset: rects,
-boxes, spheres (moving ones included), triangles, the FlipNormals /
-Translate / RotateY wrappers baked into geometry by `_Transform`, the
-Lambertian / Metal / Dielectric (with absorption) / DiffuseLight materials
-with constant and checker textures, and the light list. `_Builder` emits
-numpy float64, converted once to float32 tensors on the given device, the
-same f64 → f32 path as `compiler.py:646-663`, so both packages hold equal
-tables.
+Counterpart of `izpi_tpu/scene/compiler.py` for the slices ported so far:
+rects, boxes, spheres (moving ones included), triangles and triangle meshes,
+the FlipNormals / Translate / RotateY wrappers baked into geometry by
+`_Transform`, the Lambertian / Metal / Dielectric (with absorption) /
+DiffuseLight materials with constant and checker textures and their
+spectral columns (tabulated, neutral and Gaussian spectra, the spectral
+checker, η(λ), spectral absorption), the scene's SPD table, the spectral
+background and the light list. `_Builder` emits numpy float64, converted
+once to float32 tensors on the given device, the same f64 → f32 path as
+`compiler.py:646-663`, so both packages hold equal tables.
 
 Anything else raises NotImplementedError naming the ROADMAP item that ports
 it. `from_jax_arrays` takes the JAX package's compiled tables (as numpy) so
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,11 +30,10 @@ from izpi_tpu_torch.geometry import primitives as prim
 from izpi_tpu_torch.integrator import lights as lights_mod
 from izpi_tpu_torch.materials import tables as mat_tables
 from izpi_tpu_torch.scene import types as st
+from izpi_tpu_torch.spectral import spd as spd_mod
 from izpi_tpu_torch.texture import tables as tex_tables
 
-_SPECTRAL = "ROADMAP A9 (spectral)"
-_MEDIA_PBR = "ROADMAP A11 (media, PBR, images, noise and IBL)"
-_MESH = "ROADMAP A8 (BVH path and meshes)"
+_MEDIA_PBR = "ROADMAP A11 (media, PBR, images, noise, uplift and IBL)"
 
 
 class CompiledScene(NamedTuple):
@@ -43,6 +44,7 @@ class CompiledScene(NamedTuple):
     textures: tex_tables.Textures
     lights: lights_mod.Lights
     camera: camera_mod.CameraArrays
+    spd_table: torch.Tensor  # (S, 371) f32 on the 1 nm grid; row 0 is zeros
 
     @property
     def device(self) -> torch.device:
@@ -51,15 +53,17 @@ class CompiledScene(NamedTuple):
 
 @dataclasses.dataclass
 class SceneMeta:
-    """Static facts about the compiled scene. The slice compiles no media,
-    PBR, image, noise or spectral content; the fields stay so that
-    `ops.megakernel.eligible` reads the JAX package's rule unchanged."""
+    """Static facts about the compiled scene. The port compiles no media,
+    PBR, image or noise content yet; the fields stay so that the kernels'
+    `eligible` read the JAX package's rules unchanged."""
 
     n_prims: int
     n_materials: int
     n_lights: int
     has_absorbing_dielectric: bool
     spectral: bool = False
+    exposure: float = 1.0
+    spectral_background_spd: Optional[int] = None  # SPD row, or None
     has_checker: bool = False
     has_image: bool = False
     has_noise: bool = False
@@ -67,13 +71,15 @@ class SceneMeta:
     n_media: int = 0
 
 
-# The leaves the slice reads, by "<group>.<field>" of the JAX CompiledScene.
+# The leaves the port reads, by "<group>.<field>" of the JAX CompiledScene
+# (or the field's bare name for a leaf that is not in a group).
 LEAVES = (
     [f"prims.{f}" for f in prim.Prims._fields]
     + [f"materials.{f}" for f in mat_tables.Materials._fields]
     + [f"textures.{f}" for f in tex_tables.Textures._fields]
     + [f"lights.{f}" for f in lights_mod.Lights._fields]
     + [f"camera.{f}" for f in camera_mod.CameraArrays._fields]
+    + ["spd_table"]
 )
 
 
@@ -120,6 +126,8 @@ class _Builder:
         self._mat_cache: Dict[int, int] = {}
         self.prim_rows: List[dict] = []
         self.light_rows: List[dict] = []
+        self.spds: List[np.ndarray] = [
+            np.zeros(spd_mod.DEVICE_GRID_N, np.float32)]
         self.has_absorbing_dielectric = False
 
     def _add_texture(self, t) -> int:
@@ -146,41 +154,83 @@ class _Builder:
         self.tex_rows.append(row)
         return self._tex_cache[key]
 
+    def add_spd(self, spd: spd_mod.SPD) -> int:
+        self.spds.append(spd.to_device_grid())
+        return len(self.spds) - 1
+
+    def add_spectral_texture(self, t):
+        """(SPD row, Gaussian parameters) of a spectral constant: a Gaussian
+        stays parametric (texture/spectral_constant.go:27), a tabulated or
+        neutral spectrum becomes an SPD row (compiler.py:247-259)."""
+        if t is None:
+            return -1, np.zeros(3, np.float64)
+        if isinstance(t, st.SpectralGaussian):
+            return -1, np.array([t.peak, t.center, t.width], np.float64)
+        if isinstance(t, st.SpectralTabulated):
+            return (self.add_spd(spd_mod.SPD(np.array(t.wavelengths),
+                                             np.array(t.values))),
+                    np.zeros(3, np.float64))
+        if isinstance(t, st.SpectralNeutral):
+            return self.add_spd(spd_mod.SPD.constant(t.value)), np.zeros(3)
+        if isinstance(t, st.SpectralImage):
+            raise NotImplementedError(
+                f"RGB-to-spectral uplift is not ported yet: {_MEDIA_PBR}")
+        raise NotImplementedError(
+            f"spectral texture {type(t).__name__} not yet compiled")
+
+    def _fill_spectral_albedo(self, row: dict, t) -> None:
+        """A spectral albedo or emission into the material row: a constant
+        gives one SPD row or Gaussian, a SpectralChecker its two branches
+        (compiler.py:226-245)."""
+        if t is None:
+            return
+        if isinstance(t, st.SpectralChecker):
+            row["spec_albedo_id"], row["spec_albedo_gauss"] = (
+                self.add_spectral_texture(t.odd))
+            row["spec_albedo_id2"], row["spec_albedo_gauss2"] = (
+                self.add_spectral_texture(t.even))
+            row["spec_checker"] = True
+            return
+        row["spec_albedo_id"], row["spec_albedo_gauss"] = (
+            self.add_spectral_texture(t))
+
     def add_material(self, m) -> int:
         key = id(m)
         if key in self._mat_cache:
             return self._mat_cache[key]
         row = dict(kind=mat_tables.MAT_LAMBERT, tex_albedo=-1, fuzz=0.0,
-                   ref_idx=1.5, absorption=np.zeros(3), has_absorption=False)
+                   ref_idx=1.5, absorption=np.zeros(3), has_absorption=False,
+                   spec_albedo_id=-1, spec_albedo_gauss=np.zeros(3),
+                   spec_ref_idx_id=-1, spec_absorb_id=-1, spec_checker=False,
+                   spec_albedo_id2=-1, spec_albedo_gauss2=np.zeros(3),
+                   spec_albedo_uplift=False)
         if isinstance(m, st.Lambertian):
-            if m.spectral_albedo is not None:
-                raise NotImplementedError(
-                    f"spectral albedo is not ported yet: {_SPECTRAL}")
             if m.albedo is not None:
                 row["tex_albedo"] = self._add_texture(m.albedo)
+            self._fill_spectral_albedo(row, m.spectral_albedo)
         elif isinstance(m, st.Metal):
             row["kind"] = mat_tables.MAT_METAL
             row["tex_albedo"] = self._add_texture(
                 st.ConstantTexture(tuple(float(x) for x in m.albedo)))
             row["fuzz"] = float(m.fuzz)
         elif isinstance(m, st.Dielectric):
-            if (m.spectral_ref_idx is not None
-                    or m.spectral_absorption is not None):
-                raise NotImplementedError(
-                    f"spectral dielectrics are not ported yet: {_SPECTRAL}")
             row["kind"] = mat_tables.MAT_DIELECTRIC
             row["ref_idx"] = float(m.ref_idx)
             if m.absorption is not None:
                 row["absorption"] = np.array(m.absorption, np.float64)
                 row["has_absorption"] = True
                 self.has_absorbing_dielectric = True
+            row["spec_ref_idx_id"], _ = self.add_spectral_texture(
+                m.spectral_ref_idx)
+            row["spec_absorb_id"], _ = self.add_spectral_texture(
+                m.spectral_absorption)
+            if row["spec_absorb_id"] >= 0:
+                self.has_absorbing_dielectric = True
         elif isinstance(m, st.DiffuseLight):
-            if m.spectral_emit is not None:
-                raise NotImplementedError(
-                    f"spectral emission is not ported yet: {_SPECTRAL}")
             row["kind"] = mat_tables.MAT_DIFFUSE_LIGHT
             if m.emit is not None:
                 row["tex_albedo"] = self._add_texture(m.emit)
+            self._fill_spectral_albedo(row, m.spectral_emit)
         elif isinstance(m, (st.Isotropic, st.PBR)):
             raise NotImplementedError(
                 f"{type(m).__name__} is not ported yet: {_MEDIA_PBR}")
@@ -216,6 +266,28 @@ class _Builder:
                                  xf.vector(vn[6:9])])
         self._push_prim(prim.KIND_TRIANGLE, v0w, e1, e2, n, mat_id, xf.flip,
                         uv=uv, vn=vn, has_vn=has_vn)
+
+    def add_triangle_mesh(self, vertices, uvs, normals, mat_id,
+                          xf: _Transform):
+        """A (T, 3, 3) vertex array as T triangles, computed over the whole
+        array as `compiler.py:381-425` does, so the rows equal the JAX
+        package's bit for bit."""
+        v = np.asarray(vertices, np.float64) @ xf.rot.T + xf.trans
+        t = v.shape[0]
+        v0, e1, e2 = v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+        n = np.cross(e1, e2)
+        n_len = np.linalg.norm(n, axis=1, keepdims=True)
+        n = np.where(n_len > 0, n / np.where(n_len > 0, n_len, 1.0),
+                     np.array([0.0, 0.0, 1.0]))
+        uv = (np.asarray(uvs, np.float64).reshape(t, 6) if uvs is not None
+              else np.zeros((t, 6)))
+        has_vn = normals is not None
+        vn = ((np.asarray(normals, np.float64) @ xf.rot.T).reshape(t, 9)
+              if has_vn else np.zeros((t, 9)))
+        for i in range(t):
+            self._push_prim(prim.KIND_TRIANGLE, v0[i], e1[i], e2[i], n[i],
+                            mat_id, xf.flip, uv=uv[i], vn=vn[i],
+                            has_vn=has_vn)
 
     def add_sphere(self, c0, c1, t0, t1, radius, mat_id, xf: _Transform):
         self._push_prim(prim.KIND_SPHERE, xf.point(c0), xf.point(c1),
@@ -296,7 +368,8 @@ def _compile_hitable(b: _Builder, h, xf: _Transform):
               else np.zeros(9))
         b.add_triangle(h.v0, h.v1, h.v2, uv, vn, has_vn, mat_id, xf)
     elif isinstance(h, st.TriangleMesh):
-        raise NotImplementedError(f"triangle meshes are not ported yet: {_MESH}")
+        mat_id = b.add_material(h.material)
+        b.add_triangle_mesh(h.vertices, h.uvs, h.normals, mat_id, xf)
     elif isinstance(h, st.ConstantMedium):
         raise NotImplementedError(f"media are not ported yet: {_MEDIA_PBR}")
     else:
@@ -316,6 +389,12 @@ def _compile_light(b: _Builder, h):
         cr = np.cross(v1 - v0, v2 - v0)
         b.add_light(lights_mod.LIGHT_TRIANGLE, v0, v1, v2,
                     cr / np.linalg.norm(cr), np.linalg.norm(cr) / 2.0)
+    elif isinstance(h, st.TriangleMesh):
+        # One member per triangle, untransformed (compiler.py:596-602).
+        for v in np.asarray(h.vertices, np.float64):
+            cr = np.cross(v[1] - v[0], v[2] - v[0])
+            b.add_light(lights_mod.LIGHT_TRIANGLE, v[0], v[1], v[2],
+                        cr / np.linalg.norm(cr), np.linalg.norm(cr) / 2.0)
     elif isinstance(h, st.Sphere):
         b.add_light(lights_mod.LIGHT_SPHERE, l0=h.center0, radius=h.radius)
     else:
@@ -337,6 +416,7 @@ def _tables(b: _Builder, scene: st.Scene) -> Dict[str, np.ndarray]:
     out["textures.c1"] = np.stack([r[2] for r in b.tex_rows])
     for k, v in camera_mod.compile_camera_host(scene.camera).items():
         out[f"camera.{k}"] = np.asarray(v, np.float64)
+    out["spd_table"] = np.stack(b.spds)
     return out
 
 
@@ -360,28 +440,33 @@ def _assemble(leaves: Dict[str, np.ndarray], device) -> CompiledScene:
         textures=group(tex_tables.Textures, "textures"),
         lights=group(lights_mod.Lights, "lights"),
         camera=group(camera_mod.CameraArrays, "camera"),
+        spd_table=_to_tensor(leaves["spd_table"], device),
     )
 
 
-def _meta(leaves: Dict[str, np.ndarray]) -> SceneMeta:
+def _meta(leaves: Dict[str, np.ndarray], **scene_facts) -> SceneMeta:
+    """The meta facts the tables show; `scene_facts` adds those they do not
+    (spectral, exposure, spectral_background_spd, n_media)."""
     mat_kind = np.asarray(leaves["materials.kind"])
+    tex_kind = np.asarray(leaves["textures.kind"])
     return SceneMeta(
         n_prims=int(np.asarray(leaves["prims.kind"]).shape[0]),
         n_materials=int(mat_kind.shape[0]),
         n_lights=int(np.asarray(leaves["lights.kind"]).shape[0]),
         has_absorbing_dielectric=bool(np.any(
-            np.asarray(leaves["materials.has_absorption"])
+            (np.asarray(leaves["materials.has_absorption"])
+             | (np.asarray(leaves["materials.spec_absorb_id"]) >= 0))
             & (mat_kind == mat_tables.MAT_DIELECTRIC))),
-        has_checker=bool(np.any(np.asarray(leaves["textures.kind"])
-                                == tex_tables.TEX_CHECKER)),
+        has_checker=bool(np.any(tex_kind == tex_tables.TEX_CHECKER)),
+        has_image=bool(np.any(tex_kind == tex_tables.TEX_IMAGE)),
+        has_noise=bool(np.any(tex_kind == tex_tables.TEX_NOISE)),
+        has_pbr=bool(np.any(mat_kind == mat_tables.MAT_PBR)),
+        **scene_facts,
     )
 
 
 def compile_scene(scene: st.Scene, device) -> Tuple[CompiledScene, SceneMeta]:
     """Compile `scene` into float32/int32 tensors on `device`."""
-    if scene.spectral or scene.spectral_background is not None:
-        raise NotImplementedError(f"spectral scenes are not ported yet: "
-                                  f"{_SPECTRAL}")
     b = _Builder()
     for h in scene.world:
         _compile_hitable(b, h, _Transform.identity())
@@ -394,18 +479,29 @@ def compile_scene(scene: st.Scene, device) -> Tuple[CompiledScene, SceneMeta]:
         raise ValueError("scene has no primitives")
     if not b.tex_rows:
         b._add_texture(st.ConstantTexture((0.0, 0.0, 0.0)))
+    # The background SPD is the last row, as in compiler.py:819-821.
+    bg_id = (None if scene.spectral_background is None
+             else b.add_spd(scene.spectral_background))
     leaves = _tables(b, scene)
-    return _assemble(leaves, device), _meta(leaves)
+    return _assemble(leaves, device), _meta(
+        leaves, spectral=bool(scene.spectral),
+        exposure=float(scene.camera.exposure), spectral_background_spd=bg_id)
 
 
-def from_jax_arrays(leaves: Dict[str, np.ndarray],
-                    device) -> Tuple[CompiledScene, SceneMeta]:
+def from_jax_arrays(leaves: Dict[str, np.ndarray], device,
+                    jax_meta=None) -> Tuple[CompiledScene, SceneMeta]:
     """The JAX package's compiled scene, its leaves fetched as numpy and
-    keyed "<group>.<field>" (see LEAVES), as the port's compiled scene.
+    keyed as in LEAVES, as the port's compiled scene.
 
     The tables carry over value for value (the JAX leaves are float32
-    already), so both packages render the same scene."""
+    already), so both packages render the same scene. The facts the tables
+    do not show (spectral, exposure, the background SPD row, the number of
+    media) come from `jax_meta`, the JAX SceneMeta, when it is given."""
     missing = [k for k in LEAVES if k not in leaves]
     if missing:
         raise KeyError(f"missing leaves: {missing}")
-    return _assemble(leaves, device), _meta(leaves)
+    facts = {}
+    if jax_meta is not None:
+        facts = {f: getattr(jax_meta, f) for f in (
+            "spectral", "exposure", "spectral_background_spd", "n_media")}
+    return _assemble(leaves, device), _meta(leaves, **facts)

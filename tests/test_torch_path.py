@@ -165,3 +165,72 @@ def test_trace_camera_batch():
     assert int(g_rays) == int(w_rays)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=1e-5)
+
+
+@pytest.fixture(scope="module", params=["pyramid", "spectral_mixed"])
+def spectral_scenes(request):
+    from _torch_port import spectral_mixed_scene
+    from izpi_tpu.scene.library.cornell_spectral import cornell_box_spectral
+    from izpi_tpu.spectral import spd as jspd
+
+    scene = (cornell_box_spectral(with_prism=True)
+             if request.param == "pyramid"
+             else spectral_mixed_scene(jst, jspd))
+    jcs, jmeta = jcompiler.compile_scene(scene)
+    tcs, tmeta = tcompiler.from_jax_arrays(jax_leaves(jcs), "cpu",
+                                           jax_meta=jmeta)
+    return request.param, jcs, jmeta, tcs, tmeta
+
+
+def _spectral_bounce_inputs(name, jcs, n, seed):
+    """Camera rays, half of them replaced by rays from inside the scene
+    (the pyramid's box is 100 wide), random wavelengths and path state."""
+    rs = np.random.RandomState(seed)
+    s, t, u = _camera_rays(jcs, n, seed)
+    o, d, tme = (np.array(x) for x in jcamera.get_rays(
+        jcs.camera, jnp.asarray(s), jnp.asarray(t), jnp.asarray(u)))
+    if name == "pyramid":
+        o[: n // 2] = rs.uniform(5.0, 95.0, (n // 2, 3))
+    else:
+        o[: n // 2] = rs.uniform(-4, 4, (n // 2, 3)) + np.array([0, 2.5, 0])
+    d[: n // 2] = rs.normal(size=(n // 2, 3))
+    lam = rs.uniform(380.0, 750.0, n).astype(np.float32)
+    keys = rs.randint(0, 2**32, (n, 2), dtype=np.uint64).astype(np.uint32)
+    depth = rs.randint(0, 4, n).astype(np.int32)
+    thru = rs.uniform(0.2, 1.0, n).astype(np.float32)
+    rad = rs.uniform(0.0, 0.1, n).astype(np.float32)
+    active = rs.rand(n) < 0.9
+    return (o.astype(np.float32), d.astype(np.float32), tme, lam, keys, depth,
+            thru, rad, active)
+
+
+def test_bounce_spectral_one_step(spectral_scenes):
+    """One bounce of 512 paths: the same hits, the same survivors and the
+    same ray count; positions, directions, throughput, radiance and the
+    background value within 1e-6 (JAX run eagerly)."""
+    name, jcs, jmeta, tcs, tmeta = spectral_scenes
+    bg = jmeta.spectral_background_spd
+    args = _spectral_bounce_inputs(name, jcs, 512, 4)
+    with jax.disable_jit():
+        want = jpath.bounce_spectral(
+            jcs, jmeta, jpath.RenderSettings(max_depth=4),
+            jpath.make_brute_intersector(jcs),
+            *(jnp.asarray(x) for x in args), bg)
+    o, d, tme, lam, keys, depth, thru, rad, active = args
+    got = tpath.bounce_spectral(
+        tcs, tmeta, tpath.RenderSettings(max_depth=4), _t(o), _t(d), _t(tme),
+        _t(lam), _t(keys.astype(np.int64)), _t(depth), _t(thru), _t(rad),
+        _t(active), bg)
+    w_o, w_d, w_thru, w_rad, w_active, w_n, w_bg = (np.asarray(x)
+                                                     for x in want)
+    g_o, g_d, g_thru, g_rad, g_active, g_n, g_bg = got
+    np.testing.assert_array_equal(g_active.numpy(), w_active)
+    assert int(g_n) == int(w_n) == int(active.sum())
+    assert 0 < w_active.sum() < active.sum()  # some paths end, some go on
+    live = w_active
+    np.testing.assert_allclose(g_o.numpy()[live], w_o[live], rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(g_d.numpy()[live], w_d[live], rtol=1e-6,
+                               atol=1e-6)
+    for g, w in ((g_thru, w_thru), (g_rad, w_rad), (g_bg, w_bg)):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=1e-6)

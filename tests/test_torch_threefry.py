@@ -134,7 +134,7 @@ def test_path_keys_matches_perray():
     np.testing.assert_array_equal(_np(got), want)
 
 
-@pytest.mark.parametrize("n,salt", [(12, 0), (5, 0x5EED)])
+@pytest.mark.parametrize("n,salt", [(12, 0), (5, 0x5EED), (1, 0x7A3B)])
 def test_bounce_uniforms_perray_bit_identical(n, salt):
     keys = np.stack([_words(3, 300), _words(4, 300)], axis=-1)
     depths = np.random.RandomState(5).randint(0, 50, 300).astype(np.int32)
