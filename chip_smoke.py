@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from izpi_tpu_torch/csrc (one nvcc call,
-sm_90a) and then, in phases, each reporting on a line of its own:
+Builds the port's CUDA kernels from izpi_tpu_torch/csrc (one nvcc process
+per source, all at once, sm_90a) and then, in phases, each reporting on a
+line of its own:
   1. the card: `nvidia-smi --query-gpu=name,power.limit` (fails without CUDA);
   2. the build, and its seconds;
   3. cipher: the device Threefry (`izpi_threefry_uniforms`) on 1M random
@@ -27,7 +28,27 @@ sm_90a) and then, in phases, each reporting on a line of its own:
      256, max_depth=50, seed=0, mode="wavefront", device="cuda")`, one
      warm-up and one timed run; the spectral megakernel's counter must read
      2, the runs must agree, XYZ and ACEScg must be finite, green on the left
-     and red on the right, and the light patch's Y must be 15·21.3768.
+     and red on the right, and the light patch's Y must be 15·21.3768;
+  7. the BVH4 traversal kernel against its plain version
+     (`accel.traverse.closest_bvh`), both on the card, at two scales: the
+     tree of `cornell_box_obj` (20,007 primitives) and the dragon stand-in
+     (`bumpy_blob(871_414)` as the dragon scene places it, 871,200
+     triangles); 262,144 rays each, half camera rays and half incoherent
+     rays from their hit points (directions from a seeded
+     torch.Generator); equal hit masks, t within 1e-6 relative, equal
+     primitives but on exact-t ties (at most 1e-5 of the rays); build
+     seconds, nodes, kernel and plain times and the bound;
+  8. the queue pool through the kernel against the queue pool through the
+     plain traversal, both on the card: `cornell_box_obj` 32×32 at 4 spp,
+     depth 50, within phase 4's tolerances;
+  9. BVH main path: `render(cornell_box_obj(), 256, 256, 128,
+     max_depth=50, seed=0, mode="wavefront", device="cuda")` through the
+     queue pool, one warm-up and one timed run; the traversal kernel's
+     counter must equal the pool iterations and the megakernels' must not
+     move; the image must be finite, green on the left, red on the right,
+     with the ceiling light at 15; the kernel's share of `render()` (CUDA
+     events) and, for a 16-spp render of the same frame, the device's idle
+     share under torch.profiler.
 The line before the last is a JSON object describing the kernels, each with
 its time, its plain version's time and its bound (the least time the card
 could take for the work this run's rays needed); the last is {"ok": true,
@@ -37,6 +58,7 @@ JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import time
@@ -44,15 +66,20 @@ import time
 import numpy as np
 import torch
 
-from izpi_tpu_torch import camera
+from izpi_tpu_torch import camera, profiling
+from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import rng
+from izpi_tpu_torch.geometry import primitives, procedural
 from izpi_tpu_torch.integrator import path, wavefront
-from izpi_tpu_torch.ops import _build, megakernel, megakernel_spectral, threefry
+from izpi_tpu_torch.ops import (_build, bvh_kernel, megakernel,
+                                megakernel_spectral, threefry)
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene import compiler
+from izpi_tpu_torch.scene import types as scene_types
 from izpi_tpu_torch.scene.library.cornell import cornell_box
 from izpi_tpu_torch.scene.library.cornell_spectral import (
     cornell_box_pyramid_spectral)
+from izpi_tpu_torch.scene.library.misc import cornell_box_obj
 from izpi_tpu_torch.spectral import cie
 
 # Phase 4 tolerances. A tolerance at all because libdevice transcendentals
@@ -90,6 +117,19 @@ CAMERA_FP = 46           # thin-lens ray from 5 uniforms
 SPECTRAL_SAMPLE_FP = 20 + 11 + 51   # λ sampling, background SPD, XYZ deposit
 SPECTRAL_SAMPLE_INT = 30            # λ sampling's binary search
 RGB_SAMPLE_FP = 9        # RGB deposit: DeNAN and add, three channels
+# The traversal kernel (csrc/bvh4_traverse.cu), per node popped: 4 children ×
+# 3 axes × (2 subtractions, 2 multiplications, fminf, fmaxf, fmaxf, fminf),
+# 4 hit comparisons and the 5 compares of the sorting network; per ray the 3
+# guarded reciprocals of the direction. A leaf primitive costs PRIM_FP of
+# its kind; the counter does not tell kinds apart, so the bound takes the
+# cheapest.
+VISIT_FP = 4 * 3 * 8 + 4 + 5
+RAY_FP = 3 * 3
+# Phase 7: traversal rays per scale (the main path's pool size), and the
+# share of them allowed to pick another primitive at an exactly equal t.
+TRAVERSE_RAYS = 1 << 18
+T_RTOL = 1e-6
+TIE_SHARE = 1e-5
 
 
 def bound_ms(rays: int, samples: int, prim_kinds, spectral: bool,
@@ -215,6 +255,99 @@ def compare_spectral(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
                              f"plain version at {n}x{n}@{spp} depth {depth} "
                              f"offset {offset}")
     return max_abs_err, rays_k
+
+
+def traverse_bound_ms(counts, n_rays: int, table_bytes: int):
+    """The least milliseconds the card could take to traverse rays that
+    popped counts[:, 0] nodes and tested counts[:, 1] primitives (the
+    kernel's counter buffer): operations over the FP32 peak against the
+    tables read once, 28 bytes in and 8 out per ray over HBM bandwidth.
+    Returns (ms, "operations" or "bytes")."""
+    visits, tests = (int(x) for x in counts.sum(dim=0))
+    fp = n_rays * RAY_FP + visits * VISIT_FP + tests * min(PRIM_FP.values())
+    t_ops = fp / FP32_OPS_PER_S
+    t_bytes = (table_bytes + n_rays * (28 + 8)) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def dragon_stand_in() -> scene_types.Scene:
+    """The dragon scene's procedural mesh, `bumpy_blob(871_414)` placed as
+    izpi_tpu/scene/library/extracted.py:73-75 places it (871,200
+    triangles), seen by a camera 60 units in front of its centre, which it
+    fills."""
+    tris = procedural.transform_mesh(procedural.bumpy_blob(871_414),
+                                     scale=25.0, rotate_y_deg=-60.0,
+                                     translate=(50.0, 25.1, 60.0))
+    white = scene_types.Lambertian(
+        albedo=scene_types.ConstantTexture((0.5, 0.5, 0.5)))
+    mesh = scene_types.TriangleMesh(vertices=tris, material=white)
+    return scene_types.Scene(world=[mesh], camera=scene_types.Camera(
+        look_from=(50.0, 35.0, 0.0), look_at=(50.0, 25.1, 60.0), vfov=40.0))
+
+
+def traversal_rays(ks, cam, n: int, seed: int):
+    """n rays for the tree `ks`: n/2 camera rays through a square frame
+    (jittered from a seeded generator), and n/2 from where those rays hit
+    (their origin where they miss) in directions drawn from the same
+    generator. The hit points come from the plain traversal."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    half = n // 2
+    u = torch.rand((half, 5), generator=gen, device="cuda")
+    o, d, tme = camera.get_rays(cam, u[:, 0], u[:, 1], u[:, 2:5])
+    t, idx = traverse.closest_bvh(ks.prims, ks.tree, o, d, tme, path.T_MIN,
+                                  primitives.T_MAX)
+    start = torch.where((idx >= 0)[:, None], o + t[:, None] * d, o)
+    d2 = torch.randn((half, 3), generator=gen, device="cuda")
+    return (torch.cat([o, start]).contiguous(), torch.cat([d, d2]).contiguous(),
+            torch.cat([tme, tme]).contiguous())
+
+
+def compare_traversal(label: str, ks, rays, card: str):
+    """The traversal kernel against its plain version on `rays`, both on
+    the card: print the deviations, the times and the bound; raise unless
+    the hit masks are equal, t is within T_RTOL and the primitives differ
+    only on exact-t ties, on at most TIE_SHARE of the rays. Returns a dict
+    of the numbers."""
+    o, d, tme = rays
+    n = o.shape[0]
+    t_k, i_k, counts = bvh_kernel.closest_hit(ks, o, d, tme, path.T_MIN,
+                                             primitives.T_MAX, counts=True)
+    t_p, i_p, counts_p = traverse.closest_bvh(ks.prims, ks.tree, o, d, tme,
+                                              path.T_MIN, primitives.T_MAX,
+                                              counts=True)
+    torch.cuda.synchronize()
+    hit = i_p >= 0
+    same_mask = torch.equal(i_k >= 0, hit)
+    err = (t_k[hit] - t_p[hit]).abs()
+    max_abs = float(err.max()) if err.numel() else 0.0
+    max_rel = float((err / t_p[hit].abs()).max()) if err.numel() else 0.0
+    differ = hit & (i_k != i_p)
+    ties = int((differ & (t_k == t_p)).sum())
+    wrong = int((differ & (t_k != t_p)).sum())
+    same_counts = torch.equal(counts, counts_p)
+    ms = cuda_ms(lambda: bvh_kernel.closest_hit(ks, o, d, tme, path.T_MIN,
+                                                primitives.T_MAX), 20)
+    plain_ms = cuda_ms(lambda: traverse.closest_bvh(
+        ks.prims, ks.tree, o, d, tme, path.T_MIN, primitives.T_MAX), 1)
+    table_bytes = tensor_bytes([ks.nodes, ks.prim_table])
+    bound, bound_by = traverse_bound_ms(counts, n, table_bytes)
+    mean_counts = [round(float(x), 3) for x in counts.double().mean(dim=0)]
+    print(f"traversal {label}: {n} rays, hits {float(hit.float().mean()):.4f}; "
+          f"hit masks equal {same_mask}; t max abs err {max_abs:.3e}, max rel "
+          f"{max_rel:.3e} (tol {T_RTOL}); primitives differing on exact-t ties "
+          f"{ties} (allowed {TIE_SHARE * n:.2f}), otherwise {wrong}; node/prim "
+          f"counts equal to the plain version's {same_counts}; mean nodes "
+          f"popped, prims tested per ray {mean_counts}, max "
+          f"{counts.max(dim=0).values.tolist()}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {bound:.4f} ms by {bound_by} ({card})",
+          flush=True)
+    if not (same_mask and max_rel <= T_RTOL and wrong == 0
+            and ties <= TIE_SHARE * n):
+        raise AssertionError(f"traversal kernel disagrees with its plain "
+                             f"version on {label}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by)
 
 
 def main() -> None:
@@ -417,6 +550,106 @@ def main() -> None:
           f"{smain_bound:.4f} ms by {smain_bound_by} against "
           f"{sres.seconds * 1e3:.4f} ms of render() ({card})", flush=True)
 
+    # 7. The traversal kernel against its plain version, at two scales,
+    # each scene compiled and its tree built and packed by RenderContext.
+    # The first is the main path's context.
+    bctx = renderer.RenderContext(cornell_box_obj(), device="cuda")
+    dctx = renderer.RenderContext(dragon_stand_in(), device="cuda")
+    found = {}
+    for label, ctx, seed in (("cornell_box_obj", bctx, 7),
+                             ("dragon stand-in", dctx, 8)):
+        ks = ctx.intersect.ks
+        print(f"traversal build: {label}, {ctx.meta.n_prims} prims, "
+              f"{ks.nodes.shape[0]} nodes (SAH, leaf 4); compile and build "
+              f"{ctx.build_seconds:.3f} s", flush=True)
+        found[label] = compare_traversal(label, ks, traversal_rays(
+            ks, ctx.cs.camera, TRAVERSE_RAYS, seed), card)
+    trav, dtrav = found["cornell_box_obj"], found["dragon stand-in"]
+    del dctx, ks
+
+    # 8. The pool through the kernel against the pool through the plain
+    # traversal, on the same tree.
+    plain_inter = functools.partial(traverse.intersect_bvh, bctx.cs.prims,
+                                    bctx.intersect.ks.tree)
+    s8 = path.RenderSettings(max_depth=50)
+    key8 = rng.render_key(0, device="cuda")
+    pool8 = min(32 * 32 * 4, renderer.POOL_MAX)
+    before = bvh_kernel.launches
+    acc_k, rays_k, it_k = wavefront.trace_pool(
+        bctx.cs, bctx.meta, s8, bctx.intersect, 32, 32, 4, key8, pool8)
+    launched = bvh_kernel.launches - before
+    acc_p, rays_p, it_p = wavefront.trace_pool(
+        bctx.cs, bctx.meta, s8, plain_inter, 32, 32, 4, key8, pool8)
+    torch.cuda.synchronize()
+    img_k, img_p = acc_k / 4, acc_p / 4
+    rays_k, rays_p = int(rays_k), int(rays_p)
+    pix_err = (img_k - img_p).abs().amax(dim=1)
+    share = float((pix_err <= PIXEL_ATOL).float().mean())
+    rays_rel = abs(rays_k - rays_p) / rays_p
+    mean_rel = abs(float(img_k.mean()) / float(img_p.mean()) - 1)
+    print(f"pool: cornell_box_obj 32x32@4 depth 50 (pool {pool8}): kernel "
+          f"rays {rays_k} in {it_k} iterations ({launched} kernel launches), "
+          f"plain traversal rays {rays_p} in {it_p}; rel {rays_rel:.2e} (tol "
+          f"{RAYS_RTOL}); pixels within {PIXEL_ATOL}: {share:.6f} (tol "
+          f"{PIXEL_SHARE}); max abs err {float(pix_err.max()):.3e}; mean rel "
+          f"{mean_rel:.2e} (tol {MEAN_RTOL})", flush=True)
+    if not (bool(torch.isfinite(img_k).all()) and rays_rel <= RAYS_RTOL
+            and share >= PIXEL_SHARE and mean_rel <= MEAN_RTOL
+            and launched == it_k):
+        raise AssertionError("the pool through the traversal kernel disagrees "
+                             "with the pool through the plain traversal")
+
+    # 9. The BVH main path, through the entry points a user calls.
+    megakernel.launches = megakernel_spectral.launches = 0
+    bvh_kernel.launches = threefry.launches = 0
+    warm = renderer.render(None, 256, 256, 128, settings, seed=0,
+                           mode="wavefront", context=bctx, device="cuda")
+    if bvh_kernel.launches != warm.iterations:
+        raise AssertionError(f"warm-up: {bvh_kernel.launches} traversal "
+                             f"launches for {warm.iterations} pool iterations")
+    megakernel.launches = megakernel_spectral.launches = 0
+    bvh_kernel.launches = threefry.launches = 0
+    with profiling.event_timed(bvh_kernel, "closest_hit") as times:
+        ores = renderer.render(None, 256, 256, 128, settings, seed=0,
+                               mode="wavefront", context=bctx, device="cuda")
+    kernel_s = profiling.event_ms(times) / 1e3
+    bvh_launches, cipher_launches = bvh_kernel.launches, threefry.launches
+    mega_moved = megakernel.launches + megakernel_spectral.launches
+    oimg = ores.image
+    print(f"BVH main path: cornell_box_obj 256x256@128 depth 50 seed 0 on "
+          f"{ores.device}: {ores.rays_traced} rays in {ores.seconds:.4f} s = "
+          f"{ores.mrays_per_sec:.3f} Mrays/s in {ores.iterations} pool "
+          f"iterations (warm-up run {warm.seconds:.4f} s, {warm.rays_traced} "
+          f"rays; {card}); traversal launches {bvh_launches}, cipher launches "
+          f"{cipher_launches}, megakernel launches {mega_moved}; traversal "
+          f"kernel {kernel_s:.4f} s = {kernel_s / ores.seconds:.2%} of "
+          f"render() (CUDA events)", flush=True)
+    if bvh_launches != ores.iterations or mega_moved != 0:
+        raise AssertionError(f"the BVH main path launched the traversal "
+                             f"kernel {bvh_launches} times in "
+                             f"{ores.iterations} pool iterations, and the "
+                             f"megakernels {mega_moved} times")
+    if oimg.shape != (256, 256, 3) or not np.isfinite(oimg).all():
+        raise AssertionError("BVH main-path image is not finite (256, 256, 3)")
+    oleft = oimg[64:192, 4:24].mean(axis=(0, 1))
+    oright = oimg[64:192, -24:-4].mean(axis=(0, 1))
+    olight = float(np.percentile(oimg[:64].max(axis=2), 99.5))
+    print(f"BVH main path: left wall rgb {np.round(oleft, 4).tolist()}, right "
+          f"wall rgb {np.round(oright, 4).tolist()}, light patch {olight:.4f}, "
+          f"image mean {float(oimg.mean()):.5f}", flush=True)
+    if not (oleft[1] > oleft[0] and oright[0] > oright[1]):
+        raise AssertionError("walls: expected green on the left, red on the right")
+    if abs(olight - 15.0) > 0.5:
+        raise AssertionError(f"ceiling light patch {olight}, expected ~15")
+    wall, busy, top = profiling.device_profile(lambda: renderer.render(
+        None, 256, 256, 16, settings, seed=0, mode="wavefront", context=bctx,
+        device="cuda"))
+    print(f"BVH main path profile: cornell_box_obj 256x256@16 depth 50 under "
+          f"torch.profiler: wall {wall:.4f} s, device busy {busy:.4f} s, idle "
+          f"share {1 - busy / wall:.2%}", flush=True)
+    for dt, name, count in top[:6]:
+        print(f"  {dt / 1e3:10.3f} ms  x{count}  {name[:90]}", flush=True)
+
     print(json.dumps({
         "kernels": [{
             "name": "megakernel_rgb",
@@ -442,12 +675,25 @@ def main() -> None:
             "bound_ms": spec_bound,
             "bound_by": spec_bound_by,
             "library_ms": None,
+        }, {
+            "name": "bvh4_traverse",
+            "route": "cuda",
+            "source": "izpi_tpu_torch/csrc/bvh4_traverse.cu",
+            "replaces": "izpi_tpu/ops/bvh_kernel.py:133",
+            "launches": bvh_launches,
+            "max_abs_err": max(trav["max_abs_err"], dtrav["max_abs_err"]),
+            "ms": trav["ms"],
+            "plain_ms": trav["plain_ms"],
+            "bound_ms": trav["bound_ms"],
+            "bound_by": trav["bound_by"],
+            "library_ms": None,
         }],
         "device_functions": [{
             "name": "threefry2x32",
             "source": "izpi_tpu_torch/csrc/threefry.cuh",
             "replaces": "izpi_tpu/ops/threefry.py:30",
             "inlined_in": ["megakernel_rgb", "megakernel_spectral"],
+            "bvh_main_path_launches": cipher_launches,
             "bit_identical": True,
             "ms": cipher["ms"],
             "plain_ms": cipher["plain_ms"],
@@ -458,14 +704,22 @@ def main() -> None:
             "megakernel_rgb": "cornell 256x256@2 depth 50 (its main path's slots)",
             "megakernel_spectral": "spectral pyramid 500x500@2 depth 50 (its "
                                    "main path's slots)",
-            "cipher_ms": f"12 uniforms x {n_keys} keys"},
+            "cipher_ms": f"12 uniforms x {n_keys} keys",
+            "bvh4_traverse": f"{TRAVERSE_RAYS} rays (half camera, half "
+                             f"incoherent) on cornell_box_obj's tree"},
         "library_ms": "null: no PyTorch call computes a path tracer's render "
-                      "loop",
+                      "loop or a BVH traversal",
+        "bvh4_traverse_dragon": dtrav,
         "main_path": {"rays": res.rays_traced, "seconds": res.seconds,
                       "mrays_per_sec": res.mrays_per_sec},
         "spectral_main_path": {"rays": sres.rays_traced,
                                "seconds": sres.seconds,
                                "mrays_per_sec": sres.mrays_per_sec},
+        "bvh_main_path": {"rays": ores.rays_traced, "seconds": ores.seconds,
+                          "mrays_per_sec": ores.mrays_per_sec,
+                          "iterations": ores.iterations,
+                          "kernel_share": kernel_s / ores.seconds,
+                          "profiled_idle_share_16spp": 1 - busy / wall},
         "card": card,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,13 @@ def path_keys_perray(base_key, pixel_ids, sample_ids) -> torch.Tensor:
 
 def bounce_uniforms_perray(keys, depths, n: int, salt: int = 0) -> torch.Tensor:
     """n U[0,1) per ray for per-ray depths: fold the depth, fold the salt,
-    draw n words. keys: (N, 2); depths: (N,). Returns (N, n) float32."""
-    return tf.uniforms_for_keys_reference(keys, depths.to(torch.int64), n, salt)
+    draw n words. keys: (N, 2); depths: (N,). Returns (N, n) float32.
+
+    Dispatch by device (`ops.threefry.uniforms_for_keys`): on a CUDA tensor
+    one launch of the device cipher, bit-identical to the PyTorch cipher
+    that runs on a CPU tensor (the PyTorch cipher would take some 400 small
+    launches per draw)."""
+    return tf.uniforms_for_keys(keys, depths.to(torch.int64), n, salt)
 
 
 def bounce_uniforms(keys, depth: int, n: int, salt: int = 0) -> torch.Tensor:

@@ -138,6 +138,26 @@ __device__ __forceinline__ void sphere_t(V3 o, V3 d, V3 center, float radius, fl
   ok = near_ok || far_ok;
 }
 
+// The test of one primitive of `kind` whose geometry g0 g1 g2 g3 is the 12
+// floats at g (the head of a packed row), in [t_min, t_max]: true on a hit,
+// with its t (primitives.prim_t). A padding primitive never hits.
+__device__ __forceinline__ bool prim_test(const float* g, int kind, V3 o, V3 d, float time,
+                                          float t_min, float t_max, float& t) {
+  bool ok = false;
+  t = 0.0f;
+  if (kind == kTriangle) {
+    float u, v;
+    triangle_t(o, d, ld3(g), ld3(g + 3), ld3(g + 6), t_min, t_max, t, ok, u, v);
+  } else if (kind == kRect) {
+    rect_t(o, d, ld3(g), ld3(g + 3), ld3(g + 6), ld3(g + 9), t_min, t_max, t, ok);
+  } else if (kind == kSphere) {
+    bool far_ok;
+    sphere_t(o, d, sphere_center(ld3(g), ld3(g + 3), g[7], g[8], time), g[6], t_min, t_max,
+             t, ok, far_ok);
+  }
+  return ok;
+}
+
 // Closest hit over every primitive; the first primitive wins exact ties
 // (hitable_slice.go:30-45). Returns the primitive index or -1.
 static __device__ int closest_hit(const Scene& sc, V3 o, V3 d, float time, float t_min,
@@ -145,22 +165,9 @@ static __device__ int closest_hit(const Scene& sc, V3 o, V3 d, float time, float
   best_t = kTMax;
   int best = -1;
   for (int i = 0; i < sc.n_prims; ++i) {
-    const float* g = sc.prim_f + i * kPrimF;
-    const int kind = sc.prim_i[i * kPrimI];
     float t;
-    bool ok;
-    if (kind == kTriangle) {
-      float u, v;
-      triangle_t(o, d, ld3(g), ld3(g + 3), ld3(g + 6), t_min, t_max, t, ok, u, v);
-    } else if (kind == kRect) {
-      rect_t(o, d, ld3(g), ld3(g + 3), ld3(g + 6), ld3(g + 9), t_min, t_max, t, ok);
-    } else if (kind == kSphere) {
-      bool far_ok;
-      sphere_t(o, d, sphere_center(ld3(g), ld3(g + 3), g[7], g[8], time), g[6], t_min,
-               t_max, t, ok, far_ok);
-    } else {
-      continue;
-    }
+    const bool ok =
+        prim_test(sc.prim_f + i * kPrimF, sc.prim_i[i * kPrimI], o, d, time, t_min, t_max, t);
     if (ok && t < best_t) {
       best_t = t;
       best = i;

@@ -160,19 +160,35 @@ def prim_t(kind, g0, g1, g2, g3, o, d, time, t_min, t_max):
     return t, ok
 
 
-def intersect_brute(prims: Prims, o, d, time, t_min, t_max) -> Hit:
-    """Closest hit of N rays against all P primitives, one dense (N, P)
-    pass (the JAX package chunks over 512 prims to bound memory; the slice's
-    scenes hold at most 560). o, d: (N, 3); time: (N,)."""
-    t, ok = prim_t(prims.kind[None, :], prims.g0[None], prims.g1[None],
-                   prims.g2[None], prims.g3[None], o[:, None, :], d[:, None, :],
-                   time[:, None], t_min, t_max)
-    t = _where(ok, t, torch.full_like(t, T_MAX))
-    # argmin returns the first minimum: insertion order wins ties.
-    best_t, idx = torch.min(t, dim=1)
-    hit = best_t < T_MAX
-    idx = _where(hit, idx, torch.full_like(idx, -1))
-    return finalize_hit(prims, o, d, time, best_t, idx, hit)
+def closest_brute(prims: Prims, o, d, time, t_min, t_max, chunk: int = 512):
+    """(t, prim index or -1) of the closest hit of N rays against all P
+    primitives, in dense (N, chunk) passes over the primitives as
+    `izpi_tpu/geometry/primitives.py:197` chunks them, which bounds memory.
+    The first primitive wins exact ties, within a chunk (the first minimum)
+    and across chunks (a later chunk must be strictly closer). A miss keeps
+    t = T_MAX."""
+    best_t = torch.full((o.shape[0],), T_MAX, dtype=o.dtype, device=o.device)
+    best_idx = torch.full((o.shape[0],), -1, dtype=torch.int64, device=o.device)
+    o_b, d_b, time_b = o[:, None, :], d[:, None, :], time[:, None]
+    for lo in range(0, prims.count, chunk):
+        sl = slice(lo, lo + chunk)
+        t, ok = prim_t(prims.kind[None, sl], prims.g0[None, sl],
+                       prims.g1[None, sl], prims.g2[None, sl],
+                       prims.g3[None, sl], o_b, d_b, time_b, t_min, t_max)
+        t = _where(ok, t, torch.full_like(t, T_MAX))
+        t_c, arg = torch.min(t, dim=1)
+        better = t_c < best_t
+        best_t = _where(better, t_c, best_t)
+        best_idx = _where(better, arg + lo, best_idx)
+    return best_t, best_idx
+
+
+def intersect_brute(prims: Prims, o, d, time, t_min, t_max,
+                    chunk: int = 512) -> Hit:
+    """Closest hit of N rays against all P primitives with its shading
+    record (`closest_brute`). o, d: (N, 3); time: (N,)."""
+    t, idx = closest_brute(prims, o, d, time, t_min, t_max, chunk)
+    return finalize_hit(prims, o, d, time, t, idx, idx >= 0)
 
 
 def finalize_hit(prims: Prims, o, d, time, t, idx, hit) -> Hit:

@@ -1,9 +1,13 @@
 """Path-tracing estimator core + the lockstep reference integrator.
 
-Counterpart of `izpi_tpu/integrator/path.py`: `RenderSettings`, `bounce_rgb`
-(:405-541) and `bounce_spectral` (:544-682) without the media and PBR
-branches, `_dielectric_scatter` (:147) and `trace` (:685), the lockstep
-oracle.
+Counterpart of `izpi_tpu/integrator/path.py`: `RenderSettings`,
+`make_brute_intersector` (:64), `bounce_rgb` (:405-541) and
+`bounce_spectral` (:544-682) without the media and PBR branches,
+`_dielectric_scatter` (:147) and `trace` (:685), the lockstep oracle. Each
+takes the scene's intersector, `intersect(o, d, time, t_min, t_max) -> Hit`,
+as the JAX functions do: brute force (`make_brute_intersector`), the plain
+BVH4 traversal (`accel.traverse`) or the CUDA traversal kernel
+(`ops.bvh_kernel`).
 
 Estimator identity with the reference (colour.go:44-57):
     L = Σ_k T_k·emitted_k (+ T·background on miss, + T·(0,0,1) at depth cap)
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -45,9 +49,16 @@ class RenderSettings:
     exact_book_cosine: bool = True
 
 
-def intersect_scene(cs, o, d, time, t_min, t_max) -> prim.Hit:
-    """Closest hit against the compiled scene's primitives (brute force)."""
-    return prim.intersect_brute(cs.prims, o, d, time, t_min, t_max)
+IntersectFn = Callable[..., prim.Hit]
+
+
+def make_brute_intersector(cs) -> IntersectFn:
+    """Closest hit against every primitive of the compiled scene."""
+
+    def intersect(o, d, time, t_min, t_max):
+        return prim.intersect_brute(cs.prims, o, d, time, t_min, t_max)
+
+    return intersect
 
 
 def _gather_mat(cs, mat_id):
@@ -75,7 +86,8 @@ def _dielectric_scatter(o_dir, normal, ref_idx, u_reflect):
     return new_dir, is_reflected
 
 
-def bounce_rgb(cs, meta, settings, o, d, time, keys, depth, thru, rad, active):
+def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
+               rad, active):
     """Advance every live RGB path one bounce (per-ray depth (N,)).
     Returns (o, d, thru, rad, active, n_rays_this_bounce)."""
     bg = o.new_tensor(settings.background)
@@ -84,7 +96,7 @@ def bounce_rgb(cs, meta, settings, o, d, time, keys, depth, thru, rad, active):
     # Dead slots keep their last ray; park them outside the scene so they
     # miss. Every output of theirs is masked by `active` below.
     o = torch.where(active[:, None], o, torch.full_like(o, PARK))
-    rec = intersect_scene(cs, o, d, time, T_MIN, prim.T_MAX)
+    rec = intersect(o, d, time, T_MIN, prim.T_MAX)
     nrays = active.sum()
 
     miss = active & ~rec.hit
@@ -121,7 +133,7 @@ def bounce_rgb(cs, meta, settings, o, d, time, keys, depth, thru, rad, active):
         apply = active & is_diel & mat["has_absorption"] & ~is_refl
         start = rec.p + 1e-3 * d_diel
         if bool(apply.any()):
-            exit_rec = intersect_scene(cs, start, d_diel, time, 0.0, 1000.0)
+            exit_rec = intersect(start, d_diel, time, 0.0, 1000.0)
             exit_p, exit_hit = exit_rec.p, exit_rec.hit
         else:
             exit_p, exit_hit = start, torch.zeros_like(apply)
@@ -158,8 +170,8 @@ def bounce_rgb(cs, meta, settings, o, d, time, keys, depth, thru, rad, active):
     return o, d, thru, rad, active, nrays
 
 
-def bounce_spectral(cs, meta, settings, o, d, time, lam, keys, depth, thru,
-                    rad, active, bg_spd_id: int):
+def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
+                    depth, thru, rad, active, bg_spd_id: int):
     """Advance every live spectral path one bounce (sampler/spectral.go:
     47-80). thru and rad are scalars per ray (N,) at the ray's wavelength
     lam (N,). Returns (o, d, thru, rad, active, n_rays_this_bounce, bg_val),
@@ -174,7 +186,7 @@ def bounce_spectral(cs, meta, settings, o, d, time, lam, keys, depth, thru,
     zero = torch.zeros((), dtype=o.dtype, device=o.device)
 
     o = torch.where(active[:, None], o, torch.full_like(o, PARK))
-    rec = intersect_scene(cs, o, d, time, T_MIN, prim.T_MAX)
+    rec = intersect(o, d, time, T_MIN, prim.T_MAX)
     nrays = active.sum()
 
     bg_val = spd_mod.device_spd_value(
@@ -227,7 +239,7 @@ def bounce_spectral(cs, meta, settings, o, d, time, lam, keys, depth, thru,
         apply = active & is_diel & (mat["spec_absorb_id"] >= 0) & ~is_refl
         start = rec.p + 1e-3 * d_diel
         if bool(apply.any()):
-            exit_rec = intersect_scene(cs, start, d_diel, time, 0.0, 1000.0)
+            exit_rec = intersect(start, d_diel, time, 0.0, 1000.0)
             exit_p, exit_hit = exit_rec.p, exit_rec.hit
         else:
             exit_p, exit_hit = start, torch.zeros_like(apply)
@@ -262,7 +274,7 @@ def bounce_spectral(cs, meta, settings, o, d, time, lam, keys, depth, thru,
     return o, d, thru, rad, active, nrays, bg_val
 
 
-def trace(cs, meta, settings: RenderSettings, o, d, time, keys):
+def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys):
     """Trace a ray batch to completion (lockstep; the correctness oracle).
 
     o, d: (N,3); time: (N,); keys: (N,2) per-path keys. Returns (color (N,3),
@@ -278,7 +290,8 @@ def trace(cs, meta, settings: RenderSettings, o, d, time, keys):
             break
         depth_vec = torch.full((n,), depth, dtype=torch.int64, device=o.device)
         o, d, thru, rad, active, nr = bounce_rgb(
-            cs, meta, settings, o, d, time, keys, depth_vec, thru, rad, active)
+            cs, meta, settings, intersect, o, d, time, keys, depth_vec, thru,
+            rad, active)
         nrays = nrays + nr
     # Depth cap: the next Sample call would return {Z:1} (colour.go:34-36).
     sentinel = o.new_tensor([0.0, 0.0, 1.0])

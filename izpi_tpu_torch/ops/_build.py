@@ -1,12 +1,13 @@
 """Build the CUDA sources in `csrc/` at first use and load them with ctypes.
 
-One `nvcc` call compiles every source into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds), for sm_90a, with
-IEEE rounding kept (`-fmad=false`, no fast math) so the kernels round like
-their plain PyTorch versions. The library lands in `build/izpi_tpu_torch/`
-at the repository root (git-ignored), named by a hash of the sources and
-flags, so an edit rebuilds and an unchanged tree reuses the last build.
-A failed build raises; nothing falls back.
+One `nvcc` process per source, all started together, compiles each into an
+object for sm_90a with a plain C interface (no PyTorch headers, so a build
+takes seconds), with IEEE rounding kept (`-fmad=false`, no fast math) so
+the kernels round like their plain PyTorch versions; one more links them
+into a shared library. The library lands in `build/izpi_tpu_torch/` at the
+repository root (git-ignored), named by a hash of the sources and flags, so
+an edit rebuilds and an unchanged tree reuses the last build. A failed
+build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
-SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu")
+SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu")
 HEADERS = ("threefry.cuh", "common.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+              "--ptxas-options=-v")
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -55,6 +57,13 @@ _SIGNATURES = {
     "izpi_threefry_uniforms": [
         _c_void_p, _c_void_p, _c_int, _c_int, _c_uint32, _c_void_p, _c_void_p,
     ],
+    "izpi_bvh4_traverse": [
+        _c_void_p, _c_void_p,                  # nodes, prims
+        _c_void_p, _c_void_p, _c_void_p,       # o, d, time
+        _c_int, _c_float, _c_float,            # n, t_min, t_max
+        _c_void_p, _c_void_p, _c_void_p,       # t, idx, counts (or null)
+        _c_void_p,                             # stream
+    ],
 }
 
 
@@ -77,22 +86,35 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless a library of this hash exists; returns its
-    path. The compiler's output (ptxas register and spill counts) is kept
+    path. The compilers' output (ptxas register and spill counts) is kept
     beside it as `<name>.log`."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a torn file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{s}.o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", obj]
+                for s, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(c, log) for c, p, log in zip(cmds, procs, logs)
+                  if p.returncode != 0]
+        so = str(Path(tmp) / "lib.so")
+        if not failed:
+            link_cmd = [nvcc, *ARCH, "-shared", "-o", so, *objs]
+            link = subprocess.run(link_cmd, capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed = [(link_cmd, logs[-1])]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{' '.join(c)}\n{log}" for c, log in failed))
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(so, out)  # atomic: a concurrent build never loads a torn file
     return out
 
 

@@ -162,9 +162,11 @@ def render_slots_reference(cs, meta, settings, nx: int, ny: int, spp: int,
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
     sentinel = o.new_tensor([0.0, 0.0, 1.0])
     zero = torch.zeros((), device=dev)
+    intersect = path_mod.make_brute_intersector(cs)
     while bool(live.any()):
         o, d, thru, rad, active, nr = path_mod.bounce_rgb(
-            cs, meta, settings, o, d, tme, keys, depth, thru, rad, live)
+            cs, meta, settings, intersect, o, d, tme, keys, depth, thru, rad,
+            live)
         nrays = nrays + nr
         depth = depth + 1
         capped = active & (depth >= settings.max_depth)
@@ -214,8 +216,8 @@ def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
     build or launch raises. On the CPU it runs `render_slots_reference`."""
     if not eligible(cs, meta):
         raise NotImplementedError(
-            "scene not eligible for the megakernel; the queue pool that "
-            "renders it is ROADMAP A6")
+            "scene not eligible for the megakernel; render it through the "
+            "queue pool (render(mode='pool'), integrator.wavefront)")
     dev = cs.device
     if dev.type == "cpu":
         return render_slots_reference(cs, meta, settings, nx, ny, spp, key,

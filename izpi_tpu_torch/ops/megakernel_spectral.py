@@ -135,10 +135,11 @@ def render_slots_spectral_reference(cs, meta, settings, nx: int, ny: int,
     live = torch.full((n_slots,), spp_slot > 0, dtype=torch.bool, device=dev)
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
     zero = torch.zeros((), device=dev)
+    intersect = path_mod.make_brute_intersector(cs)
     while bool(live.any()):
         o, d, thru, rad, active, nr, bg_val = path_mod.bounce_spectral(
-            cs, meta, settings, o, d, tme, lam, keys, depth, thru, rad, live,
-            bg_id)
+            cs, meta, settings, intersect, o, d, tme, lam, keys, depth, thru,
+            rad, live, bg_id)
         nrays = nrays + nr
         depth = depth + 1
         capped = active & (depth >= settings.max_depth)
@@ -178,8 +179,9 @@ def render_slots_spectral(cs, meta, settings, nx: int, ny: int, spp: int,
     `render_slots_spectral_reference`."""
     if not eligible(cs, meta):
         raise NotImplementedError(
-            "scene not eligible for the spectral megakernel; the queue pool "
-            "that renders it is ROADMAP A6")
+            "scene not eligible for the spectral megakernel; render it "
+            "through the queue pool (render(mode='pool'), "
+            "integrator.wavefront)")
     dev = cs.device
     if dev.type == "cpu":
         return render_slots_spectral_reference(cs, meta, settings, nx, ny, spp,

@@ -94,7 +94,7 @@ def test_ineligible_scene_raises(port):
     old = meta.n_prims
     meta.n_prims = tmega.MAX_PRIMS + 1
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        with pytest.raises(NotImplementedError, match="queue pool"):
             tmega.render_slots(cs, meta, tpath.RenderSettings(), 2, 2, 1,
                                trng.render_key(0))
     finally:

@@ -128,7 +128,8 @@ def test_bounce_rgb_one_step(scenes):
         jcs, jmeta, settings_j, jpath.make_brute_intersector(jcs),
         *(jnp.asarray(x) for x in (o, d, tme, keys, depth, thru, rad, active)))
     got = tpath.bounce_rgb(
-        tcs, tmeta, settings_t, _t(o), _t(d), _t(tme),
+        tcs, tmeta, settings_t, tpath.make_brute_intersector(tcs), _t(o),
+        _t(d), _t(tme),
         _t(keys.astype(np.int64)), _t(depth), _t(thru), _t(rad), _t(active))
     w_o, w_d, w_thru, w_rad, w_active, w_n = (np.asarray(x) for x in want)
     g_o, g_d, g_thru, g_rad, g_active, g_n = got
@@ -160,7 +161,8 @@ def test_trace_camera_batch():
         jpath.make_brute_intersector(jcs), nx, ny, x, y, k, 1))(
             jnp.asarray(xs), jnp.asarray(ys), jrng.render_key(3))
     got, g_rays = trenderer.sample_pass(
-        tcs, tmeta, tpath.RenderSettings(max_depth=4), nx, ny,
+        tcs, tmeta, tpath.RenderSettings(max_depth=4),
+        tpath.make_brute_intersector(tcs), nx, ny,
         _t(xs).long(), _t(ys).long(), trng.render_key(3), 1)
     assert int(g_rays) == int(w_rays)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
@@ -218,7 +220,8 @@ def test_bounce_spectral_one_step(spectral_scenes):
             *(jnp.asarray(x) for x in args), bg)
     o, d, tme, lam, keys, depth, thru, rad, active = args
     got = tpath.bounce_spectral(
-        tcs, tmeta, tpath.RenderSettings(max_depth=4), _t(o), _t(d), _t(tme),
+        tcs, tmeta, tpath.RenderSettings(max_depth=4),
+        tpath.make_brute_intersector(tcs), _t(o), _t(d), _t(tme),
         _t(lam), _t(keys.astype(np.int64)), _t(depth), _t(thru), _t(rad),
         _t(active), bg)
     w_o, w_d, w_thru, w_rad, w_active, w_n, w_bg = (np.asarray(x)

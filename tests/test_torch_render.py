@@ -14,7 +14,9 @@ from izpi_tpu.render import renderer as jrenderer
 from izpi_tpu.scene.library.cornell import cornell_box as j_cornell
 from izpi_tpu.scene.library.cornell_spectral import (
     cornell_box_spectral as j_cbs)
+from izpi_tpu_torch.core import rng as trng
 from izpi_tpu_torch.integrator import path as tpath
+from izpi_tpu_torch.integrator import wavefront as twavefront
 from izpi_tpu_torch.ops import megakernel as tmega
 from izpi_tpu_torch.render import renderer as trenderer
 from izpi_tpu_torch.scene import types as tst
@@ -73,7 +75,10 @@ def test_port_imports_no_jax():
     assert len(loaded) >= 28
     for name in ("spectral.cie", "spectral.spd", "spectral.convert",
                  "materials.spectral_eval", "integrator.wavefront",
-                 "ops.megakernel_spectral", "scene.library.cornell_spectral"):
+                 "ops.megakernel_spectral", "scene.library.cornell_spectral",
+                 "accel.bvh_build", "accel.native", "accel.traverse",
+                 "ops.bvh_kernel", "geometry.procedural",
+                 "scene.library.misc"):
         assert f"izpi_tpu_torch.{name}" in loaded, name
 
 
@@ -121,15 +126,31 @@ def test_spectral_render_matches_jax(jax_spectral):
     assert left[1] > left[0] and right[0] > right[1]
 
 
+def _empty_pool(scene, pool_size):
+    ctx = trenderer.RenderContext(scene, device="cpu")
+    twavefront.trace_pool(ctx.cs, ctx.meta, tpath.RenderSettings(max_depth=2),
+                          ctx.intersect, 4, 4, 1, trng.render_key(0), pool_size,
+                          spectral=ctx.meta.spectral)
+
+
 @pytest.mark.parametrize("mode", ["simple", "pool"])
 def test_spectral_simple_and_pool_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        trenderer.render(t_cbs(), 4, 4, 1, mode=mode, device="cpu")
+    """A spectral scene: the lockstep oracle renders RGB scenes only; the
+    queue pool, which renders it (tests/test_torch_pool.py), raises on a
+    pool without slots."""
+    if mode == "simple":
+        with pytest.raises(NotImplementedError, match="RGB scenes only"):
+            trenderer.render(t_cbs(), 4, 4, 1, mode=mode, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="pool_size"):
+            _empty_pool(t_cbs(), 0)
 
 
 def test_pool_mode_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        trenderer.render(t_cornell(), 4, 4, 1, mode="pool", device="cpu")
+    """The queue pool renders any scene (tests/test_torch_pool.py) and
+    raises on a pool without slots."""
+    with pytest.raises(ValueError, match="pool_size"):
+        _empty_pool(t_cornell(), -1)
 
 
 def test_unknown_mode_and_device_raise():
@@ -140,10 +161,14 @@ def test_unknown_mode_and_device_raise():
 
 
 def test_ineligible_scene_raises_in_wavefront_mode():
+    """A scene the megakernel does not take: "wavefront" renders it through
+    the queue pool, as the JAX renderer does, and "mega" raises."""
     white = tst.Lambertian(albedo=tst.ConstantTexture((0.5, 0.5, 0.5)))
     world = [tst.Sphere((i, 0, 0), (i, 0, 0), 0, 1, 0.4, white)
              for i in range(tmega.MAX_PRIMS + 1)]
     scene = tst.Scene(world=world, camera=tst.Camera(look_from=(0, 0, -5),
                                                      look_at=(0, 0, 0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        trenderer.render(scene, 2, 2, 1, device="cpu")
+    res = trenderer.render(scene, 2, 2, 1, device="cpu")
+    assert res.iterations >= 1 and res.rays_traced >= 4
+    with pytest.raises(NotImplementedError, match="queue pool"):
+        trenderer.render(scene, 2, 2, 1, mode="mega", device="cpu")
