@@ -48,7 +48,40 @@ line of its own:
      move; the image must be finite, green on the left, red on the right,
      with the ceiling light at 15; the kernel's share of `render()` (CUDA
      events) and, for a 16-spp render of the same frame, the device's idle
-     share under torch.profiler.
+     share under torch.profiler;
+ 10. the row-stack traversal kernel (`ops.bvh_rowkernel`, one warp per 32
+     rays) against its plain version (`bvh_rowkernel.closest_rows`), both
+     on the card, on the leaf-64 trees of `cornell_box_obj`, of the dragon
+     stand-in (phase 7's rays) and of the dragon scene its main path runs
+     (262,144 rays on phase 7's recipe from the dragon's camera), the rays
+     sorted as its intersector sorts them: equal hit masks, t within 1e-6
+     relative, equal block slots but on exact-t ties (at most 1e-5 of the
+     rays), equal per-warp counters; and against the BVH4 traversal
+     kernel's hits on the same rays (equal hit masks, t within 1e-6
+     relative); build seconds, nodes and blocks, the kernel's time on
+     sorted and on unsorted rays, the plain time, the bound (from the work
+     each ray alone needs on the tree: the per-ray traversal's counts) and
+     the warp's own work beside it;
+ 11. the dragon (`cornell_box_pbr_stanford_dragon_spectral()`: the
+     871,200-triangle stand-in, the walls, the light and a glass sphere,
+     porcelain PBR) through the queue pool at 32×32, 4 spp, depth 16, once
+     with the row-stack pair (`bvh_rowkernel.attach`) and once with the
+     BVH4 kernel, both on the card, within phase 4's ray and XYZ
+     tolerances;
+ 12. the dragon main path: `render(dragon, 256, 256, 8, max_depth=16,
+     seed=0, mode="wavefront", device="cuda")`, a warm-up and a timed run
+     through the BVH4 kernel (the default intersector), then a warm-up and a
+     timed run through the row-stack pair in a RenderContext; each
+     traversal kernel's counter must equal the pool iterations of its run
+     and nothing else may launch; XYZ and ACEScg finite, the red wall (x =
+     100, on the image's left: the camera's horizontal axis points to -x)
+     red and the green wall (x = 0, right) green, the mesh region not
+     black (mean Y above 1e-3); the two renders agree within phase 4's tolerances; rays,
+     seconds, Mrays/s, iterations, each kernel's share of `render()` (CUDA
+     events) and the device's idle share of a 2-spp render under
+     torch.profiler. The mesh region is the pixels whose centre's camera
+     ray first hits the porcelain; the stand-in's triangles face inward, so
+     only its rim and what the glass sphere throws on it are lit.
 The line before the last is a JSON object describing the kernels, each with
 its time, its plain version's time and its bound (the least time the card
 could take for the work this run's rays needed); the last is {"ok": true,
@@ -71,7 +104,8 @@ from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import primitives, procedural
 from izpi_tpu_torch.integrator import path, wavefront
-from izpi_tpu_torch.ops import (_build, bvh_kernel, megakernel,
+from izpi_tpu_torch.materials import tables as mat_tables
+from izpi_tpu_torch.ops import (_build, bvh_kernel, bvh_rowkernel, megakernel,
                                 megakernel_spectral, threefry)
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene import compiler
@@ -79,6 +113,8 @@ from izpi_tpu_torch.scene import types as scene_types
 from izpi_tpu_torch.scene.library.cornell import cornell_box
 from izpi_tpu_torch.scene.library.cornell_spectral import (
     cornell_box_pyramid_spectral)
+from izpi_tpu_torch.scene.library.extracted import (
+    cornell_box_pbr_stanford_dragon_spectral)
 from izpi_tpu_torch.scene.library.misc import cornell_box_obj
 from izpi_tpu_torch.spectral import cie
 
@@ -125,10 +161,19 @@ RGB_SAMPLE_FP = 9        # RGB deposit: DeNAN and add, three channels
 # cheapest.
 VISIT_FP = 4 * 3 * 8 + 4 + 5
 RAY_FP = 3 * 3
+# The row-stack kernel (csrc/bvh4_rowstack.cu), per node a ray needs: the
+# same slab test and 4 hit comparisons, no sort. Its bound counts the nodes
+# and primitives each ray alone needs on the leaf-64 tree (the per-ray
+# traversal over the same tables, walked in chunks of PER_RAY_CHUNK rays),
+# not the union its warp walks.
+ROW_VISIT_FP = 4 * 3 * 8 + 4
+PER_RAY_CHUNK = 1 << 16
 # Phase 7: traversal rays per scale (the main path's pool size), and the
 # share of them allowed to pick another primitive at an exactly equal t.
 TRAVERSE_RAYS = 1 << 18
 T_RTOL = 1e-6
+# Phase 12: the dragon main path, bench.py's `dragon` (bench.py:41-42).
+DRAGON_SIZE, DRAGON_SPP, DRAGON_DEPTH = 256, 8, 16
 TIE_SHARE = 1e-5
 
 
@@ -170,17 +215,8 @@ def tensor_bytes(tensors) -> int:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() on the card over reps runs, after one
-    warm-up run, timed with CUDA events."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    warm-up run (`profiling.cuda_ms`)."""
+    return profiling.cuda_ms(fn, reps)[1]
 
 
 def compare(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
@@ -218,12 +254,37 @@ def compare(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
     return max_abs_err
 
 
+def compare_xyz(label: str, acc_a, rays_a: int, acc_b, rays_b: int,
+                spp: int) -> float:
+    """Two spectral XYZ accumulators of one render, `b` the reference:
+    print the deviations and raise unless the rays, pixels and mean Y are
+    within the tolerances above. Returns the largest absolute XYZ error."""
+    xyz_a, xyz_b = acc_a / spp, acc_b / spp
+    diff = (xyz_a - xyz_b).abs()
+    max_abs_err = float(diff.max())
+    max_rel_err = float((diff / xyz_b.abs().clamp(min=1e-6)).max())
+    share = float((diff <= XYZ_ATOL + XYZ_RTOL * xyz_b.abs()).all(dim=1)
+                  .float().mean())
+    mean_a, mean_b = float(xyz_a[:, 1].mean()), float(xyz_b[:, 1].mean())
+    rays_rel = abs(rays_a - rays_b) / rays_b
+    mean_rel = abs(mean_a - mean_b) / mean_b
+    print(f"{label}: rays {rays_a} vs {rays_b} (rel {rays_rel:.2e}, tol "
+          f"{RAYS_RTOL}); pixels with XYZ within {XYZ_ATOL} + {XYZ_RTOL}|b|: "
+          f"{share:.6f} (tol {PIXEL_SHARE}); max abs err {max_abs_err:.3e}; "
+          f"max rel err {max_rel_err:.3e}; mean Y {mean_a:.6f} vs "
+          f"{mean_b:.6f} (rel {mean_rel:.2e}, tol {MEAN_RTOL})", flush=True)
+    if not (bool(torch.isfinite(xyz_a).all()) and rays_rel <= RAYS_RTOL
+            and share >= PIXEL_SHARE and mean_rel <= MEAN_RTOL):
+        raise AssertionError(f"{label}: the two renders disagree")
+    return max_abs_err
+
+
 def compare_spectral(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
                      offset: int):
     """The spectral pyramid n x n at spp samples from `offset` through the
-    CUDA spectral megakernel and through its plain version, both on the
-    card; print the deviations and raise unless they are within the
-    tolerances above. Returns (largest absolute XYZ error, kernel rays)."""
+    CUDA spectral megakernel (a) and through its plain version (b), both on
+    the card, held to `compare_xyz`. Returns (largest absolute XYZ error,
+    kernel rays)."""
     s = path.RenderSettings(max_depth=depth)
     key = rng.render_key(seed, device="cuda")
     acc_k, rays_k = megakernel_spectral.render_slots_spectral(
@@ -231,44 +292,113 @@ def compare_spectral(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
     acc_p, rays_p = megakernel_spectral.render_slots_spectral_reference(
         cs, meta, s, n, n, spp, key, offset)
     torch.cuda.synchronize()
-    xyz_k, xyz_p = acc_k / spp, acc_p / spp
-    rays_k, rays_p = int(rays_k), int(rays_p)
-    diff = (xyz_k - xyz_p).abs()
-    max_abs_err = float(diff.max())
-    max_rel_err = float((diff / xyz_p.abs().clamp(min=1e-6)).max())
-    share = float((diff <= XYZ_ATOL + XYZ_RTOL * xyz_p.abs()).all(dim=1)
-                  .float().mean())
-    mean_k, mean_p = float(xyz_k[:, 1].mean()), float(xyz_p[:, 1].mean())
-    rays_rel = abs(rays_k - rays_p) / rays_p
-    mean_rel = abs(mean_k - mean_p) / mean_p
     slots = n * n * megakernel.pick_replication(n * n, spp)
-    print(f"kernel-vs-twin: spectral pyramid {n}x{n}@{spp} depth {depth} seed "
-          f"{seed} offset {offset} ({slots} slots): rays {rays_k} vs {rays_p} "
-          f"(rel {rays_rel:.2e}, tol {RAYS_RTOL}); pixels with XYZ within "
-          f"{XYZ_ATOL} + {XYZ_RTOL}|plain|: {share:.6f} (tol {PIXEL_SHARE}); max "
-          f"abs err {max_abs_err:.3e}; max rel err {max_rel_err:.3e}; mean Y "
-          f"{mean_k:.6f} vs {mean_p:.6f} (rel {mean_rel:.2e}, tol {MEAN_RTOL})",
-          flush=True)
-    if not (bool(torch.isfinite(xyz_k).all()) and rays_rel <= RAYS_RTOL
-            and share >= PIXEL_SHARE and mean_rel <= MEAN_RTOL):
-        raise AssertionError(f"CUDA spectral megakernel disagrees with its "
-                             f"plain version at {n}x{n}@{spp} depth {depth} "
-                             f"offset {offset}")
-    return max_abs_err, rays_k
+    err = compare_xyz(f"kernel-vs-twin: spectral pyramid {n}x{n}@{spp} depth "
+                      f"{depth} seed {seed} offset {offset} ({slots} slots)",
+                      acc_k, int(rays_k), acc_p, int(rays_p), spp)
+    return err, int(rays_k)
 
 
-def traverse_bound_ms(counts, n_rays: int, table_bytes: int):
-    """The least milliseconds the card could take to traverse rays that
-    popped counts[:, 0] nodes and tested counts[:, 1] primitives (the
-    kernel's counter buffer): operations over the FP32 peak against the
-    tables read once, 28 bytes in and 8 out per ray over HBM bandwidth.
-    Returns (ms, "operations" or "bytes")."""
-    visits, tests = (int(x) for x in counts.sum(dim=0))
-    fp = n_rays * RAY_FP + visits * VISIT_FP + tests * min(PRIM_FP.values())
-    t_ops = fp / FP32_OPS_PER_S
+def traversal_bound_ms(fp: int, n_rays: int, table_bytes: int):
+    """The least milliseconds the card could take for a traversal of n_rays
+    that needs `fp` FP32 operations (counted from the kernel's counter
+    buffer) over the FP32 peak, against the tables read once, 28 bytes in
+    and 8 out per ray over HBM bandwidth. Returns (ms, "operations" or
+    "bytes")."""
+    t_ops = (fp + n_rays * RAY_FP) / FP32_OPS_PER_S
     t_bytes = (table_bytes + n_rays * (28 + 8)) / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def compare_rowstack(label: str, cs2, inter, attach_s: float, rays, ks3,
+                     card: str):
+    """The row-stack kernel of `attach`'s pair (cs2, inter) against its
+    plain version on `rays` sorted as `RowBVHIntersector` sorts them, both
+    on the card, and against the BVH4 kernel's hits (tree `ks3`) on the
+    same rays: print the deviations, the times and the bound; raise unless
+    hit masks are equal, t is within T_RTOL, block slots differ only on
+    exact-t ties (at most TIE_SHARE of the rays) and the per-warp counters
+    are equal. Returns a dict of the numbers."""
+    rs = inter.rs
+    o, d, tme = rays
+    n = o.shape[0]
+    order = torch.argsort(bvh_rowkernel.sort_keys(o, d, inter.lo, inter.hi),
+                          stable=True)
+    o_s, d_s, t_s = (x[order].contiguous() for x in (o, d, tme))
+    t_k, i_k, c_k = bvh_rowkernel.closest_hit_rows(
+        rs, o_s, d_s, t_s, path.T_MIN, primitives.T_MAX, counters=True)
+    (t_p, i_p, c_p), plain_ms = profiling.cuda_ms(
+        lambda: bvh_rowkernel.closest_rows(rs, o_s, d_s, t_s, path.T_MIN,
+                                           primitives.T_MAX), 1, warm_up=False)
+    hit = i_p >= 0
+    same_mask = torch.equal(i_k >= 0, hit)
+    err = (t_k[hit] - t_p[hit]).abs()
+    max_abs = float(err.max()) if err.numel() else 0.0
+    max_rel = float((err / t_p[hit].abs()).max()) if err.numel() else 0.0
+    differ = hit & (i_k != i_p)
+    ties = int((differ & (t_k == t_p)).sum())
+    wrong = int((differ & (t_k != t_p)).sum())
+    same_counters = torch.equal(c_k, c_p)
+    # The BVH4 kernel on the same rays, in their sorted order.
+    t3, i3 = bvh_kernel.closest_hit(ks3, o_s, d_s, t_s, path.T_MIN,
+                                    primitives.T_MAX)
+    same_mask3 = torch.equal(i3 >= 0, i_k >= 0)
+    hit3 = i3 >= 0
+    rel3 = (float(((t_k[hit3] - t3[hit3]).abs() / t3[hit3].abs()).max())
+            if bool(hit3.any()) else 0.0)
+    ms = cuda_ms(lambda: bvh_rowkernel.closest_hit_rows(
+        rs, o_s, d_s, t_s, path.T_MIN, primitives.T_MAX), 20)
+    ms_unsorted = cuda_ms(lambda: bvh_rowkernel.closest_hit_rows(
+        rs, o, d, tme, path.T_MIN, primitives.T_MAX), 20)
+    # The bound: the work each ray alone needs on this leaf-64 tree, the
+    # node pops and primitive tests of the per-ray traversal (near child
+    # first) over the same tables, in chunks of rays.
+    tree = bvh_rowkernel.per_ray_tree(rs)
+    visits = tests = 0
+    for lo in range(0, n, PER_RAY_CHUNK):
+        sl = slice(lo, lo + PER_RAY_CHUNK)
+        _, i_r, c_r = traverse.closest_bvh(cs2.prims, tree, o_s[sl], d_s[sl],
+                                           t_s[sl], path.T_MIN,
+                                           primitives.T_MAX, counts=True)
+        same_mask = same_mask and torch.equal(i_r >= 0, hit[sl])
+        visits += int(c_r[:, 0].sum())
+        tests += int(c_r[:, 1].sum())
+    table_bytes = tensor_bytes([rs.nodes, rs.blocks])
+    bound, bound_by = traversal_bound_ms(
+        visits * ROW_VISIT_FP + tests * min(PRIM_FP.values()), n, table_bytes)
+    # Beside it, the warp's own work: 32 lanes x (its node pops and the
+    # primitives of every block it visits). Not a bound: kernel 3 does the
+    # per-ray work in less time than this.
+    pops, _, prims = (int(x) for x in c_k.sum(dim=0))
+    warp_bound, _ = traversal_bound_ms(
+        32 * (pops * ROW_VISIT_FP + prims * min(PRIM_FP.values())), n,
+        table_bytes)
+    mean_c = [round(float(x), 3) for x in c_k.double().mean(dim=0)]
+    print(f"row-stack {label}: leaf-64 tree {rs.nodes.shape[0]} nodes, "
+          f"{rs.blocks.shape[0]} blocks, attach {attach_s:.3f} s; {n} rays "
+          f"sorted, hits {float(hit.float().mean()):.4f}; hit masks equal "
+          f"{same_mask}; t max abs err {max_abs:.3e}, max rel {max_rel:.3e} "
+          f"(tol {T_RTOL}); slots differing on exact-t ties {ties} (allowed "
+          f"{TIE_SHARE * n:.2f}), otherwise {wrong}; per-warp counters equal "
+          f"{same_counters}; mean per warp: nodes popped, blocks, prims per "
+          f"lane {mean_c}, max {c_k.max(dim=0).values.tolist()}; per ray "
+          f"alone: nodes {visits / n:.3f}, prims {tests / n:.3f}; vs the "
+          f"BVH4 kernel: hit masks equal {same_mask3}, t max rel {rel3:.3e}; "
+          f"kernel {ms:.4f} ms sorted, {ms_unsorted:.4f} ms unsorted, plain "
+          f"{plain_ms:.2f} ms, bound {bound:.4f} ms by {bound_by} (the "
+          f"warp's own work {warp_bound:.4f} ms) ({card})", flush=True)
+    if not (same_mask and max_rel <= T_RTOL and wrong == 0
+            and ties <= TIE_SHARE * n and same_counters and same_mask3
+            and rel3 <= T_RTOL):
+        raise AssertionError(f"row-stack kernel disagrees with its plain "
+                             f"version or the BVH4 kernel on {label}")
+    return dict(max_abs_err=max_abs, ms=ms, ms_unsorted=ms_unsorted,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                warp_work_ms=warp_bound, attach_s=attach_s,
+                nodes=rs.nodes.shape[0], blocks=rs.blocks.shape[0],
+                mean_counters=mean_c,
+                per_ray_nodes_prims=[visits / n, tests / n])
 
 
 def dragon_stand_in() -> scene_types.Scene:
@@ -331,7 +461,9 @@ def compare_traversal(label: str, ks, rays, card: str):
     plain_ms = cuda_ms(lambda: traverse.closest_bvh(
         ks.prims, ks.tree, o, d, tme, path.T_MIN, primitives.T_MAX), 1)
     table_bytes = tensor_bytes([ks.nodes, ks.prim_table])
-    bound, bound_by = traverse_bound_ms(counts, n, table_bytes)
+    visits, tests = (int(x) for x in counts.sum(dim=0))
+    bound, bound_by = traversal_bound_ms(
+        visits * VISIT_FP + tests * min(PRIM_FP.values()), n, table_bytes)
     mean_counts = [round(float(x), 3) for x in counts.double().mean(dim=0)]
     print(f"traversal {label}: {n} rays, hits {float(hit.float().mean()):.4f}; "
           f"hit masks equal {same_mask}; t max abs err {max_abs:.3e}, max rel "
@@ -348,6 +480,180 @@ def compare_traversal(label: str, ks, rays, card: str):
                              f"version on {label}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by)
+
+
+def mesh_pixels(ctx, n: int) -> np.ndarray:
+    """(n, n) bool, image rows top first: the pixels whose centre's camera
+    ray first hits a PBR material (the renderer's film convention, v up)."""
+    c = (torch.arange(n, device=ctx.device, dtype=torch.float32) + 0.5) / n
+    s = c.repeat(n)
+    t = 1.0 - c.repeat_interleave(n)
+    o, d, tme = camera.get_rays(ctx.cs.camera, s, t,
+                                torch.zeros((n * n, 3), device=ctx.device))
+    hit = ctx.intersect(o, d, tme, path.T_MIN, primitives.T_MAX)
+    kind = ctx.cs.materials.kind[torch.clamp(hit.mat_id, min=0)]
+    return (hit.hit & (kind == mat_tables.MAT_PBR)).reshape(n, n).cpu().numpy()
+
+
+def row_stack_phases(bctx, dctx, rays7, card: str):
+    """Phases 10-12 (the module docstring). Returns (phase 10's numbers
+    by tree, phase 12's numbers by traversal kernel)."""
+    # 10. The row-stack kernel against its plain version and the BVH4 kernel,
+    # on phase 7's scenes and rays, then on the dragon scene's own tree.
+    rows10 = {}
+    for label, ctx in (("cornell_box_obj", bctx), ("dragon stand-in", dctx)):
+        t0 = time.perf_counter()
+        cs2, inter = bvh_rowkernel.attach(ctx.cs)
+        torch.cuda.synchronize()
+        rows10[label] = compare_rowstack(label, cs2, inter,
+                                         time.perf_counter() - t0,
+                                         rays7[label], ctx.intersect.ks, card)
+        del cs2, inter
+    torch.cuda.empty_cache()
+
+    # Two contexts of the dragon scene: the default (the BVH4 kernel, above
+    # BVH_THRESHOLD) and brute force replaced by the row-stack pair, as a
+    # user selects it.
+    dev = bctx.device
+    dragon = cornell_box_pbr_stanford_dragon_spectral()
+    d3ctx = renderer.RenderContext(dragon, device=dev)
+    d4ctx = renderer.RenderContext(dragon, use_bvh=False, device=dev)
+    t0 = time.perf_counter()
+    d4ctx.cs, d4ctx.intersect = bvh_rowkernel.attach(d4ctx.cs)
+    torch.cuda.synchronize()
+    d4_attach = time.perf_counter() - t0
+    print(f"dragon: {d3ctx.meta.n_prims} prims, has_pbr {d3ctx.meta.has_pbr}, "
+          f"megakernel-eligible {d3ctx.mega_supported()}; BVH4 context "
+          f"(compile and leaf-4 build) {d3ctx.build_seconds:.3f} s; row-stack "
+          f"context: compile {d4ctx.build_seconds:.3f} s, leaf-64 attach "
+          f"{d4_attach:.3f} s", flush=True)
+    # 10, the main path's tree: the dragon's rects, sphere and triangles in
+    # mixed blocks, on phase 7's ray recipe from the dragon's camera.
+    rows10["dragon"] = compare_rowstack(
+        "dragon", d4ctx.cs, d4ctx.intersect, d4_attach,
+        traversal_rays(d3ctx.intersect.ks, d3ctx.cs.camera, TRAVERSE_RAYS, 10),
+        d3ctx.intersect.ks, card)
+    torch.cuda.empty_cache()
+
+    # 11. The dragon's pool through the row-stack pair against the pool
+    # through the BVH4 kernel.
+    s11 = path.RenderSettings(max_depth=DRAGON_DEPTH)
+    key11 = rng.render_key(0, device=dev)
+    bg11 = d3ctx.meta.spectral_background_spd or 0
+    before = bvh_rowkernel.launches
+    acc4, rays4, it4 = wavefront.trace_pool(
+        d4ctx.cs, d4ctx.meta, s11, d4ctx.intersect, 32, 32, 4, key11, 4096,
+        spectral=True, bg_spd_id=bg11)
+    launched4 = bvh_rowkernel.launches - before
+    acc3, rays3, it3 = wavefront.trace_pool(
+        d3ctx.cs, d3ctx.meta, s11, d3ctx.intersect, 32, 32, 4, key11, 4096,
+        spectral=True, bg_spd_id=bg11)
+    torch.cuda.synchronize()
+    print(f"pool: dragon 32x32@4 depth 16 (pool 4096, sorted): row-stack "
+          f"{it4} iterations ({launched4} launches), BVH4 kernel {it3}",
+          flush=True)
+    compare_xyz("pool: dragon row-stack vs BVH4 kernel", acc4, int(rays4), acc3,
+                int(rays3), 4)
+    if launched4 != it4:
+        raise AssertionError(f"{launched4} row-stack launches in {it4} pool "
+                             f"iterations")
+
+    # 12. The dragon main path through each traversal kernel, through the
+    # entry points a user calls.
+    s12 = path.RenderSettings(max_depth=DRAGON_DEPTH)
+    counters = (bvh_kernel, bvh_rowkernel, megakernel, megakernel_spectral,
+                threefry)
+
+    def zero_counts():
+        for mod in counters:
+            mod.launches = 0
+
+    def dragon_render(ctx, spp):
+        return renderer.render(None, DRAGON_SIZE, DRAGON_SIZE, spp, s12,
+                               seed=0, mode="wavefront", context=ctx,
+                               device=dev)
+
+    mesh = mesh_pixels(d3ctx, DRAGON_SIZE)
+    if mesh.sum() < 16:
+        raise AssertionError(f"the dragon's mesh covers {mesh.sum()} pixels")
+    dragon_runs, dres = {}, {}
+    for name, ctx, mod, fn in (
+            ("bvh4_traverse", d3ctx, bvh_kernel, "closest_hit"),
+            ("bvh4_rowstack", d4ctx, bvh_rowkernel, "closest_hit_rows")):
+        zero_counts()
+        warm = dragon_render(ctx, DRAGON_SPP)
+        moved = {m.__name__.rsplit(".", 1)[1]: m.launches for m in counters}
+        if mod.launches != warm.iterations or sum(moved.values()) != (
+                mod.launches + threefry.launches):
+            raise AssertionError(f"dragon warm-up through {name}: launches "
+                                 f"{moved} in {warm.iterations} iterations")
+        zero_counts()
+        with profiling.event_timed(mod, fn) as times:
+            res12 = dragon_render(ctx, DRAGON_SPP)
+        kernel_ms = profiling.event_ms(times)
+        moved = {m.__name__.rsplit(".", 1)[1]: m.launches for m in counters}
+        print(f"dragon main path through {name}: {DRAGON_SIZE}x{DRAGON_SIZE}@"
+              f"{DRAGON_SPP} depth {DRAGON_DEPTH} seed 0 on "
+              f"{res12.device}: {res12.rays_traced} rays in {res12.seconds:.4f} "
+              f"s = {res12.mrays_per_sec:.3f} Mrays/s in {res12.iterations} "
+              f"pool iterations (warm-up {warm.seconds:.4f} s, "
+              f"{warm.rays_traced} rays; {card}); launches {moved}; {name} "
+              f"{kernel_ms:.3f} ms = {kernel_ms / 1e3 / res12.seconds:.2%} of "
+              f"render() (CUDA events)", flush=True)
+        if (mod.launches != res12.iterations or sum(moved.values())
+                != mod.launches + threefry.launches):
+            raise AssertionError(f"the dragon main path through {name} "
+                                 f"launched {moved} in {res12.iterations} "
+                                 f"iterations")
+        if res12.rays_traced != warm.rays_traced:
+            raise AssertionError(f"two dragon renders through {name} differ")
+        xyz, img = res12.xyz, res12.image
+        for label, arr in (("xyz", xyz), ("image", img)):
+            if (arr.shape != (DRAGON_SIZE, DRAGON_SIZE, 3)
+                    or not np.isfinite(arr).all()):
+                raise AssertionError(f"dragon {label} is not finite "
+                                     f"({DRAGON_SIZE}, {DRAGON_SIZE}, 3)")
+        # The camera's horizontal axis points to -x: the red wall (x = 100)
+        # is on the image's left, the green one (x = 0) on its right; the
+        # walls' middle band, as fractions of the frame.
+        q = DRAGON_SIZE / 256
+        rows, c0, c1 = slice(int(64 * q), int(192 * q)), int(8 * q), int(40 * q)
+        dleft = img[rows, c0:c1].mean(axis=(0, 1))
+        dright = img[rows, -c1:-c0].mean(axis=(0, 1))
+        mesh_y = float(xyz[mesh, 1].mean())
+        print(f"dragon main path through {name}: ACEScg left wall "
+              f"{np.round(dleft, 4).tolist()}, right wall "
+              f"{np.round(dright, 4).tolist()}; mesh region ({int(mesh.sum())} "
+              f"pixels) mean Y {mesh_y:.5f}, lit (Y > 1e-3) "
+              f"{float((xyz[mesh, 1] > 1e-3).mean()):.2%}; image mean Y "
+              f"{float(xyz[..., 1].mean()):.5f}", flush=True)
+        if not (dleft[0] > dleft[1] and dright[1] > dright[0]):
+            raise AssertionError("dragon walls: expected red on the left, "
+                                 "green on the right")
+        if not mesh_y > 1e-3:
+            raise AssertionError(f"dragon mesh region is black (Y {mesh_y})")
+        wall12, busy12, _ = profiling.device_profile(
+            lambda: dragon_render(ctx, 2))
+        print(f"dragon main path through {name}, {DRAGON_SIZE}x{DRAGON_SIZE}@2 "
+              f"under "
+              f"torch.profiler: wall {wall12:.4f} s, device busy "
+              f"{busy12:.4f} s, idle share {1 - busy12 / wall12:.2%}",
+              flush=True)
+        dres[name] = res12
+        dragon_runs[name] = {
+            "launches": moved[mod.__name__.rsplit(".", 1)[1]],
+            "rays": res12.rays_traced,
+            "seconds": res12.seconds, "mrays_per_sec": res12.mrays_per_sec,
+            "iterations": res12.iterations,
+            "kernel_share": kernel_ms / 1e3 / res12.seconds,
+            "profiled_idle_share_2spp": 1 - busy12 / wall12}
+    compare_xyz("dragon main path: row-stack vs BVH4 kernel (XYZ after "
+                "firefly rejection)",
+                torch.as_tensor(dres["bvh4_rowstack"].xyz.reshape(-1, 3)),
+                dres["bvh4_rowstack"].rays_traced,
+                torch.as_tensor(dres["bvh4_traverse"].xyz.reshape(-1, 3)),
+                dres["bvh4_traverse"].rays_traced, 1)
+    return rows10, dragon_runs
 
 
 def main() -> None:
@@ -555,17 +861,16 @@ def main() -> None:
     # The first is the main path's context.
     bctx = renderer.RenderContext(cornell_box_obj(), device="cuda")
     dctx = renderer.RenderContext(dragon_stand_in(), device="cuda")
-    found = {}
+    found, rays7 = {}, {}
     for label, ctx, seed in (("cornell_box_obj", bctx, 7),
                              ("dragon stand-in", dctx, 8)):
         ks = ctx.intersect.ks
         print(f"traversal build: {label}, {ctx.meta.n_prims} prims, "
               f"{ks.nodes.shape[0]} nodes (SAH, leaf 4); compile and build "
               f"{ctx.build_seconds:.3f} s", flush=True)
-        found[label] = compare_traversal(label, ks, traversal_rays(
-            ks, ctx.cs.camera, TRAVERSE_RAYS, seed), card)
+        rays7[label] = traversal_rays(ks, ctx.cs.camera, TRAVERSE_RAYS, seed)
+        found[label] = compare_traversal(label, ks, rays7[label], card)
     trav, dtrav = found["cornell_box_obj"], found["dragon stand-in"]
-    del dctx, ks
 
     # 8. The pool through the kernel against the pool through the plain
     # traversal, on the same tree.
@@ -650,6 +955,10 @@ def main() -> None:
     for dt, name, count in top[:6]:
         print(f"  {dt / 1e3:10.3f} ms  x{count}  {name[:90]}", flush=True)
 
+    rows10, dragon_runs = row_stack_phases(bctx, dctx, rays7, card)
+    del dctx, rays7
+    drow = rows10["dragon"]
+
     print(json.dumps({
         "kernels": [{
             "name": "megakernel_rgb",
@@ -687,6 +996,18 @@ def main() -> None:
             "bound_ms": trav["bound_ms"],
             "bound_by": trav["bound_by"],
             "library_ms": None,
+        }, {
+            "name": "bvh4_rowstack",
+            "route": "cuda",
+            "source": "izpi_tpu_torch/csrc/bvh4_rowstack.cu",
+            "replaces": "izpi_tpu/ops/bvh_rowkernel.py:126",
+            "launches": dragon_runs["bvh4_rowstack"]["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows10.values()),
+            "ms": drow["ms"],
+            "plain_ms": drow["plain_ms"],
+            "bound_ms": drow["bound_ms"],
+            "bound_by": drow["bound_by"],
+            "library_ms": None,
         }],
         "device_functions": [{
             "name": "threefry2x32",
@@ -706,10 +1027,14 @@ def main() -> None:
                                    "main path's slots)",
             "cipher_ms": f"12 uniforms x {n_keys} keys",
             "bvh4_traverse": f"{TRAVERSE_RAYS} rays (half camera, half "
-                             f"incoherent) on cornell_box_obj's tree"},
+                             f"incoherent) on cornell_box_obj's tree",
+            "bvh4_rowstack": f"{TRAVERSE_RAYS} rays on phase 7's recipe, "
+                             f"sorted, on the dragon scene's leaf-64 tree "
+                             f"(its main path's)"},
         "library_ms": "null: no PyTorch call computes a path tracer's render "
                       "loop or a BVH traversal",
         "bvh4_traverse_dragon": dtrav,
+        "bvh4_rowstack_phase10": rows10,
         "main_path": {"rays": res.rays_traced, "seconds": res.seconds,
                       "mrays_per_sec": res.mrays_per_sec},
         "spectral_main_path": {"rays": sres.rays_traced,
@@ -720,6 +1045,7 @@ def main() -> None:
                           "iterations": ores.iterations,
                           "kernel_share": kernel_s / ores.seconds,
                           "profiled_idle_share_16spp": 1 - busy / wall},
+        "dragon_main_path": dragon_runs,
         "card": card,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

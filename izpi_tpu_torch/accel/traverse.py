@@ -101,6 +101,7 @@ def closest_bvh(prims: prim.Prims, bvh: BVH4Device, o, d, time, t_min,
     int64."""
     n, dev = o.shape[0], o.device
     inv = inv_dir(d)
+    live = ~(torch.isnan(o).any(dim=1) | torch.isnan(d).any(dim=1))
     t_best = torch.full((n,), min(float(t_max), prim.T_MAX), dtype=o.dtype,
                         device=dev)
     idx_best = torch.full((n,), -1, dtype=torch.int64, device=dev)
@@ -118,7 +119,8 @@ def closest_bvh(prims: prim.Prims, bvh: BVH4Device, o, d, time, t_min,
                               t_best[rows])
         child = bvh.child[node].long()
         cnt = bvh.count[node].long()
-        hit = hit & (cnt != -1)
+        # A NaN ray visits no child (csrc/bvh4_traverse.cu).
+        hit = hit & (cnt != -1) & live[rows, None]
         visits[rows, 0] += 1
 
         # Leaves, in slot order, against the best t at the pop.

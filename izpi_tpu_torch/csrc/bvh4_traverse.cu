@@ -73,6 +73,11 @@ __global__ void __launch_bounds__(128)
   const float od[3] = {o.x, o.y, o.z};
   const float inv[3] = {1.0f / (d.x == 0.0f ? kInvEps : d.x), 1.0f / (d.y == 0.0f ? kInvEps : d.y),
                         1.0f / (d.z == 0.0f ? kInvEps : d.z)};
+  // A NaN in the ray visits no child, as in the TPU kernel, whose min/max
+  // carry the NaN into every slab test; fminf/fmaxf would drop it and walk
+  // the whole tree (such a ray hits no primitive either way).
+  const bool live = !(isnan(o.x) || isnan(o.y) || isnan(o.z) || isnan(d.x) || isnan(d.y) ||
+                      isnan(d.z));
 
   float t_best = t_max;
   int best = -1;
@@ -112,7 +117,7 @@ __global__ void __launch_bounds__(128)
         tf = fminf(tf, fmaxf(t0, t1));
       }
       key[s] = tn;
-      hit[s] = tf > tn && cnt[s] != -1;
+      hit[s] = live && tf > tn && cnt[s] != -1;
     }
 
     // Leaf children, in slot order: their contiguous primitives.

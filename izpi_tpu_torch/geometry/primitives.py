@@ -47,6 +47,7 @@ class Prims(NamedTuple):
     uv: torch.Tensor      # (P, 6) f32 — (u0,v0,u1,v1,u2,v2) for triangles
     vn: torch.Tensor      # (P, 9) f32 — per-vertex normals for triangles
     has_vn: torch.Tensor  # (P,) bool
+    tb: torch.Tensor      # (P, 6) f32 — tangent(3) + bitangent(3) for normal maps
 
     @property
     def count(self) -> int:

@@ -2,8 +2,10 @@
 
 Counterpart of `izpi_tpu/integrator/path.py`: `RenderSettings`,
 `make_brute_intersector` (:64), `bounce_rgb` (:405-541) and
-`bounce_spectral` (:544-682) without the media and PBR branches,
-`_dielectric_scatter` (:147) and `trace` (:685), the lockstep oracle. Each
+`bounce_spectral` (:544-682) without the media branch, `_dielectric_scatter`
+(:147), the PBR helpers `_eval_pbr_texs` (:264, its generic four-lookup
+path: images and their combined stack are not ported), `_pbr_normals`
+(:336) and `_pbr_lobes` (:384), and `trace` (:685), the lockstep oracle. Each
 takes the scene's intersector, `intersect(o, d, time, t_min, t_max) -> Hit`,
 as the JAX functions do: brute force (`make_brute_intersector`), the plain
 BVH4 traversal (`accel.traverse`) or the CUDA traversal kernel
@@ -16,7 +18,13 @@ Estimator identity with the reference (colour.go:44-57):
 A zero pdf divides into Inf/NaN that the caller's per-sample DeNAN zeroes,
 as the Go chain does (vec3.DeNAN at render/rgb.go:36). Quirks kept: the
 depth-cap sentinel {Z:1}, the book's 2·sqrt(r2) cosine factor, one-sided
-lights keyed on the record normal, unnormalized scattered directions.
+lights keyed on the record normal, unnormalized scattered directions, and
+PBR's double normal mapping (the triangle TBN map of triangle.go:234-248,
+then the ad-hoc tangent frame of pbr.go:65-91 again with z left
+unremapped), fresnel = 0.04+0.96(1-cosθ)^5 + 0.5·metalness with
+P(spec) = fresnel·(1-rough) (pbr.go:123-137), the cosine mixture PDF on the
+PBR-mapped normal but ScatteringPDF on the record normal (pbr.go:150,249),
+and the spectral specular lobe's ×1.5 albedo boost (pbr.go:253-259).
 """
 
 from __future__ import annotations
@@ -86,6 +94,97 @@ def _dielectric_scatter(o_dir, normal, ref_idx, u_reflect):
     return new_dir, is_reflected
 
 
+def _mean3(rgb):
+    return (rgb[..., 0] + rgb[..., 1] + rgb[..., 2]) / 3.0
+
+
+def _eval_pbr_texs(cs, meta, mat, rec):
+    """The four per-bounce material texture lookups (albedo, normal map,
+    roughness, metalness) in one evaluation over 4N ids, the JAX package's
+    generic path (path.py:284-291). Returns (albedo (N, 3), normal_rgb
+    (N, 3), rough (N,), metal (N,)), roughness and metalness mean3'd
+    (pbr.go:109-116)."""
+    n = rec.p.shape[0]
+    tids = torch.cat([mat["tex_albedo"], mat["tex_normal"], mat["tex_rough"],
+                      mat["tex_metal"]])
+    tex4 = tex_tables.eval_rgb(cs.textures, tids, rec.p.repeat(4, 1),
+                               has_checker=meta.has_checker).reshape(4, n, 3)
+    return tex4[0], tex4[1], _mean3(tex4[2]), _mean3(tex4[3])
+
+
+def _pbr_normals(cs, mat, rec, nm_rgb):
+    """The two normals PBR uses: rec_n, the record normal after the
+    triangle-TBN normal-map step of triangle.Hit (triangles only), and
+    pbr_n, rec_n pushed through the ad-hoc tangent frame again
+    (pbr.go:65-91; z is not remapped there). Returns (rec_n, pbr_n,
+    is_pbr)."""
+    is_pbr = mat["kind"] == mt.MAT_PBR
+    has_nm = mat["tex_normal"] >= 0
+
+    pidx = torch.clamp(rec.prim_idx, min=0)
+    prim_kind = cs.prims.kind[pidx]
+    tb = cs.prims.tb[pidx]
+    tangent = tb[:, 0:3]
+    bitangent = tb[:, 3:6]
+
+    # Triangle TBN map: all three components remapped (triangle.go:240-248).
+    t_n = 2.0 * nm_rgb - 1.0
+    mapped = vm.safe_normalize(tangent * t_n[:, 0:1] + bitangent * t_n[:, 1:2]
+                               + rec.normal * t_n[:, 2:3])
+    use_tbn = is_pbr & has_nm & (prim_kind == prim.KIND_TRIANGLE)
+    rec_n = torch.where(use_tbn[:, None], mapped, rec.normal)
+
+    # Ad-hoc frame (pbr.go:73-91): t = n×(0,1,0) (or n×(1,0,0) when
+    # degenerate), b = n×t; z component NOT remapped.
+    up = rec_n.new_tensor([0.0, 1.0, 0.0]).expand_as(rec_n)
+    right = rec_n.new_tensor([1.0, 0.0, 0.0]).expand_as(rec_n)
+    t_ad = vm.cross(rec_n, up)
+    degenerate = vm.dot(t_ad, t_ad) < 0.001
+    t_ad = torch.where(degenerate[:, None], vm.cross(rec_n, right), t_ad)
+    t_ad = vm.safe_normalize(t_ad)
+    b_ad = vm.safe_normalize(vm.cross(rec_n, t_ad))
+    t_n2 = torch.stack([2.0 * nm_rgb[:, 0] - 1.0, 2.0 * nm_rgb[:, 1] - 1.0,
+                        nm_rgb[:, 2]], dim=-1)
+    pbr_mapped = vm.safe_normalize(t_ad * t_n2[:, 0:1] + b_ad * t_n2[:, 1:2]
+                                   + rec_n * t_n2[:, 2:3])
+    pbr_n = torch.where((is_pbr & has_nm)[:, None], pbr_mapped, rec_n)
+    return rec_n, pbr_n, is_pbr
+
+
+def _pbr_lobes(mat, d, pbr_n, us, rough_val, metal_val):
+    """PBR's stochastic lobe choice (pbr.go:94-145) from the mean3'd
+    roughness and metalness of `_eval_pbr_texs`. Returns
+    (is_specular_choice, specular_dir)."""
+    rough = torch.where(mat["tex_rough"] >= 0, rough_val,
+                        torch.full_like(rough_val, 0.5))
+    metal = torch.where(mat["tex_metal"] >= 0, metal_val,
+                        torch.zeros_like(metal_val))
+
+    d_unit = vm.normalize(d)
+    cos_theta = torch.abs(vm.dot(d_unit, pbr_n))
+    fresnel = 0.04 + 0.96 * torch.pow(1.0 - cos_theta, 5.0) + metal * 0.5
+    p_spec = fresnel * (1.0 - rough)
+    choose_spec = us[:, 11] < p_spec
+
+    rf = torch.clamp(rough * 0.3, min=0.01)
+    rand_dir = sampling.random_in_unit_sphere(us[:, 0], us[:, 1], us[:, 2])
+    spec_dir = vm.normalize(vm.reflect(d_unit, pbr_n) + rf[:, None] * rand_dir)
+    return choose_spec, spec_dir
+
+
+def _pbr_axes(cs, mat, rec, d, us, nm_rgb, rough_val, metal_val):
+    """The PBR pieces both bounces share: (cosine-lobe axis, ScatteringPDF
+    axis, diffuse-like mask, specular-choice mask, specular direction). The
+    lobe axis is the PBR-mapped normal, the ScatteringPDF axis the record
+    normal after the triangle TBN map (pbr.go:150,249)."""
+    rec_n, pbr_n, is_pbr = _pbr_normals(cs, mat, rec, nm_rgb)
+    choose_spec, d_spec = _pbr_lobes(mat, d, pbr_n, us, rough_val, metal_val)
+    cos_axis = torch.where(is_pbr[:, None], pbr_n, rec.normal)
+    spdf_axis = torch.where(is_pbr[:, None], rec_n, rec.normal)
+    diffuse_like = (mat["kind"] == mt.MAT_LAMBERT) | is_pbr
+    return cos_axis, spdf_axis, diffuse_like, is_pbr & choose_spec, d_spec
+
+
 def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
                rad, active):
     """Advance every live RGB path one bounce (per-ray depth (N,)).
@@ -105,8 +204,12 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
 
     mat = _gather_mat(cs, rec.mat_id)
     kind = mat["kind"]
-    albedo = tex_tables.eval_rgb(cs.textures, mat["tex_albedo"], rec.p,
-                                 has_checker=meta.has_checker)
+    if meta.has_pbr:
+        albedo, nm_rgb, rough_val, metal_val = _eval_pbr_texs(cs, meta, mat,
+                                                              rec)
+    else:
+        albedo = tex_tables.eval_rgb(cs.textures, mat["tex_albedo"], rec.p,
+                                     has_checker=meta.has_checker)
     facing = vm.dot(rec.normal, d) < 0.0
     is_light = kind == mt.MAT_DIFFUSE_LIGHT
     emitted = torch.where((is_light & facing)[:, None], albedo, zero)
@@ -144,19 +247,31 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
         absorbed = torch.exp(-mat["absorption"] * path_len[:, None])
         diel_att = torch.where(apply[:, None], absorbed, diel_att)
 
+    # ---- PBR: only in scenes that hold it ----
+    if meta.has_pbr:
+        cos_axis, spdf_axis, diffuse_like, is_pbr_spec, d_pbr_spec = _pbr_axes(
+            cs, mat, rec, d, us, nm_rgb, rough_val, metal_val)
+    else:
+        cos_axis = spdf_axis = rec.normal
+        diffuse_like = kind == mt.MAT_LAMBERT
+
     # ---- diffuse: mixture of light PDF and cosine PDF (colour.go:48-57) ----
     choose_light = us[:, 4] < 0.5  # mixture.go:27
     d_light = lights_mod.sample(cs.lights, rec.p, us[:, 5:9])
-    d_cos = sampling.cosine_pdf_generate(rec.normal, us[:, 9], us[:, 10],
+    d_cos = sampling.cosine_pdf_generate(cos_axis, us[:, 9], us[:, 10],
                                          settings.exact_book_cosine)
     d_diff = torch.where(choose_light[:, None], d_light, d_cos)
     pdf_val = (0.5 * lights_mod.pdf_value(cs.lights, rec.p, d_diff)
-               + 0.5 * sampling.cosine_pdf_value(rec.normal, d_diff))
+               + 0.5 * sampling.cosine_pdf_value(cos_axis, d_diff))
 
-    cos_out = vm.dot(rec.normal, vm.normalize(d_diff))
+    cos_out = vm.dot(spdf_axis, vm.normalize(d_diff))
     spdf_cos = torch.clamp(cos_out, min=0.0) / math.pi
-    spdf = torch.where(kind == mt.MAT_LAMBERT, spdf_cos, zero)
+    spdf = torch.where(diffuse_like, spdf_cos, zero)
     diff_mult = albedo * (spdf / pdf_val)[:, None]
+    if meta.has_pbr:
+        # The PBR specular lobe scatters with the albedo as its weight.
+        d_diff = torch.where(is_pbr_spec[:, None], d_pbr_spec, d_diff)
+        diff_mult = torch.where(is_pbr_spec[:, None], albedo, diff_mult)
 
     # ---- combine ----
     d_new = torch.where(is_metal[:, None], d_metal,
@@ -197,8 +312,11 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
 
     mat = _gather_mat(cs, rec.mat_id)
     kind = mat["kind"]
-    rgb = tex_tables.eval_rgb(cs.textures, mat["tex_albedo"], rec.p,
-                              has_checker=meta.has_checker)
+    if meta.has_pbr:
+        rgb, nm_rgb, rough_val, metal_val = _eval_pbr_texs(cs, meta, mat, rec)
+    else:
+        rgb = tex_tables.eval_rgb(cs.textures, mat["tex_albedo"], rec.p,
+                                  has_checker=meta.has_checker)
     luma = spectral_eval.luminance(rgb)
     spec_a = spectral_eval.spectral_value(
         cs.spd_table, mat["spec_albedo_id"], mat["spec_albedo_gauss"], lam,
@@ -250,20 +368,31 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
             cs.spd_table, torch.clamp(mat["spec_absorb_id"], min=0), lam)
         diel_att = torch.where(apply, torch.exp(-alpha * path_len), diel_att)
 
+    if meta.has_pbr:
+        cos_axis, spdf_axis, diffuse_like, is_pbr_spec, d_pbr_spec = _pbr_axes(
+            cs, mat, rec, d, us, nm_rgb, rough_val, metal_val)
+    else:
+        cos_axis = spdf_axis = rec.normal
+        diffuse_like = kind == mt.MAT_LAMBERT
+
     # Diffuse: the NEE mixture at λ (spectral.go:61-76).
     choose_light = us[:, 4] < 0.5
     d_light = lights_mod.sample(cs.lights, rec.p, us[:, 5:9])
-    d_cos = sampling.cosine_pdf_generate(rec.normal, us[:, 9], us[:, 10],
+    d_cos = sampling.cosine_pdf_generate(cos_axis, us[:, 9], us[:, 10],
                                          settings.exact_book_cosine)
     d_diff = torch.where(choose_light[:, None], d_light, d_cos)
     pdf_val = (0.5 * lights_mod.pdf_value(cs.lights, rec.p, d_diff)
-               + 0.5 * sampling.cosine_pdf_value(rec.normal, d_diff))
-    cos_out = vm.dot(rec.normal, vm.normalize(d_diff))
+               + 0.5 * sampling.cosine_pdf_value(cos_axis, d_diff))
+    cos_out = vm.dot(spdf_axis, vm.normalize(d_diff))
     spdf_cos = torch.clamp(cos_out, min=0.0) / math.pi
-    spdf = torch.where(kind == mt.MAT_LAMBERT, spdf_cos, zero)
+    spdf = torch.where(diffuse_like, spdf_cos, zero)
     # A zero pdf divides to NaN in the reference's spectral sampler, which
     # has no per-sample DeNAN; the JAX package zeroes the weight instead.
     diff_mult = spec_val * torch.where(pdf_val > 0.0, spdf / pdf_val, zero)
+    if meta.has_pbr:
+        # Spectral PBR specular gets the ×1.5 albedo boost (pbr.go:253-259).
+        d_diff = torch.where(is_pbr_spec[:, None], d_pbr_spec, d_diff)
+        diff_mult = torch.where(is_pbr_spec, spec_val * 1.5, diff_mult)
 
     d_new = torch.where(is_diel[:, None], d_diel, d_diff)
     mult = torch.where(is_diel, diel_att, diff_mult)

@@ -5,8 +5,9 @@ parameter table; the integrator gathers a ray's row and evaluates every lobe
 with tagged selects (`izpi_tpu_torch.integrator.path`).
 
 Kinds: 0 LAMBERT, 1 METAL, 2 DIELECTRIC, 3 DIFFUSE_LIGHT, 4 ISOTROPIC, 5 PBR.
-The port compiles kinds 0-3, each with its spectral columns; isotropic
-(media) and PBR come with a later slice (ROADMAP A11).
+The port compiles kinds 0-3 and 5 (PBR with constant and checker texture
+slots), each with its spectral columns; isotropic (media) comes with a
+later slice (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -30,6 +31,12 @@ class Materials(NamedTuple):
     ref_idx: torch.Tensor         # (M,) f32 dielectric η (dielectric.go:33)
     absorption: torch.Tensor      # (M, 3) f32 Beer–Lambert α (dielectric.go:48)
     has_absorption: torch.Tensor  # (M,) bool
+    # PBR texture slots (pbr.go:20-31); -1 = absent.
+    tex_rough: torch.Tensor       # (M,) int32
+    tex_metal: torch.Tensor       # (M,) int32
+    tex_normal: torch.Tensor      # (M,) int32
+    tex_sss: torch.Tensor         # (M,) int32
+    sss_radius: torch.Tensor      # (M,) f32
     # Spectral columns (-1 = absent): rows of the scene's SPD table, or
     # Gaussian parameters.
     spec_albedo_id: torch.Tensor      # (M,) int32 albedo/emission SPD id
@@ -43,6 +50,9 @@ class Materials(NamedTuple):
     # RGB→spectral uplift of the albedo texture; the compiler raises on it
     # until ROADMAP A11, so the column is all False.
     spec_albedo_uplift: torch.Tensor  # (M,) bool
+    # Row of the combined image-map stack (-1 = none). Images are not ported,
+    # so every row is -1 and PBR takes the generic texture lookups.
+    combo_id: torch.Tensor            # (M,) int32
 
     @property
     def count(self) -> int:

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
-SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu")
+SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
+           "bvh4_rowstack.cu")
 HEADERS = ("threefry.cuh", "common.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -62,6 +63,13 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,       # o, d, time
         _c_int, _c_float, _c_float,            # n, t_min, t_max
         _c_void_p, _c_void_p, _c_void_p,       # t, idx, counts (or null)
+        _c_void_p,                             # stream
+    ],
+    "izpi_bvh4_rowstack": [
+        _c_void_p, _c_void_p,                  # nodes, blocks
+        _c_void_p, _c_void_p, _c_void_p,       # o, d, time
+        _c_int, _c_float, _c_float,            # n, t_min, t_max
+        _c_void_p, _c_void_p, _c_void_p,       # t, idx, counters (or null)
         _c_void_p,                             # stream
     ],
 }

@@ -42,6 +42,23 @@ def event_ms(events) -> float:
     return sum(start.elapsed_time(end) for start, end in events)
 
 
+def cuda_ms(fn, reps: int, warm_up: bool = True):
+    """(the last run's output, mean milliseconds of fn() on the card over
+    reps runs between two CUDA events), after one untimed run when
+    warm_up."""
+    if warm_up:
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
 def device_profile(fn):
     """Run fn() under torch.profiler. Returns (wall seconds, device-busy
     seconds, rows): busy is the sum of the CUDA kernels' and copies' self

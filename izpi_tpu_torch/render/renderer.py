@@ -25,7 +25,12 @@ The intersector is picked once per `RenderContext` (`prepare`,
 renderer.py:128-169): a scene of more than BVH_THRESHOLD primitives (or
 `use_bvh=True`) gets a BVH4 over reordered primitives, traversed by the
 CUDA kernel (`ops.bvh_kernel`) on the card and by its plain version
-(`accel.traverse`) on the CPU; any other scene brute force. Nothing falls
+(`accel.traverse`) on the CPU; any other scene brute force. The row-stack
+traversal (`ops.bvh_rowkernel`) is never picked here: a caller selects it
+by putting the pair `bvh_rowkernel.attach(context.cs)` returns into the
+`cs` and `intersect` of a context built with `use_bvh=False`, as with the
+JAX package's `RenderContext`, or by handing the pair to
+`wavefront.trace_pool`. Nothing falls
 back to another mode, intersector or device: a failed build or launch
 raises. Entry points run on the card ("cuda") unless the caller asks for
 the CPU.

@@ -3,13 +3,16 @@
 Counterpart of `izpi_tpu/scene/compiler.py` for the slices ported so far:
 rects, boxes, spheres (moving ones included), triangles and triangle meshes,
 the FlipNormals / Translate / RotateY wrappers baked into geometry by
-`_Transform`, the Lambertian / Metal / Dielectric (with absorption) /
-DiffuseLight materials with constant and checker textures and their
-spectral columns (tabulated, neutral and Gaussian spectra, the spectral
-checker, η(λ), spectral absorption), the scene's SPD table, the spectral
-background and the light list. `_Builder` emits numpy float64, converted
-once to float32 tensors on the given device, the same f64 → f32 path as
-`compiler.py:646-663`, so both packages hold equal tables.
+`_Transform` (triangles carry their UV tangent frame, `Prims.tb`), the
+Lambertian / Metal / Dielectric (with absorption) / DiffuseLight / PBR
+materials with constant and checker textures and their spectral columns
+(tabulated, neutral and Gaussian spectra, the spectral checker, η(λ),
+spectral absorption), the scene's SPD table, the spectral background and
+the light list. Images are not ported, so there is no combined image-map
+stack: every `combo_id` is -1 and PBR takes the generic texture lookups.
+`_Builder` emits numpy float64, converted once to float32 tensors on the
+given device, the same f64 → f32 path as `compiler.py:646-663`, so both
+packages hold equal tables.
 
 Anything else raises NotImplementedError naming the ROADMAP item that ports
 it. `from_jax_arrays` takes the JAX package's compiled tables (as numpy) so
@@ -33,7 +36,7 @@ from izpi_tpu_torch.scene import types as st
 from izpi_tpu_torch.spectral import spd as spd_mod
 from izpi_tpu_torch.texture import tables as tex_tables
 
-_MEDIA_PBR = "ROADMAP A11 (media, PBR, images, noise, uplift and IBL)"
+_MEDIA_PBR = "ROADMAP A11 (media, images, noise, uplift and IBL)"
 
 
 class CompiledScene(NamedTuple):
@@ -54,7 +57,7 @@ class CompiledScene(NamedTuple):
 @dataclasses.dataclass
 class SceneMeta:
     """Static facts about the compiled scene. The port compiles no media,
-    PBR, image or noise content yet; the fields stay so that the kernels'
+    image or noise content yet; the fields stay so that the kernels'
     `eligible` read the JAX package's rules unchanged."""
 
     n_prims: int
@@ -124,7 +127,9 @@ class _Builder:
         self._tex_cache: Dict[int, int] = {}
         self.mat_rows: List[dict] = []
         self._mat_cache: Dict[int, int] = {}
-        self.prim_rows: List[dict] = []
+        # Primitive blocks: one dict of (k, ...) arrays per push, one row for
+        # a single primitive and T rows for a mesh (compiler.py:326-336).
+        self.prim_blocks: List[dict] = []
         self.light_rows: List[dict] = []
         self.spds: List[np.ndarray] = [
             np.zeros(spd_mod.DEVICE_GRID_N, np.float32)]
@@ -200,7 +205,9 @@ class _Builder:
             return self._mat_cache[key]
         row = dict(kind=mat_tables.MAT_LAMBERT, tex_albedo=-1, fuzz=0.0,
                    ref_idx=1.5, absorption=np.zeros(3), has_absorption=False,
-                   spec_albedo_id=-1, spec_albedo_gauss=np.zeros(3),
+                   tex_rough=-1, tex_metal=-1, tex_normal=-1, tex_sss=-1,
+                   sss_radius=0.0, combo_id=-1, spec_albedo_id=-1,
+                   spec_albedo_gauss=np.zeros(3),
                    spec_ref_idx_id=-1, spec_absorb_id=-1, spec_checker=False,
                    spec_albedo_id2=-1, spec_albedo_gauss2=np.zeros(3),
                    spec_albedo_uplift=False)
@@ -231,7 +238,18 @@ class _Builder:
             if m.emit is not None:
                 row["tex_albedo"] = self._add_texture(m.emit)
             self._fill_spectral_albedo(row, m.spectral_emit)
-        elif isinstance(m, (st.Isotropic, st.PBR)):
+        elif isinstance(m, st.PBR):
+            row["kind"] = mat_tables.MAT_PBR
+            for slot, tex in (("tex_albedo", m.albedo),
+                              ("tex_rough", m.roughness),
+                              ("tex_metal", m.metalness),
+                              ("tex_normal", m.normal_map),
+                              ("tex_sss", m.sss)):
+                if tex is not None:
+                    row[slot] = self._add_texture(tex)
+            row["sss_radius"] = float(m.sss_radius)
+            self._fill_spectral_albedo(row, m.spectral_albedo)
+        elif isinstance(m, st.Isotropic):
             raise NotImplementedError(
                 f"{type(m).__name__} is not ported yet: {_MEDIA_PBR}")
         else:
@@ -241,14 +259,18 @@ class _Builder:
         return self._mat_cache[key]
 
     def _push_prim(self, kind, g0, g1, g2, g3, mat_id, flip, uv=None, vn=None,
-                   has_vn=False):
-        self.prim_rows.append(dict(
-            kind=kind, g0=np.asarray(g0, np.float64),
-            g1=np.asarray(g1, np.float64), g2=np.asarray(g2, np.float64),
-            g3=np.asarray(g3, np.float64), mat_id=mat_id, flip=bool(flip),
-            uv=np.zeros(6) if uv is None else np.asarray(uv, np.float64),
-            vn=np.zeros(9) if vn is None else np.asarray(vn, np.float64),
-            has_vn=bool(has_vn)))
+                   has_vn=False, tb=None):
+        self.prim_blocks.append(dict(
+            kind=np.array([kind], np.int32),
+            g0=np.asarray(g0, np.float64)[None],
+            g1=np.asarray(g1, np.float64)[None],
+            g2=np.asarray(g2, np.float64)[None],
+            g3=np.asarray(g3, np.float64)[None],
+            mat_id=np.array([mat_id], np.int32), flip=np.array([bool(flip)]),
+            uv=(np.zeros(6) if uv is None else np.asarray(uv, np.float64))[None],
+            vn=(np.zeros(9) if vn is None else np.asarray(vn, np.float64))[None],
+            has_vn=np.array([bool(has_vn)]),
+            tb=(np.zeros(6) if tb is None else np.asarray(tb, np.float64))[None]))
 
     def add_rect(self, p0, e1, e2, normal, mat_id, xf: _Transform):
         self._push_prim(prim.KIND_RECT, xf.point(p0), xf.vector(e1),
@@ -264,8 +286,24 @@ class _Builder:
         if has_vn:
             vn = np.concatenate([xf.vector(vn[0:3]), xf.vector(vn[3:6]),
                                  xf.vector(vn[6:9])])
+        # Tangent/bitangent from UV deltas (triangle.go:75-98), as
+        # compiler.py:362-376 computes them.
+        du1, dv1 = uv[2] - uv[0], uv[3] - uv[1]
+        du2, dv2 = uv[4] - uv[0], uv[5] - uv[1]
+        denom = du1 * dv2 - du2 * dv1
+        if denom != 0.0:
+            f = 1.0 / denom
+            tangent = f * (dv2 * e1 - dv1 * e2)
+            bitangent = f * (-du2 * e1 + du1 * e2)
+            tl = np.linalg.norm(tangent)
+            bl = np.linalg.norm(bitangent)
+            tangent = tangent / tl if tl > 0 else tangent
+            bitangent = bitangent / bl if bl > 0 else bitangent
+            tb = np.concatenate([tangent, bitangent])
+        else:
+            tb = np.zeros(6)
         self._push_prim(prim.KIND_TRIANGLE, v0w, e1, e2, n, mat_id, xf.flip,
-                        uv=uv, vn=vn, has_vn=has_vn)
+                        uv=uv, vn=vn, has_vn=has_vn, tb=tb)
 
     def add_triangle_mesh(self, vertices, uvs, normals, mat_id,
                           xf: _Transform):
@@ -284,10 +322,26 @@ class _Builder:
         has_vn = normals is not None
         vn = ((np.asarray(normals, np.float64) @ xf.rot.T).reshape(t, 9)
               if has_vn else np.zeros((t, 9)))
-        for i in range(t):
-            self._push_prim(prim.KIND_TRIANGLE, v0[i], e1[i], e2[i], n[i],
-                            mat_id, xf.flip, uv=uv[i], vn=vn[i],
-                            has_vn=has_vn)
+        # The UV tangent frame over the whole array (compiler.py:400-413).
+        du1, dv1 = uv[:, 2] - uv[:, 0], uv[:, 3] - uv[:, 1]
+        du2, dv2 = uv[:, 4] - uv[:, 0], uv[:, 5] - uv[:, 1]
+        denom = du1 * dv2 - du2 * dv1
+        f = np.where(denom != 0.0, 1.0 / np.where(denom != 0.0, denom, 1.0),
+                     0.0)[:, None]
+        tangent = f * (dv2[:, None] * e1 - dv1[:, None] * e2)
+        bitangent = f * (-du2[:, None] * e1 + du1[:, None] * e2)
+
+        def _norm(x):
+            ln = np.linalg.norm(x, axis=1, keepdims=True)
+            return np.where(ln > 0, x / np.where(ln > 0, ln, 1.0), x)
+
+        tb = np.concatenate([_norm(tangent), _norm(bitangent)], axis=1)
+        tb = np.where((denom != 0.0)[:, None], tb, 0.0)
+        self.prim_blocks.append(dict(
+            kind=np.full(t, prim.KIND_TRIANGLE, np.int32), g0=v0, g1=e1,
+            g2=e2, g3=n, mat_id=np.full(t, mat_id, np.int32),
+            flip=np.full(t, bool(xf.flip)), uv=uv, vn=vn,
+            has_vn=np.full(t, has_vn), tb=tb))
 
     def add_sphere(self, c0, c1, t0, t1, radius, mat_id, xf: _Transform):
         self._push_prim(prim.KIND_SPHERE, xf.point(c0), xf.point(c1),
@@ -404,9 +458,9 @@ def _compile_light(b: _Builder, h):
 
 def _tables(b: _Builder, scene: st.Scene) -> Dict[str, np.ndarray]:
     """`_Builder` rows as named numpy leaves (f64 for float fields)."""
-    out = {}
+    out = {f"prims.{f}": np.concatenate([blk[f] for blk in b.prim_blocks])
+           for f in prim.Prims._fields}
     for group, rows, fields in (
-            ("prims", b.prim_rows, prim.Prims._fields),
             ("materials", b.mat_rows, mat_tables.Materials._fields),
             ("lights", b.light_rows, lights_mod.Lights._fields)):
         for f in fields:
@@ -475,10 +529,18 @@ def compile_scene(scene: st.Scene, device) -> Tuple[CompiledScene, SceneMeta]:
     if not b.light_rows:
         # Keep shapes non-empty; a null member yields pdf 0 everywhere.
         b.add_light(lights_mod.LIGHT_NULL)
-    if not b.prim_rows:
+    if not b.prim_blocks:
         raise ValueError("scene has no primitives")
     if not b.tex_rows:
         b._add_texture(st.ConstantTexture((0.0, 0.0, 0.0)))
+    if scene.spectral and any(
+            r["kind"] == mat_tables.MAT_PBR and r["spec_albedo_id"] < 0
+            and r["spec_albedo_gauss"][2] <= 0 for r in b.mat_rows):
+        # compiler.py:784-790 uplifts such an RGB albedo automatically.
+        raise NotImplementedError(
+            f"a PBR material without a spectral albedo in a spectral scene "
+            f"needs the RGB-to-spectral uplift, which is not ported yet: "
+            f"{_MEDIA_PBR}")
     # The background SPD is the last row, as in compiler.py:819-821.
     bg_id = (None if scene.spectral_background is None
              else b.add_spd(scene.spectral_background))

@@ -1,32 +1,40 @@
 #!/usr/bin/env python3
 """Repeat measurement of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 measure_port.py [--scene cornell|pyramid|obj] [--size N] [--spp S]
-                            [--runs 7] [--seeds 0 1]
+    python3 measure_port.py [--scene cornell|pyramid|obj|dragon] [--row]
+                            [--size N] [--spp S] [--runs 7] [--seeds 0 1]
     python3 measure_port.py --policy [--size 64] [--spp 4] [--runs 2]
     python3 measure_port.py --build [--runs 2]
 
-Renders one main path of chip_smoke.py, `max_depth=50`, on one warm
-`RenderContext`, after one warm-up render: Cornell 256×256 at 1024 spp
-through the RGB megakernel (`--scene cornell`, the default), the spectral
-Cornell pyramid 500×500 at 256 spp through the spectral megakernel
-(`--scene pyramid`), or `cornell_box_obj` 256×256 at 128 spp through the
-queue pool and the BVH4 traversal kernel (`--scene obj`); `--size` and
-`--spp` change the frame and the samples per pixel. It prints:
+Renders one main path of chip_smoke.py on one warm `RenderContext`, after
+one warm-up render: Cornell 256×256 at 1024 spp, `max_depth=50`, through
+the RGB megakernel (`--scene cornell`, the default), the spectral Cornell
+pyramid 500×500 at 256 spp, depth 50, through the spectral megakernel
+(`--scene pyramid`), `cornell_box_obj` 256×256 at 128 spp, depth 50,
+through the queue pool and the BVH4 traversal kernel (`--scene obj`), or
+the PBR dragon (`cornell_box_pbr_stanford_dragon_spectral()`, the
+871,200-triangle stand-in) 256×256 at 8 spp, depth 16, through the
+spectral queue pool (`--scene dragon`, bench.py's `dragon`). A pool scene
+takes the BVH4 traversal kernel, or with `--row` the row-stack traversal
+kernel: the pair of `ops.bvh_rowkernel.attach` in a context built with
+`use_bvh=False`. `--size` and `--spp` change the frame and the samples per
+pixel. It prints:
   - the card's name, power limit, SM clock, power draw and temperature
     (nvidia-smi) before and after;
   - per seed, the Mrays/s of each timed `render()` (host clock around the
     call) with their median and quartiles, and the median seconds (and
-    the pool iterations of `--scene obj`);
+    the pool iterations of a pool scene);
   - the CUDA-event milliseconds of the kernel's wrapper alone: for a
     megakernel, `render_slots` or `render_slots_spectral` (kernel plus the
-    replica and ray-count sums) called on its own; for `--scene obj`, the
-    traversal kernel's `bvh_kernel.closest_hit` summed over the launches of
-    one `render()`; and its share of the median `render()` seconds;
+    replica and ray-count sums) called on its own; for a pool scene, the
+    traversal kernel's wrapper (`bvh_kernel.closest_hit` or
+    `bvh_rowkernel.closest_hit_rows`) summed over the launches of one
+    `render()`, whose count must equal the pool iterations; and its share
+    of the median `render()` seconds;
   - one `render()` under `torch.profiler`: wall seconds, device-busy
     seconds (the sum of the CUDA kernels' and copies' self device time),
     the device's idle share of the wall time, the count of device events
-    (per pool iteration for `--scene obj`), and the largest device ops.
+    (per pool iteration for a pool scene), and the largest device ops.
 
 `--policy` measures the intersector choice of `RenderContext` (brute force
 below `renderer.BVH_THRESHOLD` primitives, the BVH above): the Cornell box
@@ -59,21 +67,25 @@ from izpi_tpu_torch import profiling
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import procedural
 from izpi_tpu_torch.integrator import path
-from izpi_tpu_torch.ops import _build, bvh_kernel, megakernel, megakernel_spectral
+from izpi_tpu_torch.ops import (_build, bvh_kernel, bvh_rowkernel, megakernel,
+                                megakernel_spectral)
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene import types as scene_types
 from izpi_tpu_torch.scene.library.cornell import cornell_box
 from izpi_tpu_torch.scene.library.cornell_spectral import (
     cornell_box_pyramid_spectral)
+from izpi_tpu_torch.scene.library.extracted import (
+    cornell_box_pbr_stanford_dragon_spectral)
 from izpi_tpu_torch.scene.library.misc import cornell_box_obj
 
-# scene -> (constructor, nx = ny, spp, the megakernel wrapper it runs, or
-# None for the queue pool and its traversal kernel)
+# scene -> (constructor, nx = ny, spp, max_depth, the megakernel wrapper it
+# runs, or None for the queue pool and its traversal kernel)
 SCENES = {
-    "cornell": (cornell_box, 256, 1024, megakernel.render_slots),
-    "pyramid": (cornell_box_pyramid_spectral, 500, 256,
+    "cornell": (cornell_box, 256, 1024, 50, megakernel.render_slots),
+    "pyramid": (cornell_box_pyramid_spectral, 500, 256, 50,
                 megakernel_spectral.render_slots_spectral),
-    "obj": (cornell_box_obj, 256, 128, None),
+    "obj": (cornell_box_obj, 256, 128, 50, None),
+    "dragon": (cornell_box_pbr_stanford_dragon_spectral, 256, 8, 16, None),
 }
 POLICY_TRIS = (100, 500, 2000, 20_000)
 
@@ -155,6 +167,8 @@ def build_times(runs: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", choices=sorted(SCENES), default="cornell")
+    ap.add_argument("--row", action="store_true",
+                    help="a pool scene through the row-stack traversal kernel")
     ap.add_argument("--size", type=int, help="frame width and height")
     ap.add_argument("--spp", type=int, help="samples per pixel")
     ap.add_argument("--runs", type=int, help="timed renders per seed "
@@ -179,13 +193,25 @@ def main() -> None:
         return
 
     runs = args.runs or 7
-    make_scene, n, spp, slots = SCENES[args.scene]
+    make_scene, n, spp, depth, slots = SCENES[args.scene]
+    if args.row and slots is not None:
+        raise SystemExit("measure_port: --row needs a pool scene (obj, dragon)")
     n, spp = args.size or n, args.spp or spp
-    print(f"scene {args.scene}: {n}x{n}@{spp} depth 50", flush=True)
+    print(f"scene {args.scene}: {n}x{n}@{spp} depth {depth}"
+          f"{' through the row-stack kernel' if args.row else ''}", flush=True)
     print(f"smi before: {smi()}", flush=True)
-    settings = path.RenderSettings(max_depth=50)
-    ctx = renderer.RenderContext(make_scene(), device="cuda")
-    print(f"scene compile: {ctx.build_seconds:.4f} s", flush=True)
+    settings = path.RenderSettings(max_depth=depth)
+    ctx = renderer.RenderContext(make_scene(), use_bvh=False if args.row else None,
+                                 device="cuda")
+    print(f"scene compile and BVH build: {ctx.build_seconds:.4f} s", flush=True)
+    if args.row:
+        t0 = time.perf_counter()
+        ctx.cs, ctx.intersect = bvh_rowkernel.attach(ctx.cs)
+        torch.cuda.synchronize()
+        print(f"row-stack attach (leaf-64 tree and tables): "
+              f"{time.perf_counter() - t0:.4f} s, "
+              f"{ctx.intersect.rs.nodes.shape[0]} nodes, "
+              f"{ctx.intersect.rs.blocks.shape[0]} blocks", flush=True)
     renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
                     context=ctx, device="cuda")
     median_s = None
@@ -206,26 +232,28 @@ def main() -> None:
     print(f"smi after: {smi()}", flush=True)
 
     if slots is None:
-        with profiling.event_timed(bvh_kernel, "closest_hit") as events:
-            renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
-                            context=ctx, device="cuda")
+        module, fn = ((bvh_rowkernel, "closest_hit_rows") if args.row
+                      else (bvh_kernel, "closest_hit"))
+        before = module.launches
+        with profiling.event_timed(module, fn) as events:
+            timed = renderer.render(None, n, n, spp, settings,
+                                    seed=args.seeds[0], context=ctx,
+                                    device="cuda")
         ms, calls = profiling.event_ms(events), len(events)
-        print(f"bvh_kernel.closest_hit (CUDA events): {ms:.3f} ms over {calls} "
-              f"launches in one render(), {ms / 1e3 / median_s:.2%} of the "
-              f"median render() seconds of seed {args.seeds[0]}", flush=True)
+        if module.launches - before != timed.iterations:
+            raise SystemExit(f"measure_port: {module.launches - before} "
+                             f"launches in {timed.iterations} iterations")
+        print(f"{module.__name__.rsplit('.', 1)[1]}.{fn} (CUDA events): "
+              f"{ms:.3f} ms over {calls} launches in one render() of "
+              f"{timed.iterations} pool iterations, {ms / calls:.4f} ms per "
+              f"launch, {ms / 1e3 / median_s:.2%} of the median render() "
+              f"seconds of seed {args.seeds[0]}", flush=True)
     else:
         key = rng.render_key(args.seeds[0], device="cuda")
         tables = ctx.tables()
-        reps = 5
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            slots(ctx.cs, ctx.meta, settings, n, n, spp, key, tables=tables)
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / reps
+        _, ms = profiling.cuda_ms(lambda: slots(
+            ctx.cs, ctx.meta, settings, n, n, spp, key, tables=tables), 5,
+            warm_up=False)
         print(f"{slots.__name__} (CUDA events): {ms:.3f} ms per call, "
               f"{ms / 1e3 / median_s:.2%} of the median render() seconds of "
               f"seed {args.seeds[0]}", flush=True)

@@ -245,6 +245,36 @@ def test_plain_traversal_equals_brute(compiled, rays):
     assert ties.sum() <= 2  # only exact-t ties may pick another primitive
 
 
+
+def test_nan_ray_visits_no_child(compiled):
+    """A ray with a NaN in its origin or direction pops the root, visits
+    no child and misses, as JAX's traversal does (its min/max carry the NaN
+    into every slab test); the other rays of the batch answer as alone."""
+    name, jcs, tcs = compiled
+    cs2, inter = tbvh_kernel.attach(tcs)
+    o, d, tme = _random_rays(64, 17, -6.0, 6.0)
+    o[5, 1] = np.nan
+    d[9, 0] = np.nan
+    d[11] = np.nan
+    o, d, tme = _t(o), _t(d), _t(tme)
+    t, idx, counts = ttraverse.closest_bvh(cs2.prims, inter.ks.tree, o, d, tme,
+                                           1e-3, tprim.T_MAX, counts=True)
+    nan = torch.zeros(64, dtype=torch.bool)
+    nan[[5, 9, 11]] = True
+    assert (idx[nan] == -1).all() and (t[nan] == tprim.T_MAX).all()
+    assert (counts[nan] == torch.tensor([1, 0])).all()
+    t1, i1, c1 = ttraverse.closest_bvh(cs2.prims, inter.ks.tree, o[~nan],
+                                       d[~nan], tme[~nan], 1e-3, tprim.T_MAX,
+                                       counts=True)
+    assert torch.equal(t1, t[~nan]) and torch.equal(i1, idx[~nan])
+    assert torch.equal(c1, counts[~nan]) and (c1[:, 0] >= 1).all()
+    arrays = jbvh.build_bvh4(jcs.prims, 1)
+    jprims = jtraverse.reorder_prims(jcs.prims, arrays.prim_order)
+    want = jtraverse.intersect_bvh(jprims, jtraverse.upload(arrays),
+                                   *(jnp.asarray(x.numpy()) for x in (o, d, tme)),
+                                   1e-3, jprim.T_MAX)
+    assert not np.asarray(want.hit)[nan.numpy()].any()
+
 def test_plain_traversal_equals_pallas_kernel():
     """A 2k-triangle blob, 256 rays: the port's hits, mapped to original
     primitive ids, against the Pallas kernel in interpret mode on its own

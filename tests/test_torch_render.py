@@ -78,7 +78,9 @@ def test_port_imports_no_jax():
                  "ops.megakernel_spectral", "scene.library.cornell_spectral",
                  "accel.bvh_build", "accel.native", "accel.traverse",
                  "ops.bvh_kernel", "geometry.procedural",
-                 "scene.library.misc"):
+                 "scene.library.misc", "ops.bvh_rowkernel", "scene.pbtxt",
+                 "scene.library.extracted", "materials.presets",
+                 "spectral.lightsources", "geometry.displacement"):
         assert f"izpi_tpu_torch.{name}" in loaded, name
 
 

@@ -119,9 +119,12 @@ def _unsupported():
             albedo=tst.NoiseTexture(4.0))),
         "medium": tst.ConstantMedium(box, 0.01, tst.Isotropic(
             albedo=tst.ConstantTexture((1, 1, 1)))),
-        # A mesh of PBR material (the dragon's porcelain).
-        "mesh": tst.TriangleMesh(np.eye(3)[None], tst.PBR()),
-        "pbr": tst.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1, tst.PBR()),
+        # PBR compiles with constant and checker slots (the dragon's
+        # porcelain); an image or noise map in a slot does not yet.
+        "mesh": tst.TriangleMesh(np.eye(3)[None], tst.PBR(
+            roughness=tst.NoiseTexture(2.0))),
+        "pbr": tst.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1, tst.PBR(
+            normal_map=tst.ImageTexture(np.zeros((2, 2, 3), np.float32)))),
         # RGB-to-spectral uplift of an image.
         "spectral_albedo": tst.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1,
                                       tst.Lambertian(spectral_albedo=(
@@ -140,7 +143,9 @@ def test_unsupported_element_raises(kind):
 
 def test_spectral_scene_raises():
     """Spectral scenes compile (ROADMAP A9); what one may hold that the port
-    does not compile yet raises, naming the item that ports it."""
+    does not compile yet raises, naming the item that ports it: here a PBR
+    material without a spectral albedo, which the JAX compiler uplifts from
+    its RGB albedo (compiler.py:784-790)."""
     scene = t_cbs()
     tcompiler.compile_scene(scene, "cpu")
     scene.world.append(tst.Sphere((50, 20, 50), (50, 20, 50), 0, 1, 10,
