@@ -11,24 +11,33 @@ line of its own:
   3. cipher: the device Threefry (`izpi_threefry_uniforms`) on 1M random
      keys equals the PyTorch twin bit for bit, for the bounce, camera and λ
      draws;
-  4. kernel vs twin, both on the card, within stated tolerances:
-     - the RGB megakernel: Cornell 64×64 at 4 spp, depth 8, seed 3 (two
-       replicas per pixel), and the RGB main path's layout, 256×256 at depth
-       50, seed 0 (one slot per pixel), for samples [0, 2) and [1022, 1024);
-     - the spectral megakernel: the spectral pyramid 64×64 at 4 spp, depth
-       8, seed 3, and the spectral main path's layout, 500×500 at depth 50,
-       seed 0, for samples [0, 2) and [254, 256);
-     each kernel and its twin timed at its main path's layout;
+  4. kernel vs twin, both on the card, the twin on the card's layout
+     (`megakernel.card_min_slots`: SLOTS_PER_THREAD slots per resident
+     thread of the persistent grid), within stated tolerances:
+     - the RGB megakernel: Cornell 64×64 at 4 spp, depth 8, seed 3; 64×64
+       at 64 spp, depth 8, seed 5 (every thread of the grid serves several
+       slots, and the slots are no multiple of the grid); 128×128 at 128
+       spp, depth 8, seed 7 (likewise, and every slot serves two samples,
+       as the main paths' slots serve 64); and the RGB main path's frame,
+       256×256 at depth 50, seed 0, for samples [0, 2) and [1022, 1024);
+     - the spectral megakernel: the spectral pyramid at the same three
+       small layouts, and the spectral main path's frame, 500×500 at depth
+       50, seed 0, for samples [0, 2) and [254, 256);
+     each kernel and its twin timed at its main path's frame at 2 spp, with
+     the kernel's draw counts (its counter buffer) and its bound there;
   5. RGB main path: `render(cornell_box(), 256, 256, 1024, max_depth=50,
      seed=0, mode="wavefront", device="cuda")`, one warm-up and one timed
-     run; the RGB megakernel's launch counter must read 2, the image must be
-     finite, green on the left, red on the right, with the ceiling light at
-     15;
+     run, the launch inside the timed run between CUDA events (the
+     kernel's time of record); the RGB megakernel's launch counter must
+     read 2, the two runs must agree bit for bit, the image must be finite,
+     green on the left, red on the right, with the ceiling light at 15;
+     then one more launch of the same render with the draw counter buffer,
+     which must repeat the image and rays, for the bound;
   6. spectral main path: `render(cornell_box_pyramid_spectral(), 500, 500,
-     256, max_depth=50, seed=0, mode="wavefront", device="cuda")`, one
-     warm-up and one timed run; the spectral megakernel's counter must read
-     2, the runs must agree, XYZ and ACEScg must be finite, green on the left
-     and red on the right, and the light patch's Y must be 15·21.3768;
+     256, max_depth=50, seed=0, mode="wavefront", device="cuda")`, likewise;
+     the spectral megakernel's counter must read 2, the runs must agree, XYZ
+     and ACEScg must be finite, green on the left and red on the right, and
+     the light patch's Y must be 15·21.3768;
   7. the BVH4 traversal kernel against its plain version
      (`accel.traverse.closest_bvh`), both on the card, at two scales: the
      tree of `cornell_box_obj` (20,007 primitives) and the dragon stand-in
@@ -82,11 +91,13 @@ line of its own:
      torch.profiler. The mesh region is the pixels whose centre's camera
      ray first hits the porcelain; the stand-in's triangles face inward, so
      only its rim and what the glass sphere throws on it are lit.
-The line before the last is a JSON object describing the kernels, each with
-its time, its plain version's time and its bound (the least time the card
-could take for the work this run's rays needed); the last is {"ok": true,
-"device": {...}}. Any failure raises and exits non-zero. Imports nothing of
-JAX.
+The build line is followed by the ptxas registers and spills of every
+kernel (a megakernel that spills fails the run) and each megakernel's
+persistent grid (blocks × threads) and slots. The line before the last is a
+JSON object describing the kernels, each with its time, its plain version's
+time and its bound (the least time the card could take for the work this
+run's rays needed); the last is {"ok": true, "device": {...}}. Any failure
+raises and exits non-zero. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -116,7 +127,7 @@ from izpi_tpu_torch.scene.library.cornell_spectral import (
 from izpi_tpu_torch.scene.library.extracted import (
     cornell_box_pbr_stanford_dragon_spectral)
 from izpi_tpu_torch.scene.library.misc import cornell_box_obj
-from izpi_tpu_torch.spectral import cie
+from izpi_tpu_torch.spectral import cie, convert
 
 # Phase 4 tolerances. A tolerance at all because libdevice transcendentals
 # and torch's reciprocal-multiply for division by a Python scalar on the card
@@ -150,9 +161,15 @@ PRIM_FP = {0: 58, 1: 56, 2: 56}  # closest-hit test per triangle, rect, sphere
 PRIM_INT = 6             # loop, index and kind dispatch per primitive
 SCATTER_FP = 80          # the cheapest scattering bounce (a dielectric), NEE left out
 CAMERA_FP = 46           # thin-lens ray from 5 uniforms
+CAMERA_CIPHER = 7        # path key (2 fold-ins), camera key (2), 3 pairs
 SPECTRAL_SAMPLE_FP = 20 + 11 + 51   # λ sampling, background SPD, XYZ deposit
 SPECTRAL_SAMPLE_INT = 30            # λ sampling's binary search
 RGB_SAMPLE_FP = 9        # RGB deposit: DeNAN and add, three channels
+# Phase 4's layouts at which every thread of the persistent grid serves
+# several slots, and at which besides every slot serves several samples:
+# (n, spp, depth, seed, offset).
+MULTI_SLOT = (64, 64, 8, 5, 0)
+MULTI_SAMPLE = (128, 128, 8, 7, 0)
 # The traversal kernel (csrc/bvh4_traverse.cu), per node popped: 4 children ×
 # 3 axes × (2 subtractions, 2 multiplications, fminf, fmaxf, fmaxf, fminf),
 # 4 hit comparisons and the 5 compares of the sorting network; per ray the 3
@@ -178,29 +195,41 @@ TIE_SHARE = 1e-5
 
 
 def bound_ms(rays: int, samples: int, prim_kinds, spectral: bool,
-             out_bytes: int, table_bytes: int):
+             out_bytes: int, table_bytes: int, draws=None):
     """The least milliseconds the card could take for a megakernel launch
     that traced `rays` rays over `samples` camera samples, and what bounds
     it ("bytes" or "operations").
 
     Counts only work every ray must do: each ray tests every primitive;
-    every ray but a sample's last scatters, which draws 12 uniforms (8
-    cipher calls) and shades at least as a dielectric does; every sample
-    draws its camera ray (7 cipher calls, 5 uniforms), and a spectral one
-    its λ (3 more calls, 1 uniform). The diffuse bounces' light sampling
-    and pdf are left out, so the true bound is higher. Bytes: the tables
-    read once and the outputs written once."""
-    scatter = rays - samples
+    every scatter shades at least as a dielectric does; every sample draws
+    its camera ray (7 cipher calls, 5 uniforms). `draws` is the kernel's
+    (scatters, bounce pairs) from its counter buffer: each scatter ciphers
+    its two fold-ins and the pairs its material and branch read (two
+    uniforms a pair), and a spectral sample's λ two calls more (its key
+    reuses the camera's first fold-in) and one uniform. Without `draws`,
+    the parent kernel's eager count, kept for continuity: every ray but a
+    sample's last scatters, drawing 12 uniforms in 8 calls, and λ costs 3
+    calls. The diffuse bounces' light sampling and pdf are left out, so the
+    true bound is higher. Bytes: the tables read once and the outputs
+    written once."""
+    if draws is None:
+        scatter = rays - samples
+        cipher = 8 * scatter + (CAMERA_CIPHER + 3 * spectral) * samples
+        uniforms = 12 * scatter
+    else:
+        scatter, pairs = draws
+        cipher = 2 * scatter + pairs + (CAMERA_CIPHER + 2 * spectral) * samples
+        uniforms = 2 * pairs
+    uniforms += (5 + spectral) * samples
     prim_fp = sum(PRIM_FP[int(k)] for k in prim_kinds)
     n_prims = len(prim_kinds)
-    fp = (rays * prim_fp + scatter * (SCATTER_FP + 12 * UNIFORM_FP)
-          + samples * (CAMERA_FP + 5 * UNIFORM_FP))
-    int_ops = (rays * PRIM_INT * n_prims
-               + scatter * (8 * CIPHER_INT + 12 * UNIFORM_INT)
-               + samples * (7 * CIPHER_INT + 5 * UNIFORM_INT))
+    fp = (rays * prim_fp + scatter * SCATTER_FP + uniforms * UNIFORM_FP
+          + samples * CAMERA_FP)
+    int_ops = (rays * PRIM_INT * n_prims + cipher * CIPHER_INT
+               + uniforms * UNIFORM_INT)
     if spectral:
-        fp += samples * (SPECTRAL_SAMPLE_FP + UNIFORM_FP)
-        int_ops += samples * (3 * CIPHER_INT + UNIFORM_INT + SPECTRAL_SAMPLE_INT)
+        fp += samples * SPECTRAL_SAMPLE_FP
+        int_ops += samples * SPECTRAL_SAMPLE_INT
     else:
         fp += samples * RGB_SAMPLE_FP
     t_ops = max(fp / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
@@ -209,8 +238,50 @@ def bound_ms(rays: int, samples: int, prim_kinds, spectral: bool,
                                        else "bytes")
 
 
+def launch_bound(label: str, rays: int, samples: int, draws, prim_kinds,
+                 spectral: bool, lay: dict, table_bytes: int, card: str):
+    """`bound_ms` of one megakernel launch from its draw counts (scatters,
+    bounce pairs), with the parent kernel's eager count beside it; the
+    outputs are the layout's per-slot sums and ray counts. Prints both and
+    returns a dict of the numbers."""
+    scatters, pairs = (int(x) for x in draws)
+    out_bytes = lay["slots"] * 16
+    bound, by = bound_ms(rays, samples, prim_kinds, spectral, out_bytes,
+                         table_bytes, (scatters, pairs))
+    eager, eager_by = bound_ms(rays, samples, prim_kinds, spectral, out_bytes,
+                               table_bytes)
+    print(f"bound: {label}: {rays} rays, {samples} samples, {scatters} "
+          f"scatters drawing {pairs} pairs ({pairs / max(scatters, 1):.4f} a "
+          f"scatter): {bound:.4f} ms by {by}; by the eager count (8 calls a "
+          f"scatter, rays - samples scatters) {eager:.4f} ms by {eager_by} "
+          f"({card})", flush=True)
+    return dict(bound_ms=bound, bound_by=by, bound_ms_eager=eager,
+                scatters=scatters, pairs=pairs)
+
+
 def tensor_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def card_layout(mod, n: int, spp: int) -> dict:
+    """The persistent grid of megakernel module `mod` on the card and the
+    card's layout of an n×n frame at spp: blocks, threads, replicas,
+    samples per slot, slots, slots per resident thread."""
+    dev = torch.device("cuda")
+    blocks, threads = megakernel.card_grid(mod.ENTRY, dev)
+    repl, spp_slot, n_slots = megakernel.slot_layout(
+        n * n, spp, megakernel.card_min_slots(mod.ENTRY, dev))
+    return dict(blocks=blocks, threads=threads, replicas=repl,
+                spp_slot=spp_slot, slots=n_slots,
+                slots_per_thread=n_slots / (blocks * threads))
+
+
+def canvas(acc, n: int, spp: int) -> np.ndarray:
+    """The (n, n, 3) f32 canvas `renderer.render` makes of a wrapper's sums
+    (float64 division, rows flipped)."""
+    acc64 = np.zeros((n * n, 3), np.float64)
+    acc64 += acc.cpu().numpy()
+    return (acc64 / spp).reshape(n, n, 3)[::-1].astype(np.float32)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -229,8 +300,9 @@ def compare(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
     key = rng.render_key(seed, device="cuda")
     acc_k, rays_k = megakernel.render_slots(cs, meta, s, n, n, spp, key, offset,
                                             tables=tables)
-    acc_p, rays_p = megakernel.render_slots_reference(cs, meta, s, n, n, spp,
-                                                      key, offset)
+    acc_p, rays_p = megakernel.render_slots_reference(
+        cs, meta, s, n, n, spp, key, offset,
+        min_slots=megakernel.card_min_slots(megakernel.ENTRY, cs.device))
     torch.cuda.synchronize()
     img_k, img_p = acc_k / spp, acc_p / spp
     rays_k, rays_p = int(rays_k), int(rays_p)
@@ -240,9 +312,11 @@ def compare(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
     mean_k, mean_p = float(img_k.mean()), float(img_p.mean())
     rays_rel = abs(rays_k - rays_p) / rays_p
     mean_rel = abs(mean_k - mean_p) / mean_p
-    slots = n * n * megakernel.pick_replication(n * n, spp)
+    lay = card_layout(megakernel, n, spp)
     print(f"kernel-vs-twin: cornell {n}x{n}@{spp} depth {depth} seed {seed} "
-          f"offset {offset} ({slots} slots): rays {rays_k} vs {rays_p} (rel "
+          f"offset {offset} ({lay['slots']} slots of {lay['spp_slot']} "
+          f"samples, {lay['slots_per_thread']:.3f} per resident thread): rays "
+          f"{rays_k} vs {rays_p} (rel "
           f"{rays_rel:.2e}, tol {RAYS_RTOL}); pixels within {PIXEL_ATOL}: "
           f"{share:.6f} (tol {PIXEL_SHARE}); max abs err {max_abs_err:.3e}; "
           f"mean {mean_k:.7f} vs {mean_p:.7f} (rel {mean_rel:.2e}, tol "
@@ -283,20 +357,24 @@ def compare_spectral(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
                      offset: int):
     """The spectral pyramid n x n at spp samples from `offset` through the
     CUDA spectral megakernel (a) and through its plain version (b), both on
-    the card, held to `compare_xyz`. Returns (largest absolute XYZ error,
-    kernel rays)."""
+    the card, held to `compare_xyz`. Returns the largest absolute XYZ
+    error."""
     s = path.RenderSettings(max_depth=depth)
     key = rng.render_key(seed, device="cuda")
     acc_k, rays_k = megakernel_spectral.render_slots_spectral(
         cs, meta, s, n, n, spp, key, offset, tables=tables)
     acc_p, rays_p = megakernel_spectral.render_slots_spectral_reference(
-        cs, meta, s, n, n, spp, key, offset)
+        cs, meta, s, n, n, spp, key, offset,
+        min_slots=megakernel.card_min_slots(megakernel_spectral.ENTRY,
+                                            cs.device))
     torch.cuda.synchronize()
-    slots = n * n * megakernel.pick_replication(n * n, spp)
+    lay = card_layout(megakernel_spectral, n, spp)
     err = compare_xyz(f"kernel-vs-twin: spectral pyramid {n}x{n}@{spp} depth "
-                      f"{depth} seed {seed} offset {offset} ({slots} slots)",
+                      f"{depth} seed {seed} offset {offset} ({lay['slots']} "
+                      f"slots of {lay['spp_slot']} samples, "
+                      f"{lay['slots_per_thread']:.3f} per resident thread)",
                       acc_k, int(rays_k), acc_p, int(rays_p), spp)
-    return err, int(rays_k)
+    return err
 
 
 def traversal_bound_ms(fp: int, n_rays: int, table_bytes: int):
@@ -675,10 +753,29 @@ def main() -> None:
     print(f"build: {lib_path.name} (nvcc, or an earlier build of the same "
           f"sources) in {time.perf_counter() - t0:.2f} s", flush=True)
     log = lib_path.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
-                print(f"ptxas: {line.strip()}", flush=True)
+    log_text = log.read_text() if log.exists() else ""
+    for line in log_text.splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            print(f"ptxas: {line.strip()}", flush=True)
+    usage = _build.ptxas_usage(log_text)
+    for name in ("megakernel_rgb", "megakernel_spectral"):
+        if name not in usage:
+            raise AssertionError(f"no ptxas report of {name} in {log}")
+        if usage[name][1] or usage[name][2]:
+            raise AssertionError(f"{name} spills registers: {usage[name]}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grids = {}
+    for name, mod in (("megakernel_rgb", megakernel),
+                      ("megakernel_spectral", megakernel_spectral)):
+        regs, spill_st, spill_ld = usage[name]
+        blocks, threads = megakernel.card_grid(mod.ENTRY, torch.device("cuda"))
+        grids[name] = dict(registers=regs, spill_bytes=spill_st + spill_ld,
+                           blocks=blocks, threads=threads,
+                           blocks_per_sm=blocks / sms)
+        print(f"grid: {name}: {regs} registers, spill stores {spill_st} B, "
+              f"loads {spill_ld} B; persistent grid {blocks} blocks x "
+              f"{threads} threads ({blocks / sms:g} per SM of {sms}; "
+              f"{blocks * threads} resident threads)", flush=True)
 
     # 3. Cipher, bit for bit.
     rs = np.random.RandomState(0)
@@ -706,16 +803,28 @@ def main() -> None:
           f"plain {cipher['plain_ms']:.4f} ms, bound {cipher['bound_ms']:.4f} ms "
           f"({card})", flush=True)
 
-    # 4. Kernel vs twin on the card: at 64x64@4 depth 8 (two replicas per
-    # pixel, 8192 slots) and at the main path's layout, 256x256 depth 50 (one
-    # slot per pixel, 65,536 slots, no replicas) for two sample chunks, the
-    # main path's first and its last.
+    # 4. Kernel vs twin on the card, the twin on the card's layout: at
+    # 64x64@4 depth 8, at the multi-slot and multi-sample layouts and at the
+    # main path's frame, 256x256 depth 50, for two sample chunks, the main
+    # path's first and its last.
     cs, meta = compiler.compile_scene(cornell_box(), "cuda")
     tables = megakernel.pack_tables(cs)
     errs = []
-    for nx, spp, depth, seed, offset in ((64, 4, 8, 3, 0), (256, 2, 50, 0, 0),
+    for nx, spp, depth, seed, offset in ((64, 4, 8, 3, 0), MULTI_SLOT,
+                                         MULTI_SAMPLE, (256, 2, 50, 0, 0),
                                          (256, 2, 50, 0, 1022)):
         errs.append(compare(cs, meta, tables, nx, spp, depth, seed, offset))
+    for mod in (megakernel, megakernel_spectral):
+        for name, layout, spp_slot in (("multi-slot", MULTI_SLOT, 1),
+                                       ("multi-sample", MULTI_SAMPLE, 2)):
+            lay = card_layout(mod, layout[0], layout[1])
+            resident = lay["blocks"] * lay["threads"]
+            if not (lay["slots"] > resident and lay["slots"] % resident
+                    and lay["spp_slot"] >= spp_slot):
+                raise AssertionError(
+                    f"{mod.__name__}: {lay['slots']} slots of "
+                    f"{lay['spp_slot']} samples at the {name} layout on "
+                    f"{resident} threads")
     max_abs_err = max(errs)
     timed = {}
     for nx, spp, depth in ((64, 4, 8), (256, 2, 50)):
@@ -725,66 +834,81 @@ def main() -> None:
             cuda_ms(lambda: megakernel.render_slots(
                 cs, meta, s, nx, nx, spp, key, tables=tables), 10),
             cuda_ms(lambda: megakernel.render_slots_reference(
-                cs, meta, s, nx, nx, spp, key), 2))
+                cs, meta, s, nx, nx, spp, key,
+                min_slots=megakernel.card_min_slots(megakernel.ENTRY,
+                                                    cs.device)), 2))
         print(f"kernel-vs-twin: time at {nx}x{nx}@{spp} depth {depth}: kernel "
               f"{timed[nx][0]:.4f} ms, plain twin {timed[nx][1]:.4f} ms ({card})",
               flush=True)
-    mk_ms, plain_ms = timed[256]
+    mk_ms_2, plain_ms = timed[256]
     s = path.RenderSettings(max_depth=50)
-    _, rgb_rays = megakernel.render_slots(cs, meta, s, 256, 256, 2,
-                                          rng.render_key(0, device="cuda"),
-                                          tables=tables)
-    rgb_bound, rgb_bound_by = bound_ms(
-        int(rgb_rays), 256 * 256 * 2, cs.prims.kind.tolist(), False,
-        256 * 256 * 16, tensor_bytes(tables))
-    print(f"bound: megakernel_rgb at 256x256@2 depth 50 ({int(rgb_rays)} rays): "
-          f"{rgb_bound:.4f} ms by {rgb_bound_by} ({card})", flush=True)
+    _, rgb_rays, rgb_draws = megakernel.render_slots(
+        cs, meta, s, 256, 256, 2, rng.render_key(0, device="cuda"),
+        tables=tables, draws=True)
+    rgb_bound_2 = launch_bound("megakernel_rgb at 256x256@2 depth 50",
+                               int(rgb_rays), 256 * 256 * 2, rgb_draws,
+                               cs.prims.kind.tolist(), False,
+                               card_layout(megakernel, 256, 2),
+                               tensor_bytes(tables), card)
 
-    # 4, spectral. The spectral megakernel against its plain version: at
-    # 64x64@4 depth 8 (two replicas per pixel) and at the spectral main
-    # path's layout, 500x500 depth 50 (one slot per pixel, 250,000 slots),
-    # for its first and its last sample chunk.
+    # 4, spectral. The spectral megakernel against its plain version at
+    # the RGB kernel's layouts: 64x64@4 depth 8, the multi-slot and
+    # multi-sample layouts, and the spectral main path's frame, 500x500
+    # depth 50, for its first and its last sample chunk.
     scs, smeta = compiler.compile_scene(cornell_box_pyramid_spectral(), "cuda")
     stables = megakernel_spectral.pack_spectral_tables(scs)
     serrs = []
-    for nx, spp, depth, seed, offset in ((64, 4, 8, 3, 0), (500, 2, 50, 0, 0),
+    for nx, spp, depth, seed, offset in ((64, 4, 8, 3, 0), MULTI_SLOT,
+                                         MULTI_SAMPLE, (500, 2, 50, 0, 0),
                                          (500, 2, 50, 0, 254)):
-        err, rays = compare_spectral(scs, smeta, stables, nx, spp, depth, seed,
-                                     offset)
-        serrs.append(err)
-        if (nx, offset) == (500, 0):
-            spec_rays = rays
+        serrs.append(compare_spectral(scs, smeta, stables, nx, spp, depth, seed,
+                                      offset))
     s = path.RenderSettings(max_depth=50)
     key = rng.render_key(0, device="cuda")
-    spec_ms = cuda_ms(lambda: megakernel_spectral.render_slots_spectral(
+    spec_min = megakernel.card_min_slots(megakernel_spectral.ENTRY,
+                                         scs.device)
+    spec_ms_2 = cuda_ms(lambda: megakernel_spectral.render_slots_spectral(
         scs, smeta, s, 500, 500, 2, key, tables=stables), 10)
     spec_plain_ms = cuda_ms(
         lambda: megakernel_spectral.render_slots_spectral_reference(
-            scs, smeta, s, 500, 500, 2, key), 2)
-    spec_bound, spec_bound_by = bound_ms(
-        spec_rays, 500 * 500 * 2, scs.prims.kind.tolist(), True,
-        500 * 500 * 16, tensor_bytes(stables.rgb) + tensor_bytes(stables[1:]))
+            scs, smeta, s, 500, 500, 2, key, min_slots=spec_min), 2)
     print(f"kernel-vs-twin: time at 500x500@2 depth 50: spectral kernel "
-          f"{spec_ms:.4f} ms, plain version {spec_plain_ms:.4f} ms, bound "
-          f"{spec_bound:.4f} ms by {spec_bound_by} ({spec_rays} rays; {card})",
-          flush=True)
+          f"{spec_ms_2:.4f} ms, plain version {spec_plain_ms:.4f} ms "
+          f"({card})", flush=True)
+    _, spec_rays, spec_draws = megakernel_spectral.render_slots_spectral(
+        scs, smeta, s, 500, 500, 2, key, tables=stables, draws=True)
+    stable_bytes = tensor_bytes(stables.rgb) + tensor_bytes(stables[1:])
+    spec_bound_2 = launch_bound(
+        "megakernel_spectral at 500x500@2 depth 50", int(spec_rays),
+        500 * 500 * 2, spec_draws, scs.prims.kind.tolist(), True,
+        card_layout(megakernel_spectral, 500, 2), stable_bytes,
+        card)
 
-    # 5. The main path, through the entry points a user calls.
+    # 5. The main path, through the entry points a user calls; the timed
+    # run's launch between CUDA events.
     settings = path.RenderSettings(max_depth=50)
     ctx = renderer.RenderContext(cornell_box(), device="cuda")
     megakernel.launches = 0
     threefry.launches = 0
     warm = renderer.render(None, 256, 256, 1024, settings, seed=0,
                            mode="wavefront", context=ctx, device="cuda")
-    res = renderer.render(None, 256, 256, 1024, settings, seed=0,
-                          mode="wavefront", context=ctx, device="cuda")
+    with profiling.event_timed(megakernel, "render_slots") as times:
+        res = renderer.render(None, 256, 256, 1024, settings, seed=0,
+                              mode="wavefront", context=ctx, device="cuda")
+    mk_ms = profiling.event_ms(times)
     launches = megakernel.launches
     img = res.image
+    lay = card_layout(megakernel, 256, 1024)
     print(f"main path: cornell 256x256@1024 depth 50 seed 0 on {res.device}: "
           f"{res.rays_traced} rays in {res.seconds:.4f} s = "
           f"{res.mrays_per_sec:.2f} Mrays/s (warm-up run {warm.seconds:.4f} s; "
-          f"{card}); megakernel launches {launches}", flush=True)
-    if launches != 2:
+          f"{card}); megakernel launches {launches}; the timed launch "
+          f"{mk_ms:.4f} ms (CUDA events, {len(times)} call) = "
+          f"{mk_ms / 1e3 / res.seconds:.2%} of render(); grid {lay['blocks']} x "
+          f"{lay['threads']}, {lay['replicas']} replicas, {lay['slots']} slots "
+          f"of {lay['spp_slot']} samples, {lay['slots_per_thread']:.3f} per "
+          f"resident thread", flush=True)
+    if launches != 2 or len(times) != 1:
         raise AssertionError(f"the main path launched the megakernel "
                              f"{launches} times, expected 2")
     if res.rays_traced != warm.rays_traced or not np.array_equal(img, warm.image):
@@ -801,11 +925,22 @@ def main() -> None:
         raise AssertionError("walls: expected green on the left, red on the right")
     if abs(light - 15.0) > 0.5:
         raise AssertionError(f"ceiling light patch {light}, expected ~15")
-    main_bound, main_bound_by = bound_ms(
-        res.rays_traced, 256 * 256 * 1024, cs.prims.kind.tolist(), False,
-        256 * 256 * 16, tensor_bytes(ctx.tables()))
-    print(f"main path: megakernel_rgb bound per launch {main_bound:.4f} ms by "
-          f"{main_bound_by} against {res.seconds * 1e3:.4f} ms of render() "
+    # One more launch of the same render with the draw counter buffer: it
+    # repeats the image and rays, and its counts give the bound.
+    acc_d, rays_d, draws_d = megakernel.render_slots(
+        ctx.cs, ctx.meta, settings, 256, 256, 1024,
+        rng.render_key(0, device="cuda"), tables=ctx.tables(), draws=True)
+    if int(rays_d) != res.rays_traced or not np.array_equal(
+            canvas(acc_d, 256, 1024), img):
+        raise AssertionError("the launch with draw counts differs from the "
+                             "main path's")
+    main_bound = launch_bound(
+        "megakernel_rgb per launch on the main path", res.rays_traced,
+        256 * 256 * 1024, draws_d, cs.prims.kind.tolist(), False, lay,
+        tensor_bytes(ctx.tables()), card)
+    print(f"main path: megakernel_rgb {mk_ms:.4f} ms per launch at "
+          f"{main_bound['bound_ms'] / mk_ms:.2%} of its bound "
+          f"({main_bound['bound_ms_eager'] / mk_ms:.2%} of the eager count's) "
           f"({card})", flush=True)
 
     # 6. The spectral main path, through the same entry points.
@@ -815,14 +950,23 @@ def main() -> None:
     threefry.launches = 0
     swarm = renderer.render(None, 500, 500, 256, settings, seed=0,
                             mode="wavefront", context=sctx, device="cuda")
-    sres = renderer.render(None, 500, 500, 256, settings, seed=0,
-                           mode="wavefront", context=sctx, device="cuda")
+    with profiling.event_timed(megakernel_spectral,
+                               "render_slots_spectral") as stimes:
+        sres = renderer.render(None, 500, 500, 256, settings, seed=0,
+                               mode="wavefront", context=sctx, device="cuda")
+    spec_ms = profiling.event_ms(stimes)
     spec_launches = megakernel_spectral.launches
+    slay = card_layout(megakernel_spectral, 500, 256)
     print(f"spectral main path: pyramid 500x500@256 depth 50 seed 0 on "
           f"{sres.device}: {sres.rays_traced} rays in {sres.seconds:.4f} s = "
           f"{sres.mrays_per_sec:.2f} Mrays/s (warm-up run {swarm.seconds:.4f} s; "
-          f"{card}); spectral megakernel launches {spec_launches}", flush=True)
-    if spec_launches != 2:
+          f"{card}); spectral megakernel launches {spec_launches}; the timed "
+          f"launch {spec_ms:.4f} ms (CUDA events, {len(stimes)} call) = "
+          f"{spec_ms / 1e3 / sres.seconds:.2%} of render(); grid "
+          f"{slay['blocks']} x {slay['threads']}, {slay['replicas']} replicas, "
+          f"{slay['slots']} slots of {slay['spp_slot']} samples, "
+          f"{slay['slots_per_thread']:.3f} per resident thread", flush=True)
+    if spec_launches != 2 or len(stimes) != 1:
         raise AssertionError(f"the spectral main path launched the spectral "
                              f"megakernel {spec_launches} times, expected 2")
     if (sres.rays_traced != swarm.rays_traced
@@ -849,12 +993,22 @@ def main() -> None:
         raise AssertionError(f"spectral light patch Y {light_y}, expected "
                              f"{want_y} within 0.5%")
     st = sctx.tables()
-    smain_bound, smain_bound_by = bound_ms(
-        sres.rays_traced, 500 * 500 * 256, scs.prims.kind.tolist(), True,
-        500 * 500 * 16, tensor_bytes(st.rgb) + tensor_bytes(st[1:]))
-    print(f"spectral main path: megakernel_spectral bound per launch "
-          f"{smain_bound:.4f} ms by {smain_bound_by} against "
-          f"{sres.seconds * 1e3:.4f} ms of render() ({card})", flush=True)
+    sacc_d, srays_d, sdraws_d = megakernel_spectral.render_slots_spectral(
+        sctx.cs, sctx.meta, settings, 500, 500, 256,
+        rng.render_key(0, device="cuda"), tables=st, draws=True)
+    if int(srays_d) != sres.rays_traced or not np.array_equal(
+            convert.firefly_rejection(canvas(sacc_d, 500, 256).astype(
+                np.float64)).astype(np.float32), sres.xyz):
+        raise AssertionError("the spectral launch with draw counts differs "
+                             "from the main path's")
+    smain_bound = launch_bound(
+        "megakernel_spectral per launch on the main path", sres.rays_traced,
+        500 * 500 * 256, sdraws_d, scs.prims.kind.tolist(), True, slay,
+        tensor_bytes(st.rgb) + tensor_bytes(st[1:]), card)
+    print(f"spectral main path: megakernel_spectral {spec_ms:.4f} ms per launch "
+          f"at {smain_bound['bound_ms'] / spec_ms:.2%} of its bound "
+          f"({smain_bound['bound_ms_eager'] / spec_ms:.2%} of the eager "
+          f"count's) ({card})", flush=True)
 
     # 7. The traversal kernel against its plain version, at two scales,
     # each scene compiled and its tree built and packed by RenderContext.
@@ -969,9 +1123,15 @@ def main() -> None:
             "max_abs_err": max_abs_err,
             "ms": mk_ms,
             "plain_ms": plain_ms,
-            "bound_ms": rgb_bound,
-            "bound_by": rgb_bound_by,
+            "bound_ms": main_bound["bound_ms"],
+            "bound_by": main_bound["bound_by"],
             "library_ms": None,
+            "bound_ms_eager": main_bound["bound_ms_eager"],
+            "pairs_per_scatter": main_bound["pairs"] / main_bound["scatters"],
+            "ms_at_2": mk_ms_2,
+            "bound_ms_at_2": rgb_bound_2["bound_ms"],
+            "layout": lay,
+            **grids["megakernel_rgb"],
         }, {
             "name": "megakernel_spectral",
             "route": "cuda",
@@ -981,9 +1141,15 @@ def main() -> None:
             "max_abs_err": max(serrs),
             "ms": spec_ms,
             "plain_ms": spec_plain_ms,
-            "bound_ms": spec_bound,
-            "bound_by": spec_bound_by,
+            "bound_ms": smain_bound["bound_ms"],
+            "bound_by": smain_bound["bound_by"],
             "library_ms": None,
+            "bound_ms_eager": smain_bound["bound_ms_eager"],
+            "pairs_per_scatter": smain_bound["pairs"] / smain_bound["scatters"],
+            "ms_at_2": spec_ms_2,
+            "bound_ms_at_2": spec_bound_2["bound_ms"],
+            "layout": slay,
+            **grids["megakernel_spectral"],
         }, {
             "name": "bvh4_traverse",
             "route": "cuda",
@@ -1022,9 +1188,16 @@ def main() -> None:
             "bound_by": "operations",
         }],
         "shapes": {
-            "megakernel_rgb": "cornell 256x256@2 depth 50 (its main path's slots)",
-            "megakernel_spectral": "spectral pyramid 500x500@2 depth 50 (its "
-                                   "main path's slots)",
+            "megakernel_rgb": "ms, bound_ms: per launch on its main path, "
+                              "cornell 256x256@1024 depth 50 (CUDA events "
+                              "around the timed render()'s launch); "
+                              "plain_ms, ms_at_2, bound_ms_at_2: the main "
+                              "path's frame at 2 spp (the plain version "
+                              "would take hours at 1024)",
+            "megakernel_spectral": "ms, bound_ms: per launch on its main "
+                                   "path, the spectral pyramid 500x500@256 "
+                                   "depth 50; plain_ms, ms_at_2, "
+                                   "bound_ms_at_2: 500x500@2 depth 50",
             "cipher_ms": f"12 uniforms x {n_keys} keys",
             "bvh4_traverse": f"{TRAVERSE_RAYS} rays (half camera, half "
                              f"incoherent) on cornell_box_obj's tree",

@@ -1,7 +1,8 @@
 // Device code shared by the megakernels (megakernel_rgb.cu,
 // megakernel_spectral.cu): 3-vector math, the primitive tests and closest
 // hit over the packed scene tables, the record normal, the orthonormal basis,
-// the light list's sample and pdf, path keys and the camera ray.
+// the light list's sample and pdf, the camera ray, and the persistent grid
+// with its slot queue.
 //
 // Every function follows izpi_tpu_torch's plain PyTorch code operation for
 // operation (geometry/primitives.py, core/onb.py, core/sampling.py,
@@ -15,7 +16,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "threefry.cuh"
+#include "draws.cuh"
 
 namespace izpi {
 
@@ -35,20 +36,19 @@ constexpr float kTMax = 3.0e38f;
 constexpr float kMtEps = 1e-8f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kPi = 3.141592653589793f;
-constexpr uint32_t kCameraSalt = 0x5EEDu;
 
 struct V3 {
   float x, y, z;
 };
 
-__device__ __forceinline__ V3 mk(float x, float y, float z) {
+__host__ __device__ __forceinline__ V3 mk(float x, float y, float z) {
   V3 r;
   r.x = x;
   r.y = y;
   r.z = z;
   return r;
 }
-__device__ __forceinline__ V3 ld3(const float* p) { return mk(p[0], p[1], p[2]); }
+__host__ __device__ __forceinline__ V3 ld3(const float* p) { return mk(p[0], p[1], p[2]); }
 __device__ __forceinline__ V3 operator+(V3 a, V3 b) { return mk(a.x + b.x, a.y + b.y, a.z + b.z); }
 __device__ __forceinline__ V3 operator-(V3 a, V3 b) { return mk(a.x - b.x, a.y - b.y, a.z - b.z); }
 __device__ __forceinline__ V3 operator-(V3 a) { return mk(-a.x, -a.y, -a.z); }
@@ -282,26 +282,18 @@ static __device__ float lights_pdf(const Scene& sc, V3 o, V3 v) {
 }
 
 // ---------------------------------------------------------------------------
-// Path keys and the camera (core/rng.py, camera.py)
+// The camera (camera.py)
 // ---------------------------------------------------------------------------
 
-// The key of sample `sid` of pixel `pix`: fold the sample, then the pixel
-// (core/rng.py path_keys).
-__device__ __forceinline__ void path_key(uint32_t seed0, uint32_t seed1, uint32_t sid,
-                                         uint32_t pix, uint32_t& k0, uint32_t& k1) {
-  uint32_t s0, s1;
-  fold_in(seed0, seed1, sid, s0, s1);
-  fold_in(s0, s1, pix, k0, k1);
-}
-
 // Camera row: origin, lower_left, horizontal, vertical, u, v (18) | lens_radius,
-// time0, time1 (3) | pad (3).
+// time0, time1 (3) | pad (3). The megakernels take it by value, as a kernel
+// parameter: it stays in the constant bank, not in 21 registers.
 struct Camera {
   V3 o, ll, h, vert, bu, bv;
   float lens, time0, time1;
 };
 
-__device__ __forceinline__ Camera load_camera(const float* cam) {
+__host__ __device__ __forceinline__ Camera load_camera(const float* cam) {
   Camera c;
   c.o = ld3(cam);
   c.ll = ld3(cam + 3);
@@ -315,13 +307,11 @@ __device__ __forceinline__ Camera load_camera(const float* cam) {
   return c;
 }
 
-// Thin-lens camera ray of the path keyed (k0, k1) through pixel (px, py)
-// (camera.primary_rays; uniforms at depth 0 under CAMERA_SALT).
-__device__ __forceinline__ void camera_ray(const Camera& c, uint32_t k0, uint32_t k1, float px,
+// Thin-lens camera ray through pixel (px, py) from the path's five camera
+// uniforms (camera.primary_rays; drawn at depth 0 under CAMERA_SALT).
+__device__ __forceinline__ void camera_ray(const Camera& c, const float (&cu)[5], float px,
                                            float py, int nx, int ny, V3& o, V3& d,
                                            float& tme) {
-  float cu[5];
-  bounce_uniforms<5>(k0, k1, 0u, kCameraSalt, cu);
   const float fs = (px + cu[0]) / (float)nx;
   const float ft = (py + cu[1]) / (float)ny;
   const float r = sqrtf(cu[2]);
@@ -332,6 +322,59 @@ __device__ __forceinline__ void camera_ray(const Camera& c, uint32_t k0, uint32_
   tme = c.time0 + cu[4] * (c.time1 - c.time0);
   o = c.o + lens_off;
   d = c.ll + c.h * fs + c.vert * ft - c.o - lens_off;
+}
+
+// The camera ray of a sample of flat pixel `pix` (row-major, nx wide).
+__device__ __forceinline__ void pixel_ray(const Camera& c, const float (&cu)[5], int pix,
+                                          int nx, int ny, V3& o, V3& d, float& tme) {
+  camera_ray(c, cu, (float)(pix % nx), (float)(pix / nx), nx, ny, o, d, tme);
+}
+
+// ---------------------------------------------------------------------------
+// The persistent grid and its slot queue
+// ---------------------------------------------------------------------------
+
+// Threads per block of the megakernels.
+constexpr int kMegaThreads = 128;
+// The blocks per SM the megakernels' __launch_bounds__ asks ptxas to fit:
+// 5 caps them at 96 registers, which both fit with no spill, for 20 warps
+// per SM instead of 16 (1 would be no hint).
+constexpr int kMegaMinBlocks = 5;
+
+// Slot s serves pixel s % n_pix with samples replica·spp_slot + [0, spp_slot)
+// + offset, replica = s / n_pix (the mapping of izpi_tpu/ops/megakernel.py:647).
+__device__ __forceinline__ uint32_t sample_id(int slot, int samp, int n_pix, int spp_slot,
+                                              uint32_t offset) {
+  return (uint32_t)((slot / n_pix) * spp_slot + samp) + offset;
+}
+
+// The next slot of the queue (>= n_slots once it is drained). With no
+// samples per slot a slot's sums are zero, written here.
+__device__ __forceinline__ int take_slot(int* queue, int n_slots, int spp_slot,
+                                         float* acc_out, int* cnt_out) {
+  for (;;) {
+    const int s = atomicAdd(queue, 1);
+    if (s >= n_slots || spp_slot > 0) return s;
+    acc_out[3 * s + 0] = 0.0f;
+    acc_out[3 * s + 1] = 0.0f;
+    acc_out[3 * s + 2] = 0.0f;
+    cnt_out[s] = 0;
+  }
+}
+
+// The grid that fills the current device with `kernel` at kMegaThreads
+// per block: the blocks one SM holds (occupancy) times the SM count.
+// Returns a cudaError_t.
+template <typename Kernel>
+static int persistent_blocks(Kernel kernel, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMegaThreads, 0);
+  if (err == cudaSuccess && per_sm * sms < 1) err = cudaErrorInvalidConfiguration;
+  *blocks = per_sm * sms;
+  return (int)err;
 }
 
 }  // namespace izpi

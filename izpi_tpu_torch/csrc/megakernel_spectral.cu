@@ -1,10 +1,10 @@
-// The spectral render loop in one CUDA kernel: one thread per path slot.
+// The spectral render loop in one persistent CUDA kernel.
 //
 // Replaces izpi_tpu/ops/megakernel_spectral.py:267 (build_renderer.<kernel>,
-// the Pallas spectral megakernel). Each slot serves pixel slot % n_pix and
-// walks its samples replica*spp_slot + [0, spp_slot) + offset one after
-// another (megakernel_spectral.py:285). A sample is a thin-lens camera ray,
-// then a wavelength λ drawn by CIE-Y sampling from its own Threefry stream
+// the Pallas spectral megakernel). A slot serves pixel slot % n_pix and
+// walks its samples replica*spp_slot + [0, spp_slot) + offset in order
+// (megakernel_spectral.py:285). A sample is a thin-lens camera ray, then a
+// wavelength λ drawn by CIE-Y sampling from its own Threefry stream
 // (LAMBDA_SALT), then bounces with scalar radiance and throughput at λ until
 // the path misses, hits a light or a metal (a metal's spectral scatter is the
 // reference's non-spectral stub, so the path ends), or reaches the depth
@@ -12,7 +12,8 @@
 // are read at λ from the scene's 1 nm SPD table or a Gaussian, dielectrics
 // refract with η(λ) (dispersion) and absorb by spectral Beer–Lambert over an
 // exit re-trace. A finished sample deposits de_nan(xyz(λ)·rad/pdf(λ)) into
-// the slot's own sum: no atomics, no pixel written twice.
+// the slot's own sum in sample order, and the sums are written once: no
+// atomics on floats, no pixel written twice.
 //
 // The arithmetic follows izpi_tpu_torch's plain version (integrator/path.py
 // bounce_spectral, integrator/wavefront.py, spectral/cie.py,
@@ -22,13 +23,26 @@
 // the grid lerp is a pure function of (table, λ), so this gives the bits the
 // plain version gives.
 //
-// Bound: per-thread FP32 and INT32 issue, through the Threefry rounds
-// (eight cipher calls per bounce, ten per camera sample) and the primitive
-// loop, as for megakernel_rgb.cu. At this size the tables do not bound it: the
-// pyramid's SPD table is 5 rows x 371 x 4 B (7.4 KB) in global memory and
-// stays cache-resident; the 75-entry CIE tables, indexed divergently by each
-// thread's λ, sit in shared memory, loaded once per block, and not in the
-// constant bank, which serialises divergent reads.
+// Bound: per-thread FP32 and INT32 issue, through the primitive loop and the
+// Threefry rounds, as for megakernel_rgb.cu; the tables do not bound it.
+// The design is megakernel_rgb.cu's:
+//  1. Persistent threads over a slot queue, the grid sized by the occupancy
+//     calculator and the SM count, >= SLOTS_PER_THREAD slots per resident
+//     thread (the wrapper's replicas), so the one-thread-per-slot grid's
+//     last partial wave (2.11 waves on the pyramid's 500x500) is gone.
+//  2. Path regeneration: one bounce per trip; a lane whose path ends
+//     deposits it and starts its next sample — camera ray and λ — in the
+//     same trip.
+//  3. Lazy draws (draws.cuh): a scatter draws its fold-ins and the pairs its
+//     material and branch read; a new sample's λ reuses the camera's first
+//     fold-in; all of a lane's calls in a trip run in one converged loop.
+//  4. As for megakernel_rgb.cu: the camera a kernel parameter, 5 blocks per
+//     SM at 96 registers with no spill. The 75-entry CIE tables, indexed
+//     divergently by each lane's λ, sit in shared memory, loaded once per
+//     block (the constant bank serialises divergent reads). The scene
+//     tables and the 1 nm SPD table (5 rows x 371 x 4 B = 7.4 KB on the
+//     pyramid) stay in global memory and L1: staging them in shared memory
+//     gained under 1% (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,7 +59,6 @@ constexpr int kSpdN = 371;   // 1 nm grid over 380..750 nm
 constexpr int kNCie = 75;    // 5 nm CIE grid over 380..750 nm
 constexpr int kCieRows = 4;  // x̄, ȳ, z̄, inclusive cumsum of ȳ
 
-constexpr uint32_t kLambdaSalt = 0x7A3Bu;
 constexpr float kCieYIntegral = 21.3768f;
 constexpr float kLamMin = 380.0f;
 constexpr float kLamMax = 750.0f;
@@ -123,12 +136,12 @@ __device__ __forceinline__ float spectral_value(const Spectra& sp, const float* 
   return 0.299f * M[0] + 0.587f * M[1] + 0.114f * M[2];
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
     megakernel_spectral(Scene sc, Spectra sp, const float* __restrict__ cie,
-                        const float* __restrict__ cam, uint32_t seed0, uint32_t seed1,
-                        uint32_t offset, int nx, int ny, int spp_slot, int n_slots,
-                        int max_depth, int bg_spd, int book, float* __restrict__ acc_out,
-                        int* __restrict__ cnt_out) {
+                        Camera camera, uint32_t seed0, uint32_t seed1, uint32_t offset, int nx,
+                        int ny, int spp_slot, int n_slots, int max_depth, int bg_spd, int book,
+                        int* __restrict__ queue, float* __restrict__ acc_out,
+                        int* __restrict__ cnt_out, int* __restrict__ draws_out) {
   __shared__ float s_cie[kCieRows * kNCie];
   for (int k = threadIdx.x; k < kCieRows * kNCie; k += blockDim.x) s_cie[k] = cie[k];
   __syncthreads();
@@ -137,60 +150,78 @@ __global__ void __launch_bounds__(128)
   const float* cie_z = s_cie + 2 * kNCie;
   const float* cie_cum = s_cie + 3 * kNCie;
 
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= n_slots) return;
   const int n_pix = nx * ny;
-  const int pix = slot % n_pix;
-  const int replica = slot / n_pix;
-  const float px = (float)(pix % nx);
-  const float py = (float)(pix / nx);
-  const Camera camera = load_camera(cam);
   const float cos_scale = book ? 2.0f : 1.0f;
 
-  V3 acc = mk(0.0f, 0.0f, 0.0f);
+  int slot = take_slot(queue, n_slots, spp_slot, acc_out, cnt_out);
+  if (slot >= n_slots) return;
+  int samp = 0;
+  Draws<true> dr;
+  dr.clear();
+  dr.new_sample(seed0, seed1, sample_id(slot, 0, n_pix, spp_slot, offset),
+                (uint32_t)(slot % n_pix));
+  dr.run(seed0, seed1, 0u, 0u, 0u);
+
+  // The path: its key, ray, wavelength and background at λ.
+  uint32_t k0 = dr.key0, k1 = dr.key1;
+  V3 o, d;
+  float tme, lam, lam_pdf;
+  pixel_ray(camera, dr.cu, slot % n_pix, nx, ny, o, d, tme);
+  sample_wavelength(cie_y, cie_cum, dr.ul, lam, lam_pdf);
+  float bg_val = spd_value(sp.spd, bg_spd, lam);
+  float thru = 1.0f;
+  float rad = 0.0f;
+  int depth = 0;
+  V3 acc = mk(0.0f, 0.0f, 0.0f);  // the slot's sums
   int cnt = 0;
-  for (int samp = 0; samp < spp_slot; ++samp) {
-    uint32_t k0, k1;
-    path_key(seed0, seed1, (uint32_t)(replica * spp_slot + samp) + offset, (uint32_t)pix, k0,
-             k1);
-    V3 o, d;
-    float tme;
-    camera_ray(camera, k0, k1, px, py, nx, ny, o, d, tme);
-    // λ: one uniform at depth 0 under LAMBDA_SALT (integrator/wavefront.py).
-    float ul[1];
-    bounce_uniforms<1>(k0, k1, 0u, kLambdaSalt, ul);
-    float lam, lam_pdf;
-    sample_wavelength(cie_y, cie_cum, ul[0], lam, lam_pdf);
-    const float bg_val = spd_value(sp.spd, bg_spd, lam);
 
-    float thru = 1.0f;
-    float rad = 0.0f;
-    for (int depth = 0;; ++depth) {
-      ++cnt;
-      float t;
-      const int hit = closest_hit(sc, o, d, tme, kTMin, kTMax, t);
-      if (hit < 0) {
-        rad = rad + thru * bg_val;
-        break;
-      }
-      const V3 p = o + d * t;
-      const V3 n = record_normal(sc, hit, o, d, tme, p);
+  for (;;) {  // one bounce of one path per trip
+    ++cnt;
+    float t;
+    const int hit = closest_hit(sc, o, d, tme, kTMin, kTMax, t);
+    V3 p = o, n = d;
+    const float* M = sc.mat_f;
+    const int* SI = sp.spec_i;
+    int kind = -1;
+    float spec_val = 0.0f;
+    if (hit < 0) {
+      rad = rad + thru * bg_val;
+    } else {
+      p = o + d * t;
+      n = record_normal(sc, hit, o, d, tme, p);
       const int mat = sc.prim_i[hit * kPrimI + 1];
-      const float* M = sc.mat_f + mat * kMatF;
-      const int* SI = sp.spec_i + mat * kSpecI;
-      const int kind = sc.mat_i[mat * kMatI];
-
-      const float spec_val = spectral_value(sp, M, mat, lam);
+      M = sc.mat_f + mat * kMatF;
+      SI = sp.spec_i + mat * kSpecI;
+      kind = sc.mat_i[mat * kMatI];
+      spec_val = spectral_value(sp, M, mat, lam);
       // One-sided light keyed on the record normal; thru * 0 is added for
       // every other hit, as the plain version does, so a non-finite
       // throughput poisons the sample the same way.
       const bool emits = kind == kDiffuseLight && dot(n, d) < 0.0f;
       rad = rad + thru * (emits ? spec_val : 0.0f);
-      if (kind == kDiffuseLight || kind == kMetal) break;
+    }
+    const bool scatters = hit >= 0 && kind != kDiffuseLight && kind != kMetal;
+    // The depth cap: the background SPD at λ after the scatter.
+    const bool capped = scatters && depth + 1 >= max_depth;
+    const bool ends = !scatters || capped;
 
-      float us[12];
-      bounce_uniforms<12>(k0, k1, (uint32_t)depth, 0u, us);
+    // The next sample, from the next slot once this one is done.
+    int next_slot = slot, next_samp = samp;
+    if (ends && ++next_samp == spp_slot) {
+      next_slot = take_slot(queue, n_slots, spp_slot, acc_out, cnt_out);
+      next_samp = 0;
+    }
+    const uint32_t pair_list = kind == kDielectric ? kPairsDielectric : kPairsDiffuse;
+    dr.clear();
+    if (ends && next_slot < n_slots) {
+      dr.new_sample(seed0, seed1, sample_id(next_slot, next_samp, n_pix, spp_slot, offset),
+                    (uint32_t)(next_slot % n_pix));
+    }
+    if (scatters) dr.bounce(k0, k1, (uint32_t)depth, pair_list);
+    dr.run(seed0, seed1, k0, k1, (uint32_t)depth);
 
+    if (scatters) {
+      const float* us = dr.us;
       V3 d_new;
       float mult;
       if (kind == kDielectric) {  // dielectric.go:66-102 with η(λ), raw direction
@@ -221,13 +252,17 @@ __global__ void __launch_bounds__(128)
           mult = expf(-spd_value(sp.spd, SI[2], lam) * path_len);
         }
       } else {  // diffuse: mixture of light and cosine pdfs (spectral.go:61-76)
-        V3 ou, ov, ow;
-        onb_from_w(n, ou, ov, ow);
-        const float zc = sqrtf(1.0f - us[10]);
-        const float phic = kTwoPi * us[9];
-        const float rc = cos_scale * sqrtf(us[10]);
-        const V3 d_cos = ou * (cosf(phic) * rc) + ov * (sinf(phic) * rc) + ow * zc;
-        const V3 d_diff = us[4] < 0.5f ? lights_sample(sc, p, us[5], us[6], us[7], us[8]) : d_cos;
+        V3 d_diff;
+        if (us[4] < 0.5f) {
+          d_diff = lights_sample(sc, p, us[5], us[6], us[7], us[8]);
+        } else {
+          V3 ou, ov, ow;
+          onb_from_w(n, ou, ov, ow);
+          const float zc = sqrtf(1.0f - us[10]);
+          const float phic = kTwoPi * us[9];
+          const float rc = cos_scale * sqrtf(us[10]);
+          d_diff = ou * (cosf(phic) * rc) + ov * (sinf(phic) * rc) + ow * zc;
+        }
         const V3 dd_unit = normalize(d_diff);
         const float cos_lobe = dot(dd_unit, normalize(n));
         const float pdf_cos = cos_lobe > 0.0f ? cos_lobe / kPi : 0.0f;
@@ -240,44 +275,73 @@ __global__ void __launch_bounds__(128)
       thru = thru * mult;
       o = p;
       d = d_new;
-      if (depth + 1 >= max_depth) {  // depth cap: the background SPD at λ
-        rad = rad + thru * bg_val;
-        break;
+      ++depth;
+      if (draws_out != nullptr) {  // the slot's own counts: no other thread writes them
+        draws_out[2 * slot + 0] += 1;
+        draws_out[2 * slot + 1] += pairs_drawn(pair_list, us[4]);
       }
+      if (capped) rad = rad + thru * bg_val;
     }
+    if (!ends) continue;
+
     // XYZ deposit, DeNAN'd per component (integrator/wavefront.py).
     const float w = lam_pdf > 0.0f ? rad / lam_pdf : 0.0f;
     acc = acc + mk(finite_or_zero(cie_value(cie_x, lam) * w),
                    finite_or_zero(cie_value(cie_y, lam) * w),
                    finite_or_zero(cie_value(cie_z, lam) * w));
+    if (next_slot != slot) {
+      acc_out[3 * slot + 0] = acc.x;
+      acc_out[3 * slot + 1] = acc.y;
+      acc_out[3 * slot + 2] = acc.z;
+      cnt_out[slot] = cnt;
+      if (next_slot >= n_slots) return;
+      slot = next_slot;
+      acc = mk(0.0f, 0.0f, 0.0f);
+      cnt = 0;
+    }
+    samp = next_samp;
+    k0 = dr.key0;
+    k1 = dr.key1;
+    pixel_ray(camera, dr.cu, slot % n_pix, nx, ny, o, d, tme);
+    sample_wavelength(cie_y, cie_cum, dr.ul, lam, lam_pdf);
+    bg_val = spd_value(sp.spd, bg_spd, lam);
+    thru = 1.0f;
+    rad = 0.0f;
+    depth = 0;
   }
-  acc_out[3 * slot + 0] = acc.x;
-  acc_out[3 * slot + 1] = acc.y;
-  acc_out[3 * slot + 2] = acc.z;
-  cnt_out[slot] = cnt;
 }
 
 }  // namespace izpi
 
 extern "C" {
 
-// Launches the spectral megakernel on `stream`; returns cudaGetLastError().
-// acc: (n_slots, 3) f32 XYZ sums, cnt: (n_slots,) i32, both allocated by the
-// caller.
+// The persistent grid of izpi_megakernel_spectral on the current device:
+// *blocks blocks of *threads threads. Returns a cudaError_t.
+int izpi_megakernel_spectral_grid(int* blocks, int* threads) {
+  *threads = izpi::kMegaThreads;
+  return izpi::persistent_blocks(izpi::megakernel_spectral, blocks);
+}
+
+// Launches the spectral megakernel on `stream` over `blocks` blocks: the
+// caller's persistent grid (izpi_megakernel_spectral_grid), no more blocks
+// than the slots need; returns a cudaError_t. cam: the camera
+// row's floats in host memory; acc: (n_slots, 3) f32
+// XYZ sums, cnt: (n_slots,) i32, queue: one i32 set to 0, all allocated by
+// the caller; draws: null, or (n_slots, 2) i32 that receives each slot's
+// scatters and bounce pairs drawn.
 int izpi_megakernel_spectral(const float* prim_f, const int* prim_i, int n_prims,
                              const float* mat_f, const int* mat_i, const float* light_f,
                              const int* light_i, int n_lights, const float* spec_f,
                              const int* spec_i, const float* spd, const float* cie,
                              const float* cam, uint32_t seed0, uint32_t seed1, uint32_t offset,
                              int nx, int ny, int spp_slot, int n_slots, int max_depth,
-                             int bg_spd, int book, float* acc, int* cnt, void* stream) {
+                             int bg_spd, int book, int blocks, int* queue, float* acc,
+                             int* cnt, int* draws, void* stream) {
   izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
   izpi::Spectra sp{spec_f, spec_i, spd};
-  const int threads = 128;
-  const int blocks = (n_slots + threads - 1) / threads;
-  izpi::megakernel_spectral<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      sc, sp, cie, cam, seed0, seed1, offset, nx, ny, spp_slot, n_slots, max_depth, bg_spd,
-      book, acc, cnt);
+  izpi::megakernel_spectral<<<blocks, izpi::kMegaThreads, 0, (cudaStream_t)stream>>>(
+      sc, sp, cie, izpi::load_camera(cam), seed0, seed1, offset, nx, ny, spp_slot, n_slots,
+      max_depth, bg_spd, book, queue, acc, cnt, draws);
   return (int)cudaGetLastError();
 }
 

@@ -48,6 +48,20 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// Counter pair i (0 <= i < ceil(N/2)) of the classic jax.random layout of
+// N uniforms: the counters i and i + ceil(N/2), ciphered under (k0, k1),
+// give uniforms i (a) and i + ceil(N/2) (b). For odd N the last pair's b is
+// the pad's word, which uniforms_n drops.
+template <int N>
+__device__ __forceinline__ void uniform_pair(uint32_t k0, uint32_t k1, int i,
+                                             float& a, float& b) {
+  constexpr int kHalf = (N + 1) / 2;
+  uint32_t x0 = (uint32_t)i, x1 = (uint32_t)(i + kHalf);
+  threefry2x32(k0, k1, x0, x1);
+  a = bits_to_uniform(x0);
+  b = bits_to_uniform(x1);
+}
+
 // N uniforms in the classic jax.random counter layout: counters [0..N-1],
 // zero-padded to even length, split in half and ciphered pairwise; for odd N
 // the pad's word is dropped.
@@ -57,22 +71,30 @@ __device__ __forceinline__ void uniforms_n(uint32_t k0, uint32_t k1,
   constexpr int kHalf = (N + 1) / 2;
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
-    uint32_t x0 = (uint32_t)i, x1 = (uint32_t)(i + kHalf);
-    threefry2x32(k0, k1, x0, x1);
-    out[i] = bits_to_uniform(x0);
-    if (i + kHalf < N) out[i + kHalf] = bits_to_uniform(x1);
+    float a, b;
+    uniform_pair<N>(k0, k1, i, a, b);
+    out[i] = a;
+    if (i + kHalf < N) out[i + kHalf] = b;
   }
 }
 
-// n uniforms for use `salt` at bounce `depth` of the path keyed (k0, k1):
-// fold the depth, fold the salt, draw (core/rng.py bounce_uniforms_perray).
+// The key the uniforms for use `salt` at bounce `depth` of the path keyed
+// (k0, k1) are drawn under: fold the depth, fold the salt.
+__device__ __forceinline__ void bounce_key(uint32_t k0, uint32_t k1, uint32_t depth,
+                                           uint32_t salt, uint32_t& f0, uint32_t& f1) {
+  uint32_t d0, d1;
+  fold_in(k0, k1, depth, d0, d1);
+  fold_in(d0, d1, salt, f0, f1);
+}
+
+// n uniforms for use `salt` at bounce `depth` of the path keyed (k0, k1)
+// (core/rng.py bounce_uniforms_perray).
 template <int N>
 __device__ __forceinline__ void bounce_uniforms(uint32_t k0, uint32_t k1,
                                                 uint32_t depth, uint32_t salt,
                                                 float (&out)[N]) {
-  uint32_t d0, d1, f0, f1;
-  fold_in(k0, k1, depth, d0, d1);
-  fold_in(d0, d1, salt, f0, f1);
+  uint32_t f0, f1;
+  bounce_key(k0, k1, depth, salt, f0, f1);
   uniforms_n<N>(f0, f1, out);
 }
 

@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
 SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
            "bvh4_rowstack.cu")
-HEADERS = ("threefry.cuh", "common.cuh")
+HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
@@ -38,23 +39,27 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_int,          # prim_f, prim_i, n_prims
         _c_void_p, _c_void_p,                  # mat_f, mat_i
         _c_void_p, _c_void_p, _c_int,          # light_f, light_i, n_lights
-        _c_void_p,                             # cam
+        _c_void_p,                             # cam (host floats)
         _c_uint32, _c_uint32, _c_uint32,       # seed0, seed1, offset
         _c_int, _c_int, _c_int, _c_int, _c_int,  # nx, ny, spp_slot, n_slots, max_depth
         _c_float, _c_float, _c_float, _c_int,  # background, book
-        _c_void_p, _c_void_p, _c_void_p,       # acc, cnt, stream
+        _c_int, _c_void_p, _c_void_p, _c_void_p,  # blocks, queue, acc, cnt
+        _c_void_p, _c_void_p,                  # draws (or null), stream
     ],
+    "izpi_megakernel_rgb_grid": [_c_void_p, _c_void_p],  # blocks, threads
     "izpi_megakernel_spectral": [
         _c_void_p, _c_void_p, _c_int,          # prim_f, prim_i, n_prims
         _c_void_p, _c_void_p,                  # mat_f, mat_i
         _c_void_p, _c_void_p, _c_int,          # light_f, light_i, n_lights
         _c_void_p, _c_void_p, _c_void_p,       # spec_f, spec_i, spd
-        _c_void_p, _c_void_p,                  # cie, cam
+        _c_void_p, _c_void_p,                  # cie, cam (host floats)
         _c_uint32, _c_uint32, _c_uint32,       # seed0, seed1, offset
         _c_int, _c_int, _c_int, _c_int, _c_int,  # nx, ny, spp_slot, n_slots, max_depth
         _c_int, _c_int,                        # bg_spd, book
-        _c_void_p, _c_void_p, _c_void_p,       # acc, cnt, stream
+        _c_int, _c_void_p, _c_void_p, _c_void_p,  # blocks, queue, acc, cnt
+        _c_void_p, _c_void_p,                  # draws (or null), stream
     ],
+    "izpi_megakernel_spectral_grid": [_c_void_p, _c_void_p],
     "izpi_threefry_uniforms": [
         _c_void_p, _c_void_p, _c_int, _c_int, _c_uint32, _c_void_p, _c_void_p,
     ],
@@ -124,6 +129,25 @@ def build() -> Path:
         out.with_suffix(".log").write_text("".join(logs))
         os.replace(so, out)  # atomic: a concurrent build never loads a torn file
     return out
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} of each
+    megakernel's entry in a build log (ptxas -v output)."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            entry = next((k for k in ("megakernel_rgb", "megakernel_spectral")
+                          if k in m.group(1)), None)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            usage.setdefault(entry, [0, int(m.group(1)), int(m.group(2))])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in usage:
+            usage[entry][0] = int(m.group(1))
+            entry = None
+    return {k: tuple(v) for k, v in usage.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,22 +1,42 @@
 """The RGB megakernel: the whole render loop in one CUDA kernel.
 
 Counterpart of `izpi_tpu/ops/megakernel.py`. Its kernel (`build_renderer.
-<kernel>`, megakernel.py:628) is replaced by `csrc/megakernel_rgb.cu`, one
-thread per path slot, with the Threefry cipher inlined from
-`csrc/threefry.cuh`. The kernel is bound by per-thread FP32/INT32 issue
-through the Threefry rounds and the primitive loop; at the slice's sizes the
+<kernel>`, megakernel.py:628) is replaced by `csrc/megakernel_rgb.cu`, a
+persistent kernel with the Threefry cipher inlined from `csrc/threefry.cuh`
+and drawn lazily (`csrc/draws.cuh`). The kernel is bound by per-thread
+FP32/INT32 issue through the Threefry rounds and the primitive loop; the
 scene tables (a few KB) stay cache-resident, so memory is not the limit.
+What its design does about that (the source's head says more):
+1. persistent threads: one grid that fills the card (`persistent_grid`:
+   the occupancy calculator's blocks per SM times the SM count), each
+   thread taking slots from a counter this wrapper allocates, with at least
+   `SLOTS_PER_THREAD` slots per resident thread (`card_min_slots`) so the
+   queue's tail is short;
+2. path regeneration: one bounce per trip of one loop, a finished path's
+   lane starting its next sample at once, so no lane waits on its warp's
+   longest path;
+3. lazy draws: a scatter ciphers only the counter pairs its material and
+   branch read, and a lane's bounce and camera draws share one converged
+   loop;
+4. registers: the camera passed by value (constant bank) and a
+   `__launch_bounds__` hint of 5 blocks per SM (96 registers, no spill).
 
 Slots are pinned to pixels: slot s serves pixel s mod n_pix, and replicas
-(`pick_replication`) split a pixel's samples on small frames. Slot s walks
-samples replica·spp_slot + [0, spp_slot) + offset in turn (the mapping of
+(`pick_replication`) split a pixel's samples. Slot s walks samples
+replica·spp_slot + [0, spp_slot) + offset in turn (the mapping of
 megakernel.py:647, not the XLA pool's samp·r + replica), so a render split
-into sample-offset chunks sums to the single-pass render.
+into sample-offset chunks sums to the single-pass render, and each slot's
+sum, written once by the thread that ran it, does not depend on which
+thread that was. The card's layout has more replicas than the JAX rule's
+(`MIN_SLOTS`), which the CPU keeps: the same samples and paths, the pixel
+sums added in another order.
 
 This module holds:
 - `eligible`, the JAX package's rule (megakernel.py:74-81);
 - `pack_tables`, the scene tables as contiguous f32/i32 tensors whose row
   layouts `csrc/megakernel_rgb.cu` reads;
+- `pick_replication`, `persistent_grid`, `card_grid`, `card_min_slots`
+  and `card_layout`, the layout and the grid the wrappers launch;
 - `render_slots`, the wrapper: a CUDA tensor launches the kernel (or the
   call raises), a CPU tensor runs the plain twin;
 - `render_slots_reference`, the plain twin: vectorised over slots, built
@@ -27,6 +47,7 @@ This module holds:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -42,10 +63,15 @@ from izpi_tpu_torch.texture import tables as tex_tables
 # megakernel.py:53; the CUDA kernel reads primitives from memory, so the cap
 # only keeps the eligibility rule identical).
 MAX_PRIMS = 560
-# Slots wanted in flight before replicas stop doubling (megakernel.py:606).
-# The value was chosen for the TPU's lanes; retuning it for the H100's 132
-# SMs is later work.
+# Slots wanted in flight before replicas stop doubling (megakernel.py:606):
+# the JAX rule, for the TPU's lanes, and the layout of the plain versions
+# unless they are given the card's.
 MIN_SLOTS = 8192
+# On the card, slots per resident thread of the persistent grid: with eight
+# or more, the slots still running when the queue drains are a short tail.
+SLOTS_PER_THREAD = 8
+# The kernel's C entry; "<ENTRY>_grid" reports its persistent grid.
+ENTRY = "izpi_megakernel_rgb"
 
 # Row widths of the packed tables; csrc/megakernel_rgb.cu reads the same.
 PRIM_F, PRIM_I, MAT_F, MAT_I, LIGHT_F, CAM_F = 24, 4, 12, 4, 16, 24
@@ -72,6 +98,56 @@ def pick_replication(n_pix: int, spp: int, min_slots: int = MIN_SLOTS) -> int:
     return r
 
 
+@functools.lru_cache(maxsize=None)
+def persistent_grid(entry: str, device_index: int) -> tuple[int, int]:
+    """(blocks, threads per block) of the persistent grid of the C entry
+    `entry` (a module's ENTRY) on CUDA device `device_index`: the blocks one
+    SM holds, by the occupancy calculator, times the SM count. Raises if
+    the query fails."""
+    from izpi_tpu_torch.ops import _build
+
+    lib = _build.load()
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = getattr(lib, entry + "_grid")(ctypes.byref(blocks),
+                                            ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"{entry}_grid failed: CUDA error {err}")
+    return blocks.value, threads.value
+
+
+def device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def card_grid(entry: str, dev: torch.device) -> tuple[int, int]:
+    """The persistent grid of the C entry `entry` on CUDA device `dev`."""
+    return persistent_grid(entry, device_index(dev))
+
+
+def card_min_slots(entry: str, dev: torch.device) -> int:
+    """`pick_replication`'s min_slots on the card: SLOTS_PER_THREAD slots per
+    resident thread of `entry`'s persistent grid on `dev`."""
+    blocks, threads = card_grid(entry, dev)
+    return SLOTS_PER_THREAD * blocks * threads
+
+
+def card_layout(entry: str, dev: torch.device, n_pix: int, spp: int):
+    """(replicas, samples per slot, slots, blocks to launch) of an n_pix
+    frame at spp through `entry` on `dev`: the layout of `card_min_slots`,
+    and the persistent grid's blocks, no more than the slots need."""
+    blocks, threads = card_grid(entry, dev)
+    repl, spp_slot, n_slots = slot_layout(n_pix, spp,
+                                          card_min_slots(entry, dev))
+    return repl, spp_slot, n_slots, min(blocks, -(-n_slots // threads))
+
+
+def slot_layout(n_pix: int, spp: int, min_slots: int):
+    """(replicas, samples per slot, slots) of an n_pix frame at spp."""
+    repl = pick_replication(n_pix, spp, min_slots)
+    return repl, spp // repl, n_pix * repl
+
+
 class SceneTables(NamedTuple):
     """The compiled scene as the kernel reads it (rows documented in
     csrc/megakernel_rgb.cu)."""
@@ -82,11 +158,12 @@ class SceneTables(NamedTuple):
     mat_i: torch.Tensor    # (M, MAT_I) i32
     light_f: torch.Tensor  # (L, LIGHT_F) f32
     light_i: torch.Tensor  # (L,) i32
-    cam: torch.Tensor      # (CAM_F,) f32
+    cam: torch.Tensor      # (CAM_F,) f32 in host memory (`host_camera`)
 
 
 def pack_tables(cs) -> SceneTables:
-    """Pack the compiled scene into contiguous tables on its device. Each
+    """Pack the compiled scene into contiguous tables on its device, the
+    camera row in host memory (the kernels take it by value). Each
     material's albedo texture is resolved here (constant or checker), with
     the JAX evaluator's reading of a negative texture id as texture 0."""
     dev = cs.device
@@ -105,7 +182,7 @@ def pack_tables(cs) -> SceneTables:
     mat_i = torch.stack([m.kind, (tx.kind[tid] == tex_tables.TEX_CHECKER).int(),
                          m.has_absorption.int(), torch.zeros_like(m.kind)], 1)
     light_f = rows(LIGHT_F, li.l0, li.l1, li.l2, li.normal, li.area, li.radius)
-    cam = rows(CAM_F, *(x.reshape(1, -1) for x in c))[0]
+    cam = rows(CAM_F, *(x.reshape(1, -1) for x in c))[0].cpu()
     return SceneTables(prim_f, prim_i.int().contiguous(), mat_f,
                        mat_i.int().contiguous(), light_f,
                        li.kind.int().contiguous(), cam.contiguous())
@@ -120,8 +197,7 @@ def table_specs(tables: SceneTables, meta):
         ("mat_f", (n_m, MAT_F), torch.float32),
         ("mat_i", (n_m, MAT_I), torch.int32),
         ("light_f", (n_l, LIGHT_F), torch.float32),
-        ("light_i", (n_l,), torch.int32),
-        ("cam", (CAM_F,), torch.float32))]
+        ("light_i", (n_l,), torch.int32))]
 
 
 def _key_words(key):
@@ -132,14 +208,14 @@ def _key_words(key):
 
 
 def render_slots_reference(cs, meta, settings, nx: int, ny: int, spp: int,
-                           key, offset: int = 0):
-    """Plain twin of the CUDA kernel. Returns (acc (nx·ny, 3) f32 radiance
-    summed over the spp samples, rays traced as a 0-dim int64 tensor)."""
+                           key, offset: int = 0, min_slots: int = MIN_SLOTS):
+    """Plain twin of the CUDA kernel, on the layout `pick_replication` gives
+    for `min_slots` (the card's is `card_min_slots`). Returns (acc (nx·ny,
+    3) f32 radiance summed over the spp samples, rays traced as a 0-dim
+    int64 tensor)."""
     dev = cs.device
     n_pix = nx * ny
-    repl = pick_replication(n_pix, spp)
-    spp_slot = spp // repl
-    n_slots = n_pix * repl
+    repl, spp_slot, n_slots = slot_layout(n_pix, spp, min_slots)
     slot = torch.arange(n_slots, device=dev)
     pix = slot % n_pix
     replica = slot // n_pix
@@ -205,21 +281,27 @@ def check_tables(dev: torch.device, specs) -> None:
 
 
 def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
-                 offset: int = 0, tables: SceneTables | None = None):
+                 offset: int = 0, tables: SceneTables | None = None,
+                 draws: bool = False):
     """Render nx×ny at spp samples per pixel, samples [offset, offset+spp).
 
     Returns (acc (nx·ny, 3) f32 summed radiance — divide by spp for the
     image — and rays traced, a 0-dim int64 tensor; int64 because a 256²
-    frame at 1024 spp and depth up to 50 can pass 2³¹ rays).
+    frame at 1024 spp and depth up to 50 can pass 2³¹ rays). With `draws`
+    (on the card only) a third item: the int64 (scatters, bounce pairs
+    drawn) of the whole launch, from the kernel's counter buffer.
 
-    On a CUDA device this launches `izpi_megakernel_rgb`; any failure to
-    build or launch raises. On the CPU it runs `render_slots_reference`."""
+    On a CUDA device this launches `izpi_megakernel_rgb` on the card's
+    layout (`card_min_slots`); any failure to build or launch raises. On
+    the CPU it runs `render_slots_reference` on the JAX rule's layout."""
     if not eligible(cs, meta):
         raise NotImplementedError(
             "scene not eligible for the megakernel; render it through the "
             "queue pool (render(mode='pool'), integrator.wavefront)")
     dev = cs.device
     if dev.type == "cpu":
+        if draws:
+            raise ValueError("draw counts come from the CUDA kernel")
         return render_slots_reference(cs, meta, settings, nx, ny, spp, key,
                                       offset)
     if dev.type != "cuda":
@@ -235,27 +317,54 @@ def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
     lib = _build.load()
     n_p, n_l = meta.n_prims, meta.n_lights
     n_pix = nx * ny
-    repl = pick_replication(n_pix, spp)
-    spp_slot = spp // repl
-    n_slots = n_pix * repl
+    repl, spp_slot, n_slots, blocks = card_layout(ENTRY, dev, n_pix, spp)
     seed0, seed1 = _key_words(key)
     bg = [float(x) for x in settings.background]
-    acc = torch.empty((n_slots, 3), dtype=torch.float32, device=dev)
-    cnt = torch.empty((n_slots,), dtype=torch.int32, device=dev)
+    cam = host_camera(tables.cam)
+    queue, acc, cnt, counts = launch_buffers(n_slots, draws, dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.izpi_megakernel_rgb(
             ptr(tables.prim_f), ptr(tables.prim_i), n_p,
             ptr(tables.mat_f), ptr(tables.mat_i),
-            ptr(tables.light_f), ptr(tables.light_i), n_l, ptr(tables.cam),
+            ptr(tables.light_f), ptr(tables.light_i), n_l, cam,
             seed0, seed1, offset & tf.MASK, nx, ny, spp_slot, n_slots,
             int(settings.max_depth), bg[0], bg[1], bg[2],
-            int(bool(settings.exact_book_cosine)), ptr(acc), ptr(cnt),
+            int(bool(settings.exact_book_cosine)), blocks, ptr(queue),
+            ptr(acc), ptr(cnt), ptr(counts) if draws else None,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"izpi_megakernel_rgb launch failed: CUDA error {err}")
     global launches
     launches += 1
-    return (acc.reshape(repl, n_pix, 3).sum(dim=0),
-            cnt.sum(dtype=torch.int64))
+    return launch_result(acc, cnt, counts, repl, n_pix, draws)
+
+
+def host_camera(cam: torch.Tensor):
+    """The camera row (`SceneTables.cam`, in host memory) as the C floats
+    the kernels take by value; reads no device memory."""
+    if (cam.device.type != "cpu" or cam.dtype != torch.float32
+            or tuple(cam.shape) != (CAM_F,)):
+        raise ValueError(f"cam must be a host float32 tensor of shape "
+                         f"({CAM_F},), got {cam.dtype} {tuple(cam.shape)} on "
+                         f"{cam.device}")
+    return (ctypes.c_float * CAM_F)(*cam.tolist())
+
+
+def launch_buffers(n_slots: int, draws: bool, dev):
+    """A megakernel launch's buffers on `dev`: the slot queue's counter
+    (zeroed), the per-slot sums and ray counts, and the per-slot draw
+    counts (scatters, bounce pairs; zero for slots of no samples) when
+    `draws`."""
+    return (torch.zeros((1,), dtype=torch.int32, device=dev),
+            torch.empty((n_slots, 3), dtype=torch.float32, device=dev),
+            torch.empty((n_slots,), dtype=torch.int32, device=dev),
+            torch.zeros((n_slots, 2) if draws else (0, 2), dtype=torch.int32,
+                        device=dev))
+
+
+def launch_result(acc, cnt, counts, repl: int, n_pix: int, draws: bool):
+    """The wrapper's return value from a launch's buffers."""
+    out = (acc.reshape(repl, n_pix, 3).sum(dim=0), cnt.sum(dtype=torch.int64))
+    return out + (counts.sum(dim=0, dtype=torch.int64),) if draws else out

@@ -2,16 +2,21 @@
 
 Counterpart of `izpi_tpu/ops/megakernel_spectral.py`. Its kernel
 (`build_renderer.<kernel>`, megakernel_spectral.py:267) is replaced by
-`csrc/megakernel_spectral.cu`: one thread per path slot, as in the RGB
-megakernel, with λ transport. Each camera sample draws λ by CIE-Y sampling
-from its own Threefry stream (`LAMBDA_SALT`), carries scalar radiance and
-throughput at λ, reads η(λ), spectral absorption and the albedo spectra
-from the scene's 1 nm SPD table, and deposits XYZ. The kernel is bound by
-per-thread FP32/INT32 issue (the cipher rounds and the primitive loop); at
-these sizes the tables stay cache-resident and do not bound it.
+`csrc/megakernel_spectral.cu`: the RGB megakernel's persistent design
+(`ops.megakernel`: persistent threads over a slot queue on a grid that
+fills the card, path regeneration, lazy draws) with λ transport. Each
+camera sample draws λ by CIE-Y sampling from its own Threefry stream
+(`LAMBDA_SALT`, reusing the camera draw's first fold-in), carries scalar
+radiance and throughput at λ, reads η(λ), spectral absorption and the
+albedo spectra from the scene's 1 nm SPD table, and deposits XYZ. The
+kernel is bound by per-thread FP32/INT32 issue (the cipher rounds and the
+primitive loop); at these sizes the tables stay cache-resident and do not
+bound it.
 
 Slots are pinned to pixels with the RGB megakernel's replicas and sample
-mapping (replica·spp_slot + samp + offset, megakernel_spectral.py:285).
+mapping (replica·spp_slot + samp + offset, megakernel_spectral.py:285), on
+the card's layout (`megakernel.card_layout`) on a CUDA device and the
+JAX rule's on the CPU.
 
 This module holds:
 - `eligible`, the JAX package's rule (megakernel_spectral.py:89-112)
@@ -46,6 +51,8 @@ from izpi_tpu_torch.spectral import spd as spd_mod
 SPEC_F, SPEC_I = 4, 4
 # Rows of the CIE table: x̄, ȳ, z̄ and the f32 inclusive cumsum of ȳ.
 CIE_ROWS = 4
+# The kernel's C entry; "<ENTRY>_grid" reports its persistent grid.
+ENTRY = "izpi_megakernel_spectral"
 
 # Launches of the CUDA spectral megakernel made by `render_slots_spectral`.
 launches = 0
@@ -90,7 +97,8 @@ def cie_table(device) -> torch.Tensor:
 
 
 def pack_spectral_tables(cs) -> SpectralTables:
-    """Pack the compiled scene into contiguous tables on its device."""
+    """Pack the compiled scene into contiguous tables on its device (the
+    camera row, `megakernel.pack_tables`'s, in host memory)."""
     m = cs.materials
     spec_f = torch.cat([m.spec_albedo_gauss.float(),
                         torch.zeros_like(m.fuzz)[:, None]], dim=1)
@@ -103,14 +111,15 @@ def pack_spectral_tables(cs) -> SpectralTables:
 
 
 def render_slots_spectral_reference(cs, meta, settings, nx: int, ny: int,
-                                    spp: int, key, offset: int = 0):
-    """Plain version of the CUDA kernel. Returns (acc (nx·ny, 3) f32 XYZ
-    summed over the spp samples, rays traced as a 0-dim int64 tensor)."""
+                                    spp: int, key, offset: int = 0,
+                                    min_slots: int = megakernel.MIN_SLOTS):
+    """Plain version of the CUDA kernel, on the layout `pick_replication`
+    gives for `min_slots` (the card's is `megakernel.card_min_slots`).
+    Returns (acc (nx·ny, 3) f32 XYZ summed over the spp samples, rays
+    traced as a 0-dim int64 tensor)."""
     dev = cs.device
     n_pix = nx * ny
-    repl = megakernel.pick_replication(n_pix, spp)
-    spp_slot = spp // repl
-    n_slots = n_pix * repl
+    repl, spp_slot, n_slots = megakernel.slot_layout(n_pix, spp, min_slots)
     slot = torch.arange(n_slots, device=dev)
     pix = slot % n_pix
     replica = slot // n_pix
@@ -168,15 +177,17 @@ def render_slots_spectral_reference(cs, meta, settings, nx: int, ny: int,
 
 def render_slots_spectral(cs, meta, settings, nx: int, ny: int, spp: int,
                           key, offset: int = 0,
-                          tables: SpectralTables | None = None):
+                          tables: SpectralTables | None = None,
+                          draws: bool = False):
     """Render nx×ny at spp samples per pixel, samples [offset, offset+spp).
 
     Returns (acc (nx·ny, 3) f32 summed XYZ — divide by spp for the canvas —
-    and rays traced, a 0-dim int64 tensor).
+    and rays traced, a 0-dim int64 tensor). With `draws` (on the card only)
+    a third item: the int64 (scatters, bounce pairs drawn) of the launch.
 
-    On a CUDA device this launches `izpi_megakernel_spectral`; any failure
-    to build or launch raises. On the CPU it runs
-    `render_slots_spectral_reference`."""
+    On a CUDA device this launches `izpi_megakernel_spectral` on the card's
+    layout; any failure to build or launch raises. On the CPU it runs
+    `render_slots_spectral_reference` on the JAX rule's layout."""
     if not eligible(cs, meta):
         raise NotImplementedError(
             "scene not eligible for the spectral megakernel; render it "
@@ -184,6 +195,8 @@ def render_slots_spectral(cs, meta, settings, nx: int, ny: int, spp: int,
             "integrator.wavefront)")
     dev = cs.device
     if dev.type == "cpu":
+        if draws:
+            raise ValueError("draw counts come from the CUDA kernel")
         return render_slots_spectral_reference(cs, meta, settings, nx, ny, spp,
                                                key, offset)
     if dev.type != "cuda":
@@ -211,12 +224,10 @@ def render_slots_spectral(cs, meta, settings, nx: int, ny: int, spp: int,
 
     lib = _build.load()
     n_pix = nx * ny
-    repl = megakernel.pick_replication(n_pix, spp)
-    spp_slot = spp // repl
-    n_slots = n_pix * repl
+    repl, spp_slot, n_slots, blocks = megakernel.card_layout(ENTRY, dev,
+                                                             n_pix, spp)
     seed0, seed1 = megakernel._key_words(key)
-    acc = torch.empty((n_slots, 3), dtype=torch.float32, device=dev)
-    cnt = torch.empty((n_slots,), dtype=torch.int32, device=dev)
+    queue, acc, cnt, counts = megakernel.launch_buffers(n_slots, draws, dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -225,15 +236,15 @@ def render_slots_spectral(cs, meta, settings, nx: int, ny: int, spp: int,
             ptr(rgb.mat_f), ptr(rgb.mat_i),
             ptr(rgb.light_f), ptr(rgb.light_i), meta.n_lights,
             ptr(tables.spec_f), ptr(tables.spec_i), ptr(tables.spd),
-            ptr(tables.cie), ptr(rgb.cam),
+            ptr(tables.cie), megakernel.host_camera(rgb.cam),
             seed0, seed1, offset & tf.MASK, nx, ny, spp_slot, n_slots,
             int(settings.max_depth), bg_id,
-            int(bool(settings.exact_book_cosine)), ptr(acc), ptr(cnt),
+            int(bool(settings.exact_book_cosine)), blocks, ptr(queue),
+            ptr(acc), ptr(cnt), ptr(counts) if draws else None,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"izpi_megakernel_spectral launch failed: CUDA "
                            f"error {err}")
     global launches
     launches += 1
-    return (acc.reshape(repl, n_pix, 3).sum(dim=0),
-            cnt.sum(dtype=torch.int64))
+    return megakernel.launch_result(acc, cnt, counts, repl, n_pix, draws)

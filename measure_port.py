@@ -5,6 +5,7 @@
                             [--size N] [--spp S] [--runs 7] [--seeds 0 1]
     python3 measure_port.py --policy [--size 64] [--spp 4] [--runs 2]
     python3 measure_port.py --build [--runs 2]
+    python3 measure_port.py --scene cornell|pyramid --parent DIR [--runs 3]
 
 Renders one main path of chip_smoke.py on one warm `RenderContext`, after
 one warm-up render: Cornell 256×256 at 1024 spp, `max_depth=50`, through
@@ -26,7 +27,8 @@ pixel. It prints:
     the pool iterations of a pool scene);
   - the CUDA-event milliseconds of the kernel's wrapper alone: for a
     megakernel, `render_slots` or `render_slots_spectral` (kernel plus the
-    replica and ray-count sums) called on its own; for a pool scene, the
+    replica and ray-count sums) called on its own, and its launch inside
+    one `render()` with the persistent grid and slots; for a pool scene, the
     traversal kernel's wrapper (`bvh_kernel.closest_hit` or
     `bvh_rowkernel.closest_hit_rows`) summed over the launches of one
     `render()`, whose count must equal the pool iterations; and its share
@@ -48,14 +50,31 @@ small warm-up.
 `--build` times a build of the kernels from nothing, `--runs` times each
 way, alternating: `ops._build.build()` (one nvcc per source, all started
 together, then a link) and one nvcc call that compiles and links every
-source. Imports nothing of JAX.
+source.
+
+`--parent DIR` holds a megakernel scene's main path (cornell or pyramid)
+against another tree of the repository, DIR (the parent commit's `git
+archive`, unpacked), on the same card: four subprocesses in turns — DIR,
+this tree, this tree, DIR — each rendering the main path through the
+public entry points (`RenderContext`, `render`, the wrapper timed by
+`profiling.event_timed`), one warm-up and `--runs` timed renders (default
+3). Each prints its median render seconds and its median milliseconds per
+launch (CUDA events around the launch in `render()`); then the two trees'
+rays must be equal and every pixel of the image (Cornell) or of the XYZ
+canvas (the pyramid) within 1e-4 + 1e-5·|DIR's|.
+
+A megakernel scene also prints each megakernel's registers and spills from
+the ptxas log of the build. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -88,6 +107,44 @@ SCENES = {
     "dragon": (cornell_box_pbr_stanford_dragon_spectral, 256, 8, 16, None),
 }
 POLICY_TRIS = (100, 500, 2000, 20_000)
+# --parent: the image tolerance against the other tree, |a - b| <= ATOL +
+# RTOL·|b| for every pixel (the replicas of the persistent layout sum each
+# pixel's samples in another order).
+PARENT_ATOL, PARENT_RTOL = 1e-4, 1e-5
+
+# One turn of --parent, run in a subprocess from a tree's root with only the
+# entry points both trees have: argv = scene, n, spp, depth, runs, out.npz.
+# Prints one JSON line: rays, render seconds and ms per launch of each
+# timed run.
+TURN = r"""
+import json, sys
+import numpy as np, torch
+from izpi_tpu_torch import profiling
+from izpi_tpu_torch.integrator import path
+from izpi_tpu_torch.ops import megakernel, megakernel_spectral
+from izpi_tpu_torch.render import renderer
+from izpi_tpu_torch.scene.library.cornell import cornell_box
+from izpi_tpu_torch.scene.library.cornell_spectral import (
+    cornell_box_pyramid_spectral)
+scene, n, spp, depth, runs, out = sys.argv[1:7]
+n, spp, depth, runs = int(n), int(spp), int(depth), int(runs)
+spectral = scene == "pyramid"
+make = cornell_box_pyramid_spectral if spectral else cornell_box
+mod, fn = ((megakernel_spectral, "render_slots_spectral") if spectral
+           else (megakernel, "render_slots"))
+ctx = renderer.RenderContext(make(), device="cuda")
+settings = path.RenderSettings(max_depth=depth)
+renderer.render(None, n, n, spp, settings, seed=0, context=ctx, device="cuda")
+seconds, ms = [], []
+for _ in range(runs):
+    with profiling.event_timed(mod, fn) as events:
+        res = renderer.render(None, n, n, spp, settings, seed=0, context=ctx,
+                              device="cuda")
+    seconds.append(res.seconds)
+    ms.append(profiling.event_ms(events) / len(events))
+np.savez(out, image=res.image, xyz=res.xyz if spectral else res.image)
+print(json.dumps({"rays": res.rays_traced, "seconds": seconds, "ms": ms}))
+"""
 
 
 def smi() -> str:
@@ -164,6 +221,59 @@ def build_times(runs: int) -> None:
               f"{one_call:.2f} s", flush=True)
 
 
+def parent_turns(scene: str, parent: Path, runs: int) -> None:
+    """--parent: the main path of `scene` from `parent` and from this tree,
+    in turns parent, this, this, parent (the module docstring)."""
+    _, n, spp, depth, slots = SCENES[scene]
+    if slots is None:
+        raise SystemExit("measure_port: --parent takes a megakernel scene "
+                         "(cornell, pyramid)")
+    here = Path(__file__).resolve().parent
+    trees = {"parent": parent.resolve(), "this": here}
+    got = {"parent": [], "this": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for turn, name in enumerate(("parent", "this", "this", "parent")):
+            out = Path(tmp) / f"{name}{turn}.npz"
+            run = subprocess.run(
+                [sys.executable, "-c", TURN, scene, str(n), str(spp), str(depth),
+                 str(runs), str(out)],
+                cwd=trees[name], capture_output=True, text=True,
+                env={**os.environ, "PYTHONPATH": str(trees[name])})
+            if run.returncode != 0:
+                raise SystemExit(f"measure_port: the {name} tree's turn failed:"
+                                 f"\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+            r = json.loads(run.stdout.strip().splitlines()[-1])
+            print(f"turn {turn} ({name}, {trees[name]}): {scene} {n}x{n}@{spp} "
+                  f"depth {depth}: rays {r['rays']}; render() seconds "
+                  f"{[round(x, 4) for x in r['seconds']]}, median "
+                  f"{statistics.median(r['seconds']):.4f}; ms per launch "
+                  f"{[round(x, 3) for x in r['ms']]}, median "
+                  f"{statistics.median(r['ms']):.3f}", flush=True)
+            with np.load(out) as z:
+                got[name].append((r, z["xyz"].astype(np.float64)))
+    (pr, pa), (tr, ta) = got["parent"][0], got["this"][0]
+    med = {k: statistics.median(x for r, _ in v for x in r["ms"])
+           for k, v in got.items()}
+    secs = {k: statistics.median(x for r, _ in v for x in r["seconds"])
+            for k, v in got.items()}
+    diff = np.abs(ta - pa)
+    ok = diff <= PARENT_ATOL + PARENT_RTOL * np.abs(pa)
+    repeat = all(r["rays"] == v[0][0]["rays"] and np.array_equal(a, v[0][1])
+                 for v in got.values() for r, a in v)
+    label = "XYZ" if scene == "pyramid" else "image"
+    print(f"parent vs this tree: rays {pr['rays']} vs {tr['rays']} (equal "
+          f"{pr['rays'] == tr['rays']}); {label} pixels within {PARENT_ATOL} + "
+          f"{PARENT_RTOL}|parent|: {ok.all(axis=2).mean():.6f} (all: "
+          f"{bool(ok.all())}), max abs err {diff.max():.3e}; each tree's turns "
+          f"repeat bit for bit {repeat}; median ms per launch {med['parent']:.3f} "
+          f"-> {med['this']:.3f} ({med['parent'] / med['this']:.3f}x); median "
+          f"render() seconds {secs['parent']:.4f} -> {secs['this']:.4f} "
+          f"({smi()})", flush=True)
+    if pr["rays"] != tr["rays"] or not ok.all() or not repeat:
+        raise SystemExit("measure_port: this tree's main path differs from "
+                         "the parent's")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", choices=sorted(SCENES), default="cornell")
@@ -179,9 +289,16 @@ def main() -> None:
     ap.add_argument("--build", action="store_true",
                     help="time the kernels' build: per source at once against "
                          "one nvcc call")
+    ap.add_argument("--parent", type=Path,
+                    help="another tree of the repository to hold a megakernel "
+                         "scene's main path against, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("measure_port: torch.cuda.is_available() is False")
+    if args.parent:
+        print(f"smi before: {smi()}", flush=True)
+        parent_turns(args.scene, args.parent, args.runs or 3)
+        return
     if args.build:
         print(f"smi: {smi()}", flush=True)
         build_times(args.runs or 2)
@@ -254,9 +371,24 @@ def main() -> None:
         _, ms = profiling.cuda_ms(lambda: slots(
             ctx.cs, ctx.meta, settings, n, n, spp, key, tables=tables), 5,
             warm_up=False)
+        module = megakernel_spectral if ctx.meta.spectral else megakernel
+        with profiling.event_timed(module, slots.__name__) as events:
+            renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
+                            context=ctx, device="cuda")
+        in_render = profiling.event_ms(events)
+        blocks, threads = megakernel.card_grid(module.ENTRY, ctx.cs.device)
+        repl, spp_slot, n_slots = megakernel.slot_layout(
+            n * n, spp, megakernel.card_min_slots(module.ENTRY, ctx.cs.device))
+        log = _build.build().with_suffix(".log")
+        print(f"build: registers and spill bytes (stores, loads) "
+              f"{_build.ptxas_usage(log.read_text())}", flush=True)
         print(f"{slots.__name__} (CUDA events): {ms:.3f} ms per call, "
               f"{ms / 1e3 / median_s:.2%} of the median render() seconds of "
-              f"seed {args.seeds[0]}", flush=True)
+              f"seed {args.seeds[0]}; its launch inside one render() "
+              f"{in_render:.3f} ms; grid {blocks} x {threads}, {repl} "
+              f"replicas, {n_slots} slots of {spp_slot} samples, "
+              f"{n_slots / (blocks * threads):.3f} per resident thread",
+              flush=True)
 
     def profiled():
         nonlocal res

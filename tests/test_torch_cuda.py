@@ -18,7 +18,7 @@ from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import primitives
 from izpi_tpu_torch.integrator import path, wavefront
-from izpi_tpu_torch.ops import bvh_kernel, bvh_rowkernel, megakernel
+from izpi_tpu_torch.ops import _build, bvh_kernel, bvh_rowkernel, megakernel
 from izpi_tpu_torch.ops import megakernel_spectral, threefry
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene import compiler
@@ -60,24 +60,44 @@ def test_device_cipher_bit_identical(n, salt):
                                   want.numpy().view(np.uint32))
 
 
+def _check_card_layout(mod, dev, n, spp):
+    """The layouts of the cases below at which every thread of the
+    persistent grid serves several slots (64×64@64), and besides every slot
+    several samples (128×128@128: 64 replicas of two samples, as the main
+    paths' slots serve 64)."""
+    blocks, threads = megakernel.card_grid(mod.ENTRY, dev)
+    _, spp_slot, n_slots = megakernel.slot_layout(
+        n * n, spp, megakernel.card_min_slots(mod.ENTRY, dev))
+    resident = blocks * threads
+    if n >= 64 and spp >= 64:
+        assert n_slots > resident and n_slots % resident != 0
+    if n == 128:
+        assert spp_slot > 1
+
+
 @pytest.mark.parametrize("n,spp,depth,seed,offset", [
     (16, 4, 8, 3, 0),       # four replicas per pixel (1024 slots)
-    (256, 2, 50, 0, 0),     # the main path's layout: one slot per pixel
+    (64, 64, 8, 5, 0),      # every thread several slots, a ragged last round
+    (128, 128, 8, 7, 0),    # ... and every slot two samples
+    (256, 2, 50, 0, 0),     # the main path's frame: two replicas per pixel
     (256, 2, 50, 0, 1022),  # ... and its last sample chunk
 ])
 def test_kernel_matches_twin_on_card(n, spp, depth, seed, offset):
-    """Cornell n×n at spp samples from `offset`. Ray counts within 0.5% and
-    99% of the pixels within 1e-4: on the card torch divides by a Python
-    scalar as a multiplication by its reciprocal (x / π, x / n_lights) where
-    the kernel divides, and a last-ulp difference may flip a rare branch."""
+    """Cornell n×n at spp samples from `offset`, the plain twin on the
+    card's layout. Ray counts within 0.5% and 99% of the pixels within
+    1e-4: on the card torch divides by a Python scalar as a multiplication
+    by its reciprocal (x / π, x / n_lights) where the kernel divides, and a
+    last-ulp difference may flip a rare branch."""
     cs, meta = compiler.compile_scene(cornell_box(), "cuda")
     s = path.RenderSettings(max_depth=depth)
     key = rng.render_key(seed, device="cuda")
+    _check_card_layout(megakernel, cs.device, n, spp)
     before = megakernel.launches
     got, g_rays = megakernel.render_slots(cs, meta, s, n, n, spp, key, offset)
     assert megakernel.launches == before + 1
-    want, w_rays = megakernel.render_slots_reference(cs, meta, s, n, n, spp, key,
-                                                     offset)
+    want, w_rays = megakernel.render_slots_reference(
+        cs, meta, s, n, n, spp, key, offset,
+        min_slots=megakernel.card_min_slots(megakernel.ENTRY, cs.device))
     torch.cuda.synchronize()
     assert abs(int(g_rays) - int(w_rays)) <= 0.005 * int(w_rays)
     close = ((got - want).abs().amax(dim=1) / spp) <= 1e-4
@@ -108,7 +128,9 @@ def test_wrapper_rejects_tables_on_another_device():
 
 @pytest.mark.parametrize("n,spp,depth,seed,offset", [
     (16, 4, 50, 3, 0),      # four replicas per pixel (1024 slots)
-    (500, 2, 50, 0, 0),     # the spectral main path's layout: a slot per pixel
+    (64, 64, 8, 5, 0),      # every thread several slots, a ragged last round
+    (128, 128, 8, 7, 0),    # ... and every slot two samples
+    (500, 2, 50, 0, 0),     # the spectral main path's frame: two replicas
     (500, 2, 50, 0, 254),   # ... and its last sample chunk
 ])
 def test_spectral_kernel_matches_plain_on_card(n, spp, depth, seed, offset):
@@ -121,18 +143,90 @@ def test_spectral_kernel_matches_plain_on_card(n, spp, depth, seed, offset):
     cs, meta = compiler.compile_scene(cornell_box_pyramid_spectral(), "cuda")
     s = path.RenderSettings(max_depth=depth)
     key = rng.render_key(seed, device="cuda")
+    _check_card_layout(megakernel_spectral, cs.device, n, spp)
     before = megakernel_spectral.launches
     got, g_rays = megakernel_spectral.render_slots_spectral(
         cs, meta, s, n, n, spp, key, offset)
     assert megakernel_spectral.launches == before + 1
     want, w_rays = megakernel_spectral.render_slots_spectral_reference(
-        cs, meta, s, n, n, spp, key, offset)
+        cs, meta, s, n, n, spp, key, offset,
+        min_slots=megakernel.card_min_slots(megakernel_spectral.ENTRY,
+                                            cs.device))
     torch.cuda.synchronize()
     assert abs(int(g_rays) - int(w_rays)) <= 0.005 * int(w_rays)
     close = ((got - want).abs() <= 1e-4 * spp + 1e-5 * want.abs()).all(dim=1)
     assert close.float().mean().item() >= 0.99
     assert abs(float(got[:, 1].mean()) / float(want[:, 1].mean()) - 1) <= 0.005
     assert torch.isfinite(got).all()
+
+
+def _megakernel_case(spectral):
+    """(module, wrapper, its plain version, scene) of one megakernel."""
+    if spectral:
+        return (megakernel_spectral, "render_slots_spectral",
+                "render_slots_spectral_reference",
+                cornell_box_pyramid_spectral())
+    return megakernel, "render_slots", "render_slots_reference", cornell_box()
+
+
+@pytest.mark.parametrize("spectral", [False, True])
+def test_persistent_launches_are_deterministic(spectral):
+    """256×256 at 64 spp, depth 16 (16 replicas, 1,048,576 slots of four
+    samples: every thread takes several slots, in an order the scheduler
+    picks): two launches give bit-identical sums and equal ray counts, the
+    launch counter moves by one per call, and a third launch with the draw
+    counter buffer changes neither and counts one to five pairs a
+    scatter."""
+    mod, name, _, scene = _megakernel_case(spectral)
+    cs, meta = compiler.compile_scene(scene, "cuda")
+    s = path.RenderSettings(max_depth=16)
+    key = rng.render_key(9, device="cuda")
+    outs = []
+    for draws in (False, False, True):
+        before = mod.launches
+        outs.append(getattr(mod, name)(cs, meta, s, 256, 256, 64, key, 5,
+                                       draws=draws))
+        assert mod.launches == before + 1
+    torch.cuda.synchronize()
+    (a0, r0), (a1, r1), (a2, r2, (scatters, pairs)) = outs
+    assert torch.equal(a0.view(torch.int32), a1.view(torch.int32))
+    assert torch.equal(a0.view(torch.int32), a2.view(torch.int32))
+    assert int(r0) == int(r1) == int(r2)
+    assert 0 < int(scatters) < int(r0)
+    assert int(scatters) <= int(pairs) <= 5 * int(scatters)
+
+
+class _RefusingLibrary:
+    """The built library, but its megakernel entries report a refused launch
+    (cudaErrorLaunchOutOfResources) without launching."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        if name in ("izpi_megakernel_rgb", "izpi_megakernel_spectral"):
+            return lambda *args: 701
+        return getattr(self._lib, name)
+
+
+@pytest.mark.parametrize("spectral", [False, True])
+def test_refused_launch_raises(spectral, monkeypatch):
+    """A launch the runtime refuses raises, counts no launch and falls back
+    to nothing: the plain version is not called."""
+    mod, name, ref_name, scene = _megakernel_case(spectral)
+    cs, meta = compiler.compile_scene(scene, "cuda")
+    lib = _build.load()
+    monkeypatch.setattr(_build, "load", lambda: _RefusingLibrary(lib))
+
+    def no_fallback(*args, **kwargs):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(mod, ref_name, no_fallback)
+    before = mod.launches
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error 701"):
+        getattr(mod, name)(cs, meta, path.RenderSettings(max_depth=4), 8, 8, 2,
+                           rng.render_key(0, device="cuda"))
+    assert mod.launches == before
 
 
 def test_cuda_spectral_render_matches_cpu_render():
