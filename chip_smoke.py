@@ -45,7 +45,8 @@ line of its own:
      triangles); 262,144 rays each, half camera rays and half incoherent
      rays from their hit points (directions from a seeded
      torch.Generator); equal hit masks, t within 1e-6 relative, equal
-     primitives but on exact-t ties (at most 1e-5 of the rays); build
+     primitives but on exact-t ties (at most 1e-5 of the rays), per-ray
+     (nodes popped, primitives tested) equal to the plain version's; build
      seconds, nodes, kernel and plain times and the bound;
   8. the queue pool through the kernel against the queue pool through the
      plain traversal, both on the card: `cornell_box_obj` 32×32 at 4 spp,
@@ -55,22 +56,28 @@ line of its own:
      queue pool, one warm-up and one timed run; the traversal kernel's
      counter must equal the pool iterations and the megakernels' must not
      move; the image must be finite, green on the left, red on the right,
-     with the ceiling light at 15; the kernel's share of `render()` (CUDA
-     events) and, for a 16-spp render of the same frame, the device's idle
-     share under torch.profiler;
+     with the ceiling light at 15; the kernel's share of `render()` and its
+     time per launch (CUDA events); the cipher entry
+     `izpi_threefry_uniforms` at each (keys, uniforms) shape the warm-up
+     render called it with: its launches, its time per launch alone, its
+     bound and its plain version's time; and, for a 16-spp render of the
+     same frame, the device's idle share under torch.profiler;
  10. the row-stack traversal kernel (`ops.bvh_rowkernel`, one warp per 32
      rays) against its plain version (`bvh_rowkernel.closest_rows`), both
      on the card, on the leaf-64 trees of `cornell_box_obj`, of the dragon
      stand-in (phase 7's rays) and of the dragon scene its main path runs
      (262,144 rays on phase 7's recipe from the dragon's camera), the rays
-     sorted as its intersector sorts them: equal hit masks, t within 1e-6
-     relative, equal block slots but on exact-t ties (at most 1e-5 of the
-     rays), equal per-warp counters; and against the BVH4 traversal
-     kernel's hits on the same rays (equal hit masks, t within 1e-6
-     relative); build seconds, nodes and blocks, the kernel's time on
-     sorted and on unsorted rays, the plain time, the bound (from the work
-     each ray alone needs on the tree: the per-ray traversal's counts) and
-     the warp's own work beside it;
+     in their order, as its intersector hands them over: equal hit masks,
+     t within 1e-6 relative, equal block slots but on exact-t ties (at most
+     1e-5 of the rays), equal per-warp counters (nodes popped, leaf blocks
+     tested, (ray, primitive) pairs tested); and against the BVH4
+     traversal kernel's hits on the same rays (equal hit masks, t within
+     1e-6 relative); build seconds, nodes and blocks, the kernel's time and
+     the warps' work (totals, 99th percentile and longest warp) on these
+     rays and on the same rays sorted by the JAX intersector's coherence
+     key, the plain time, the bound (from the work each ray alone needs on
+     the tree: the per-ray traversal's counts) and the warps' own work
+     beside it;
  11. the dragon (`cornell_box_pbr_stanford_dragon_spectral()`: the
      871,200-triangle stand-in, the walls, the light and a glass sphere,
      porcelain PBR) through the queue pool at 32×32, 4 spp, depth 16, once
@@ -90,14 +97,19 @@ line of its own:
      events) and the device's idle share of a 2-spp render under
      torch.profiler. The mesh region is the pixels whose centre's camera
      ray first hits the porcelain; the stand-in's triangles face inward, so
-     only its rim and what the glass sphere throws on it are lit.
+     only its rim and what the glass sphere throws on it are lit. The
+     dragon's meta must flag its stand-in mesh (`placeholder_assets`),
+     which the phase prints.
 The build line is followed by the ptxas registers and spills of every
-kernel (a megakernel that spills fails the run) and each megakernel's
-persistent grid (blocks × threads) and slots. The line before the last is a
-JSON object describing the kernels, each with its time, its plain version's
-time and its bound (the least time the card could take for the work this
-run's rays needed); the last is {"ok": true, "device": {...}}. Any failure
-raises and exits non-zero. Imports nothing of JAX.
+kernel (a megakernel that spills fails the run), each megakernel's
+persistent grid (blocks × threads) and slots, and the two traversal
+kernels' registers, spills, stack frame and shared memory per block, which
+phases 7, 10, 11 and 12 print again. The line before the last is a JSON object describing the five
+kernels (the two megakernels, the two traversal kernels and the cipher
+entry), each with its time, its plain version's time and its bound (the
+least time the card could take for the work this run's inputs needed);
+the last is {"ok": true, "device": {...}}. Any failure raises and exits
+non-zero. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -259,6 +271,73 @@ def launch_bound(label: str, rays: int, samples: int, draws, prim_kinds,
                 scatters=scatters, pairs=pairs)
 
 
+def cipher_on_path(shapes, launches: int, card: str) -> dict:
+    """The cipher entry `izpi_threefry_uniforms` at the (keys, uniforms)
+    shapes a main path called it with (`shapes`, one per call): for each
+    shape its calls, the entry's time per launch alone on random keys (the
+    keys already words, as the wrapper hands them over), its bound and the
+    plain version's time; and over the path, launches x (time - bound).
+    Raises unless the shapes are as many as the path's `launches`."""
+    if len(shapes) != launches:
+        raise AssertionError(f"{len(shapes)} cipher calls recorded, "
+                             f"{launches} launched")
+    lib = _build.load()
+    rs = np.random.RandomState(3)
+    rows, excess = [], 0.0
+    for (n_keys, n_u), calls in sorted(
+            {sh: shapes.count(sh) for sh in set(shapes)}.items()):
+        words = torch.as_tensor(rs.randint(-2**31, 2**31, (n_keys, 3),
+                                           dtype=np.int64).astype(np.int32),
+                                device="cuda")
+        k32, d32 = words[:, :2].contiguous(), words[:, 2].contiguous()
+        out = torch.empty((n_keys, n_u), dtype=torch.float32, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch():
+            err = lib.izpi_threefry_uniforms(
+                k32.data_ptr(), d32.data_ptr(), n_keys, n_u, 0, out.data_ptr(),
+                stream)
+            if err != 0:
+                raise RuntimeError(f"izpi_threefry_uniforms: CUDA error {err}")
+
+        ms = cuda_ms(launch, 20)
+        keys64 = (k32.to(torch.int64) & 0xFFFFFFFF)
+        depths64 = d32.to(torch.int64) & 0xFFFFFFFF
+        plain = cuda_ms(lambda: threefry.uniforms_for_keys_reference(
+            keys64, depths64, n_u, 0), 2)
+        calls_per_key = 2 + (n_u + 1) // 2   # two fold-ins and the pairs
+        bound = 1e3 * max(
+            n_keys * (calls_per_key * CIPHER_INT + n_u * UNIFORM_INT)
+            / INT32_OPS_PER_S,
+            n_keys * (8 + 4 + 4 * n_u) / HBM_BYTES_PER_S)
+        excess += calls * (ms - bound)
+        rows.append(dict(keys=n_keys, uniforms=n_u, calls=calls, ms=ms,
+                         plain_ms=plain, bound_ms=bound))
+        print(f"cipher on the BVH main path: {calls} launches of {n_keys} keys "
+              f"x {n_u} uniforms: {ms:.4f} ms per launch, bound {bound:.4f} ms "
+              f"by operations, plain {plain:.3f} ms ({card})", flush=True)
+    top = max(rows, key=lambda r: r["calls"])
+    print(f"cipher on the BVH main path: {launches} launches, launches x "
+          f"(time - bound) = {excess:.3f} ms a render ({card})", flush=True)
+    return dict(launches=launches, shapes=rows, excess_ms=excess, ms=top["ms"],
+                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                shape=(top["keys"], top["uniforms"]))
+
+
+def traversal_build(usage: dict, label: str) -> dict:
+    """Print the two traversal kernels' registers, spills, stack frame and
+    shared memory per block (ptxas) under `label`; returns them by
+    kernel."""
+    out = {name: usage[name]._asdict() for name in ("bvh4_traverse",
+                                                     "bvh4_rowstack")}
+    print(f"{label}: " + "; ".join(
+        f"{name} {u['registers']} registers, spill stores {u['spill_stores']} "
+        f"B, loads {u['spill_loads']} B, stack frame {u['stack_frame']} B, "
+        f"shared memory {u['smem']} B per block" for name, u in out.items()),
+          flush=True)
+    return out
+
+
 def tensor_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -392,22 +471,20 @@ def traversal_bound_ms(fp: int, n_rays: int, table_bytes: int):
 def compare_rowstack(label: str, cs2, inter, attach_s: float, rays, ks3,
                      card: str):
     """The row-stack kernel of `attach`'s pair (cs2, inter) against its
-    plain version on `rays` sorted as `RowBVHIntersector` sorts them, both
-    on the card, and against the BVH4 kernel's hits (tree `ks3`) on the
-    same rays: print the deviations, the times and the bound; raise unless
-    hit masks are equal, t is within T_RTOL, block slots differ only on
-    exact-t ties (at most TIE_SHARE of the rays) and the per-warp counters
-    are equal. Returns a dict of the numbers."""
+    plain version on `rays` in their order, as `RowBVHIntersector` hands
+    them over, both on the card, and against the BVH4 kernel's hits (tree
+    `ks3`) on the same rays: print the deviations, the times (also on the
+    rays sorted by the JAX intersector's coherence key, `sort_keys`) and the
+    bound; raise unless hit masks are equal, t is within T_RTOL, block slots
+    differ only on exact-t ties (at most TIE_SHARE of the rays) and the
+    per-warp counters are equal. Returns a dict of the numbers."""
     rs = inter.rs
     o, d, tme = rays
     n = o.shape[0]
-    order = torch.argsort(bvh_rowkernel.sort_keys(o, d, inter.lo, inter.hi),
-                          stable=True)
-    o_s, d_s, t_s = (x[order].contiguous() for x in (o, d, tme))
     t_k, i_k, c_k = bvh_rowkernel.closest_hit_rows(
-        rs, o_s, d_s, t_s, path.T_MIN, primitives.T_MAX, counters=True)
+        rs, o, d, tme, path.T_MIN, primitives.T_MAX, counters=True)
     (t_p, i_p, c_p), plain_ms = profiling.cuda_ms(
-        lambda: bvh_rowkernel.closest_rows(rs, o_s, d_s, t_s, path.T_MIN,
+        lambda: bvh_rowkernel.closest_rows(rs, o, d, tme, path.T_MIN,
                                            primitives.T_MAX), 1, warm_up=False)
     hit = i_p >= 0
     same_mask = torch.equal(i_k >= 0, hit)
@@ -418,17 +495,29 @@ def compare_rowstack(label: str, cs2, inter, attach_s: float, rays, ks3,
     ties = int((differ & (t_k == t_p)).sum())
     wrong = int((differ & (t_k != t_p)).sum())
     same_counters = torch.equal(c_k, c_p)
-    # The BVH4 kernel on the same rays, in their sorted order.
-    t3, i3 = bvh_kernel.closest_hit(ks3, o_s, d_s, t_s, path.T_MIN,
+    # The BVH4 kernel on the same rays.
+    t3, i3 = bvh_kernel.closest_hit(ks3, o, d, tme, path.T_MIN,
                                     primitives.T_MAX)
     same_mask3 = torch.equal(i3 >= 0, i_k >= 0)
     hit3 = i3 >= 0
     rel3 = (float(((t_k[hit3] - t3[hit3]).abs() / t3[hit3].abs()).max())
             if bool(hit3.any()) else 0.0)
     ms = cuda_ms(lambda: bvh_rowkernel.closest_hit_rows(
-        rs, o_s, d_s, t_s, path.T_MIN, primitives.T_MAX), 20)
-    ms_unsorted = cuda_ms(lambda: bvh_rowkernel.closest_hit_rows(
         rs, o, d, tme, path.T_MIN, primitives.T_MAX), 20)
+    order = torch.argsort(bvh_rowkernel.sort_keys(o, d, inter.lo, inter.hi),
+                          stable=True)
+    o_s, d_s, t_s = (x[order].contiguous() for x in (o, d, tme))
+    ms_sorted = cuda_ms(lambda: bvh_rowkernel.closest_hit_rows(
+        rs, o_s, d_s, t_s, path.T_MIN, primitives.T_MAX), 20)
+    # The warps' work unsorted and sorted: totals, the 99th percentile and
+    # the longest warp (what a launch's tail waits for).
+    c_s = bvh_rowkernel.closest_hit_rows(rs, o_s, d_s, t_s, path.T_MIN,
+                                         primitives.T_MAX, counters=True)[2]
+    work = {order: dict(total=[int(x) for x in c.sum(dim=0)],
+                        max=[int(x) for x in c.max(dim=0).values],
+                        p99=[float(x) for x in torch.quantile(
+                            c.double(), 0.99, dim=0)])
+            for order, c in (("unsorted", c_k), ("sorted", c_s))}
     # The bound: the work each ray alone needs on this leaf-64 tree, the
     # node pops and primitive tests of the per-ray traversal (near child
     # first) over the same tables, in chunks of rays.
@@ -436,8 +525,8 @@ def compare_rowstack(label: str, cs2, inter, attach_s: float, rays, ks3,
     visits = tests = 0
     for lo in range(0, n, PER_RAY_CHUNK):
         sl = slice(lo, lo + PER_RAY_CHUNK)
-        _, i_r, c_r = traverse.closest_bvh(cs2.prims, tree, o_s[sl], d_s[sl],
-                                           t_s[sl], path.T_MIN,
+        _, i_r, c_r = traverse.closest_bvh(cs2.prims, tree, o[sl], d[sl],
+                                           tme[sl], path.T_MIN,
                                            primitives.T_MAX, counts=True)
         same_mask = same_mask and torch.equal(i_r >= 0, hit[sl])
         visits += int(c_r[:, 0].sum())
@@ -445,25 +534,26 @@ def compare_rowstack(label: str, cs2, inter, attach_s: float, rays, ks3,
     table_bytes = tensor_bytes([rs.nodes, rs.blocks])
     bound, bound_by = traversal_bound_ms(
         visits * ROW_VISIT_FP + tests * min(PRIM_FP.values()), n, table_bytes)
-    # Beside it, the warp's own work: 32 lanes x (its node pops and the
-    # primitives of every block it visits). Not a bound: kernel 3 does the
-    # per-ray work in less time than this.
-    pops, _, prims = (int(x) for x in c_k.sum(dim=0))
+    # Beside it, the warps' own work: 32 lanes x its node pops, and the (ray,
+    # primitive) pairs it tests (the third counter: each visited block's
+    # primitives times the rays whose own box test hit it). Not a bound.
+    pops, _, pairs = (int(x) for x in c_k.sum(dim=0))
     warp_bound, _ = traversal_bound_ms(
-        32 * (pops * ROW_VISIT_FP + prims * min(PRIM_FP.values())), n,
+        32 * pops * ROW_VISIT_FP + pairs * min(PRIM_FP.values()), n,
         table_bytes)
     mean_c = [round(float(x), 3) for x in c_k.double().mean(dim=0)]
     print(f"row-stack {label}: leaf-64 tree {rs.nodes.shape[0]} nodes, "
           f"{rs.blocks.shape[0]} blocks, attach {attach_s:.3f} s; {n} rays "
-          f"sorted, hits {float(hit.float().mean()):.4f}; hit masks equal "
-          f"{same_mask}; t max abs err {max_abs:.3e}, max rel {max_rel:.3e} "
+          f"in the pool's order, hits {float(hit.float().mean()):.4f}; hit "
+          f"masks equal {same_mask}; t max abs err {max_abs:.3e}, max rel {max_rel:.3e} "
           f"(tol {T_RTOL}); slots differing on exact-t ties {ties} (allowed "
           f"{TIE_SHARE * n:.2f}), otherwise {wrong}; per-warp counters equal "
-          f"{same_counters}; mean per warp: nodes popped, blocks, prims per "
-          f"lane {mean_c}, max {c_k.max(dim=0).values.tolist()}; per ray "
+          f"{same_counters}; mean per warp: nodes popped, blocks, (ray, prim) "
+          f"pairs {mean_c}, max {c_k.max(dim=0).values.tolist()}; per ray "
           f"alone: nodes {visits / n:.3f}, prims {tests / n:.3f}; vs the "
           f"BVH4 kernel: hit masks equal {same_mask3}, t max rel {rel3:.3e}; "
-          f"kernel {ms:.4f} ms sorted, {ms_unsorted:.4f} ms unsorted, plain "
+          f"warps' (pops, blocks, pairs) {work}; "
+          f"kernel {ms:.4f} ms ({ms_sorted:.4f} ms sorted), plain "
           f"{plain_ms:.2f} ms, bound {bound:.4f} ms by {bound_by} (the "
           f"warp's own work {warp_bound:.4f} ms) ({card})", flush=True)
     if not (same_mask and max_rel <= T_RTOL and wrong == 0
@@ -471,11 +561,11 @@ def compare_rowstack(label: str, cs2, inter, attach_s: float, rays, ks3,
             and rel3 <= T_RTOL):
         raise AssertionError(f"row-stack kernel disagrees with its plain "
                              f"version or the BVH4 kernel on {label}")
-    return dict(max_abs_err=max_abs, ms=ms, ms_unsorted=ms_unsorted,
+    return dict(max_abs_err=max_abs, ms=ms, ms_sorted=ms_sorted,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 warp_work_ms=warp_bound, attach_s=attach_s,
                 nodes=rs.nodes.shape[0], blocks=rs.blocks.shape[0],
-                mean_counters=mean_c,
+                mean_counters=mean_c, warp_work=work,
                 per_ray_nodes_prims=[visits / n, tests / n])
 
 
@@ -553,7 +643,7 @@ def compare_traversal(label: str, ks, rays, card: str):
           f"{plain_ms:.2f} ms, bound {bound:.4f} ms by {bound_by} ({card})",
           flush=True)
     if not (same_mask and max_rel <= T_RTOL and wrong == 0
-            and ties <= TIE_SHARE * n):
+            and ties <= TIE_SHARE * n and same_counts):
         raise AssertionError(f"traversal kernel disagrees with its plain "
                              f"version on {label}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -573,11 +663,12 @@ def mesh_pixels(ctx, n: int) -> np.ndarray:
     return (hit.hit & (kind == mat_tables.MAT_PBR)).reshape(n, n).cpu().numpy()
 
 
-def row_stack_phases(bctx, dctx, rays7, card: str):
+def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
     """Phases 10-12 (the module docstring). Returns (phase 10's numbers
     by tree, phase 12's numbers by traversal kernel)."""
     # 10. The row-stack kernel against its plain version and the BVH4 kernel,
     # on phase 7's scenes and rays, then on the dragon scene's own tree.
+    traversal_build(usage, "phase 10")
     rows10 = {}
     for label, ctx in (("cornell_box_obj", bctx), ("dragon stand-in", dctx)):
         t0 = time.perf_counter()
@@ -615,6 +706,7 @@ def row_stack_phases(bctx, dctx, rays7, card: str):
 
     # 11. The dragon's pool through the row-stack pair against the pool
     # through the BVH4 kernel.
+    traversal_build(usage, "phase 11")
     s11 = path.RenderSettings(max_depth=DRAGON_DEPTH)
     key11 = rng.render_key(0, device=dev)
     bg11 = d3ctx.meta.spectral_background_spd or 0
@@ -627,7 +719,7 @@ def row_stack_phases(bctx, dctx, rays7, card: str):
         d3ctx.cs, d3ctx.meta, s11, d3ctx.intersect, 32, 32, 4, key11, 4096,
         spectral=True, bg_spd_id=bg11)
     torch.cuda.synchronize()
-    print(f"pool: dragon 32x32@4 depth 16 (pool 4096, sorted): row-stack "
+    print(f"pool: dragon 32x32@4 depth 16 (pool 4096): row-stack "
           f"{it4} iterations ({launched4} launches), BVH4 kernel {it3}",
           flush=True)
     compare_xyz("pool: dragon row-stack vs BVH4 kernel", acc4, int(rays4), acc3,
@@ -638,6 +730,12 @@ def row_stack_phases(bctx, dctx, rays7, card: str):
 
     # 12. The dragon main path through each traversal kernel, through the
     # entry points a user calls.
+    traversal_build(usage, "phase 12")
+    print(f"dragon main path: placeholder assets "
+          f"{d3ctx.meta.placeholder_assets} (the mesh is the procedural "
+          f"871,200-triangle stand-in)", flush=True)
+    if not d3ctx.meta.placeholder_assets:
+        raise AssertionError("the dragon's meta does not flag its stand-in")
     s12 = path.RenderSettings(max_depth=DRAGON_DEPTH)
     counters = (bvh_kernel, bvh_rowkernel, megakernel, megakernel_spectral,
                 threefry)
@@ -677,7 +775,8 @@ def row_stack_phases(bctx, dctx, rays7, card: str):
               f"pool iterations (warm-up {warm.seconds:.4f} s, "
               f"{warm.rays_traced} rays; {card}); launches {moved}; {name} "
               f"{kernel_ms:.3f} ms = {kernel_ms / 1e3 / res12.seconds:.2%} of "
-              f"render() (CUDA events)", flush=True)
+              f"render() (CUDA events), {kernel_ms / len(times):.4f} ms per "
+              f"launch", flush=True)
         if (mod.launches != res12.iterations or sum(moved.values())
                 != mod.launches + threefry.launches):
             raise AssertionError(f"the dragon main path through {name} "
@@ -724,7 +823,9 @@ def row_stack_phases(bctx, dctx, rays7, card: str):
             "seconds": res12.seconds, "mrays_per_sec": res12.mrays_per_sec,
             "iterations": res12.iterations,
             "kernel_share": kernel_ms / 1e3 / res12.seconds,
-            "profiled_idle_share_2spp": 1 - busy12 / wall12}
+            "ms_per_launch": kernel_ms / len(times),
+            "profiled_idle_share_2spp": 1 - busy12 / wall12,
+            "placeholder_assets": list(ctx.meta.placeholder_assets)}
     compare_xyz("dragon main path: row-stack vs BVH4 kernel (XYZ after "
                 "firefly rejection)",
                 torch.as_tensor(dres["bvh4_rowstack"].xyz.reshape(-1, 3)),
@@ -767,7 +868,7 @@ def main() -> None:
     grids = {}
     for name, mod in (("megakernel_rgb", megakernel),
                       ("megakernel_spectral", megakernel_spectral)):
-        regs, spill_st, spill_ld = usage[name]
+        regs, spill_st, spill_ld = usage[name][:3]
         blocks, threads = megakernel.card_grid(mod.ENTRY, torch.device("cuda"))
         grids[name] = dict(registers=regs, spill_bytes=spill_st + spill_ld,
                            blocks=blocks, threads=threads,
@@ -776,6 +877,10 @@ def main() -> None:
               f"loads {spill_ld} B; persistent grid {blocks} blocks x "
               f"{threads} threads ({blocks / sms:g} per SM of {sms}; "
               f"{blocks * threads} resident threads)", flush=True)
+    for name in ("bvh4_traverse", "bvh4_rowstack"):
+        if name not in usage:
+            raise AssertionError(f"no ptxas report of {name} in {log}")
+    trav_build = traversal_build(usage, "grid")
 
     # 3. Cipher, bit for bit.
     rs = np.random.RandomState(0)
@@ -1015,6 +1120,7 @@ def main() -> None:
     # The first is the main path's context.
     bctx = renderer.RenderContext(cornell_box_obj(), device="cuda")
     dctx = renderer.RenderContext(dragon_stand_in(), device="cuda")
+    traversal_build(usage, "phase 7")
     found, rays7 = {}, {}
     for label, ctx, seed in (("cornell_box_obj", bctx, 7),
                              ("dragon stand-in", dctx, 8)):
@@ -1058,11 +1164,23 @@ def main() -> None:
         raise AssertionError("the pool through the traversal kernel disagrees "
                              "with the pool through the plain traversal")
 
-    # 9. The BVH main path, through the entry points a user calls.
+    # 9. The BVH main path, through the entry points a user calls. The
+    # warm-up render records the shapes the pool hands the cipher entry.
     megakernel.launches = megakernel_spectral.launches = 0
     bvh_kernel.launches = threefry.launches = 0
-    warm = renderer.render(None, 256, 256, 128, settings, seed=0,
-                           mode="wavefront", context=bctx, device="cuda")
+    cipher_shapes = []
+    cipher_wrapper = threefry.uniforms_for_keys
+
+    def recording(keys, depths, n, salt):
+        cipher_shapes.append((int(keys.shape[0]), n))
+        return cipher_wrapper(keys, depths, n, salt)
+
+    threefry.uniforms_for_keys = recording
+    try:
+        warm = renderer.render(None, 256, 256, 128, settings, seed=0,
+                               mode="wavefront", context=bctx, device="cuda")
+    finally:
+        threefry.uniforms_for_keys = cipher_wrapper
     if bvh_kernel.launches != warm.iterations:
         raise AssertionError(f"warm-up: {bvh_kernel.launches} traversal "
                              f"launches for {warm.iterations} pool iterations")
@@ -1075,6 +1193,7 @@ def main() -> None:
     bvh_launches, cipher_launches = bvh_kernel.launches, threefry.launches
     mega_moved = megakernel.launches + megakernel_spectral.launches
     oimg = ores.image
+    trav_per_launch = kernel_s * 1e3 / bvh_launches
     print(f"BVH main path: cornell_box_obj 256x256@128 depth 50 seed 0 on "
           f"{ores.device}: {ores.rays_traced} rays in {ores.seconds:.4f} s = "
           f"{ores.mrays_per_sec:.3f} Mrays/s in {ores.iterations} pool "
@@ -1082,7 +1201,8 @@ def main() -> None:
           f"rays; {card}); traversal launches {bvh_launches}, cipher launches "
           f"{cipher_launches}, megakernel launches {mega_moved}; traversal "
           f"kernel {kernel_s:.4f} s = {kernel_s / ores.seconds:.2%} of "
-          f"render() (CUDA events)", flush=True)
+          f"render() (CUDA events), {trav_per_launch:.4f} ms per launch",
+          flush=True)
     if bvh_launches != ores.iterations or mega_moved != 0:
         raise AssertionError(f"the BVH main path launched the traversal "
                              f"kernel {bvh_launches} times in "
@@ -1100,6 +1220,7 @@ def main() -> None:
         raise AssertionError("walls: expected green on the left, red on the right")
     if abs(olight - 15.0) > 0.5:
         raise AssertionError(f"ceiling light patch {olight}, expected ~15")
+    cipher_main = cipher_on_path(cipher_shapes, cipher_launches, card)
     wall, busy, top = profiling.device_profile(lambda: renderer.render(
         None, 256, 256, 16, settings, seed=0, mode="wavefront", context=bctx,
         device="cuda"))
@@ -1109,7 +1230,7 @@ def main() -> None:
     for dt, name, count in top[:6]:
         print(f"  {dt / 1e3:10.3f} ms  x{count}  {name[:90]}", flush=True)
 
-    rows10, dragon_runs = row_stack_phases(bctx, dctx, rays7, card)
+    rows10, dragon_runs = row_stack_phases(bctx, dctx, rays7, card, usage)
     del dctx, rays7
     drow = rows10["dragon"]
 
@@ -1162,6 +1283,10 @@ def main() -> None:
             "bound_ms": trav["bound_ms"],
             "bound_by": trav["bound_by"],
             "library_ms": None,
+            "ms_per_launch_main_path": trav_per_launch,
+            "ms_per_launch_dragon_main_path":
+                dragon_runs["bvh4_traverse"]["ms_per_launch"],
+            **trav_build["bvh4_traverse"],
         }, {
             "name": "bvh4_rowstack",
             "route": "cuda",
@@ -1174,18 +1299,29 @@ def main() -> None:
             "bound_ms": drow["bound_ms"],
             "bound_by": drow["bound_by"],
             "library_ms": None,
-        }],
-        "device_functions": [{
-            "name": "threefry2x32",
-            "source": "izpi_tpu_torch/csrc/threefry.cuh",
+            "ms_per_launch_dragon_main_path":
+                dragon_runs["bvh4_rowstack"]["ms_per_launch"],
+            **trav_build["bvh4_rowstack"],
+        }, {
+            "name": "izpi_threefry_uniforms",
+            "route": "cuda",
+            "source": "izpi_tpu_torch/csrc/megakernel_rgb.cu",
             "replaces": "izpi_tpu/ops/threefry.py:30",
-            "inlined_in": ["megakernel_rgb", "megakernel_spectral"],
-            "bvh_main_path_launches": cipher_launches,
-            "bit_identical": True,
-            "ms": cipher["ms"],
-            "plain_ms": cipher["plain_ms"],
-            "bound_ms": cipher["bound_ms"],
+            "launches": cipher_launches,
+            "max_abs_err": 0.0,
+            "ms": cipher_main["ms"],
+            "plain_ms": cipher_main["plain_ms"],
+            "bound_ms": cipher_main["bound_ms"],
             "bound_by": "operations",
+            "library_ms": None,
+            "shape": cipher_main["shape"],
+            "shapes_on_main_path": cipher_main["shapes"],
+            "launches_x_time_minus_bound_ms": cipher_main["excess_ms"],
+            "device_functions": ["csrc/threefry.cuh", "csrc/draws.cuh"],
+            "inlined_in": ["megakernel_rgb", "megakernel_spectral"],
+            "ms_1m_keys_12": cipher["ms"],
+            "plain_ms_1m_keys_12": cipher["plain_ms"],
+            "bound_ms_1m_keys_12": cipher["bound_ms"],
         }],
         "shapes": {
             "megakernel_rgb": "ms, bound_ms: per launch on its main path, "
@@ -1198,12 +1334,19 @@ def main() -> None:
                                    "path, the spectral pyramid 500x500@256 "
                                    "depth 50; plain_ms, ms_at_2, "
                                    "bound_ms_at_2: 500x500@2 depth 50",
-            "cipher_ms": f"12 uniforms x {n_keys} keys",
+            "izpi_threefry_uniforms": "ms, plain_ms, bound_ms: per launch at "
+                                      "the shape the BVH main path calls it "
+                                      "with most (shape: keys, uniforms), "
+                                      "the launches its timed render's; "
+                                      "bit-identical to the plain version "
+                                      f"(phase 3, {n_keys} keys)",
             "bvh4_traverse": f"{TRAVERSE_RAYS} rays (half camera, half "
                              f"incoherent) on cornell_box_obj's tree",
             "bvh4_rowstack": f"{TRAVERSE_RAYS} rays on phase 7's recipe, "
-                             f"sorted, on the dragon scene's leaf-64 tree "
-                             f"(its main path's)"},
+                             f"in their order, on the dragon scene's "
+                             f"leaf-64 tree (its main path's); the third "
+                             f"per-warp counter counts (ray, primitive) "
+                             f"pairs tested"},
         "library_ms": "null: no PyTorch call computes a path tracer's render "
                       "loop or a BVH traversal",
         "bvh4_traverse_dragon": dtrav,
@@ -1216,6 +1359,7 @@ def main() -> None:
         "bvh_main_path": {"rays": ores.rays_traced, "seconds": ores.seconds,
                           "mrays_per_sec": ores.mrays_per_sec,
                           "iterations": ores.iterations,
+                          "traversal_ms_per_launch": trav_per_launch,
                           "kernel_share": kernel_s / ores.seconds,
                           "profiled_idle_share_16spp": 1 - busy / wall},
         "dragon_main_path": dragon_runs,

@@ -20,12 +20,16 @@ import re
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
 SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
            "bvh4_rowstack.cu")
 HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh")
+# The kernels whose ptxas report `ptxas_usage` reads, by their names.
+KERNELS = ("megakernel_rgb", "megakernel_spectral", "bvh4_traverse",
+           "bvh4_rowstack")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
@@ -131,23 +135,36 @@ def build() -> Path:
     return out
 
 
+class Usage(NamedTuple):
+    """What ptxas reports of one kernel, in bytes but the registers."""
+
+    registers: int
+    spill_stores: int
+    spill_loads: int
+    smem: int          # static shared memory per block
+    stack_frame: int   # local memory per thread (a local array, spills)
+
+
 def ptxas_usage(log: str) -> dict:
-    """{kernel: (registers, spill store bytes, spill load bytes)} of each
-    megakernel's entry in a build log (ptxas -v output)."""
+    """{kernel: Usage} of each entry of KERNELS in a build log (ptxas -v
+    output)."""
     usage, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"entry function '(\w+)'", line)
         if m:
-            entry = next((k for k in ("megakernel_rgb", "megakernel_spectral")
-                          if k in m.group(1)), None)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            entry = next((k for k in KERNELS if k in m.group(1)), None)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and entry:
-            usage.setdefault(entry, [0, int(m.group(1)), int(m.group(2))])
+            usage.setdefault(entry, [0, int(m.group(2)), int(m.group(3)), 0,
+                                     int(m.group(1))])
         m = re.search(r"Used (\d+) registers", line)
         if m and entry in usage:
             usage[entry][0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            usage[entry][3] = int(m.group(1)) if m else 0
             entry = None
-    return {k: tuple(v) for k, v in usage.items()}
+    return {k: Usage(*v) for k, v in usage.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,9 +6,14 @@ Counterpart of `izpi_tpu/ops/bvh_rowkernel.py`. Its Pallas kernel
 128-ray row of a TPU tile one exact stack and tests leaf blocks of 64
 primitives. On the GPU a row is a warp: `csrc/bvh4_rowstack.cu` runs one
 warp per 32 consecutive rays with a stack shared by the warp, visits a node
-when any lane's slab test hits it, and tests a leaf block from shared
-memory with every lane. The rays are sorted by a coherence key first, so a
-warp's rays want similar nodes.
+when any lane's slab test hits it, and tests a visited leaf block, copied
+into shared memory, one primitive per lane against each ray whose own slab
+test hit it. The rays go to the kernel in the order the caller gives them:
+the JAX intersector sorts each batch by a coherence key first (`sort_keys`,
+:466), and on the H100 the sort cost more than it saved (PERF.md: the
+sorted warps do less work in all but their longest warps, which set the
+launch's time, and the sort, gather and scatter back cost more than the
+kernel).
 
 This module holds:
 - `pack_scene` (:74), the node and leaf-block tables of a leaf-64 BVH4 over
@@ -16,9 +21,9 @@ This module holds:
 - `closest_hit_rows`, the wrapper: rays on a CUDA device launch the kernel
   (or the call raises), rays on the CPU run the plain version,
   `closest_rows`, which walks the same union traversal in PyTorch;
-- `sort_keys` (:466) and `RowBVHIntersector` (:482), the sort, the packed
-  gather and the scatter back to ray order, the block-slot map and
-  `primitives.finalize_hit`;
+- `RowBVHIntersector` (:482), the block-slot map and
+  `primitives.finalize_hit`; `sort_keys`, the JAX intersector's coherence
+  key, which the measurement scripts sort with;
 - `attach` (:534) and `from_jax_rowscene`.
 
 Not carried over: what exists only for the TPU — the all-zero resident
@@ -42,7 +47,6 @@ LEAF_SIZE = 64   # primitives per leaf block (bvh_rowkernel.py:58)
 KSTACK = 64      # the warp's stack depth, checked at attach (bvh_rowkernel.py:51)
 WARP = 32        # rays per row
 NODE_WORDS, BLOCK_WORDS = 32, 16  # row widths csrc/bvh4_rowstack.cu reads
-SORT_MIN = 2048  # batches at least this large are sorted (bvh_rowkernel.py:511)
 # The visit order of a node's internal children: pushed slot 3 first, so
 # slot 0 is popped next. The lanes' entry distances differ, so the row
 # keeps one fixed order where the per-ray traversal sorts.
@@ -138,13 +142,14 @@ def closest_rows(rs: RowScene, o, d, time, t_min: float, t_max: float):
     rays that never hit); each row has one stack. A step pops one node of
     every row with a non-empty stack, slab-tests its four children against
     each ray's best t at the pop, visits a child when any ray of the row
-    without a NaN hits it, tests the visited leaves' blocks in slot order against every
-    ray of the row (strict `<`, the earlier slot keeping an exact tie), and
-    pushes the visited internal children in PUSH_ORDER.
+    without a NaN hits it, tests each visited leaf's block, in slot order,
+    against the rays whose own slab test hit it (the first minimum t wins,
+    as a strict `<` keeps the earlier slot on an exact tie), and pushes the
+    visited internal children in PUSH_ORDER.
 
     Returns (t (N,), block slot (N,) int64, -1 on a miss, per-row counters
-    (ceil(N/WARP), 3) int64: nodes popped, leaf blocks tested, primitives
-    tested per ray)."""
+    (ceil(N/WARP), 3) int64: nodes popped, leaf blocks tested, (ray,
+    primitive) pairs tested by the row)."""
     n, dev = o.shape[0], o.device
     rows_n = -(-n // WARP)
     pad = rows_n * WARP - n
@@ -184,23 +189,26 @@ def closest_rows(rs: RowScene, o, d, time, t_min: float, t_max: float):
             tn = torch.fmax(tn, torch.fmin(t0[:, :, ax], t1[:, :, ax]))
             tf = torch.fmin(tf, torch.fmax(t0[:, :, ax], t1[:, :, ax]))
         ch, cn = child[node], count[node]
-        visit = ((tf > tn) & (cn[:, None, :] != -1)
-                 & live[rows][..., None]).any(dim=1)  # (R, 4)
+        lane_hit = ((tf > tn) & (cn[:, None, :] != -1)
+                    & live[rows][..., None])  # (R, WARP, 4)
+        visit = lane_hit.any(dim=1)           # (R, 4)
 
         for s in range(4):
             m = torch.nonzero(visit[:, s] & (cn[:, s] > 0)).squeeze(1)
             if m.numel() == 0:
                 continue
             r, blk, cnt = rows[m], ch[m, s], cn[m, s]
+            want = lane_hit[m, :, s]                          # (M, 32)
             counters[r, 1] += 1
-            counters[r, 2] += cnt
+            counters[r, 2] += want.sum(dim=1) * cnt
             g = rs.blocks[blk][:, None]                       # (M, 1, 64, 16)
             tb = t_best[r]                                    # (M, 32)
             t, ok = prim.prim_t(
                 g[..., 12].long(), g[..., 0:3], g[..., 3:6], g[..., 6:9],
                 g[..., 9:12], o_p[r][:, :, None, :], d_p[r][:, :, None, :],
                 tm_p[r][:, :, None], t_min, tb[..., None])
-            ok = ok & (slot_k < cnt[:, None])[:, None, :] & (t < tb[..., None])
+            ok = (ok & want[..., None] & (slot_k < cnt[:, None])[:, None, :]
+                  & (t < tb[..., None]))
             t_c, arg = torch.min(torch.where(ok, t, torch.full_like(
                 t, float("inf"))), dim=2)                      # the first minimum
             better = t_c < tb
@@ -229,8 +237,8 @@ def closest_hit_rows(rs: RowScene, o, d, time, t_min: float, t_max: float,
                      counters: bool = False):
     """(t (N,), block slot (N,) int64, -1 on a miss) of the closest hits of
     rays o, d (N, 3), time (N,) in [t_min, min(t_max, T_MAX)]; with
-    counters=True also the per-row (nodes popped, leaf blocks tested,
-    primitives tested per ray) (ceil(N/32), 3) int64.
+    counters=True also the per-row (nodes popped, leaf blocks tested, (ray,
+    primitive) pairs tested) (ceil(N/32), 3) int64.
 
     On a CUDA device this launches `izpi_bvh4_rowstack`; any failure to
     build or launch raises. On the CPU it runs `closest_rows`."""
@@ -296,10 +304,9 @@ def sort_keys(o, d, lo, hi):
 
 class RowBVHIntersector:
     """Intersector over a reordered compiled scene through the row-stack
-    traversal: batches of at least SORT_MIN rays are sorted by `sort_keys`
-    (a stable sort), gathered packed, traversed and scattered back to ray
-    order; block slots map to primitives through `blockmap`, and
-    `primitives.finalize_hit` builds the record."""
+    traversal, rays in the caller's order; block slots map to primitives
+    through `blockmap`, and `primitives.finalize_hit` builds the record.
+    `lo` and `hi` are the scene's box, `sort_keys`' frame."""
 
     def __init__(self, cs, rs: RowScene, scene_lo, scene_hi):
         self.cs = cs
@@ -310,20 +317,8 @@ class RowBVHIntersector:
                                   device=cs.device)
 
     def __call__(self, o, d, time, t_min, t_max) -> prim.Hit:
-        n = o.shape[0]
-        if n >= SORT_MIN:
-            order = torch.argsort(sort_keys(o, d, self.lo, self.hi),
-                                  stable=True)
-            packed = torch.cat([o, d, time[:, None]], dim=1)[order]
-            t_s, idx_s = closest_hit_rows(
-                self.rs, packed[:, 0:3].contiguous(),
-                packed[:, 3:6].contiguous(), packed[:, 6].contiguous(),
-                t_min, t_max)
-            t, idx = torch.empty_like(t_s), torch.empty_like(idx_s)
-            t[order], idx[order] = t_s, idx_s
-        else:
-            t, idx = closest_hit_rows(self.rs, o.contiguous(), d.contiguous(),
-                                      time.contiguous(), t_min, t_max)
+        t, idx = closest_hit_rows(self.rs, o.contiguous(), d.contiguous(),
+                                  time.contiguous(), t_min, t_max)
         idx = torch.where(idx >= 0,
                           self.rs.blockmap[torch.clamp(idx, min=0)].long(),
                           torch.full_like(idx, -1))

@@ -17,9 +17,12 @@ Modes:
   `ops.megakernel_spectral.render_slots_spectral`.
 - "pool": the queue pool on any scene.
 - "simple": the lockstep oracle (`integrator.path.trace`) of RGB scenes,
-  one batch of every pixel per sample.
+  one batch of every pixel per sample; a spectral scene goes to the queue
+  pool, as in the JAX renderer (renderer.py:293,306).
 A spectral canvas (XYZ) goes through firefly rejection and XYZ→ACEScg
-with the camera's exposure (renderer.py:426-440).
+with the camera's exposure (renderer.py:426-440). A scene that stands in
+procedural placeholders for missing assets says so on stderr, once per
+`RenderContext` (renderer.py:281-287).
 
 The intersector is picked once per `RenderContext` (`prepare`,
 renderer.py:128-169): a scene of more than BVH_THRESHOLD primitives (or
@@ -39,6 +42,7 @@ the CPU.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time as time_mod
 from typing import Optional
 
@@ -115,6 +119,7 @@ class RenderContext:
                                                      use_bvh)
         self.build_seconds = time_mod.perf_counter() - t0
         self._tables = None
+        self._warned_assets = False
 
     def mega_supported(self) -> bool:
         if self.meta.spectral:
@@ -163,16 +168,17 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
     dev = context.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     base_key = rng.render_key(seed, device=dev)
+    if meta.placeholder_assets and not context._warned_assets:
+        print("NOTE: this render substitutes procedural placeholders for "
+              "missing assets:\n  " + "\n  ".join(meta.placeholder_assets),
+              file=sys.stderr)
+        context._warned_assets = True
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    if mode == "simple":
-        if meta.spectral:
-            raise NotImplementedError(
-                "mode 'simple' renders RGB scenes only; a spectral scene "
-                "renders through the megakernel or the queue pool")
+    if mode == "simple" and not meta.spectral:
         return _render_simple(context, settings, nx, ny, spp, base_key, name,
                               sync)
 

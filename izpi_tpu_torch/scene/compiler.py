@@ -72,6 +72,9 @@ class SceneMeta:
     has_noise: bool = False
     has_pbr: bool = False
     n_media: int = 0
+    # Assets replaced by procedural placeholders at load (scene.pbtxt,
+    # library.extracted), reported by render() (compiler.py:83-85).
+    placeholder_assets: tuple = ()
 
 
 # The leaves the port reads, by "<group>.<field>" of the JAX CompiledScene
@@ -547,7 +550,8 @@ def compile_scene(scene: st.Scene, device) -> Tuple[CompiledScene, SceneMeta]:
     leaves = _tables(b, scene)
     return _assemble(leaves, device), _meta(
         leaves, spectral=bool(scene.spectral),
-        exposure=float(scene.camera.exposure), spectral_background_spd=bg_id)
+        exposure=float(scene.camera.exposure), spectral_background_spd=bg_id,
+        placeholder_assets=tuple(scene.placeholder_assets))
 
 
 def from_jax_arrays(leaves: Dict[str, np.ndarray], device,
@@ -558,12 +562,14 @@ def from_jax_arrays(leaves: Dict[str, np.ndarray], device,
     The tables carry over value for value (the JAX leaves are float32
     already), so both packages render the same scene. The facts the tables
     do not show (spectral, exposure, the background SPD row, the number of
-    media) come from `jax_meta`, the JAX SceneMeta, when it is given."""
+    media, the placeholder assets) come from `jax_meta`, the JAX SceneMeta,
+    when it is given."""
     missing = [k for k in LEAVES if k not in leaves]
     if missing:
         raise KeyError(f"missing leaves: {missing}")
     facts = {}
     if jax_meta is not None:
         facts = {f: getattr(jax_meta, f) for f in (
-            "spectral", "exposure", "spectral_background_spd", "n_media")}
+            "spectral", "exposure", "spectral_background_spd", "n_media",
+            "placeholder_assets")}
     return _assemble(leaves, device), _meta(leaves, **facts)

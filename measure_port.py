@@ -5,7 +5,8 @@
                             [--size N] [--spp S] [--runs 7] [--seeds 0 1]
     python3 measure_port.py --policy [--size 64] [--spp 4] [--runs 2]
     python3 measure_port.py --build [--runs 2]
-    python3 measure_port.py --scene cornell|pyramid --parent DIR [--runs 3]
+    python3 measure_port.py --scene cornell|pyramid|obj|dragon [--row]
+                            --parent DIR [--runs 3]
 
 Renders one main path of chip_smoke.py on one warm `RenderContext`, after
 one warm-up render: Cornell 256×256 at 1024 spp, `max_depth=50`, through
@@ -18,8 +19,11 @@ the PBR dragon (`cornell_box_pbr_stanford_dragon_spectral()`, the
 spectral queue pool (`--scene dragon`, bench.py's `dragon`). A pool scene
 takes the BVH4 traversal kernel, or with `--row` the row-stack traversal
 kernel: the pair of `ops.bvh_rowkernel.attach` in a context built with
-`use_bvh=False`. `--size` and `--spp` change the frame and the samples per
-pixel. It prints:
+`use_bvh=False`, and then also times its intersector calls and kernel
+launches with the batches in the pool's order and sorted first by the JAX
+intersector's coherence key (the sort, gather and scatter back timed with
+the call), in turns. `--size` and `--spp` change the frame and the samples
+per pixel. It prints:
   - the card's name, power limit, SM clock, power draw and temperature
     (nvidia-smi) before and after;
   - per seed, the Mrays/s of each timed `render()` (host clock around the
@@ -52,16 +56,21 @@ way, alternating: `ops._build.build()` (one nvcc per source, all started
 together, then a link) and one nvcc call that compiles and links every
 source.
 
-`--parent DIR` holds a megakernel scene's main path (cornell or pyramid)
-against another tree of the repository, DIR (the parent commit's `git
-archive`, unpacked), on the same card: four subprocesses in turns — DIR,
-this tree, this tree, DIR — each rendering the main path through the
-public entry points (`RenderContext`, `render`, the wrapper timed by
-`profiling.event_timed`), one warm-up and `--runs` timed renders (default
-3). Each prints its median render seconds and its median milliseconds per
-launch (CUDA events around the launch in `render()`); then the two trees'
-rays must be equal and every pixel of the image (Cornell) or of the XYZ
-canvas (the pyramid) within 1e-4 + 1e-5·|DIR's|.
+`--parent DIR` holds a scene's main path against another tree of the
+repository, DIR (the parent commit's `git archive`, unpacked), on the same
+card: four subprocesses in turns — DIR, this tree, this tree, DIR — each
+rendering the main path through the public entry points (`RenderContext`,
+`render`, the kernel's wrapper timed by `profiling.event_timed`: the
+megakernel's, or for a pool scene the traversal kernel's, with `--row` the
+row-stack pair's), one warm-up and `--runs` timed renders (default 3).
+Each prints its median render seconds, its median milliseconds per launch
+(CUDA events around each launch in `render()`, whose count must equal the
+pool iterations) and its kernels' ptxas registers, spills and shared
+memory; then the two trees' rays must be equal and every pixel of the image
+(Cornell, cornell_box_obj) or of the XYZ canvas (the pyramid, the dragon)
+within 1e-4 + 1e-5·|DIR's| (a megakernel's turns must repeat bit for bit,
+a pool scene's, whose deposits are summed with atomics, within the same
+tolerance).
 
 A megakernel scene also prints each megakernel's registers and spills from
 the ptxas log of the build. Imports nothing of JAX.
@@ -121,29 +130,45 @@ import json, sys
 import numpy as np, torch
 from izpi_tpu_torch import profiling
 from izpi_tpu_torch.integrator import path
-from izpi_tpu_torch.ops import megakernel, megakernel_spectral
+from izpi_tpu_torch.ops import (_build, bvh_kernel, bvh_rowkernel, megakernel,
+                                megakernel_spectral)
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene.library.cornell import cornell_box
 from izpi_tpu_torch.scene.library.cornell_spectral import (
     cornell_box_pyramid_spectral)
-scene, n, spp, depth, runs, out = sys.argv[1:7]
-n, spp, depth, runs = int(n), int(spp), int(depth), int(runs)
-spectral = scene == "pyramid"
-make = cornell_box_pyramid_spectral if spectral else cornell_box
-mod, fn = ((megakernel_spectral, "render_slots_spectral") if spectral
-           else (megakernel, "render_slots"))
-ctx = renderer.RenderContext(make(), device="cuda")
+from izpi_tpu_torch.scene.library.extracted import (
+    cornell_box_pbr_stanford_dragon_spectral)
+from izpi_tpu_torch.scene.library.misc import cornell_box_obj
+scene, n, spp, depth, runs, row, out = sys.argv[1:8]
+n, spp, depth, runs, row = int(n), int(spp), int(depth), int(runs), row == "1"
+make = {"cornell": cornell_box, "pyramid": cornell_box_pyramid_spectral,
+        "obj": cornell_box_obj,
+        "dragon": cornell_box_pbr_stanford_dragon_spectral}[scene]
+mod, fn = {"cornell": (megakernel, "render_slots"),
+           "pyramid": (megakernel_spectral, "render_slots_spectral")}.get(
+    scene, (bvh_rowkernel, "closest_hit_rows") if row
+    else (bvh_kernel, "closest_hit"))
+ctx = renderer.RenderContext(make(), use_bvh=False if row else None,
+                             device="cuda")
+if row:
+    ctx.cs, ctx.intersect = bvh_rowkernel.attach(ctx.cs)
 settings = path.RenderSettings(max_depth=depth)
 renderer.render(None, n, n, spp, settings, seed=0, context=ctx, device="cuda")
 seconds, ms = [], []
 for _ in range(runs):
+    before = mod.launches
     with profiling.event_timed(mod, fn) as events:
         res = renderer.render(None, n, n, spp, settings, seed=0, context=ctx,
                               device="cuda")
+    if mod.launches - before != (res.iterations or 1):
+        raise SystemExit(f"{mod.launches - before} launches of {fn} in "
+                         f"{res.iterations} pool iterations")
     seconds.append(res.seconds)
     ms.append(profiling.event_ms(events) / len(events))
-np.savez(out, image=res.image, xyz=res.xyz if spectral else res.image)
-print(json.dumps({"rays": res.rays_traced, "seconds": seconds, "ms": ms}))
+usage = _build.ptxas_usage(_build.build().with_suffix(".log").read_text())
+np.savez(out, image=res.image, xyz=res.xyz if ctx.meta.spectral else res.image)
+print(json.dumps({"rays": res.rays_traced, "seconds": seconds, "ms": ms,
+                  "launches": len(events), "usage": usage}))
 """
 
 
@@ -221,13 +246,77 @@ def build_times(runs: int) -> None:
               f"{one_call:.2f} s", flush=True)
 
 
-def parent_turns(scene: str, parent: Path, runs: int) -> None:
+class SortedRows:
+    """The row-stack intersector `inter` with each batch sorted by
+    `bvh_rowkernel.sort_keys` first (a stable sort, as the JAX intersector
+    sorts), gathered packed, traversed and its records scattered back to ray
+    order."""
+
+    def __init__(self, inter):
+        self.inter = inter
+
+    def __call__(self, o, d, time, t_min, t_max):
+        order = torch.argsort(bvh_rowkernel.sort_keys(o, d, self.inter.lo,
+                                                      self.inter.hi),
+                              stable=True)
+        packed = torch.cat([o, d, time[:, None]], dim=1)[order]
+        hit = self.inter(packed[:, 0:3], packed[:, 3:6], packed[:, 6], t_min,
+                         t_max)
+        back = torch.empty_like(order)
+        back[order] = torch.arange(order.shape[0], device=order.device)
+        return type(hit)(*(f[back] for f in hit))
+
+
+def row_sort(ctx, n: int, spp: int, settings, seed: int, runs: int) -> None:
+    """--row: the intersector's calls and the kernel's launches in `runs`
+    renders with the batches in the pool's order (`RowBVHIntersector`) and
+    sorted (`SortedRows`: the sort, gather and scatter back included), in
+    turns; each render's rays must be the same (the sort does not change a
+    hit)."""
+    unsorted = ctx.intersect
+    got = {"sorted": [], "unsorted": []}
+    try:
+        for turn in range(2 * runs):
+            name = ("sorted", "unsorted")[(turn + turn // 2) % 2]
+            inter = SortedRows(unsorted) if name == "sorted" else unsorted
+            calls = []
+
+            def timed_call(*args, inter=inter, calls=calls):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = inter(*args)
+                end.record()
+                calls.append((start, end))
+                return out
+
+            ctx.intersect = timed_call
+            with profiling.event_timed(bvh_rowkernel,
+                                       "closest_hit_rows") as launches:
+                res = renderer.render(None, n, n, spp, settings, seed=seed,
+                                      context=ctx, device="cuda")
+            got[name].append((res.rays_traced, res.seconds,
+                              profiling.event_ms(calls) / len(calls),
+                              profiling.event_ms(launches) / len(launches)))
+    finally:
+        ctx.intersect = unsorted
+    rays = {r for v in got.values() for r, *_ in v}
+    for name, v in got.items():
+        print(f"row-stack intersector, batches {name}: render() seconds "
+              f"{[round(x[1], 4) for x in v]}; ms per intersector call "
+              f"{[round(x[2], 4) for x in v]}, median "
+              f"{statistics.median(x[2] for x in v):.4f}; ms per kernel "
+              f"launch {[round(x[3], 4) for x in v]}, median "
+              f"{statistics.median(x[3] for x in v):.4f}", flush=True)
+    if len(rays) != 1:
+        raise SystemExit(f"measure_port: sorted and unsorted renders traced "
+                         f"{sorted(rays)} rays")
+
+
+def parent_turns(scene: str, row: bool, parent: Path, runs: int) -> None:
     """--parent: the main path of `scene` from `parent` and from this tree,
     in turns parent, this, this, parent (the module docstring)."""
     _, n, spp, depth, slots = SCENES[scene]
-    if slots is None:
-        raise SystemExit("measure_port: --parent takes a megakernel scene "
-                         "(cornell, pyramid)")
     here = Path(__file__).resolve().parent
     trees = {"parent": parent.resolve(), "this": here}
     got = {"parent": [], "this": []}
@@ -236,19 +325,21 @@ def parent_turns(scene: str, parent: Path, runs: int) -> None:
             out = Path(tmp) / f"{name}{turn}.npz"
             run = subprocess.run(
                 [sys.executable, "-c", TURN, scene, str(n), str(spp), str(depth),
-                 str(runs), str(out)],
+                 str(runs), str(int(row)), str(out)],
                 cwd=trees[name], capture_output=True, text=True,
                 env={**os.environ, "PYTHONPATH": str(trees[name])})
             if run.returncode != 0:
                 raise SystemExit(f"measure_port: the {name} tree's turn failed:"
                                  f"\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
             r = json.loads(run.stdout.strip().splitlines()[-1])
-            print(f"turn {turn} ({name}, {trees[name]}): {scene} {n}x{n}@{spp} "
-                  f"depth {depth}: rays {r['rays']}; render() seconds "
-                  f"{[round(x, 4) for x in r['seconds']]}, median "
+            print(f"turn {turn} ({name}, {trees[name]}): {scene}"
+                  f"{' --row' if row else ''} "
+                  f"{n}x{n}@{spp} depth {depth}: rays {r['rays']}; render() "
+                  f"seconds {[round(x, 4) for x in r['seconds']]}, median "
                   f"{statistics.median(r['seconds']):.4f}; ms per launch "
-                  f"{[round(x, 3) for x in r['ms']]}, median "
-                  f"{statistics.median(r['ms']):.3f}", flush=True)
+                  f"{[round(x, 4) for x in r['ms']]} ({r['launches']} launches "
+                  f"a render), median {statistics.median(r['ms']):.4f}; ptxas "
+                  f"{r['usage']}", flush=True)
             with np.load(out) as z:
                 got[name].append((r, z["xyz"].astype(np.float64)))
     (pr, pa), (tr, ta) = got["parent"][0], got["this"][0]
@@ -258,15 +349,22 @@ def parent_turns(scene: str, parent: Path, runs: int) -> None:
             for k, v in got.items()}
     diff = np.abs(ta - pa)
     ok = diff <= PARENT_ATOL + PARENT_RTOL * np.abs(pa)
-    repeat = all(r["rays"] == v[0][0]["rays"] and np.array_equal(a, v[0][1])
+    # A megakernel's turns repeat bit for bit; the queue pool sums its
+    # deposits with atomics, in an order that changes from run to run, so
+    # a pool scene's turns repeat within the tolerance.
+    same = (np.array_equal if slots is not None else
+            lambda a, b: bool((np.abs(a - b) <= PARENT_ATOL
+                               + PARENT_RTOL * np.abs(b)).all()))
+    repeat = all(r["rays"] == v[0][0]["rays"] and same(a, v[0][1])
                  for v in got.values() for r, a in v)
-    label = "XYZ" if scene == "pyramid" else "image"
+    label = "XYZ" if scene in ("pyramid", "dragon") else "image"
     print(f"parent vs this tree: rays {pr['rays']} vs {tr['rays']} (equal "
           f"{pr['rays'] == tr['rays']}); {label} pixels within {PARENT_ATOL} + "
           f"{PARENT_RTOL}|parent|: {ok.all(axis=2).mean():.6f} (all: "
           f"{bool(ok.all())}), max abs err {diff.max():.3e}; each tree's turns "
-          f"repeat bit for bit {repeat}; median ms per launch {med['parent']:.3f} "
-          f"-> {med['this']:.3f} ({med['parent'] / med['this']:.3f}x); median "
+          f"repeat {'bit for bit' if slots is not None else 'within it'} "
+          f"{repeat}; median ms per launch {med['parent']:.4f} "
+          f"-> {med['this']:.4f} ({med['parent'] / med['this']:.3f}x); median "
           f"render() seconds {secs['parent']:.4f} -> {secs['this']:.4f} "
           f"({smi()})", flush=True)
     if pr["rays"] != tr["rays"] or not ok.all() or not repeat:
@@ -290,14 +388,16 @@ def main() -> None:
                     help="time the kernels' build: per source at once against "
                          "one nvcc call")
     ap.add_argument("--parent", type=Path,
-                    help="another tree of the repository to hold a megakernel "
-                         "scene's main path against, in turns")
+                    help="another tree of the repository to hold a main path "
+                         "against, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("measure_port: torch.cuda.is_available() is False")
+    if args.row and SCENES[args.scene][4] is not None:
+        raise SystemExit("measure_port: --row needs a pool scene (obj, dragon)")
     if args.parent:
         print(f"smi before: {smi()}", flush=True)
-        parent_turns(args.scene, args.parent, args.runs or 3)
+        parent_turns(args.scene, args.row, args.parent, args.runs or 3)
         return
     if args.build:
         print(f"smi: {smi()}", flush=True)
@@ -311,8 +411,6 @@ def main() -> None:
 
     runs = args.runs or 7
     make_scene, n, spp, depth, slots = SCENES[args.scene]
-    if args.row and slots is not None:
-        raise SystemExit("measure_port: --row needs a pool scene (obj, dragon)")
     n, spp = args.size or n, args.spp or spp
     print(f"scene {args.scene}: {n}x{n}@{spp} depth {depth}"
           f"{' through the row-stack kernel' if args.row else ''}", flush=True)
@@ -365,6 +463,8 @@ def main() -> None:
               f"{timed.iterations} pool iterations, {ms / calls:.4f} ms per "
               f"launch, {ms / 1e3 / median_s:.2%} of the median render() "
               f"seconds of seed {args.seeds[0]}", flush=True)
+        if args.row:
+            row_sort(ctx, n, spp, settings, args.seeds[0], runs)
     else:
         key = rng.render_key(args.seeds[0], device="cuda")
         tables = ctx.tables()

@@ -285,6 +285,33 @@ def test_bvh_kernel_matches_plain_on_card(obj_context, t_min, t_max):
     assert int((hit & (i_k != i_p) & (t_k != t_p)).sum()) == 0
 
 
+@pytest.mark.parametrize("n", [1, 37, 4096])
+def test_bvh_kernel_small_and_parked_batches_on_card(obj_context, n):
+    """Every batch size: one ray, a ragged warp, and 4,096 rays of which
+    every third is parked outside the scene as the queue pool parks dead
+    slots (one visit each) and the rest camera rays; hit masks and per-ray
+    counts equal the plain version's (t within 1e-6 relative, primitives
+    but on exact-t ties)."""
+    ks = obj_context.intersect.ks
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    u = torch.rand((n, 5), generator=gen, device="cuda")
+    o, d, tme = camera.get_rays(obj_context.cs.camera, u[:, 0], u[:, 1],
+                                u[:, 2:5])
+    o = o.clone()
+    o[::3] = path.PARK
+    o, d, tme = o.contiguous(), d.contiguous(), tme.contiguous()
+    t_k, i_k, c_k = bvh_kernel.closest_hit(ks, o, d, tme, path.T_MIN,
+                                           primitives.T_MAX, counts=True)
+    t_p, i_p, c_p = traverse.closest_bvh(ks.prims, ks.tree, o, d, tme,
+                                         path.T_MIN, primitives.T_MAX,
+                                         counts=True)
+    hit = i_p >= 0
+    assert torch.equal(i_k >= 0, hit) and torch.equal(c_k, c_p)
+    torch.testing.assert_close(t_k[hit], t_p[hit], rtol=1e-6, atol=0)
+    assert int((hit & (i_k != i_p) & (t_k != t_p)).sum()) == 0
+    assert (c_k[::3, 0] == 1).all()
+
+
 def test_cuda_obj_render_matches_cpu_render(obj_context):
     """cornell_box_obj 16x16 at 2 spp through the queue pool: on the card
     through the traversal kernel (one launch per pool iteration), on the
@@ -347,8 +374,8 @@ def test_rowstack_kernel_matches_plain_on_card(obj_context, t_min, t_max):
 
 def test_cuda_dragon_render_matches_cpu_render():
     """The dragon at 2,000 stand-in triangles, 8x8 at 2 spp, depth 8,
-    through the row-stack pair (a pool of 128 slots, below SORT_MIN, so the
-    rays go unsorted; one launch per pool iteration) on the card and through
+    through the row-stack pair (a pool of 128 slots; one launch per pool
+    iteration) on the card and through
     its plain version on the CPU, with the bounds of the kernel-vs-twin
     tests above."""
     scene = cornell_box_pbr_stanford_dragon_spectral(n_tris=2000)

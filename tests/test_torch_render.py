@@ -137,12 +137,22 @@ def _empty_pool(scene, pool_size):
 
 @pytest.mark.parametrize("mode", ["simple", "pool"])
 def test_spectral_simple_and_pool_modes_raise(mode):
-    """A spectral scene: the lockstep oracle renders RGB scenes only; the
-    queue pool, which renders it (tests/test_torch_pool.py), raises on a
-    pool without slots."""
+    """A spectral scene: mode "simple" renders it through the queue pool,
+    as the JAX renderer does (renderer.py:293,306), so a 4x4 render at 1
+    spp equals mode "pool"'s (the same rays, the same XYZ); the queue pool,
+    which renders it (tests/test_torch_pool.py), raises on a pool without
+    slots."""
     if mode == "simple":
-        with pytest.raises(NotImplementedError, match="RGB scenes only"):
-            trenderer.render(t_cbs(), 4, 4, 1, mode=mode, device="cpu")
+        ctx = trenderer.RenderContext(t_cbs(), device="cpu")
+        s = tpath.RenderSettings(max_depth=4)
+        simple = trenderer.render(None, 4, 4, 1, s, seed=2, mode="simple",
+                                  context=ctx, device="cpu")
+        pool = trenderer.render(None, 4, 4, 1, s, seed=2, mode="pool",
+                                context=ctx, device="cpu")
+        assert simple.rays_traced == pool.rays_traced > 0
+        assert simple.iterations == pool.iterations
+        np.testing.assert_array_equal(simple.xyz, pool.xyz)
+        np.testing.assert_array_equal(simple.image, pool.image)
     else:
         with pytest.raises(ValueError, match="pool_size"):
             _empty_pool(t_cbs(), 0)

@@ -162,8 +162,9 @@ def test_sort_keys_equal_jax():
                          ids=["rows", "ragged", "sorted"])
 def test_plain_equals_brute(attached, n, seed):
     """Camera and incoherent rays (a zero direction component among them):
-    whole rows, a ragged last row, and a batch of SORT_MIN rays, which the
-    intersector sorts and scatters back."""
+    whole rows, a ragged last row, and a batch of 2,048 rays, from which
+    size on the JAX intersector sorts (the port's hands the kernel its rays
+    in their order)."""
     name, _, _, cs2, inter = attached
     o, d, tm = _rays(name, cs2, n, seed)
     before = trow.launches
@@ -172,9 +173,10 @@ def test_plain_equals_brute(attached, n, seed):
 
 
 def test_plain_rows_and_counters(attached):
-    """The per-row counters (node pops, leaf blocks, primitive tests per
-    lane) and the padding of a ragged row: 100 rays answer as the first
-    100 of 128 do, and padding never hits."""
+    """The per-row counters (node pops, leaf blocks, (ray, primitive) pairs
+    tested by the row: each visited block's primitives times the rays whose
+    own box test hit it) and the padding of a ragged row: 100 rays answer as
+    the first 100 of 128 do, and padding never hits."""
     name, _, _, cs2, inter = attached
     o, d, tm = _rays(name, cs2, 128, 3)
     t_a, i_a, c_a = trow.closest_rows(inter.rs, o, d, tm, 1e-3, tprim.T_MAX)
@@ -184,7 +186,7 @@ def test_plain_rows_and_counters(attached):
     assert torch.equal(i_a[:100], i_b) and torch.equal(t_a[:100], t_b)
     assert (c_a[:, 0] >= 1).all() and (c_a[:, 1] >= 1).all()
     assert (c_a[:, 2] >= c_a[:, 1]).all()
-    assert (c_a[:, 2] <= c_a[:, 1] * trow.LEAF_SIZE).all()
+    assert (c_a[:, 2] <= c_a[:, 1] * trow.LEAF_SIZE * trow.WARP).all()
     assert torch.equal(c_a[:3], c_b[:3])  # the whole rows walk alike
     # the wrapper on CPU tensors is the plain version
     t_w, i_w, c_w = trow.closest_hit_rows(inter.rs, o, d, tm, 1e-3,
@@ -195,8 +197,9 @@ def test_plain_rows_and_counters(attached):
 
 def test_union_visits_at_least_what_one_ray_needs():
     """A row's traversal is the union of its rays': sorted rays share
-    nodes, so a row of 32 copies of one ray pops what that ray alone
-    pops, and 32 scattered rays pop more."""
+    nodes, so a row of 32 copies of one ray pops and visits what that ray
+    alone does and tests 32 times its (ray, primitive) pairs, and 32
+    scattered rays pop more."""
     jcs, _ = jcompiler.compile_scene(_soup_scene())
     tcs, _ = tcompiler.from_jax_arrays(jax_leaves(jcs), "cpu")
     cs2, inter = trow.attach(tcs)
@@ -208,8 +211,10 @@ def test_union_visits_at_least_what_one_ray_needs():
                              1e-3, tprim.T_MAX)
     spread = trow.closest_rows(inter.rs, o[32:], d[32:], tm[32:], 1e-3,
                                tprim.T_MAX)
-    assert torch.equal(one[2], same[2])
+    assert torch.equal(one[2][:, :2], same[2][:, :2])
+    assert same[2][0, 2] == trow.WARP * one[2][0, 2]
     assert spread[2][0, 0] > one[2][0, 0]
+    assert spread[2][0, 2] >= spread[2][0, 1] > 0
 
 
 def test_per_ray_tree_equals_brute(attached):
@@ -233,8 +238,8 @@ def test_per_ray_tree_equals_brute(attached):
 def test_nan_lanes_vote_for_no_child(attached):
     """A lane whose ray holds a NaN votes for no child (the Pallas kernel's
     min/max carry the NaN into its slab tests) and misses: a row of 31
-    copies of one ray and one NaN lane walks what 32 copies walk, and a row
-    of NaN lanes pops only the root."""
+    copies of one ray and one NaN lane walks what 32 copies walk and tests
+    31/32 of their pairs, and a row of NaN lanes pops only the root."""
     name, _, _, cs2, inter = attached
     o, d, tm = _rays(name, cs2, 64, 9)
     hit_rays = torch.nonzero(tprim.intersect_brute(
@@ -246,7 +251,8 @@ def test_nan_lanes_vote_for_no_child(attached):
     d_nan = d32.clone()
     d_nan[7, 2] = float("nan")
     mixed = trow.closest_rows(inter.rs, o32, d_nan, tm32, 1e-3, tprim.T_MAX)
-    assert torch.equal(mixed[2], same[2])
+    assert torch.equal(mixed[2][:, :2], same[2][:, :2])
+    assert mixed[2][0, 2] * trow.WARP == same[2][0, 2] * (trow.WARP - 1)
     assert mixed[1][7] == -1 and (mixed[1][torch.arange(32) != 7] >= 0).all()
     all_nan = trow.closest_rows(inter.rs, o32, torch.full_like(d32, float("nan")),
                                 tm32, 1e-3, tprim.T_MAX)
@@ -297,7 +303,7 @@ def test_render_through_the_row_pair():
 def pallas_hits():
     """The one interpret-mode run of the Pallas kernel: JAX's row-stack
     intersector on Cornell (its own tree), 1,024 camera and incoherent
-    rays, unsorted (below SORT_MIN)."""
+    rays, unsorted (below the JAX intersector's SORT_MIN)."""
     jcs, _ = jcompiler.compile_scene(j_cornell())
     jcs2, jinter = jrow.attach(jcs, seed=1, interpret=True)
     tcs, _ = tcompiler.from_jax_arrays(jax_leaves(jcs), "cpu")
