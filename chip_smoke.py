@@ -9,8 +9,8 @@ line of its own:
   1. the card: `nvidia-smi --query-gpu=name,power.limit` (fails without CUDA);
   2. the build, and its seconds;
   3. cipher: the device Threefry (`izpi_threefry_uniforms`) on 1M random
-     keys equals the PyTorch twin bit for bit, for the bounce, camera and λ
-     draws;
+     keys equals the PyTorch twin bit for bit, for the bounce, camera, λ and
+     media (two media, the count drawn at run time) draws;
   4. kernel vs twin, both on the card, the twin on the card's layout
      (`megakernel.card_min_slots`: SLOTS_PER_THREAD slots per resident
      thread of the persistent grid), within stated tolerances:
@@ -99,7 +99,47 @@ line of its own:
      ray first hits the porcelain; the stand-in's triangles face inward, so
      only its rim and what the glass sphere throws on it are lit. The
      dragon's meta must flag its stand-in mesh (`placeholder_assets`),
-     which the phase prints.
+     which the phase prints;
+ 13. Shirley's `random_scene` (485 spheres, moving ones among them, a
+     checker ground of radius 1000, a thin lens) through the RGB
+     megakernel: the kernel against its plain version (the card's layout)
+     under the sky (0.7, 0.8, 1.0) at 64×64@4 depth 8 seed 3 and at phase
+     4's multi-sample layout (128×128@128 depth 8 seed 7, every slot
+     regenerating its thin-lens ray and time for a next sample), rays
+     equal and phase 4's pixel tolerances; then
+     bench.py's `shirley`, `render(random_scene(1.0), 256, 256, 128,
+     max_depth=50, background=(0.7, 0.8, 1.0))`, a warm-up and a timed run
+     (the counters zeroed just before the timed run: one megakernel launch
+     and nothing else), the image finite with the sky at its top, seconds,
+     rays, Mrays/s, the kernel's ms per launch (CUDA events), its bound from
+     a launch with the draw counter buffer and its share; and the engine
+     policy: the same render through the queue pool and the BVH4 kernel
+     (`use_bvh=True`), its seconds beside the megakernel's, rays, mean and
+     pixels within phase 4's tolerances;
+ 14. `pbr_ibl` (PBR spheres with image maps through the combined stack,
+     under an image-lit sky dome) through the queue pool: the card
+     against the CPU at 16×16@4 depth 16, rays and means within phase 4's
+     tolerances and 99% of the pixels within 1e-4 + 1e-5·|CPU|; then
+     bench.py's `pbr_ibl`, 256×256@256 depth 16, a warm-up and a timed run
+     (counters zeroed just before: the cipher entry `izpi_threefry_uniforms`
+     launched, nothing else), the sky above, the ground below and the
+     spheres lit, pool iterations, the cipher entry's launches, its time
+     alone, bound and plain time at each shape the warm-up called it with
+     (as in phase 9), and the device's idle share of a 16-spp render under
+     torch.profiler;
+ 15. the book-2 final scene (3,407 primitives, a smoke ball and a fog of
+     radius 5000 as media, an image and a marble texture, a moving sphere)
+     through the pool and the BVH4 kernel: the kernel against its plain
+     version on its tree (phase 7's ray recipe from its camera), then
+     256×256@16 depth 50, a warm-up and a timed run (counters zeroed just
+     before: the traversal kernel's launches equal the pool iterations, the
+     cipher entry's and nothing else), the kernel's ms per launch and share,
+     the cipher entry at each shape as in phase 14 (the media's two
+     uniforms a ray among them). Its light faces up (one-sided on its
+     record normal, as in the JAX package), so red and green must be 0 and
+     some blue (the depth-cap sentinel) must show. Then the card against
+     the CPU at 64×64@4, seed 0: rays within 0.5% and 99% of the pixels
+     within 1e-4 + 1e-5·|CPU|.
 The build line is followed by the ptxas registers and spills of every
 kernel (a megakernel that spills fails the run), each megakernel's
 persistent grid (blocks × threads) and slots, and the two traversal
@@ -114,6 +154,7 @@ non-zero. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -138,7 +179,8 @@ from izpi_tpu_torch.scene.library.cornell_spectral import (
     cornell_box_pyramid_spectral)
 from izpi_tpu_torch.scene.library.extracted import (
     cornell_box_pbr_stanford_dragon_spectral)
-from izpi_tpu_torch.scene.library.misc import cornell_box_obj
+from izpi_tpu_torch.scene.library.misc import cornell_box_obj, pbr_ibl
+from izpi_tpu_torch.scene.library.shirley import final, random_scene
 from izpi_tpu_torch.spectral import cie, convert
 
 # Phase 4 tolerances. A tolerance at all because libdevice transcendentals
@@ -204,6 +246,26 @@ T_RTOL = 1e-6
 # Phase 12: the dragon main path, bench.py's `dragon` (bench.py:41-42).
 DRAGON_SIZE, DRAGON_SPP, DRAGON_DEPTH = 256, 8, 16
 TIE_SHARE = 1e-5
+# Phases 13-15: bench.py's `shirley` (random_scene under its sky) and
+# `pbr_ibl` (bench.py:39-45), and the book-2 final scene.
+SKY = (0.7, 0.8, 1.0)
+SHIRLEY_SIZE, SHIRLEY_SPP, SHIRLEY_DEPTH = 256, 128, 50
+IBL_SIZE, IBL_SPP, IBL_DEPTH = 256, 256, 16
+FINAL_SIZE, FINAL_SPP, FINAL_DEPTH = 256, 16, 50
+# Phase 15: the frame (n, spp) of final's card-vs-CPU render.
+FINAL_VS_CPU = (64, 4)
+# Every module with a launch counter.
+COUNTERS = (bvh_kernel, bvh_rowkernel, megakernel, megakernel_spectral,
+            threefry)
+
+
+def zero_counts() -> None:
+    for mod in COUNTERS:
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    return {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in COUNTERS}
 
 
 def bound_ms(rays: int, samples: int, prim_kinds, spectral: bool,
@@ -271,7 +333,27 @@ def launch_bound(label: str, rays: int, samples: int, draws, prim_kinds,
                 scatters=scatters, pairs=pairs)
 
 
-def cipher_on_path(shapes, launches: int, card: str) -> dict:
+@contextlib.contextmanager
+def recorded_cipher_shapes():
+    """Within the block, record the (keys, uniforms) shape of every call of
+    the cipher entry's wrapper `threefry.uniforms_for_keys` in the list it
+    yields."""
+    shapes = []
+    wrapper = threefry.uniforms_for_keys
+
+    def recording(keys, depths, n, salt):
+        shapes.append((int(keys.shape[0]), n))
+        return wrapper(keys, depths, n, salt)
+
+    threefry.uniforms_for_keys = recording
+    try:
+        yield shapes
+    finally:
+        threefry.uniforms_for_keys = wrapper
+
+
+def cipher_on_path(shapes, launches: int, card: str,
+                   path_name: str = "the BVH main path") -> dict:
     """The cipher entry `izpi_threefry_uniforms` at the (keys, uniforms)
     shapes a main path called it with (`shapes`, one per call): for each
     shape its calls, the entry's time per launch alone on random keys (the
@@ -313,11 +395,11 @@ def cipher_on_path(shapes, launches: int, card: str) -> dict:
         excess += calls * (ms - bound)
         rows.append(dict(keys=n_keys, uniforms=n_u, calls=calls, ms=ms,
                          plain_ms=plain, bound_ms=bound))
-        print(f"cipher on the BVH main path: {calls} launches of {n_keys} keys "
+        print(f"cipher on {path_name}: {calls} launches of {n_keys} keys "
               f"x {n_u} uniforms: {ms:.4f} ms per launch, bound {bound:.4f} ms "
               f"by operations, plain {plain:.3f} ms ({card})", flush=True)
     top = max(rows, key=lambda r: r["calls"])
-    print(f"cipher on the BVH main path: {launches} launches, launches x "
+    print(f"cipher on {path_name}: {launches} launches, launches x "
           f"(time - bound) = {excess:.3f} ms a render ({card})", flush=True)
     return dict(launches=launches, shapes=rows, excess_ms=excess, ms=top["ms"],
                 plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
@@ -370,12 +452,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def compare(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
-            offset: int) -> float:
+            offset: int, label: str = "cornell", background=(0.0, 0.0, 0.0),
+            rays_equal: bool = False) -> float:
     """Render n x n at spp samples from `offset` through the CUDA megakernel
     and through its plain twin, both on the card; print the deviations and
-    raise unless they are within the tolerances above. Returns the largest
-    absolute pixel error."""
-    s = path.RenderSettings(max_depth=depth)
+    raise unless they are within the tolerances above (and, with
+    `rays_equal`, the ray counts are equal). Returns the largest absolute
+    pixel error."""
+    s = path.RenderSettings(max_depth=depth, background=background)
     key = rng.render_key(seed, device="cuda")
     acc_k, rays_k = megakernel.render_slots(cs, meta, s, n, n, spp, key, offset,
                                             tables=tables)
@@ -392,7 +476,7 @@ def compare(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
     rays_rel = abs(rays_k - rays_p) / rays_p
     mean_rel = abs(mean_k - mean_p) / mean_p
     lay = card_layout(megakernel, n, spp)
-    print(f"kernel-vs-twin: cornell {n}x{n}@{spp} depth {depth} seed {seed} "
+    print(f"kernel-vs-twin: {label} {n}x{n}@{spp} depth {depth} seed {seed} "
           f"offset {offset} ({lay['slots']} slots of {lay['spp_slot']} "
           f"samples, {lay['slots_per_thread']:.3f} per resident thread): rays "
           f"{rays_k} vs {rays_p} (rel "
@@ -401,9 +485,11 @@ def compare(cs, meta, tables, n: int, spp: int, depth: int, seed: int,
           f"mean {mean_k:.7f} vs {mean_p:.7f} (rel {mean_rel:.2e}, tol "
           f"{MEAN_RTOL})", flush=True)
     if not (bool(torch.isfinite(img_k).all()) and rays_rel <= RAYS_RTOL
-            and share >= PIXEL_SHARE and mean_rel <= MEAN_RTOL):
+            and share >= PIXEL_SHARE and mean_rel <= MEAN_RTOL
+            and (rays_k == rays_p or not rays_equal)):
         raise AssertionError(f"CUDA megakernel disagrees with its plain twin "
-                             f"at {n}x{n}@{spp} depth {depth} offset {offset}")
+                             f"on {label} at {n}x{n}@{spp} depth {depth} "
+                             f"offset {offset}")
     return max_abs_err
 
 
@@ -737,12 +823,6 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
     if not d3ctx.meta.placeholder_assets:
         raise AssertionError("the dragon's meta does not flag its stand-in")
     s12 = path.RenderSettings(max_depth=DRAGON_DEPTH)
-    counters = (bvh_kernel, bvh_rowkernel, megakernel, megakernel_spectral,
-                threefry)
-
-    def zero_counts():
-        for mod in counters:
-            mod.launches = 0
 
     def dragon_render(ctx, spp):
         return renderer.render(None, DRAGON_SIZE, DRAGON_SIZE, spp, s12,
@@ -758,7 +838,7 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
             ("bvh4_rowstack", d4ctx, bvh_rowkernel, "closest_hit_rows")):
         zero_counts()
         warm = dragon_render(ctx, DRAGON_SPP)
-        moved = {m.__name__.rsplit(".", 1)[1]: m.launches for m in counters}
+        moved = read_counts()
         if mod.launches != warm.iterations or sum(moved.values()) != (
                 mod.launches + threefry.launches):
             raise AssertionError(f"dragon warm-up through {name}: launches "
@@ -767,7 +847,7 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
         with profiling.event_timed(mod, fn) as times:
             res12 = dragon_render(ctx, DRAGON_SPP)
         kernel_ms = profiling.event_ms(times)
-        moved = {m.__name__.rsplit(".", 1)[1]: m.launches for m in counters}
+        moved = read_counts()
         print(f"dragon main path through {name}: {DRAGON_SIZE}x{DRAGON_SIZE}@"
               f"{DRAGON_SPP} depth {DRAGON_DEPTH} seed 0 on "
               f"{res12.device}: {res12.rays_traced} rays in {res12.seconds:.4f} "
@@ -835,6 +915,251 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
     return rows10, dragon_runs
 
 
+def image_checks(label: str, img: np.ndarray, n: int) -> dict:
+    """Print and return an image's bands: its top and bottom eighth and its
+    centre quarter (rgb means), its mean and max; raise unless it is
+    finite and of shape (n, n, 3)."""
+    if img.shape != (n, n, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"{label}: the image is not finite ({n}, {n}, 3)")
+    e = n // 8
+    bands = dict(top=img[:e].mean(axis=(0, 1)), bottom=img[-e:].mean(axis=(0, 1)),
+                 centre=img[3 * e:5 * e, 3 * e:5 * e].mean(axis=(0, 1)),
+                 mean=img.mean(axis=(0, 1)), max=img.max(axis=(0, 1)))
+    print(f"{label}: " + "; ".join(f"{k} rgb {np.round(v, 5).tolist()}"
+                                    for k, v in bands.items()), flush=True)
+    return {k: v.tolist() for k, v in bands.items()}
+
+
+def timed_render(label: str, ctx, n: int, spp: int, settings, card: str,
+                 module, fn: str, launches_of):
+    """A warm-up render of `ctx`'s scene and a timed one through the entry
+    points a user calls, every launch counter zeroed just before the timed
+    run and read just after; `module.fn` (the kernel's wrapper) runs between
+    CUDA events. `launches_of(res)` is the count the kernel must show, or
+    None for at least one; the other kernels but the cipher entry must show
+    none. The two runs must trace the same rays. Returns (result, counts,
+    kernel ms summed, calls, the cipher entry's shapes in the warm-up)."""
+    def run():
+        return renderer.render(None, n, n, spp, settings, seed=0,
+                               mode="wavefront", context=ctx, device="cuda")
+
+    with recorded_cipher_shapes() as shapes:
+        warm = run()
+    zero_counts()
+    with profiling.event_timed(module, fn) as times:
+        res = run()
+    counts = read_counts()
+    kernel_ms = profiling.event_ms(times)
+    name = module.__name__.rsplit(".", 1)[1]
+    print(f"{label}: {n}x{n}@{spp} depth {settings.max_depth} seed 0 on "
+          f"{res.device}: {res.rays_traced} rays in {res.seconds:.4f} s = "
+          f"{res.mrays_per_sec:.3f} Mrays/s, pool iterations {res.iterations} "
+          f"(warm-up {warm.seconds:.4f} s, {warm.rays_traced} rays; {card}); "
+          f"launches {counts}; {name}.{fn} {kernel_ms:.3f} ms over "
+          f"{len(times)} calls = {kernel_ms / 1e3 / res.seconds:.2%} of "
+          f"render() (CUDA events)", flush=True)
+    others = sum(v for k, v in counts.items() if k not in (name, "threefry"))
+    want = launches_of(res)
+    if ((counts[name] != want if want is not None else counts[name] < 1)
+            or others or len(times) != counts[name]):
+        raise AssertionError(f"{label}: launches {counts} for "
+                             f"{res.iterations} pool iterations")
+    if res.rays_traced != warm.rays_traced:
+        raise AssertionError(f"{label}: two renders traced {warm.rays_traced} "
+                             f"and {res.rays_traced} rays")
+    return res, counts, kernel_ms, len(times), shapes
+
+
+def texture_phases(card: str, usage: dict) -> dict:
+    """Phases 13-15 (the module docstring): the RGB megakernel on
+    random_scene, pbr_ibl through the queue pool, and the book-2 final scene
+    through the pool and the BVH4 kernel. Returns their numbers."""
+    dev = torch.device("cuda")
+    out = {}
+
+    # 13 (P1). random_scene through the RGB megakernel.
+    scene = random_scene(aspect=1.0)
+    ctx = renderer.RenderContext(scene, device=dev)
+    regs, spill_st, spill_ld = usage["megakernel_rgb"][:3]
+    print(f"phase 13: random_scene: {ctx.meta.n_prims} prims (moving "
+          f"spheres, a checker ground of radius 1000, thin lens aperture "
+          f"{scene.camera.aperture}), megakernel-eligible "
+          f"{ctx.mega_supported()}; megakernel_rgb {regs} registers, spill "
+          f"stores {spill_st} B, loads {spill_ld} B", flush=True)
+    if not ctx.mega_supported():
+        raise AssertionError("random_scene is not the RGB megakernel's")
+    err = compare(ctx.cs, ctx.meta, ctx.tables(), 64, 4, 8, 3, 0,
+                  label="random_scene", background=SKY, rays_equal=True)
+    # At phase 4's multi-sample layout every slot starts a next sample: its
+    # thin-lens ray and its time draw come from the regenerated stream.
+    if card_layout(megakernel, *MULTI_SAMPLE[:2])["spp_slot"] < 2:
+        raise AssertionError("random_scene: the multi-sample layout has one "
+                             "sample a slot")
+    err = max(err, compare(ctx.cs, ctx.meta, ctx.tables(), *MULTI_SAMPLE,
+                           label="random_scene", background=SKY,
+                           rays_equal=True))
+    s13 = path.RenderSettings(max_depth=SHIRLEY_DEPTH, background=SKY)
+    res, counts, mk_ms, _, _ = timed_render(
+        "random_scene main path", ctx, SHIRLEY_SIZE, SHIRLEY_SPP, s13, card,
+        megakernel, "render_slots", lambda r: 1)
+    bands = image_checks("random_scene image", res.image, SHIRLEY_SIZE)
+    if not (bands["top"][2] > bands["top"][0] > 0.3
+            and bands["mean"][1] > 0.1):
+        raise AssertionError("random_scene: expected the sky at the top")
+    _, rays_d, draws_d = megakernel.render_slots(
+        ctx.cs, ctx.meta, s13, SHIRLEY_SIZE, SHIRLEY_SIZE, SHIRLEY_SPP,
+        rng.render_key(0, device="cuda"), tables=ctx.tables(), draws=True)
+    if int(rays_d) != res.rays_traced:
+        raise AssertionError("random_scene: the launch with draw counts "
+                             "traced other rays")
+    lay = card_layout(megakernel, SHIRLEY_SIZE, SHIRLEY_SPP)
+    bound = launch_bound("megakernel_rgb per launch on random_scene",
+                         res.rays_traced, SHIRLEY_SIZE ** 2 * SHIRLEY_SPP,
+                         draws_d, ctx.cs.prims.kind.tolist(), False, lay,
+                         tensor_bytes(ctx.tables()), card)
+    print(f"random_scene main path: megakernel_rgb {mk_ms:.4f} ms per launch "
+          f"at {bound['bound_ms'] / mk_ms:.2%} of its bound ({card})",
+          flush=True)
+    # The engine policy: the same render through the queue pool and the
+    # BVH4 kernel, as a scene above BVH_THRESHOLD would take it.
+    pctx = renderer.RenderContext(scene, use_bvh=True, device=dev)
+    renderer.render(None, 32, 32, 2, s13, seed=1, mode="pool", context=pctx,
+                    device="cuda")
+    zero_counts()
+    pres = renderer.render(None, SHIRLEY_SIZE, SHIRLEY_SIZE, SHIRLEY_SPP, s13,
+                           seed=0, mode="pool", context=pctx, device="cuda")
+    pcounts = read_counts()
+    rays_rel = abs(pres.rays_traced - res.rays_traced) / res.rays_traced
+    mean_rel = abs(float(pres.image.mean()) / float(res.image.mean()) - 1)
+    close = (np.abs(pres.image - res.image) <= PIXEL_ATOL).all(axis=2).mean()
+    print(f"policy: random_scene {SHIRLEY_SIZE}x{SHIRLEY_SIZE}@{SHIRLEY_SPP}: "
+          f"megakernel {res.seconds:.4f} s ({res.mrays_per_sec:.2f} Mrays/s) "
+          f"vs queue pool + BVH4 kernel {pres.seconds:.4f} s "
+          f"({pres.mrays_per_sec:.2f} Mrays/s, {pres.iterations} iterations, "
+          f"launches {pcounts}): the megakernel "
+          f"{pres.seconds / res.seconds:.2f}x faster; rays rel {rays_rel:.2e}, "
+          f"mean rel {mean_rel:.2e}, pixels within {PIXEL_ATOL} {close:.4f} "
+          f"(tol {PIXEL_SHARE}; {card})", flush=True)
+    if (rays_rel > RAYS_RTOL or mean_rel > MEAN_RTOL or close < PIXEL_SHARE
+            or pcounts["bvh_kernel"] != pres.iterations):
+        raise AssertionError("random_scene: the pool with the BVH disagrees "
+                             "with the megakernel")
+    out["shirley"] = dict(
+        rays=res.rays_traced, seconds=res.seconds,
+        mrays_per_sec=res.mrays_per_sec, launches=counts["megakernel"],
+        ms_per_launch=mk_ms, bound_ms=bound["bound_ms"],
+        bound_by=bound["bound_by"], max_abs_err=err, layout=lay,
+        registers=regs, spill_bytes=spill_st + spill_ld, image=bands,
+        pool_bvh=dict(seconds=pres.seconds, mrays_per_sec=pres.mrays_per_sec,
+                      iterations=pres.iterations, rays=pres.rays_traced))
+    del ctx, pctx
+    torch.cuda.empty_cache()
+
+    # 14 (P2). pbr_ibl through the queue pool: the card against the CPU,
+    # then the main path.
+    s14 = path.RenderSettings(max_depth=IBL_DEPTH)
+    small = {d: renderer.render(pbr_ibl(), 16, 16, 4, s14, seed=0, device=d)
+             for d in ("cpu", "cuda")}
+    a, b = small["cuda"].image, small["cpu"].image
+    share = float((np.abs(a - b) <= PIXEL_ATOL + XYZ_RTOL * np.abs(b))
+                  .all(axis=2).mean())
+    rays_rel = abs(small["cuda"].rays_traced - small["cpu"].rays_traced) / (
+        small["cpu"].rays_traced)
+    mean_rel = abs(float(a.mean()) / float(b.mean()) - 1)
+    print(f"phase 14: pbr_ibl 16x16@4 depth {IBL_DEPTH}, card vs CPU: rays "
+          f"{small['cuda'].rays_traced} vs {small['cpu'].rays_traced}; pixels "
+          f"within {PIXEL_ATOL} + {XYZ_RTOL}|cpu| {share:.4f} (tol "
+          f"{PIXEL_SHARE}); max abs err {float(np.abs(a - b).max()):.3e}; mean "
+          f"rel {mean_rel:.2e}", flush=True)
+    if not (rays_rel <= RAYS_RTOL and share >= PIXEL_SHARE
+            and mean_rel <= MEAN_RTOL and np.isfinite(a).all()):
+        raise AssertionError("pbr_ibl: the card disagrees with the CPU")
+    ctx = renderer.RenderContext(pbr_ibl(), device=dev)
+    print(f"pbr_ibl: {ctx.meta.n_prims} prims, combined stack "
+          f"{tuple(ctx.cs.textures.combined.shape)}, megakernel-eligible "
+          f"{ctx.mega_supported()}", flush=True)
+    res, counts, _, _, shapes = timed_render(
+        "pbr_ibl main path", ctx, IBL_SIZE, IBL_SPP, s14, card, threefry,
+        "uniforms_for_keys", lambda r: None)
+    ibl_cipher = cipher_on_path(shapes, counts["threefry"], card,
+                                "the pbr_ibl main path")
+    bands = image_checks("pbr_ibl image", res.image, IBL_SIZE)
+    if not (bands["top"][2] > bands["top"][0] and bands["bottom"][0]
+            > bands["bottom"][2] and bands["centre"][1] > 0.02):
+        raise AssertionError("pbr_ibl: expected the sky above, the ground "
+                             "below and the spheres lit")
+    wall, busy, _ = profiling.device_profile(lambda: renderer.render(
+        None, IBL_SIZE, IBL_SIZE, 16, s14, seed=0, context=ctx, device="cuda"))
+    print(f"pbr_ibl profile: {IBL_SIZE}x{IBL_SIZE}@16 under torch.profiler: "
+          f"wall {wall:.4f} s, device busy {busy:.4f} s, idle share "
+          f"{1 - busy / wall:.2%} ({card})", flush=True)
+    out["pbr_ibl"] = dict(
+        rays=res.rays_traced, seconds=res.seconds,
+        mrays_per_sec=res.mrays_per_sec, iterations=res.iterations,
+        cipher_launches=counts["threefry"], cipher=ibl_cipher, image=bands,
+        profiled_idle_share_16spp=1 - busy / wall)
+    del ctx
+    torch.cuda.empty_cache()
+
+    # 15 (P3). The book-2 final scene through the pool and the BVH4 kernel.
+    ctx = renderer.RenderContext(final(), device=dev)
+    ks = ctx.intersect.ks
+    print(f"phase 15: final: {ctx.meta.n_prims} prims, {ks.nodes.shape[0]} "
+          f"nodes; media {ctx.meta.n_media} (spheres {ctx.meta.media_is_sphere}"
+          f"), has_image {ctx.meta.has_image}, has_noise "
+          f"{ctx.meta.has_noise}; compile and build {ctx.build_seconds:.3f} s",
+          flush=True)
+    trav = compare_traversal("final", ks, traversal_rays(
+        ks, ctx.cs.camera, TRAVERSE_RAYS, 15), card)
+    s15 = path.RenderSettings(max_depth=FINAL_DEPTH)
+    res, counts, trav_ms, calls, shapes = timed_render(
+        "final main path", ctx, FINAL_SIZE, FINAL_SPP, s15, card, bvh_kernel,
+        "closest_hit", lambda r: r.iterations)
+    final_cipher = cipher_on_path(shapes, counts["threefry"], card,
+                                  "the final main path")
+    bands = image_checks("final image", res.image, FINAL_SIZE)
+    # The light faces up (an unflipped XZRect, one-sided on its record
+    # normal, diffuselight.go:49-63) and lights nothing below it: red and
+    # green are 0, blue is the depth-cap sentinel's on paths that reach
+    # depth 50, as in the JAX package.
+    blue = float((res.image[..., 2] > 0).mean())
+    print(f"final image: red and green max {bands['max'][:2]}, blue on "
+          f"{blue:.4%} of the pixels", flush=True)
+    if bands["max"][0] != 0.0 or bands["max"][1] != 0.0 or not blue > 0:
+        raise AssertionError("final: expected red and green 0 and some blue")
+    # The card against the CPU (the same code, the plain traversal). The
+    # two devices' libm and division differ in the last ulp, which turns a
+    # few of final's paths (its fog, its noise) into others; at 16x16@2 the
+    # rays' gap reached 0.51%, and it shrinks as the frame grows.
+    n_c, spp_c = FINAL_VS_CPU
+    small = {d: renderer.render(final(), n_c, n_c, spp_c, s15, seed=0,
+                                device=d) for d in ("cpu", "cuda")}
+    a, b = small["cuda"].image, small["cpu"].image
+    share = float((np.abs(a - b) <= PIXEL_ATOL + XYZ_RTOL * np.abs(b))
+                  .all(axis=2).mean())
+    rays_rel = abs(small["cuda"].rays_traced - small["cpu"].rays_traced) / (
+        small["cpu"].rays_traced)
+    lit = [int((img[..., 2] > 0).sum()) for img in (a, b)]
+    print(f"final {n_c}x{n_c}@{spp_c} depth {FINAL_DEPTH}, card vs CPU: rays "
+          f"{small['cuda'].rays_traced} vs {small['cpu'].rays_traced} (rel "
+          f"{rays_rel:.2e}, tol {RAYS_RTOL}); pixels within {PIXEL_ATOL} + "
+          f"{XYZ_RTOL}|cpu| {share:.6f} (tol {PIXEL_SHARE}); blue pixels "
+          f"{lit[0]} vs {lit[1]}; max abs err "
+          f"{float(np.abs(a - b).max()):.3e}", flush=True)
+    if not (rays_rel <= RAYS_RTOL and share >= PIXEL_SHARE
+            and np.isfinite(a).all()):
+        raise AssertionError("final: the card disagrees with the CPU")
+    out["final"] = dict(
+        rays=res.rays_traced, seconds=res.seconds,
+        mrays_per_sec=res.mrays_per_sec, iterations=res.iterations,
+        launches=counts["bvh_kernel"], cipher_launches=counts["threefry"],
+        ms_per_launch=trav_ms / calls,
+        kernel_share=trav_ms / 1e3 / res.seconds, traversal=trav,
+        blue_pixel_share=blue, cipher=final_cipher,
+        vs_cpu=dict(frame=FINAL_VS_CPU, rays_rel=rays_rel, pixel_share=share))
+    return out
+
+
 def main() -> None:
     # 1. The card.
     if not torch.cuda.is_available():
@@ -890,7 +1215,8 @@ def main() -> None:
     depths = torch.as_tensor(rs.randint(0, 64, n_keys).astype(np.int64),
                              device="cuda")
     cipher = {}
-    for n, salt in ((12, 0), (5, camera.CAMERA_SALT), (1, wavefront.LAMBDA_SALT)):
+    for n, salt in ((12, 0), (5, camera.CAMERA_SALT), (1, wavefront.LAMBDA_SALT),
+                    (2, path.MEDIA_SALT)):
         got = threefry.uniforms_for_keys(keys, depths, n, salt)
         want = threefry.uniforms_for_keys_reference(keys, depths, n, salt)
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -1168,19 +1494,9 @@ def main() -> None:
     # warm-up render records the shapes the pool hands the cipher entry.
     megakernel.launches = megakernel_spectral.launches = 0
     bvh_kernel.launches = threefry.launches = 0
-    cipher_shapes = []
-    cipher_wrapper = threefry.uniforms_for_keys
-
-    def recording(keys, depths, n, salt):
-        cipher_shapes.append((int(keys.shape[0]), n))
-        return cipher_wrapper(keys, depths, n, salt)
-
-    threefry.uniforms_for_keys = recording
-    try:
+    with recorded_cipher_shapes() as cipher_shapes:
         warm = renderer.render(None, 256, 256, 128, settings, seed=0,
                                mode="wavefront", context=bctx, device="cuda")
-    finally:
-        threefry.uniforms_for_keys = cipher_wrapper
     if bvh_kernel.launches != warm.iterations:
         raise AssertionError(f"warm-up: {bvh_kernel.launches} traversal "
                              f"launches for {warm.iterations} pool iterations")
@@ -1233,6 +1549,8 @@ def main() -> None:
     rows10, dragon_runs = row_stack_phases(bctx, dctx, rays7, card, usage)
     del dctx, rays7
     drow = rows10["dragon"]
+    torch.cuda.empty_cache()
+    paths13 = texture_phases(card, usage)
 
     print(json.dumps({
         "kernels": [{
@@ -1252,6 +1570,9 @@ def main() -> None:
             "ms_at_2": mk_ms_2,
             "bound_ms_at_2": rgb_bound_2["bound_ms"],
             "layout": lay,
+            "shirley_main_path": {k: paths13["shirley"][k] for k in (
+                "launches", "ms_per_launch", "bound_ms", "bound_by",
+                "max_abs_err")},
             **grids["megakernel_rgb"],
         }, {
             "name": "megakernel_spectral",
@@ -1286,6 +1607,12 @@ def main() -> None:
             "ms_per_launch_main_path": trav_per_launch,
             "ms_per_launch_dragon_main_path":
                 dragon_runs["bvh4_traverse"]["ms_per_launch"],
+            "final_main_path": {
+                "launches": paths13["final"]["launches"],
+                "ms_per_launch": paths13["final"]["ms_per_launch"],
+                **{k: paths13["final"]["traversal"][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")}},
             **trav_build["bvh4_traverse"],
         }, {
             "name": "bvh4_rowstack",
@@ -1317,6 +1644,10 @@ def main() -> None:
             "shape": cipher_main["shape"],
             "shapes_on_main_path": cipher_main["shapes"],
             "launches_x_time_minus_bound_ms": cipher_main["excess_ms"],
+            "launches_pbr_ibl_main_path": paths13["pbr_ibl"]["cipher_launches"],
+            "launches_final_main_path": paths13["final"]["cipher_launches"],
+            "shapes_on_pbr_ibl_main_path": paths13["pbr_ibl"]["cipher"]["shapes"],
+            "shapes_on_final_main_path": paths13["final"]["cipher"]["shapes"],
             "device_functions": ["csrc/threefry.cuh", "csrc/draws.cuh"],
             "inlined_in": ["megakernel_rgb", "megakernel_spectral"],
             "ms_1m_keys_12": cipher["ms"],
@@ -1363,6 +1694,9 @@ def main() -> None:
                           "kernel_share": kernel_s / ores.seconds,
                           "profiled_idle_share_16spp": 1 - busy / wall},
         "dragon_main_path": dragon_runs,
+        "shirley_main_path": paths13["shirley"],
+        "pbr_ibl_main_path": paths13["pbr_ibl"],
+        "final_main_path": paths13["final"],
         "card": card,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

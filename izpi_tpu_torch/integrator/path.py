@@ -2,10 +2,13 @@
 
 Counterpart of `izpi_tpu/integrator/path.py`: `RenderSettings`,
 `make_brute_intersector` (:64), `bounce_rgb` (:405-541) and
-`bounce_spectral` (:544-682) without the media branch, `_dielectric_scatter`
-(:147), the PBR helpers `_eval_pbr_texs` (:264, its generic four-lookup
-path: images and their combined stack are not ported), `_pbr_normals`
-(:336) and `_pbr_lobes` (:384), and `trace` (:685), the lockstep oracle. Each
+`bounce_spectral` (:544-682) with the participating media (`_apply_media`,
+:167), image and noise textures (`_eval_tex`, :251), the isotropic phase
+material, the RGB-to-spectral uplift and image emission (the sky dome),
+`_dielectric_scatter` (:147), the PBR helpers `_eval_pbr_texs` (:264, the
+combined map stack and the generic four-lookup path), `_pbr_normals` (:336)
+and `_pbr_lobes` (:384), and `trace` (:685), the lockstep oracle. The JAX
+package's `differentiable=True` is ROADMAP A14's and not here. Each
 takes the scene's intersector, `intersect(o, d, time, t_min, t_max) -> Hit`,
 as the JAX functions do: brute force (`make_brute_intersector`), the plain
 BVH4 traversal (`accel.traverse`) or the CUDA traversal kernel
@@ -18,11 +21,13 @@ Estimator identity with the reference (colour.go:44-57):
 A zero pdf divides into Inf/NaN that the caller's per-sample DeNAN zeroes,
 as the Go chain does (vec3.DeNAN at render/rgb.go:36). Quirks kept: the
 depth-cap sentinel {Z:1}, the book's 2·sqrt(r2) cosine factor, one-sided
-lights keyed on the record normal, unnormalized scattered directions, and
-PBR's double normal mapping (the triangle TBN map of triangle.go:234-248,
-then the ad-hoc tangent frame of pbr.go:65-91 again with z left
-unremapped), fresnel = 0.04+0.96(1-cosθ)^5 + 0.5·metalness with
-P(spec) = fresnel·(1-rough) (pbr.go:123-137), the cosine mixture PDF on the
+lights keyed on the record normal, unnormalized scattered directions,
+isotropic's ScatteringPDF() == 0 (isotropic.go:54: a medium hit scatters
+along the NEE mixture's direction with weight 0), and PBR's double normal
+mapping (the triangle TBN map of triangle.go:234-248, then the ad-hoc
+tangent frame of pbr.go:65-91 again with z left unremapped),
+fresnel = 0.04+0.96(1-cosθ)^5 + 0.5·metalness with P(spec) =
+fresnel·(1-rough) (pbr.go:123-137), the cosine mixture PDF on the
 PBR-mapped normal but ScatteringPDF on the record normal (pbr.go:150,249),
 and the spectral specular lobe's ×1.5 albedo boost (pbr.go:253-259).
 """
@@ -43,9 +48,12 @@ from izpi_tpu_torch.materials import spectral_eval
 from izpi_tpu_torch.materials import tables as mt
 from izpi_tpu_torch.spectral import spd as spd_mod
 from izpi_tpu_torch.texture import tables as tex_tables
+from izpi_tpu_torch.texture import uplift as uplift_mod
 
 T_MIN = 1e-3  # world-hit epsilon (colour.go:40)
 PARK = 3e30   # dead-slot origin: far outside every scene, so it misses
+# Salt of the media's free-flight draws (izpi_tpu/integrator/path.py:181).
+MEDIA_SALT = 0x4D45
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,22 +102,133 @@ def _dielectric_scatter(o_dir, normal, ref_idx, u_reflect):
     return new_dir, is_reflected
 
 
+def _rot(rot, x):
+    """rot @ x per row, the 3×3 product written out: (N, 3) -> (N, 3)."""
+    return torch.stack([x[:, 0] * rot[i, 0] + x[:, 1] * rot[i, 1]
+                        + x[:, 2] * rot[i, 2] for i in range(3)], dim=-1)
+
+
+def _apply_media(cs, meta, rec, o, d, keys, depth):
+    """Stochastic participating-media hits (constant_medium.go:36-66).
+
+    For each medium: the boundary's entry/exit span along the ray, an
+    exponential free-flight distance -ln(U)/ρ, and, when it lands inside
+    the span before the closest surface, the medium takes the closest hit
+    with the arbitrary record normal (1, 0, 0) and its Isotropic phase
+    material. As in the JAX package, the span is min(exit, closest), not
+    the reference's `rec2t = tMax` clamp (constant_medium.go:46-48, an
+    inverted comparison that extends every medium behind its boundary)."""
+    md = cs.media
+    u_med = rng.bounce_uniforms_perray(keys, depth, meta.n_media,
+                                       salt=MEDIA_SALT)
+    d_len = vm.length(d)
+    cur_t = torch.where(rec.hit, rec.t, torch.full_like(rec.t, prim.T_MAX))
+    t, hit, mat_id, normal = rec.t, rec.hit, rec.mat_id, rec.normal
+    p, u, v, prim_idx = rec.p, rec.u, rec.v, rec.prim_idx
+    zero = torch.zeros((), dtype=o.dtype, device=o.device)
+    x_axis = o.new_tensor([1.0, 0.0, 0.0])
+    for m in range(meta.n_media):
+        rot = md.rot_w2o[m]
+        o_obj = _rot(rot, o - md.trans[m][None, :])
+        d_obj = _rot(rot, d)
+        if meta.media_is_sphere[m]:
+            oc = o_obj - md.p0[m][None, :]
+            radius = md.p1[m][0]
+            a = vm.dot(d_obj, d_obj)
+            bq = vm.dot(oc, d_obj)
+            c = vm.dot(oc, oc) - radius * radius
+            disc = bq * bq - a * c
+            ok = disc > 0.0
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            a_safe = torch.where(a == 0.0, torch.ones_like(a), a)
+            t1 = (-bq - sq) / a_safe
+            t2 = (-bq + sq) / a_safe
+        else:
+            inv = 1.0 / d_obj
+            ta = (md.p0[m][None, :] - o_obj) * inv
+            tb = (md.p1[m][None, :] - o_obj) * inv
+            t1 = torch.amax(torch.minimum(ta, tb), dim=-1)
+            t2 = torch.amin(torch.maximum(ta, tb), dim=-1)
+            ok = t2 > t1
+        rec1t = torch.maximum(t1, torch.full_like(t1, T_MIN))
+        rec2t = torch.minimum(t2, cur_t)
+        ok = ok & (rec1t < rec2t)
+        rec1t = torch.maximum(rec1t, zero)
+        dist_inside = (rec2t - rec1t) * d_len
+        hit_dist = -(1.0 / md.density[m]) * torch.log(
+            torch.clamp(u_med[:, m], min=1e-12))
+        t_med = rec1t + hit_dist / d_len
+        better = ok & (hit_dist < dist_inside) & (t_med < cur_t)
+
+        t = torch.where(better, t_med, t)
+        cur_t = torch.minimum(cur_t, torch.where(better, t_med, cur_t))
+        hit = hit | better
+        mat_id = torch.where(better, md.mat_id[m].to(mat_id.dtype), mat_id)
+        normal = torch.where(better[:, None], x_axis, normal)
+        p = torch.where(better[:, None], o + t_med[:, None] * d, p)
+        u = torch.where(better, zero, u)
+        v = torch.where(better, zero, v)
+        prim_idx = torch.where(better, torch.full_like(prim_idx, -1), prim_idx)
+    return prim.Hit(t=t, u=u, v=v, p=p, normal=normal, prim_idx=prim_idx,
+                    mat_id=mat_id, hit=hit)
+
+
+def _eval_tex(cs, meta, tex_id, u, v, p):
+    return tex_tables.eval_rgb(cs.textures, tex_id, u, v, p,
+                               has_checker=meta.has_checker,
+                               has_image=meta.has_image,
+                               has_noise=meta.has_noise)
+
+
 def _mean3(rgb):
     return (rgb[..., 0] + rgb[..., 1] + rgb[..., 2]) / 3.0
 
 
 def _eval_pbr_texs(cs, meta, mat, rec):
     """The four per-bounce material texture lookups (albedo, normal map,
-    roughness, metalness) in one evaluation over 4N ids, the JAX package's
-    generic path (path.py:284-291). Returns (albedo (N, 3), normal_rgb
-    (N, 3), rough (N,), metal (N,)), roughness and metalness mean3'd
-    (pbr.go:109-116)."""
+    roughness, metalness). Returns (albedo (N, 3), normal_rgb (N, 3), rough
+    (N,), metal (N,)), roughness and metalness mean3'd (pbr.go:109-116; the
+    combined stack stores the per-texel mean, the same value).
+
+    A scene whose compile baked a combined map stack reads each material's
+    image maps from its row there, one gather per ray, and its other slots
+    from the generic evaluator without images (path.py:293-333); a scene
+    without one evaluates the four slots over 4N ids (path.py:284-291)."""
     n = rec.p.shape[0]
-    tids = torch.cat([mat["tex_albedo"], mat["tex_normal"], mat["tex_rough"],
-                      mat["tex_metal"]])
-    tex4 = tex_tables.eval_rgb(cs.textures, tids, rec.p.repeat(4, 1),
-                               has_checker=meta.has_checker).reshape(4, n, 3)
-    return tex4[0], tex4[1], _mean3(tex4[2]), _mean3(tex4[3])
+    tex = cs.textures
+    if tex.combined.shape[0] == 0:
+        tids = torch.cat([mat["tex_albedo"], mat["tex_normal"],
+                          mat["tex_rough"], mat["tex_metal"]])
+        tex4 = _eval_tex(cs, meta, tids, rec.u.repeat(4), rec.v.repeat(4),
+                         rec.p.repeat(4, 1)).reshape(4, n, 3)
+        return tex4[0], tex4[1], _mean3(tex4[2]), _mean3(tex4[3])
+
+    combo = mat["combo_id"]
+    valid = combo >= 0
+    safe = torch.clamp(combo, min=0).long()
+    w, h = tex.combo_w[safe], tex.combo_h[safe]
+    i = tex_tables.texel_index(rec.u * w.float(), w)
+    j = tex_tables.texel_index((1.0 - rec.v) * (h.float() - 0.001), h)
+    row = tex.combined[safe, j.long(), i.long()]  # (N, 8): one gather
+
+    def gen(tid):
+        return tex_tables.eval_rgb(tex, tid, rec.u, rec.v, rec.p,
+                                   has_checker=meta.has_checker,
+                                   has_image=False, has_noise=meta.has_noise)
+
+    def is_img(tid):
+        return valid & (tid >= 0) & (
+            tex.kind[torch.clamp(tid, min=0)] == tex_tables.TEX_IMAGE)
+
+    albedo = torch.where(is_img(mat["tex_albedo"])[:, None], row[:, 0:3],
+                         gen(mat["tex_albedo"]))
+    nm_rgb = torch.where(is_img(mat["tex_normal"])[:, None], row[:, 3:6],
+                         gen(mat["tex_normal"]))
+    rough = torch.where(is_img(mat["tex_rough"]), row[:, 6],
+                        _mean3(gen(mat["tex_rough"])))
+    metal = torch.where(is_img(mat["tex_metal"]), row[:, 7],
+                        _mean3(gen(mat["tex_metal"])))
+    return albedo, nm_rgb, rough, metal
 
 
 def _pbr_normals(cs, mat, rec, nm_rgb):
@@ -196,6 +315,8 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
     # miss. Every output of theirs is masked by `active` below.
     o = torch.where(active[:, None], o, torch.full_like(o, PARK))
     rec = intersect(o, d, time, T_MIN, prim.T_MAX)
+    if meta.n_media > 0:
+        rec = _apply_media(cs, meta, rec, o, d, keys, depth)
     nrays = active.sum()
 
     miss = active & ~rec.hit
@@ -208,8 +329,7 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
         albedo, nm_rgb, rough_val, metal_val = _eval_pbr_texs(cs, meta, mat,
                                                               rec)
     else:
-        albedo = tex_tables.eval_rgb(cs.textures, mat["tex_albedo"], rec.p,
-                                     has_checker=meta.has_checker)
+        albedo = _eval_tex(cs, meta, mat["tex_albedo"], rec.u, rec.v, rec.p)
     facing = vm.dot(rec.normal, d) < 0.0
     is_light = kind == mt.MAT_DIFFUSE_LIGHT
     emitted = torch.where((is_light & facing)[:, None], albedo, zero)
@@ -302,6 +422,8 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
 
     o = torch.where(active[:, None], o, torch.full_like(o, PARK))
     rec = intersect(o, d, time, T_MIN, prim.T_MAX)
+    if meta.n_media > 0:
+        rec = _apply_media(cs, meta, rec, o, d, keys, depth)
     nrays = active.sum()
 
     bg_val = spd_mod.device_spd_value(
@@ -315,8 +437,7 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
     if meta.has_pbr:
         rgb, nm_rgb, rough_val, metal_val = _eval_pbr_texs(cs, meta, mat, rec)
     else:
-        rgb = tex_tables.eval_rgb(cs.textures, mat["tex_albedo"], rec.p,
-                                  has_checker=meta.has_checker)
+        rgb = _eval_tex(cs, meta, mat["tex_albedo"], rec.u, rec.v, rec.p)
     luma = spectral_eval.luminance(rgb)
     spec_a = spectral_eval.spectral_value(
         cs.spd_table, mat["spec_albedo_id"], mat["spec_albedo_gauss"], lam,
@@ -330,6 +451,10 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
              * torch.sin(10.0 * rec.p[:, 2]))
     spec_val = torch.where(mat["spec_checker"] & (sines >= 0.0), spec_b,
                            spec_a)
+    if meta.has_uplift:
+        # RGB→spectral uplift (SpectralImage semantics) of the RGB texture.
+        spec_val = torch.where(mat["spec_albedo_uplift"],
+                               uplift_mod.eval_bucketed(rgb, lam), spec_val)
 
     facing = vm.dot(rec.normal, d) < 0.0
     is_light = kind == mt.MAT_DIFFUSE_LIGHT

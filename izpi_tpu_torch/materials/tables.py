@@ -1,13 +1,10 @@
-"""Flat material parameter table (the slice's fields).
+"""Flat material parameter table.
 
 Counterpart of `izpi_tpu/materials/tables.py`. Materials are rows of a
 parameter table; the integrator gathers a ray's row and evaluates every lobe
 with tagged selects (`izpi_tpu_torch.integrator.path`).
 
 Kinds: 0 LAMBERT, 1 METAL, 2 DIELECTRIC, 3 DIFFUSE_LIGHT, 4 ISOTROPIC, 5 PBR.
-The port compiles kinds 0-3 and 5 (PBR with constant and checker texture
-slots), each with its spectral columns; isotropic (media) comes with a
-later slice (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -47,11 +44,10 @@ class Materials(NamedTuple):
     spec_checker: torch.Tensor        # (M,) bool
     spec_albedo_id2: torch.Tensor     # (M,) int32
     spec_albedo_gauss2: torch.Tensor  # (M, 3) f32
-    # RGB→spectral uplift of the albedo texture; the compiler raises on it
-    # until ROADMAP A11, so the column is all False.
+    # RGB→spectral uplift of the albedo texture (texture.uplift).
     spec_albedo_uplift: torch.Tensor  # (M,) bool
-    # Row of the combined image-map stack (-1 = none). Images are not ported,
-    # so every row is -1 and PBR takes the generic texture lookups.
+    # Row of the combined image-map stack (-1 = none: PBR takes the generic
+    # texture lookups).
     combo_id: torch.Tensor            # (M,) int32
 
     @property

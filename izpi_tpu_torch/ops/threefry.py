@@ -99,15 +99,15 @@ def uniforms_for_keys(keys, depths, n: int, salt: int):
     """(N, n) uniforms for (N, 2) int64 keys and (N,) depths.
 
     On a CUDA tensor this launches the device cipher (`izpi_threefry_uniforms`
-    in csrc/megakernel_rgb.cu, n ∈ {1, 5, 12}: the λ, camera and bounce
-    draws);
-    on a CPU tensor it runs `uniforms_for_keys_reference`."""
+    in csrc/megakernel_rgb.cu: n of 1, 5 and 12, the λ, camera and bounce
+    draws, unrolled, any other n ≥ 1, the media's, at run time); on a CPU
+    tensor it runs `uniforms_for_keys_reference`."""
     if keys.device.type == "cpu":
         return uniforms_for_keys_reference(keys, depths, n, salt)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    if n not in (1, 5, 12):
-        raise ValueError(f"the device cipher draws 1, 5 or 12 uniforms, not {n}")
+    if n < 1:
+        raise ValueError(f"the device cipher draws at least 1 uniform, not {n}")
     if keys.ndim != 2 or keys.shape[1] != 2 or depths.shape != keys.shape[:1]:
         raise ValueError("keys must be (N, 2) and depths (N,)")
     from izpi_tpu_torch.ops import _build

@@ -1,22 +1,21 @@
 """Scene compiler: host-side description → flat float32/int32 tensors.
 
-Counterpart of `izpi_tpu/scene/compiler.py` for the slices ported so far:
-rects, boxes, spheres (moving ones included), triangles and triangle meshes,
-the FlipNormals / Translate / RotateY wrappers baked into geometry by
-`_Transform` (triangles carry their UV tangent frame, `Prims.tb`), the
-Lambertian / Metal / Dielectric (with absorption) / DiffuseLight / PBR
-materials with constant and checker textures and their spectral columns
-(tabulated, neutral and Gaussian spectra, the spectral checker, η(λ),
-spectral absorption), the scene's SPD table, the spectral background and
-the light list. Images are not ported, so there is no combined image-map
-stack: every `combo_id` is -1 and PBR takes the generic texture lookups.
-`_Builder` emits numpy float64, converted once to float32 tensors on the
-given device, the same f64 → f32 path as `compiler.py:646-663`, so both
-packages hold equal tables.
-
-Anything else raises NotImplementedError naming the ROADMAP item that ports
-it. `from_jax_arrays` takes the JAX package's compiled tables (as numpy) so
-tests can render the same tables through both packages.
+Counterpart of `izpi_tpu/scene/compiler.py`: rects, boxes, spheres (moving
+ones included), triangles and triangle meshes, the FlipNormals / Translate /
+RotateY wrappers baked into geometry by `_Transform` (triangles carry their
+UV tangent frame, `Prims.tb`), the Lambertian / Metal / Dielectric (with
+absorption) / DiffuseLight / Isotropic / PBR materials with constant,
+checker, image and noise textures and their spectral columns (tabulated,
+neutral and Gaussian spectra, the spectral checker, η(λ), spectral
+absorption, the RGB-to-spectral uplift of an image albedo and of every PBR
+albedo of a spectral scene without a spectrum of its own), ConstantMedium
+boundaries (a box or sphere under Translate / RotateY) as the `Media`
+group, the padded image stack, the combined PBR map stack, the scene's SPD
+table, the spectral background and the light list. `_Builder` emits numpy
+float64, converted once to float32 tensors on the given device, the same
+f64 → f32 path as `compiler.py:646-663`, so both packages hold equal
+tables. `from_jax_arrays` takes the JAX package's compiled tables (as
+numpy) so tests can render the same tables through both packages.
 """
 
 from __future__ import annotations
@@ -34,9 +33,28 @@ from izpi_tpu_torch.integrator import lights as lights_mod
 from izpi_tpu_torch.materials import tables as mat_tables
 from izpi_tpu_torch.scene import types as st
 from izpi_tpu_torch.spectral import spd as spd_mod
+from izpi_tpu_torch.texture import perlin as perlin_mod
 from izpi_tpu_torch.texture import tables as tex_tables
 
-_MEDIA_PBR = "ROADMAP A11 (media, images, noise, uplift and IBL)"
+# Byte cap of the padded combined map stack (compiler.py:706, where the
+# IZPI_COMBO_BYTES_CAP environment variable sets it): materials whose maps
+# would pass it are evicted, largest first, to the generic lookups.
+COMBO_BYTES_CAP = 1 << 29
+
+
+class Media(NamedTuple):
+    """Participating media (ConstantMedium boundaries), SoA
+    (compiler.py:36-50). A boundary is a box or a sphere in object space
+    under a baked rigid transform, p_obj = rot_w2o @ (p_world - trans). A
+    scene without media holds one dummy row."""
+
+    rot_w2o: torch.Tensor    # (M, 3, 3) f32
+    trans: torch.Tensor      # (M, 3) f32
+    p0: torch.Tensor         # (M, 3) f32 box min | sphere centre
+    p1: torch.Tensor         # (M, 3) f32 box max | (radius, 0, 0)
+    is_sphere: torch.Tensor  # (M,) bool
+    density: torch.Tensor    # (M,) f32
+    mat_id: torch.Tensor     # (M,) int32, the Isotropic phase material
 
 
 class CompiledScene(NamedTuple):
@@ -48,6 +66,7 @@ class CompiledScene(NamedTuple):
     lights: lights_mod.Lights
     camera: camera_mod.CameraArrays
     spd_table: torch.Tensor  # (S, 371) f32 on the 1 nm grid; row 0 is zeros
+    media: Media
 
     @property
     def device(self) -> torch.device:
@@ -56,9 +75,8 @@ class CompiledScene(NamedTuple):
 
 @dataclasses.dataclass
 class SceneMeta:
-    """Static facts about the compiled scene. The port compiles no media,
-    image or noise content yet; the fields stay so that the kernels'
-    `eligible` read the JAX package's rules unchanged."""
+    """Static facts about the compiled scene (compiler.py:65-88, without
+    the texture-sharding axis of ROADMAP A15)."""
 
     n_prims: int
     n_materials: int
@@ -71,7 +89,11 @@ class SceneMeta:
     has_image: bool = False
     has_noise: bool = False
     has_pbr: bool = False
+    # Some material uplifts its RGB albedo to a spectrum (the port's own
+    # fact: the spectral bounce evaluates the uplift only then).
+    has_uplift: bool = False
     n_media: int = 0
+    media_is_sphere: tuple = ()
     # Assets replaced by procedural placeholders at load (scene.pbtxt,
     # library.extracted), reported by render() (compiler.py:83-85).
     placeholder_assets: tuple = ()
@@ -82,10 +104,13 @@ class SceneMeta:
 LEAVES = (
     [f"prims.{f}" for f in prim.Prims._fields]
     + [f"materials.{f}" for f in mat_tables.Materials._fields]
-    + [f"textures.{f}" for f in tex_tables.Textures._fields]
+    + [f"textures.{f}" for f in tex_tables.Textures._fields
+       if f != "perlin"]
+    + [f"textures.perlin.{f}" for f in perlin_mod.PerlinTables._fields]
     + [f"lights.{f}" for f in lights_mod.Lights._fields]
     + [f"camera.{f}" for f in camera_mod.CameraArrays._fields]
     + ["spd_table"]
+    + [f"media.{f}" for f in Media._fields]
 )
 
 
@@ -126,8 +151,11 @@ class _Transform:
 
 class _Builder:
     def __init__(self) -> None:
+        # (kind, c0, c1, noise scale, image id) per texture.
         self.tex_rows: List[tuple] = []
         self._tex_cache: Dict[int, int] = {}
+        self.images: List[np.ndarray] = []
+        self._img_cache: Dict[int, int] = {}
         self.mat_rows: List[dict] = []
         self._mat_cache: Dict[int, int] = {}
         # Primitive blocks: one dict of (k, ...) arrays per push, one row for
@@ -137,30 +165,60 @@ class _Builder:
         self.spds: List[np.ndarray] = [
             np.zeros(spd_mod.DEVICE_GRID_N, np.float32)]
         self.has_absorbing_dielectric = False
+        # One dict of a medium's fields per ConstantMedium (compiler.py:
+        # 543-574).
+        self.media: List[dict] = []
 
     def _add_texture(self, t) -> int:
-        if isinstance(t, st.ConstantTexture):
+        """The texture's row, shared by equal constants and noises, by
+        checkers of the same children and by the same image texture object
+        (compiler.py:175-199)."""
+        if isinstance(t, st.ImageTexture):
+            key = id(t)
+        elif isinstance(t, st.CheckerTexture):
+            key = hash((type(t).__name__, (id(t.odd), id(t.even))))
+        else:
             key = hash((type(t).__name__, t))
-            row = (tex_tables.TEX_CONSTANT, np.array(t.color, np.float64),
-                   np.zeros(3))
+        if key in self._tex_cache:
+            return self._tex_cache[key]
+        z = np.zeros(3)
+        if isinstance(t, st.ConstantTexture):
+            row = (tex_tables.TEX_CONSTANT, np.array(t.color, np.float64), z,
+                   0.0, -1)
         elif isinstance(t, st.CheckerTexture):
             if not (isinstance(t.odd, st.ConstantTexture)
                     and isinstance(t.even, st.ConstantTexture)):
                 raise NotImplementedError(
                     "checker children must be constant textures")
-            key = hash((type(t).__name__, (id(t.odd), id(t.even))))
             row = (tex_tables.TEX_CHECKER, np.array(t.odd.color, np.float64),
-                   np.array(t.even.color, np.float64))
-        elif isinstance(t, (st.ImageTexture, st.NoiseTexture)):
-            raise NotImplementedError(
-                f"{type(t).__name__} is not ported yet: {_MEDIA_PBR}")
+                   np.array(t.even.color, np.float64), 0.0, -1)
+        elif isinstance(t, st.ImageTexture):
+            row = (tex_tables.TEX_IMAGE, z, z, 0.0, self._add_image(t))
+        elif isinstance(t, st.NoiseTexture):
+            row = (tex_tables.TEX_NOISE, z, z, float(t.scale), -1)
         else:
             raise TypeError(f"unknown texture {t!r}")
-        if key in self._tex_cache:
-            return self._tex_cache[key]
         self._tex_cache[key] = len(self.tex_rows)
         self.tex_rows.append(row)
         return self._tex_cache[key]
+
+    def _add_image(self, t) -> int:
+        """An image's row of the stack, one per pixel array, as f32 RGB
+        with FlipX/FlipY baked in (texture/image.go:104-133)."""
+        key = id(t.data)
+        if key in self._img_cache:
+            return self._img_cache[key]
+        data = np.asarray(t.data, dtype=np.float32)
+        if data.ndim == 2:
+            data = data[..., None].repeat(3, axis=-1)
+        data = data[..., :3]
+        if t.flip_y:
+            data = data[::-1, :, :]
+        if t.flip_x:
+            data = data[:, ::-1, :]
+        self._img_cache[key] = len(self.images)
+        self.images.append(data)
+        return self._img_cache[key]
 
     def add_spd(self, spd: spd_mod.SPD) -> int:
         self.spds.append(spd.to_device_grid())
@@ -180,15 +238,13 @@ class _Builder:
                     np.zeros(3, np.float64))
         if isinstance(t, st.SpectralNeutral):
             return self.add_spd(spd_mod.SPD.constant(t.value)), np.zeros(3)
-        if isinstance(t, st.SpectralImage):
-            raise NotImplementedError(
-                f"RGB-to-spectral uplift is not ported yet: {_MEDIA_PBR}")
         raise NotImplementedError(
             f"spectral texture {type(t).__name__} not yet compiled")
 
     def _fill_spectral_albedo(self, row: dict, t) -> None:
         """A spectral albedo or emission into the material row: a constant
-        gives one SPD row or Gaussian, a SpectralChecker its two branches
+        gives one SPD row or Gaussian, a SpectralChecker its two branches,
+        a SpectralImage an image albedo with the uplift flag
         (compiler.py:226-245)."""
         if t is None:
             return
@@ -198,6 +254,10 @@ class _Builder:
             row["spec_albedo_id2"], row["spec_albedo_gauss2"] = (
                 self.add_spectral_texture(t.even))
             row["spec_checker"] = True
+            return
+        if isinstance(t, st.SpectralImage):
+            row["tex_albedo"] = self._add_texture(st.ImageTexture(data=t.data))
+            row["spec_albedo_uplift"] = True
             return
         row["spec_albedo_id"], row["spec_albedo_gauss"] = (
             self.add_spectral_texture(t))
@@ -253,8 +313,9 @@ class _Builder:
             row["sss_radius"] = float(m.sss_radius)
             self._fill_spectral_albedo(row, m.spectral_albedo)
         elif isinstance(m, st.Isotropic):
-            raise NotImplementedError(
-                f"{type(m).__name__} is not ported yet: {_MEDIA_PBR}")
+            row["kind"] = mat_tables.MAT_ISOTROPIC
+            if m.albedo is not None:
+                row["tex_albedo"] = self._add_texture(m.albedo)
         else:
             raise TypeError(f"unknown material {m!r}")
         self._mat_cache[key] = len(self.mat_rows)
@@ -428,9 +489,34 @@ def _compile_hitable(b: _Builder, h, xf: _Transform):
         mat_id = b.add_material(h.material)
         b.add_triangle_mesh(h.vertices, h.uvs, h.normals, mat_id, xf)
     elif isinstance(h, st.ConstantMedium):
-        raise NotImplementedError(f"media are not ported yet: {_MEDIA_PBR}")
+        _compile_medium(b, h, xf)
     else:
         raise TypeError(f"unknown hitable {h!r}")
+
+
+def _compile_medium(b: _Builder, h, xf: _Transform):
+    """A ConstantMedium: its boundary, a box or a sphere under any
+    Translate / RotateY / FlipNormals wrappers, as a rigid transform and a
+    canonical shape (compiler.py:543-574)."""
+    mat_id = b.add_material(h.phase)
+    inner, bxf = h.boundary, xf
+    while isinstance(inner, (st.FlipNormals, st.Translate, st.RotateY)):
+        if isinstance(inner, st.Translate):
+            bxf = bxf.then_translate(inner.offset)
+        elif isinstance(inner, st.RotateY):
+            bxf = bxf.then_rotate_y(inner.angle_degrees)
+        inner = inner.inner
+    if isinstance(inner, st.Box):
+        p0, p1 = np.array(inner.p0, np.float64), np.array(inner.p1, np.float64)
+    elif isinstance(inner, st.Sphere):
+        p0 = np.array(inner.center0, np.float64)
+        p1 = np.array([inner.radius, 0.0, 0.0])
+    else:
+        raise NotImplementedError(
+            f"ConstantMedium boundary {type(inner).__name__} unsupported")
+    b.media.append(dict(rot_w2o=bxf.rot.T, trans=bxf.trans, p0=p0, p1=p1,
+                        is_sphere=isinstance(inner, st.Sphere),
+                        density=float(h.density), mat_id=mat_id))
 
 
 def _compile_light(b: _Builder, h):
@@ -459,10 +545,117 @@ def _compile_light(b: _Builder, h):
         b.add_light(lights_mod.LIGHT_NULL)
 
 
+def _image_stack(images):
+    """The images zero-padded into one (I, maxH, maxW, 3) f32 stack, with
+    their widths and heights (compiler.py:669-680); a 1×1 dummy when the
+    scene has none."""
+    if not images:
+        return (np.zeros((1, 1, 1, 3), np.float32), np.ones(1, np.int32),
+                np.ones(1, np.int32))
+    stack = np.zeros((len(images), max(im.shape[0] for im in images),
+                      max(im.shape[1] for im in images), 3), np.float32)
+    for i, im in enumerate(images):
+        stack[i, :im.shape[0], :im.shape[1]] = im
+    return (stack, np.array([im.shape[1] for im in images], np.int32),
+            np.array([im.shape[0] for im in images], np.int32))
+
+
+def _combined_stack(b: _Builder):
+    """The per-material combined map stack (compiler.py:682-773): each
+    distinct (albedo, normal, rough, metal) image-id tuple of a material
+    baked into one (H, W, 8) slab at the largest of its maps' sizes, with
+    the reference's nearest-neighbour index math at each texel's centre
+    (albedo.rgb, normal.xyz, mean roughness, mean metalness), then slabs
+    evicted largest first while the padded stack passes COMBO_BYTES_CAP.
+    Returns (stack (Ic, H, W, 8) f32, widths, heights, combo id per
+    material row, -1 for none)."""
+    def img_id_of(tid):
+        if tid < 0 or tid >= len(b.tex_rows):
+            return None
+        kind, _, _, _, img_id = b.tex_rows[tid]
+        return int(img_id) if kind == tex_tables.TEX_IMAGE else None
+
+    combo_ids, combos, combo_by_key = [], [], {}
+    for r in b.mat_rows:
+        key = (img_id_of(r["tex_albedo"]), img_id_of(r["tex_normal"]),
+               img_id_of(r["tex_rough"]), img_id_of(r["tex_metal"]))
+        if all(iid is None for iid in key):
+            combo_ids.append(-1)
+            continue
+        if key in combo_by_key:
+            combo_ids.append(combo_by_key[key])
+            continue
+        imgs = [None if iid is None else b.images[iid] for iid in key]
+        ch = max(im.shape[0] for im in imgs if im is not None)
+        cw = max(im.shape[1] for im in imgs if im is not None)
+        jj, ii = np.meshgrid(np.arange(ch), np.arange(cw), indexing="ij")
+        u_c = (ii + 0.5) / cw
+        omv_c = (jj + 0.5) / ch          # 1 - v at the texel centre
+
+        def samp(im):
+            hm, wm = im.shape[:2]
+            i2 = np.clip((u_c * wm).astype(np.int64), 0, wm - 1)
+            j2 = np.clip((omv_c * (hm - 0.001)).astype(np.int64), 0, hm - 1)
+            return np.asarray(im, np.float32)[j2, i2]
+
+        out = np.zeros((ch, cw, 8), np.float32)
+        if imgs[0] is not None:
+            out[..., 0:3] = samp(imgs[0])
+        if imgs[1] is not None:
+            out[..., 3:6] = samp(imgs[1])
+        for slot, im in ((6, imgs[2]), (7, imgs[3])):
+            if im is not None:
+                s3 = samp(im)
+                out[..., slot] = (s3[..., 0] + s3[..., 1] + s3[..., 2]) / 3.0
+        combo_by_key[key] = len(combos)
+        combo_ids.append(len(combos))
+        combos.append(out)
+    while combos:
+        c_h = max(c.shape[0] for c in combos)
+        c_w = max(c.shape[1] for c in combos)
+        if len(combos) * c_h * c_w * 8 * 4 <= COMBO_BYTES_CAP:
+            break
+        biggest = max(range(len(combos)),
+                      key=lambda i: combos[i].shape[0] * combos[i].shape[1])
+        combos.pop(biggest)
+        combo_ids = [-1 if c == biggest else (c - 1 if c > biggest else c)
+                     for c in combo_ids]
+    if not combos:
+        return (np.zeros((0, 1, 1, 8), np.float32), np.zeros(0, np.int32),
+                np.zeros(0, np.int32), combo_ids)
+    cstack = np.zeros((len(combos), max(c.shape[0] for c in combos),
+                       max(c.shape[1] for c in combos), 8), np.float32)
+    for i, c in enumerate(combos):
+        cstack[i, :c.shape[0], :c.shape[1]] = c
+    return (cstack, np.array([c.shape[1] for c in combos], np.int32),
+            np.array([c.shape[0] for c in combos], np.int32), combo_ids)
+
+
+def _media_leaves(b: _Builder) -> Dict[str, np.ndarray]:
+    """The Media group; one dummy row when the scene has no medium
+    (compiler.py:823-837)."""
+    rows = b.media or [dict(rot_w2o=np.eye(3), trans=np.zeros(3),
+                            p0=np.zeros(3), p1=np.ones(3), is_sphere=False,
+                            density=1.0, mat_id=0)]
+    return {f"media.{f}": np.asarray([r[f] for r in rows])
+            for f in Media._fields}
+
+
 def _tables(b: _Builder, scene: st.Scene) -> Dict[str, np.ndarray]:
     """`_Builder` rows as named numpy leaves (f64 for float fields)."""
     out = {f"prims.{f}": np.concatenate([blk[f] for blk in b.prim_blocks])
            for f in prim.Prims._fields}
+    images, img_w, img_h = _image_stack(b.images)
+    combined, combo_w, combo_h, combo_ids = _combined_stack(b)
+    for r, cid in zip(b.mat_rows, combo_ids):
+        r["combo_id"] = cid
+    if scene.spectral:
+        # Spectral scenes uplift PBR RGB albedos without a spectrum of
+        # their own (compiler.py:784-790, transport.go:241-248).
+        for r in b.mat_rows:
+            if (r["kind"] == mat_tables.MAT_PBR and r["spec_albedo_id"] < 0
+                    and r["spec_albedo_gauss"][2] <= 0):
+                r["spec_albedo_uplift"] = True
     for group, rows, fields in (
             ("materials", b.mat_rows, mat_tables.Materials._fields),
             ("lights", b.light_rows, lights_mod.Lights._fields)):
@@ -471,9 +664,17 @@ def _tables(b: _Builder, scene: st.Scene) -> Dict[str, np.ndarray]:
     out["textures.kind"] = np.asarray([r[0] for r in b.tex_rows])
     out["textures.c0"] = np.stack([r[1] for r in b.tex_rows])
     out["textures.c1"] = np.stack([r[2] for r in b.tex_rows])
+    out["textures.scale"] = np.asarray([r[3] for r in b.tex_rows], np.float64)
+    out["textures.img_id"] = np.asarray([r[4] for r in b.tex_rows], np.int32)
+    out.update({"textures.images": images, "textures.img_w": img_w,
+                "textures.img_h": img_h, "textures.combined": combined,
+                "textures.combo_w": combo_w, "textures.combo_h": combo_h})
+    for f, t in perlin_mod.build_tables(seed=0)._asdict().items():
+        out[f"textures.perlin.{f}"] = t.numpy()
     for k, v in camera_mod.compile_camera_host(scene.camera).items():
         out[f"camera.{k}"] = np.asarray(v, np.float64)
     out["spd_table"] = np.stack(b.spds)
+    out.update(_media_leaves(b))
     return out
 
 
@@ -487,23 +688,27 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _assemble(leaves: Dict[str, np.ndarray], device) -> CompiledScene:
-    def group(cls, name):
-        return cls(**{f: _to_tensor(leaves[f"{name}.{f}"], device)
+    def group(cls, name, **given):
+        return cls(**{f: given[f] if f in given
+                      else _to_tensor(leaves[f"{name}.{f}"], device)
                       for f in cls._fields})
 
     return CompiledScene(
         prims=group(prim.Prims, "prims"),
         materials=group(mat_tables.Materials, "materials"),
-        textures=group(tex_tables.Textures, "textures"),
+        textures=group(tex_tables.Textures, "textures", perlin=group(
+            perlin_mod.PerlinTables, "textures.perlin")),
         lights=group(lights_mod.Lights, "lights"),
         camera=group(camera_mod.CameraArrays, "camera"),
         spd_table=_to_tensor(leaves["spd_table"], device),
+        media=group(Media, "media"),
     )
 
 
 def _meta(leaves: Dict[str, np.ndarray], **scene_facts) -> SceneMeta:
     """The meta facts the tables show; `scene_facts` adds those they do not
-    (spectral, exposure, spectral_background_spd, n_media)."""
+    (spectral, exposure, spectral_background_spd, n_media,
+    media_is_sphere)."""
     mat_kind = np.asarray(leaves["materials.kind"])
     tex_kind = np.asarray(leaves["textures.kind"])
     return SceneMeta(
@@ -518,6 +723,7 @@ def _meta(leaves: Dict[str, np.ndarray], **scene_facts) -> SceneMeta:
         has_image=bool(np.any(tex_kind == tex_tables.TEX_IMAGE)),
         has_noise=bool(np.any(tex_kind == tex_tables.TEX_NOISE)),
         has_pbr=bool(np.any(mat_kind == mat_tables.MAT_PBR)),
+        has_uplift=bool(np.any(leaves["materials.spec_albedo_uplift"])),
         **scene_facts,
     )
 
@@ -536,14 +742,6 @@ def compile_scene(scene: st.Scene, device) -> Tuple[CompiledScene, SceneMeta]:
         raise ValueError("scene has no primitives")
     if not b.tex_rows:
         b._add_texture(st.ConstantTexture((0.0, 0.0, 0.0)))
-    if scene.spectral and any(
-            r["kind"] == mat_tables.MAT_PBR and r["spec_albedo_id"] < 0
-            and r["spec_albedo_gauss"][2] <= 0 for r in b.mat_rows):
-        # compiler.py:784-790 uplifts such an RGB albedo automatically.
-        raise NotImplementedError(
-            f"a PBR material without a spectral albedo in a spectral scene "
-            f"needs the RGB-to-spectral uplift, which is not ported yet: "
-            f"{_MEDIA_PBR}")
     # The background SPD is the last row, as in compiler.py:819-821.
     bg_id = (None if scene.spectral_background is None
              else b.add_spd(scene.spectral_background))
@@ -551,6 +749,8 @@ def compile_scene(scene: st.Scene, device) -> Tuple[CompiledScene, SceneMeta]:
     return _assemble(leaves, device), _meta(
         leaves, spectral=bool(scene.spectral),
         exposure=float(scene.camera.exposure), spectral_background_spd=bg_id,
+        n_media=len(b.media),
+        media_is_sphere=tuple(m["is_sphere"] for m in b.media),
         placeholder_assets=tuple(scene.placeholder_assets))
 
 
@@ -562,8 +762,8 @@ def from_jax_arrays(leaves: Dict[str, np.ndarray], device,
     The tables carry over value for value (the JAX leaves are float32
     already), so both packages render the same scene. The facts the tables
     do not show (spectral, exposure, the background SPD row, the number of
-    media, the placeholder assets) come from `jax_meta`, the JAX SceneMeta,
-    when it is given."""
+    media and their shapes, the placeholder assets) come from `jax_meta`,
+    the JAX SceneMeta, when it is given."""
     missing = [k for k in LEAVES if k not in leaves]
     if missing:
         raise KeyError(f"missing leaves: {missing}")
@@ -571,5 +771,5 @@ def from_jax_arrays(leaves: Dict[str, np.ndarray], device,
     if jax_meta is not None:
         facts = {f: getattr(jax_meta, f) for f in (
             "spectral", "exposure", "spectral_background_spd", "n_media",
-            "placeholder_assets")}
+            "media_is_sphere", "placeholder_assets")}
     return _assemble(leaves, device), _meta(leaves, **facts)

@@ -15,11 +15,9 @@ key presence.
 
 A copy of `izpi_tpu/scene/pbtxt.py` on the port's scene types and spectral
 modules (numpy only). It parses everything the JAX loader parses, missing
-texture files becoming the same procedural placeholders; what the port
-cannot compile yet (image textures, noise, media) reaches `compile_scene`,
-which raises naming its ROADMAP item. Two inputs it cannot read at all
-raise here: an image file that exists (the image reader,
-`izpi_tpu/io/output.py`, is not ported) and a binary `.izpi` scene
+texture files becoming the same procedural placeholders. Two inputs it
+cannot read at all raise here: an image file that exists (the image reader,
+`izpi_tpu/io/output.py`, is ROADMAP A13's) and a binary `.izpi` scene
 (`izpi_tpu/scene/izpi_binary.py`).
 """
 
@@ -274,7 +272,7 @@ class _SceneBuilder:
             if os.path.exists(path):
                 raise NotImplementedError(
                     f"{path}: reading image files (izpi_tpu/io/output.py) is "
-                    f"not ported yet: ROADMAP A11 (images)")
+                    f"not ported yet: ROADMAP A13 (the image reader)")
             else:
                 import warnings
 

@@ -1,8 +1,15 @@
-"""Flat texture table + batched RGB evaluation (constant and checker).
+"""Flat texture table + batched RGB evaluation.
 
-Counterpart of `izpi_tpu/texture/tables.py` for the kinds the slice
-compiles. Image and noise textures come with a later slice; the compiler
-raises on them.
+Counterpart of `izpi_tpu/texture/tables.py:26-125`. All textures in a scene
+are one SoA table and evaluation is tagged selects over the whole ray batch.
+Image textures live in one zero-padded (I, maxH, maxW, 3) stack so a lookup
+is one gather; PBR materials' image maps are also baked by the compiler into
+one (Ic, maxH, maxW, 8) combined stack (albedo.rgb, normal.xyz, mean
+roughness, mean metalness), read once per bounce
+(`integrator.path._eval_pbr_texs`).
+
+The JAX package's texture-sharded mode (`img_base`, `combo_base` and the
+`shard_axis` of `eval_rgb`) is ROADMAP A15's and not here.
 
 Kinds: 0 CONSTANT, 1 CHECKER (two constant children), 2 IMAGE, 3 NOISE.
 """
@@ -13,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from izpi_tpu_torch.texture import perlin as perlin_mod
+
 TEX_CONSTANT = 0
 TEX_CHECKER = 1
 TEX_IMAGE = 2
@@ -20,17 +29,50 @@ TEX_NOISE = 3
 
 
 class Textures(NamedTuple):
-    kind: torch.Tensor  # (T,) int32
-    c0: torch.Tensor    # (T, 3) f32 const color / checker odd
-    c1: torch.Tensor    # (T, 3) f32 checker even
+    kind: torch.Tensor    # (T,) int32
+    c0: torch.Tensor      # (T, 3) f32 const color / checker odd
+    c1: torch.Tensor      # (T, 3) f32 checker even
+    scale: torch.Tensor   # (T,) f32 noise scale
+    img_id: torch.Tensor  # (T,) int32, -1 if not an image
+    images: torch.Tensor  # (I, maxH, maxW, 3) f32 (I >= 1; a dummy if unused)
+    img_w: torch.Tensor   # (I,) int32
+    img_h: torch.Tensor   # (I,) int32
+    perlin: perlin_mod.PerlinTables
+    combined: torch.Tensor  # (Ic, maxH, maxW, 8) f32; (0, 1, 1, 8) if none
+    combo_w: torch.Tensor   # (Ic,) int32
+    combo_h: torch.Tensor   # (Ic,) int32
 
 
-def eval_rgb(tex: Textures, tex_id, p, has_checker: bool = True):
+def texel_index(x, n):
+    """int32(x) truncated toward zero, clipped to [0, n - 1]: the reference's
+    index math (texture/image.go:73-101) as XLA converts, which saturates
+    out-of-range values and sends NaN to 0 (a plain cast to int in torch
+    leaves those undefined). x: (N,) f32; n: (N,) int."""
+    safe = torch.nan_to_num(x, nan=0.0).clamp(-1.0, 2.0 ** 30)
+    return torch.minimum(torch.clamp(safe.to(torch.int32), min=0),
+                         torch.clamp(n - 1, min=0))
+
+
+def image_lookup(images, img_w, img_h, img_id, u, v):
+    """Nearest neighbour with the V flip, the reference's index math:
+    i = int(u·W), j = int((1 - v)·(H - 0.001)), clamped."""
+    w = img_w[img_id]
+    h = img_h[img_id]
+    i = texel_index(u * w.float(), w)
+    j = texel_index((1.0 - v) * (h.float() - 0.001), h)
+    return images[img_id, j.long(), i.long()]
+
+
+def eval_rgb(tex: Textures, tex_id, u, v, p, has_checker: bool = True,
+             has_image: bool = True, has_noise: bool = True):
     """Evaluate RGB textures for a ray batch.
 
-    tex_id: (N,) int (a negative id reads texture 0, as in the JAX package);
-    p: (N, 3). Returns (N, 3)."""
+    tex_id: (N,) int (a negative id reads texture 0, as in the JAX
+    package); u, v: (N,); p: (N, 3). Returns (N, 3). The has_* flags are
+    the scene's static facts (SceneMeta): a kind the scene lacks is not
+    evaluated."""
     tid = torch.clamp(tex_id, min=0).long()
+    kind = tex.kind[tid]
     c0 = tex.c0[tid]
     out = c0
     if has_checker:
@@ -40,6 +82,16 @@ def eval_rgb(tex: Textures, tex_id, p, has_checker: bool = True):
         sines = (torch.sin(10.0 * p[..., 0]) * torch.sin(10.0 * p[..., 1])
                  * torch.sin(10.0 * p[..., 2]))
         checker = torch.where((sines < 0.0)[..., None], c0, c1)
-        out = torch.where((tex.kind[tid] == TEX_CHECKER)[..., None], checker,
-                          out)
+        out = torch.where((kind == TEX_CHECKER)[..., None], checker, out)
+    if has_image:
+        gid = torch.clamp(tex.img_id[tid], min=0).long()
+        img = image_lookup(tex.images, tex.img_w, tex.img_h, gid, u, v)
+        out = torch.where((kind == TEX_IMAGE)[..., None], img, out)
+    if has_noise:
+        # NOISE marble: 0.5·(1 + sin(scale·z + 10·turb(p)))
+        # (texture/noise.go:27).
+        t = perlin_mod.turb(tex.perlin, p, 7)
+        marble = 0.5 * (1.0 + torch.sin(tex.scale[tid] * p[..., 2] + 10.0 * t))
+        out = torch.where((kind == TEX_NOISE)[..., None],
+                          marble[..., None].expand_as(c0), out)
     return out

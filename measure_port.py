@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Repeat measurement of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 measure_port.py [--scene cornell|pyramid|obj|dragon] [--row]
+    python3 measure_port.py [--scene cornell|pyramid|obj|dragon|shirley|
+                             pbr_ibl|final] [--row]
                             [--size N] [--spp S] [--runs 7] [--seeds 0 1]
     python3 measure_port.py --policy [--size 64] [--spp 4] [--runs 2]
     python3 measure_port.py --build [--runs 2]
     python3 measure_port.py --scene cornell|pyramid|obj|dragon [--row]
                             --parent DIR [--runs 3]
+    python3 measure_port.py --scene pbr_ibl|final|... --vs-cpu 16@2 64@8
+                            [--seeds 0 1]
+    python3 measure_port.py --cipher [--parent DIR] [--runs 3]
 
 Renders one main path of chip_smoke.py on one warm `RenderContext`, after
 one warm-up render: Cornell 256×256 at 1024 spp, `max_depth=50`, through
@@ -16,7 +20,14 @@ pyramid 500×500 at 256 spp, depth 50, through the spectral megakernel
 through the queue pool and the BVH4 traversal kernel (`--scene obj`), or
 the PBR dragon (`cornell_box_pbr_stanford_dragon_spectral()`, the
 871,200-triangle stand-in) 256×256 at 8 spp, depth 16, through the
-spectral queue pool (`--scene dragon`, bench.py's `dragon`). A pool scene
+spectral queue pool (`--scene dragon`, bench.py's `dragon`). Three more
+scenes come from chip_smoke.py's phases 13-15: Shirley's `random_scene`
+256×256 at 128 spp, depth 50, under the sky (0.7, 0.8, 1.0), through the
+RGB megakernel (`--scene shirley`, bench.py's `shirley`); `pbr_ibl`
+256×256 at 256 spp, depth 16, through the queue pool with brute force
+(`--scene pbr_ibl`, bench.py's `pbr_ibl`); and the book-2 final scene
+256×256 at 16 spp, depth 50, through the pool and the BVH4 kernel
+(`--scene final`). A pool scene
 takes the BVH4 traversal kernel, or with `--row` the row-stack traversal
 kernel: the pair of `ops.bvh_rowkernel.attach` in a context built with
 `use_bvh=False`, and then also times its intersector calls and kernel
@@ -56,7 +67,7 @@ way, alternating: `ops._build.build()` (one nvcc per source, all started
 together, then a link) and one nvcc call that compiles and links every
 source.
 
-`--parent DIR` holds a scene's main path against another tree of the
+`--parent DIR` holds one of the first four scenes' main path against another tree of the
 repository, DIR (the parent commit's `git archive`, unpacked), on the same
 card: four subprocesses in turns — DIR, this tree, this tree, DIR — each
 rendering the main path through the public entry points (`RenderContext`,
@@ -71,6 +82,26 @@ memory; then the two trees' rays must be equal and every pixel of the image
 within 1e-4 + 1e-5·|DIR's| (a megakernel's turns must repeat bit for bit,
 a pool scene's, whose deposits are summed with atomics, within the same
 tolerance).
+
+`--vs-cpu N@S ...` renders a pool scene (`--scene`) at N×N and S spp, at
+its main path's depth, on the card and on the CPU (`device="cpu"`, the
+same code and the plain traversal), for each seed of `--seeds`: the rays
+of each and their relative gap, the share of pixels within 1e-4 +
+1e-5·|CPU| (and of pixels equal), the pixels each lights and the channel
+means. A gap that comes from the two devices' last-ulp libm and division
+differences turning single paths into others changes sign from seed to
+seed and shrinks relative to the rays as the frame grows; a fault keeps
+its sign and its relative size.
+
+`--cipher` times the cipher entry `izpi_threefry_uniforms` alone (CUDA
+events around `--runs` × 100 back-to-back launches through the library's C
+entry, on random key words) at 262,144 keys (the `cornell_box_obj` pool's
+batch) and at 1,048,576, for each count the pool draws, 12, 5 and 1
+uniforms (the unrolled template forms), beside 11, 6 and 2 uniforms (the
+run-time-count form at the same cipher calls a key: two fold-ins and 6, 3
+or 1 pairs), and prints each pair's ratio; with `--parent DIR` in four
+subprocesses in turns, DIR, this tree, this tree, DIR, whose outputs must
+be equal bit for bit (DIR's entry must take every count).
 
 A megakernel scene also prints each megakernel's registers and spills from
 the ptxas log of the build. Imports nothing of JAX.
@@ -96,7 +127,7 @@ from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import procedural
 from izpi_tpu_torch.integrator import path
 from izpi_tpu_torch.ops import (_build, bvh_kernel, bvh_rowkernel, megakernel,
-                                megakernel_spectral)
+                                megakernel_spectral, threefry)
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene import types as scene_types
 from izpi_tpu_torch.scene.library.cornell import cornell_box
@@ -104,7 +135,8 @@ from izpi_tpu_torch.scene.library.cornell_spectral import (
     cornell_box_pyramid_spectral)
 from izpi_tpu_torch.scene.library.extracted import (
     cornell_box_pbr_stanford_dragon_spectral)
-from izpi_tpu_torch.scene.library.misc import cornell_box_obj
+from izpi_tpu_torch.scene.library.misc import cornell_box_obj, pbr_ibl
+from izpi_tpu_torch.scene.library.shirley import final, random_scene
 
 # scene -> (constructor, nx = ny, spp, max_depth, the megakernel wrapper it
 # runs, or None for the queue pool and its traversal kernel)
@@ -114,8 +146,24 @@ SCENES = {
                 megakernel_spectral.render_slots_spectral),
     "obj": (cornell_box_obj, 256, 128, 50, None),
     "dragon": (cornell_box_pbr_stanford_dragon_spectral, 256, 8, 16, None),
+    "shirley": (lambda: random_scene(aspect=1.0), 256, 128, 50,
+                megakernel.render_slots),
+    "pbr_ibl": (pbr_ibl, 256, 256, 16, None),
+    "final": (final, 256, 16, 50, None),
 }
+# The renderer's background by scene (bench.py:39-40); black otherwise.
+BACKGROUND = {"shirley": (0.7, 0.8, 1.0)}
+# The scenes --parent takes (the trees before these scenes had the rest).
+PARENT_SCENES = ("cornell", "pyramid", "obj", "dragon")
 POLICY_TRIS = (100, 500, 2000, 20_000)
+# --cipher: (keys, uniforms) shapes, the cornell_box_obj pool's batch and 4x
+# it; each count the pool draws beside a count of the same cipher calls
+# that the run-time-count form draws.
+CIPHER_PAIRS = ((12, 11), (5, 6), (1, 2))
+CIPHER_SHAPES = [(keys, n) for keys in (1 << 18, 1 << 20)
+                 for pair in CIPHER_PAIRS for n in pair]
+# --vs-cpu: a pixel agrees when every channel is within ATOL + RTOL·|CPU|.
+VS_CPU_ATOL, VS_CPU_RTOL = 1e-4, 1e-5
 # --parent: the image tolerance against the other tree, |a - b| <= ATOL +
 # RTOL·|b| for every pixel (the replicas of the persistent layout sum each
 # pixel's samples in another order).
@@ -169,6 +217,37 @@ usage = _build.ptxas_usage(_build.build().with_suffix(".log").read_text())
 np.savez(out, image=res.image, xyz=res.xyz if ctx.meta.spectral else res.image)
 print(json.dumps({"rays": res.rays_traced, "seconds": seconds, "ms": ms,
                   "launches": len(events), "usage": usage}))
+"""
+
+# One turn of --cipher, run like TURN: argv = shapes (JSON), reps, out.npz.
+# Prints one JSON line: the mean ms per launch at each shape.
+CIPHER_TURN = r"""
+import json, sys
+import numpy as np, torch
+from izpi_tpu_torch import profiling
+from izpi_tpu_torch.ops import _build
+shapes, reps, out = json.loads(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+lib = _build.load()
+rs = np.random.RandomState(3)
+stream = torch.cuda.current_stream().cuda_stream
+ms, bits = [], {}
+for n_keys, n_u in shapes:
+    words = torch.as_tensor(rs.randint(-2**31, 2**31, (n_keys, 3),
+                                       dtype=np.int64).astype(np.int32),
+                            device="cuda")
+    k32, d32 = words[:, :2].contiguous(), words[:, 2].contiguous()
+    o = torch.empty((n_keys, n_u), dtype=torch.float32, device="cuda")
+
+    def launch():
+        err = lib.izpi_threefry_uniforms(k32.data_ptr(), d32.data_ptr(),
+                                         n_keys, n_u, 0, o.data_ptr(), stream)
+        if err != 0:
+            raise SystemExit(f"izpi_threefry_uniforms: CUDA error {err}")
+
+    ms.append(profiling.cuda_ms(launch, reps)[1])
+    bits[f"{n_keys}x{n_u}"] = o.view(torch.int32).cpu().numpy()
+np.savez(out, **bits)
+print(json.dumps({"ms": ms}))
 """
 
 
@@ -313,6 +392,18 @@ def row_sort(ctx, n: int, spp: int, settings, seed: int, runs: int) -> None:
                          f"{sorted(rays)} rays")
 
 
+def run_turn(script: str, tree: Path, args) -> dict:
+    """Run a turn script from `tree`'s root with only its package on the
+    path; returns the JSON of its last line."""
+    run = subprocess.run([sys.executable, "-c", script, *args], cwd=tree,
+                         capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(tree)})
+    if run.returncode != 0:
+        raise SystemExit(f"measure_port: the turn in {tree} failed:\n"
+                         f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
 def parent_turns(scene: str, row: bool, parent: Path, runs: int) -> None:
     """--parent: the main path of `scene` from `parent` and from this tree,
     in turns parent, this, this, parent (the module docstring)."""
@@ -323,15 +414,8 @@ def parent_turns(scene: str, row: bool, parent: Path, runs: int) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for turn, name in enumerate(("parent", "this", "this", "parent")):
             out = Path(tmp) / f"{name}{turn}.npz"
-            run = subprocess.run(
-                [sys.executable, "-c", TURN, scene, str(n), str(spp), str(depth),
-                 str(runs), str(int(row)), str(out)],
-                cwd=trees[name], capture_output=True, text=True,
-                env={**os.environ, "PYTHONPATH": str(trees[name])})
-            if run.returncode != 0:
-                raise SystemExit(f"measure_port: the {name} tree's turn failed:"
-                                 f"\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
-            r = json.loads(run.stdout.strip().splitlines()[-1])
+            r = run_turn(TURN, trees[name], [scene, str(n), str(spp), str(depth),
+                                             str(runs), str(int(row)), str(out)])
             print(f"turn {turn} ({name}, {trees[name]}): {scene}"
                   f"{' --row' if row else ''} "
                   f"{n}x{n}@{spp} depth {depth}: rays {r['rays']}; render() "
@@ -372,6 +456,88 @@ def parent_turns(scene: str, row: bool, parent: Path, runs: int) -> None:
                          "the parent's")
 
 
+def cipher_turns(parent, runs: int) -> None:
+    """--cipher: the cipher entry alone at CIPHER_SHAPES, in this tree, or
+    in turns parent, this, this, parent (the module docstring)."""
+    here = Path(__file__).resolve().parent
+    order = (("parent", "this", "this", "parent") if parent else ("this",))
+    trees = {"parent": parent.resolve() if parent else None, "this": here}
+    got = {name: [] for name in set(order)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for turn, name in enumerate(order):
+            out = Path(tmp) / f"{name}{turn}.npz"
+            r = run_turn(CIPHER_TURN, trees[name],
+                         [json.dumps(CIPHER_SHAPES), str(100 * runs), str(out)])
+            with np.load(out) as z:
+                bits = {k: z[k] for k in z.files}
+            got[name].append((r["ms"], bits))
+            print(f"cipher turn {turn} ({name}, {trees[name]}): " + "; ".join(
+                f"{k} x {u}: {ms:.5f} ms" for (k, u), ms in
+                zip(CIPHER_SHAPES, r["ms"])), flush=True)
+    first = got[order[0]][0][1]
+    same = all(np.array_equal(bits[k], first[k]) for v in got.values()
+               for _, bits in v for k in first)
+    med = {name: {shape: statistics.median(ms[i] for ms, _ in v)
+                  for i, shape in enumerate(CIPHER_SHAPES)}
+           for name, v in got.items()}
+    for k, u in CIPHER_SHAPES:
+        versus = (f"; parent {med['parent'][k, u]:.5f} ms, this / parent "
+                  f"{med['this'][k, u] / med['parent'][k, u]:.3f}"
+                  if parent else "")
+        print(f"cipher: {k} keys x {u} uniforms: this tree "
+              f"{med['this'][k, u]:.5f} ms per launch (median of its turns)"
+              f"{versus}", flush=True)
+    for k in sorted({k for k, _ in CIPHER_SHAPES}):
+        for unrolled, run_time in CIPHER_PAIRS:
+            a, b = med["this"][k, unrolled], med["this"][k, run_time]
+            print(f"cipher: {k} keys, this tree: {run_time} uniforms "
+                  f"(run-time count) {b:.5f} ms / {unrolled} uniforms "
+                  f"(unrolled) {a:.5f} ms = {b / a:.3f}", flush=True)
+    print(f"cipher: outputs equal bit for bit across turns {same} ({smi()})",
+          flush=True)
+    if not same:
+        raise SystemExit("measure_port: the cipher turns' outputs differ")
+
+
+def vs_cpu(scene: str, frames, seeds) -> None:
+    """--vs-cpu: `scene` at each N@S of `frames` and each seed, on the card
+    and on the CPU (the module docstring)."""
+    make_scene, _, _, depth, slots = SCENES[scene]
+    if slots is not None:
+        raise SystemExit("measure_port: --vs-cpu takes a pool scene")
+    settings = path.RenderSettings(
+        max_depth=depth, background=BACKGROUND.get(scene, (0.0, 0.0, 0.0)))
+    ctxs = {d: renderer.RenderContext(make_scene(), device=d)
+            for d in ("cuda", "cpu")}
+    for frame in frames:
+        n, spp = (int(x) for x in frame.split("@"))
+        gaps = []
+        for seed in seeds:
+            out = {d: renderer.render(None, n, n, spp, settings, seed=seed,
+                                      context=ctx, device=d)
+                   for d, ctx in ctxs.items()}
+            a, b = out["cuda"].image, out["cpu"].image
+            ra, rb = out["cuda"].rays_traced, out["cpu"].rays_traced
+            gaps.append((ra - rb) / rb)
+            close = (np.abs(a - b) <= VS_CPU_ATOL + VS_CPU_RTOL * np.abs(b)
+                     ).all(axis=2).mean()
+            equal = (a == b).all(axis=2).mean()
+            lit = [int((img.max(axis=2) > 0).sum()) for img in (a, b)]
+            means = [np.round(img.mean(axis=(0, 1)), 7).tolist()
+                     for img in (a, b)]
+            print(f"vs-cpu: {scene} {n}x{n}@{spp} depth {depth} seed {seed}: "
+                  f"rays card {ra}, cpu {rb}, gap {ra - rb} ({gaps[-1]:+.3%}); "
+                  f"pixels within {VS_CPU_ATOL} + {VS_CPU_RTOL}|cpu| "
+                  f"{close:.6f}, equal {equal:.6f}; lit pixels {lit[0]} vs "
+                  f"{lit[1]}; means {means[0]} vs {means[1]}", flush=True)
+        print(f"vs-cpu: {scene} {n}x{n}@{spp}: rays gap over {len(seeds)} "
+              f"seeds: mean {statistics.mean(gaps):+.3%}, mean |gap| "
+              f"{statistics.mean(abs(g) for g in gaps):.3%}, max |gap| "
+              f"{max(abs(g) for g in gaps):.3%}, positive "
+              f"{sum(g > 0 for g in gaps)}, negative "
+              f"{sum(g < 0 for g in gaps)} ({smi()})", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", choices=sorted(SCENES), default="cornell")
@@ -390,11 +556,25 @@ def main() -> None:
     ap.add_argument("--parent", type=Path,
                     help="another tree of the repository to hold a main path "
                          "against, in turns")
+    ap.add_argument("--vs-cpu", nargs="+", metavar="N@S",
+                    help="a pool scene on the card against the CPU at these "
+                         "frames and samples")
+    ap.add_argument("--cipher", action="store_true",
+                    help="time the cipher entry alone (against --parent)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("measure_port: torch.cuda.is_available() is False")
     if args.row and SCENES[args.scene][4] is not None:
-        raise SystemExit("measure_port: --row needs a pool scene (obj, dragon)")
+        raise SystemExit("measure_port: --row needs a pool scene")
+    if args.cipher:
+        print(f"smi before: {smi()}", flush=True)
+        cipher_turns(args.parent, args.runs or 3)
+        return
+    if args.vs_cpu:
+        vs_cpu(args.scene, args.vs_cpu, args.seeds)
+        return
+    if args.parent and args.scene not in PARENT_SCENES:
+        raise SystemExit(f"measure_port: --parent takes {PARENT_SCENES}")
     if args.parent:
         print(f"smi before: {smi()}", flush=True)
         parent_turns(args.scene, args.row, args.parent, args.runs or 3)
@@ -415,7 +595,8 @@ def main() -> None:
     print(f"scene {args.scene}: {n}x{n}@{spp} depth {depth}"
           f"{' through the row-stack kernel' if args.row else ''}", flush=True)
     print(f"smi before: {smi()}", flush=True)
-    settings = path.RenderSettings(max_depth=depth)
+    settings = path.RenderSettings(
+        max_depth=depth, background=BACKGROUND.get(args.scene, (0.0, 0.0, 0.0)))
     ctx = renderer.RenderContext(make_scene(), use_bvh=False if args.row else None,
                                  device="cuda")
     print(f"scene compile and BVH build: {ctx.build_seconds:.4f} s", flush=True)
@@ -446,7 +627,18 @@ def main() -> None:
               f"{res.iterations}", flush=True)
     print(f"smi after: {smi()}", flush=True)
 
-    if slots is None:
+    brute = slots is None and not args.row and not isinstance(
+        ctx.intersect, bvh_kernel.BVHKernelIntersector)
+    if brute:
+        # A small pool scene (pbr_ibl) intersects by brute force: its only
+        # kernel is the cipher entry.
+        threefry.launches = 0
+        timed = renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
+                                context=ctx, device="cuda")
+        print(f"brute force ({ctx.meta.n_prims} prims): no traversal kernel; "
+              f"the cipher entry launched {threefry.launches} times in one "
+              f"render() of {timed.iterations} pool iterations", flush=True)
+    elif slots is None:
         module, fn = ((bvh_rowkernel, "closest_hit_rows") if args.row
                       else (bvh_kernel, "closest_hit"))
         before = module.launches

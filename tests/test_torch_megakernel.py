@@ -12,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import jax_leaves
+from _torch_port import jax_leaves, to_port_scene
 from izpi_tpu.core import rng as jrng
 from izpi_tpu.integrator import path as jpath
 from izpi_tpu.ops import megakernel as jmega
 from izpi_tpu.render import renderer as jrenderer
+from izpi_tpu.scene.compiler import compile_scene as jcompile
+from izpi_tpu.scene.library import REGISTRY as J_REGISTRY
 from izpi_tpu.scene.library.cornell import cornell_box as j_cornell
 from izpi_tpu_torch.core import rng as trng
 from izpi_tpu_torch.integrator import path as tpath
@@ -87,6 +89,21 @@ def test_eligibility_rule(jctx, port):
             assert not tmega.eligible(cs, meta)
         finally:
             setattr(meta, field, old)
+
+
+@pytest.mark.filterwarnings("ignore::UserWarning")
+@pytest.mark.parametrize("name", sorted(n for n in J_REGISTRY
+                                        if "spectral" not in n))
+def test_eligible_agrees_with_jax(name):
+    """The RGB scenes of the registry: Shirley's two sphere scenes (up to
+    485 primitives, moving spheres, a checker) are the kernel's; media,
+    images, noise, PBR and meshes above 560 primitives go to the pool."""
+    jscene = J_REGISTRY[name](1.0)
+    jcs, jmeta = jcompile(jscene)
+    cs, meta = tcompiler.compile_scene(to_port_scene(jscene), "cpu")
+    assert tmega.eligible(cs, meta) == jmega.eligible(jcs, jmeta)
+    assert tmega.eligible(cs, meta) == (name in ("cornell_box", "cornell_box_rgb",
+                                                 "random_scene", "two_spheres"))
 
 
 def test_ineligible_scene_raises(port):

@@ -111,10 +111,9 @@ def test_sample_offset_chunks_sum_to_one_run(pyramid):
     assert int(n0) + int(n1) == int(n_full)
 
 
-# Spectral scenes of both libraries.
-ELIGIBILITY_SCENES = sorted(
-    name for name in JREGISTRY if "spectral" in name) + [
-    "f64_model", "f64_model_sphere"]
+# Every scene of both libraries (the spectral ones and, ineligible for
+# the spectral kernel, the RGB ones) and the f64 models' scenes.
+ELIGIBILITY_SCENES = sorted(JREGISTRY) + ["f64_model", "f64_model_sphere"]
 
 
 def _jax_scene(name):
@@ -127,17 +126,11 @@ def _jax_scene(name):
 @pytest.mark.parametrize("name", ELIGIBILITY_SCENES)
 def test_eligible_agrees_with_jax(name, monkeypatch):
     """The JAX rule without its MAX_KNOTS budget, a Mosaic unroll limit the
-    CUDA kernel does not have. A scene the port cannot compile yet (PBR,
-    uplift: ROADMAP A11) is one the JAX kernel does not take either."""
+    CUDA kernel does not have."""
     jscene = _jax_scene(name)
     monkeypatch.setattr(jmks, "MAX_KNOTS", 1 << 30)
     jcs, jmeta = jcompile(jscene)
-    try:
-        cs, meta = tcompiler.compile_scene(to_port_scene(jscene), "cpu")
-    except NotImplementedError as exc:
-        assert "ROADMAP A11" in str(exc)
-        assert not jmks.eligible(jcs, jmeta)
-        return
+    cs, meta = tcompiler.compile_scene(to_port_scene(jscene), "cpu")
     assert tmks.eligible(cs, meta) == jmks.eligible(jcs, jmeta)
 
 

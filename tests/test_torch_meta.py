@@ -5,9 +5,8 @@ A scene that stands a procedural placeholder in for a missing file says so
 in its compiled meta (`izpi_tpu/scene/compiler.py:83-85,858`), and a render
 of it prints the JAX renderer's NOTE to stderr once per context
 (`izpi_tpu/render/renderer.py:281-287`): a `.pbtxt` whose texture file is
-missing (on a material no object uses, since the port does not compile
-image textures yet) and the dragon scene, whose mesh is the procedural
-stand-in.
+missing (on a material no object uses) and the dragon scene, whose mesh
+is the procedural stand-in.
 """
 
 import warnings

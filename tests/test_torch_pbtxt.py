@@ -4,9 +4,9 @@ reference scenes and the scene registry.
 
 The port keeps its own copies of the data files; each must be byte for byte
 the JAX package's. Every extracted scene must load to the same scene
-description (field for field, floats and arrays EQUAL) and then either
-compile to the JAX compile's tables leaf for leaf or raise
-NotImplementedError naming the ROADMAP item that ports what it holds. The
+description (field for field, floats and arrays EQUAL) and then compile to
+the JAX compile's tables leaf for leaf, the image scenes' placeholder image
+stacks, combined map stacks and RGB-to-spectral uplift flags included. The
 dragon is built with a 2,000-triangle stand-in.
 """
 
@@ -36,8 +36,8 @@ from izpi_tpu_torch.spectral import lightsources as tlights
 
 DRAGON = "cornell_box_pbr_stanford_dragon_spectral"
 DRAGON_TRIS = 2000
-# The extracted scenes the port cannot compile yet: each holds image
-# texture placeholders (ROADMAP A11).
+# The extracted scenes with image textures (procedural placeholders): PBR
+# maps through the combined stack.
 IMAGE_SCENES = ("cornell_box_pb", "cornell_box_pbr_coloured_glass_spectral",
                 "cornell_box_pbr_rgb", "cornell_box_pbr_spectral")
 
@@ -151,12 +151,9 @@ def test_extracted_scene_equals_jax(name):
 @pytest.mark.parametrize("name", jextracted.EXTRACTED)
 def test_extracted_scene_compiles_as_jax(name):
     """Leaf for leaf equal to the JAX compile (the dragon's tangent frames
-    and PBR columns included), or NotImplementedError naming the item."""
+    and PBR columns, the image scenes' image and combined stacks
+    included)."""
     scene = _load(textracted, name)
-    if name in IMAGE_SCENES:
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            tcompiler.compile_scene(scene, "cpu")
-        return
     tcs, tmeta = tcompiler.compile_scene(scene, "cpu")
     jcs, jmeta = jcompiler.compile_scene(_load(jextracted, name))
     want, got = jax_leaves(jcs), port_leaves(tcs)
@@ -165,9 +162,10 @@ def test_extracted_scene_compiles_as_jax(name):
         np.testing.assert_array_equal(got[leaf], want[leaf], err_msg=leaf)
     for f in ("n_prims", "n_materials", "n_lights", "spectral", "exposure",
               "spectral_background_spd", "has_checker", "has_pbr",
-              "has_absorbing_dielectric"):
+              "has_absorbing_dielectric", "has_image", "has_noise", "n_media"):
         assert getattr(tmeta, f) == getattr(jmeta, f), f
-    assert tmeta.has_pbr == (name == DRAGON)
+    assert tmeta.has_pbr == (name == DRAGON or name in IMAGE_SCENES)
+    assert tmeta.has_image == (name in IMAGE_SCENES)
 
 
 def test_dragon_stand_in_size():
@@ -211,11 +209,11 @@ materials {
 
 
 def test_existing_image_file_raises(tmp_path):
-    """A texture file that exists needs the image reader, not ported yet."""
+    """A texture file that exists needs the image reader, ROADMAP A13's."""
     (tmp_path / "tex.png").write_bytes(b"\x89PNG")
     path = tmp_path / "scene.pbtxt"
     path.write_text(_IMAGE_SCENE % "tex.png")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         tpbtxt.load_scene(str(path))
 
 
@@ -266,5 +264,6 @@ def test_registry_is_a_subset_of_jax():
 def test_get_scene():
     scene = get_scene("cornell_box_spectral", aspect=1.5)
     assert scene.spectral and scene.camera.aspect == 1.5
+    assert get_scene("two_perlin_spheres", aspect=1.5).camera.aspect == 1.5
     with pytest.raises(KeyError, match="available"):
-        get_scene("two_perlin_spheres")
+        get_scene("no_such_scene")

@@ -80,7 +80,9 @@ def test_port_imports_no_jax():
                  "ops.bvh_kernel", "geometry.procedural",
                  "scene.library.misc", "ops.bvh_rowkernel", "scene.pbtxt",
                  "scene.library.extracted", "materials.presets",
-                 "spectral.lightsources", "geometry.displacement"):
+                 "spectral.lightsources", "geometry.displacement",
+                 "scene.library.shirley", "texture.perlin", "texture.uplift",
+                 "spectral.whitebalance"):
         assert f"izpi_tpu_torch.{name}" in loaded, name
 
 

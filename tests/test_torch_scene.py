@@ -109,46 +109,64 @@ def test_from_jax_arrays_names_missing_leaves(compiled):
         tcompiler.from_jax_arrays(leaves, "cpu")
 
 
-def _unsupported():
-    white = tst.Lambertian(albedo=tst.ConstantTexture((0.5, 0.5, 0.5)))
-    box = tst.Box((0, 0, 0), (1, 1, 1), white)
+def _unsupported(st):
+    """The elements the port compiled only from the slice that ported
+    images, noise, media and the uplift (each raised NotImplementedError
+    naming ROADMAP A11 until then), built from either package's
+    scene.types `st`."""
+    white = st.Lambertian(albedo=st.ConstantTexture((0.5, 0.5, 0.5)))
+    box = st.Box((0, 0, 0), (1, 1, 1), white)
+    img = np.linspace(0.0, 1.0, 12, dtype=np.float32).reshape(2, 2, 3)
     return {
-        "image": tst.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1, tst.Lambertian(
-            albedo=tst.ImageTexture(np.zeros((2, 2, 3), np.float32)))),
-        "noise": tst.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1, tst.Lambertian(
-            albedo=tst.NoiseTexture(4.0))),
-        "medium": tst.ConstantMedium(box, 0.01, tst.Isotropic(
-            albedo=tst.ConstantTexture((1, 1, 1)))),
-        # PBR compiles with constant and checker slots (the dragon's
-        # porcelain); an image or noise map in a slot does not yet.
-        "mesh": tst.TriangleMesh(np.eye(3)[None], tst.PBR(
-            roughness=tst.NoiseTexture(2.0))),
-        "pbr": tst.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1, tst.PBR(
-            normal_map=tst.ImageTexture(np.zeros((2, 2, 3), np.float32)))),
+        "image": st.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1, st.Lambertian(
+            albedo=st.ImageTexture(img))),
+        "noise": st.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1, st.Lambertian(
+            albedo=st.NoiseTexture(4.0))),
+        "medium": st.ConstantMedium(box, 0.01, st.Isotropic(
+            albedo=st.ConstantTexture((1, 1, 1)))),
+        # PBR with a noise or an image map in a slot.
+        "mesh": st.TriangleMesh(np.eye(3)[None], st.PBR(
+            roughness=st.NoiseTexture(2.0))),
+        "pbr": st.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1, st.PBR(
+            normal_map=st.ImageTexture(img))),
         # RGB-to-spectral uplift of an image.
-        "spectral_albedo": tst.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1,
-                                      tst.Lambertian(spectral_albedo=(
-                                          tst.SpectralImage(
-                                              np.zeros((2, 2, 3)))))),
+        "spectral_albedo": st.Sphere((0, 0, 0), (0, 0, 0), 0, 1, 1,
+                                     st.Lambertian(spectral_albedo=(
+                                         st.SpectralImage(img.astype(
+                                             np.float64))))),
     }
 
 
-@pytest.mark.parametrize("kind", sorted(_unsupported()))
+def _assert_compiles_as_jax(jscene, tscene):
+    jcs, jmeta = jcompiler.compile_scene(jscene)
+    tcs, tmeta = tcompiler.compile_scene(tscene, "cpu")
+    want, got = jax_leaves(jcs), port_leaves(tcs)
+    for leaf in tcompiler.LEAVES:
+        assert got[leaf].shape == want[leaf].shape, leaf
+        np.testing.assert_array_equal(got[leaf], want[leaf], err_msg=leaf)
+    for f in ("has_image", "has_noise", "n_media", "media_is_sphere",
+              "has_pbr", "spectral"):
+        assert getattr(tmeta, f) == getattr(jmeta, f), f
+    return tcs, tmeta
+
+
+@pytest.mark.parametrize("kind", sorted(_unsupported(tst)))
 def test_unsupported_element_raises(kind):
-    scene = t_cornell()
-    scene.world.append(_unsupported()[kind])
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        tcompiler.compile_scene(scene, "cpu")
+    """Each element that raised until ROADMAP A11 was ported now compiles
+    leaf for leaf as the JAX package compiles it."""
+    jscene, tscene = j_cornell(), t_cornell()
+    jscene.world.append(_unsupported(jst)[kind])
+    tscene.world.append(_unsupported(tst)[kind])
+    _assert_compiles_as_jax(jscene, tscene)
 
 
 def test_spectral_scene_raises():
-    """Spectral scenes compile (ROADMAP A9); what one may hold that the port
-    does not compile yet raises, naming the item that ports it: here a PBR
-    material without a spectral albedo, which the JAX compiler uplifts from
-    its RGB albedo (compiler.py:784-790)."""
-    scene = t_cbs()
-    tcompiler.compile_scene(scene, "cpu")
-    scene.world.append(tst.Sphere((50, 20, 50), (50, 20, 50), 0, 1, 10,
-                                  tst.PBR()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tcompiler.compile_scene(scene, "cpu")
+    """A PBR material without a spectral albedo in a spectral scene, which
+    raised until ROADMAP A11 was ported: the compile uplifts its RGB albedo
+    (compiler.py:784-790), leaf for leaf as the JAX compile does."""
+    jscene, tscene = j_cbs(), t_cbs()
+    for sc, st in ((jscene, jst), (tscene, tst)):
+        sc.world.append(st.Sphere((50, 20, 50), (50, 20, 50), 0, 1, 10,
+                                  st.PBR()))
+    tcs, tmeta = _assert_compiles_as_jax(jscene, tscene)
+    assert tmeta.has_uplift and bool(tcs.materials.spec_albedo_uplift[-1])
