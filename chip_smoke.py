@@ -140,6 +140,41 @@ line of its own:
      some blue (the depth-cap sentinel) must show. Then the card against
      the CPU at 64×64@4, seed 0: rays within 0.5% and 99% of the pixels
      within 1e-4 + 1e-5·|CPU|.
+ 16. the training step (`parallel.dist.build_train_step`, the
+     differentiable sample pass, 1 spp, seed 0) on `cornell_box()` (13
+     primitives, brute force) at 256×256, depth 50: the target is the
+     colour render at the true parameters, 256×256@64; from tex_c0 at 0.7
+     of its values, five steps of plain gradient descent (every parameter,
+     rate 1), each printing its loss, seconds (CUDA-synchronised; the
+     median of the last four), the cipher entry's launches (forward, and
+     the backward's recompute) and `torch.cuda.max_memory_allocated`; every
+     gradient finite and the loss after the five steps below step 0's; the
+     peak memory at depth 8 and 50, whose growth a bounce must stay within
+     twice one bounce's carried state; and the card's loss and gradients
+     against the CPU's at 32×32, depth 8 (equal rays, the tolerances of
+     tests/test_torch_grad.py);
+ 17. the same step on `cornell_box_obj` (20,007 primitives) at 256×256,
+     depth 50, through the BVH4 kernel: its seconds, peak memory and the
+     kernel's and the cipher entry's launches (forward and recompute); at
+     64×64 against the same step through the plain traversal
+     (`accel.traverse.intersect_bvh`) on the card: equal rays and losses,
+     gradients within the tolerances above;
+ 18. the command line: `python -m izpi_tpu_torch --output-file a.png` (the
+     default: the spectral pyramid, 500×500@1000, depth 50, through the
+     spectral megakernel) in a subprocess, and again with `--output-mode
+     exr --output-file b.exr` in a subprocess that prints the launch
+     counters after the run (one spectral megakernel launch and nothing
+     else); both files read back with the port's reader, the PNG within
+     one 8-bit step of the EXR's gamma-2 clamped image; the same render in
+     process in chunks of 250 samples with a checkpoint, the 500-sample
+     state written back and resumed: every resumed pixel within
+     1e-4 + 1e-5·|EXR|, equal rays; `--sampler albedo|normal|wireframe` on
+     `cornell_box_obj` at 256×256@4 through the BVH4 kernel (4 launches),
+     each within 1e-4 of the same AOV through the plain traversal on the
+     card on 99% of the pixels; `--scene cornell_box --sampler spectral` at
+     256×256@16 (the spectral pool on an RGB scene), timed, and the same
+     path at 64×64@4 on the card against the CPU within phase 4's
+     tolerances. Each render's seconds and Mrays/s are printed.
 The build line is followed by the ptxas registers and spills of every
 kernel (a megakernel that spills fails the run), each megakernel's
 persistent grid (blocks × threads) and slots, and the two traversal
@@ -157,7 +192,10 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
+import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -168,10 +206,12 @@ from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import primitives, procedural
 from izpi_tpu_torch.integrator import path, wavefront
+from izpi_tpu_torch.io import output
 from izpi_tpu_torch.materials import tables as mat_tables
 from izpi_tpu_torch.ops import (_build, bvh_kernel, bvh_rowkernel, megakernel,
                                 megakernel_spectral, threefry)
-from izpi_tpu_torch.render import renderer
+from izpi_tpu_torch.parallel import dist
+from izpi_tpu_torch.render import checkpoint, renderer
 from izpi_tpu_torch.scene import compiler
 from izpi_tpu_torch.scene import types as scene_types
 from izpi_tpu_torch.scene.library.cornell import cornell_box
@@ -254,6 +294,7 @@ IBL_SIZE, IBL_SPP, IBL_DEPTH = 256, 256, 16
 FINAL_SIZE, FINAL_SPP, FINAL_DEPTH = 256, 16, 50
 # Phase 15: the frame (n, spp) of final's card-vs-CPU render.
 FINAL_VS_CPU = (64, 4)
+REPO = os.path.dirname(os.path.abspath(__file__))
 # Every module with a launch counter.
 COUNTERS = (bvh_kernel, bvh_rowkernel, megakernel, megakernel_spectral,
             threefry)
@@ -1160,6 +1201,462 @@ def texture_phases(card: str, usage: dict) -> dict:
     return out
 
 
+# Phases 16-17: the training step (the Cornell box at 256², depth 50, as
+# __graft_entry__ compiles it; cornell_box_obj through the BVH4 kernel),
+# 1 spp a step, seed 0, plain gradient descent on every parameter.
+TRAIN_SIZE, TRAIN_DEPTH, TRAIN_TARGET_SPP = 256, 50, 64
+TRAIN_STEPS, TRAIN_LR = 5, 1.0
+TRAIN_VS_CPU = (32, 8)        # frame and depth of the card-vs-CPU step
+TRAIN_VS_PLAIN = 64           # frame of phase 17's kernel-vs-plain step
+# tests/test_torch_grad.py's tolerances: loss within STEP_LOSS_RTOL, each
+# gradient entry within STEP_GRAD_ATOL + STEP_GRAD_RTOL·|reference|.
+STEP_LOSS_RTOL, STEP_GRAD_ATOL, STEP_GRAD_RTOL = 1e-4, 1e-5, 1e-3
+# Bytes of one bounce's carried state a ray: o, d, throughput, radiance
+# (f32 × 3 each), the live flag and the depth (int64), which each
+# checkpointed bounce keeps.
+STATE_BYTES_PER_RAY = 4 * 3 * 4 + 1 + 8
+# Phase 18: the CLI's default render (500²@1000, depth 50, the spectral
+# pyramid), its checkpoint interval, and the AOV and spectral-upgrade
+# frames.
+CKPT_INTERVAL = 250
+AOV_SIZE, AOV_SPP = 256, 4
+UPGRADE_SIZE, UPGRADE_SPP = 256, 16
+UPGRADE_VS_CPU = (64, 4)
+# Runs `python -m izpi_tpu_torch` as runpy does it for -m, in a process
+# that prints the launch counters after the run.
+COUNTING_MAIN = (
+    "import json, runpy, sys\n"
+    "from izpi_tpu_torch.ops import (bvh_kernel, bvh_rowkernel, megakernel,\n"
+    "                                megakernel_spectral, threefry)\n"
+    "sys.argv[0] = 'izpi_tpu_torch'\n"
+    "code = 0\n"
+    "try:\n"
+    "    runpy.run_module('izpi_tpu_torch', run_name='__main__',\n"
+    "                     alter_sys=True)\n"
+    "except SystemExit as exc:\n"
+    "    code = exc.code\n"
+    "print('LAUNCHES ' + json.dumps({m.__name__.rsplit('.', 1)[1]: m.launches\n"
+    "      for m in (bvh_kernel, bvh_rowkernel, megakernel,\n"
+    "                megakernel_spectral, threefry)}))\n"
+    "sys.exit(code)\n")
+
+
+def train_pixels(n: int, dev):
+    ys = torch.arange(n, device=dev).repeat_interleave(n)
+    xs = torch.arange(n, device=dev).repeat(n)
+    return xs, ys
+
+
+def scaled_params(cs):
+    """The scene's parameters, tex_c0 at 0.7 of its values."""
+    params = dist.extract_params(cs)
+    with torch.no_grad():
+        params["tex_c0"] *= 0.7
+    return params
+
+
+def forward_counts(ctx, n: int, depth: int, params, intersect=None):
+    """Launches and rays of the training step's forward pass alone (the
+    differentiable sample pass under no_grad)."""
+    xs, ys = train_pixels(n, ctx.device)
+    zero_counts()
+    with torch.no_grad():
+        _, rays = renderer.sample_pass(
+            dist.inject_params(ctx.cs, params), ctx.meta,
+            path.RenderSettings(max_depth=depth), intersect or ctx.intersect,
+            n, n, xs, ys, rng.render_key(0, device=ctx.device), 0,
+            differentiable=True)
+    return read_counts(), int(rays)
+
+
+def timed_step(ctx, n: int, depth: int, params, target, intersect=None):
+    """One training step through `dist.build_train_step`, every launch
+    counter zeroed just before and read just after: loss, grads, rays,
+    seconds (CUDA-synchronised), counts, and the peak memory allocated
+    during the step (absolute, and above what was allocated before)."""
+    dev = ctx.device
+    step = dist.build_train_step(ctx.cs, ctx.meta,
+                                 path.RenderSettings(max_depth=depth),
+                                 intersect or ctx.intersect, n, n)
+    xs, ys = train_pixels(n, dev)
+    key = rng.render_key(0, device=dev)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss, grads = step(params, xs, ys, target, key)
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    for k, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"the gradient of {k} is not finite")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"the loss is {float(loss)}")
+    return dict(loss=float(loss), grads={k: g.cpu().numpy()
+                                         for k, g in grads.items()},
+                rays=step.rays, seconds=seconds, counts=counts, peak=peak,
+                peak_above=peak - base if cuda else 0)
+
+
+def steps_agree(label: str, got: dict, want: dict, card: str) -> float:
+    """Raise unless two steps traced equal rays and their losses and
+    gradients agree within the tolerances above; returns the largest
+    gradient difference."""
+    err = max(float(np.abs(got["grads"][k] - want["grads"][k]).max())
+              for k in want["grads"])
+    ok = got["rays"] == want["rays"] and abs(got["loss"] - want["loss"]) <= (
+        STEP_LOSS_RTOL * abs(want["loss"]))
+    for k, w in want["grads"].items():
+        ok &= bool(np.all(np.abs(got["grads"][k] - w)
+                          <= STEP_GRAD_ATOL + STEP_GRAD_RTOL * np.abs(w)))
+    print(f"{label}: rays {got['rays']} vs {want['rays']}, loss "
+          f"{got['loss']:.7f} vs {want['loss']:.7f} (rtol {STEP_LOSS_RTOL}), "
+          f"largest gradient difference {err:.3e} (tol {STEP_GRAD_ATOL} + "
+          f"{STEP_GRAD_RTOL}|ref|); {got['seconds']:.4f} s vs "
+          f"{want['seconds']:.4f} s ({card})", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the steps disagree")
+    return err
+
+
+def training_phases(card: str) -> dict:
+    """Phases 16 and 17 (the module docstring)."""
+    n, depth = TRAIN_SIZE, TRAIN_DEPTH
+    out = {}
+    # 16. The Cornell box, brute force: the target is the colour render at
+    # the true parameters.
+    ctx = renderer.RenderContext(cornell_box(), device="cuda")
+    tgt = renderer.render(None, n, n, TRAIN_TARGET_SPP,
+                          path.RenderSettings(max_depth=depth), seed=0,
+                          context=ctx, device="cuda")
+    target = torch.as_tensor(np.ascontiguousarray(tgt.image[::-1]).reshape(
+        n * n, 3), device="cuda")
+    params = scaled_params(ctx.cs)
+    fwd, fwd_rays = forward_counts(ctx, n, depth, params)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        s = timed_step(ctx, n, depth, params, target)
+        steps.append(s)
+        print(f"training step {i}: cornell_box {n}x{n}@1 depth {depth}: loss "
+              f"{s['loss']:.7f}, {s['seconds']:.4f} s, {s['rays']} rays, "
+              f"cipher entry launches {s['counts']['threefry']}, "
+              f"max_memory_allocated {s['peak'] / 2**20:.1f} MiB "
+              f"({s['peak_above'] / 2**20:.1f} MiB above the step's start) "
+              f"({card})", flush=True)
+        with torch.no_grad():
+            for k, p in params.items():
+                p -= TRAIN_LR * torch.as_tensor(s["grads"][k], device="cuda")
+    after = timed_step(ctx, n, depth, params, target)
+    secs = [s["seconds"] for s in steps]
+    median = float(np.median(secs[1:]))
+    cipher = steps[0]["counts"]["threefry"]
+    print(f"training step: cornell_box {n}x{n}@1 depth {depth}, lr "
+          f"{TRAIN_LR}: loss {steps[0]['loss']:.7f} at step 0, "
+          f"{after['loss']:.7f} after {TRAIN_STEPS} steps; median of the last "
+          f"{TRAIN_STEPS - 1} steps {median:.4f} s ({n * n / median / 1e6:.4f} "
+          f"M pixel-samples/s, {steps[0]['rays'] / median / 1e6:.3f} Mrays/s "
+          f"forward); cipher entry launches a step {cipher}: forward "
+          f"{fwd['threefry']}, recompute {cipher - fwd['threefry']}; every "
+          f"other kernel {sum(v for k, v in fwd.items() if k != 'threefry')} "
+          f"({card})", flush=True)
+    if not after["loss"] < steps[0]["loss"]:
+        raise AssertionError("the loss did not fall over the steps")
+    step16 = dist.build_train_step(ctx.cs, ctx.meta,
+                                   path.RenderSettings(max_depth=depth),
+                                   ctx.intersect, n, n)
+    xs, ys = train_pixels(n, ctx.device)
+    wall, busy, top = profiling.device_profile(lambda: step16(
+        params, xs, ys, target, rng.render_key(0, device="cuda")))
+    print(f"training step profile: cornell_box {n}x{n}@1 depth {depth} under "
+          f"torch.profiler: wall {wall:.4f} s, device busy {busy:.4f} s, idle "
+          f"share {1 - busy / wall:.2%} ({card})", flush=True)
+    for dt, name, count in top[:6]:
+        print(f"  {dt / 1e3:10.3f} ms  x{count}  {name[:90]}", flush=True)
+    if fwd_rays != steps[0]["rays"] or fwd["threefry"] < 2 or any(
+            v for k, v in steps[0]["counts"].items() if k != "threefry"):
+        raise AssertionError(f"training step launches {steps[0]['counts']}, "
+                             f"forward {fwd}")
+    # Peak memory against depth: the checkpointed bounces keep one bounce's
+    # carried state each.
+    peaks = {}
+    for d in (8, depth):
+        f, _ = forward_counts(ctx, n, d, scaled_params(ctx.cs))
+        s = timed_step(ctx, n, d, scaled_params(ctx.cs), target)
+        peaks[d] = dict(bounces=f["threefry"] - 1, peak=s["peak"],
+                        peak_above=s["peak_above"])
+    per_bounce = (peaks[depth]["peak_above"] - peaks[8]["peak_above"]) / (
+        peaks[depth]["bounces"] - peaks[8]["bounces"])
+    state = n * n * STATE_BYTES_PER_RAY
+    print(f"training step memory: depth 8: {peaks[8]['bounces']} bounces, "
+          f"peak {peaks[8]['peak'] / 2**20:.1f} MiB "
+          f"({peaks[8]['peak_above'] / 2**20:.1f} above the start); depth "
+          f"{depth}: {peaks[depth]['bounces']} bounces, peak "
+          f"{peaks[depth]['peak'] / 2**20:.1f} MiB "
+          f"({peaks[depth]['peak_above'] / 2**20:.1f}); growth "
+          f"{per_bounce / 2**20:.3f} MiB a bounce, one bounce's carried state "
+          f"{state / 2**20:.3f} MiB, ratio {per_bounce / state:.3f} (tol 2) "
+          f"({card})", flush=True)
+    if not per_bounce <= 2 * state:
+        raise AssertionError("the step's memory grows by more than two "
+                             "bounces' state a bounce")
+    # The card against the CPU.
+    n_c, d_c = TRAIN_VS_CPU
+    grey = {dev: torch.full((n_c * n_c, 3), 0.25, device=dev)
+            for dev in ("cuda", "cpu")}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        c = renderer.RenderContext(cornell_box(), device=dev)
+        runs[dev] = timed_step(c, n_c, d_c, scaled_params(c.cs), grey[dev])
+    cpu_err = steps_agree(f"training step {n_c}x{n_c}@1 depth {d_c}, card vs "
+                          f"CPU", runs["cuda"], runs["cpu"], card)
+    out["cornell"] = dict(
+        frame=n, depth=depth, losses=[s["loss"] for s in steps],
+        loss_after=after["loss"], seconds=secs, median_seconds=median,
+        profiled_idle_share=1 - busy / wall,
+        rays=steps[0]["rays"], cipher_launches=cipher,
+        cipher_forward=fwd["threefry"],
+        cipher_recompute=cipher - fwd["threefry"],
+        peak_bytes=[s["peak"] for s in steps], memory=peaks,
+        bytes_per_bounce=per_bounce, state_bytes=state,
+        vs_cpu=dict(frame=n_c, depth=d_c, max_grad_err=cpu_err))
+    del ctx, target, params
+    torch.cuda.empty_cache()
+
+    # 17. cornell_box_obj through the BVH4 kernel.
+    octx = renderer.RenderContext(cornell_box_obj(), device="cuda")
+    grey = torch.full((n * n, 3), 0.25, device="cuda")
+    params = scaled_params(octx.cs)
+    fwd, fwd_rays = forward_counts(octx, n, depth, params)
+    warm = timed_step(octx, n, depth, params, grey)
+    s = timed_step(octx, n, depth, params, grey)
+    b3, cip = s["counts"]["bvh_kernel"], s["counts"]["threefry"]
+    print(f"training step: cornell_box_obj {n}x{n}@1 depth {depth} through "
+          f"the BVH4 kernel: loss {s['loss']:.7f}, {s['seconds']:.4f} s "
+          f"(warm-up {warm['seconds']:.4f} s), {s['rays']} rays, "
+          f"max_memory_allocated {s['peak'] / 2**20:.1f} MiB "
+          f"({s['peak_above'] / 2**20:.1f} above the start); BVH4 kernel "
+          f"launches {b3}: forward {fwd['bvh_kernel']}, recompute "
+          f"{b3 - fwd['bvh_kernel']}; cipher entry {cip}: forward "
+          f"{fwd['threefry']}, recompute {cip - fwd['threefry']} ({card})",
+          flush=True)
+    others = sum(v for k, v in s["counts"].items()
+                 if k not in ("bvh_kernel", "threefry"))
+    if (fwd["bvh_kernel"] < 1 or b3 <= fwd["bvh_kernel"] or others
+            or fwd_rays != s["rays"]):
+        raise AssertionError(f"the step through the BVH4 kernel launched "
+                             f"{s['counts']}, forward {fwd}")
+    n_p = TRAIN_VS_PLAIN
+    plain = functools.partial(traverse.intersect_bvh, octx.cs.prims,
+                              octx.intersect.ks.tree)
+    gp = torch.full((n_p * n_p, 3), 0.25, device="cuda")
+    kern = timed_step(octx, n_p, depth, scaled_params(octx.cs), gp)
+    ref = timed_step(octx, n_p, depth, scaled_params(octx.cs), gp,
+                     intersect=plain)
+    if ref["counts"]["bvh_kernel"] or not kern["counts"]["bvh_kernel"]:
+        raise AssertionError("the plain step launched the kernel, or the "
+                             "kernel step did not")
+    plain_err = steps_agree(f"training step {n_p}x{n_p}@1 depth {depth}, "
+                            f"BVH4 kernel vs plain traversal on the card",
+                            kern, ref, card)
+    out["cornell_box_obj"] = dict(
+        frame=n, depth=depth, loss=s["loss"], seconds=s["seconds"],
+        rays=s["rays"], peak_bytes=s["peak"], bvh_launches=b3,
+        bvh_forward=fwd["bvh_kernel"], bvh_recompute=b3 - fwd["bvh_kernel"],
+        cipher_launches=cip, cipher_forward=fwd["threefry"],
+        cipher_recompute=cip - fwd["threefry"],
+        vs_plain=dict(frame=n_p, max_grad_err=plain_err,
+                      kernel_seconds=kern["seconds"],
+                      plain_seconds=ref["seconds"]))
+    return out
+
+
+def run_cli(label: str, args, card: str, counted: bool = True):
+    """`python -m izpi_tpu_torch` in a subprocess from the repository's root
+    (with `counted`, through COUNTING_MAIN, which runs it as -m does and
+    prints the launch counters after): wall seconds, the render's seconds
+    and Mrays/s from its summary line, and the counters."""
+    cmd = ([sys.executable, "-c", COUNTING_MAIN] if counted
+           else [sys.executable, "-m", "izpi_tpu_torch"]) + list(args)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    summary = next(line for line in proc.stdout.splitlines()
+                   if line.startswith("Rendering completed"))
+    words = summary.split()   # "... in 1.2s using N rays (M Mrays/s) on ..."
+    rays = int(words[5])
+    mrays = float(words[7].lstrip("("))
+    seconds = rays / (mrays * 1e6)   # render() seconds, to Mrays/s's digits
+    counts = None
+    if counted:
+        counts = json.loads(next(line for line in proc.stdout.splitlines()
+                                 if line.startswith("LAUNCHES "))[9:])
+    print(f"{label}: python -m izpi_tpu_torch {' '.join(args)}: {rays} rays, "
+          f"{mrays:.2f} Mrays/s, render {seconds:.4f} s (rays / Mrays/s), "
+          f"process {wall:.2f} s; launches {counts} ({card})", flush=True)
+    return dict(seconds=seconds, rays=rays, mrays_per_sec=mrays,
+                process_seconds=wall, launches=counts)
+
+
+def pixels_within(a, b, atol: float, rtol: float) -> float:
+    """Share of pixels whose every channel of a is within atol + rtol·|b|."""
+    return float(np.all(np.abs(a - b) <= atol + rtol * np.abs(b),
+                        axis=-1).mean())
+
+
+def cli_phases(card: str) -> dict:
+    """Phase 18 (the module docstring)."""
+    work = os.path.join(REPO, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    png, exr = os.path.join(work, "a.png"), os.path.join(work, "b.exr")
+    out["png"] = run_cli("CLI default", ["--output-file", png], card,
+                         counted=False)
+    out["exr"] = run_cli("CLI default, EXR", ["--output-mode", "exr",
+                                               "--output-file", exr], card)
+    counts = out["exr"]["launches"]
+    if counts["megakernel_spectral"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"the CLI's default render launched {counts}")
+    a, b = output.read_image(png), output.read_image(exr)
+    want = np.clip(np.sqrt(np.maximum(b, 0.0)), 0.0, 1.0)
+    step_err = float(np.abs(a - want).max())
+    print(f"CLI files: a.png {a.shape}, b.exr {b.shape} (ACES "
+          f"chromaticities {b'chromaticities' in open(exr, 'rb').read()}); "
+          f"PNG vs the EXR's gamma-2 clamped image: max difference "
+          f"{step_err * 255:.4f} 8-bit steps (tol 1)", flush=True)
+    if a.shape != (500, 500, 3) or not np.isfinite(b).all() or (
+            step_err > 1.0 / 255 + 1e-6):
+        raise AssertionError("the CLI's PNG and EXR disagree")
+
+    # Checkpoint and resume of the same render, in process, as
+    # tests/test_checkpoint.py:33-71 does it.
+    settings = path.RenderSettings(max_depth=50)
+    sctx = renderer.RenderContext(cornell_box_pyramid_spectral(),
+                                  device="cuda")
+    ck_path = os.path.join(work, "r.npz")
+    states = {}
+    save = checkpoint.save
+
+    def spy(p, acc, done, rays, fp):
+        states[done] = (acc.copy(), rays, fp)
+        save(p, acc, done, rays, fp)
+
+    checkpoint.save = spy
+    try:
+        zero_counts()
+        chunked = renderer.render(None, 500, 500, 1000, settings, seed=0,
+                                  context=sctx, device="cuda",
+                                  sampler_type="spectral",
+                                  checkpoint_path=ck_path,
+                                  checkpoint_interval=CKPT_INTERVAL)
+        first = read_counts()
+        acc, rays, fp = states[500]
+        save(ck_path, acc, 500, rays, fp)
+        states.clear()
+        zero_counts()
+        resumed = renderer.render(None, 500, 500, 1000, settings, seed=0,
+                                  context=sctx, device="cuda",
+                                  sampler_type="spectral",
+                                  checkpoint_path=ck_path,
+                                  checkpoint_interval=CKPT_INTERVAL)
+        second = read_counts()
+    finally:
+        checkpoint.save = save
+    share = pixels_within(resumed.image, b, XYZ_ATOL, XYZ_RTOL)
+    print(f"checkpoint: pyramid 500x500@1000 depth 50 in chunks of "
+          f"{CKPT_INTERVAL}: {chunked.seconds:.4f} s, launches {first}; "
+          f"resumed at sample 500: {resumed.seconds:.4f} s, launches {second}, "
+          f"saved at {sorted(states)}; rays {resumed.rays_traced} vs the "
+          f"CLI's {out['exr']['rays']}; resumed pixels within {XYZ_ATOL} + "
+          f"{XYZ_RTOL}|exr| of the EXR: {share:.6f} (tol 1), max abs err "
+          f"{float(np.abs(resumed.image - b).max()):.3e} ({card})", flush=True)
+    if (first["megakernel_spectral"] != 1000 // CKPT_INTERVAL
+            or second["megakernel_spectral"] != 500 // CKPT_INTERVAL
+            or sorted(states) != [750, 1000] or share < 1.0
+            or resumed.rays_traced != out["exr"]["rays"]):
+        raise AssertionError("the resumed render differs from the "
+                             "uninterrupted one")
+    out["checkpoint"] = dict(chunked_seconds=chunked.seconds,
+                             resumed_seconds=resumed.seconds,
+                             pixel_share=share)
+    del sctx
+
+    # The AOVs through the BVH4 kernel, against the plain traversal.
+    octx = renderer.RenderContext(cornell_box_obj(), device="cuda")
+    octx.intersect = functools.partial(traverse.intersect_bvh, octx.cs.prims,
+                                       octx.intersect.ks.tree)
+    for sampler in ("albedo", "normal", "wireframe"):
+        f = os.path.join(work, f"{sampler}.pfm")
+        r = run_cli(f"CLI {sampler}", [
+            "--scene", "cornell_box_obj", "--sampler", sampler, "-x",
+            str(AOV_SIZE), "-y", str(AOV_SIZE), "--samples", str(AOV_SPP),
+            "--ink", "1,1,1", "--output-mode", "pfm", "--output-file", f],
+            card)
+        zero_counts()
+        ref = renderer.render(None, AOV_SIZE, AOV_SIZE, AOV_SPP, seed=0,
+                              context=octx, sampler_type=sampler,
+                              ink=(1.0, 1.0, 1.0), device="cuda")
+        if read_counts()["bvh_kernel"]:
+            raise AssertionError("the plain AOV launched the BVH4 kernel")
+        img = output.read_image(f)
+        share = pixels_within(img, ref.image, PIXEL_ATOL, 0.0)
+        print(f"CLI {sampler}: BVH4 kernel launches {r['launches']['bvh_kernel']}"
+              f" (tol {AOV_SPP}); pixels within {PIXEL_ATOL} of the plain "
+              f"traversal's: {share:.6f} (tol {PIXEL_SHARE}); plain render "
+              f"{ref.seconds:.4f} s ({card})", flush=True)
+        if (r["launches"]["bvh_kernel"] != AOV_SPP or share < PIXEL_SHARE
+                or not np.isfinite(img).all() or np.ptp(img) == 0):
+            raise AssertionError(f"the {sampler} AOV disagrees")
+        out[sampler] = dict(r, pixel_share=share)
+    del octx
+
+    # The spectral sampler on an RGB scene: the spectral pool.
+    f = os.path.join(work, "upgrade.exr")
+    r = run_cli("CLI spectral on cornell_box", [
+        "--scene", "cornell_box", "--sampler", "spectral", "-x",
+        str(UPGRADE_SIZE), "-y", str(UPGRADE_SIZE), "--samples",
+        str(UPGRADE_SPP), "--output-mode", "exr", "--output-file", f], card)
+    if (r["launches"]["threefry"] < 1
+            or r["launches"]["megakernel"] + r["launches"]["megakernel_spectral"]):
+        raise AssertionError(f"the spectral pool launched {r['launches']}")
+    out["spectral_upgrade"] = r
+    n_c, spp_c = UPGRADE_VS_CPU
+    small = {dev: renderer.render(cornell_box(), n_c, n_c, spp_c, settings,
+                                  seed=0, sampler_type="spectral", device=dev)
+             for dev in ("cuda", "cpu")}
+    rays_rel = abs(small["cuda"].rays_traced - small["cpu"].rays_traced) / (
+        small["cpu"].rays_traced)
+    share = pixels_within(small["cuda"].xyz, small["cpu"].xyz, XYZ_ATOL,
+                          XYZ_RTOL)
+    mean_rel = abs(float(small["cuda"].xyz.mean())
+                   / float(small["cpu"].xyz.mean()) - 1)
+    print(f"spectral on cornell_box {n_c}x{n_c}@{spp_c} depth 50, card vs "
+          f"CPU: rays {small['cuda'].rays_traced} vs "
+          f"{small['cpu'].rays_traced} (rel {rays_rel:.2e}, tol {RAYS_RTOL}); "
+          f"XYZ pixels within {XYZ_ATOL} + {XYZ_RTOL}|cpu| {share:.6f} (tol "
+          f"{PIXEL_SHARE}); mean rel {mean_rel:.2e} (tol {MEAN_RTOL}); card "
+          f"{small['cuda'].seconds:.4f} s, CPU {small['cpu'].seconds:.4f} s "
+          f"({card})", flush=True)
+    if not (rays_rel <= RAYS_RTOL and share >= PIXEL_SHARE
+            and mean_rel <= MEAN_RTOL):
+        raise AssertionError("the spectral pool on an RGB scene: the card "
+                             "disagrees with the CPU")
+    out["spectral_upgrade_vs_cpu"] = dict(rays_rel=rays_rel, pixel_share=share,
+                                          mean_rel=mean_rel)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     # 1. The card.
     if not torch.cuda.is_available():
@@ -1551,6 +2048,10 @@ def main() -> None:
     drow = rows10["dragon"]
     torch.cuda.empty_cache()
     paths13 = texture_phases(card, usage)
+    torch.cuda.empty_cache()
+    train = training_phases(card)
+    torch.cuda.empty_cache()
+    cli = cli_phases(card)
 
     print(json.dumps({
         "kernels": [{
@@ -1605,6 +2106,10 @@ def main() -> None:
             "bound_by": trav["bound_by"],
             "library_ms": None,
             "ms_per_launch_main_path": trav_per_launch,
+            "launches_per_training_step": {
+                "cornell_box_obj_256_depth50": {
+                    "forward": train["cornell_box_obj"]["bvh_forward"],
+                    "recompute": train["cornell_box_obj"]["bvh_recompute"]}},
             "ms_per_launch_dragon_main_path":
                 dragon_runs["bvh4_traverse"]["ms_per_launch"],
             "final_main_path": {
@@ -1646,6 +2151,13 @@ def main() -> None:
             "launches_x_time_minus_bound_ms": cipher_main["excess_ms"],
             "launches_pbr_ibl_main_path": paths13["pbr_ibl"]["cipher_launches"],
             "launches_final_main_path": paths13["final"]["cipher_launches"],
+            "launches_per_training_step": {
+                "cornell_256_depth50": {
+                    "forward": train["cornell"]["cipher_forward"],
+                    "recompute": train["cornell"]["cipher_recompute"]},
+                "cornell_box_obj_256_depth50": {
+                    "forward": train["cornell_box_obj"]["cipher_forward"],
+                    "recompute": train["cornell_box_obj"]["cipher_recompute"]}},
             "shapes_on_pbr_ibl_main_path": paths13["pbr_ibl"]["cipher"]["shapes"],
             "shapes_on_final_main_path": paths13["final"]["cipher"]["shapes"],
             "device_functions": ["csrc/threefry.cuh", "csrc/draws.cuh"],
@@ -1697,6 +2209,8 @@ def main() -> None:
         "shirley_main_path": paths13["shirley"],
         "pbr_ibl_main_path": paths13["pbr_ibl"],
         "final_main_path": paths13["final"],
+        "training_step": train,
+        "cli": cli,
         "card": card,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,12 @@ and nothing of `izpi_tpu`. The JAX package is the reference each module is
 tested against (`tests/test_torch_*.py`): both draw the same Threefry-2x32
 sample streams, so images agree path for path.
 
-Ported so far: the Cornell-box RGB main path (scene → compile → camera →
-RNG → brute-force intersection → `bounce_rgb`/`trace` → the RGB megakernel)
-and the spectral main path (the spectral Cornell pyramid: SPDs, CIE-Y λ
-sampling, `bounce_spectral` → the spectral megakernel → firefly rejection
-and ACEScg), each megakernel a hand-written CUDA kernel in `csrc/`.
+Ported so far: every scene of the JAX registry through the megakernels,
+the queue pool and the BVH4 traversal (each TPU kernel a hand-written CUDA
+kernel in `csrc/`), the differentiable render step (`parallel.dist`,
+`entry`), the AOV samplers, the image writers and readers (`io`), and the
+command-line renderer (`python -m izpi_tpu_torch`, `cli`). Distribution
+over several cards is not.
 Importing the package has no side effects; kernels are built at first use
 (`izpi_tpu_torch.ops._build`).
 """

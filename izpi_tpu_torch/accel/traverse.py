@@ -170,9 +170,16 @@ def closest_bvh(prims: prim.Prims, bvh: BVH4Device, o, d, time, t_min,
 
 def intersect_bvh(prims: prim.Prims, bvh: BVH4Device, o, d, time, t_min,
                   t_max) -> prim.Hit:
-    """Closest hit with its shading record. o, d: (N, 3); time: (N,)."""
-    t, idx = closest_bvh(prims, bvh, o, d, time, t_min, t_max)
-    return prim.finalize_hit(prims, o, d, time, t, idx, idx >= 0)
+    """Closest hit with its shading record. o, d: (N, 3); time: (N,).
+    When autograd tracks the rays, t takes the winner's gradient
+    (`primitives.differentiable_t`), as through the traversal kernels."""
+    with torch.no_grad():
+        t, idx = closest_bvh(prims, bvh, o, d, time, t_min, t_max)
+    hit = idx >= 0
+    if prim.tracks(o, d):
+        t = prim.differentiable_t(prims, o, d, time, t, idx, hit, t_min,
+                                  t_max)
+    return prim.finalize_hit(prims, o, d, time, t, idx, hit)
 
 
 def check(arrays: bvh_build.BVH4Arrays, p_count: int) -> None:

@@ -184,16 +184,71 @@ def closest_brute(prims: Prims, o, d, time, t_min, t_max, chunk: int = 512):
     return best_t, best_idx
 
 
+def tracks(*xs) -> bool:
+    """Whether autograd records operations on any of the tensors xs."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def own(x, mask, track: bool = True):
+    """x where `mask` (N,) holds and x detached elsewhere, when `track`.
+
+    The double where of a differentiable branch: a branch that a ray does
+    not take still computes on its values (a sphere test on a triangle's
+    row, a refraction through η = 0), and the 0 that `torch.where` sends
+    back into that branch turns into NaN wherever the branch holds an Inf
+    (0·Inf). Feeding each branch only its own rays' gradient keeps every
+    gradient finite; no forward value changes."""
+    if not track:
+        return x
+    m = mask if x.dim() == mask.dim() else mask[..., None]
+    return torch.where(m, x, x.detach())
+
+
 def intersect_brute(prims: Prims, o, d, time, t_min, t_max,
                     chunk: int = 512) -> Hit:
     """Closest hit of N rays against all P primitives with its shading
-    record (`closest_brute`). o, d: (N, 3); time: (N,)."""
-    t, idx = closest_brute(prims, o, d, time, t_min, t_max, chunk)
-    return finalize_hit(prims, o, d, time, t, idx, idx >= 0)
+    record (`closest_brute`). o, d: (N, 3); time: (N,). When autograd
+    tracks the rays, t takes the winner's gradient (`differentiable_t`)
+    and the (N, chunk) tests record nothing."""
+    with torch.no_grad():
+        t, idx = closest_brute(prims, o, d, time, t_min, t_max, chunk)
+    hit = idx >= 0
+    if tracks(o, d):
+        t = differentiable_t(prims, o, d, time, t, idx, hit, t_min, t_max)
+    return finalize_hit(prims, o, d, time, t, idx, hit)
+
+
+def differentiable_t(prims: Prims, o, d, time, t, idx, hit, t_min, t_max):
+    """t from an intersector that autograd cannot see through (a traversal
+    kernel, or the brute-force pass under no_grad), with the gradient of
+    the winning primitive's t recomputed from (o, d). The forward value
+    stays the given t; the gradient is the brute-force one, since the
+    choice of the winner is piecewise constant. Each kind's test sees only
+    the rays that hit that kind (`own`), and a miss takes no gradient."""
+    i = torch.clamp(idx, min=0)
+    kind = prims.kind[i]
+    g0, g1, g2, g3 = prims.g0[i], prims.g1[i], prims.g2[i], prims.g3[i]
+    is_tri = hit & (kind == KIND_TRIANGLE)
+    is_rect = hit & (kind == KIND_RECT)
+    is_sph = hit & (kind == KIND_SPHERE)
+    t_tri, _, _, _ = triangle_t(own(o, is_tri), own(d, is_tri), g0, g1, g2,
+                                t_min, t_max)
+    t_rect, _, _, _ = rect_t(own(o, is_rect), own(d, is_rect), g0, g1, g2,
+                             g3, t_min, t_max)
+    center = sphere_center(g0, g1, g2[..., 1], g2[..., 2], time)
+    t_sph, _, _ = sphere_t(own(o, is_sph), own(d, is_sph), center,
+                           g2[..., 0], t_min, t_max)
+    t_d = _where(is_tri, t_tri, _where(is_rect, t_rect, t_sph))
+    t = t.detach()
+    grad_t = t_d - t_d.detach()
+    return torch.where(hit & torch.isfinite(grad_t), t + grad_t, t)
 
 
 def finalize_hit(prims: Prims, o, d, time, t, idx, hit) -> Hit:
-    """The full shading record of the winning primitive per ray."""
+    """The full shading record of the winning primitive per ray. When
+    autograd tracks the rays, each kind's record sees only the rays that
+    hit that kind (`own`)."""
+    track = tracks(o, d, t)
     i = torch.clamp(idx, min=0)
     g0, g1, g2, g3 = prims.g0[i], prims.g1[i], prims.g2[i], prims.g3[i]
     uv6, vn9 = prims.uv[i], prims.vn[i]
@@ -201,11 +256,16 @@ def finalize_hit(prims: Prims, o, d, time, t, idx, hit) -> Hit:
     has_vn = prims.has_vn[i]
     flip = prims.flip[i]
     mat_id = _where(hit, prims.mat_id[i].long(), torch.full_like(idx, -1))
+    is_tri = kind == KIND_TRIANGLE
+    is_rect = kind == KIND_RECT
 
-    p = o + t[..., None] * d
+    # A miss's point lies at T_MAX along the ray: it takes no gradient.
+    p = own(o + t[..., None] * d, hit, track)
 
     # Triangle record (recompute barycentrics at the known t).
-    _, _, bu, bv = triangle_t(o, d, g0, g1, g2, -T_MAX, T_MAX)
+    own_tri = hit & is_tri
+    _, _, bu, bv = triangle_t(own(o, own_tri, track), own(d, own_tri, track),
+                              g0, g1, g2, -T_MAX, T_MAX)
     bw = 1.0 - bu - bv
     s = bu + bv + bw
     renorm = torch.abs(s - 1.0) > MT_EPS
@@ -217,25 +277,34 @@ def finalize_hit(prims: Prims, o, d, time, t, idx, hit) -> Hit:
     tri_v = bw * uv6[..., 1] + bu * uv6[..., 3] + bv * uv6[..., 5]
     vn_interp = (bw[..., None] * vn9[..., 0:3] + bu[..., None] * vn9[..., 3:6]
                  + bv[..., None] * vn9[..., 6:9])
-    tri_n = _where(has_vn[..., None], vm.safe_normalize(vn_interp), g3)
+    # A safe argument for the untaken branch: normalizing a primitive's
+    # zero vertex normals would send a gradient 0·NaN back through sqrt(0).
+    unit_z = vn_interp.new_tensor([0.0, 0.0, 1.0])
+    tri_n = _where(has_vn[..., None],
+                   vm.safe_normalize(_where(has_vn[..., None], vn_interp,
+                                            unit_z)),
+                   g3)
 
     # Rect record.
-    _, _, ru, rv = rect_t(o, d, g0, g1, g2, g3, -T_MAX, T_MAX)
+    own_rect = hit & is_rect
+    _, _, ru, rv = rect_t(own(o, own_rect, track), own(d, own_rect, track),
+                          g0, g1, g2, g3, -T_MAX, T_MAX)
 
     # Sphere record: UV from the flipped normal; the record normal stays
     # unflipped on the far root (sphere.go:88-99 quirk).
+    own_sph = hit & (kind == KIND_SPHERE)
+    p_s, d_s = own(p, own_sph, track), own(d, own_sph, track)
     radius = g2[..., 0]
     center = sphere_center(g0, g1, g2[..., 1], g2[..., 2], time)
-    _, _, far_root = sphere_t(o, d, center, radius, 1e-3, T_MAX)
+    _, _, far_root = sphere_t(o.detach(), d.detach(), center, radius, 1e-3,
+                              T_MAX)
     r_safe = _where(radius == 0.0, torch.ones_like(radius), radius)
-    outward = (p - center) / r_safe[..., None]
-    flip_n = vm.dot(d, outward) >= 0.0
+    outward = (p_s - center) / r_safe[..., None]
+    flip_n = vm.dot(d_s, outward) >= 0.0
     flipped = _where(flip_n[..., None], -outward, outward)
     sph_u, sph_v = sphere_uv(flipped)
     sph_n = _where(far_root[..., None], outward, flipped)
 
-    is_tri = kind == KIND_TRIANGLE
-    is_rect = kind == KIND_RECT
     u = _where(is_tri, tri_u, _where(is_rect, ru, sph_u))
     v = _where(is_tri, tri_v, _where(is_rect, rv, sph_v))
     n = _where(is_tri[..., None], tri_n,

@@ -7,10 +7,10 @@ Counterpart of `izpi_tpu/integrator/path.py`: `RenderSettings`,
 material, the RGB-to-spectral uplift and image emission (the sky dome),
 `_dielectric_scatter` (:147), the PBR helpers `_eval_pbr_texs` (:264, the
 combined map stack and the generic four-lookup path), `_pbr_normals` (:336)
-and `_pbr_lobes` (:384), and `trace` (:685), the lockstep oracle. The JAX
-package's `differentiable=True` is ROADMAP A14's and not here. Each
-takes the scene's intersector, `intersect(o, d, time, t_min, t_max) -> Hit`,
-as the JAX functions do: brute force (`make_brute_intersector`), the plain
+and `_pbr_lobes` (:384), and `trace` (:685), the lockstep oracle, with the
+JAX package's `differentiable=True` (see `trace`). Each takes the scene's
+intersector, `intersect(o, d, time, t_min, t_max) -> Hit`, as the JAX
+functions do: brute force (`make_brute_intersector`), the plain
 BVH4 traversal (`accel.traverse`) or the CUDA traversal kernel
 (`ops.bvh_kernel`).
 
@@ -39,6 +39,7 @@ import math
 from typing import Callable, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from izpi_tpu_torch.core import rng, sampling
 from izpi_tpu_torch.core import vecmath as vm
@@ -184,7 +185,7 @@ def _mean3(rgb):
     return (rgb[..., 0] + rgb[..., 1] + rgb[..., 2]) / 3.0
 
 
-def _eval_pbr_texs(cs, meta, mat, rec):
+def _eval_pbr_texs(cs, meta, mat, rec, differentiable: bool = False):
     """The four per-bounce material texture lookups (albedo, normal map,
     roughness, metalness). Returns (albedo (N, 3), normal_rgb (N, 3), rough
     (N,), metal (N,)), roughness and metalness mean3'd (pbr.go:109-116; the
@@ -193,10 +194,12 @@ def _eval_pbr_texs(cs, meta, mat, rec):
     A scene whose compile baked a combined map stack reads each material's
     image maps from its row there, one gather per ray, and its other slots
     from the generic evaluator without images (path.py:293-333); a scene
-    without one evaluates the four slots over 4N ids (path.py:284-291)."""
+    without one, or a differentiable bounce, evaluates the four slots over
+    4N ids (path.py:284-291): the image stack is a trainable parameter, and
+    the combined stack baked from it carries no gradient."""
     n = rec.p.shape[0]
     tex = cs.textures
-    if tex.combined.shape[0] == 0:
+    if differentiable or tex.combined.shape[0] == 0:
         tids = torch.cat([mat["tex_albedo"], mat["tex_normal"],
                           mat["tex_rough"], mat["tex_metal"]])
         tex4 = _eval_tex(cs, meta, tids, rec.u.repeat(4), rec.v.repeat(4),
@@ -305,9 +308,19 @@ def _pbr_axes(cs, mat, rec, d, us, nm_rgb, rough_val, metal_val):
 
 
 def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
-               rad, active):
+               rad, active, differentiable: bool = False):
     """Advance every live RGB path one bounce (per-ray depth (N,)).
-    Returns (o, d, thru, rad, active, n_rays_this_bounce)."""
+    Returns (o, d, thru, rad, active, n_rays_this_bounce).
+
+    differentiable=True (path.py:501-523) detaches the NEE mixture's
+    direction and pdf, zeroes a sample whose ratio is not finite instead
+    of carrying the Inf, and reads PBR maps through the generic lookups.
+    It also keeps every gradient finite where the JAX package's is NaN (a
+    branch a ray does not take sends 0·Inf or 0/0 back): each lobe and
+    the absorption path length see only their own rays' gradient
+    (`primitives.own`, as the intersectors' records do), a degenerate NEE
+    direction is zeroed before its cosine, and the ratio divides by a safe
+    pdf where the pdf is 0. No forward value changes."""
     bg = o.new_tensor(settings.background)
     zero = torch.zeros((), dtype=o.dtype, device=o.device)
 
@@ -326,8 +339,8 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
     mat = _gather_mat(cs, rec.mat_id)
     kind = mat["kind"]
     if meta.has_pbr:
-        albedo, nm_rgb, rough_val, metal_val = _eval_pbr_texs(cs, meta, mat,
-                                                              rec)
+        albedo, nm_rgb, rough_val, metal_val = _eval_pbr_texs(
+            cs, meta, mat, rec, differentiable)
     else:
         albedo = _eval_tex(cs, meta, mat["tex_albedo"], rec.u, rec.v, rec.p)
     facing = vm.dot(rec.normal, d) < 0.0
@@ -341,14 +354,21 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
     is_metal = kind == mt.MAT_METAL
     is_diel = kind == mt.MAT_DIELECTRIC
 
+    # Each lobe computes on every ray; a differentiable bounce feeds each
+    # only its own rays' gradient (`primitives.own`).
+    def own(x, mask):
+        return prim.own(x, mask, differentiable)
+
     # ---- metal (metal.go:34-40): unit-direction mirror + fuzz ----
-    refl_unit = vm.reflect(vm.normalize(d), rec.normal)
+    refl_unit = vm.reflect(vm.normalize(own(d, is_metal)),
+                           own(rec.normal, is_metal))
     fuzz_vec = sampling.random_in_unit_sphere(us[:, 0], us[:, 1], us[:, 2])
     d_metal = refl_unit + mat["fuzz"][:, None] * fuzz_vec
 
     # ---- dielectric ----
-    d_diel, is_refl = _dielectric_scatter(d, rec.normal, mat["ref_idx"],
-                                          us[:, 3])
+    d_diel, is_refl = _dielectric_scatter(own(d, is_diel),
+                                          own(rec.normal, is_diel),
+                                          mat["ref_idx"], us[:, 3])
     diel_att = torch.ones_like(o)
     if meta.has_absorbing_dielectric:
         # Beer–Lambert with exit re-trace (dielectric.go:118-153), only for
@@ -360,7 +380,8 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
             exit_p, exit_hit = exit_rec.p, exit_rec.hit
         else:
             exit_p, exit_hit = start, torch.zeros_like(apply)
-        path_len = vm.length(exit_p - rec.p)
+        # (A zero length's sqrt sends back 0/0 even from an untaken ray.)
+        path_len = vm.length(own(exit_p - rec.p, apply & exit_hit))
         path_len = torch.clamp(path_len, 0.1, 100.0)
         path_len = torch.where(exit_hit, path_len,
                                torch.full_like(path_len, 10.0))
@@ -383,11 +404,25 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
     d_diff = torch.where(choose_light[:, None], d_light, d_cos)
     pdf_val = (0.5 * lights_mod.pdf_value(cs.lights, rec.p, d_diff)
                + 0.5 * sampling.cosine_pdf_value(cos_axis, d_diff))
+    if differentiable:
+        d_diff, pdf_val = d_diff.detach(), pdf_val.detach()
+    d_unit = vm.normalize(d_diff)
+    if differentiable:
+        # A degenerate direction normalizes to NaN, and its product with the
+        # axis would send the axis 0·NaN; its sample weighs 0 below anyway.
+        d_unit = torch.where(torch.isfinite(d_unit), d_unit, zero)
 
-    cos_out = vm.dot(spdf_axis, vm.normalize(d_diff))
+    cos_out = vm.dot(spdf_axis, d_unit)
     spdf_cos = torch.clamp(cos_out, min=0.0) / math.pi
     spdf = torch.where(diffuse_like, spdf_cos, zero)
-    diff_mult = albedo * (spdf / pdf_val)[:, None]
+    if differentiable:
+        # A single Inf would poison every gradient: a dead sample weighs 0.
+        live = pdf_val > 0.0
+        ratio = spdf / torch.where(live, pdf_val, torch.ones_like(pdf_val))
+        ratio = torch.where(live & torch.isfinite(ratio), ratio, zero)
+    else:
+        ratio = spdf / pdf_val
+    diff_mult = albedo * ratio[:, None]
     if meta.has_pbr:
         # The PBR specular lobe scatters with the albedo as its weight.
         d_diff = torch.where(is_pbr_spec[:, None], d_pbr_spec, d_diff)
@@ -528,24 +563,45 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
     return o, d, thru, rad, active, nrays, bg_val
 
 
-def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys):
+def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys,
+          differentiable: bool = False):
     """Trace a ray batch to completion (lockstep; the correctness oracle).
 
     o, d: (N,3); time: (N,); keys: (N,2) per-path keys. Returns (color (N,3),
     NOT DeNAN'd — the caller applies it per render/rgb.go:36 — and the total
-    ray count as a 0-dim int64 tensor)."""
+    ray count as a 0-dim int64 tensor).
+
+    differentiable=True (path.py:699-740) makes the estimate differentiable
+    in the scene's material, texture and light tensors, with the sampling
+    detached (`bounce_rgb`). Each bounce runs under
+    `torch.utils.checkpoint` (the JAX package's `jax.checkpoint` in its
+    scan), so the backward pass keeps only the carried state of each
+    bounce and recomputes the rest: memory grows by one bounce's state per
+    bounce. The uniforms are keyed, so the recompute draws the same
+    numbers; it launches the cipher entry and a traversal kernel again. The
+    loop ends once no path is live, which changes neither the estimate nor
+    its gradient: a dead path's bounce adds nothing."""
     n = o.shape[0]
     thru = torch.ones_like(o)
     rad = torch.zeros_like(o)
     active = torch.ones(n, dtype=torch.bool, device=o.device)
     nrays = torch.zeros((), dtype=torch.int64, device=o.device)
+
+    def bounce(o, d, thru, rad, active, depth_vec):
+        return bounce_rgb(cs, meta, settings, intersect, o, d, time, keys,
+                          depth_vec, thru, rad, active, differentiable)
+
     for depth in range(settings.max_depth):
         if not bool(active.any()):
             break
         depth_vec = torch.full((n,), depth, dtype=torch.int64, device=o.device)
-        o, d, thru, rad, active, nr = bounce_rgb(
-            cs, meta, settings, intersect, o, d, time, keys, depth_vec, thru,
-            rad, active)
+        if differentiable:
+            o, d, thru, rad, active, nr = torch.utils.checkpoint.checkpoint(
+                bounce, o, d, thru, rad, active, depth_vec,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            o, d, thru, rad, active, nr = bounce(o, d, thru, rad, active,
+                                                 depth_vec)
         nrays = nrays + nr
     # Depth cap: the next Sample call would return {Z:1} (colour.go:34-36).
     sentinel = o.new_tensor([0.0, 0.0, 1.0])

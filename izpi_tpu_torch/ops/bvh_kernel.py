@@ -114,16 +114,24 @@ def closest_hit(ks: KernelScene, o, d, time, t_min: float, t_max: float,
 
 class BVHKernelIntersector:
     """Intersector over a reordered compiled scene: `closest_hit` for the
-    (t, index) pairs, then `primitives.finalize_hit` for the record."""
+    (t, index) pairs, then `primitives.finalize_hit` for the record. When
+    autograd tracks the rays (a differentiable bounce), t gets the winning
+    primitive's gradient (`primitives.differentiable_t`), on the card and
+    on the CPU alike."""
 
     def __init__(self, cs, ks: KernelScene):
         self.cs = cs
         self.ks = ks
 
     def __call__(self, o, d, time, t_min, t_max) -> prim.Hit:
-        t, idx = closest_hit(self.ks, o.contiguous(), d.contiguous(),
-                             time.contiguous(), t_min, t_max)
-        return prim.finalize_hit(self.cs.prims, o, d, time, t, idx, idx >= 0)
+        t, idx = closest_hit(self.ks, o.detach().contiguous(),
+                             d.detach().contiguous(), time.contiguous(),
+                             t_min, t_max)
+        hit = idx >= 0
+        if prim.tracks(o, d):
+            t = prim.differentiable_t(self.cs.prims, o, d, time, t, idx, hit,
+                                      t_min, t_max)
+        return prim.finalize_hit(self.cs.prims, o, d, time, t, idx, hit)
 
 
 def attach(cs):

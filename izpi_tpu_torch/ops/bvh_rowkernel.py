@@ -306,7 +306,8 @@ class RowBVHIntersector:
     """Intersector over a reordered compiled scene through the row-stack
     traversal, rays in the caller's order; block slots map to primitives
     through `blockmap`, and `primitives.finalize_hit` builds the record.
-    `lo` and `hi` are the scene's box, `sort_keys`' frame."""
+    `lo` and `hi` are the scene's box, `sort_keys`' frame. A differentiable
+    bounce gets the winner's gradient of t (`primitives.differentiable_t`)."""
 
     def __init__(self, cs, rs: RowScene, scene_lo, scene_hi):
         self.cs = cs
@@ -317,12 +318,18 @@ class RowBVHIntersector:
                                   device=cs.device)
 
     def __call__(self, o, d, time, t_min, t_max) -> prim.Hit:
-        t, idx = closest_hit_rows(self.rs, o.contiguous(), d.contiguous(),
-                                  time.contiguous(), t_min, t_max)
+        t, idx = closest_hit_rows(self.rs, o.detach().contiguous(),
+                                  d.detach().contiguous(), time.contiguous(),
+                                  t_min, t_max)
         idx = torch.where(idx >= 0,
                           self.rs.blockmap[torch.clamp(idx, min=0)].long(),
                           torch.full_like(idx, -1))
-        return prim.finalize_hit(self.cs.prims, o, d, time, t, idx, idx >= 0)
+        hit = idx >= 0
+        if prim.tracks(o, d):
+            # As `bvh_kernel.BVHKernelIntersector`: the winner's gradient.
+            t = prim.differentiable_t(self.cs.prims, o, d, time, t, idx, hit,
+                                      t_min, t_max)
+        return prim.finalize_hit(self.cs.prims, o, d, time, t, idx, hit)
 
 
 def attach(cs):

@@ -1,24 +1,39 @@
 """Render entry point: pixels → paths → accumulated image.
 
-Counterpart of `izpi_tpu/render/renderer.py` for the colour sampler of RGB
-and spectral scenes. Pixel convention (render/rgb.go:30-40): film coords
-u=(x+ξ)/nx, v=(y+ξ)/ny with v up; the canvas is row-flipped so image[0] is
-the top row. Every per-sample colour is DeNAN'd before accumulation
-(rgb.go:36).
+Counterpart of `izpi_tpu/render/renderer.py`. Pixel convention
+(render/rgb.go:30-40): film coords u=(x+ξ)/nx, v=(y+ξ)/ny with v up; the
+canvas is row-flipped so image[0] is the top row. Every per-sample colour
+is DeNAN'd before accumulation (rgb.go:36).
 
-Modes:
+Samplers (sampler/sampler.go:13-28, renderer.py:289-304): "colour" (RGB
+transport; a spectral scene upgrades itself to "spectral", as the
+reference's leader.go:78-81 does), "spectral" (λ transport, also of an RGB
+scene, whose materials then take their spectra from their RGB values), and
+the first-hit AOVs "albedo", "normal" and "wireframe" (`integrator.aov`:
+jittered camera rays, one intersection each, averaged over spp).
+
+Modes of the colour and spectral samplers:
 - "wavefront" (the default): the megakernel when the scene is eligible
   (`ops.megakernel.eligible` / `megakernel_spectral.eligible`), else the
   queue pool (`integrator.wavefront.trace_pool`) of
   `min(nx·ny·spp, 1<<18)` slots (renderer.py:298-311).
 - "mega": the megakernel, which must take the scene. On a CUDA device it
-  launches the CUDA kernel, on the CPU its plain version. An RGB scene
+  launches the CUDA kernel, on the CPU its plain version. An RGB render
   goes to `ops.megakernel.render_slots`, a spectral one to
   `ops.megakernel_spectral.render_slots_spectral`.
 - "pool": the queue pool on any scene.
-- "simple": the lockstep oracle (`integrator.path.trace`) of RGB scenes,
-  one batch of every pixel per sample; a spectral scene goes to the queue
-  pool, as in the JAX renderer (renderer.py:293,306).
+- "simple": the lockstep oracle (`integrator.path.trace`) of RGB renders,
+  one batch of rows per sample (`row_chunk` rows, renderer.py:446-484); a
+  spectral render goes to the queue pool, as in the JAX renderer
+  (renderer.py:293,306).
+The megakernel and the pool render the samples in chunks when asked to
+report progress (`verbose`), write a preview or checkpoint
+(renderer.py:351-438): each chunk renders samples [off, off + n) and adds
+its sum to a float64 host accumulator, so a chunked render equals one pass
+up to float32 rounding. A checkpoint (`render.checkpoint`) holds that
+accumulator; a render given the path of one written for its configuration
+resumes at its next sample. Unlike the JAX renderer, a megakernel that
+fails raises: it does not fall back to the pool (renderer.py:313-349).
 A spectral canvas (XYZ) goes through firefly rejection and XYZ→ACEScg
 with the camera's exposure (renderer.py:426-440). A scene that stands in
 procedural placeholders for missing assets says so on stderr, once per
@@ -44,7 +59,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 import time as time_mod
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,9 +67,11 @@ import torch
 from izpi_tpu_torch import camera as camera_mod
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.core import vecmath as vm
+from izpi_tpu_torch.integrator import aov as aov_mod
 from izpi_tpu_torch.integrator import path as path_mod
 from izpi_tpu_torch.integrator import wavefront
 from izpi_tpu_torch.ops import bvh_kernel, megakernel, megakernel_spectral
+from izpi_tpu_torch.render import checkpoint as ckpt_mod
 from izpi_tpu_torch.scene import types as st
 from izpi_tpu_torch.scene.compiler import compile_scene
 from izpi_tpu_torch.spectral import convert
@@ -67,6 +84,8 @@ from izpi_tpu_torch.spectral import convert
 # scene they take is reordered; it stays 560 if that cap moves.
 BVH_THRESHOLD = 560
 POOL_MAX = 1 << 18  # the largest default pool (renderer.py:311)
+AOV_SAMPLERS = ("albedo", "normal", "wireframe")
+SAMPLERS = ("colour", "spectral") + AOV_SAMPLERS
 
 
 @dataclasses.dataclass
@@ -77,6 +96,10 @@ class RenderResult:
     device: str = "cpu"  # where the render ran: "cpu" or the CUDA card's name
     xyz: Optional[np.ndarray] = None  # CIE XYZ canvas after firefly rejection (spectral)
     iterations: Optional[int] = None  # queue-pool iterations (pool renders)
+    # Wall seconds by phase (renderer.py:420-435): the scene's compile and
+    # BVH build, the first chunk (with any kernel build), the render, and
+    # a spectral render's post-pass.
+    phases: Optional[dict] = None
 
     @property
     def mrays_per_sec(self) -> float:
@@ -121,8 +144,12 @@ class RenderContext:
         self._tables = None
         self._warned_assets = False
 
-    def mega_supported(self) -> bool:
-        if self.meta.spectral:
+    def mega_supported(self, spectral: Optional[bool] = None) -> bool:
+        """Whether a megakernel renders this scene under the colour
+        (spectral=False) or spectral sampler; by default the scene's own.
+        The spectral megakernel takes spectral scenes only, so an RGB
+        scene's spectral render goes to the pool (renderer.py:293-304)."""
+        if self.meta.spectral if spectral is None else spectral:
             return megakernel_spectral.eligible(self.cs, self.meta)
         return megakernel.eligible(self.cs, self.meta)
 
@@ -137,13 +164,15 @@ class RenderContext:
 
 
 def sample_pass(cs, meta, settings, intersect, nx: int, ny: int, xs, ys,
-                base_key, sample_id: int):
+                base_key, sample_id: int, differentiable: bool = False):
     """One sample for a batch of pixels (xs, ys: (N,) pixel coords).
-    Returns (colour (N, 3) DeNAN'd, rays as a 0-dim int64 tensor)."""
+    Returns (colour (N, 3) DeNAN'd, rays as a 0-dim int64 tensor).
+    differentiable=True traces the differentiable estimate
+    (`integrator.path.trace`), the training step's (renderer.py:55-69)."""
     keys = rng.path_keys(base_key, ys * nx + xs, sample_id)
     o, d, tme = camera_mod.primary_rays(cs.camera, keys, xs, ys, nx, ny)
     color, nrays = path_mod.trace(cs, meta, settings, intersect, o, d, tme,
-                                  keys)
+                                  keys, differentiable=differentiable)
     return vm.de_nan(color), nrays
 
 
@@ -151,14 +180,31 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
            settings: Optional[path_mod.RenderSettings] = None,
            seed: int = 0, mode: str = "wavefront",
            context: Optional[RenderContext] = None, *,
-           use_bvh: Optional[bool] = None, device="cuda") -> RenderResult:
+           use_bvh: Optional[bool] = None, device="cuda",
+           sampler_type: str = "colour",
+           ink: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+           row_chunk: Optional[int] = None,
+           checkpoint_path: Optional[str] = None,
+           checkpoint_interval: int = 0,
+           preview_path: Optional[str] = None,
+           verbose: bool = False) -> RenderResult:
     """Render `scene` (or `context`'s scene) at nx×ny with spp samples per
-    pixel on `device`: "cuda[:i]" (the default) or "cpu". A spectral scene's
-    `image` is ACEScg and its `xyz` the XYZ canvas after firefly
-    rejection; `seconds` covers the render, not that post-pass."""
+    pixel on `device`: "cuda[:i]" (the default) or "cpu". A spectral
+    render's `image` is ACEScg and its `xyz` the XYZ canvas after firefly
+    rejection; `seconds` covers the render, not that post-pass.
+
+    sampler_type is one of SAMPLERS; ink is the wireframe's ink colour (its
+    paper is the background). row_chunk bounds the rows of one batch in
+    mode "simple". checkpoint_path with checkpoint_interval > 0 writes the
+    accumulator every checkpoint_interval samples and resumes from a
+    matching file; preview_path writes a PNG of the image so far after
+    each chunk; verbose prints progress and the phases."""
     settings = settings or path_mod.RenderSettings()
     if mode not in ("wavefront", "mega", "pool", "simple"):
         raise ValueError(f"unknown mode {mode!r}")
+    if sampler_type not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler_type!r}: one of "
+                         f"{SAMPLERS}")
     dev = _device(device)
     if context is None:
         context = RenderContext(scene, use_bvh, device=dev)
@@ -178,62 +224,171 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    if mode == "simple" and not meta.spectral:
+    if sampler_type in AOV_SAMPLERS:
+        return _render_aov(context, settings, nx, ny, spp, base_key,
+                           sampler_type, ink, name, sync)
+    spectral = meta.spectral or sampler_type == "spectral"
+    if mode == "simple" and not spectral:
         return _render_simple(context, settings, nx, ny, spp, base_key, name,
-                              sync)
+                              sync, row_chunk, verbose)
 
     use_mega = mode == "mega" or (mode == "wavefront"
-                                  and context.mega_supported())
+                                  and context.mega_supported(spectral))
+    if use_mega:
+        slots = (megakernel_spectral.render_slots_spectral if spectral
+                 else megakernel.render_slots)
+        tables = context.tables() if dev.type == "cuda" else None
+
+        def run(n, off):
+            acc, nrays = slots(cs, meta, settings, nx, ny, n, base_key, off,
+                               tables=tables)
+            return acc, nrays, None
+    else:
+        def run(n, off):
+            pool = min(nx * ny * n, POOL_MAX)
+            return wavefront.trace_pool(
+                cs, meta, settings, context.intersect, nx, ny, n, base_key,
+                pool, spectral=spectral,
+                bg_spd_id=meta.spectral_background_spd or 0,
+                sample_offset=off)
+
+    fingerprint = None
+    if checkpoint_path:
+        fingerprint = ckpt_mod.config_fingerprint(
+            nx, ny, spp, seed, meta, settings,
+            "spectral" if spectral else "colour")
+    chunk = checkpoint_interval if checkpoint_interval > 0 else spp
+    # Previews and progress need chunks (the reference's live display and
+    # its progress bar, renderer.go:110-121).
+    if preview_path and chunk == spp and spp > 1:
+        chunk = max(1, spp // 8)
+    if verbose and chunk == spp and spp >= 8:
+        chunk = max(1, spp // 8)
+    # float64 host accumulator (renderer.py:369-374): each chunk's float32
+    # sum is added in float64, so chunks sum as one pass does.
+    acc_total = np.zeros((nx * ny, 3), np.float64)
+    rays = 0
+    start = 0
     iterations = None
+    if checkpoint_path:
+        resumed = ckpt_mod.load(checkpoint_path, fingerprint)
+        if resumed is not None:
+            acc_total, start, rays = resumed
+            if verbose:
+                print(f"resumed at sample {start}/{spp}")
+
     sync()
     t0 = time_mod.perf_counter()
-    if use_mega:
-        slots = (megakernel_spectral.render_slots_spectral if meta.spectral
-                 else megakernel.render_slots)
-        acc, nrays = slots(
-            cs, meta, settings, nx, ny, spp, base_key, 0,
-            tables=context.tables() if dev.type == "cuda" else None)
-    else:
-        pool = min(nx * ny * spp, POOL_MAX)
-        acc, nrays, iterations = wavefront.trace_pool(
-            cs, meta, settings, context.intersect, nx, ny, spp, base_key, pool,
-            spectral=meta.spectral,
-            bg_spd_id=meta.spectral_background_spd or 0)
-    # float64 host accumulator, as the JAX renderer keeps
-    # (renderer.py:369-374), so later chunked renders sum alike.
-    acc_total = np.zeros((nx * ny, 3), np.float64)
-    acc_total += acc.cpu().numpy()
-    rays = int(nrays)
+    first_chunk = None
+    for off in range(start, spp, chunk):
+        n = min(chunk, spp - off)
+        tc = time_mod.perf_counter()
+        acc, nrays, its = run(n, off)
+        acc_total += acc.cpu().numpy()
+        rays += int(nrays)
+        if its is not None:
+            iterations = (iterations or 0) + its
+        if first_chunk is None:
+            first_chunk = time_mod.perf_counter() - tc
+        done = off + n
+        if checkpoint_path:
+            ckpt_mod.save(checkpoint_path, acc_total, done, rays, fingerprint)
+        if preview_path:
+            from izpi_tpu_torch.io import output as output_mod
+
+            snap = (acc_total / done).reshape(ny, nx, 3)[::-1]
+            if spectral:
+                snap = convert.xyz_to_acescg(snap, meta.exposure)
+            output_mod.write_png(preview_path, snap)
+        if verbose:
+            elapsed = time_mod.perf_counter() - t0
+            eta = elapsed / max(done - start, 1) * (spp - done)
+            print(f"samples {done}/{spp} | {rays / 1e6:.1f}M rays | "
+                  f"{rays / max(elapsed, 1e-9) / 1e6:.1f} Mrays/s | "
+                  f"eta {eta:.0f}s", flush=True)
+    sync()
     seconds = time_mod.perf_counter() - t0
+    phases = {"scene_build": context.build_seconds,
+              "first_chunk": first_chunk or 0.0, "render": seconds}
     canvas = (acc_total / spp).reshape(ny, nx, 3)[::-1].astype(np.float32)
-    if not meta.spectral:
+    if not spectral:
+        if verbose:
+            print(f"phases: {phases}")
         return RenderResult(image=np.ascontiguousarray(canvas),
                             rays_traced=rays, seconds=seconds, device=name,
-                            iterations=iterations)
+                            iterations=iterations, phases=phases)
     # The spectral post-pass (leader.go:216-219): firefly rejection on XYZ,
     # then XYZ→ACEScg with exposure.
+    tp = time_mod.perf_counter()
     xyz = convert.firefly_rejection(canvas.astype(np.float64))
     image = convert.xyz_to_acescg(xyz, meta.exposure).astype(np.float32)
+    phases["postprocess"] = time_mod.perf_counter() - tp
+    if verbose:
+        print(f"phases: {phases}")
     return RenderResult(image=image, rays_traced=rays, seconds=seconds,
                         device=name, xyz=xyz.astype(np.float32),
-                        iterations=iterations)
+                        iterations=iterations, phases=phases)
 
 
-def _render_simple(context, settings, nx, ny, spp, base_key, name, sync):
+def _pixels(nx: int, y0: int, n_rows: int, dev):
+    """(xs, ys) of rows y0 .. y0 + n_rows - 1, row by row."""
+    ys = y0 + torch.arange(n_rows, device=dev).repeat_interleave(nx)
+    xs = torch.arange(nx, device=dev).repeat(n_rows)
+    return xs, ys
+
+
+def _render_aov(context, settings, nx, ny, spp, base_key, sampler_type, ink,
+                name, sync) -> RenderResult:
+    """First-hit AOV render (renderer.py:72-111): jittered camera rays, one
+    intersection each, averaged over spp; rays_traced counts one a sample."""
     cs, meta, dev = context.cs, context.meta, context.device
     sync()
     t0 = time_mod.perf_counter()
-    ys = torch.arange(ny, device=dev).repeat_interleave(nx)
-    xs = torch.arange(nx, device=dev).repeat(ny)
+    xs, ys = _pixels(nx, 0, ny, dev)
     acc = torch.zeros((nx * ny, 3), dtype=torch.float32, device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(spp):
-        color, nr = sample_pass(cs, meta, settings, context.intersect, nx, ny,
-                                xs, ys, base_key, s)
-        acc = acc + color
-        rays = rays + nr
+        keys = rng.path_keys(base_key, ys * nx + xs, s)
+        o, d, tme = camera_mod.primary_rays(cs.camera, keys, xs, ys, nx, ny)
+        if sampler_type == "albedo":
+            c = aov_mod.sample_albedo(cs, meta, context.intersect, o, d, tme)
+        elif sampler_type == "normal":
+            c = aov_mod.sample_normal(cs, meta, context.intersect, o, d, tme)
+        else:
+            c = aov_mod.sample_wireframe(cs, meta, context.intersect, o, d,
+                                         tme, ink, settings.background)
+        acc = acc + vm.de_nan(c)
     block = (acc / spp).reshape(ny, nx, 3).cpu().numpy()
     seconds = time_mod.perf_counter() - t0
-    # v-up → row flip (rgb.go:40: canvas.Set(x, ny-y)).
     return RenderResult(image=np.ascontiguousarray(block[::-1]),
-                        rays_traced=int(rays), seconds=seconds, device=name)
+                        rays_traced=nx * ny * spp, seconds=seconds,
+                        device=name)
+
+
+def _render_simple(context, settings, nx, ny, spp, base_key, name, sync,
+                   row_chunk, verbose) -> RenderResult:
+    """The lockstep oracle over batches of `row_chunk` rows (by default as
+    many as make 2^20 pixels, renderer.py:446-484), spp samples each."""
+    cs, meta, dev = context.cs, context.meta, context.device
+    if row_chunk is None:
+        row_chunk = max(1, min(ny, (1 << 20) // nx))
+    sync()
+    t0 = time_mod.perf_counter()
+    image = np.zeros((ny, nx, 3), np.float32)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for y0 in range(0, ny, row_chunk):
+        n_rows = min(row_chunk, ny - y0)
+        xs, ys = _pixels(nx, y0, n_rows, dev)
+        acc = torch.zeros((nx * n_rows, 3), dtype=torch.float32, device=dev)
+        for s in range(spp):
+            color, nr = sample_pass(cs, meta, settings, context.intersect, nx,
+                                    ny, xs, ys, base_key, s)
+            acc = acc + color
+            rays = rays + nr
+        block = (acc / spp).reshape(n_rows, nx, 3).cpu().numpy()
+        # v-up → row flip (rgb.go:40: canvas.Set(x, ny-y)).
+        image[ny - y0 - n_rows: ny - y0] = block[::-1]
+        if verbose:
+            print(f"rows {y0}..{y0 + n_rows} done")
+    seconds = time_mod.perf_counter() - t0
+    return RenderResult(image=image, rays_traced=int(rays), seconds=seconds,
+                        device=name)

@@ -7,9 +7,10 @@ Counterpart of `izpi_tpu/scene/library/misc.py`, value for value. Each
 scene depends on an asset file that ships with neither repo (earth.png,
 decor_shop_4k.hdr, PP.obj, bricks/*); a missing asset resolves to the JAX
 package's deterministic procedural stand-in, so the scenes render out of
-the box. IZPI_ASSET_DIR names a directory of real files: the image reader
-(ROADMAP A13) and the OBJ loader (ROADMAP A8) are not ported, so a real
-file there raises instead of being replaced quietly.
+the box. IZPI_ASSET_DIR names a directory of real files: an image there is
+read by `io.output.read_image` (which raises, naming the file, on a format
+it cannot decode); the OBJ loader (ROADMAP A8) is not ported, so a real
+OBJ file there raises instead of being replaced quietly.
 """
 
 from __future__ import annotations
@@ -37,15 +38,15 @@ def _read_or_placeholder(relpath: str) -> np.ndarray:
     """The asset's pixels, or the procedural stand-in when it is missing."""
     p = _asset(relpath)
     if p:
-        raise NotImplementedError(
-            f"{p}: reading image files (izpi_tpu/io/output.py) is not ported "
-            f"yet: ROADMAP A13 (the image reader)")
+        from izpi_tpu_torch.io import output as output_mod
+
+        return output_mod.read_image(p)
     return _placeholder_image(relpath)
 
 
 def _sky() -> np.ndarray:
-    """The sky dome's image: decor_shop_4k.hdr when IZPI_ASSET_DIR has it
-    (which raises, as `_read_or_placeholder` does), else `_procedural_sky`."""
+    """The sky dome's image: decor_shop_4k.hdr when IZPI_ASSET_DIR has it,
+    else `_procedural_sky`."""
     if _asset("decor_shop_4k.hdr"):
         return _read_or_placeholder("decor_shop_4k.hdr")
     return _procedural_sky()

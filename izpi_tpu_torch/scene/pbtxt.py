@@ -15,10 +15,10 @@ key presence.
 
 A copy of `izpi_tpu/scene/pbtxt.py` on the port's scene types and spectral
 modules (numpy only). It parses everything the JAX loader parses, missing
-texture files becoming the same procedural placeholders. Two inputs it
-cannot read at all raise here: an image file that exists (the image reader,
-`izpi_tpu/io/output.py`, is ROADMAP A13's) and a binary `.izpi` scene
-(`izpi_tpu/scene/izpi_binary.py`).
+texture files becoming the same procedural placeholders, reads an image
+file that exists through `io.output.read_image` (which raises, naming the
+file, on a format it cannot decode) and a binary `.izpi` scene through
+`scene.izpi_binary`.
 """
 
 from __future__ import annotations
@@ -270,9 +270,9 @@ class _SceneBuilder:
             if not os.path.isabs(path):
                 path = os.path.join(self.container_dir, filename)
             if os.path.exists(path):
-                raise NotImplementedError(
-                    f"{path}: reading image files (izpi_tpu/io/output.py) is "
-                    f"not ported yet: ROADMAP A13 (the image reader)")
+                from izpi_tpu_torch.io import output as output_mod
+
+                data = output_mod.read_image(path)
             else:
                 import warnings
 
@@ -451,9 +451,10 @@ def scene_from_tree(tree: Dict[str, Any], aspect: Optional[float] = None,
 def load_scene(path: str, aspect: Optional[float] = None) -> st.Scene:
     container = os.path.dirname(path) or "."
     if path.endswith(".izpi"):
-        raise NotImplementedError(
-            f"{path}: the binary scene format (izpi_tpu/scene/izpi_binary.py) "
-            f"is not ported yet: ROADMAP A16 (CLI and entry)")
-    with open(path) as f:
-        tree = parse_pbtxt(f.read())
+        from izpi_tpu_torch.scene import izpi_binary
+
+        tree = izpi_binary.load_tree(path)
+    else:
+        with open(path) as f:
+            tree = parse_pbtxt(f.read())
     return scene_from_tree(tree, aspect=aspect, container_dir=container)

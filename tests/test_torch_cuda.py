@@ -444,3 +444,87 @@ def test_final_pool_through_kernel_matches_plain_traversal():
                                            2, key, 512)
     assert int(g_rays) == int(w_rays)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# Training-step tolerances, tests/test_torch_grad.py's: loss within
+# LOSS_RTOL, each gradient entry within GRAD_ATOL + GRAD_RTOL·|reference|.
+LOSS_RTOL, GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-5, 1e-3
+
+
+def _train_step(scene, n, depth, device, use_bvh=None, intersect=None):
+    """(loss, grads, rays, cipher launches, traversal launches) of one
+    differentiable step, 1 spp, seed 0, against the render at 0.7× tex_c0
+    of a grey target."""
+    from izpi_tpu_torch.parallel import dist
+
+    ctx = renderer.RenderContext(scene, use_bvh=use_bvh, device=device)
+    step = dist.build_train_step(ctx.cs, ctx.meta,
+                                 path.RenderSettings(max_depth=depth),
+                                 intersect or ctx.intersect, n, n)
+    params = dist.extract_params(ctx.cs)
+    with torch.no_grad():
+        params["tex_c0"] *= 0.7
+    ys = torch.arange(n, device=device).repeat_interleave(n)
+    xs = torch.arange(n, device=device).repeat(n)
+    target = torch.full((n * n, 3), 0.25, device=device)
+    c0, b0 = threefry.launches, bvh_kernel.launches
+    loss, grads = step(params, xs, ys, target, rng.render_key(0, device=device))
+    return (float(loss), {k: g.cpu().numpy() for k, g in grads.items()},
+            step.rays, threefry.launches - c0, bvh_kernel.launches - b0, ctx)
+
+
+def _assert_step_close(got, want):
+    assert got[2] == want[2]
+    np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
+    for k, w in want[1].items():
+        assert np.isfinite(got[1][k]).all(), k
+        np.testing.assert_allclose(got[1][k], w, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=k)
+
+
+def test_training_step_on_card_matches_cpu():
+    """Phase 16 at 16², depth 8: the Cornell box's step on the card, its
+    draws through the cipher entry (forward and the backward's recompute),
+    equals the step on the CPU."""
+    card = _train_step(cornell_box(), 16, 8, "cuda")
+    cpu = _train_step(cornell_box(), 16, 8, "cpu")
+    _assert_step_close(card, cpu)
+    assert card[3] > 1 + 8 and cpu[3] == 0   # camera, bounces, recompute
+
+
+def test_training_step_through_bvh_kernel_matches_plain_traversal():
+    """Phase 17 at 16², depth 8: cornell_box_obj's step through the BVH4
+    kernel equals the same step through the plain traversal on the card
+    (rays and loss equal, gradients within the tolerances above: gather
+    backward sums with atomics); the kernel ran forward and in the
+    recompute."""
+    kern = _train_step(cornell_box_obj(), 16, 8, "cuda")
+    ctx = kern[5]
+    plain = functools.partial(traverse.intersect_bvh, ctx.cs.prims,
+                              ctx.intersect.ks.tree)
+    b0 = bvh_kernel.launches
+    ref = _train_step(cornell_box_obj(), 16, 8, "cuda", intersect=plain)
+    assert kern[4] >= 2 and kern[4] % 2 == 0
+    _assert_step_close(kern, ref)
+    assert ref[4] == bvh_kernel.launches - b0 == 0
+
+
+def test_cli_on_card_writes_a_readable_file(tmp_path):
+    """Phase 18 at 32²@8: the CLI's default scene and sampler on --device
+    cuda (the spectral megakernel) writes a PNG and an EXR that read back;
+    the PNG is the EXR's image after gamma 2 and clamp within one 8-bit
+    step."""
+    from izpi_tpu_torch import cli
+    from izpi_tpu_torch.io import output
+
+    args = ["-x", "32", "-y", "32", "--samples", "8", "--max-depth", "8",
+            "--device", "cuda"]
+    before = megakernel_spectral.launches
+    assert cli.main(args + ["--output-file", str(tmp_path / "a.png")]) == 0
+    assert cli.main(args + ["--output-mode", "exr", "--output-file",
+                            str(tmp_path / "b.exr")]) == 0
+    assert megakernel_spectral.launches == before + 2
+    png = output.read_image(str(tmp_path / "a.png"))
+    exr = output.read_image(str(tmp_path / "b.exr"))
+    want = np.clip(np.sqrt(np.maximum(exr, 0.0)), 0.0, 1.0)
+    assert np.abs(png - want).max() <= 1.0 / 255 + 1e-6

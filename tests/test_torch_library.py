@@ -342,12 +342,25 @@ def test_mega_mode_raises_on_a_pool_scene():
 
 
 def test_misc_image_asset_raises_naming_a13(tmp_path, monkeypatch):
-    """A real earth.png under IZPI_ASSET_DIR: the image reader is not
-    ported, so the scene raises rather than standing the placeholder in."""
-    (tmp_path / "earth.png").write_bytes(b"\x89PNG\r\n")
+    """A real earth.png under IZPI_ASSET_DIR is read by the port's image
+    reader and compiles to the JAX scene's leaves (the JAX package reads
+    it through PIL); a file the reader cannot decode raises, naming the
+    file, rather than standing the placeholder in."""
+    from PIL import Image
+
+    rs = np.random.RandomState(9)
+    Image.fromarray(rs.randint(0, 256, (8, 16, 3)).astype(np.uint8)).save(
+        tmp_path / "earth.png")
     monkeypatch.setenv("IZPI_ASSET_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    jcs, _ = jcompiler.compile_scene(J_REGISTRY["texture_mapped_sphere"](1.0))
+    tcs, _ = tcompiler.compile_scene(tmisc.texture_mapped_sphere(), "cpu")
+    got, want = port_leaves(tcs), jax_leaves(jcs)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+    (tmp_path / "earth.png").write_bytes(b"\x89PNG\r\n")
+    with pytest.raises(ValueError, match="earth.png"):
         tmisc.texture_mapped_sphere()
     (tmp_path / "decor_shop_4k.hdr").write_bytes(b"#?RADIANCE\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(ValueError, match="decor_shop_4k.hdr"):
         tmisc.pbr_ibl()

@@ -209,11 +209,24 @@ materials {
 
 
 def test_existing_image_file_raises(tmp_path):
-    """A texture file that exists needs the image reader, ROADMAP A13's."""
-    (tmp_path / "tex.png").write_bytes(b"\x89PNG")
+    """A texture file that exists is read by the port's image reader: a
+    PNG that PIL wrote loads to the JAX loader's scene (which reads it
+    through PIL), and a file the reader cannot decode raises, naming the
+    file, rather than standing a placeholder in."""
+    from PIL import Image
+
+    rs = np.random.RandomState(5)
+    Image.fromarray(rs.randint(0, 256, (6, 5, 3)).astype(np.uint8)).save(
+        tmp_path / "tex.png")
     path = tmp_path / "scene.pbtxt"
     path.write_text(_IMAGE_SCENE % "tex.png")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    got = tpbtxt.load_scene(str(path))
+    assert_same(got, jpbtxt.load_scene(str(path)))
+    assert got.placeholder_assets == []
+
+    (tmp_path / "bad.png").write_bytes(b"\x89PNG")
+    path.write_text(_IMAGE_SCENE % "bad.png")
+    with pytest.raises(ValueError, match="bad.png"):
         tpbtxt.load_scene(str(path))
 
 
@@ -229,10 +242,15 @@ def test_missing_image_file_is_a_placeholder(tmp_path):
 
 
 def test_binary_scene_raises(tmp_path):
+    """An empty `.izpi` file decodes (scene.izpi_binary) to the JAX
+    loader's empty scene, which the compiler refuses: it has no
+    primitives. tests/test_torch_cli.py decodes a scene with content."""
     path = tmp_path / "scene.izpi"
     path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        tpbtxt.load_scene(str(path))
+    got = tpbtxt.load_scene(str(path))
+    assert_same(got, jpbtxt.load_scene(str(path)))
+    with pytest.raises(ValueError, match="no primitives"):
+        tcompiler.compile_scene(got, "cpu")
 
 
 def test_displacement_equals_jax():

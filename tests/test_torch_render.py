@@ -82,7 +82,10 @@ def test_port_imports_no_jax():
                  "scene.library.extracted", "materials.presets",
                  "spectral.lightsources", "geometry.displacement",
                  "scene.library.shirley", "texture.perlin", "texture.uplift",
-                 "spectral.whitebalance"):
+                 "spectral.whitebalance", "parallel.dist", "entry", "cli",
+                 "__main__", "integrator.aov", "render.checkpoint",
+                 "io.output", "io.postprocess", "io.display",
+                 "scene.izpi_binary"):
         assert f"izpi_tpu_torch.{name}" in loaded, name
 
 
