@@ -175,6 +175,49 @@ line of its own:
      256×256@16 (the spectral pool on an RGB scene), timed, and the same
      path at 64×64@4 on the card against the CPU within phase 4's
      tolerances. Each render's seconds and Mrays/s are printed.
+Then the distribution phases (`parallel.dist`), each on the one card with
+four gloo ranks that share it (`dist.spawn`, a process a rank; NCCL
+refuses two ranks on one card) unless it says otherwise, each rank's
+launch counters zeroed just before its part and read just after, every
+phase printing its seconds per rank and the spawn's wall, its backend,
+rank count, peak memory a rank, each rank's all-reduces (count, MiB and
+seconds between card syncs, which gloo spends through the host) and the
+card:
+ D1. `render_distributed(cornell_box_obj(), 256, 256, 128, max_depth=50)`,
+     32 samples a rank through the pool, the BVH4 kernel and the cipher
+     entry on every rank: rays equal to phase 9's one-process render,
+     pixels within atol/rtol 1e-4 (and PERF.md §2's gate); then the same
+     render on a group of one rank through NCCL: rays equal and every pixel
+     within WS1_ATOL + WS1_RTOL·|b| (the pool's deposits are atomics: two
+     runs of one process differ by as much, which it prints);
+ D2. the RGB megakernel sample-sharded (`dist.build_mega_renderer`),
+     Cornell 256²@1024, depth 50, 256 samples a rank, one launch a rank:
+     rays equal to phase 5's single launch, §2's gate;
+ D3. the dragon scene (871,213 primitives) primitive-sharded, four shards
+     of ~218k with a BVH4 each through the BVH4 kernel, 256²@8 depth 16:
+     rays equal to phase 12's render through the BVH4 kernel, its XYZ
+     after firefly rejection within phase 4's XYZ tolerances; each
+     shard's primitives and nodes, and its kernel launches;
+ D4. `pbr_ibl` primitive- and texture-sharded, 256²@64 (its main path's
+     256 samples cut to 64), depth 16, against the same render in one
+     process: rays equal, §2's gate;
+ D5. the training step (Cornell 256², depth 50, 1 spp, its true
+     parameters against a black target) with the pixels split over four
+     ranks, two steps (the first also loads the backward's kernels):
+     loss within 1e-5 relative and each gradient within 1e-4·max|g| of
+     the one-process step; seconds and peak memory a rank;
+ D6. the command line: `--role leader` and `--role worker --process-id 1`
+     with `--coordinator 127.0.0.1:<port> --num-processes 2` render the
+     default pyramid at 500²@8 (1000 samples cut to 8) into an EXR; the
+     summary line must name gloo and the worker write nothing. The
+     leader's XYZ canvas before firefly rejection (taken from its process
+     as the CLI hands it on) must equal `render_distributed`'s at world
+     size 1 (NCCL) within atol/rtol 1e-4 with rays equal, and its image
+     pass §2's gate; it prints the largest difference in float32 ulps, and
+     how many of the pixels that differ by more than 1e-4 after the
+     post-pass firefly rejection scaled;
+ and `entry.dryrun_multichip(4)`, whose ranks must launch the BVH4
+ kernel, the cipher entry and one RGB megakernel each.
 The build line is followed by the ptxas registers and spills of every
 kernel (a megakernel that spills fails the run), each megakernel's
 persistent grid (blocks × threads) and slots, and the two traversal
@@ -183,8 +226,8 @@ phases 7, 10, 11 and 12 print again. The line before the last is a JSON object d
 kernels (the two megakernels, the two traversal kernels and the cipher
 entry), each with its time, its plain version's time and its bound (the
 least time the card could take for the work this run's inputs needed);
-the last is {"ok": true, "device": {...}}. Any failure raises and exits
-non-zero. Imports nothing of JAX.
+the last is {"ok": true, "device": {...}}. Any failure, in this process or
+in a rank, raises and exits non-zero. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -201,7 +244,7 @@ import time
 import numpy as np
 import torch
 
-from izpi_tpu_torch import camera, profiling
+from izpi_tpu_torch import camera, entry, profiling
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import primitives, procedural
@@ -953,7 +996,7 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
                 dres["bvh4_rowstack"].rays_traced,
                 torch.as_tensor(dres["bvh4_traverse"].xyz.reshape(-1, 3)),
                 dres["bvh4_traverse"].rays_traced, 1)
-    return rows10, dragon_runs
+    return rows10, dragon_runs, dres["bvh4_traverse"]
 
 
 def image_checks(label: str, img: np.ndarray, n: int) -> dict:
@@ -1657,6 +1700,480 @@ def cli_phases(card: str) -> dict:
     return out
 
 
+# Phases D1-D6 and the dry run: distribution (`parallel.dist`) on the one
+# card, four gloo ranks that share it (NCCL refuses two ranks on one card)
+# unless a phase says otherwise. Each rank is a process of its own
+# (`dist.spawn`); it zeroes its launch counters just before each part and
+# reads them just after, so each part's launches are its own.
+DIST_RANKS = 4
+DIST_TIMEOUT_S = 600.0
+D1 = (256, 128, 50)   # cornell_box_obj n, spp, depth: the BVH main path
+D2 = (256, 1024, 50)  # cornell: the RGB main path
+D3 = (256, 8, 16)     # the dragon: its main path
+D4 = (256, 64, 16)    # pbr_ibl: its main path's frame, 256 spp cut to 64
+D5 = (256, 50)        # the training step: pixels a side, depth
+D6 = (500, 8, 50)     # the CLI's default pyramid, 1000 spp cut to 8
+WS1_ATOL, WS1_RTOL = 1e-6, 1e-5
+
+
+@contextlib.contextmanager
+def _collective_clock(rec: dict):
+    """Count the all-reduces of this rank, their bytes and their seconds
+    (host clock between card syncs: gloo takes a CUDA tensor through the
+    host) while the block runs."""
+    real = torch.distributed.all_reduce
+
+    def timed(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec["collective_s"] += time.perf_counter() - t0
+        rec["collectives"] += 1
+        rec["collective_mib"] += tensor.numel() * tensor.element_size() / 2**20
+        return result
+
+    torch.distributed.all_reduce = timed
+    try:
+        yield
+    finally:
+        torch.distributed.all_reduce = real
+
+
+def _rank_part(label: str, fn, out: dict):
+    """Run fn() on this rank between zeroed and read launch counters and
+    card syncs; record its seconds, launches, peak memory and all-reduces
+    (`_collective_clock`) under out[label]. Returns fn()'s result."""
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"collectives": 0, "collective_mib": 0.0, "collective_s": 0.0}
+    t0 = time.perf_counter()
+    with _collective_clock(rec):
+        result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out[label] = {"seconds": seconds, "launches": read_counts(),
+                  "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                  "backend": torch.distributed.get_backend(), **rec,
+                  "collective_share": rec["collective_s"] / seconds}
+    return result
+
+
+def _image_of(res):
+    """A RenderResult's arrays (rank 0), or None (the other ranks)."""
+    if res is None:
+        return None
+    return {"image": res.image, "xyz": res.xyz, "rays": res.rays_traced,
+            "iterations": res.iterations, "seconds": res.seconds}
+
+
+def _dist_rank(rank: int, n: int, sizes: dict) -> dict:
+    """D1-D5 on one rank of a gloo group on the card."""
+    dev = dist.rank_device("cuda")
+    out = {"device": str(dev)}
+    key = rng.render_key(0, device=dev)
+
+    nx, spp, depth = sizes["d1"]
+    out["d1_result"] = _image_of(_rank_part("d1", lambda: (
+        dist.render_distributed(cornell_box_obj(), nx, nx, spp,
+                                settings=path.RenderSettings(max_depth=depth),
+                                seed=0)), out))
+
+    nx, spp, depth = sizes["d2"]
+    cs, meta = compiler.compile_scene(cornell_box(), dev)
+    mega = dist.build_mega_renderer(cs, meta, path.RenderSettings(
+        max_depth=depth), nx, nx, spp // n)
+    acc, rays = _rank_part("d2", lambda: mega(key), out)
+    out["d2_result"] = ({"acc": acc.cpu().numpy(), "rays": int(rays)}
+                        if rank == 0 else None)
+    del cs, meta, mega, acc
+
+    nx, spp, depth = sizes["d3"]
+    t0 = time.perf_counter()
+    dcs, dmeta = compiler.compile_scene(
+        cornell_box_pbr_stanford_dragon_spectral(), "cpu")
+    run = dist.build_pool_renderer_prim_sharded(
+        dcs, dmeta, path.RenderSettings(max_depth=depth), nx, nx, spp,
+        spectral=True, device=dev)
+    shard_s = time.perf_counter() - t0
+    acc, rays = _rank_part("d3", lambda: run(key), out)
+    out["d3"].update(shard_seconds=shard_s, prims=run.shards.gmap.shape[0],
+                     nodes=run.shards.bounds.shape[0],
+                     iterations=run.iterations)
+    out["d3_result"] = ({"acc": acc.cpu().numpy(), "rays": int(rays)}
+                        if rank == 0 else None)
+    del dcs, dmeta, run, acc
+
+    nx, spp, depth = sizes["d4"]
+    out["d4_result"] = _image_of(_rank_part("d4", lambda: (
+        dist.render_distributed(pbr_ibl(), nx, nx, spp,
+                                settings=path.RenderSettings(max_depth=depth),
+                                seed=0, shard_prims=True,
+                                shard_textures=True)), out))
+
+    # Two steps: the first also loads the backward's CUDA kernels.
+    nx, depth = sizes["d5"]
+    _rank_part("d5_first", lambda: _d5_step(
+        nx, depth, dev, torch.distributed.group.WORLD), out)
+    out["d5_result"] = _rank_part("d5", lambda: _d5_step(
+        nx, depth, dev, torch.distributed.group.WORLD), out)
+    return out
+
+
+def _d5_step(nx: int, depth: int, dev, group):
+    """One training step of the Cornell box at nx², depth `depth`, 1 spp,
+    seed 0, at its true parameters against a black target: (loss, grads
+    as numpy, rays)."""
+    cs, meta = compiler.compile_scene(cornell_box(), dev)
+    step = dist.build_train_step(cs, meta, path.RenderSettings(
+        max_depth=depth), path.make_brute_intersector(cs), nx, nx, 1,
+        group=group)
+    xs, ys = train_pixels(nx, dev)
+    loss, grads = step(dist.extract_params(cs), xs, ys,
+                       torch.zeros((nx * nx, 3), device=dev),
+                       rng.render_key(0, device=dev))
+    return {"loss": float(loss), "rays": step.rays,
+            "grads": {k: g.cpu().numpy() for k, g in grads.items()}}
+
+
+def _ws1_rank(rank: int, n: int, sizes: dict) -> dict:
+    """D1 and D6's render on a group of one rank (NCCL: one card for one
+    rank), with D6's XYZ canvas before firefly rejection."""
+    backend = torch.distributed.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"world size 1 runs on {backend}")
+    out = {}
+    nx, spp, depth = sizes["d1"]
+    out["d1_result"] = _image_of(_rank_part("d1", lambda: (
+        dist.render_distributed(cornell_box_obj(), nx, nx, spp,
+                                settings=path.RenderSettings(max_depth=depth),
+                                seed=0)), out))
+    nx, spp, depth = sizes["d6"]
+    raw = []
+    with _raw_xyz(raw.append):
+        out["d6_result"] = _image_of(_rank_part("d6", lambda: (
+            dist.render_distributed(cornell_box_pyramid_spectral(), nx, nx,
+                                    spp, settings=path.RenderSettings(
+                                        max_depth=depth), seed=0)), out))
+    out["d6_result"]["raw_xyz"] = raw[0]
+    return out
+
+
+@contextlib.contextmanager
+def _raw_xyz(keep):
+    """Hand keep() a copy of every XYZ canvas (the sums over the samples
+    divided by their count) that a spectral render passes to firefly
+    rejection while the block runs."""
+    real = convert.firefly_rejection
+
+    def spy(xyz, *args, **kwargs):
+        keep(np.array(xyz))
+        return real(xyz, *args, **kwargs)
+
+    convert.firefly_rejection = spy
+    try:
+        yield
+    finally:
+        convert.firefly_rejection = real
+
+
+# D6's leader: the command line's main, with its XYZ canvas before firefly
+# rejection saved to argv[1] (`_raw_xyz`); argv[2:] are its flags.
+D6_LEADER = """import sys
+import numpy as np
+import chip_smoke
+from izpi_tpu_torch import cli
+with chip_smoke._raw_xyz(lambda xyz: np.save(sys.argv[1], xyz)):
+    code = cli.main(sys.argv[2:])
+raise SystemExit(code)
+"""
+
+
+def _print_ranks(label: str, ranks: list, wall: float, card: str) -> None:
+    parts = "; ".join(
+        f"rank {r}: {info['seconds']:.4f} s, peak {info['peak_mib']:.1f} "
+        f"MiB, launches {info['launches']}, {info['collectives']} "
+        f"all-reduces of {info['collective_mib']:.1f} MiB in "
+        f"{info['collective_s']:.4f} s ({info['collective_share']:.1%})"
+        for r, info in enumerate(ranks))
+    print(f"{label}: {len(ranks)} ranks, backend {ranks[0]['backend']}, "
+          f"spawn wall {wall:.2f} s; {parts} ({card})", flush=True)
+
+
+def _gate(label: str, a, b, rays_a: int, rays_b: int) -> dict:
+    """PERF.md §2's gate between two images of one render (b the
+    reference): equal rays, PIXEL_SHARE of the pixels with every channel
+    within PIXEL_ATOL, means within MEAN_RTOL."""
+    share = pixels_within(a, b, PIXEL_ATOL, 0.0)
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / abs(float(b.mean()))
+    err = float(np.abs(a - b).max())
+    print(f"{label}: rays {rays_a} vs {rays_b}; pixels within {PIXEL_ATOL}: "
+          f"{share:.6f} (tol {PIXEL_SHARE}); max abs err {err:.3e}; mean "
+          f"rel {mean_rel:.2e} (tol {MEAN_RTOL})", flush=True)
+    if not (np.isfinite(a).all() and rays_a == rays_b
+            and share >= PIXEL_SHARE and mean_rel <= MEAN_RTOL):
+        raise AssertionError(f"{label}: the renders disagree")
+    return {"rays": rays_a, "share_within": share, "max_abs_err": err,
+            "mean_rel": mean_rel}
+
+
+def dist_launches(report: dict, counter: str, dry_name: str) -> dict:
+    """A kernel's launches on each rank of each distributed phase: counter
+    is its module's name in the phases' counts, dry_name its name in the
+    dry run's."""
+    out = {f"{k}_per_rank": [r["launches"][counter] for r in v["ranks"]]
+           for k, v in report.items() if k in ("d1", "d2", "d3", "d4", "d5")}
+    out["d1_world_size_1"] = report["d1"]["world_size_1"]["rank"][
+        "launches"][counter]
+    out["dryrun_per_rank"] = [sum(r[part]["launches"][dry_name] for part in (
+        "pool_bvh", "megakernel", "spectral_pool", "train_step"))
+        for r in report["dryrun"]["ranks"]]
+    return out
+
+
+def distribution_phases(card: str, sizes: dict, refs: dict) -> dict:
+    """Phases D1-D6 and `dryrun_multichip(4)` (the module docstring).
+    `refs` holds the single-process renders of D1 (`render()` of
+    cornell_box_obj through the pool, twice: "d1_warm" and "d1"), D2
+    (`render()` of the Cornell box through the RGB megakernel) and D3
+    (`render()` of the dragon through the BVH4 kernel) at `sizes`."""
+    report = {}
+    t0 = time.perf_counter()
+    ranks = dist.spawn(_dist_rank, DIST_RANKS, args=(sizes,),
+                       timeout_s=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if len({r["device"] for r in ranks}) != 1:
+        raise AssertionError(f"ranks on {[r['device'] for r in ranks]}")
+
+    # D1: the sample-sharded pool through B3 and the cipher entry.
+    nx, spp, depth = sizes["d1"]
+    d1 = [r["d1"] for r in ranks]
+    _print_ranks(f"D1 cornell_box_obj {nx}x{nx}@{spp} depth {depth}, "
+                 f"{spp // DIST_RANKS} samples a rank", d1, wall, card)
+    for r, info in enumerate(d1):
+        lc = info["launches"]
+        if not (lc["bvh_kernel"] > 0 and lc["threefry"] > 0
+                and lc["megakernel"] == lc["megakernel_spectral"] == 0):
+            raise AssertionError(f"D1 rank {r} launched {lc}")
+    got = ranks[0]["d1_result"]
+    ref = refs["d1"]
+    report["d1"] = {"ranks": d1, "spawn_wall_s": wall, **_gate(
+        "D1 sample-sharded pool vs one process", got["image"], ref.image,
+        got["rays"], ref.rays_traced)}
+    np.testing.assert_allclose(got["image"], ref.image, atol=1e-4, rtol=1e-4)
+
+    # D2: the RGB megakernel sample-sharded, one launch a rank.
+    nx, spp, depth = sizes["d2"]
+    d2 = [r["d2"] for r in ranks]
+    _print_ranks(f"D2 cornell {nx}x{nx}@{spp} depth {depth} through the RGB "
+                 f"megakernel, {spp // DIST_RANKS} samples a rank", d2, wall,
+                 card)
+    if any(info["launches"]["megakernel"] != 1 for info in d2):
+        raise AssertionError(f"D2 launches {[i['launches'] for i in d2]}")
+    got = ranks[0]["d2_result"]
+    ref = refs["d2"]
+    report["d2"] = {"ranks": d2, **_gate(
+        "D2 sample-sharded megakernel vs one launch",
+        canvas(torch.as_tensor(got["acc"]), nx, spp), ref.image, got["rays"],
+        ref.rays_traced)}
+
+    # D3: the dragon, primitives sharded, each shard's BVH4 through B3.
+    nx, spp, depth = sizes["d3"]
+    d3 = [r["d3"] for r in ranks]
+    _print_ranks(f"D3 dragon stand-in {nx}x{nx}@{spp} depth {depth}, "
+                 f"primitives sharded (shards of "
+                 f"{[i['prims'] for i in d3]} primitives, "
+                 f"{[i['nodes'] for i in d3]} BVH4 nodes, built in "
+                 f"{[round(i['shard_seconds'], 3) for i in d3]} s; B3 "
+                 f"launches a rank {[i['launches']['bvh_kernel'] for i in d3]}"
+                 f" in {[i['iterations'] for i in d3]} pool iterations)", d3,
+                 wall, card)
+    for r, info in enumerate(d3):
+        if info["launches"]["bvh_kernel"] < info["iterations"]:
+            raise AssertionError(f"D3 rank {r} launched {info['launches']}")
+    got = ranks[0]["d3_result"]
+    ref = refs["d3"]
+    xyz = convert.firefly_rejection(
+        canvas(torch.as_tensor(got["acc"]), nx, spp).astype(np.float64))
+    report["d3"] = {"ranks": d3, "max_abs_err": compare_xyz(
+        "D3 prim-sharded dragon vs one process (XYZ after firefly "
+        "rejection)", torch.as_tensor(xyz.reshape(-1, 3), dtype=torch.float32),
+        got["rays"], torch.as_tensor(ref.xyz.reshape(-1, 3)),
+        ref.rays_traced, 1)}
+    if got["rays"] != ref.rays_traced:
+        raise AssertionError("D3: rays differ from the one-process render")
+
+    # D4: pbr_ibl, primitives and image stacks sharded.
+    nx, spp, depth = sizes["d4"]
+    d4 = [r["d4"] for r in ranks]
+    _print_ranks(f"D4 pbr_ibl {nx}x{nx}@{spp} depth {depth}, primitives and "
+                 f"textures sharded", d4, wall, card)
+    one = renderer.render(pbr_ibl(), nx, nx, spp, path.RenderSettings(
+        max_depth=depth), seed=0, device="cuda")
+    got = ranks[0]["d4_result"]
+    report["d4"] = {"ranks": d4, "one_process_seconds": one.seconds, **_gate(
+        "D4 prim- and texture-sharded pbr_ibl vs one process", got["image"],
+        one.image, got["rays"], one.rays_traced)}
+
+    # D5: the training step, pixels sharded.
+    nx, depth = sizes["d5"]
+    d5 = [r["d5"] for r in ranks]
+    _print_ranks(f"D5 training step cornell {nx}x{nx} depth {depth}, "
+                 f"{nx * nx // DIST_RANKS} pixels a rank, the first step",
+                 [r["d5_first"] for r in ranks], wall, card)
+    _print_ranks(f"D5 training step cornell {nx}x{nx} depth {depth}, "
+                 f"{nx * nx // DIST_RANKS} pixels a rank, the second step",
+                 d5, wall, card)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = _d5_step(nx, depth, torch.device("cuda"), None)
+    one_s = time.perf_counter() - t1
+    grad_err = {}
+    for r, res in enumerate(rk["d5_result"] for rk in ranks):
+        if abs(res["loss"] - want["loss"]) > 1e-5 * abs(want["loss"]):
+            raise AssertionError(f"D5 rank {r} loss {res['loss']} vs "
+                                 f"{want['loss']}")
+        for k, w in want["grads"].items():
+            err = float(np.abs(res["grads"][k] - w).max())
+            bound = 1e-4 * float(np.abs(w).max())
+            grad_err[k] = max(grad_err.get(k, 0.0), err)
+            if not (np.isfinite(res["grads"][k]).all() and err <= bound):
+                raise AssertionError(f"D5 rank {r} gradient {k}: {err} > "
+                                     f"{bound}")
+    print(f"D5: loss {ranks[0]['d5_result']['loss']:.7f} vs one process "
+          f"{want['loss']:.7f} ({one_s:.4f} s a step); largest gradient "
+          f"error {grad_err} (tol 1e-4 max|g|)", flush=True)
+    report["d5"] = {"ranks": d5, "loss": ranks[0]["d5_result"]["loss"],
+                    "one_process_loss": want["loss"],
+                    "one_process_seconds": one_s, "grad_err": grad_err}
+
+    # D1 and D6's reference at world size 1, through NCCL.
+    t0 = time.perf_counter()
+    ws1 = dist.spawn(_ws1_rank, 1, args=(sizes,),
+                     timeout_s=DIST_TIMEOUT_S)[0]
+    wall1 = time.perf_counter() - t0
+    _print_ranks("D1 at world size 1", [ws1["d1"]], wall1, card)
+    # One rank renders as one process does, but for the order of the pool's
+    # deposits into a pixel (index_add_'s atomics on the card), which moves
+    # two runs of one process apart too: every pixel within WS1_RTOL·|b| +
+    # WS1_ATOL, each a few hundred ulps of a 15.0 pixel's float32 sum.
+    got, one = ws1["d1_result"], refs["d1"]
+    err = float(np.abs(got["image"] - one.image).max())
+    spread = float(np.abs(refs["d1_warm"].image - one.image).max())
+    within = bool(np.all(np.abs(got["image"] - one.image)
+                         <= WS1_ATOL + WS1_RTOL * np.abs(one.image)))
+    print(f"D1 world size 1 (NCCL) vs one process: rays {got['rays']} vs "
+          f"{one.rays_traced}, max abs pixel difference {err:.3e} (two runs "
+          f"of one process: {spread:.3e}); every pixel within {WS1_ATOL} + "
+          f"{WS1_RTOL}|b|: {within}", flush=True)
+    if got["rays"] != one.rays_traced or not within:
+        raise AssertionError("D1 at world size 1 differs from one process")
+    report["d1"]["world_size_1"] = {"rank": ws1["d1"], "max_abs_err": err,
+                                    "one_process_run_to_run": spread}
+
+    # D6: the command line's leader and worker, two ranks (gloo).
+    nx, spp, depth = sizes["d6"]
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    port = dist._free_port()
+    flags = ["-x", str(nx), "-y", str(nx), "--samples", str(spp),
+             "--max-depth", str(depth), "--output-mode", "exr",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    raw_path = os.path.join(work, "d6_leader_raw_xyz.npy")
+    for stale in (raw_path, os.path.join(work, "d6_leader.exr")):
+        if os.path.exists(stale):
+            os.remove(stale)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + flags + role + [
+        "--output-file", os.path.join(work, f"d6_{name}.exr")], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, cmd, role in (
+            ("leader", [sys.executable, "-c", D6_LEADER, raw_path],
+             ["--role", "leader"]),
+            ("worker", [sys.executable, "-m", "izpi_tpu_torch"],
+             ["--role", "worker", "--process-id", "1"]))]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall6 = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"D6: exit {p.returncode}\n{log[-3000:]}")
+    summary = next(line for line in logs[0].splitlines()
+                   if line.startswith("Rendering completed"))
+    print(f"D6 CLI leader + worker, the pyramid {nx}x{nx}@{spp} depth "
+          f"{depth}: processes {wall6:.2f} s wall; leader: {summary} "
+          f"({card})", flush=True)
+    if "x 2 ranks (gloo)" not in summary or os.path.exists(
+            os.path.join(work, "d6_worker.exr")):
+        raise AssertionError("D6: the summary names no backend, or the "
+                             "worker wrote an image")
+    _print_ranks("D6 reference at world size 1", [ws1["d6"]], wall1, card)
+    one = ws1["d6_result"]
+    got = output.read_image(os.path.join(work, "d6_leader.exr"))
+    rays = int(summary.split()[5])
+    # The gate: the canvases that the post-pass starts from.
+    raw, raw_one = np.load(raw_path), one["raw_xyz"]
+    diff = np.abs(raw - raw_one)
+    raw_err = float(diff.max())
+    raw_ok = bool(np.all(diff <= 1e-4 + 1e-4 * np.abs(raw_one)))
+    # Each difference in float32 ulps of the reference (the canvas is a
+    # float32 sum over the samples, divided by their count, a power of 2).
+    ulps = diff / np.spacing(np.abs(raw_one).astype(np.float32))
+    at = float(np.abs(raw_one).flat[int(diff.argmax())])
+    # What firefly rejection (whose clamp of a pixel follows its
+    # neighbours' Y) makes of them.
+    post_err = np.abs(got - one["image"]).max(axis=-1)
+    scaled = ((convert.firefly_rejection(raw) != raw).any(axis=-1)
+              | (convert.firefly_rejection(raw_one) != raw_one).any(axis=-1))
+    over = post_err > PIXEL_ATOL
+    dimmest = (float(np.abs(one["image"]).max(axis=-1)[over].min())
+               if over.any() else 0.0)
+    print(f"D6 leader's XYZ canvas before firefly rejection vs world size "
+          f"1: rays {rays} vs {one['rays']}, max abs err {raw_err:.3e} "
+          f"(at |b| {at:.6g}), at most {float(ulps.max()):.2f} float32 ulps "
+          f"of b, every pixel within 1e-4 + 1e-4|b|: {raw_ok}; after the "
+          f"post-pass {int(over.sum())} pixels differ by more than "
+          f"{PIXEL_ATOL} (the dimmest of them {dimmest:.6g} in its largest "
+          f"channel), {int((over & scaled).sum())} of them scaled by "
+          f"firefly rejection in either render ({int(scaled.sum())} scaled "
+          f"pixels in all)", flush=True)
+    if rays != one["rays"] or not raw_ok:
+        raise AssertionError("D6: the leader's canvas differs from world "
+                             "size 1's")
+    report["d6"] = {"process_seconds": wall6, "summary": summary,
+                    "raw_max_abs_err": raw_err,
+                    "raw_max_ulps": float(ulps.max()),
+                    "post_over_atol": int(over.sum()),
+                    "post_over_atol_scaled": int((over & scaled).sum()),
+                    **_gate("D6 leader's image (after the post-pass) vs "
+                            "world size 1", got, one["image"], rays,
+                            one["rays"])}
+
+    # The dry run, four ranks.
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(DIST_RANKS, timeout_s=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(dry):
+        lc = {k: res[k]["launches"] for k in ("pool_bvh", "megakernel",
+                                              "spectral_pool", "train_step")}
+        if not (lc["pool_bvh"]["bvh4_traverse"] > 0
+                and lc["pool_bvh"]["izpi_threefry_uniforms"] > 0
+                and lc["megakernel"]["megakernel_rgb"] == 1
+                and lc["train_step"]["izpi_threefry_uniforms"] > 0):
+            raise AssertionError(f"dry run rank {r} launched {lc}")
+    print(f"dryrun_multichip({DIST_RANKS}): {wall:.2f} s wall; rank 0 "
+          f"launches {[dry[0][k]['launches'] for k in ('pool_bvh', 'megakernel', 'spectral_pool', 'train_step')]} "
+          f"({card})", flush=True)
+    report["dryrun"] = {"wall_s": wall, "ranks": dry}
+    return report
+
+
 def main() -> None:
     # 1. The card.
     if not torch.cuda.is_available():
@@ -2043,7 +2560,8 @@ def main() -> None:
     for dt, name, count in top[:6]:
         print(f"  {dt / 1e3:10.3f} ms  x{count}  {name[:90]}", flush=True)
 
-    rows10, dragon_runs = row_stack_phases(bctx, dctx, rays7, card, usage)
+    rows10, dragon_runs, dragon_res = row_stack_phases(bctx, dctx, rays7,
+                                                       card, usage)
     del dctx, rays7
     drow = rows10["dragon"]
     torch.cuda.empty_cache()
@@ -2052,6 +2570,10 @@ def main() -> None:
     train = training_phases(card)
     torch.cuda.empty_cache()
     cli = cli_phases(card)
+    torch.cuda.empty_cache()
+    distributed = distribution_phases(
+        card, {"d1": D1, "d2": D2, "d3": D3, "d4": D4, "d5": D5, "d6": D6},
+        {"d1": ores, "d1_warm": warm, "d2": res, "d3": dragon_res})
 
     print(json.dumps({
         "kernels": [{
@@ -2070,6 +2592,8 @@ def main() -> None:
             "pairs_per_scatter": main_bound["pairs"] / main_bound["scatters"],
             "ms_at_2": mk_ms_2,
             "bound_ms_at_2": rgb_bound_2["bound_ms"],
+            "launches_distributed": dist_launches(distributed, "megakernel",
+                                                  "megakernel_rgb"),
             "layout": lay,
             "shirley_main_path": {k: paths13["shirley"][k] for k in (
                 "launches", "ms_per_launch", "bound_ms", "bound_by",
@@ -2106,6 +2630,8 @@ def main() -> None:
             "bound_by": trav["bound_by"],
             "library_ms": None,
             "ms_per_launch_main_path": trav_per_launch,
+            "launches_distributed": dist_launches(distributed, "bvh_kernel",
+                                                  "bvh4_traverse"),
             "launches_per_training_step": {
                 "cornell_box_obj_256_depth50": {
                     "forward": train["cornell_box_obj"]["bvh_forward"],
@@ -2151,6 +2677,8 @@ def main() -> None:
             "launches_x_time_minus_bound_ms": cipher_main["excess_ms"],
             "launches_pbr_ibl_main_path": paths13["pbr_ibl"]["cipher_launches"],
             "launches_final_main_path": paths13["final"]["cipher_launches"],
+            "launches_distributed": dist_launches(
+                distributed, "threefry", "izpi_threefry_uniforms"),
             "launches_per_training_step": {
                 "cornell_256_depth50": {
                     "forward": train["cornell"]["cipher_forward"],
@@ -2211,6 +2739,7 @@ def main() -> None:
         "final_main_path": paths13["final"],
         "training_step": train,
         "cli": cli,
+        "distributed": distributed,
         "card": card,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,19 @@ The scene is a built-in name (`scene.library`) or a `.pbtxt` or `.izpi`
 file (`scene.pbtxt`). One flag is added: --device, "cuda" (the default;
 without a card the run fails) or "cpu".
 
-The flags of multi-host rendering (--role leader|worker, --coordinator,
---num-processes, --process-id, --shard-prims, --num-workers) stay in the
-parser; given, they exit with an error: distribution is ROADMAP A15's.
+Multi-host rendering (izpi_tpu/cli.py:95-119,145-152): one process a rank,
+`--role leader` (rank 0) and `--role worker --process-id <rank>`, each
+with `--coordinator <leader host:port> --num-processes <n>` (without a
+coordinator, torchrun's MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK),
+join one process group (`parallel.dist.initialize_multihost`; NCCL when
+every host has a card for each of its ranks, else gloo, named in the
+summary line) and render the frame sample-sharded (`parallel.dist.
+render_distributed`), or primitive-sharded with --shard-prims, on the
+first --num-workers ranks (0: all). Only rank 0 writes the image. A worker
+with a coordinator but no rank exits with the fix, as the JAX CLI does;
+the flags of a distributed run given to a standalone one, which the JAX
+CLI ignores, exit with an error here. As in the JAX CLI, a distributed run
+takes no checkpoint or preview.
 
 An EXR of a spectral render (a spectral scene, or --sampler spectral) is
 ACEScg and carries the ACES chromaticities; the JAX CLI stamps them only on
@@ -50,19 +60,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--role", default="standalone",
                    choices=["standalone", "leader", "worker"],
-                   help="multi-host role (not ported: ROADMAP A15)")
+                   help="multi-host role: leader (rank 0) or worker")
     p.add_argument("--coordinator", default=None,
-                   help="leader address for multi-host rendering (not "
-                        "ported: ROADMAP A15)")
+                   help="the leader's host:port, where the ranks meet")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host process count (not ported: ROADMAP A15)")
+                   help="multi-host process (rank) count")
     p.add_argument("--process-id", type=int, default=None,
-                   help="this process's rank (not ported: ROADMAP A15)")
+                   help="this process's rank (the leader is 0)")
     p.add_argument("--shard-prims", action="store_true",
-                   help="shard the primitives over devices (not ported: "
-                        "ROADMAP A15)")
+                   help="shard the primitives over the ranks")
     p.add_argument("--num-workers", type=int, default=0,
-                   help="devices to use (0 = all; not ported: ROADMAP A15)")
+                   help="ranks to render on (0 = all)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace (trace.json) here")
     p.add_argument("--checkpoint", default=None,
@@ -80,9 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _multihost_flags(args) -> list:
+    """The flags of a distributed run given besides --role."""
     given = []
-    if args.role != "standalone":
-        given.append(f"--role {args.role}")
     for flag, value in (("--coordinator", args.coordinator),
                         ("--num-processes", args.num_processes),
                         ("--process-id", args.process_id)):
@@ -95,13 +102,51 @@ def _multihost_flags(args) -> list:
     return given
 
 
+def _join_cluster(args, device):
+    """Join the process group of a leader or worker (cli.py:95-119).
+    Returns (world size, backend)."""
+    import torch.distributed
+
+    from izpi_tpu_torch.parallel import dist
+
+    pid = args.process_id
+    if pid is None and args.role == "leader":
+        pid = 0
+    if args.coordinator:
+        if pid is None and "RANK" not in os.environ:
+            raise SystemExit(
+                "--role worker with --coordinator on a bare host needs an "
+                "explicit rank: pass --process-id <rank> (1..N-1; the leader "
+                "is 0), or set RANK")
+        if args.num_processes is None and "WORLD_SIZE" not in os.environ:
+            raise SystemExit("--coordinator needs --num-processes <n>")
+        pid = int(os.environ["RANK"]) if pid is None else pid
+        n = (int(os.environ["WORLD_SIZE"]) if args.num_processes is None
+             else args.num_processes)
+    elif not all(k in os.environ for k in ("MASTER_ADDR", "MASTER_PORT")):
+        raise SystemExit(
+            f"--role {args.role} needs --coordinator <leader host:port> and "
+            f"--num-processes <n> (or torchrun's MASTER_ADDR, MASTER_PORT, "
+            f"WORLD_SIZE and RANK)")
+    else:
+        n = args.num_processes
+    n_proc = dist.initialize_multihost(
+        coordinator=args.coordinator, num_processes=n, process_id=pid,
+        device=device)
+    backend = torch.distributed.get_backend()
+    if args.verbose:
+        print(f"joined cluster: rank {torch.distributed.get_rank()} of "
+              f"{n_proc}, backend {backend}", file=sys.stderr)
+    return n_proc, backend
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    distributed = args.role in ("leader", "worker")
     given = _multihost_flags(args)
-    if given:
-        raise SystemExit(f"{' '.join(given)}: multi-host and multi-device "
-                         f"rendering is not ported yet: ROADMAP A15 "
-                         f"(distribution)")
+    if given and not distributed:
+        raise SystemExit(f"{' '.join(given)}: a flag of multi-host "
+                         f"rendering; it needs --role leader or --role worker")
 
     from izpi_tpu_torch.integrator import path as path_mod
     from izpi_tpu_torch.io import output as output_mod
@@ -148,12 +193,30 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     try:
-        res = renderer.render(
-            scene, args.x, args.y, args.samples, settings=settings,
-            seed=args.seed, sampler_type=args.sampler, ink=ink,
-            checkpoint_path=args.checkpoint,
-            checkpoint_interval=args.checkpoint_interval,
-            preview_path=args.preview, verbose=args.verbose, device=device)
+        if distributed:
+            import torch.distributed
+
+            from izpi_tpu_torch.parallel import dist
+
+            try:
+                n_proc, backend = _join_cluster(args, device)
+                res = dist.render_distributed(
+                    scene, args.x, args.y, args.samples,
+                    group=dist.make_group(args.num_workers or None),
+                    settings=settings, seed=args.seed,
+                    sampler_type=args.sampler, shard_prims=args.shard_prims,
+                    device=device)
+            finally:
+                if torch.distributed.is_initialized():
+                    torch.distributed.destroy_process_group()
+        else:
+            res = renderer.render(
+                scene, args.x, args.y, args.samples, settings=settings,
+                seed=args.seed, sampler_type=args.sampler, ink=ink,
+                checkpoint_path=args.checkpoint,
+                checkpoint_interval=args.checkpoint_interval,
+                preview_path=args.preview, verbose=args.verbose,
+                device=device)
     finally:
         if profiler is not None:
             profiler.__exit__(None, None, None)
@@ -162,11 +225,16 @@ def main(argv=None) -> int:
         if preview_server is not None:
             preview_server.stop()
 
+    if res is None:  # a worker: rank 0 writes the image
+        return 0
     aces = res.xyz is not None and args.output_mode == "exr"
     output_mod.write(args.output_file, res.image, mode=args.output_mode,
                      aces=aces)
+    where = res.device
+    if distributed:
+        where += f" x {args.num_workers or n_proc} ranks ({backend})"
     # End-of-render summary (renderer.go:213).
     print(f"Rendering completed in {time.time() - t0:.1f}s using "
           f"{res.rays_traced} rays ({res.mrays_per_sec:.2f} Mrays/s) on "
-          f"{res.device}; wrote {args.output_file}")
+          f"{where}; wrote {args.output_file}")
     return 0

@@ -178,7 +178,8 @@ def _eval_tex(cs, meta, tex_id, u, v, p):
     return tex_tables.eval_rgb(cs.textures, tex_id, u, v, p,
                                has_checker=meta.has_checker,
                                has_image=meta.has_image,
-                               has_noise=meta.has_noise)
+                               has_noise=meta.has_noise,
+                               shard_group=meta.tex_shard_group)
 
 
 def _mean3(rgb):
@@ -196,7 +197,8 @@ def _eval_pbr_texs(cs, meta, mat, rec, differentiable: bool = False):
     from the generic evaluator without images (path.py:293-333); a scene
     without one, or a differentiable bounce, evaluates the four slots over
     4N ids (path.py:284-291): the image stack is a trainable parameter, and
-    the combined stack baked from it carries no gradient."""
+    the combined stack baked from it carries no gradient. A stack sharded
+    over `meta.tex_shard_group` is read through `tex_tables.sharded_rows`."""
     n = rec.p.shape[0]
     tex = cs.textures
     if differentiable or tex.combined.shape[0] == 0:
@@ -212,7 +214,15 @@ def _eval_pbr_texs(cs, meta, mat, rec, differentiable: bool = False):
     w, h = tex.combo_w[safe], tex.combo_h[safe]
     i = tex_tables.texel_index(rec.u * w.float(), w)
     j = tex_tables.texel_index((1.0 - rec.v) * (h.float() - 0.001), h)
-    row = tex.combined[safe, j.long(), i.long()]  # (N, 8): one gather
+    if meta.tex_shard_group is None:
+        row = tex.combined[safe, j.long(), i.long()]  # (N, 8): one gather
+    else:
+        # The rank's slice of a sharded stack, merged by one all-reduce
+        # (path.py:306-311).
+        row = tex_tables.sharded_rows(
+            tex.combined, tex.combo_base, torch.where(valid, safe, -1),
+            lambda loc: tex.combined[loc, j.long(), i.long()],
+            meta.tex_shard_group)
 
     def gen(tid):
         return tex_tables.eval_rgb(tex, tid, rec.u, rec.v, rec.p,

@@ -75,8 +75,7 @@ class CompiledScene(NamedTuple):
 
 @dataclasses.dataclass
 class SceneMeta:
-    """Static facts about the compiled scene (compiler.py:65-88, without
-    the texture-sharding axis of ROADMAP A15)."""
+    """Static facts about the compiled scene (compiler.py:65-88)."""
 
     n_prims: int
     n_materials: int
@@ -97,6 +96,10 @@ class SceneMeta:
     # Assets replaced by procedural placeholders at load (scene.pbtxt,
     # library.extracted), reported by render() (compiler.py:83-85).
     placeholder_assets: tuple = ()
+    # The process group over which the texture stacks are sharded
+    # (parallel.dist.make_sharded_textures; the JAX package's
+    # tex_shard_axis), or None for whole stacks.
+    tex_shard_group: object = None
 
 
 # The leaves the port reads, by "<group>.<field>" of the JAX CompiledScene
@@ -105,7 +108,7 @@ LEAVES = (
     [f"prims.{f}" for f in prim.Prims._fields]
     + [f"materials.{f}" for f in mat_tables.Materials._fields]
     + [f"textures.{f}" for f in tex_tables.Textures._fields
-       if f != "perlin"]
+       if f not in ("perlin", "img_base", "combo_base")]
     + [f"textures.perlin.{f}" for f in perlin_mod.PerlinTables._fields]
     + [f"lights.{f}" for f in lights_mod.Lights._fields]
     + [f"camera.{f}" for f in camera_mod.CameraArrays._fields]
@@ -697,7 +700,8 @@ def _assemble(leaves: Dict[str, np.ndarray], device) -> CompiledScene:
         prims=group(prim.Prims, "prims"),
         materials=group(mat_tables.Materials, "materials"),
         textures=group(tex_tables.Textures, "textures", perlin=group(
-            perlin_mod.PerlinTables, "textures.perlin")),
+            perlin_mod.PerlinTables, "textures.perlin"), img_base=None,
+            combo_base=None),
         lights=group(lights_mod.Lights, "lights"),
         camera=group(camera_mod.CameraArrays, "camera"),
         spd_table=_to_tensor(leaves["spd_table"], device),

@@ -10,15 +10,16 @@ missing files resolve to deterministic procedural placeholders
 ~871k-triangle stand-in.
 
 A copy of `izpi_tpu/scene/library/extracted.py` on the port's loader, with
-its own copy of `data/` (byte-identical). The OBJ loader is not ported, so a
-`meshes/dragon_tri.obj` under IZPI_ASSET_DIR raises (ROADMAP A8) instead of
-being replaced quietly, as `misc.cornell_box_obj` does with PP.obj.
+its own copy of `data/` (byte-identical). A `meshes/dragon_tri.obj` under
+IZPI_ASSET_DIR is the real dragon, read by `geometry.wavefront_obj`.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Optional
+
+import numpy as np
 
 from izpi_tpu_torch.materials import presets
 from izpi_tpu_torch.scene import pbtxt, types as st
@@ -55,7 +56,8 @@ def cornell_box_pbr_stanford_dragon_spectral(
     the extracted literal plus the dragon mesh (scale 90, rotate -60° about
     Y, translate (50, 25.1, 60)) with the porcelain material: a procedural
     stand-in at the same ~871k-triangle scale (`n_tris` triangles asked of
-    `bumpy_blob`). A meshes/dragon_tri.obj under IZPI_ASSET_DIR raises."""
+    `bumpy_blob`), or the real mesh from meshes/dragon_tri.obj under
+    IZPI_ASSET_DIR."""
     from izpi_tpu_torch.geometry import procedural
 
     scene = load_extracted("cornell_box_pbr_stanford_dragon_spectral", aspect)
@@ -64,17 +66,22 @@ def cornell_box_pbr_stanford_dragon_spectral(
     asset_dir = os.environ.get("IZPI_ASSET_DIR", "")
     obj_path = os.path.join(asset_dir, "meshes", "dragon_tri.obj")
     if asset_dir and os.path.exists(obj_path):
-        raise NotImplementedError(
-            f"{obj_path}: the OBJ loader (izpi_tpu/geometry/wavefront_obj.py) "
-            f"is not ported yet: ROADMAP A8 (the OBJ loader comes with the "
-            f"real dragon mesh)")
-    tris = procedural.bumpy_blob(n_tris or 871_414)
-    tris = procedural.transform_mesh(
-        tris, scale=25.0, rotate_y_deg=-60.0, translate=(50.0, 25.1, 60.0))
-    scene.world.append(st.TriangleMesh(vertices=tris, material=porcelain))
-    scene.placeholder_assets.append(
-        "meshes/dragon_tri.obj (procedural ~871k-tri stand-in; "
-        "set IZPI_ASSET_DIR to use the real mesh)")
+        from izpi_tpu_torch.geometry import wavefront_obj
+
+        obj = wavefront_obj.load_obj(obj_path, ignore_materials=True)
+        obj.scale((90.0, 90.0, 90.0))
+        obj.rotate(0.0, -np.deg2rad(60.0), 0.0)
+        obj.translate((50.0, 25.1, 60.0))
+        meshes = obj.all_meshes(default_material=porcelain)
+        scene.world.extend(meshes)
+    else:
+        tris = procedural.bumpy_blob(n_tris or 871_414)
+        tris = procedural.transform_mesh(
+            tris, scale=25.0, rotate_y_deg=-60.0, translate=(50.0, 25.1, 60.0))
+        scene.world.append(st.TriangleMesh(vertices=tris, material=porcelain))
+        scene.placeholder_assets.append(
+            "meshes/dragon_tri.obj (procedural ~871k-tri stand-in; "
+            "set IZPI_ASSET_DIR to use the real mesh)")
     return scene
 
 

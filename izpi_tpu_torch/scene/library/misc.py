@@ -9,8 +9,7 @@ decor_shop_4k.hdr, PP.obj, bricks/*); a missing asset resolves to the JAX
 package's deterministic procedural stand-in, so the scenes render out of
 the box. IZPI_ASSET_DIR names a directory of real files: an image there is
 read by `io.output.read_image` (which raises, naming the file, on a format
-it cannot decode); the OBJ loader (ROADMAP A8) is not ported, so a real
-OBJ file there raises instead of being replaced quietly.
+it cannot decode), a real PP.obj by `geometry.wavefront_obj`.
 """
 
 from __future__ import annotations
@@ -106,8 +105,9 @@ def environment(aspect: float = 1.0) -> st.Scene:
 def cornell_box_obj(aspect: float = 1.0) -> st.Scene:
     """scenes.go:268 CornellBoxObj — the Cornell box with a glass sphere and
     a mesh rendered with a gold-ish Lambertian: 6 rects, the sphere and the
-    20,000-triangle stand-in, 20,007 primitives; the light members are the
-    ceiling rect and, by the dielectric-IsEmitter quirk, the glass sphere."""
+    20,000-triangle stand-in, 20,007 primitives (or PP.obj's groups, when
+    IZPI_ASSET_DIR holds it); the light members are the ceiling rect and,
+    by the dielectric-IsEmitter quirk, the glass sphere."""
     red = st.Lambertian(albedo=st.ConstantTexture((0.65, 0.05, 0.05)))
     white = st.Lambertian(albedo=st.ConstantTexture((0.73, 0.73, 0.73)))
     green = st.Lambertian(albedo=st.ConstantTexture((0.12, 0.45, 0.15)))
@@ -127,14 +127,17 @@ def cornell_box_obj(aspect: float = 1.0) -> st.Scene:
 
     obj_path = _asset("PP.obj")
     if obj_path:
-        raise NotImplementedError(
-            f"{obj_path}: the OBJ loader (izpi_tpu/geometry/wavefront_obj.py) "
-            f"is not ported yet: ROADMAP A8 (the OBJ loader comes with the "
-            f"dragon)")
-    tris = procedural.bumpy_blob(20_000)
-    tris = procedural.transform_mesh(tris, scale=60.0,
-                                     translate=(280.0, 90.0, 390.0))
-    world.append(st.TriangleMesh(vertices=tris, material=gold))
+        from izpi_tpu_torch.geometry import wavefront_obj
+
+        obj = wavefront_obj.load_obj(obj_path)
+        obj.translate((280.0, 30.0, 390.0))
+        obj.scale((14.0, 14.0, 14.0))
+        world.extend(obj.all_meshes(default_material=gold))
+    else:
+        tris = procedural.bumpy_blob(20_000)
+        tris = procedural.transform_mesh(tris, scale=60.0,
+                                         translate=(280.0, 90.0, 390.0))
+        world.append(st.TriangleMesh(vertices=tris, material=gold))
 
     camera = st.Camera(look_from=(278.0, 278.0, -800.0),
                        look_at=(278.0, 278.0, 0.0), vfov=40.0, aspect=aspect)

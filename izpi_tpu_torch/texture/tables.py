@@ -8,8 +8,12 @@ one (Ic, maxH, maxW, 8) combined stack (albedo.rgb, normal.xyz, mean
 roughness, mean metalness), read once per bounce
 (`integrator.path._eval_pbr_texs`).
 
-The JAX package's texture-sharded mode (`img_base`, `combo_base` and the
-`shard_axis` of `eval_rgb`) is ROADMAP A15's and not here.
+Texture-sharded mode (`parallel.dist.make_sharded_textures`, the JAX
+package's `shard_axis`): `images` and `combined` hold one rank's slice of
+the stacks, `img_base` and `combo_base` the slice's first global row, and
+`eval_rgb(..., shard_group=group)` looks up the ids the rank owns and
+all-reduces the masked values over the group. The per-texture metadata
+(`img_w`, `img_h`, `combo_w`, `combo_h`) stays whole on every rank.
 
 Kinds: 0 CONSTANT, 1 CHECKER (two constant children), 2 IMAGE, 3 NOISE.
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from izpi_tpu_torch.texture import perlin as perlin_mod
 
@@ -41,6 +46,10 @@ class Textures(NamedTuple):
     combined: torch.Tensor  # (Ic, maxH, maxW, 8) f32; (0, 1, 1, 8) if none
     combo_w: torch.Tensor   # (Ic,) int32
     combo_h: torch.Tensor   # (Ic,) int32
+    # Texture-sharded mode: the global row of this rank's first image and
+    # combined row (0-dim int tensors); None with whole stacks.
+    img_base: object = None
+    combo_base: object = None
 
 
 def texel_index(x, n):
@@ -53,24 +62,46 @@ def texel_index(x, n):
                          torch.clamp(n - 1, min=0))
 
 
-def image_lookup(images, img_w, img_h, img_id, u, v):
+def image_lookup(images, img_w, img_h, img_id, u, v, local_id=None):
     """Nearest neighbour with the V flip, the reference's index math:
-    i = int(u·W), j = int((1 - v)·(H - 0.001)), clamped."""
+    i = int(u·W), j = int((1 - v)·(H - 0.001)), clamped. local_id
+    (texture-sharded mode) indexes the rank's slice of `images`, while
+    img_id still indexes the whole metadata tables."""
     w = img_w[img_id]
     h = img_h[img_id]
     i = texel_index(u * w.float(), w)
     j = texel_index((1.0 - v) * (h.float() - 0.001), h)
-    return images[img_id, j.long(), i.long()]
+    return images[img_id if local_id is None else local_id, j.long(),
+                  i.long()]
+
+
+def sharded_rows(stack, base, row_id, index, group):
+    """Rows `stack[row_id - base][index]` of a stack sharded over `group`
+    (tables.py:99-114, path.py:302-311): each rank reads the ids its slice
+    holds, sends zero for the others, and one all-reduce sums them, so
+    every rank gets every row. `index(local_row)` gathers the values of
+    the clamped local row ids."""
+    local = row_id - base
+    n_loc = stack.shape[0]
+    owned = (local >= 0) & (local < n_loc)
+    val = index(torch.clamp(local, 0, max(n_loc - 1, 0)))
+    val = torch.where(owned[..., None], val, torch.zeros_like(val))
+    dist.all_reduce(val, op=dist.ReduceOp.SUM, group=group)
+    return val
 
 
 def eval_rgb(tex: Textures, tex_id, u, v, p, has_checker: bool = True,
-             has_image: bool = True, has_noise: bool = True):
+             has_image: bool = True, has_noise: bool = True,
+             shard_group=None):
     """Evaluate RGB textures for a ray batch.
 
     tex_id: (N,) int (a negative id reads texture 0, as in the JAX
     package); u, v: (N,); p: (N, 3). Returns (N, 3). The has_* flags are
     the scene's static facts (SceneMeta): a kind the scene lacks is not
-    evaluated."""
+    evaluated. shard_group (the JAX package's shard_axis) is the process
+    group over which the image stack is sharded (`tex` then holds one
+    rank's slice, from `img_base` on), or None for a whole stack; every
+    rank of the group must make the same calls."""
     tid = torch.clamp(tex_id, min=0).long()
     kind = tex.kind[tid]
     c0 = tex.c0[tid]
@@ -85,7 +116,14 @@ def eval_rgb(tex: Textures, tex_id, u, v, p, has_checker: bool = True,
         out = torch.where((kind == TEX_CHECKER)[..., None], checker, out)
     if has_image:
         gid = torch.clamp(tex.img_id[tid], min=0).long()
-        img = image_lookup(tex.images, tex.img_w, tex.img_h, gid, u, v)
+        if shard_group is None:
+            img = image_lookup(tex.images, tex.img_w, tex.img_h, gid, u, v)
+        else:
+            img = sharded_rows(
+                tex.images, tex.img_base, gid,
+                lambda loc: image_lookup(tex.images, tex.img_w, tex.img_h,
+                                         gid, u, v, local_id=loc),
+                shard_group)
         out = torch.where((kind == TEX_IMAGE)[..., None], img, out)
     if has_noise:
         # NOISE marble: 0.5·(1 + sin(scale·z + 10·turb(p)))

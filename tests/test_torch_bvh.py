@@ -367,10 +367,16 @@ def test_cornell_box_obj_compiles_as_jax():
 
 
 def test_cornell_box_obj_with_pp_obj_raises(tmp_path, monkeypatch):
-    (tmp_path / "PP.obj").write_text("v 0 0 0\n")
+    """A PP.obj under IZPI_ASSET_DIR replaces the stand-in, as in the JAX
+    package (it raised before the OBJ loader was ported)."""
+    (tmp_path / "PP.obj").write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
     monkeypatch.setenv("IZPI_ASSET_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tmisc.cornell_box_obj()
+    got, want = tmisc.cornell_box_obj(), j_obj()
+    assert len(got.world) == len(want.world) == 8
+    np.testing.assert_array_equal(got.world[-1].vertices,
+                                  want.world[-1].vertices)
+    _, meta = tcompiler.compile_scene(got, "cpu")
+    assert meta.n_prims == 8
 
 
 def test_failed_nvcc_build_raises(tmp_path, monkeypatch):

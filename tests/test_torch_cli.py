@@ -92,10 +92,23 @@ def test_checkpoint_and_profile_flags(tmp_path):
     ["--role", "leader"], ["--role", "worker"],
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--process-id", "1"], ["--shard-prims"], ["--num-workers", "2"]])
-def test_multihost_flags_exit_naming_a15(flags, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP A15"):
+def test_multihost_flags_exit_naming_a15(flags, tmp_path, monkeypatch):
+    """Multi-host rendering is ported; a flag of it alone exits before any
+    render with the flag it needs: --role leader|worker for the others,
+    --coordinator for a role without torchrun's environment."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="--role leader|--coordinator"):
         tcli.main(SMALL + flags + ["--output-file", str(tmp_path / "x.png")])
     assert not (tmp_path / "x.png").exists()
+
+
+def test_bare_host_worker_needs_a_rank(tmp_path, monkeypatch):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(SystemExit, match="--process-id"):
+        tcli.main(SMALL + ["--role", "worker", "--coordinator",
+                           "127.0.0.1:1", "--num-processes", "2",
+                           "--output-file", str(tmp_path / "x.png")])
 
 
 def test_cuda_without_a_card_fails(monkeypatch, tmp_path):

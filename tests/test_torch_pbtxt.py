@@ -181,13 +181,18 @@ def test_dragon_stand_in_size():
 
 
 def test_dragon_obj_asset_raises(tmp_path, monkeypatch):
-    """The OBJ loader is not ported: a real dragon mesh raises rather than
-    being replaced by the stand-in."""
+    """A real dragon mesh under IZPI_ASSET_DIR is loaded, as in the JAX
+    package, in place of the stand-in (it raised before the OBJ loader was
+    ported); one with no faces adds no mesh."""
     (tmp_path / "meshes").mkdir()
     (tmp_path / "meshes" / "dragon_tri.obj").write_text("v 0 0 0\n")
     monkeypatch.setenv("IZPI_ASSET_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        textracted.cornell_box_pbr_stanford_dragon_spectral(n_tris=100)
+    got = textracted.cornell_box_pbr_stanford_dragon_spectral(n_tris=100)
+    want = jextracted.cornell_box_pbr_stanford_dragon_spectral(n_tris=100)
+    assert len(got.world) == len(want.world)
+    assert not got.placeholder_assets and not want.placeholder_assets
+    assert all(type(h).__name__ != "TriangleMesh" or h.vertices.shape[0] < 100
+               for h in got.world)
 
 
 @pytest.mark.parametrize("filename", ["textures/wood_albedo.png",

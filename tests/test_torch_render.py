@@ -85,7 +85,8 @@ def test_port_imports_no_jax():
                  "spectral.whitebalance", "parallel.dist", "entry", "cli",
                  "__main__", "integrator.aov", "render.checkpoint",
                  "io.output", "io.postprocess", "io.display",
-                 "scene.izpi_binary"):
+                 "scene.izpi_binary", "geometry.wavefront_obj",
+                 "tools.texture_converter"):
         assert f"izpi_tpu_torch.{name}" in loaded, name
 
 
