@@ -8,9 +8,19 @@ per source, all at once, sm_90a) and then, in phases, each reporting on a
 line of its own:
   1. the card: `nvidia-smi --query-gpu=name,power.limit` (fails without CUDA);
   2. the build, and its seconds;
-  3. cipher: the device Threefry (`izpi_threefry_uniforms`) on 1M random
-     keys equals the PyTorch twin bit for bit, for the bounce, camera, λ and
-     media (two media, the count drawn at run time) draws;
+  3. cipher: the cipher entry (csrc/cipher.cu) on 1M random keys equals
+     the PyTorch twin bit for bit: its bounce form (`izpi_threefry_uniforms`)
+     for the bounce, camera, λ and media (two media, the count drawn at run
+     time) draws, and its new-sample form (`izpi_threefry_new_sample`: a
+     path key from the base key, the pixel and the sample id, alone, with
+     the camera's 5 uniforms, and with λ's too; per-ray sample ids and one
+     for all); then every form timed at 262,144 and 1M keys (CUDA events
+     around a CUDA graph of 50 launches) beside its bound counted from the
+     SASS `cuobjdump -sass` shows (its integer ALU instructions a key over
+     the INT32 pipe's rate, all its instructions over the issue rate, or
+     its bytes over the memory rate, whichever is larger; a width counted
+     at run time scales the 12-uniform form's instructions a cipher call),
+     and the plain version's time;
   4. kernel vs twin, both on the card, the twin on the card's layout
      (`megakernel.card_min_slots`: SLOTS_PER_THREAD slots per resident
      thread of the persistent grid), within stated tolerances:
@@ -50,18 +60,24 @@ line of its own:
      seconds, nodes, kernel and plain times and the bound;
   8. the queue pool through the kernel against the queue pool through the
      plain traversal, both on the card: `cornell_box_obj` 32×32 at 4 spp,
-     depth 50, within phase 4's tolerances;
+     depth 50, within phase 4's tolerances, one traversal launch a pool
+     body run (its CUDA graph's replays and its warm-up body);
   9. BVH main path: `render(cornell_box_obj(), 256, 256, 128,
      max_depth=50, seed=0, mode="wavefront", device="cuda")` through the
-     queue pool, one warm-up and one timed run; the traversal kernel's
-     counter must equal the pool iterations and the megakernels' must not
-     move; the image must be finite, green on the left, red on the right,
-     with the ceiling light at 15; the kernel's share of `render()` and its
-     time per launch (CUDA events); the cipher entry
-     `izpi_threefry_uniforms` at each (keys, uniforms) shape the warm-up
-     render called it with: its launches, its time per launch alone, its
-     bound and its plain version's time; and, for a 16-spp render of the
-     same frame, the device's idle share under torch.profiler;
+     queue pool, one warm-up run (which captures the pool's iteration as a
+     CUDA graph) and one timed run (which replays it: no capture, every
+     pool body a replay); the traversal kernel's counter (executed
+     launches: the capture's launches times the replays) must equal the
+     replays, with the pool iterations beside them, the new-sample form
+     must have launched and the megakernels' counters must not move; the
+     image must be finite, green on the left, red on the right, with the
+     ceiling light at 15; the cipher entry at each (form, keys, uniforms)
+     shape the timed render launched it with (the captured body's calls
+     once a replay): its launches, its time per launch alone, its bound
+     and its plain version's time; then L (below) on its frame, whose plain
+     loop gives the traversal kernel's time per launch (CUDA events) and
+     so its share of `render()`, and whose profile at 16 spp the device's
+     idle share;
  10. the row-stack traversal kernel (`ops.bvh_rowkernel`, one warp per 32
      rays) against its plain version (`bvh_rowkernel.closest_rows`), both
      on the card, on the leaf-64 trees of `cornell_box_obj`, of the dragon
@@ -88,14 +104,15 @@ line of its own:
      seed=0, mode="wavefront", device="cuda")`, a warm-up and a timed run
      through the BVH4 kernel (the default intersector), then a warm-up and a
      timed run through the row-stack pair in a RenderContext; each
-     traversal kernel's counter must equal the pool iterations of its run
-     and nothing else may launch; XYZ and ACEScg finite, the red wall (x =
+     traversal kernel's counter must equal its run's pool bodies (the
+     timed run's: its replays) and nothing else may launch; L (below)
+     through each; XYZ and ACEScg finite, the red wall (x =
      100, on the image's left: the camera's horizontal axis points to -x)
      red and the green wall (x = 0, right) green, the mesh region not
      black (mean Y above 1e-3); the two renders agree within phase 4's tolerances; rays,
-     seconds, Mrays/s, iterations, each kernel's share of `render()` (CUDA
-     events) and the device's idle share of a 2-spp render under
-     torch.profiler. The mesh region is the pixels whose centre's camera
+     seconds, Mrays/s, iterations, each kernel's share of `render()` (its
+     time per launch from L's plain loop) and the device's idle share (L's
+     profile at 8 spp). The mesh region is the pixels whose centre's camera
      ray first hits the porcelain; the stand-in's triangles face inward, so
      only its rim and what the glass sphere throws on it are lit. The
      dragon's meta must flag its stand-in mesh (`placeholder_assets`),
@@ -121,21 +138,20 @@ line of its own:
      against the CPU at 16×16@4 depth 16, rays and means within phase 4's
      tolerances and 99% of the pixels within 1e-4 + 1e-5·|CPU|; then
      bench.py's `pbr_ibl`, 256×256@256 depth 16, a warm-up and a timed run
-     (counters zeroed just before: the cipher entry `izpi_threefry_uniforms`
-     launched, nothing else), the sky above, the ground below and the
-     spheres lit, pool iterations, the cipher entry's launches, its time
-     alone, bound and plain time at each shape the warm-up called it with
-     (as in phase 9), and the device's idle share of a 16-spp render under
-     torch.profiler;
+     (counters zeroed just before: the cipher entry launched, nothing
+     else), the sky above, the ground below and the spheres lit, pool
+     iterations, the cipher entry's launches, its time alone, bound and
+     plain time at each shape the timed run launched it with (as in phase
+     9), and L (below) with its profile at 16 spp;
  15. the book-2 final scene (3,407 primitives, a smoke ball and a fog of
      radius 5000 as media, an image and a marble texture, a moving sphere)
      through the pool and the BVH4 kernel: the kernel against its plain
      version on its tree (phase 7's ray recipe from its camera), then
      256×256@16 depth 50, a warm-up and a timed run (counters zeroed just
-     before: the traversal kernel's launches equal the pool iterations, the
-     cipher entry's and nothing else), the kernel's ms per launch and share,
-     the cipher entry at each shape as in phase 14 (the media's two
-     uniforms a ray among them). Its light faces up (one-sided on its
+     before: the traversal kernel's launches equal the pool bodies run, the
+     cipher entry's and nothing else), the cipher entry at each shape as in
+     phase 14 (the media's two uniforms a ray among them), and L (below),
+     which gives the kernel's ms per launch and share. Its light faces up (one-sided on its
      record normal, as in the JAX package), so red and green must be 0 and
      some blue (the depth-cap sentinel) must show. Then the card against
      the CPU at 64×64@4, seed 0: rays within 0.5% and 99% of the pixels
@@ -175,6 +191,25 @@ line of its own:
      256×256@16 (the spectral pool on an RGB scene), timed, and the same
      path at 64×64@4 on the card against the CPU within phase 4's
      tolerances. Each render's seconds and Mrays/s are printed.
+  L. the pool's loop (`core.loops`) at each pool main path's frame
+     (phases 9, 12, 14 and 15: `cornell_box_obj` 256²@128 depth 50, the
+     dragon 256²@8 depth 16 through each traversal kernel, `pbr_ibl`
+     256²@256 depth 16 and `final` 256²@16 depth 50): the pool through the
+     plain loop (the same body, the end tested after every iteration, no
+     graph) and through the graphed loop (the context's CUDA graph from
+     the main-path render, replayed every `wavefront.pool_chunk`
+     iterations between tests of the end): rays and iterations equal,
+     pixels (XYZ for the dragon) within phase 4's tolerances; for each, its
+     seconds, Mrays/s, iterations, bodies run, replays, chunk and capture
+     seconds, the MiB the graph's capture added to
+     `torch.cuda.memory_reserved`, and under torch.profiler at a frame of
+     the same pool size its device events per iteration and the device's
+     idle share; in each profile the launches of the body's kernels
+     (`bvh4_traverse` or `bvh4_rowstack`, `bounce_tiles`,
+     `new_sample_tiles`), counted by name, must equal the bodies run times
+     the launches the graph's capture recorded a body (the new-sample form
+     once more for the pool's first issue): the replays are seen to run
+     the kernels, not only worked out from the capture.
 Then the distribution phases (`parallel.dist`), each on the one card with
 four gloo ranks that share it (`dist.spawn`, a process a rank; NCCL
 refuses two ranks on one card) unless it says otherwise, each rank's
@@ -222,9 +257,9 @@ The build line is followed by the ptxas registers and spills of every
 kernel (a megakernel that spills fails the run), each megakernel's
 persistent grid (blocks × threads) and slots, and the two traversal
 kernels' registers, spills, stack frame and shared memory per block, which
-phases 7, 10, 11 and 12 print again. The line before the last is a JSON object describing the five
+phases 7, 10, 11 and 12 print again. The line before the last is a JSON object describing the six
 kernels (the two megakernels, the two traversal kernels and the cipher
-entry), each with its time, its plain version's time and its bound (the
+entry's two forms), each with its time, its plain version's time and its bound (the
 least time the card could take for the work this run's inputs needed);
 the last is {"ok": true, "device": {...}}. Any failure, in this process or
 in a rank, raises and exits non-zero. Imports nothing of JAX.
@@ -236,6 +271,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -418,76 +454,400 @@ def launch_bound(label: str, rays: int, samples: int, draws, prim_kinds,
 
 
 @contextlib.contextmanager
-def recorded_cipher_shapes():
-    """Within the block, record the (keys, uniforms) shape of every call of
-    the cipher entry's wrapper `threefry.uniforms_for_keys` in the list it
-    yields."""
-    shapes = []
-    wrapper = threefry.uniforms_for_keys
+def recorded_cipher_calls():
+    """Within the block, record each call of the cipher entry's wrappers
+    (`threefry.uniforms_for_keys`, `threefry.new_samples`) as (form, keys,
+    uniforms) in the dict it yields: under "captured" the calls a CUDA
+    graph capture recorded (the pool's body, launched once a replay),
+    under "eager" the others (one launch each)."""
+    rec = {"eager": [], "captured": []}
+    uniforms, new = threefry.uniforms_for_keys, threefry.new_samples
 
-    def recording(keys, depths, n, salt):
-        shapes.append((int(keys.shape[0]), n))
-        return wrapper(keys, depths, n, salt)
+    def note(call):
+        rec["captured" if torch.cuda.is_current_stream_capturing()
+            else "eager"].append(call)
 
-    threefry.uniforms_for_keys = recording
+    def recording_uniforms(keys, depths, n, salt):
+        note(("bounce", int(keys.shape[0]), n))
+        return uniforms(keys, depths, n, salt)
+
+    def recording_new(base_key, pixel_ids, sample_ids, camera_salt=None,
+                      lambda_salt=None):
+        note(("new_sample", int(pixel_ids.shape[0]),
+              5 * (camera_salt is not None) + (lambda_salt is not None)))
+        return new(base_key, pixel_ids, sample_ids, camera_salt, lambda_salt)
+
+    threefry.uniforms_for_keys = recording_uniforms
+    threefry.new_samples = recording_new
     try:
-        yield shapes
+        yield rec
     finally:
-        threefry.uniforms_for_keys = wrapper
+        threefry.uniforms_for_keys, threefry.new_samples = uniforms, new
 
 
-def cipher_on_path(shapes, launches: int, card: str,
-                   path_name: str = "the BVH main path") -> dict:
-    """The cipher entry `izpi_threefry_uniforms` at the (keys, uniforms)
-    shapes a main path called it with (`shapes`, one per call): for each
-    shape its calls, the entry's time per launch alone on random keys (the
-    keys already words, as the wrapper hands them over), its bound and the
-    plain version's time; and over the path, launches x (time - bound).
-    Raises unless the shapes are as many as the path's `launches`."""
-    if len(shapes) != launches:
-        raise AssertionError(f"{len(shapes)} cipher calls recorded, "
-                             f"{launches} launched")
+def executed_cipher_calls(warm: dict, timed: dict, replays: int) -> list:
+    """The cipher launches of a render whose pool replayed, `replays`
+    times, the body the warm-up render captured: its own eager calls and
+    the captured body's calls once a replay."""
+    return timed["eager"] + warm["captured"] * replays
+
+
+def cipher_launcher(form: str, n_keys: int, n_u: int, seed: int = 3):
+    """(launch, plain) of the cipher entry's `form` ("bounce": n_u
+    uniforms a key; "new_sample": the path key, with n_u = 5 the camera's
+    uniforms, with 6 λ's too) on n_keys random keys: launch() calls the C
+    entry on the stream current at the call (int64 words, as the wrappers
+    hand them over), plain() the plain version on the same inputs."""
     lib = _build.load()
-    rs = np.random.RandomState(3)
-    rows, excess = [], 0.0
-    for (n_keys, n_u), calls in sorted(
-            {sh: shapes.count(sh) for sh in set(shapes)}.items()):
-        words = torch.as_tensor(rs.randint(-2**31, 2**31, (n_keys, 3),
-                                           dtype=np.int64).astype(np.int32),
-                                device="cuda")
-        k32, d32 = words[:, :2].contiguous(), words[:, 2].contiguous()
+    rs = np.random.RandomState(seed)
+    words = torch.as_tensor(rs.randint(0, 2**32, (n_keys, 3), dtype=np.uint64)
+                            .astype(np.int64), device="cuda")
+
+    def check(err, name):
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    if form == "bounce":
+        keys, depths = words[:, :2].contiguous(), words[:, 2].contiguous()
         out = torch.empty((n_keys, n_u), dtype=torch.float32, device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
 
         def launch():
-            err = lib.izpi_threefry_uniforms(
-                k32.data_ptr(), d32.data_ptr(), n_keys, n_u, 0, out.data_ptr(),
-                stream)
-            if err != 0:
-                raise RuntimeError(f"izpi_threefry_uniforms: CUDA error {err}")
+            check(lib.izpi_threefry_uniforms(
+                keys.data_ptr(), depths.data_ptr(), n_keys, n_u, 0,
+                out.data_ptr(), stream()), "izpi_threefry_uniforms")
 
-        ms = cuda_ms(launch, 20)
-        keys64 = (k32.to(torch.int64) & 0xFFFFFFFF)
-        depths64 = d32.to(torch.int64) & 0xFFFFFFFF
-        plain = cuda_ms(lambda: threefry.uniforms_for_keys_reference(
-            keys64, depths64, n_u, 0), 2)
-        calls_per_key = 2 + (n_u + 1) // 2   # two fold-ins and the pairs
-        bound = 1e3 * max(
-            n_keys * (calls_per_key * CIPHER_INT + n_u * UNIFORM_INT)
-            / INT32_OPS_PER_S,
-            n_keys * (8 + 4 + 4 * n_u) / HBM_BYTES_PER_S)
-        excess += calls * (ms - bound)
-        rows.append(dict(keys=n_keys, uniforms=n_u, calls=calls, ms=ms,
-                         plain_ms=plain, bound_ms=bound))
-        print(f"cipher on {path_name}: {calls} launches of {n_keys} keys "
-              f"x {n_u} uniforms: {ms:.4f} ms per launch, bound {bound:.4f} ms "
-              f"by operations, plain {plain:.3f} ms ({card})", flush=True)
-    top = max(rows, key=lambda r: r["calls"])
+        return launch, lambda: threefry.uniforms_for_keys_reference(
+            keys, depths, n_u, 0)
+    base = words[0, :2].contiguous()
+    pix, sid = words[:, 1].contiguous(), words[:, 2].contiguous()
+    keys = torch.empty((n_keys, 2), dtype=torch.int64, device="cuda")
+    cam = (torch.empty((n_keys, 5), dtype=torch.float32, device="cuda")
+           if n_u >= 5 else None)
+    lam = (torch.empty((n_keys,), dtype=torch.float32, device="cuda")
+           if n_u == 6 else None)
+    salts = (camera.CAMERA_SALT, wavefront.LAMBDA_SALT)[:{0: 0, 5: 1, 6: 2}[n_u]]
+
+    def launch():
+        check(lib.izpi_threefry_new_sample(
+            base.data_ptr(), pix.data_ptr(), sid.data_ptr(), 0, n_keys,
+            camera.CAMERA_SALT, wavefront.LAMBDA_SALT, keys.data_ptr(),
+            None if cam is None else cam.data_ptr(),
+            None if lam is None else lam.data_ptr(), stream()),
+            "izpi_threefry_new_sample")
+
+    return launch, lambda: threefry.new_samples_reference(base, pix, sid,
+                                                          *salts)
+
+
+def cipher_calls(form: str, n_u: int) -> int:
+    """Cipher calls a key of the cipher entry's form: a bounce draw's two
+    fold-ins and a pair for two uniforms; a new sample's two fold-ins of
+    the path key, then the camera's (two fold-ins and 3 pairs) and λ's
+    (one more fold-in and a pair)."""
+    if form == "bounce":
+        return 2 + (n_u + 1) // 2
+    return 2 + (5 if n_u >= 5 else 0) + (2 if n_u == 6 else 0)
+
+
+# The integer ALU instructions of the SASS (the INT32 pipe: 64 lanes an SM);
+# every instruction issues at 4 warps an SM a clock (128 lanes).
+SASS_INT_ALU = {"IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "IMNMX", "PRMT",
+                "IABS", "POPC", "FLO", "BREV", "SGXT", "BMSK", "LOP", "IADD",
+                "SHL", "SHR"}
+CLOCK_HZ = 1.98e9
+# The cipher entry's kernels by form (their mangled names hold these), and
+# the keys each thread takes a tile (csrc/cipher.cu kKeysPerThread).
+CIPHER_KERNELS = {("bounce", 12): "bounce_tilesILi12E",
+                  ("bounce", 5): "bounce_tilesILi5E",
+                  ("bounce", 1): "bounce_tilesILi1E",
+                  ("new_sample", 0): "new_sample_tilesILb0ELb0E",
+                  ("new_sample", 5): "new_sample_tilesILb1ELb0E",
+                  ("new_sample", 6): "new_sample_tilesILb1ELb1E"}
+KEYS_PER_THREAD = 2
+# {kernel's mangled name: {opcode: instructions}} of the built library's
+# SASS; phase 3 fills it.
+SASS = {}
+
+
+def sass_counts(lib_path) -> dict:
+    """{kernel's mangled name: {opcode: instructions}} of the library's
+    SASS (`cuobjdump -sass`, beside nvcc)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                     line)
+        if m and name:
+            op = m.group(1)
+            out[name][op] = out[name].get(op, 0) + 1
+    return out
+
+
+def _sass_per_key(form: str, n_u: int):
+    """(integer ALU, all) instructions a key of the form's kernel in
+    `SASS`: its tile's straight-line code runs once per thread for
+    KEYS_PER_THREAD keys. A bounce width that the entry counts at run time
+    (its pair loop's trip count is data, not code) takes the 12-uniform
+    form's instructions a cipher call, times its own cipher calls."""
+    if (form, n_u) not in CIPHER_KERNELS:
+        if form != "bounce":
+            raise ValueError(f"no kernel of the {form} form draws {n_u}")
+        alu, total = _sass_per_key("bounce", 12)
+        scale = cipher_calls(form, n_u) / cipher_calls("bounce", 12)
+        return alu * scale, total * scale
+    tag = CIPHER_KERNELS[(form, n_u)]
+    fn = next((c for k, c in SASS.items() if tag in k), None)
+    if fn is None:
+        raise AssertionError(f"no kernel {tag} in the library's SASS")
+    alu = sum(n for op, n in fn.items() if op in SASS_INT_ALU)
+    return alu / KEYS_PER_THREAD, sum(fn.values()) / KEYS_PER_THREAD
+
+
+def cipher_bound(form: str, n_keys: int, n_u: int):
+    """The least milliseconds of the cipher entry's form on n_keys keys,
+    counted from the SASS that `cuobjdump -sass` shows (`SASS`): per key
+    its integer ALU instructions over the INT32 pipe's lanes, or all its
+    instructions over the issue rate (both "operations"), or its bytes
+    (each input read once, each output written once) over the memory rate
+    ("bytes"), whichever is larger. Returns (ms, bound_by, what bounds it
+    in words, (integer ALU, all) instructions a key)."""
+    per_key = _sass_per_key(form, n_u)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_alu = n_keys * per_key[0] / (64 * sms * CLOCK_HZ)
+    t_issue = n_keys * per_key[1] / (128 * sms * CLOCK_HZ)
+    nbytes = (16 + 8 + 4 * n_u) if form == "bounce" else (32 + 4 * n_u)
+    t_bytes = n_keys * nbytes / HBM_BYTES_PER_S
+    t = max(t_alu, t_issue, t_bytes)
+    what = ("integer ALU instructions" if t == t_alu else
+            "issued instructions" if t == t_issue else "bytes")
+    return 1e3 * t, "bytes" if t == t_bytes else "operations", what, per_key
+
+
+def cipher_forms(card: str) -> list:
+    """Phase 3's timing of every form of the cipher entry at the pool's
+    batch (262,144 keys) and at 1M keys: its time (CUDA events around a
+    CUDA graph of 50 launches, so the host's launch cost is not timed), its
+    bound counted from the SASS (`cipher_bound`), and the plain version's
+    time."""
+    rows = []
+    for n_keys in (1 << 18, 1 << 20):
+        for form, n_u in (("bounce", 12), ("bounce", 5), ("bounce", 1),
+                          ("bounce", 2), ("new_sample", 0),
+                          ("new_sample", 5), ("new_sample", 6)):
+            launch, plain = cipher_launcher(form, n_keys, n_u)
+            ms = profiling.graph_ms(launch, 50)
+            plain_ms = cuda_ms(plain, 2)
+            bound, by, what, per_key = cipher_bound(form, n_keys, n_u)
+            calls = cipher_calls(form, n_u)
+            rows.append(dict(form=form, keys=n_keys, uniforms=n_u, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             bound_by_sass=what, cipher_calls_a_key=calls,
+                             sass_instructions_a_key=per_key))
+            scaled = ("" if (form, n_u) in CIPHER_KERNELS else
+                      ", scaled from the 12-uniform form's a cipher call")
+            print(f"cipher form: {form} x {n_u} at {n_keys} keys: {ms:.5f} ms "
+                  f"per launch; SASS bound {bound:.5f} ms by {what} "
+                  f"({per_key[0]:g} integer ALU of {per_key[1]:g} "
+                  f"instructions a key{scaled}; {calls} cipher calls a key), "
+                  f"{bound / ms:.1%} of it; plain {plain_ms:.3f} ms ({card})",
+                  flush=True)
+    return rows
+
+
+def cipher_on_path(calls, launches: int, card: str,
+                   path_name: str = "the BVH main path") -> dict:
+    """The cipher entry at the (form, keys, uniforms) calls a main path
+    made (`calls`, one per launch): for each shape its launches, the
+    entry's time per launch alone on random keys (`profiling.graph_ms`), its
+    bound (`cipher_bound`, from the SASS) and the plain version's time; and
+    over the path, launches x (time - bound). Raises unless the calls are
+    as many as the path's `launches`."""
+    if len(calls) != launches:
+        raise AssertionError(f"{len(calls)} cipher calls recorded, "
+                             f"{launches} launched")
+    rows, excess = [], 0.0
+    for (form, n_keys, n_u), count in sorted(
+            {sh: calls.count(sh) for sh in set(calls)}.items()):
+        launch, plain = cipher_launcher(form, n_keys, n_u)
+        ms = profiling.graph_ms(launch, 50)
+        plain_ms = cuda_ms(plain, 2)
+        bound, by, what, _ = cipher_bound(form, n_keys, n_u)
+        excess += count * (ms - bound)
+        rows.append(dict(form=form, keys=n_keys, uniforms=n_u, calls=count,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by))
+        print(f"cipher on {path_name}: {count} launches of the {form} form, "
+              f"{n_keys} keys x {n_u} uniforms: {ms:.5f} ms per launch, SASS "
+              f"bound {bound:.5f} ms by {what}, plain {plain_ms:.3f} ms "
+              f"({card})", flush=True)
+    top = max((r for r in rows if r["form"] == "bounce"),
+              key=lambda r: r["calls"], default=rows[0] if rows else None)
+    sample = next((r for r in rows if r["form"] == "new_sample"), None)
     print(f"cipher on {path_name}: {launches} launches, launches x "
           f"(time - bound) = {excess:.3f} ms a render ({card})", flush=True)
-    return dict(launches=launches, shapes=rows, excess_ms=excess, ms=top["ms"],
-                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-                shape=(top["keys"], top["uniforms"]))
+    return dict(launches=launches, shapes=rows, excess_ms=excess,
+                ms=top["ms"] if top else None,
+                plain_ms=top["plain_ms"] if top else None,
+                bound_ms=top["bound_ms"] if top else None,
+                bound_by=top["bound_by"] if top else None,
+                shape=(top["keys"], top["uniforms"]) if top else None,
+                new_sample=sample)
+
+
+def image_close(label: str, acc_a, rays_a: int, acc_b, rays_b: int,
+                spp: int) -> float:
+    """Two RGB accumulators of one render, `b` the reference, held to phase
+    4's tolerances (rays, the share of pixels within PIXEL_ATOL, means).
+    Returns the largest absolute pixel error."""
+    img_a, img_b = acc_a / spp, acc_b / spp
+    pix_err = (img_a - img_b).abs().amax(dim=1)
+    share = float((pix_err <= PIXEL_ATOL).float().mean())
+    rays_rel = abs(rays_a - rays_b) / rays_b
+    mean_rel = abs(float(img_a.mean()) / float(img_b.mean()) - 1)
+    print(f"{label}: rays {rays_a} vs {rays_b} (rel {rays_rel:.2e}, tol "
+          f"{RAYS_RTOL}); pixels within {PIXEL_ATOL}: {share:.6f} (tol "
+          f"{PIXEL_SHARE}); max abs err {float(pix_err.max()):.3e}; mean rel "
+          f"{mean_rel:.2e} (tol {MEAN_RTOL})", flush=True)
+    if not (bool(torch.isfinite(img_a).all()) and rays_rel <= RAYS_RTOL
+            and share >= PIXEL_SHARE and mean_rel <= MEAN_RTOL):
+        raise AssertionError(f"{label}: the two renders disagree")
+    return float(pix_err.max())
+
+
+def loop_phase(label: str, ctx, n: int, spp: int, settings, card: str,
+               prof_spp: int, kernel=None) -> dict:
+    """The pool's loop at a main path's frame (the module docstring, L):
+    the plain loop (the same body, the end tested after every iteration,
+    no graph; `kernel`, a (module, wrapper) pair, timed by CUDA events
+    around each of its launches) against the graphed loop (the context's
+    graph, which its main-path render captured), both through
+    `trace_pool`'s body: rays and iterations equal, pixels within phase 4's
+    tolerances. Then each at prof_spp (the same pool size) under
+    torch.profiler: device events per iteration and the idle share."""
+    dev = ctx.device
+    spectral = bool(ctx.meta.spectral)
+    bg = ctx.meta.spectral_background_spd or 0
+    key = rng.render_key(0, device=dev)
+
+    def pool(spp_):
+        return min(n * n * spp_, renderer.POOL_MAX)
+
+    def plain(spp_, stats=None):
+        return wavefront._trace_pool(
+            ctx.cs, ctx.meta, settings, ctx.intersect, n, n, spp_, key,
+            pool(spp_), spectral, bg, 0, 1, False, stats=stats)
+
+    def graphed(spp_, stats=None):
+        return wavefront.trace_pool(
+            ctx.cs, ctx.meta, settings, ctx.intersect, n, n, spp_, key,
+            pool(spp_), spectral=spectral, bg_spd_id=bg, graphs=ctx.graphs,
+            stats=stats)
+
+    def timed(fn):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc, rays, its = fn(spp, stats)
+        torch.cuda.synchronize()
+        return acc, int(rays), its, time.perf_counter() - t0, stats
+
+    times = []
+    if kernel is not None:
+        with profiling.event_timed(*kernel) as times:
+            acc_p, rays_p, its_p, sec_p, st_p = timed(plain)
+    else:
+        acc_p, rays_p, its_p, sec_p, st_p = timed(plain)
+    acc_g, rays_g, its_g, sec_g, st_g = timed(graphed)
+    if st_g["capture_seconds"] or st_g["replays"] != st_g["trips"]:
+        raise AssertionError(f"{label}: the graphed loop captured anew "
+                             f"({st_g})")
+    compare = compare_xyz if spectral else image_close
+    err = compare(f"loop: {label} {n}x{n}@{spp}, graphed vs plain loop",
+                  acc_g, rays_g, acc_p, rays_p, spp)
+    if rays_g != rays_p or its_g != its_p:
+        raise AssertionError(f"{label}: the graphed loop traced {rays_g} rays "
+                             f"in {its_g} iterations, the plain loop "
+                             f"{rays_p} in {its_p}")
+    kernel_ms = (profiling.event_ms(times) / len(times)) if times else None
+    per_body = body_kernels(st_g["per_body"])
+    prof = {}
+    for name, fn in (("plain", plain), ("graphed", graphed)):
+        got, st = {}, {}
+
+        def run(fn=fn, got=got, st=st):
+            got["its"] = fn(prof_spp, st)[2]
+
+        wall, busy, rows = profiling.device_profile(run)
+        events = sum(count for _, _, count in rows)
+        # Each body launches its kernels; the pool's first issue, before
+        # the loop, launches the new-sample form once more.
+        want = {k: st["trips"] * n + (k == "new_sample_tiles")
+                for k, n in per_body.items()}
+        seen = {k: sum(c for _, key, c in rows if k in key) for k in want}
+        print(f"loop: {label} at {prof_spp} spp through the {name} loop: "
+              f"kernels in the profile {seen}, worked out {want} "
+              f"({st['trips']} bodies run x {per_body} a body)", flush=True)
+        if seen != want:
+            raise AssertionError(f"{label}: the profile of the {name} loop "
+                                 f"holds {seen} kernel launches, not {want}")
+        prof[name] = dict(spp=prof_spp, wall_s=wall, busy_s=busy,
+                          idle_share=1 - busy / wall, events=events,
+                          iterations=got["its"], trips=st["trips"],
+                          kernels_in_profile=seen,
+                          events_per_iteration=events / max(got["its"], 1))
+    out = {}
+    for name, sec, its, st in (("plain", sec_p, its_p, st_p),
+                               ("graphed", sec_g, its_g, st_g)):
+        out[name] = dict(seconds=sec, mrays_per_sec=rays_g / sec / 1e6,
+                         iterations=its, trips=st["trips"],
+                         replays=st["replays"], chunk=st["chunk"],
+                         capture_seconds=st["capture_seconds"],
+                         profile=prof[name])
+        pr = prof[name]
+        print(f"loop: {label} {n}x{n}@{spp} through the {name} loop: "
+              f"{sec:.4f} s, {rays_g / sec / 1e6:.3f} Mrays/s, {its} "
+              f"iterations, {st['trips']} bodies run, {st['replays']} "
+              f"replays, chunk {st['chunk']}, capture "
+              f"{st['capture_seconds']:.4f} s; at {prof_spp} spp under "
+              f"torch.profiler: {pr['events_per_iteration']:.1f} device "
+              f"events per iteration, idle share {pr['idle_share']:.2%} "
+              f"(wall {pr['wall_s']:.4f} s, busy {pr['busy_s']:.4f} s) "
+              f"({card})", flush=True)
+    graph_mib = st_g["graph_bytes"] / 2**20
+    print(f"loop: {label}: graphed / plain seconds {sec_g / sec_p:.3f}; the "
+          f"context's graph holds {graph_mib:.1f} MiB that its capture added "
+          f"to torch.cuda.memory_reserved ({card})"
+          + (f"; the traversal kernel {kernel_ms:.4f} ms per launch over the "
+             f"plain loop's {len(times)} launches (CUDA events)"
+             if kernel_ms else ""), flush=True)
+    return dict(out, rays=rays_g, max_abs_err=err, kernel_ms=kernel_ms,
+                kernel_launches_plain=len(times), graph_mib=graph_mib,
+                kernels_a_body=per_body)
+
+
+def body_kernels(per_body: dict) -> dict:
+    """{kernel's name in a profile: launches a pool body} from a captured
+    body's launches by counter (`trace_pool`'s stats["per_body"]); a
+    megakernel has no place in the body."""
+    if per_body[("megakernel", "launches")] or per_body[
+            ("megakernel_spectral", "launches")]:
+        raise AssertionError(f"a megakernel in the pool's body: {per_body}")
+    sample = per_body[("threefry", "sample_launches")]
+    out = {"bvh4_traverse": per_body[("bvh_kernel", "launches")],
+           "bvh4_rowstack": per_body[("bvh_rowkernel", "launches")],
+           "bounce_tiles": per_body[("threefry", "launches")] - sample,
+           "new_sample_tiles": sample}
+    return {k: n for k, n in out.items() if n}
 
 
 def traversal_build(usage: dict, label: str) -> dict:
@@ -880,10 +1240,10 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
     s11 = path.RenderSettings(max_depth=DRAGON_DEPTH)
     key11 = rng.render_key(0, device=dev)
     bg11 = d3ctx.meta.spectral_background_spd or 0
-    before = bvh_rowkernel.launches
+    before, stats11 = bvh_rowkernel.launches, {}
     acc4, rays4, it4 = wavefront.trace_pool(
         d4ctx.cs, d4ctx.meta, s11, d4ctx.intersect, 32, 32, 4, key11, 4096,
-        spectral=True, bg_spd_id=bg11)
+        spectral=True, bg_spd_id=bg11, stats=stats11)
     launched4 = bvh_rowkernel.launches - before
     acc3, rays3, it3 = wavefront.trace_pool(
         d3ctx.cs, d3ctx.meta, s11, d3ctx.intersect, 32, 32, 4, key11, 4096,
@@ -894,9 +1254,9 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
           flush=True)
     compare_xyz("pool: dragon row-stack vs BVH4 kernel", acc4, int(rays4), acc3,
                 int(rays3), 4)
-    if launched4 != it4:
-        raise AssertionError(f"{launched4} row-stack launches in {it4} pool "
-                             f"iterations")
+    if launched4 != stats11["trips"]:
+        raise AssertionError(f"{launched4} row-stack launches in "
+                             f"{stats11['trips']} pool bodies run")
 
     # 12. The dragon main path through each traversal kernel, through the
     # entry points a user calls.
@@ -923,29 +1283,33 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
         zero_counts()
         warm = dragon_render(ctx, DRAGON_SPP)
         moved = read_counts()
-        if mod.launches != warm.iterations or sum(moved.values()) != (
+        if mod.launches != warm.trips or sum(moved.values()) != (
                 mod.launches + threefry.launches):
             raise AssertionError(f"dragon warm-up through {name}: launches "
-                                 f"{moved} in {warm.iterations} iterations")
+                                 f"{moved} in {warm.trips} bodies run")
         zero_counts()
-        with profiling.event_timed(mod, fn) as times:
-            res12 = dragon_render(ctx, DRAGON_SPP)
-        kernel_ms = profiling.event_ms(times)
+        res12 = dragon_render(ctx, DRAGON_SPP)
         moved = read_counts()
+        launched = moved[mod.__name__.rsplit(".", 1)[1]]
+        loop12 = loop_phase(f"dragon through {name}", ctx, DRAGON_SIZE,
+                            DRAGON_SPP, s12, card, DRAGON_SPP, (mod, fn))
+        kernel_ms = loop12["kernel_ms"] * launched
         print(f"dragon main path through {name}: {DRAGON_SIZE}x{DRAGON_SIZE}@"
               f"{DRAGON_SPP} depth {DRAGON_DEPTH} seed 0 on "
               f"{res12.device}: {res12.rays_traced} rays in {res12.seconds:.4f} "
               f"s = {res12.mrays_per_sec:.3f} Mrays/s in {res12.iterations} "
-              f"pool iterations (warm-up {warm.seconds:.4f} s, "
-              f"{warm.rays_traced} rays; {card}); launches {moved}; {name} "
-              f"{kernel_ms:.3f} ms = {kernel_ms / 1e3 / res12.seconds:.2%} of "
-              f"render() (CUDA events), {kernel_ms / len(times):.4f} ms per "
-              f"launch", flush=True)
-        if (mod.launches != res12.iterations or sum(moved.values())
-                != mod.launches + threefry.launches):
+              f"pool iterations, {res12.trips} bodies run, {res12.replays} "
+              f"replayed (warm-up {warm.seconds:.4f} s with its capture "
+              f"{warm.capture_seconds:.4f} s, {warm.rays_traced} rays; "
+              f"{card}); launches {moved}; {name} {loop12['kernel_ms']:.4f} "
+              f"ms per launch (the plain loop's, CUDA events) x {launched} "
+              f"= {kernel_ms / 1e3 / res12.seconds:.2%} of render()",
+              flush=True)
+        if (launched != res12.replays or res12.replays != res12.trips
+                or sum(moved.values()) != launched + moved["threefry"]):
             raise AssertionError(f"the dragon main path through {name} "
-                                 f"launched {moved} in {res12.iterations} "
-                                 f"iterations")
+                                 f"launched {moved} in {res12.replays} "
+                                 f"replays of {res12.trips} bodies")
         if res12.rays_traced != warm.rays_traced:
             raise AssertionError(f"two dragon renders through {name} differ")
         xyz, img = res12.xyz, res12.image
@@ -973,22 +1337,18 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
                                  "green on the right")
         if not mesh_y > 1e-3:
             raise AssertionError(f"dragon mesh region is black (Y {mesh_y})")
-        wall12, busy12, _ = profiling.device_profile(
-            lambda: dragon_render(ctx, 2))
-        print(f"dragon main path through {name}, {DRAGON_SIZE}x{DRAGON_SIZE}@2 "
-              f"under "
-              f"torch.profiler: wall {wall12:.4f} s, device busy "
-              f"{busy12:.4f} s, idle share {1 - busy12 / wall12:.2%}",
-              flush=True)
         dres[name] = res12
         dragon_runs[name] = {
             "launches": moved[mod.__name__.rsplit(".", 1)[1]],
             "rays": res12.rays_traced,
             "seconds": res12.seconds, "mrays_per_sec": res12.mrays_per_sec,
-            "iterations": res12.iterations,
+            "iterations": res12.iterations, "trips": res12.trips,
+            "replays": res12.replays,
+            "capture_seconds": warm.capture_seconds,
             "kernel_share": kernel_ms / 1e3 / res12.seconds,
-            "ms_per_launch": kernel_ms / len(times),
-            "profiled_idle_share_2spp": 1 - busy12 / wall12,
+            "ms_per_launch": loop12["kernel_ms"],
+            "profiled_idle_share": loop12["graphed"]["profile"]["idle_share"],
+            "loop": loop12,
             "placeholder_assets": list(ctx.meta.placeholder_assets)}
     compare_xyz("dragon main path: row-stack vs BVH4 kernel (XYZ after "
                 "firefly rejection)",
@@ -1018,40 +1378,54 @@ def timed_render(label: str, ctx, n: int, spp: int, settings, card: str,
                  module, fn: str, launches_of):
     """A warm-up render of `ctx`'s scene and a timed one through the entry
     points a user calls, every launch counter zeroed just before the timed
-    run and read just after; `module.fn` (the kernel's wrapper) runs between
-    CUDA events. `launches_of(res)` is the count the kernel must show, or
-    None for at least one; the other kernels but the cipher entry must show
-    none. The two runs must trace the same rays. Returns (result, counts,
-    kernel ms summed, calls, the cipher entry's shapes in the warm-up)."""
+    run and read just after. `launches_of(res)` is the count the kernel of
+    `module` must show, or None for at least one; the other kernels but the
+    cipher entry must show none. The two runs must trace the same rays. A
+    megakernel's wrapper `module.fn` runs between CUDA events; a pool
+    render's launches come from its CUDA graph's replays, which the host
+    does not see, so its kernel is timed in `loop_phase`. Returns (result,
+    counts, kernel ms summed or None, calls, the cipher entry's calls in
+    the timed run, one per launch)."""
     def run():
         return renderer.render(None, n, n, spp, settings, seed=0,
                                mode="wavefront", context=ctx, device="cuda")
 
-    with recorded_cipher_shapes() as shapes:
+    with recorded_cipher_calls() as warm_calls:
         warm = run()
     zero_counts()
-    with profiling.event_timed(module, fn) as times:
+    with recorded_cipher_calls() as timed_calls, \
+            profiling.event_timed(module, fn) as times:
         res = run()
     counts = read_counts()
-    kernel_ms = profiling.event_ms(times)
+    pool = res.trips is not None
+    kernel_ms = None if pool else profiling.event_ms(times)
+    calls = counts[module.__name__.rsplit(".", 1)[1]] if pool else len(times)
     name = module.__name__.rsplit(".", 1)[1]
+    loop = (f", {res.trips} bodies run, {res.replays} replayed (the warm-up's "
+            f"capture {warm.capture_seconds:.4f} s)" if pool else "")
+    timing = (f"; {name}.{fn} {kernel_ms:.3f} ms over {len(times)} calls = "
+              f"{kernel_ms / 1e3 / res.seconds:.2%} of render() (CUDA events)"
+              if not pool else "")
     print(f"{label}: {n}x{n}@{spp} depth {settings.max_depth} seed 0 on "
           f"{res.device}: {res.rays_traced} rays in {res.seconds:.4f} s = "
-          f"{res.mrays_per_sec:.3f} Mrays/s, pool iterations {res.iterations} "
-          f"(warm-up {warm.seconds:.4f} s, {warm.rays_traced} rays; {card}); "
-          f"launches {counts}; {name}.{fn} {kernel_ms:.3f} ms over "
-          f"{len(times)} calls = {kernel_ms / 1e3 / res.seconds:.2%} of "
-          f"render() (CUDA events)", flush=True)
+          f"{res.mrays_per_sec:.3f} Mrays/s, pool iterations {res.iterations}"
+          f"{loop} (warm-up {warm.seconds:.4f} s, {warm.rays_traced} rays; "
+          f"{card}); launches {counts}{timing}", flush=True)
     others = sum(v for k, v in counts.items() if k not in (name, "threefry"))
     want = launches_of(res)
     if ((counts[name] != want if want is not None else counts[name] < 1)
-            or others or len(times) != counts[name]):
+            or others or calls != counts[name]
+            or (pool and (res.replays != res.trips
+                          or res.capture_seconds != 0))):
         raise AssertionError(f"{label}: launches {counts} for "
-                             f"{res.iterations} pool iterations")
+                             f"{res.iterations} pool iterations, {res.trips} "
+                             f"bodies run, {res.replays} replayed")
     if res.rays_traced != warm.rays_traced:
         raise AssertionError(f"{label}: two renders traced {warm.rays_traced} "
                              f"and {res.rays_traced} rays")
-    return res, counts, kernel_ms, len(times), shapes
+    cipher_calls = (executed_cipher_calls(warm_calls, timed_calls, res.replays)
+                    if pool else timed_calls["eager"])
+    return res, counts, kernel_ms, calls, cipher_calls
 
 
 def texture_phases(card: str, usage: dict) -> dict:
@@ -1107,8 +1481,9 @@ def texture_phases(card: str, usage: dict) -> dict:
     # The engine policy: the same render through the queue pool and the
     # BVH4 kernel, as a scene above BVH_THRESHOLD would take it.
     pctx = renderer.RenderContext(scene, use_bvh=True, device=dev)
-    renderer.render(None, 32, 32, 2, s13, seed=1, mode="pool", context=pctx,
-                    device="cuda")
+    # A warm-up at the same pool size captures the pool's graph.
+    renderer.render(None, SHIRLEY_SIZE, SHIRLEY_SIZE, 4, s13, seed=1,
+                    mode="pool", context=pctx, device="cuda")
     zero_counts()
     pres = renderer.render(None, SHIRLEY_SIZE, SHIRLEY_SIZE, SHIRLEY_SPP, s13,
                            seed=0, mode="pool", context=pctx, device="cuda")
@@ -1125,7 +1500,7 @@ def texture_phases(card: str, usage: dict) -> dict:
           f"mean rel {mean_rel:.2e}, pixels within {PIXEL_ATOL} {close:.4f} "
           f"(tol {PIXEL_SHARE}; {card})", flush=True)
     if (rays_rel > RAYS_RTOL or mean_rel > MEAN_RTOL or close < PIXEL_SHARE
-            or pcounts["bvh_kernel"] != pres.iterations):
+            or pcounts["bvh_kernel"] != pres.trips):
         raise AssertionError("random_scene: the pool with the BVH disagrees "
                              "with the megakernel")
     out["shirley"] = dict(
@@ -1162,26 +1537,24 @@ def texture_phases(card: str, usage: dict) -> dict:
     print(f"pbr_ibl: {ctx.meta.n_prims} prims, combined stack "
           f"{tuple(ctx.cs.textures.combined.shape)}, megakernel-eligible "
           f"{ctx.mega_supported()}", flush=True)
-    res, counts, _, _, shapes = timed_render(
+    res, counts, _, _, ibl_calls = timed_render(
         "pbr_ibl main path", ctx, IBL_SIZE, IBL_SPP, s14, card, threefry,
         "uniforms_for_keys", lambda r: None)
-    ibl_cipher = cipher_on_path(shapes, counts["threefry"], card,
+    ibl_cipher = cipher_on_path(ibl_calls, counts["threefry"], card,
                                 "the pbr_ibl main path")
     bands = image_checks("pbr_ibl image", res.image, IBL_SIZE)
     if not (bands["top"][2] > bands["top"][0] and bands["bottom"][0]
             > bands["bottom"][2] and bands["centre"][1] > 0.02):
         raise AssertionError("pbr_ibl: expected the sky above, the ground "
                              "below and the spheres lit")
-    wall, busy, _ = profiling.device_profile(lambda: renderer.render(
-        None, IBL_SIZE, IBL_SIZE, 16, s14, seed=0, context=ctx, device="cuda"))
-    print(f"pbr_ibl profile: {IBL_SIZE}x{IBL_SIZE}@16 under torch.profiler: "
-          f"wall {wall:.4f} s, device busy {busy:.4f} s, idle share "
-          f"{1 - busy / wall:.2%} ({card})", flush=True)
+    loop14 = loop_phase("pbr_ibl", ctx, IBL_SIZE, IBL_SPP, s14, card, 16)
     out["pbr_ibl"] = dict(
         rays=res.rays_traced, seconds=res.seconds,
         mrays_per_sec=res.mrays_per_sec, iterations=res.iterations,
+        trips=res.trips, replays=res.replays,
         cipher_launches=counts["threefry"], cipher=ibl_cipher, image=bands,
-        profiled_idle_share_16spp=1 - busy / wall)
+        profiled_idle_share_16spp=loop14["graphed"]["profile"]["idle_share"],
+        loop=loop14)
     del ctx
     torch.cuda.empty_cache()
 
@@ -1196,11 +1569,14 @@ def texture_phases(card: str, usage: dict) -> dict:
     trav = compare_traversal("final", ks, traversal_rays(
         ks, ctx.cs.camera, TRAVERSE_RAYS, 15), card)
     s15 = path.RenderSettings(max_depth=FINAL_DEPTH)
-    res, counts, trav_ms, calls, shapes = timed_render(
+    res, counts, _, calls, final_calls = timed_render(
         "final main path", ctx, FINAL_SIZE, FINAL_SPP, s15, card, bvh_kernel,
-        "closest_hit", lambda r: r.iterations)
-    final_cipher = cipher_on_path(shapes, counts["threefry"], card,
+        "closest_hit", lambda r: r.trips)
+    final_cipher = cipher_on_path(final_calls, counts["threefry"], card,
                                   "the final main path")
+    loop15 = loop_phase("final", ctx, FINAL_SIZE, FINAL_SPP, s15, card,
+                        FINAL_SPP, (bvh_kernel, "closest_hit"))
+    trav_ms = loop15["kernel_ms"] * calls
     bands = image_checks("final image", res.image, FINAL_SIZE)
     # The light faces up (an unflipped XZRect, one-sided on its record
     # normal, diffuselight.go:49-63) and lights nothing below it: red and
@@ -1236,9 +1612,11 @@ def texture_phases(card: str, usage: dict) -> dict:
     out["final"] = dict(
         rays=res.rays_traced, seconds=res.seconds,
         mrays_per_sec=res.mrays_per_sec, iterations=res.iterations,
+        trips=res.trips, replays=res.replays,
         launches=counts["bvh_kernel"], cipher_launches=counts["threefry"],
-        ms_per_launch=trav_ms / calls,
+        ms_per_launch=loop15["kernel_ms"],
         kernel_share=trav_ms / 1e3 / res.seconds, traversal=trav,
+        loop=loop15,
         blue_pixel_share=blue, cipher=final_cipher,
         vs_cpu=dict(frame=FINAL_VS_CPU, rays_rel=rays_rel, pixel_share=share))
     return out
@@ -2238,15 +2616,31 @@ def main() -> None:
               flush=True)
         if not same:
             raise AssertionError("device Threefry differs from the torch twin")
-    cipher["ms"] = cuda_ms(lambda: threefry.uniforms_for_keys(keys, depths, 12, 0), 20)
-    cipher["plain_ms"] = cuda_ms(
-        lambda: threefry.uniforms_for_keys_reference(keys, depths, 12, 0), 3)
-    cipher["bound_ms"] = 1e3 * max(
-        n_keys * (8 * CIPHER_INT + 12 * UNIFORM_INT) / INT32_OPS_PER_S,
-        n_keys * (8 + 4 + 12 * 4) / HBM_BYTES_PER_S)
-    print(f"cipher: 12 uniforms x {n_keys} keys: kernel {cipher['ms']:.4f} ms, "
-          f"plain {cipher['plain_ms']:.4f} ms, bound {cipher['bound_ms']:.4f} ms "
-          f"({card})", flush=True)
+    # The new-sample form: path keys, camera and λ draws, with per-ray
+    # sample ids and with one for every pair.
+    pix = torch.as_tensor(rs.randint(0, 1 << 22, n_keys).astype(np.int64),
+                          device="cuda")
+    base = rng.render_key(2**40 + 17, device="cuda")
+    for samples in (keys[:, 0].contiguous(), 1023):
+        for salts in ((), (camera.CAMERA_SALT,),
+                      (camera.CAMERA_SALT, wavefront.LAMBDA_SALT)):
+            got = threefry.new_samples(base, pix, samples, *salts)
+            want = threefry.new_samples_reference(base, pix, samples, *salts)
+            same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(got, want) if w is not None)
+            print(f"cipher: new sample, {len(salts)} draws beside the key, "
+                  f"{'per-ray' if isinstance(samples, torch.Tensor) else 'one'}"
+                  f" sample ids, keys={n_keys} bit-identical={same}",
+                  flush=True)
+            if not same:
+                raise AssertionError("the new-sample form differs from the "
+                                     "torch twin")
+    SASS.update(sass_counts(lib_path))
+    forms = cipher_forms(card)
+    top = next(r for r in forms if r["form"] == "bounce"
+               and r["uniforms"] == 12 and r["keys"] == n_keys)
+    cipher.update(ms=top["ms"], plain_ms=top["plain_ms"],
+                  bound_ms=top["bound_ms"], forms=forms)
 
     # 4. Kernel vs twin on the card, the twin on the card's layout: at
     # 64x64@4 depth 8, at the multi-slot and multi-sample layouts and at the
@@ -2479,12 +2873,16 @@ def main() -> None:
     s8 = path.RenderSettings(max_depth=50)
     key8 = rng.render_key(0, device="cuda")
     pool8 = min(32 * 32 * 4, renderer.POOL_MAX)
-    before = bvh_kernel.launches
+    before, stats8 = bvh_kernel.launches, {}
     acc_k, rays_k, it_k = wavefront.trace_pool(
-        bctx.cs, bctx.meta, s8, bctx.intersect, 32, 32, 4, key8, pool8)
+        bctx.cs, bctx.meta, s8, bctx.intersect, 32, 32, 4, key8, pool8,
+        stats=stats8)
     launched = bvh_kernel.launches - before
-    acc_p, rays_p, it_p = wavefront.trace_pool(
-        bctx.cs, bctx.meta, s8, plain_inter, 32, 32, 4, key8, pool8)
+    # The plain traversal compacts its rays (a host sync), so its pool
+    # runs the plain loop, which captures nothing.
+    acc_p, rays_p, it_p = wavefront._trace_pool(
+        bctx.cs, bctx.meta, s8, plain_inter, 32, 32, 4, key8, pool8, False, 0,
+        0, 1, False)
     torch.cuda.synchronize()
     img_k, img_p = acc_k / 4, acc_p / 4
     rays_k, rays_p = int(rays_k), int(rays_p)
@@ -2493,51 +2891,57 @@ def main() -> None:
     rays_rel = abs(rays_k - rays_p) / rays_p
     mean_rel = abs(float(img_k.mean()) / float(img_p.mean()) - 1)
     print(f"pool: cornell_box_obj 32x32@4 depth 50 (pool {pool8}): kernel "
-          f"rays {rays_k} in {it_k} iterations ({launched} kernel launches), "
+          f"rays {rays_k} in {it_k} iterations ({launched} kernel launches in "
+          f"{stats8['trips']} bodies run, {stats8['replays']} replayed), "
           f"plain traversal rays {rays_p} in {it_p}; rel {rays_rel:.2e} (tol "
           f"{RAYS_RTOL}); pixels within {PIXEL_ATOL}: {share:.6f} (tol "
           f"{PIXEL_SHARE}); max abs err {float(pix_err.max()):.3e}; mean rel "
           f"{mean_rel:.2e} (tol {MEAN_RTOL})", flush=True)
     if not (bool(torch.isfinite(img_k).all()) and rays_rel <= RAYS_RTOL
             and share >= PIXEL_SHARE and mean_rel <= MEAN_RTOL
-            and launched == it_k):
+            and launched == stats8["trips"] >= it_k):
         raise AssertionError("the pool through the traversal kernel disagrees "
                              "with the pool through the plain traversal")
 
     # 9. The BVH main path, through the entry points a user calls. The
-    # warm-up render records the shapes the pool hands the cipher entry.
+    # warm-up render captures the pool's iteration as a CUDA graph and
+    # records the cipher calls of the captured body; the timed render
+    # replays it.
     megakernel.launches = megakernel_spectral.launches = 0
     bvh_kernel.launches = threefry.launches = 0
-    with recorded_cipher_shapes() as cipher_shapes:
+    with recorded_cipher_calls() as warm_calls:
         warm = renderer.render(None, 256, 256, 128, settings, seed=0,
                                mode="wavefront", context=bctx, device="cuda")
-    if bvh_kernel.launches != warm.iterations:
+    if bvh_kernel.launches != warm.trips or warm.replays != warm.trips - 1:
         raise AssertionError(f"warm-up: {bvh_kernel.launches} traversal "
-                             f"launches for {warm.iterations} pool iterations")
-    megakernel.launches = megakernel_spectral.launches = 0
-    bvh_kernel.launches = threefry.launches = 0
-    with profiling.event_timed(bvh_kernel, "closest_hit") as times:
+                             f"launches for {warm.trips} pool bodies run "
+                             f"({warm.replays} replayed)")
+    zero_counts()
+    threefry.sample_launches = 0
+    with recorded_cipher_calls() as timed_calls:
         ores = renderer.render(None, 256, 256, 128, settings, seed=0,
                                mode="wavefront", context=bctx, device="cuda")
-    kernel_s = profiling.event_ms(times) / 1e3
     bvh_launches, cipher_launches = bvh_kernel.launches, threefry.launches
+    sample_launches = threefry.sample_launches
     mega_moved = megakernel.launches + megakernel_spectral.launches
     oimg = ores.image
-    trav_per_launch = kernel_s * 1e3 / bvh_launches
     print(f"BVH main path: cornell_box_obj 256x256@128 depth 50 seed 0 on "
           f"{ores.device}: {ores.rays_traced} rays in {ores.seconds:.4f} s = "
           f"{ores.mrays_per_sec:.3f} Mrays/s in {ores.iterations} pool "
-          f"iterations (warm-up run {warm.seconds:.4f} s, {warm.rays_traced} "
-          f"rays; {card}); traversal launches {bvh_launches}, cipher launches "
-          f"{cipher_launches}, megakernel launches {mega_moved}; traversal "
-          f"kernel {kernel_s:.4f} s = {kernel_s / ores.seconds:.2%} of "
-          f"render() (CUDA events), {trav_per_launch:.4f} ms per launch",
-          flush=True)
-    if bvh_launches != ores.iterations or mega_moved != 0:
+          f"iterations, {ores.trips} bodies run, {ores.replays} replayed from "
+          f"the CUDA graph (warm-up run {warm.seconds:.4f} s with its capture "
+          f"{warm.capture_seconds:.4f} s, {warm.rays_traced} rays; {card}); "
+          f"traversal launches {bvh_launches}, cipher launches "
+          f"{cipher_launches} (new-sample form {sample_launches}), megakernel "
+          f"launches {mega_moved}", flush=True)
+    if (bvh_launches != ores.replays or ores.replays != ores.trips
+            or mega_moved != 0 or sample_launches < 1
+            or ores.capture_seconds != 0):
         raise AssertionError(f"the BVH main path launched the traversal "
-                             f"kernel {bvh_launches} times in "
-                             f"{ores.iterations} pool iterations, and the "
-                             f"megakernels {mega_moved} times")
+                             f"kernel {bvh_launches} times in {ores.replays} "
+                             f"replays of {ores.trips} bodies, the megakernels "
+                             f"{mega_moved} times, the new-sample form "
+                             f"{sample_launches} times")
     if oimg.shape != (256, 256, 3) or not np.isfinite(oimg).all():
         raise AssertionError("BVH main-path image is not finite (256, 256, 3)")
     oleft = oimg[64:192, 4:24].mean(axis=(0, 1))
@@ -2550,15 +2954,19 @@ def main() -> None:
         raise AssertionError("walls: expected green on the left, red on the right")
     if abs(olight - 15.0) > 0.5:
         raise AssertionError(f"ceiling light patch {olight}, expected ~15")
-    cipher_main = cipher_on_path(cipher_shapes, cipher_launches, card)
-    wall, busy, top = profiling.device_profile(lambda: renderer.render(
-        None, 256, 256, 16, settings, seed=0, mode="wavefront", context=bctx,
-        device="cuda"))
-    print(f"BVH main path profile: cornell_box_obj 256x256@16 depth 50 under "
-          f"torch.profiler: wall {wall:.4f} s, device busy {busy:.4f} s, idle "
-          f"share {1 - busy / wall:.2%}", flush=True)
-    for dt, name, count in top[:6]:
-        print(f"  {dt / 1e3:10.3f} ms  x{count}  {name[:90]}", flush=True)
+    cipher_main = cipher_on_path(
+        executed_cipher_calls(warm_calls, timed_calls, ores.replays),
+        cipher_launches, card)
+    loop9 = loop_phase("cornell_box_obj", bctx, 256, 128, settings, card, 16,
+                       (bvh_kernel, "closest_hit"))
+    trav_per_launch = loop9["kernel_ms"]
+    kernel_s = trav_per_launch * bvh_launches / 1e3
+    busy = loop9["graphed"]["profile"]["busy_s"]
+    wall = loop9["graphed"]["profile"]["wall_s"]
+    print(f"BVH main path: the traversal kernel {trav_per_launch:.4f} ms per "
+          f"launch (the plain loop's launches, CUDA events) x {bvh_launches} "
+          f"launches = {kernel_s:.4f} s, {kernel_s / ores.seconds:.2%} of "
+          f"render() ({card})", flush=True)
 
     rows10, dragon_runs, dragon_res = row_stack_phases(bctx, dctx, rays7,
                                                        card, usage)
@@ -2663,14 +3071,14 @@ def main() -> None:
         }, {
             "name": "izpi_threefry_uniforms",
             "route": "cuda",
-            "source": "izpi_tpu_torch/csrc/megakernel_rgb.cu",
+            "source": "izpi_tpu_torch/csrc/cipher.cu",
             "replaces": "izpi_tpu/ops/threefry.py:30",
-            "launches": cipher_launches,
+            "launches": cipher_launches - sample_launches,
             "max_abs_err": 0.0,
             "ms": cipher_main["ms"],
             "plain_ms": cipher_main["plain_ms"],
             "bound_ms": cipher_main["bound_ms"],
-            "bound_by": "operations",
+            "bound_by": cipher_main["bound_by"],
             "library_ms": None,
             "shape": cipher_main["shape"],
             "shapes_on_main_path": cipher_main["shapes"],
@@ -2693,6 +3101,22 @@ def main() -> None:
             "ms_1m_keys_12": cipher["ms"],
             "plain_ms_1m_keys_12": cipher["plain_ms"],
             "bound_ms_1m_keys_12": cipher["bound_ms"],
+            "forms": [f for f in cipher["forms"] if f["form"] == "bounce"],
+        }, {
+            "name": "izpi_threefry_new_sample",
+            "route": "cuda",
+            "source": "izpi_tpu_torch/csrc/cipher.cu",
+            "replaces": "izpi_tpu/ops/threefry.py:30",
+            "launches": sample_launches,
+            "max_abs_err": 0.0,
+            "ms": cipher_main["new_sample"]["ms"],
+            "plain_ms": cipher_main["new_sample"]["plain_ms"],
+            "bound_ms": cipher_main["new_sample"]["bound_ms"],
+            "bound_by": cipher_main["new_sample"]["bound_by"],
+            "library_ms": None,
+            "shape": (cipher_main["new_sample"]["keys"],
+                      cipher_main["new_sample"]["uniforms"]),
+            "forms": [f for f in cipher["forms"] if f["form"] == "new_sample"],
         }],
         "shapes": {
             "megakernel_rgb": "ms, bound_ms: per launch on its main path, "
@@ -2705,12 +3129,21 @@ def main() -> None:
                                    "path, the spectral pyramid 500x500@256 "
                                    "depth 50; plain_ms, ms_at_2, "
                                    "bound_ms_at_2: 500x500@2 depth 50",
-            "izpi_threefry_uniforms": "ms, plain_ms, bound_ms: per launch at "
-                                      "the shape the BVH main path calls it "
-                                      "with most (shape: keys, uniforms), "
-                                      "the launches its timed render's; "
-                                      "bit-identical to the plain version "
+            "izpi_threefry_uniforms": "the bounce form: ms, plain_ms, "
+                                      "bound_ms per launch at the shape the "
+                                      "BVH main path calls it with most "
+                                      "(shape: keys, uniforms), the launches "
+                                      "its timed render's; ms timed over a "
+                                      "CUDA graph of launches; bound_ms "
+                                      "counted from the SASS; forms: each "
+                                      "count at 262,144 and 1M keys with its "
+                                      "bound; bit-identical "
+                                      "to the plain version "
                                       f"(phase 3, {n_keys} keys)",
+            "izpi_threefry_new_sample": "a new sample's path key and camera "
+                                        "uniforms at the BVH main path's "
+                                        "shape; forms: keys only, + camera, "
+                                        "+ camera and λ",
             "bvh4_traverse": f"{TRAVERSE_RAYS} rays (half camera, half "
                              f"incoherent) on cornell_box_obj's tree",
             "bvh4_rowstack": f"{TRAVERSE_RAYS} rays on phase 7's recipe, "
@@ -2730,6 +3163,9 @@ def main() -> None:
         "bvh_main_path": {"rays": ores.rays_traced, "seconds": ores.seconds,
                           "mrays_per_sec": ores.mrays_per_sec,
                           "iterations": ores.iterations,
+                          "trips": ores.trips, "replays": ores.replays,
+                          "capture_seconds": warm.capture_seconds,
+                          "loop": loop9,
                           "traversal_ms_per_launch": trav_per_launch,
                           "kernel_share": kernel_s / ores.seconds,
                           "profiled_idle_share_16spp": 1 - busy / wall},

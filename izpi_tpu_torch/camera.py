@@ -81,11 +81,17 @@ def get_rays(cam: CameraArrays, s, t, uniforms):
     return origin, direction, time
 
 
-def primary_rays(cam: CameraArrays, keys, px, py, nx: int, ny: int):
-    """Camera rays for paths keyed `keys` (N, 2) through pixels (px, py):
-    5 uniforms at depth 0 under CAMERA_SALT, film coords (p + ξ) / n, then
-    `get_rays` (renderer.py sample_pass, megakernel.py:644-667)."""
-    u = rng.bounce_uniforms(keys, 0, 5, salt=CAMERA_SALT)
+def rays_from_uniforms(cam: CameraArrays, u, px, py, nx: int, ny: int):
+    """Camera rays through pixels (px, py) from the camera's 5 uniforms u
+    (N, 5): film coords (p + ξ) / n, then `get_rays` (renderer.py
+    sample_pass, megakernel.py:644-667)."""
     s = (px.float() + u[:, 0]) / nx
     t = (py.float() + u[:, 1]) / ny
     return get_rays(cam, s, t, u[:, 2:5])
+
+
+def primary_rays(cam: CameraArrays, keys, px, py, nx: int, ny: int):
+    """Camera rays for paths keyed `keys` (N, 2) through pixels (px, py):
+    5 uniforms at depth 0 under CAMERA_SALT, then `rays_from_uniforms`."""
+    u = rng.bounce_uniforms(keys, 0, 5, salt=CAMERA_SALT)
+    return rays_from_uniforms(cam, u, px, py, nx, ny)

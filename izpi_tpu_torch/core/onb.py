@@ -17,8 +17,8 @@ def build_from_w(n):
     v = normalize(w × a), u = w × v (onb.go:41-46)."""
     w = vm.normalize(n)
     big_x = (torch.abs(w[..., 0]) > 0.9)[..., None]
-    a = torch.where(big_x, w.new_tensor([0.0, 1.0, 0.0]),
-                    w.new_tensor([1.0, 0.0, 0.0]))
+    a = torch.where(big_x, vm.const((0.0, 1.0, 0.0), w),
+                    vm.const((1.0, 0.0, 0.0), w))
     v = vm.normalize(vm.cross(w, a))
     u = vm.cross(w, v)
     return u, v, w

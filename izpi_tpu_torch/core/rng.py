@@ -4,7 +4,8 @@ Counterpart of `izpi_tpu/core/rng.py:30-94`, without JAX. One base key per
 render, folded with the sample index and then the flat pixel index to key
 every (pixel, sample) path, then with the bounce depth and a per-use salt.
 The cipher is `izpi_tpu_torch.ops.threefry`, bit-identical to the JAX
-package's. Keys are (..., 2) int64 tensors holding uint32 words.
+package's: the device cipher on a CUDA tensor, the PyTorch cipher on a CPU
+tensor. Keys are (..., 2) int64 tensors holding uint32 words.
 """
 
 from __future__ import annotations
@@ -25,21 +26,18 @@ def render_key(seed: int, device="cpu") -> torch.Tensor:
 
 def path_keys(base_key, pixel_ids, sample_id) -> torch.Tensor:
     """Per-path keys: fold the sample index, then the flat pixel index.
-    pixel_ids: (N,). Returns (N, 2)."""
-    k0, k1 = base_key[0], base_key[1]
-    s0, s1 = tf.fold_in(k0, k1, sample_id)
-    p0, p1 = tf.fold_in(s0.expand(pixel_ids.shape), s1.expand(pixel_ids.shape),
-                        pixel_ids.to(torch.int64))
-    return torch.stack([p0, p1], dim=-1)
+    pixel_ids: (N,); sample_id: one int. Returns (N, 2).
+
+    On a CUDA tensor one launch of the device cipher (`ops.threefry.
+    new_samples`), on a CPU tensor the PyTorch cipher."""
+    return tf.new_samples(base_key, pixel_ids.to(torch.int64),
+                          int(sample_id))[0]
 
 
 def path_keys_perray(base_key, pixel_ids, sample_ids) -> torch.Tensor:
     """path_keys with per-ray sample indices (pool scheduling)."""
-    k0 = base_key[0].expand(sample_ids.shape)
-    k1 = base_key[1].expand(sample_ids.shape)
-    s0, s1 = tf.fold_in(k0, k1, sample_ids.to(torch.int64))
-    p0, p1 = tf.fold_in(s0, s1, pixel_ids.to(torch.int64))
-    return torch.stack([p0, p1], dim=-1)
+    return tf.new_samples(base_key, pixel_ids.to(torch.int64),
+                          sample_ids.to(torch.int64))[0]
 
 
 def bounce_uniforms_perray(keys, depths, n: int, salt: int = 0) -> torch.Tensor:

@@ -7,9 +7,24 @@ three-element reduction takes, so both packages round alike.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 EPS = 1e-12
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values, device, dtype):
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def const(values, like):
+    """A tensor of the constants `values` (a tuple) on `like`'s device and
+    dtype, made once and then shared: a host-to-device copy in a pool
+    iteration would sync with the host and could not sit in a CUDA graph.
+    Callers must not write to it."""
+    return _const(tuple(values), like.device, like.dtype)
 
 
 def dot(a, b):

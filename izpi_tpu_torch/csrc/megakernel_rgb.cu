@@ -232,40 +232,6 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
   }
 }
 
-template <int N>
-__global__ void threefry_uniforms(const uint32_t* __restrict__ keys,
-                                  const uint32_t* __restrict__ depths, int n, uint32_t salt,
-                                  float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float u[N];
-  bounce_uniforms<N>(keys[2 * i], keys[2 * i + 1], depths[i], salt, u);
-#pragma unroll
-  for (int k = 0; k < N; ++k) out[(size_t)i * N + k] = u[k];
-}
-
-// Any other count of uniforms (the media's free-flight draws, one per
-// medium): uniforms_n's layout with the count known at run time. The
-// unrolled forms above stay for the pool's 1, 5 and 12: on an H100 this
-// loop ran slower than them at 12 and 5 uniforms on 1,048,576 keys
-// (measure_port.py --cipher; PERF.md, row 1').
-__global__ void threefry_uniforms_any(const uint32_t* __restrict__ keys,
-                                      const uint32_t* __restrict__ depths, int n,
-                                      int n_u, uint32_t salt, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t f0, f1;
-  bounce_key(keys[2 * i], keys[2 * i + 1], depths[i], salt, f0, f1);
-  const int half = (n_u + 1) / 2;
-  float* row = out + (size_t)i * n_u;
-  for (int p = 0; p < half; ++p) {
-    uint32_t x0 = (uint32_t)p, x1 = (uint32_t)(p + half);
-    threefry2x32(f0, f1, x0, x1);
-    row[p] = bits_to_uniform(x0);
-    if (p + half < n_u) row[p + half] = bits_to_uniform(x1);
-  }
-}
-
 }  // namespace izpi
 
 extern "C" {
@@ -294,29 +260,6 @@ int izpi_megakernel_rgb(const float* prim_f, const int* prim_i, int n_prims,
   izpi::megakernel_rgb<<<blocks, izpi::kMegaThreads, 0, (cudaStream_t)stream>>>(
       sc, izpi::load_camera(cam), seed0, seed1, offset, nx, ny, spp_slot, n_slots, max_depth,
       bg_r, bg_g, bg_b, book, queue, acc, cnt, draws);
-  return (int)cudaGetLastError();
-}
-
-// out[i, :] = the n_uniforms (>= 1; 1, 5 and 12, the λ, camera and bounce
-// draws, unrolled) uniforms for use `salt` at bounce depths[i] of the path
-// keyed keys[i] (uint32 words); returns cudaGetLastError().
-int izpi_threefry_uniforms(const uint32_t* keys, const uint32_t* depths, int n,
-                           int n_uniforms, uint32_t salt, float* out, void* stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n_uniforms == 1) {
-    izpi::threefry_uniforms<1><<<blocks, threads, 0, s>>>(keys, depths, n, salt, out);
-  } else if (n_uniforms == 5) {
-    izpi::threefry_uniforms<5><<<blocks, threads, 0, s>>>(keys, depths, n, salt, out);
-  } else if (n_uniforms == 12) {
-    izpi::threefry_uniforms<12><<<blocks, threads, 0, s>>>(keys, depths, n, salt, out);
-  } else if (n_uniforms > 0) {
-    izpi::threefry_uniforms_any<<<blocks, threads, 0, s>>>(keys, depths, n, n_uniforms,
-                                                           salt, out);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 

@@ -279,7 +279,7 @@ def finalize_hit(prims: Prims, o, d, time, t, idx, hit) -> Hit:
                  + bv[..., None] * vn9[..., 6:9])
     # A safe argument for the untaken branch: normalizing a primitive's
     # zero vertex normals would send a gradient 0·NaN back through sqrt(0).
-    unit_z = vn_interp.new_tensor([0.0, 0.0, 1.0])
+    unit_z = vm.const((0.0, 0.0, 1.0), vn_interp)
     tri_n = _where(has_vn[..., None],
                    vm.safe_normalize(_where(has_vn[..., None], vn_interp,
                                             unit_z)),

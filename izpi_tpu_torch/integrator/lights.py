@@ -117,7 +117,7 @@ def sample(lights: Lights, o, uniforms):
                                       uniforms[:, 2])
     sph_dir = onb_mod.local(bu, bv, bw, local)
 
-    null_dir = o.new_tensor([1.0, 0.0, 0.0])
+    null_dir = vm.const((1.0, 0.0, 0.0), o)
     return torch.where(
         (kind == LIGHT_RECT)[:, None], rect_dir,
         torch.where((kind == LIGHT_TRIANGLE)[:, None], tri_dir,

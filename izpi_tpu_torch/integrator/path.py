@@ -41,7 +41,7 @@ from typing import Callable, Tuple
 import torch
 import torch.utils.checkpoint
 
-from izpi_tpu_torch.core import rng, sampling
+from izpi_tpu_torch.core import loops, rng, sampling
 from izpi_tpu_torch.core import vecmath as vm
 from izpi_tpu_torch.geometry import primitives as prim
 from izpi_tpu_torch.integrator import lights as lights_mod
@@ -55,6 +55,11 @@ T_MIN = 1e-3  # world-hit epsilon (colour.go:40)
 PARK = 3e30   # dead-slot origin: far outside every scene, so it misses
 # Salt of the media's free-flight draws (izpi_tpu/integrator/path.py:181).
 MEDIA_SALT = 0x4D45
+# Bounces of `trace` between two tests of its live flags. Uncaptured, a
+# bounce is host-bound, so a test's sync waits for little, while a chunk's
+# overrun runs whole bounces of dead paths: 8 against 1 measured 0.986x
+# and 1.048x the seconds (PERF.md, `measure_port.py --trace-loop`).
+TRACE_CHUNK = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +132,7 @@ def _apply_media(cs, meta, rec, o, d, keys, depth):
     t, hit, mat_id, normal = rec.t, rec.hit, rec.mat_id, rec.normal
     p, u, v, prim_idx = rec.p, rec.u, rec.v, rec.prim_idx
     zero = torch.zeros((), dtype=o.dtype, device=o.device)
-    x_axis = o.new_tensor([1.0, 0.0, 0.0])
+    x_axis = vm.const((1.0, 0.0, 0.0), o)
     for m in range(meta.n_media):
         rot = md.rot_w2o[m]
         o_obj = _rot(rot, o - md.trans[m][None, :])
@@ -268,8 +273,8 @@ def _pbr_normals(cs, mat, rec, nm_rgb):
 
     # Ad-hoc frame (pbr.go:73-91): t = n×(0,1,0) (or n×(1,0,0) when
     # degenerate), b = n×t; z component NOT remapped.
-    up = rec_n.new_tensor([0.0, 1.0, 0.0]).expand_as(rec_n)
-    right = rec_n.new_tensor([1.0, 0.0, 0.0]).expand_as(rec_n)
+    up = vm.const((0.0, 1.0, 0.0), rec_n).expand_as(rec_n)
+    right = vm.const((1.0, 0.0, 0.0), rec_n).expand_as(rec_n)
     t_ad = vm.cross(rec_n, up)
     degenerate = vm.dot(t_ad, t_ad) < 0.001
     t_ad = torch.where(degenerate[:, None], vm.cross(rec_n, right), t_ad)
@@ -317,6 +322,23 @@ def _pbr_axes(cs, mat, rec, d, us, nm_rgb, rough_val, metal_val):
     return cos_axis, spdf_axis, diffuse_like, is_pbr & choose_spec, d_spec
 
 
+def _exit_retrace(intersect, p, d_in, time, apply):
+    """The exit re-trace of Beer–Lambert absorption (dielectric.go:118-153):
+    where each ray that refracted into an absorbing dielectric (`apply`)
+    leaves it, from p + 1e-3·d_in along d_in within t ≤ 1000. Returns
+    (exit point, exit hit); only `apply`'s rows mean anything.
+
+    Every bounce of a scene with an absorbing dielectric runs it, masked:
+    the other rays start parked outside the scene (as dead pool slots do)
+    and miss. The JAX package skips the call when no ray applies (its
+    `lax.cond`, path.py:470), which the rows read do not see; testing that
+    on the host would sync each bounce."""
+    start = torch.where(apply[:, None], p + 1e-3 * d_in,
+                        torch.full_like(p, PARK))
+    exit_rec = intersect(start, d_in, time, 0.0, 1000.0)
+    return exit_rec.p, exit_rec.hit & apply
+
+
 def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
                rad, active, differentiable: bool = False):
     """Advance every live RGB path one bounce (per-ray depth (N,)).
@@ -331,15 +353,16 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
     (`primitives.own`, as the intersectors' records do), a degenerate NEE
     direction is zeroed before its cosine, and the ratio divides by a safe
     pdf where the pdf is 0. No forward value changes."""
-    bg = o.new_tensor(settings.background)
+    bg = vm.const(settings.background, o)
     zero = torch.zeros((), dtype=o.dtype, device=o.device)
 
-    # Dead slots keep their last ray; park them outside the scene so they
-    # miss. Every output of theirs is masked by `active` below.
-    o = torch.where(active[:, None], o, torch.full_like(o, PARK))
-    rec = intersect(o, d, time, T_MIN, prim.T_MAX)
+    # Dead slots keep their last ray; the intersector sees them parked
+    # outside the scene, so they miss. Every output of theirs is masked by
+    # `active` below, so a bounce of dead paths changes nothing.
+    o_live = torch.where(active[:, None], o, torch.full_like(o, PARK))
+    rec = intersect(o_live, d, time, T_MIN, prim.T_MAX)
     if meta.n_media > 0:
-        rec = _apply_media(cs, meta, rec, o, d, keys, depth)
+        rec = _apply_media(cs, meta, rec, o_live, d, keys, depth)
     nrays = active.sum()
 
     miss = active & ~rec.hit
@@ -384,12 +407,7 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
         # Beer–Lambert with exit re-trace (dielectric.go:118-153), only for
         # rays that refracted into an absorbing dielectric.
         apply = active & is_diel & mat["has_absorption"] & ~is_refl
-        start = rec.p + 1e-3 * d_diel
-        if bool(apply.any()):
-            exit_rec = intersect(start, d_diel, time, 0.0, 1000.0)
-            exit_p, exit_hit = exit_rec.p, exit_rec.hit
-        else:
-            exit_p, exit_hit = start, torch.zeros_like(apply)
+        exit_p, exit_hit = _exit_retrace(intersect, rec.p, d_diel, time, apply)
         # (A zero length's sqrt sends back 0/0 even from an untaken ray.)
         path_len = vm.length(own(exit_p - rec.p, apply & exit_hit))
         path_len = torch.clamp(path_len, 0.1, 100.0)
@@ -465,10 +483,10 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
     active non-emitting hit so a non-finite throughput poisons the sample."""
     zero = torch.zeros((), dtype=o.dtype, device=o.device)
 
-    o = torch.where(active[:, None], o, torch.full_like(o, PARK))
-    rec = intersect(o, d, time, T_MIN, prim.T_MAX)
+    o_live = torch.where(active[:, None], o, torch.full_like(o, PARK))
+    rec = intersect(o_live, d, time, T_MIN, prim.T_MAX)
     if meta.n_media > 0:
-        rec = _apply_media(cs, meta, rec, o, d, keys, depth)
+        rec = _apply_media(cs, meta, rec, o_live, d, keys, depth)
     nrays = active.sum()
 
     bg_val = spd_mod.device_spd_value(
@@ -525,12 +543,7 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
         # 104-115, 190-199), only for rays that refracted into an absorbing
         # dielectric.
         apply = active & is_diel & (mat["spec_absorb_id"] >= 0) & ~is_refl
-        start = rec.p + 1e-3 * d_diel
-        if bool(apply.any()):
-            exit_rec = intersect(start, d_diel, time, 0.0, 1000.0)
-            exit_p, exit_hit = exit_rec.p, exit_rec.hit
-        else:
-            exit_p, exit_hit = start, torch.zeros_like(apply)
+        exit_p, exit_hit = _exit_retrace(intersect, rec.p, d_diel, time, apply)
         path_len = torch.clamp(vm.length(exit_p - rec.p), 0.1, 100.0)
         path_len = torch.where(exit_hit, path_len,
                                torch.full_like(path_len, 10.0))
@@ -581,16 +594,19 @@ def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys,
     NOT DeNAN'd — the caller applies it per render/rgb.go:36 — and the total
     ray count as a 0-dim int64 tensor).
 
+    The bounces run through `core.loops.guarded_fori` (path.py:742-748),
+    TRACE_CHUNK bounces between two tests of the live flags and never more
+    than max_depth bounces; a bounce of dead paths changes nothing, so the
+    estimate (and its gradient) does not depend on where the loop ends.
+
     differentiable=True (path.py:699-740) makes the estimate differentiable
     in the scene's material, texture and light tensors, with the sampling
-    detached (`bounce_rgb`). Each bounce runs under
+    detached (`bounce_rgb`). Each bounce then runs under
     `torch.utils.checkpoint` (the JAX package's `jax.checkpoint` in its
     scan), so the backward pass keeps only the carried state of each
     bounce and recomputes the rest: memory grows by one bounce's state per
     bounce. The uniforms are keyed, so the recompute draws the same
-    numbers; it launches the cipher entry and a traversal kernel again. The
-    loop ends once no path is live, which changes neither the estimate nor
-    its gradient: a dead path's bounce adds nothing."""
+    numbers; it launches the cipher entry and a traversal kernel again."""
     n = o.shape[0]
     thru = torch.ones_like(o)
     rad = torch.zeros_like(o)
@@ -601,20 +617,23 @@ def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys,
         return bounce_rgb(cs, meta, settings, intersect, o, d, time, keys,
                           depth_vec, thru, rad, active, differentiable)
 
-    for depth in range(settings.max_depth):
-        if not bool(active.any()):
-            break
-        depth_vec = torch.full((n,), depth, dtype=torch.int64, device=o.device)
+    def body(st):
+        depth, o, d, thru, rad, active, nrays = st
+        args = (o, d, thru, rad, active, depth.expand(n))
         if differentiable:
-            o, d, thru, rad, active, nr = torch.utils.checkpoint.checkpoint(
-                bounce, o, d, thru, rad, active, depth_vec,
-                use_reentrant=False, preserve_rng_state=False)
+            out = torch.utils.checkpoint.checkpoint(
+                bounce, *args, use_reentrant=False, preserve_rng_state=False)
         else:
-            o, d, thru, rad, active, nr = bounce(o, d, thru, rad, active,
-                                                 depth_vec)
-        nrays = nrays + nr
+            out = bounce(*args)
+        o, d, thru, rad, active, nr = out
+        return depth + 1, o, d, thru, rad, active, nrays + nr
+
+    depth0 = torch.zeros((), dtype=torch.int64, device=o.device)
+    _, o, d, thru, rad, active, nrays = loops.guarded_fori(
+        settings.max_depth, lambda st: st[5].any(), body,
+        (depth0, o, d, thru, rad, active, nrays), TRACE_CHUNK)
     # Depth cap: the next Sample call would return {Z:1} (colour.go:34-36).
-    sentinel = o.new_tensor([0.0, 0.0, 1.0])
+    sentinel = vm.const((0.0, 0.0, 1.0), o)
     rad = rad + torch.where(active[:, None], thru * sentinel[None, :],
                             torch.zeros((), dtype=o.dtype, device=o.device))
     return rad, nrays

@@ -11,11 +11,16 @@ next global sample ids, ranked by a cumsum over the free slots. The
 enumeration and keying of (pixel, sample) pairs are the JAX pool's, so the
 two agree up to floating-point accumulation order.
 
-Not carried over: the slot-pinned scheduler (:202; the queue is the JAX
-package's default and the only scheduler here), `_run_scheduler`'s guarded
-and chunked loops (:60-84, which exist for XLA's while-loop syncs: the loop
-here is a plain `while active.any()`), and the `IZPI_POOL_*` environment
-switches.
+The loop is `_run_scheduler`'s chunked while (:60-84) in its GPU form:
+`core.loops.chunked_while` tests the pool's end once per chunk of
+iterations, and on the card replays one iteration captured as a CUDA graph
+(`trace_pool`). Each iteration is a fixpoint once no slot is live, and
+syncs with the host nowhere: the sample offset, the sample count and the
+iteration count are device scalars, and the exit re-trace of absorbing
+dielectrics runs masked. Not carried over: the slot-pinned scheduler
+(:202; the queue is the JAX package's default and the only scheduler
+here), the guarded fori form (it exists for `lax.cond`'s state copies) and
+the `IZPI_POOL_*` environment switches.
 
 Spectral transport follows render/spectral.go:71-106: λ importance-sampled
 by CIE-Y per sample, scalar radiance along the path, and a deposit of
@@ -25,15 +30,19 @@ deliberate deviation from the reference, whose spectral canvas takes NaNs.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from izpi_tpu_torch import camera as camera_mod
-from izpi_tpu_torch.core import rng
+from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.core import vecmath as vm
 from izpi_tpu_torch.integrator import path as path_mod
+from izpi_tpu_torch.ops import threefry as tf
 from izpi_tpu_torch.spectral import cie
 
 LAMBDA_SALT = 0x7A3B  # salt of the λ draw at depth 0
+MAX_CHUNK = 8  # the most pool iterations between two tests of its end
 
 
 def sample_lambda(keys):
@@ -59,18 +68,21 @@ def xyz_contribution(rad, lam, lam_pdf):
     return vm.de_nan(xyz * w[:, None])
 
 
-def _make_rays(cs, base_key, nx: int, ny: int, spectral: bool,
-               sample_offset: int):
+def _make_rays(cs, nx: int, ny: int, spectral: bool):
     """Sample → ray generation (`_make_ray_fns`): keys and camera rays for
-    (pixel, sample) pairs, the streams of the lockstep renderer's
-    sample_pass, and λ for a spectral render."""
+    (pixel, sample) pairs under a base key, the streams of the lockstep
+    renderer's sample_pass, and λ for a spectral render. The path keys, the
+    camera's uniforms and λ's come from one call of the cipher entry
+    (`ops.threefry.new_samples`: one launch on the card)."""
 
-    def gen(pix, samp):
-        keys = rng.path_keys_perray(base_key, pix, samp + sample_offset)
-        o, d, tme = camera_mod.primary_rays(cs.camera, keys, pix % nx,
-                                            pix // nx, nx, ny)
+    def gen(base_key, pix, samp):
+        keys, cam_u, lam_u = tf.new_samples(
+            base_key, pix, samp, camera_mod.CAMERA_SALT,
+            LAMBDA_SALT if spectral else None)
+        o, d, tme = camera_mod.rays_from_uniforms(cs.camera, cam_u, pix % nx,
+                                                  pix // nx, nx, ny)
         if spectral:
-            lam, lam_pdf = sample_lambda(keys)
+            lam, lam_pdf = cie.sample_wavelength(lam_u)
         else:
             lam, lam_pdf = torch.zeros_like(tme), torch.ones_like(tme)
         return o, d, tme, keys, lam, lam_pdf
@@ -91,13 +103,14 @@ def _bounce_step(cs, meta, settings, intersect, st, spectral: bool,
         o, d, thru, rad, active, nrays = path_mod.bounce_rgb(
             cs, meta, settings, intersect, st["o"], st["d"], st["time"],
             st["keys"], st["depth"], st["thru"], st["rad"], st["active"])
-    depth = st["depth"] + 1
+    # Only a live path deepens: a bounce of dead slots changes nothing.
+    depth = torch.where(st["active"], st["depth"] + 1, st["depth"])
     capped = active & (depth >= settings.max_depth)
     if spectral:
         rad = cap_spectral(rad, thru, bg_val, capped)
     else:
         # Depth cap: the next Sample call would return {Z:1} (colour.go:34-36).
-        sentinel = o.new_tensor([0.0, 0.0, 1.0])
+        sentinel = vm.const((0.0, 0.0, 1.0), o)
         rad = rad + torch.where(capped[:, None], thru * sentinel,
                                 torch.zeros_like(rad))
     active = active & ~capped
@@ -108,58 +121,109 @@ def _bounce_step(cs, meta, settings, intersect, st, spectral: bool,
                  nrays=nrays), died, contrib)
 
 
+def pool_chunk(total: int, pool_size: int) -> int:
+    """Pool iterations between two tests of the pool's end on the card.
+
+    Each test reads the live flags back (a sync, and the device waits
+    while the host enqueues the next chunk); a chunk that runs on past the
+    end runs full iterations on a dead pool, which deposit and count
+    nothing. A pool that cycles g = ceil(total / pool) generations of
+    samples runs several iterations a generation (cornell_obj 256²@128:
+    210 iterations for 32), so chunk = clamp(g // 4, 1, MAX_CHUNK) keeps
+    the expected overrun, (chunk - 1) / 2 iterations, to a few percent of
+    the iterations, and a pool of one or a few generations (the dragon,
+    `final`) tests after every iteration (PERF.md, the pool's loop)."""
+    generations = -(-total // pool_size)
+    return max(1, min(MAX_CHUNK, generations // 4))
+
+
 def trace_pool(cs, meta, settings, intersect, nx: int, ny: int, spp: int,
                base_key, pool_size: int, spectral: bool = False,
-               bg_spd_id: int = 0, sample_offset: int = 0):
+               bg_spd_id: int = 0, sample_offset: int = 0,
+               graphs: Optional[dict] = None, stats: Optional[dict] = None):
     """Render nx×ny@spp, samples [sample_offset, sample_offset + spp), with
     a queue pool of `pool_size` slots (`_trace_pool_queue`).
 
     Returns (acc (nx·ny, 3) f32 summed radiance — RGB, or CIE XYZ in
     spectral mode; divide by spp for the image —, rays traced as a 0-dim
-    int64 tensor, pool iterations). Each iteration calls `intersect` once
-    for the bounce, and once more for the exit re-trace when a live ray
-    refracted into an absorbing dielectric."""
+    int64 tensor, pool iterations: those that began with a live slot).
+    Each iteration calls `intersect` once for the bounce, and once more for
+    the exit re-trace in a scene with an absorbing dielectric.
+
+    The iterations run through `core.loops.chunked_while`, the end tested
+    every `pool_chunk` iterations. On the card one iteration is captured as
+    a CUDA graph and replayed (`core.loops.Graphed`); `graphs`, a dict the
+    caller keeps (`RenderContext.graphs`), holds that one graph for the
+    next render of the same pool size, frame, scene, intersector and
+    settings, whose base key, sample offset and sample count go in as
+    device scalars; a render with another key replaces it. `stats`, if
+    given, receives the loop's chunk, trips (bodies run: the iterations
+    and the chunks' overrun), replays, capture seconds, and for a graph
+    the launches of one body by counter (`per_body`) and the bytes its
+    capture reserved (`graph_bytes`)."""
     if pool_size < 1:
         raise ValueError(f"pool_size must be positive, got {pool_size}")
+    return _trace_pool(cs, meta, settings, intersect, nx, ny, spp, base_key,
+                       pool_size, spectral, bg_spd_id, sample_offset,
+                       pool_chunk(nx * ny * spp, pool_size),
+                       cs.device.type == "cuda", graphs, stats)
+
+
+def _pool(cs, meta, settings, intersect, nx: int, ny: int, spp: int,
+          base_key, pool_size: int, spectral: bool, bg_spd_id: int,
+          sample_offset: int):
+    """(body, state) of the queue pool: the state after its first issue
+    (a dict of tensors; the base key, the sample offset, the sample count,
+    the next sample, the rays and the iterations on the device, so that a
+    captured body reads each call's own) and the body that advances it one
+    iteration."""
     dev = cs.device
     n_pix = nx * ny
     total = n_pix * spp
     n = pool_size
-    gen = _make_rays(cs, base_key, nx, ny, spectral, sample_offset)
+    gen = _make_rays(cs, nx, ny, spectral)
 
-    def sample_to_ray(sample_ids, issued):
+    def sample_to_ray(st, sample_ids, issued):
         """Rays of the global sample ids; a slot not issued draws sample 0
         of pixel 0, which the caller discards."""
         sid = torch.where(issued, sample_ids, torch.zeros_like(sample_ids))
         pix = sid % n_pix
-        return (*gen(pix, sid // n_pix), pix)
+        return (*gen(st["key"], pix, sid // n_pix + st["offset"]), pix)
+
+    def scalar(v):
+        return torch.full((), v, dtype=torch.int64, device=dev)
 
     ids = torch.arange(n, dtype=torch.int64, device=dev)
+    st = dict(key=base_key.clone(), offset=scalar(sample_offset),
+              total=scalar(total))
     issued = ids < total
-    o, d, tme, keys, lam, lam_pdf, pix = sample_to_ray(ids, issued)
+    o, d, tme, keys, lam, lam_pdf, pix = sample_to_ray(st, ids, issued)
     rad = torch.zeros_like(tme) if spectral else torch.zeros_like(o)
-    st = dict(o=o, d=d, time=tme, keys=keys, pix=pix, lam=lam, lam_pdf=lam_pdf,
-              depth=torch.zeros_like(ids), thru=torch.ones_like(rad), rad=rad,
-              active=issued)
-    next_sample = torch.full((), min(n, total), dtype=torch.int64, device=dev)
-    acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
-    nrays = torch.zeros((), dtype=torch.int64, device=dev)
-    iterations = 0
-    while bool(st["active"].any()):
-        iterations += 1
+    st.update(o=o, d=d, time=tme, keys=keys, pix=pix, lam=lam,
+              lam_pdf=lam_pdf, depth=torch.zeros_like(ids),
+              thru=torch.ones_like(rad), rad=rad, active=issued,
+              next=scalar(min(n, total)),
+              acc=torch.zeros((n_pix, 3), dtype=torch.float32, device=dev),
+              nrays=scalar(0), iterations=scalar(0))
+
+    def body(st):
+        """One pool iteration; a fixpoint once no slot is live (nothing is
+        deposited, counted or issued)."""
+        iterations = st["iterations"] + st["active"].any()
         upd, died, contrib = _bounce_step(cs, meta, settings, intersect, st,
                                           spectral, bg_spd_id)
+        acc = st["acc"]
         acc.index_add_(0, st["pix"], torch.where(died[:, None], contrib,
                                                  torch.zeros_like(contrib)))
-        nrays = nrays + upd["nrays"]
-
         free = ~upd["active"]
-        new_ids = next_sample + torch.cumsum(free.long(), 0) - 1
-        issue = free & (new_ids < total)
-        o_n, d_n, t_n, k_n, lam_n, pdf_n, pix_n = sample_to_ray(new_ids, issue)
+        new_ids = st["next"] + torch.cumsum(free.long(), 0) - 1
+        issue = free & (new_ids < st["total"])
+        o_n, d_n, t_n, k_n, lam_n, pdf_n, pix_n = sample_to_ray(st, new_ids,
+                                                                issue)
         sel = issue[:, None]
         sel_r = issue if spectral else sel
-        st = dict(
+        return dict(
+            key=st["key"], offset=st["offset"], total=st["total"],
             o=torch.where(sel, o_n, upd["o"]),
             d=torch.where(sel, d_n, upd["d"]),
             time=torch.where(issue, t_n, st["time"]),
@@ -171,6 +235,45 @@ def trace_pool(cs, meta, settings, intersect, nx: int, ny: int, spp: int,
                               upd["depth"]),
             thru=torch.where(sel_r, torch.ones_like(upd["thru"]), upd["thru"]),
             rad=torch.where(sel_r, torch.zeros_like(upd["rad"]), upd["rad"]),
-            active=upd["active"] | issue)
-        next_sample = next_sample + issue.sum()
-    return acc, nrays, iterations
+            active=upd["active"] | issue,
+            next=st["next"] + issue.sum(),
+            acc=acc, nrays=st["nrays"] + upd["nrays"], iterations=iterations)
+
+    return body, st
+
+
+def _trace_pool(cs, meta, settings, intersect, nx: int, ny: int, spp: int,
+                base_key, pool_size: int, spectral: bool, bg_spd_id: int,
+                sample_offset: int, chunk: int, capture: bool,
+                graphs: Optional[dict] = None, stats: Optional[dict] = None):
+    """`trace_pool` with its loop's chunk and capture given. chunk=1 with
+    capture=False is the plain version of the loop: the same body, the end
+    tested after every iteration, no graph (the loop before CUDA graphs).
+    A pool whose iteration syncs with the host (the all-reduces of
+    `parallel.dist`'s sharded pools go through gloo) runs with
+    capture=False, its chunks uncaptured."""
+    body, st = _pool(cs, meta, settings, intersect, nx, ny, spp, base_key,
+                     pool_size, spectral, bg_spd_id, sample_offset)
+    if capture:
+        key = (id(cs), id(meta), id(intersect), settings, nx, ny, pool_size,
+               spectral, bg_spd_id)
+        kept = graphs.get(key) if graphs is not None else None
+        runner = kept[0] if kept else loops.Graphed()
+        if graphs is not None and not kept:
+            # One graph a dict: the one it replaces frees its memory. The
+            # objects ride along so that their ids stay theirs.
+            graphs.clear()
+            graphs[key] = (runner, (cs, meta, intersect))
+    else:
+        runner = loops.Eager()
+    before = (runner.trips, runner.replays, runner.capture_seconds)
+    st = loops.chunked_while(lambda s: s["active"].any(), body, st, chunk,
+                             runner)
+    if stats is not None:
+        stats.update(chunk=chunk, trips=runner.trips - before[0],
+                     replays=runner.replays - before[1],
+                     capture_seconds=runner.capture_seconds - before[2])
+        if capture:
+            stats.update(per_body=dict(runner.deltas),
+                         graph_bytes=runner.capture_bytes)
+    return st["acc"], st["nrays"], int(st["iterations"])

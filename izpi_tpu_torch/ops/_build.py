@@ -25,7 +25,7 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
 SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
-           "bvh4_rowstack.cu")
+           "bvh4_rowstack.cu", "cipher.cu")
 HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh")
 # The kernels whose ptxas report `ptxas_usage` reads, by their names.
 KERNELS = ("megakernel_rgb", "megakernel_spectral", "bvh4_traverse",
@@ -65,7 +65,16 @@ _SIGNATURES = {
     ],
     "izpi_megakernel_spectral_grid": [_c_void_p, _c_void_p],
     "izpi_threefry_uniforms": [
-        _c_void_p, _c_void_p, _c_int, _c_int, _c_uint32, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_int,          # keys, depths, n
+        _c_int, _c_uint32, _c_void_p,          # n_uniforms, salt, out
+        _c_void_p,                             # stream
+    ],
+    "izpi_threefry_new_sample": [
+        _c_void_p, _c_void_p, _c_void_p,      # base key, pixels, samples (or null)
+        _c_uint32, _c_int,                     # sample_const, n
+        _c_uint32, _c_uint32,                  # cam_salt, lam_salt
+        _c_void_p, _c_void_p, _c_void_p,       # keys_out, cam_out, lam_out (or null)
+        _c_void_p,                             # stream
     ],
     "izpi_bvh4_traverse": [
         _c_void_p, _c_void_p,                  # nodes, prims

@@ -9,23 +9,31 @@ for UInt32), so a 32-bit word rides in an int64 tensor with a value in
 [0, 2**32) and is masked with 0xFFFFFFFF after every add and left shift.
 
 `csrc/threefry.cuh` is the same cipher as CUDA device functions, inlined
-into the megakernel. `uniforms_for_keys` launches it on its own (the
-`izpi_threefry_uniforms` entry) so a run on the card can hold the device
-cipher against this file bit for bit.
+into the megakernels. The cipher entry (`csrc/cipher.cu`) launches it on
+its own for the draws outside the megakernels: `uniforms_for_keys` (a
+bounce's, the media's) and `new_samples` (a new sample's path key, camera
+and λ). On a CPU tensor each wrapper runs its plain version, the PyTorch
+cipher of this file, which a run on the card holds the kernels against bit
+for bit; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 MASK = 0xFFFFFFFF
+MAX_UNIFORMS = 48  # the run-time form's largest count (csrc/cipher.cu)
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
 
-# Launches of the `izpi_threefry_uniforms` kernel made by `uniforms_for_keys`.
+# Launches of the cipher entry's kernels (`izpi_threefry_uniforms`,
+# `izpi_threefry_new_sample`) made by `uniforms_for_keys` and `new_samples`,
+# and of them the new-sample form's.
 launches = 0
+sample_launches = 0
 
 
 def _rotl(x, r: int):
@@ -90,42 +98,141 @@ def uniforms_for_keys_reference(keys, depths, n: int, salt: int):
     return torch.stack(uniforms_n(f0, f1, n), dim=-1)
 
 
-def _as_int32_words(words):
-    """int64 words in [0, 2**32) → int32 tensor with the same 32 bits."""
-    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+def _launch_checks(name, tensors, dev):
+    for label, t, dtype, shape in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: {label} is on {t.device}, not {dev}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {label} must be {dtype} of shape "
+                             f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def uniforms_for_keys(keys, depths, n: int, salt: int):
-    """(N, n) uniforms for (N, 2) int64 keys and (N,) depths.
+    """(N, n) uniforms for (N, 2) int64 keys and (N,) int64 depths.
 
     On a CUDA tensor this launches the device cipher (`izpi_threefry_uniforms`
-    in csrc/megakernel_rgb.cu: n of 1, 5 and 12, the λ, camera and bounce
-    draws, unrolled, any other n ≥ 1, the media's, at run time); on a CPU
-    tensor it runs `uniforms_for_keys_reference`."""
+    in csrc/cipher.cu: n of 1, 5 and 12, the λ, camera and bounce draws,
+    unrolled, any other n up to 48, the media's, at run time), which reads
+    the int64 words as they are; on a CPU tensor it runs
+    `uniforms_for_keys_reference`."""
     if keys.device.type == "cpu":
         return uniforms_for_keys_reference(keys, depths, n, salt)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    if n < 1:
-        raise ValueError(f"the device cipher draws at least 1 uniform, not {n}")
-    if keys.ndim != 2 or keys.shape[1] != 2 or depths.shape != keys.shape[:1]:
-        raise ValueError("keys must be (N, 2) and depths (N,)")
+    if not 1 <= n <= MAX_UNIFORMS:
+        raise ValueError(f"the device cipher draws 1 to {MAX_UNIFORMS} "
+                         f"uniforms, not {n}")
+    dev = keys.device
+    keys, depths = keys.contiguous(), depths.contiguous()
+    _launch_checks("uniforms_for_keys", (
+        ("keys", keys, torch.int64, (keys.shape[0], 2)),
+        ("depths", depths, torch.int64, keys.shape[:1])), dev)
     from izpi_tpu_torch.ops import _build
 
     lib = _build.load()
-    k32 = _as_int32_words(keys).contiguous()
-    d32 = _as_int32_words(depths.to(torch.int64) & MASK).contiguous()
-    out = torch.empty((keys.shape[0], n), dtype=torch.float32,
-                      device=keys.device)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
+    out = torch.empty((keys.shape[0], n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         err = lib.izpi_threefry_uniforms(
-            ctypes.c_void_p(k32.data_ptr()), ctypes.c_void_p(d32.data_ptr()),
-            keys.shape[0], n, ctypes.c_uint32(salt & MASK),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+            _ptr(keys), _ptr(depths), keys.shape[0], n,
+            ctypes.c_uint32(salt & MASK), _ptr(out), _stream(dev))
     if err != 0:
         raise RuntimeError(f"izpi_threefry_uniforms launch failed: CUDA error "
                            f"{err}")
     global launches
     launches += 1
     return out
+
+
+def path_keys_reference(base_key, pixel_ids, sample_ids):
+    """Plain version of the path keys: fold the sample index (an int or an
+    (N,) tensor), then the flat pixel index (core/rng.py:40-51, 73-83).
+    Returns (N, 2)."""
+    k0, k1 = base_key[0], base_key[1]
+    pixel_ids = pixel_ids.to(torch.int64)
+    if isinstance(sample_ids, torch.Tensor) and sample_ids.ndim:
+        s0, s1 = fold_in(k0.expand(sample_ids.shape), k1.expand(sample_ids.shape),
+                         sample_ids.to(torch.int64))
+    else:
+        s0, s1 = fold_in(k0, k1, sample_ids)
+        s0, s1 = s0.expand(pixel_ids.shape), s1.expand(pixel_ids.shape)
+    p0, p1 = fold_in(s0, s1, pixel_ids)
+    return torch.stack([p0, p1], dim=-1)
+
+
+def new_samples_reference(base_key, pixel_ids, sample_ids,
+                          camera_salt: Optional[int] = None,
+                          lambda_salt: Optional[int] = None):
+    """Plain version of `new_samples`: the path keys, then the camera's 5
+    uniforms and λ's one at depth 0 under their salts
+    (`uniforms_for_keys_reference`)."""
+    keys = path_keys_reference(base_key, pixel_ids, sample_ids)
+    zeros = torch.zeros(keys.shape[:1], dtype=torch.int64, device=keys.device)
+    cam = (None if camera_salt is None else
+           uniforms_for_keys_reference(keys, zeros, 5, camera_salt))
+    lam = (None if lambda_salt is None else
+           uniforms_for_keys_reference(keys, zeros, 1, lambda_salt)[:, 0])
+    return keys, cam, lam
+
+
+def new_samples(base_key, pixel_ids, sample_ids,
+                camera_salt: Optional[int] = None,
+                lambda_salt: Optional[int] = None):
+    """A new sample's draws for (pixel, sample) pairs: (keys (N, 2) int64,
+    the camera's 5 uniforms (N, 5) f32 or None, λ's uniform (N,) f32 or
+    None). base_key: the (2,) int64 render key; pixel_ids: (N,) int64;
+    sample_ids: (N,) int64 or one int for every pair. λ needs the camera.
+
+    On a CUDA tensor this is one launch of the device cipher
+    (`izpi_threefry_new_sample` in csrc/cipher.cu), which reads the base key
+    from device memory, so it can sit in a captured CUDA graph; on a CPU
+    tensor it runs `new_samples_reference`."""
+    if lambda_salt is not None and camera_salt is None:
+        raise ValueError("λ's draw comes with the camera's")
+    dev = pixel_ids.device
+    if dev.type == "cpu":
+        return new_samples_reference(base_key, pixel_ids, sample_ids,
+                                     camera_salt, lambda_salt)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n = pixel_ids.shape[0]
+    pixel_ids = pixel_ids.contiguous()
+    per_ray = isinstance(sample_ids, torch.Tensor)
+    checks = [("base_key", base_key, torch.int64, (2,)),
+              ("pixel_ids", pixel_ids, torch.int64, (n,))]
+    if per_ray:
+        sample_ids = sample_ids.contiguous()
+        checks.append(("sample_ids", sample_ids, torch.int64, (n,)))
+    _launch_checks("new_samples", checks, dev)
+    if not base_key.is_contiguous():
+        raise ValueError("new_samples: base_key must be contiguous")
+    from izpi_tpu_torch.ops import _build
+
+    lib = _build.load()
+    keys = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    cam = (None if camera_salt is None else
+           torch.empty((n, 5), dtype=torch.float32, device=dev))
+    lam = (None if lambda_salt is None else
+           torch.empty((n,), dtype=torch.float32, device=dev))
+    with torch.cuda.device(dev):
+        err = lib.izpi_threefry_new_sample(
+            _ptr(base_key), _ptr(pixel_ids),
+            _ptr(sample_ids if per_ray else None),
+            ctypes.c_uint32(0 if per_ray else int(sample_ids) & MASK), n,
+            ctypes.c_uint32((camera_salt or 0) & MASK),
+            ctypes.c_uint32((lambda_salt or 0) & MASK), _ptr(keys), _ptr(cam),
+            _ptr(lam), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"izpi_threefry_new_sample launch failed: CUDA "
+                           f"error {err}")
+    global launches, sample_launches
+    launches += 1
+    sample_launches += 1
+    return keys, cam, lam

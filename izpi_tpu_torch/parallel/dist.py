@@ -244,11 +244,13 @@ def build_pool_renderer(cs, meta, settings, intersect, nx: int, ny: int,
     # 1 << 16 slots): one rank renders as one process does.
     pool = min(pool_size, nx * ny * spp_local)
 
+    graphs = {}  # the pool's CUDA graph, captured by the first call
+
     def run(key):
         acc, nrays, its = wavefront.trace_pool(
             cs, meta, settings, intersect, nx, ny, spp_local, key, pool,
             spectral=spectral, bg_spd_id=bg_spd_id,
-            sample_offset=rank * spp_local)
+            sample_offset=rank * spp_local, graphs=graphs)
         run.iterations = its
         # One canvas all-reduce replaces the reference's row streaming
         # (render/remote.go:46-89); the counter's is RenderEnd's stats.
@@ -669,9 +671,13 @@ def build_pool_renderer_prim_sharded(cs, meta, settings, nx: int, ny: int,
     pool = min(pool_size, nx * ny * spp)
 
     def run(key):
-        acc, nrays, its = wavefront.trace_pool(
+        # The all-reduces in each iteration go through the host (gloo), so
+        # the pool runs its chunks uncaptured; every rank takes the same
+        # chunk decisions.
+        acc, nrays, its = wavefront._trace_pool(
             cs_rep, meta, settings, intersect, nx, ny, spp, key, pool,
-            spectral=spectral, bg_spd_id=bg_spd_id)
+            spectral, bg_spd_id, 0, wavefront.pool_chunk(nx * ny * spp, pool),
+            False)
         run.iterations = its
         return acc, nrays
 

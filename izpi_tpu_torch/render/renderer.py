@@ -70,7 +70,8 @@ from izpi_tpu_torch.core import vecmath as vm
 from izpi_tpu_torch.integrator import aov as aov_mod
 from izpi_tpu_torch.integrator import path as path_mod
 from izpi_tpu_torch.integrator import wavefront
-from izpi_tpu_torch.ops import bvh_kernel, megakernel, megakernel_spectral
+from izpi_tpu_torch.ops import (bvh_kernel, megakernel, megakernel_spectral,
+                                threefry)
 from izpi_tpu_torch.render import checkpoint as ckpt_mod
 from izpi_tpu_torch.scene import types as st
 from izpi_tpu_torch.scene.compiler import compile_scene
@@ -96,6 +97,12 @@ class RenderResult:
     device: str = "cpu"  # where the render ran: "cpu" or the CUDA card's name
     xyz: Optional[np.ndarray] = None  # CIE XYZ canvas after firefly rejection (spectral)
     iterations: Optional[int] = None  # queue-pool iterations (pool renders)
+    # The pool's loop (pool renders): bodies run (the iterations and the
+    # chunks' overrun), of them replayed from a CUDA graph, and the host
+    # seconds of the graph's capture (within the render's).
+    trips: Optional[int] = None
+    replays: Optional[int] = None
+    capture_seconds: Optional[float] = None
     # Wall seconds by phase (renderer.py:420-435): the scene's compile and
     # BVH build, the first chunk (with any kernel build), the render, and
     # a spectral render's post-pass.
@@ -132,7 +139,9 @@ def prepare(scene: st.Scene, device, use_bvh: Optional[bool] = None):
 class RenderContext:
     """A compiled scene and its intersector on one device ("cuda" unless the
     caller asks for "cpu"), plus the megakernel's packed tables (built once,
-    on first use). `build_seconds` covers the compile and the BVH build."""
+    on first use) and the queue pool's CUDA graph (`graphs`, captured on
+    first use and replayed by later renders of the same pool size, frame
+    and sampler; one of another replaces it). `build_seconds` covers the compile and the BVH build."""
 
     def __init__(self, scene: st.Scene, use_bvh: Optional[bool] = None, *,
                  device="cuda"):
@@ -143,6 +152,7 @@ class RenderContext:
         self.build_seconds = time_mod.perf_counter() - t0
         self._tables = None
         self._warned_assets = False
+        self.graphs = {}
 
     def mega_supported(self, spectral: Optional[bool] = None) -> bool:
         """Whether a megakernel renders this scene under the colour
@@ -163,14 +173,24 @@ class RenderContext:
         return self._tables
 
 
+def camera_rays(cs, base_key, xs, ys, nx: int, ny: int, sample_id: int):
+    """Sample `sample_id`'s camera rays through pixels (xs, ys): (o, d,
+    time, path keys). The keys and the camera's uniforms come from one call
+    of the cipher entry (`ops.threefry.new_samples`)."""
+    keys, cam_u, _ = threefry.new_samples(
+        base_key, (ys * nx + xs).to(torch.int64), int(sample_id),
+        camera_mod.CAMERA_SALT)
+    return (*camera_mod.rays_from_uniforms(cs.camera, cam_u, xs, ys, nx, ny),
+            keys)
+
+
 def sample_pass(cs, meta, settings, intersect, nx: int, ny: int, xs, ys,
                 base_key, sample_id: int, differentiable: bool = False):
     """One sample for a batch of pixels (xs, ys: (N,) pixel coords).
     Returns (colour (N, 3) DeNAN'd, rays as a 0-dim int64 tensor).
     differentiable=True traces the differentiable estimate
     (`integrator.path.trace`), the training step's (renderer.py:55-69)."""
-    keys = rng.path_keys(base_key, ys * nx + xs, sample_id)
-    o, d, tme = camera_mod.primary_rays(cs.camera, keys, xs, ys, nx, ny)
+    o, d, tme, keys = camera_rays(cs, base_key, xs, ys, nx, ny, sample_id)
     color, nrays = path_mod.trace(cs, meta, settings, intersect, o, d, tme,
                                   keys, differentiable=differentiable)
     return vm.de_nan(color), nrays
@@ -244,13 +264,19 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
                                tables=tables)
             return acc, nrays, None
     else:
+        loop = dict(trips=0, replays=0, capture_seconds=0.0)
+
         def run(n, off):
             pool = min(nx * ny * n, POOL_MAX)
-            return wavefront.trace_pool(
+            stats = {}
+            out = wavefront.trace_pool(
                 cs, meta, settings, context.intersect, nx, ny, n, base_key,
                 pool, spectral=spectral,
                 bg_spd_id=meta.spectral_background_spd or 0,
-                sample_offset=off)
+                sample_offset=off, graphs=context.graphs, stats=stats)
+            for k in loop:
+                loop[k] += stats[k]
+            return out
 
     fingerprint = None
     if checkpoint_path:
@@ -310,13 +336,15 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
     seconds = time_mod.perf_counter() - t0
     phases = {"scene_build": context.build_seconds,
               "first_chunk": first_chunk or 0.0, "render": seconds}
+    pool_loop = {} if use_mega else loop
     canvas = (acc_total / spp).reshape(ny, nx, 3)[::-1].astype(np.float32)
     if not spectral:
         if verbose:
             print(f"phases: {phases}")
         return RenderResult(image=np.ascontiguousarray(canvas),
                             rays_traced=rays, seconds=seconds, device=name,
-                            iterations=iterations, phases=phases)
+                            iterations=iterations, phases=phases,
+                            **pool_loop)
     # The spectral post-pass (leader.go:216-219): firefly rejection on XYZ,
     # then XYZ→ACEScg with exposure.
     tp = time_mod.perf_counter()
@@ -327,7 +355,7 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
         print(f"phases: {phases}")
     return RenderResult(image=image, rays_traced=rays, seconds=seconds,
                         device=name, xyz=xyz.astype(np.float32),
-                        iterations=iterations, phases=phases)
+                        iterations=iterations, phases=phases, **pool_loop)
 
 
 def _pixels(nx: int, y0: int, n_rows: int, dev):
@@ -347,8 +375,7 @@ def _render_aov(context, settings, nx, ny, spp, base_key, sampler_type, ink,
     xs, ys = _pixels(nx, 0, ny, dev)
     acc = torch.zeros((nx * ny, 3), dtype=torch.float32, device=dev)
     for s in range(spp):
-        keys = rng.path_keys(base_key, ys * nx + xs, s)
-        o, d, tme = camera_mod.primary_rays(cs.camera, keys, xs, ys, nx, ny)
+        o, d, tme, _ = camera_rays(cs, base_key, xs, ys, nx, ny, s)
         if sampler_type == "albedo":
             c = aov_mod.sample_albedo(cs, meta, context.intersect, o, d, tme)
         elif sampler_type == "normal":

@@ -10,6 +10,8 @@ the arithmetic divides where the JAX package divides (`/ CIE_STEP`,
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -59,10 +61,21 @@ CIE_Y_INTEGRAL = 21.3768
 
 # Inclusive prefix sum of CIE_Y (float64; the sampler reads it as float32).
 _CIE_Y_CUMSUM = np.cumsum(CIE_Y)
+# The tables the device functions read, by id (`_f32`).
+_TABLES = {id(t): t for t in (CIE_X, CIE_Y, CIE_Z, CIE_WAVELENGTHS,
+                               _CIE_Y_CUMSUM)}
+
+
+@functools.lru_cache(maxsize=None)
+def _device_table(table_id: int, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(_TABLES[table_id], np.float32),
+                           device=device)
 
 
 def _f32(table, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(table, np.float32), device=like.device)
+    """The module table `table` as float32 on `like`'s device, copied there
+    once: a pool iteration makes no host-to-device copy."""
+    return _device_table(id(table), like.device)
 
 
 def _interp_fixed_grid(table, lam):

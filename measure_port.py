@@ -11,6 +11,8 @@
     python3 measure_port.py --scene pbr_ibl|final|... --vs-cpu 16@2 64@8
                             [--seeds 0 1]
     python3 measure_port.py --cipher [--parent DIR] [--runs 3]
+    python3 measure_port.py --trace-loop [--scene obj|cornell|pbr_ibl|final]
+                            [--size 128] [--spp 4] [--runs 2]
 
 Renders one main path of chip_smoke.py on one warm `RenderContext`, after
 one warm-up render: Cornell 256×256 at 1024 spp, `max_depth=50`, through
@@ -43,11 +45,14 @@ per pixel. It prints:
   - the CUDA-event milliseconds of the kernel's wrapper alone: for a
     megakernel, `render_slots` or `render_slots_spectral` (kernel plus the
     replica and ray-count sums) called on its own, and its launch inside
-    one `render()` with the persistent grid and slots; for a pool scene, the
-    traversal kernel's wrapper (`bvh_kernel.closest_hit` or
-    `bvh_rowkernel.closest_hit_rows`) summed over the launches of one
-    `render()`, whose count must equal the pool iterations; and its share
-    of the median `render()` seconds;
+    one `render()` with the persistent grid and slots; for a pool scene,
+    whose `render()` replays its iterations from a CUDA graph (launches the
+    host does not see), the traversal kernel's wrapper
+    (`bvh_kernel.closest_hit` or `bvh_rowkernel.closest_hit_rows`) per
+    launch over the same render through the plain loop (the same body, no
+    graph), the launches of one `render()`, which must equal its pool
+    bodies run (`RenderResult.trips`), and the kernel's share of the
+    median `render()` seconds;
   - one `render()` under `torch.profiler`: wall seconds, device-busy
     seconds (the sum of the CUDA kernels' and copies' self device time),
     the device's idle share of the wall time, the count of device events
@@ -76,7 +81,8 @@ megakernel's, or for a pool scene the traversal kernel's, with `--row` the
 row-stack pair's), one warm-up and `--runs` timed renders (default 3).
 Each prints its median render seconds, its median milliseconds per launch
 (CUDA events around each launch in `render()`, whose count must equal the
-pool iterations) and its kernels' ptxas registers, spills and shared
+pool's bodies run; a tree that replays its pool from a CUDA graph makes no
+launch the host sees, and prints nan) and its kernels' ptxas registers, spills and shared
 memory; then the two trees' rays must be equal and every pixel of the image
 (Cornell, cornell_box_obj) or of the XYZ canvas (the pyramid, the dragon)
 within 1e-4 + 1e-5·|DIR's| (a megakernel's turns must repeat bit for bit,
@@ -94,14 +100,24 @@ seed and shrinks relative to the rays as the frame grows; a fault keeps
 its sign and its relative size.
 
 `--cipher` times the cipher entry `izpi_threefry_uniforms` alone (CUDA
-events around `--runs` × 100 back-to-back launches through the library's C
-entry, on random key words) at 262,144 keys (the `cornell_box_obj` pool's
+events around one replay of a CUDA graph of `--runs` × 100 launches through
+the library's C entry, on random key words: int64 words where the tree's
+entry has the new-sample form, int32 words in an older tree) at 262,144 keys (the `cornell_box_obj` pool's
 batch) and at 1,048,576, for each count the pool draws, 12, 5 and 1
 uniforms (the unrolled template forms), beside 11, 6 and 2 uniforms (the
 run-time-count form at the same cipher calls a key: two fold-ins and 6, 3
 or 1 pairs), and prints each pair's ratio; with `--parent DIR` in four
 subprocesses in turns, DIR, this tree, this tree, DIR, whose outputs must
 be equal bit for bit (DIR's entry must take every count).
+
+`--trace-loop` times the lockstep oracle (`render(mode="simple")`,
+`integrator.path.trace`, its bounces through `core.loops.guarded_fori`
+uncaptured) on `--scene` (an RGB scene; `obj` by default) at `--size`
+(128) and `--spp` (4), at its main path's depth, with `path.TRACE_CHUNK`
+bounces between two tests of the live flags at 8 and at 1 (the early-exit
+loop: one test, a sync, a bounce), in turns 8, 1, 1, 8, `--runs` times
+(default 2) after a warm-up of each: each turn's seconds and rays, each
+chunk's median, and their ratio. The rays must be equal.
 
 A megakernel scene also prints each megakernel's registers and spills from
 the ptxas log of the build. Imports nothing of JAX.
@@ -125,7 +141,7 @@ import torch
 from izpi_tpu_torch import profiling
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import procedural
-from izpi_tpu_torch.integrator import path
+from izpi_tpu_torch.integrator import path, wavefront
 from izpi_tpu_torch.ops import (_build, bvh_kernel, bvh_rowkernel, megakernel,
                                 megakernel_spectral, threefry)
 from izpi_tpu_torch.render import renderer
@@ -208,11 +224,16 @@ for _ in range(runs):
     with profiling.event_timed(mod, fn) as events:
         res = renderer.render(None, n, n, spp, settings, seed=0, context=ctx,
                               device="cuda")
-    if mod.launches - before != (res.iterations or 1):
+    # A pool launches once a body run (trips, where the tree counts them:
+    # its iterations and the loop's overrun), a megakernel render once.
+    bodies = getattr(res, "trips", None) or res.iterations or 1
+    if mod.launches - before != bodies:
         raise SystemExit(f"{mod.launches - before} launches of {fn} in "
-                         f"{res.iterations} pool iterations")
+                         f"{bodies} pool bodies")
     seconds.append(res.seconds)
-    ms.append(profiling.event_ms(events) / len(events))
+    # A pool replayed from a CUDA graph makes no launch the host sees.
+    ms.append(profiling.event_ms(events) / len(events) if events
+              else float("nan"))
 usage = _build.ptxas_usage(_build.build().with_suffix(".log").read_text())
 np.savez(out, image=res.image, xyz=res.xyz if ctx.meta.spectral else res.image)
 print(json.dumps({"rays": res.rays_traced, "seconds": seconds, "ms": ms,
@@ -224,27 +245,45 @@ print(json.dumps({"rays": res.rays_traced, "seconds": seconds, "ms": ms,
 CIPHER_TURN = r"""
 import json, sys
 import numpy as np, torch
-from izpi_tpu_torch import profiling
 from izpi_tpu_torch.ops import _build
 shapes, reps, out = json.loads(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 lib = _build.load()
+# A tree whose entry has the new-sample form reads int64 words; an older
+# one reads int32 words. The same random words go to both.
+wide = hasattr(lib, "izpi_threefry_new_sample")
 rs = np.random.RandomState(3)
-stream = torch.cuda.current_stream().cuda_stream
 ms, bits = [], {}
 for n_keys, n_u in shapes:
-    words = torch.as_tensor(rs.randint(-2**31, 2**31, (n_keys, 3),
-                                       dtype=np.int64).astype(np.int32),
-                            device="cuda")
-    k32, d32 = words[:, :2].contiguous(), words[:, 2].contiguous()
+    words = rs.randint(-2**31, 2**31, (n_keys, 3), dtype=np.int64)
+    words = (words & 0xFFFFFFFF) if wide else words.astype(np.int32)
+    words = torch.as_tensor(words, device="cuda")
+    k, d = words[:, :2].contiguous(), words[:, 2].contiguous()
     o = torch.empty((n_keys, n_u), dtype=torch.float32, device="cuda")
 
     def launch():
-        err = lib.izpi_threefry_uniforms(k32.data_ptr(), d32.data_ptr(),
-                                         n_keys, n_u, 0, o.data_ptr(), stream)
+        err = lib.izpi_threefry_uniforms(
+            k.data_ptr(), d.data_ptr(), n_keys, n_u, 0, o.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise SystemExit(f"izpi_threefry_uniforms: CUDA error {err}")
 
-    ms.append(profiling.cuda_ms(launch, reps)[1])
+    # reps launches captured in one CUDA graph and timed as one replay, so
+    # that the host's launch cost is not timed.
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms.append(start.elapsed_time(end) / reps)
     bits[f"{n_keys}x{n_u}"] = o.view(torch.int32).cpu().numpy()
 np.savez(out, **bits)
 print(json.dumps({"ms": ms}))
@@ -256,6 +295,36 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+def trace_loop(scene: str, n: int, spp: int, runs: int) -> None:
+    make_scene, _, _, depth, _ = SCENES[scene]
+    settings = path.RenderSettings(max_depth=depth)
+    ctx = renderer.RenderContext(make_scene(), device="cuda")
+    print(f"trace loop: {scene} in mode simple at {n}x{n}@{spp} depth {depth} "
+          f"seed 0 ({smi()})", flush=True)
+    secs, rays = {8: [], 1: []}, {}
+    for turn in range(runs + 1):
+        for chunk in (8, 1, 1, 8):
+            path.TRACE_CHUNK = chunk
+            res = renderer.render(None, n, n, spp, settings, seed=0,
+                                  mode="simple", context=ctx, device="cuda")
+            rays.setdefault(chunk, res.rays_traced)
+            if res.rays_traced != rays[chunk]:
+                raise AssertionError("two renders at one chunk differ")
+            if turn:  # the first round warms up
+                secs[chunk].append(res.seconds)
+    path.TRACE_CHUNK = 8
+    med = {c: statistics.median(v) for c, v in secs.items()}
+    for c in (8, 1):
+        print(f"trace loop: {scene} chunk {c}: rays {rays[c]}; seconds "
+              f"{[round(x, 4) for x in secs[c]]}, median {med[c]:.4f} = "
+              f"{rays[c] / med[c] / 1e6:.3f} Mrays/s", flush=True)
+    print(f"trace loop: {scene}: chunk 8 / chunk 1 median seconds "
+          f"{med[8] / med[1]:.3f} ({smi()})", flush=True)
+    if rays[8] != rays[1]:
+        raise AssertionError(f"chunks 8 and 1 trace {rays[8]} and {rays[1]} "
+                             f"rays")
 
 
 def blob_box(n_tris: int) -> scene_types.Scene:
@@ -561,11 +630,20 @@ def main() -> None:
                          "frames and samples")
     ap.add_argument("--cipher", action="store_true",
                     help="time the cipher entry alone (against --parent)")
+    ap.add_argument("--trace-loop", action="store_true",
+                    help="time the lockstep oracle's bounces at chunks 8 "
+                         "and 1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("measure_port: torch.cuda.is_available() is False")
     if args.row and SCENES[args.scene][4] is not None:
         raise SystemExit("measure_port: --row needs a pool scene")
+    if args.trace_loop:
+        scene = "obj" if "--scene" not in sys.argv else args.scene
+        if scene in ("pyramid", "dragon"):
+            raise SystemExit("measure_port: --trace-loop needs an RGB scene")
+        trace_loop(scene, args.size or 128, args.spp or 4, args.runs or 2)
+        return
     if args.cipher:
         print(f"smi before: {smi()}", flush=True)
         cipher_turns(args.parent, args.runs or 3)
@@ -642,19 +720,29 @@ def main() -> None:
         module, fn = ((bvh_rowkernel, "closest_hit_rows") if args.row
                       else (bvh_kernel, "closest_hit"))
         before = module.launches
-        with profiling.event_timed(module, fn) as events:
-            timed = renderer.render(None, n, n, spp, settings,
-                                    seed=args.seeds[0], context=ctx,
-                                    device="cuda")
-        ms, calls = profiling.event_ms(events), len(events)
-        if module.launches - before != timed.iterations:
+        timed = renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
+                                context=ctx, device="cuda")
+        if module.launches - before != timed.trips:
             raise SystemExit(f"measure_port: {module.launches - before} "
-                             f"launches in {timed.iterations} iterations")
-        print(f"{module.__name__.rsplit('.', 1)[1]}.{fn} (CUDA events): "
-              f"{ms:.3f} ms over {calls} launches in one render() of "
-              f"{timed.iterations} pool iterations, {ms / calls:.4f} ms per "
-              f"launch, {ms / 1e3 / median_s:.2%} of the median render() "
-              f"seconds of seed {args.seeds[0]}", flush=True)
+                             f"launches in {timed.trips} pool bodies")
+        # The render replays its pool from a CUDA graph, whose launches the
+        # host does not see: the kernel is timed on the same paths through
+        # the plain loop (the same body, no graph).
+        with profiling.event_timed(module, fn) as events:
+            wavefront._trace_pool(
+                ctx.cs, ctx.meta, settings, ctx.intersect, n, n, spp,
+                rng.render_key(args.seeds[0], device="cuda"),
+                min(n * n * spp, renderer.POOL_MAX), bool(ctx.meta.spectral),
+                ctx.meta.spectral_background_spd or 0, 0, 1, False)
+        ms, calls = profiling.event_ms(events), len(events)
+        per_launch = ms / calls
+        print(f"{module.__name__.rsplit('.', 1)[1]}.{fn} (CUDA events, over "
+              f"the plain loop's {calls} launches): {per_launch:.4f} ms per "
+              f"launch; x the {timed.trips} launches of one render() "
+              f"({timed.iterations} pool iterations, {timed.replays} graph "
+              f"replays) = {per_launch * timed.trips / 1e3 / median_s:.2%} of "
+              f"the median render() seconds of seed {args.seeds[0]}",
+              flush=True)
         if args.row:
             row_sort(ctx, n, spp, settings, args.seeds[0], runs)
     else:

@@ -17,7 +17,7 @@ import torch
 
 from izpi_tpu_torch import camera
 from izpi_tpu_torch.accel import traverse
-from izpi_tpu_torch.core import rng
+from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.geometry import primitives
 from izpi_tpu_torch.integrator import path, wavefront
 from izpi_tpu_torch.ops import _build, bvh_kernel, bvh_rowkernel, megakernel
@@ -318,17 +318,18 @@ def test_bvh_kernel_small_and_parked_batches_on_card(obj_context, n):
 
 def test_cuda_obj_render_matches_cpu_render(obj_context):
     """cornell_box_obj 16x16 at 2 spp through the queue pool: on the card
-    through the traversal kernel (one launch per pool iteration), on the
+    through the traversal kernel (one launch per pool body run), on the
     CPU through the plain traversal, with the bounds of the kernel-vs-twin
     tests above."""
     s = path.RenderSettings(max_depth=8)
     before = bvh_kernel.launches
     on_card = renderer.render(None, 16, 16, 2, s, seed=3, context=obj_context,
                               device="cuda")
-    assert bvh_kernel.launches - before == on_card.iterations
+    # One launch a pool body run: the iterations and any chunk's overrun.
+    assert bvh_kernel.launches - before == on_card.trips
     on_cpu = renderer.render(cornell_box_obj(), 16, 16, 2, s, seed=3,
                              device="cpu")
-    assert on_card.iterations >= 1
+    assert 1 <= on_card.iterations <= on_card.trips
     assert abs(on_card.rays_traced - on_cpu.rays_traced) <= 0.005 * on_cpu.rays_traced
     close = np.abs(on_card.image - on_cpu.image).max(axis=2) <= 1e-4
     assert close.mean() >= 0.99
@@ -379,7 +380,7 @@ def test_rowstack_kernel_matches_plain_on_card(obj_context, t_min, t_max):
 def test_cuda_dragon_render_matches_cpu_render():
     """The dragon at 2,000 stand-in triangles, 8x8 at 2 spp, depth 8,
     through the row-stack pair (a pool of 128 slots; one launch per pool
-    iteration) on the card and through
+    iteration run) on the card and through
     its plain version on the CPU, with the bounds of the kernel-vs-twin
     tests above."""
     scene = cornell_box_pbr_stanford_dragon_spectral(n_tris=2000)
@@ -392,7 +393,7 @@ def test_cuda_dragon_render_matches_cpu_render():
         out[device] = renderer.render(None, 8, 8, 2, s, seed=3, context=ctx,
                                       device=device)
         launched = bvh_rowkernel.launches - before
-        assert launched == (out[device].iterations if device == "cuda" else 0)
+        assert launched == (out[device].trips if device == "cuda" else 0)
     on_card, on_cpu = out["cuda"], out["cpu"]
     assert abs(on_card.rays_traced - on_cpu.rays_traced) <= 0.005 * on_cpu.rays_traced
     close = (np.abs(on_card.xyz - on_cpu.xyz)
@@ -437,11 +438,16 @@ def test_final_pool_through_kernel_matches_plain_traversal():
     s = path.RenderSettings(max_depth=50)
     key = rng.render_key(4, device="cuda")
     before = bvh_kernel.launches
+    stats = {}
     got, g_rays, iters = wavefront.trace_pool(ctx.cs, ctx.meta, s,
-                                              ctx.intersect, 16, 16, 2, key, 512)
-    assert bvh_kernel.launches - before == iters
-    want, w_rays, _ = wavefront.trace_pool(ctx.cs, ctx.meta, s, plain, 16, 16,
-                                           2, key, 512)
+                                              ctx.intersect, 16, 16, 2, key, 512,
+                                              stats=stats)
+    assert bvh_kernel.launches - before == stats["trips"] >= iters
+    # The plain traversal compacts its rays (a host sync), so it runs in
+    # the plain loop, which captures nothing.
+    want, w_rays, _ = wavefront._trace_pool(ctx.cs, ctx.meta, s, plain, 16,
+                                            16, 2, key, 512, False, 0, 0, 1,
+                                            False)
     assert int(g_rays) == int(w_rays)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
@@ -611,3 +617,183 @@ def test_prim_sharded_bvh_kernel_matches_replicated():
         np.testing.assert_array_equal(rec["mat_id"], mat)
         assert (rec["prim_idx"] != gidx).mean() <= 1e-3  # exact-t ties
     assert hit.mean() > 0.5
+
+
+# ---- the pool's loop on the card: chunks replayed from a CUDA graph ----
+
+# The graphed pool against the plain loop: the same paths, deposited by
+# `index_add_`'s atomics in another order.
+GRAPH_ATOL, GRAPH_RTOL = 1e-6, 1e-5
+
+
+def _plain_pool(ctx, s, n, spp, key, pool, spectral=False):
+    """The plain version of the pool's loop: the same body, the end tested
+    after every iteration, no graph."""
+    return wavefront._trace_pool(ctx.cs, ctx.meta, s, ctx.intersect, n, n,
+                                 spp, key, pool, spectral,
+                                 ctx.meta.spectral_background_spd or 0, 0, 1,
+                                 False)
+
+
+def test_graphed_pool_matches_plain_loop(obj_context):
+    """cornell_box_obj 32x32 at 4 spp, depth 50, a pool of a quarter of the
+    samples: through `trace_pool` (its chunk, captured) and at a chunk of
+    3, captured, against the plain loop: rays and iterations equal, every
+    pixel within 1e-6 + 1e-5·|plain|, one traversal launch a body run."""
+    s = path.RenderSettings(max_depth=50)
+    key = rng.render_key(0, device="cuda")
+    want, w_rays, w_its = _plain_pool(obj_context, s, 32, 4, key, 1024)
+    for chunk in (None, 3):
+        stats, before = {}, bvh_kernel.launches
+        if chunk is None:
+            got, rays, its = wavefront.trace_pool(
+                obj_context.cs, obj_context.meta, s, obj_context.intersect,
+                32, 32, 4, key, 1024, stats=stats)
+        else:
+            got, rays, its = wavefront._trace_pool(
+                obj_context.cs, obj_context.meta, s, obj_context.intersect,
+                32, 32, 4, key, 1024, False, 0, 0, chunk, True, stats=stats)
+        assert stats["replays"] == stats["trips"] - 1  # one warm-up body
+        assert bvh_kernel.launches - before == stats["trips"]
+        assert its <= stats["trips"] < its + stats["chunk"]
+        assert (int(rays), its) == (int(w_rays), w_its)
+        torch.testing.assert_close(got, want, atol=GRAPH_ATOL, rtol=GRAPH_RTOL)
+
+
+def test_second_render_replays_without_capture():
+    """A second render on the same context, with another seed, replays the
+    graph the first captured: no capture, every body a replay, and the
+    image of the plain loop at that seed (the key is a device scalar in the
+    graph)."""
+    ctx = renderer.RenderContext(cornell_box_obj(), device="cuda")
+    s = path.RenderSettings(max_depth=8)
+    first = renderer.render(None, 16, 16, 4, s, seed=0, context=ctx,
+                            device="cuda")
+    assert first.capture_seconds > 0 and len(ctx.graphs) == 1
+    assert first.replays == first.trips - 1
+    graph = next(iter(ctx.graphs.values()))[0].graph
+    before = bvh_kernel.launches
+    second = renderer.render(None, 16, 16, 4, s, seed=1, context=ctx,
+                             device="cuda")
+    assert second.capture_seconds == 0 and second.replays == second.trips
+    assert bvh_kernel.launches - before == second.trips
+    assert len(ctx.graphs) == 1
+    assert next(iter(ctx.graphs.values()))[0].graph is graph
+    want, rays, its = _plain_pool(ctx, s, 16, 4, rng.render_key(1, "cuda"),
+                                  1024)
+    assert (second.rays_traced, second.iterations) == (int(rays), its)
+    img = (want.cpu().numpy().astype(np.float64) / 4).reshape(16, 16, 3)[::-1]
+    np.testing.assert_allclose(second.image, img, atol=GRAPH_ATOL,
+                               rtol=GRAPH_RTOL)
+
+
+def test_render_of_another_frame_replaces_the_kept_graph():
+    """A context keeps one graph: a render of another frame captures anew
+    and its graph takes the first's place, and a render of the first frame
+    after it captures again."""
+    ctx = renderer.RenderContext(cornell_box_obj(), device="cuda")
+    s = path.RenderSettings(max_depth=8)
+    graphs = []
+    for n in (16, 24, 16):
+        res = renderer.render(None, n, n, 4, s, seed=0, context=ctx,
+                              device="cuda")
+        assert res.capture_seconds > 0 and len(ctx.graphs) == 1
+        runner = next(iter(ctx.graphs.values()))[0]
+        assert runner.capture_bytes > 0
+        graphs.append(runner)
+    assert graphs[0] is not graphs[1] and graphs[1] is not graphs[2]
+
+
+def test_kept_graph_reads_each_calls_key(obj_context):
+    """A kept graph replayed with another base key, sample offset and
+    sample count (both keys alive, so the second cannot take the first's
+    memory) renders what the plain loop renders with them."""
+    s = path.RenderSettings(max_depth=8)
+    graphs = {}
+    keys = [rng.render_key(seed, device="cuda") for seed in (5, 6)]
+    wavefront.trace_pool(obj_context.cs, obj_context.meta, s,
+                         obj_context.intersect, 16, 16, 4, keys[0], 256,
+                         graphs=graphs)
+    stats = {}
+    got, rays, its = wavefront.trace_pool(
+        obj_context.cs, obj_context.meta, s, obj_context.intersect, 16, 16, 2,
+        keys[1], 256, sample_offset=3, graphs=graphs, stats=stats)
+    assert stats["capture_seconds"] == 0 and stats["replays"] == stats["trips"]
+    want, w_rays, w_its = wavefront._trace_pool(
+        obj_context.cs, obj_context.meta, s, obj_context.intersect, 16, 16, 2,
+        keys[1], 256, False, 0, 3, 1, False)
+    assert (int(rays), its) == (int(w_rays), w_its)
+    torch.testing.assert_close(got, want, atol=GRAPH_ATOL, rtol=GRAPH_RTOL)
+
+
+@pytest.mark.parametrize("name", ["cornell_box_obj", "final", "pbr_ibl",
+                                  "cornell_box_water_spectral"])
+def test_pool_iteration_makes_no_host_sync(name):
+    """One pool iteration, eagerly and replayed from its CUDA graph, under
+    `torch.cuda.set_sync_debug_mode("error")`: nothing in it syncs with the
+    host."""
+    scene = cornell_box_obj() if name == "cornell_box_obj" else get_scene(name)
+    ctx = renderer.RenderContext(scene, device="cuda")
+    body, st = wavefront._pool(
+        ctx.cs, ctx.meta, path.RenderSettings(max_depth=16), ctx.intersect,
+        16, 16, 2, rng.render_key(0, device="cuda"), 128, ctx.meta.spectral,
+        ctx.meta.spectral_background_spd or 0, 0)
+    runner = loops.Graphed()
+    st = runner.run(body, st, 2)  # the warm-up body, the capture, a replay
+    spare = {k: v.clone() for k, v in st.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        body(spare)
+        runner.run(body, st, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert runner.replays == 2
+
+
+def test_new_sample_form_bit_identical():
+    """The cipher entry's new-sample form on 1M (pixel, sample) pairs: path
+    keys, camera and λ uniforms equal to the PyTorch cipher's bit for bit,
+    per-ray and one-sample ids, one launch a call."""
+    rs = np.random.RandomState(5)
+    n = 1 << 20
+    base = rng.render_key(2**40 + 17, device="cuda")
+    pix = torch.as_tensor(rs.randint(0, 1 << 22, n).astype(np.int64),
+                          device="cuda")
+    sid = torch.as_tensor(rs.randint(0, 2**32, n, dtype=np.uint64)
+                          .astype(np.int64), device="cuda")
+    for samples in (sid, 1023):
+        for salts in ((), (camera.CAMERA_SALT,),
+                      (camera.CAMERA_SALT, wavefront.LAMBDA_SALT)):
+            before = threefry.launches
+            got = threefry.new_samples(base, pix, samples, *salts)
+            assert threefry.launches == before + 1
+            want = threefry.new_samples_reference(base, pix, samples, *salts)
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if g is not None:
+                    assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_path_keys_one_launch_no_torch_cipher(monkeypatch):
+    """On the card `rng.path_keys_perray` and `rng.path_keys` are one launch
+    of the cipher entry each, and run no op of the PyTorch cipher."""
+    calls = []
+    cipher = threefry.threefry2x32
+
+    def counted(*args):
+        calls.append(1)
+        return cipher(*args)
+
+    pix = torch.arange(4096, device="cuda") * 3
+    sid = torch.arange(4096, device="cuda") % 7
+    base = rng.render_key(3, device="cuda")
+    want = (threefry.path_keys_reference(base, pix, sid),
+            threefry.path_keys_reference(base, pix, 5))
+    monkeypatch.setattr(threefry, "threefry2x32", counted)
+    before = threefry.launches
+    got = (rng.path_keys_perray(base, pix, sid), rng.path_keys(base, pix, 5))
+    assert threefry.launches == before + 2 and calls == []
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
