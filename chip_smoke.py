@@ -61,23 +61,41 @@ line of its own:
   8. the queue pool through the kernel against the queue pool through the
      plain traversal, both on the card: `cornell_box_obj` 32×32 at 4 spp,
      depth 50, within phase 4's tolerances, one traversal launch a pool
-     body run (its CUDA graph's replays and its warm-up body);
+     body run (its CUDA graph's replays and its warm-up body); then the
+     RGB megakernel's BVH form (`izpi_megakernel_rgb_bvh`: the traversal
+     of csrc/bvh4.cuh inside the megakernel's loop) against its plain
+     version (`megakernel.render_slots_reference` through the plain
+     traversal), both on the card, the plain version on the card's
+     layout, on `cornell_box_obj` at 32×32@4 and 64×64@64 (every thread
+     several slots), depth 8: rays equal and phase 4's pixel tolerances,
+     with the launch's nodes popped and primitives tested a ray; both
+     timed at 256×256@2, depth 50, with the kernel's bound there;
   9. BVH main path: `render(cornell_box_obj(), 256, 256, 128,
      max_depth=50, seed=0, mode="wavefront", device="cuda")` through the
-     queue pool, one warm-up run (which captures the pool's iteration as a
-     CUDA graph) and one timed run (which replays it: no capture, every
-     pool body a replay); the traversal kernel's counter (executed
-     launches: the capture's launches times the replays) must equal the
-     replays, with the pool iterations beside them, the new-sample form
-     must have launched and the megakernels' counters must not move; the
-     image must be finite, green on the left, red on the right, with the
-     ceiling light at 15; the cipher entry at each (form, keys, uniforms)
-     shape the timed render launched it with (the captured body's calls
-     once a replay): its launches, its time per launch alone, its bound
-     and its plain version's time; then L (below) on its frame, whose plain
-     loop gives the traversal kernel's time per launch (CUDA events) and
-     so its share of `render()`, and whose profile at 16 spp the device's
-     idle share;
+     RGB megakernel's BVH form, one warm-up and one timed run, the timed
+     run's launch between CUDA events; every counter zeroed before the
+     warm-up: the BVH form's must read 2 and every other 0 (no traversal
+     launch, no pool replay), the runs must agree bit for bit, the image
+     must be finite, green on the left, red on the right, with the ceiling
+     light at 15; one more launch with the draw and traversal counter
+     buffers must repeat the image and rays, and gives the bound and the
+     nodes and tests a ray beside phase 7's. Then the same render in mode
+     "pool" (the graphed queue pool through the BVH4 kernel): one warm-up
+     run (which captures the pool's iteration as a CUDA graph) and one
+     timed run (which replays it: no capture, every pool body a replay);
+     the traversal kernel's counter (executed launches: the capture's
+     launches times the replays) must equal the replays, with the pool
+     iterations beside them, the new-sample form must have launched and
+     the megakernels' counters must not move; its image passes the same
+     checks, and against the BVH form's its rays must be equal and its
+     pixels within phase 4's tolerances, both seconds and Mrays/s on one
+     line; the cipher entry at each (form, keys, uniforms) shape the timed
+     pool render launched it with (the captured body's calls once a
+     replay): its launches, its time per launch alone, its bound and its
+     plain version's time; then L (below) on its frame, whose plain loop
+     gives the traversal kernel's time per launch (CUDA events) and so its
+     share of `render()`, and whose profile at 16 spp the device's idle
+     share;
  10. the row-stack traversal kernel (`ops.bvh_rowkernel`, one warp per 32
      rays) against its plain version (`bvh_rowkernel.closest_rows`), both
      on the card, on the leaf-64 trees of `cornell_box_obj`, of the dragon
@@ -220,11 +238,12 @@ seconds between card syncs, which gloo spends through the host) and the
 card:
  D1. `render_distributed(cornell_box_obj(), 256, 256, 128, max_depth=50)`,
      32 samples a rank through the pool, the BVH4 kernel and the cipher
-     entry on every rank: rays equal to phase 9's one-process render,
+     entry on every rank: rays equal to phase 9's one-process pool render,
      pixels within atol/rtol 1e-4 (and PERF.md §2's gate); then the same
      render on a group of one rank through NCCL: rays equal and every pixel
-     within WS1_ATOL + WS1_RTOL·|b| (the pool's deposits are atomics: two
-     runs of one process differ by as much, which it prints);
+     within WS1_ATOL + WS1_RTOL·|b| (the bound of the pool's float-atomic
+     deposits, before its deposit became a segment sum in a fixed order;
+     it prints how far two runs of one process differ, now 0);
  D2. the RGB megakernel sample-sharded (`dist.build_mega_renderer`),
      Cornell 256²@1024, depth 50, 256 samples a rank, one launch a rank:
      rays equal to phase 5's single launch, §2's gate;
@@ -254,15 +273,24 @@ card:
  and `entry.dryrun_multichip(4)`, whose ranks must launch the BVH4
  kernel, the cipher entry and one RGB megakernel each.
 The build line is followed by the ptxas registers and spills of every
-kernel (a megakernel that spills fails the run), each megakernel's
+kernel (the RGB and spectral megakernels must not spill; the BVH form's
+spill, which its launch bounds accept, is printed), each megakernel's
 persistent grid (blocks × threads) and slots, and the two traversal
 kernels' registers, spills, stack frame and shared memory per block, which
-phases 7, 10, 11 and 12 print again. The line before the last is a JSON object describing the six
-kernels (the two megakernels, the two traversal kernels and the cipher
-entry's two forms), each with its time, its plain version's time and its bound (the
-least time the card could take for the work this run's inputs needed);
-the last is {"ok": true, "device": {...}}. Any failure, in this process or
-in a rank, raises and exits non-zero. Imports nothing of JAX.
+phases 7, 10, 11 and 12 print again. Phase 3 prints the instructions of
+each unit of the megakernels' work from the SASS of its probe
+(csrc/sass_probes.cu: a Threefry call, a primitive test of each kind, a
+BVH4 node visit), from which the megakernels' bounds are counted: the
+units a launch ran (its counter buffers) times their instructions, the
+integer ALU ones over the INT32 pipe and all of them over the issue
+rate. The line before the last is a JSON object describing the seven
+kernels (the two megakernels and the RGB one's BVH form, the two
+traversal kernels and the cipher entry's two forms), each with its time,
+its plain version's time and its bound (the least time the card could
+take for the work this run's inputs needed); the last is {"ok": true,
+"device": {...}}. A "time:" line after each phase gives the seconds since
+the run started. Any failure, in this process or in a rank, raises and
+exits non-zero. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -280,7 +308,7 @@ import time
 import numpy as np
 import torch
 
-from izpi_tpu_torch import camera, entry, profiling
+from izpi_tpu_torch import camera, entry, ops, profiling
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import primitives, procedural
@@ -319,19 +347,17 @@ XYZ_RTOL = 1e-5
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): 67 TFLOP/s
 # of FP32 counts an FMA as two operations; the kernels are built with
 # -fmad=false, so they issue separate multiplies and adds at half that rate.
-# INT32 runs on 64 lanes per SM of 132, at the 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12 / 2
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
-# Operations per thread, counted from the CUDA sources (common.cuh,
-# threefry.cuh and the kernels): FP32 adds, multiplies, divisions, square
-# roots, comparisons, selects and libdevice calls count one each; INT32
-# adds, xors, funnel-shift rotates, shifts and compares likewise.
-CIPHER_INT = 79          # one threefry2x32: 4 + 20 rounds x 3 + 5 injections x 3
+# Operations per thread, counted from the CUDA sources (common.cuh and the
+# kernels), for the work the SASS probes do not cover (the megakernels'
+# shading, camera, uniforms and deposit; the traversal kernels' primitive
+# tests): FP32 adds, multiplies, divisions, square roots, comparisons,
+# selects and libdevice calls count one each; INT32 adds, shifts and
+# compares likewise.
 UNIFORM_INT, UNIFORM_FP = 2, 1   # bits_to_uniform: shift, or | subtract
 PRIM_FP = {0: 58, 1: 56, 2: 56}  # closest-hit test per triangle, rect, sphere
-PRIM_INT = 6             # loop, index and kind dispatch per primitive
 SCATTER_FP = 80          # the cheapest scattering bounce (a dielectric), NEE left out
 CAMERA_FP = 46           # thin-lens ray from 5 uniforms
 CAMERA_CIPHER = 7        # path key (2 fold-ins), camera key (2), 3 pairs
@@ -343,6 +369,9 @@ RGB_SAMPLE_FP = 9        # RGB deposit: DeNAN and add, three channels
 # (n, spp, depth, seed, offset).
 MULTI_SLOT = (64, 64, 8, 5, 0)
 MULTI_SAMPLE = (128, 128, 8, 7, 0)
+# Phase 8's checks of the RGB megakernel's BVH form on cornell_box_obj:
+# (n, spp, depth, seed); at the second every thread serves several slots.
+BVH_FORM_CHECKS = ((32, 4, 8, 0), (64, 64, 8, 5))
 # The traversal kernel (csrc/bvh4_traverse.cu), per node popped: 4 children ×
 # 3 axes × (2 subtractions, 2 multiplications, fminf, fmaxf, fmaxf, fminf),
 # 4 hit comparisons and the 5 compares of the sorting network; per ray the 3
@@ -374,83 +403,49 @@ FINAL_SIZE, FINAL_SPP, FINAL_DEPTH = 256, 16, 50
 # Phase 15: the frame (n, spp) of final's card-vs-CPU render.
 FINAL_VS_CPU = (64, 4)
 REPO = os.path.dirname(os.path.abspath(__file__))
-# Every module with a launch counter.
-COUNTERS = (bvh_kernel, bvh_rowkernel, megakernel, megakernel_spectral,
-            threefry)
+START = [time.perf_counter()]
+
+
+def mark(label: str) -> None:
+    """Print the seconds since the run started, after `label`: the run must
+    end within its time limit, and these lines say where the time went."""
+    print(f"time: {label} done at {time.perf_counter() - START[0]:.1f} s",
+          flush=True)
 
 
 def zero_counts() -> None:
-    for mod in COUNTERS:
-        mod.launches = 0
+    ops.zero_launch_counts()
 
 
 def read_counts() -> dict:
-    return {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in COUNTERS}
-
-
-def bound_ms(rays: int, samples: int, prim_kinds, spectral: bool,
-             out_bytes: int, table_bytes: int, draws=None):
-    """The least milliseconds the card could take for a megakernel launch
-    that traced `rays` rays over `samples` camera samples, and what bounds
-    it ("bytes" or "operations").
-
-    Counts only work every ray must do: each ray tests every primitive;
-    every scatter shades at least as a dielectric does; every sample draws
-    its camera ray (7 cipher calls, 5 uniforms). `draws` is the kernel's
-    (scatters, bounce pairs) from its counter buffer: each scatter ciphers
-    its two fold-ins and the pairs its material and branch read (two
-    uniforms a pair), and a spectral sample's λ two calls more (its key
-    reuses the camera's first fold-in) and one uniform. Without `draws`,
-    the parent kernel's eager count, kept for continuity: every ray but a
-    sample's last scatters, drawing 12 uniforms in 8 calls, and λ costs 3
-    calls. The diffuse bounces' light sampling and pdf are left out, so the
-    true bound is higher. Bytes: the tables read once and the outputs
-    written once."""
-    if draws is None:
-        scatter = rays - samples
-        cipher = 8 * scatter + (CAMERA_CIPHER + 3 * spectral) * samples
-        uniforms = 12 * scatter
-    else:
-        scatter, pairs = draws
-        cipher = 2 * scatter + pairs + (CAMERA_CIPHER + 2 * spectral) * samples
-        uniforms = 2 * pairs
-    uniforms += (5 + spectral) * samples
-    prim_fp = sum(PRIM_FP[int(k)] for k in prim_kinds)
-    n_prims = len(prim_kinds)
-    fp = (rays * prim_fp + scatter * SCATTER_FP + uniforms * UNIFORM_FP
-          + samples * CAMERA_FP)
-    int_ops = (rays * PRIM_INT * n_prims + cipher * CIPHER_INT
-               + uniforms * UNIFORM_INT)
-    if spectral:
-        fp += samples * SPECTRAL_SAMPLE_FP
-        int_ops += samples * SPECTRAL_SAMPLE_INT
-    else:
-        fp += samples * RGB_SAMPLE_FP
-    t_ops = max(fp / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
-    t_bytes = (out_bytes + table_bytes) / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """{kernel: launches} of every counter (`ops.KERNEL_COUNTERS`)."""
+    return ops.kernel_launches()
 
 
 def launch_bound(label: str, rays: int, samples: int, draws, prim_kinds,
-                 spectral: bool, lay: dict, table_bytes: int, card: str):
-    """`bound_ms` of one megakernel launch from its draw counts (scatters,
-    bounce pairs), with the parent kernel's eager count beside it; the
-    outputs are the layout's per-slot sums and ray counts. Prints both and
-    returns a dict of the numbers."""
+                 spectral: bool, lay: dict, table_bytes: int, card: str,
+                 traversal=None):
+    """The bound of one megakernel launch (`sass_bound_ms`) from its draw
+    counts (scatters, bounce pairs) and, for the BVH form, its traversal
+    counts (nodes popped, primitives tested); the outputs are the layout's
+    per-slot sums and ray counts. Prints it and returns a dict of the
+    numbers."""
     scatters, pairs = (int(x) for x in draws)
-    out_bytes = lay["slots"] * 16
-    bound, by = bound_ms(rays, samples, prim_kinds, spectral, out_bytes,
-                         table_bytes, (scatters, pairs))
-    eager, eager_by = bound_ms(rays, samples, prim_kinds, spectral, out_bytes,
-                               table_bytes)
+    trav = None if traversal is None else tuple(int(x) for x in traversal)
+    bound, by, what = sass_bound_ms(rays, samples, prim_kinds, spectral,
+                                    lay["slots"] * 16, table_bytes,
+                                    (scatters, pairs), trav)
+    walk = ("" if trav is None else
+            f", {trav[0]} nodes popped and {trav[1]} primitives tested "
+            f"({trav[0] / rays:.4f} and {trav[1] / rays:.4f} a ray)")
     print(f"bound: {label}: {rays} rays, {samples} samples, {scatters} "
           f"scatters drawing {pairs} pairs ({pairs / max(scatters, 1):.4f} a "
-          f"scatter): {bound:.4f} ms by {by}; by the eager count (8 calls a "
-          f"scatter, rays - samples scatters) {eager:.4f} ms by {eager_by} "
-          f"({card})", flush=True)
-    return dict(bound_ms=bound, bound_by=by, bound_ms_eager=eager,
-                scatters=scatters, pairs=pairs)
+          f"scatter){walk}: {bound:.4f} ms by {what} (SASS) ({card})",
+          flush=True)
+    out = dict(bound_ms=bound, bound_by=by, scatters=scatters, pairs=pairs)
+    if trav is not None:
+        out.update(nodes=trav[0], tests=trav[1])
+    return out
 
 
 @contextlib.contextmanager
@@ -568,29 +563,50 @@ CIPHER_KERNELS = {("bounce", 12): "bounce_tilesILi12E",
                   ("new_sample", 6): "new_sample_tilesILb1ELb1E"}
 KEYS_PER_THREAD = 2
 # {kernel's mangled name: {opcode: instructions}} of the built library's
-# SASS; phase 3 fills it.
+# and the SASS probes' SASS, and of each kernel's main path; phase 3 fills
+# them.
 SASS = {}
+SASS_MAIN = {}
 
 
-def sass_counts(lib_path) -> dict:
-    """{kernel's mangled name: {opcode: instructions}} of the library's
-    SASS (`cuobjdump -sass`, beside nvcc)."""
+def start_probe_build():
+    """Start nvcc on the SASS probes (csrc/sass_probes.cu, not part of the
+    library) with the library's flags, into a cubin beside it; returns
+    (cubin path, the nvcc process)."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "sass_probes.cubin"
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-cubin",
+         str(_build.CSRC / "sass_probes.cu"), "-o", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, proc
+
+
+def sass_counts(lib_path):
+    """({kernel's mangled name: {opcode: instructions}} of the library's
+    SASS (`cuobjdump -sass`, beside nvcc), the same of each kernel's main
+    path: its instructions up to its first unpredicated EXIT, without the
+    subroutines placed after it, such as the slow paths of IEEE division
+    and square root, which run only on special operands)."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib_path)], check=True,
                           capture_output=True, text=True).stdout
-    out, name = {}, None
+    out, main, name, ended = {}, {}, None, False
     for line in text.splitlines():
         m = re.search(r"Function\s*:\s*(\S+)", line)
         if m:
-            name = m.group(1)
-            out[name] = {}
+            name, ended = m.group(1), False
+            out[name], main[name] = {}, {}
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
                      line)
         if m and name:
-            op = m.group(1)
+            op = m.group(2)
             out[name][op] = out[name].get(op, 0) + 1
-    return out
+            if not ended:
+                main[name][op] = main[name].get(op, 0) + 1
+                ended = op == "EXIT" and m.group(1) is None
+    return out, main
 
 
 def _sass_per_key(form: str, n_u: int):
@@ -631,6 +647,85 @@ def cipher_bound(form: str, n_keys: int, n_u: int):
     what = ("integer ALU instructions" if t == t_alu else
             "issued instructions" if t == t_issue else "bytes")
     return 1e3 * t, "bytes" if t == t_bytes else "operations", what, per_key
+
+
+# The SASS probes (csrc/sass_probes.cu), one unit of the megakernels' work
+# each, by a tag their mangled names hold; "empty" is taken from the others.
+PROBES = {"empty": "probe_empty", "cipher": "probe_cipher",
+          "prim0": "probe_primILi0EE", "prim1": "probe_primILi1EE",
+          "prim2": "probe_primILi2EE", "visit": "probe_visit"}
+
+
+def unit_instructions() -> dict:
+    """{unit: (integer ALU, all) instructions} of each SASS probe's main
+    path in `SASS_MAIN` (a probe's slow-path subroutines, run only on
+    special operands, are left out), less probe_empty's (its store and
+    exit). Units: "cipher" (one threefry2x32), "prim0"/"prim1"/"prim2" (a
+    triangle, rect, sphere test, with the loads of its 13 words), "visit"
+    (a BVH4 node's load, slab test and push, without its leaf tests)."""
+    def counts(tag):
+        fn = next((c for k, c in SASS_MAIN.items() if tag in k), None)
+        if fn is None:
+            raise AssertionError(f"no kernel {tag} in the probes' SASS")
+        return (sum(n for op, n in fn.items() if op in SASS_INT_ALU),
+                sum(fn.values()))
+
+    base = counts(PROBES["empty"])
+    return {unit: tuple(max(a - b, 0) for a, b in zip(counts(tag), base))
+            for unit, tag in PROBES.items() if unit != "empty"}
+
+
+def sass_bound_ms(rays: int, samples: int, prim_kinds, spectral: bool,
+                  out_bytes: int, table_bytes: int, draws, traversal=None):
+    """The least milliseconds of a megakernel launch, its units' instructions
+    counted from the SASS (`unit_instructions`): the integer ALU ones over
+    the INT32 pipe (64 lanes an SM a clock), all of them over the issue
+    rate (128), or the bytes (the tables read once, the outputs written
+    once) over the memory rate, whichever is largest. Returns (ms,
+    "operations" or "bytes", what bounds it in words).
+
+    Units counted from this run's counter buffers: the cipher calls of the
+    draws (`draws`: each scatter ciphers its two fold-ins and the pairs its
+    material and branch read, two uniforms a pair; each sample its camera
+    ray's CAMERA_CIPHER calls and 5 uniforms, and a spectral sample's λ two
+    calls more and one uniform); the primitive tests, every
+    ray against every primitive (brute force) or, with `traversal` (the
+    BVH form's nodes popped and primitives tested), the tests it ran at
+    the cheapest kind's instructions (the counter does not tell kinds
+    apart) and its node visits. Shading, the camera, the uniforms'
+    conversion, the deposit and a traversal's three reciprocals a ray keep
+    their source counts (the constants above), as instructions of the
+    issue rate."""
+    units = unit_instructions()
+    scatter, pairs = draws
+    cipher = 2 * scatter + pairs + (CAMERA_CIPHER + 2 * spectral) * samples
+    uniforms = 2 * pairs + (5 + spectral) * samples
+    if traversal is None:
+        prim = [sum(units[f"prim{int(k)}"][i] for k in prim_kinds) * rays
+                for i in (0, 1)]
+        visit = [0, 0]
+    else:
+        nodes, tests = traversal
+        cheapest = min({int(k) for k in prim_kinds},
+                       key=lambda k: units[f"prim{k}"][1])
+        prim = [units[f"prim{cheapest}"][i] * tests for i in (0, 1)]
+        visit = [units["visit"][i] * nodes + (rays * RAY_FP if i else 0)
+                 for i in (0, 1)]
+    alu = (cipher * units["cipher"][0] + prim[0] + visit[0]
+           + uniforms * UNIFORM_INT + spectral * samples * SPECTRAL_SAMPLE_INT)
+    issued = (cipher * units["cipher"][1] + prim[1] + visit[1]
+              + uniforms * (UNIFORM_INT + UNIFORM_FP) + scatter * SCATTER_FP
+              + samples * CAMERA_FP
+              + samples * (SPECTRAL_SAMPLE_FP + SPECTRAL_SAMPLE_INT
+                           if spectral else RGB_SAMPLE_FP))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_alu = alu / (64 * sms * CLOCK_HZ)
+    t_issue = issued / (128 * sms * CLOCK_HZ)
+    t_bytes = (out_bytes + table_bytes) / HBM_BYTES_PER_S
+    t = max(t_alu, t_issue, t_bytes)
+    what = ("integer ALU instructions" if t == t_alu else
+            "issued instructions" if t == t_issue else "bytes")
+    return 1e3 * t, "bytes" if t == t_bytes else "operations", what
 
 
 def cipher_forms(card: str) -> list:
@@ -830,6 +925,7 @@ def loop_phase(label: str, ctx, n: int, spp: int, settings, card: str,
           + (f"; the traversal kernel {kernel_ms:.4f} ms per launch over the "
              f"plain loop's {len(times)} launches (CUDA events)"
              if kernel_ms else ""), flush=True)
+    mark(f"L {label}")
     return dict(out, rays=rays_g, max_abs_err=err, kernel_ms=kernel_ms,
                 kernel_launches_plain=len(times), graph_mib=graph_mib,
                 kernels_a_body=per_body)
@@ -868,14 +964,16 @@ def tensor_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def card_layout(mod, n: int, spp: int) -> dict:
-    """The persistent grid of megakernel module `mod` on the card and the
-    card's layout of an n×n frame at spp: blocks, threads, replicas,
-    samples per slot, slots, slots per resident thread."""
+def card_layout(mod, n: int, spp: int, entry: str = None) -> dict:
+    """The persistent grid of megakernel module `mod` (or of its C entry
+    `entry`) on the card and the card's layout of an n×n frame at spp:
+    blocks, threads, replicas, samples per slot, slots, slots per resident
+    thread."""
     dev = torch.device("cuda")
-    blocks, threads = megakernel.card_grid(mod.ENTRY, dev)
+    entry = entry or mod.ENTRY
+    blocks, threads = megakernel.card_grid(entry, dev)
     repl, spp_slot, n_slots = megakernel.slot_layout(
-        n * n, spp, megakernel.card_min_slots(mod.ENTRY, dev))
+        n * n, spp, megakernel.card_min_slots(entry, dev))
     return dict(blocks=blocks, threads=threads, replicas=repl,
                 spp_slot=spp_slot, slots=n_slots,
                 slots_per_thread=n_slots / (blocks * threads))
@@ -1177,7 +1275,7 @@ def compare_traversal(label: str, ks, rays, card: str):
         raise AssertionError(f"traversal kernel disagrees with its plain "
                              f"version on {label}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by)
+                bound_by=bound_by, per_ray=mean_counts)
 
 
 def mesh_pixels(ctx, n: int) -> np.ndarray:
@@ -1359,6 +1457,25 @@ def row_stack_phases(bctx, dctx, rays7, card: str, usage: dict):
     return rows10, dragon_runs, dres["bvh4_traverse"]
 
 
+def cornell_checks(label: str, img: np.ndarray) -> None:
+    """Phase 9's checks of a 256x256 cornell_box_obj image: finite, green
+    on the left, red on the right, the ceiling light at 15."""
+    if img.shape != (256, 256, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"{label}: the image is not finite (256, 256, 3)")
+    left = img[64:192, 4:24].mean(axis=(0, 1))
+    right = img[64:192, -24:-4].mean(axis=(0, 1))
+    light = float(np.percentile(img[:64].max(axis=2), 99.5))
+    print(f"{label}: left wall rgb {np.round(left, 4).tolist()}, right wall "
+          f"rgb {np.round(right, 4).tolist()}, light patch {light:.4f}, "
+          f"image mean {float(img.mean()):.5f}", flush=True)
+    if not (left[1] > left[0] and right[0] > right[1]):
+        raise AssertionError(f"{label}: expected green on the left, red on "
+                             f"the right")
+    if abs(light - 15.0) > 0.5:
+        raise AssertionError(f"{label}: ceiling light patch {light}, "
+                             f"expected ~15")
+
+
 def image_checks(label: str, img: np.ndarray, n: int) -> dict:
     """Print and return an image's bands: its top and bottom eighth and its
     centre quarter (rgb means), its mean and max; raise unless it is
@@ -1514,6 +1631,7 @@ def texture_phases(card: str, usage: dict) -> dict:
     del ctx, pctx
     torch.cuda.empty_cache()
 
+    mark("phase 13")
     # 14 (P2). pbr_ibl through the queue pool: the card against the CPU,
     # then the main path.
     s14 = path.RenderSettings(max_depth=IBL_DEPTH)
@@ -1547,6 +1665,7 @@ def texture_phases(card: str, usage: dict) -> dict:
             > bands["bottom"][2] and bands["centre"][1] > 0.02):
         raise AssertionError("pbr_ibl: expected the sky above, the ground "
                              "below and the spheres lit")
+    mark("phase 14 before L")
     loop14 = loop_phase("pbr_ibl", ctx, IBL_SIZE, IBL_SPP, s14, card, 16)
     out["pbr_ibl"] = dict(
         rays=res.rays_traced, seconds=res.seconds,
@@ -1558,6 +1677,7 @@ def texture_phases(card: str, usage: dict) -> dict:
     del ctx
     torch.cuda.empty_cache()
 
+    mark("phase 14")
     # 15 (P3). The book-2 final scene through the pool and the BVH4 kernel.
     ctx = renderer.RenderContext(final(), device=dev)
     ks = ctx.intersect.ks
@@ -1574,6 +1694,7 @@ def texture_phases(card: str, usage: dict) -> dict:
         "closest_hit", lambda r: r.trips)
     final_cipher = cipher_on_path(final_calls, counts["threefry"], card,
                                   "the final main path")
+    mark("phase 15 before L")
     loop15 = loop_phase("final", ctx, FINAL_SIZE, FINAL_SPP, s15, card,
                         FINAL_SPP, (bvh_kernel, "closest_hit"))
     trav_ms = loop15["kernel_ms"] * calls
@@ -1592,6 +1713,7 @@ def texture_phases(card: str, usage: dict) -> dict:
     # few of final's paths (its fog, its noise) into others; at 16x16@2 the
     # rays' gap reached 0.51%, and it shrinks as the frame grows.
     n_c, spp_c = FINAL_VS_CPU
+    mark("phase 15 before the CPU")
     small = {d: renderer.render(final(), n_c, n_c, spp_c, s15, seed=0,
                                 device=d) for d in ("cpu", "cuda")}
     a, b = small["cuda"].image, small["cpu"].image
@@ -1827,6 +1949,7 @@ def training_phases(card: str) -> dict:
         raise AssertionError("the step's memory grows by more than two "
                              "bounces' state a bounce")
     # The card against the CPU.
+    mark("phase 16 before the CPU")
     n_c, d_c = TRAIN_VS_CPU
     grey = {dev: torch.full((n_c * n_c, 3), 0.25, device=dev)
             for dev in ("cuda", "cpu")}
@@ -1849,6 +1972,7 @@ def training_phases(card: str) -> dict:
     del ctx, target, params
     torch.cuda.empty_cache()
 
+    mark("phase 16")
     # 17. cornell_box_obj through the BVH4 kernel.
     octx = renderer.RenderContext(cornell_box_obj(), device="cuda")
     grey = torch.full((n * n, 3), 0.25, device="cuda")
@@ -2432,10 +2556,11 @@ def distribution_phases(card: str, sizes: dict, refs: dict) -> dict:
                      timeout_s=DIST_TIMEOUT_S)[0]
     wall1 = time.perf_counter() - t0
     _print_ranks("D1 at world size 1", [ws1["d1"]], wall1, card)
-    # One rank renders as one process does, but for the order of the pool's
-    # deposits into a pixel (index_add_'s atomics on the card), which moves
-    # two runs of one process apart too: every pixel within WS1_RTOL·|b| +
-    # WS1_ATOL, each a few hundred ulps of a 15.0 pixel's float32 sum.
+    # One rank renders as one process does: every pixel within
+    # WS1_RTOL·|b| + WS1_ATOL, each a few hundred ulps of a 15.0 pixel's
+    # float32 sum, the bound the pool's float-atomic deposits needed; the
+    # deposit is now a segment sum in an order the slots fix, and two runs
+    # of one process (printed) repeat bit for bit.
     got, one = ws1["d1_result"], refs["d1"]
     err = float(np.abs(got["image"] - one.image).max())
     spread = float(np.abs(refs["d1_warm"].image - one.image).max())
@@ -2554,6 +2679,7 @@ def distribution_phases(card: str, sizes: dict, refs: dict) -> dict:
 
 def main() -> None:
     # 1. The card.
+    START[0] = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     card = subprocess.run(
@@ -2566,8 +2692,12 @@ def main() -> None:
 
     # 2. Build.
     t0 = time.perf_counter()
+    probes, probe_proc = start_probe_build()
     lib_path = _build.build()
     _build.load()
+    probe_log = probe_proc.communicate()[0]
+    if probe_proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/sass_probes.cu:\n{probe_log}")
     print(f"build: {lib_path.name} (nvcc, or an earlier build of the same "
           f"sources) in {time.perf_counter() - t0:.2f} s", flush=True)
     log = lib_path.with_suffix(".log")
@@ -2576,22 +2706,33 @@ def main() -> None:
         if "registers" in line or "spill" in line or "entry function" in line:
             print(f"ptxas: {line.strip()}", flush=True)
     usage = _build.ptxas_usage(log_text)
-    for name in ("megakernel_rgb", "megakernel_spectral"):
+    for name in ("megakernel_rgb", "megakernel_spectral",
+                 "megakernel_rgb_bvh"):
         if name not in usage:
             raise AssertionError(f"no ptxas report of {name} in {log}")
-        if usage[name][1] or usage[name][2]:
+        # The BVH form spills at its launch bounds' 96 registers, which ran
+        # faster than 128 registers without a spill (csrc/common.cuh): its
+        # spill is printed below, not refused.
+        if name != "megakernel_rgb_bvh" and (usage[name][1] or usage[name][2]):
             raise AssertionError(f"{name} spills registers: {usage[name]}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     grids = {}
-    for name, mod in (("megakernel_rgb", megakernel),
-                      ("megakernel_spectral", megakernel_spectral)):
+    for name, mod, entry_name in (
+            ("megakernel_rgb", megakernel, megakernel.ENTRY),
+            ("megakernel_spectral", megakernel_spectral,
+             megakernel_spectral.ENTRY),
+            ("megakernel_rgb_bvh", megakernel, megakernel.ENTRY_BVH)):
         regs, spill_st, spill_ld = usage[name][:3]
-        blocks, threads = megakernel.card_grid(mod.ENTRY, torch.device("cuda"))
+        blocks, threads = megakernel.card_grid(entry_name,
+                                               torch.device("cuda"))
         grids[name] = dict(registers=regs, spill_bytes=spill_st + spill_ld,
+                           spill_stores=spill_st, spill_loads=spill_ld,
+                           stack_frame=usage[name].stack_frame,
                            blocks=blocks, threads=threads,
                            blocks_per_sm=blocks / sms)
         print(f"grid: {name}: {regs} registers, spill stores {spill_st} B, "
-              f"loads {spill_ld} B; persistent grid {blocks} blocks x "
+              f"loads {spill_ld} B, stack frame {usage[name].stack_frame} B; "
+              f"persistent grid {blocks} blocks x "
               f"{threads} threads ({blocks / sms:g} per SM of {sms}; "
               f"{blocks * threads} resident threads)", flush=True)
     for name in ("bvh4_traverse", "bvh4_rowstack"):
@@ -2635,13 +2776,24 @@ def main() -> None:
             if not same:
                 raise AssertionError("the new-sample form differs from the "
                                      "torch twin")
-    SASS.update(sass_counts(lib_path))
+    for binary in (lib_path, probes):
+        whole, main_paths = sass_counts(binary)
+        SASS.update(whole)
+        SASS_MAIN.update(main_paths)
+    units = unit_instructions()
+    print("sass units (integer ALU, all instructions, from the SASS probes "
+          "of csrc/sass_probes.cu): " + "; ".join(
+              f"{u} {a} / {t}" for u, (a, t) in units.items())
+          + f"; the cipher entry's x 12 form a cipher call "
+          f"{tuple(round(x / 8, 2) for x in _sass_per_key('bounce', 12))}",
+          flush=True)
     forms = cipher_forms(card)
     top = next(r for r in forms if r["form"] == "bounce"
                and r["uniforms"] == 12 and r["keys"] == n_keys)
     cipher.update(ms=top["ms"], plain_ms=top["plain_ms"],
                   bound_ms=top["bound_ms"], forms=forms)
 
+    mark("phases 1-3")
     # 4. Kernel vs twin on the card, the twin on the card's layout: at
     # 64x64@4 depth 8, at the multi-slot and multi-sample layouts and at the
     # main path's frame, 256x256 depth 50, for two sample chunks, the main
@@ -2723,6 +2875,7 @@ def main() -> None:
         card_layout(megakernel_spectral, 500, 2), stable_bytes,
         card)
 
+    mark("phase 4")
     # 5. The main path, through the entry points a user calls; the timed
     # run's launch between CUDA events.
     settings = path.RenderSettings(max_depth=50)
@@ -2778,10 +2931,10 @@ def main() -> None:
         256 * 256 * 1024, draws_d, cs.prims.kind.tolist(), False, lay,
         tensor_bytes(ctx.tables()), card)
     print(f"main path: megakernel_rgb {mk_ms:.4f} ms per launch at "
-          f"{main_bound['bound_ms'] / mk_ms:.2%} of its bound "
-          f"({main_bound['bound_ms_eager'] / mk_ms:.2%} of the eager count's) "
+          f"{main_bound['bound_ms'] / mk_ms:.2%} of its bound (SASS) "
           f"({card})", flush=True)
 
+    mark("phase 5")
     # 6. The spectral main path, through the same entry points.
     sctx = renderer.RenderContext(cornell_box_pyramid_spectral(), device="cuda")
     megakernel.launches = 0
@@ -2845,10 +2998,10 @@ def main() -> None:
         500 * 500 * 256, sdraws_d, scs.prims.kind.tolist(), True, slay,
         tensor_bytes(st.rgb) + tensor_bytes(st[1:]), card)
     print(f"spectral main path: megakernel_spectral {spec_ms:.4f} ms per launch "
-          f"at {smain_bound['bound_ms'] / spec_ms:.2%} of its bound "
-          f"({smain_bound['bound_ms_eager'] / spec_ms:.2%} of the eager "
-          f"count's) ({card})", flush=True)
+          f"at {smain_bound['bound_ms'] / spec_ms:.2%} of its bound (SASS) "
+          f"({card})", flush=True)
 
+    mark("phase 6")
     # 7. The traversal kernel against its plain version, at two scales,
     # each scene compiled and its tree built and packed by RenderContext.
     # The first is the main path's context.
@@ -2866,6 +3019,7 @@ def main() -> None:
         found[label] = compare_traversal(label, ks, rays7[label], card)
     trav, dtrav = found["cornell_box_obj"], found["dragon stand-in"]
 
+    mark("phase 7")
     # 8. The pool through the kernel against the pool through the plain
     # traversal, on the same tree.
     plain_inter = functools.partial(traverse.intersect_bvh, bctx.cs.prims,
@@ -2903,86 +3057,222 @@ def main() -> None:
         raise AssertionError("the pool through the traversal kernel disagrees "
                              "with the pool through the plain traversal")
 
-    # 9. The BVH main path, through the entry points a user calls. The
-    # warm-up render captures the pool's iteration as a CUDA graph and
-    # records the cipher calls of the captured body; the timed render
-    # replays it.
-    megakernel.launches = megakernel_spectral.launches = 0
-    bvh_kernel.launches = threefry.launches = 0
+    mark("phase 8, the pool")
+    # 8, the BVH form. The RGB megakernel's BVH form against its plain
+    # version (`render_slots_reference` through the plain traversal), both
+    # on the card, the plain version on the card's layout: rays equal,
+    # phase 4's pixel tolerances.
+    ks = bctx.mega_bvh()
+    if ks is None or ks is not bctx.intersect.ks:
+        raise AssertionError("cornell_box_obj's context does not take the "
+                             "megakernel's BVH form")
+    btables = bctx.tables()
+    bvh_min = megakernel.card_min_slots(megakernel.ENTRY_BVH, bctx.device)
+    plain_bvh = megakernel.bvh_plain_intersector(ks)
+    bvh_errs = []
+    for n, spp, depth, seed in BVH_FORM_CHECKS:
+        s8 = path.RenderSettings(max_depth=depth)
+        key = rng.render_key(seed, device="cuda")
+        acc_k, rays_k, _, trav_k = megakernel.render_slots(
+            bctx.cs, bctx.meta, s8, n, n, spp, key, tables=btables, bvh=ks,
+            draws=True)
+        acc_p, rays_p = megakernel.render_slots_reference(
+            bctx.cs, bctx.meta, s8, n, n, spp, key, min_slots=bvh_min,
+            intersect=plain_bvh)
+        torch.cuda.synchronize()
+        blay = card_layout(megakernel, n, spp, megakernel.ENTRY_BVH)
+        nodes, tests = (int(x) for x in trav_k)
+        bvh_errs.append(image_close(
+            f"BVH form vs plain: cornell_box_obj {n}x{n}@{spp} depth {depth} "
+            f"seed {seed} ({blay['slots']} slots of {blay['spp_slot']} "
+            f"samples, {blay['slots_per_thread']:.3f} per resident thread; "
+            f"{nodes / int(rays_k):.4f} nodes popped and "
+            f"{tests / int(rays_k):.4f} primitives tested a ray)",
+            acc_k, int(rays_k), acc_p, int(rays_p), spp))
+        if int(rays_k) != int(rays_p):
+            raise AssertionError(f"the BVH form traced {int(rays_k)} rays, "
+                                 f"its plain version {int(rays_p)}")
+        resident = blay["blocks"] * blay["threads"]
+        if n == 64 and not (blay["slots"] > resident
+                            and blay["slots"] % resident):
+            raise AssertionError(f"the BVH form's {blay['slots']} slots on "
+                                 f"{resident} threads at {n}x{n}@{spp}")
+    # Both timed at the main path's frame at 2 spp and depth 50, and held to
+    # each other there (rays equal, phase 4's pixel tolerances); the
+    # launch's draw and traversal counts give its bound there.
+    key = rng.render_key(0, device="cuda")
+    bvh_ms_2 = cuda_ms(lambda: megakernel.render_slots(
+        bctx.cs, bctx.meta, settings, 256, 256, 2, key, tables=btables,
+        bvh=ks), 10)
+    # One plain run, not warmed up: it takes seconds.
+    (acc_p2, rays_p2), bvh_plain_ms = profiling.cuda_ms(
+        lambda: megakernel.render_slots_reference(
+            bctx.cs, bctx.meta, settings, 256, 256, 2, key,
+            min_slots=bvh_min, intersect=plain_bvh), 1, warm_up=False)
+    print(f"BVH form: time at 256x256@2 depth 50: kernel {bvh_ms_2:.4f} ms, "
+          f"plain version {bvh_plain_ms:.4f} ms ({card})", flush=True)
+    acc_k2, brays_2, bdraws_2, btrav_2 = megakernel.render_slots(
+        bctx.cs, bctx.meta, settings, 256, 256, 2, key, tables=btables, bvh=ks,
+        draws=True)
+    torch.cuda.synchronize()
+    bvh_errs.append(image_close(
+        "BVH form vs plain: cornell_box_obj 256x256@2 depth 50 seed 0",
+        acc_k2, int(brays_2), acc_p2, int(rays_p2), 2))
+    if int(brays_2) != int(rays_p2):
+        raise AssertionError(f"the BVH form traced {int(brays_2)} rays at "
+                             f"256x256@2, its plain version {int(rays_p2)}")
+    del acc_p2, acc_k2
+    btable_bytes = tensor_bytes(btables) + tensor_bytes([ks.nodes,
+                                                         ks.prim_table])
+    bvh_bound_2 = launch_bound(
+        "megakernel_rgb_bvh at 256x256@2 depth 50", int(brays_2),
+        256 * 256 * 2, bdraws_2, bctx.cs.prims.kind.tolist(), False,
+        card_layout(megakernel, 256, 2, megakernel.ENTRY_BVH), btable_bytes,
+        card, btrav_2)
+
+    mark("phase 8, the BVH form")
+    # 9. The BVH main path, through the entry points a user calls: the RGB
+    # megakernel's BVH form, one launch a render, every counter zeroed just
+    # before the warm-up and read after the timed run.
+    zero_counts()
+    bwarm = renderer.render(None, 256, 256, 128, settings, seed=0,
+                            mode="wavefront", context=bctx, device="cuda")
+    with profiling.event_timed(megakernel, "render_slots") as btimes:
+        bres = renderer.render(None, 256, 256, 128, settings, seed=0,
+                               mode="wavefront", context=bctx, device="cuda")
+    bcounts = read_counts()
+    bvh_ms = profiling.event_ms(btimes)
+    blay = card_layout(megakernel, 256, 128, megakernel.ENTRY_BVH)
+    bimg = bres.image
+    print(f"BVH main path: cornell_box_obj 256x256@128 depth 50 seed 0 on "
+          f"{bres.device}: {bres.rays_traced} rays in {bres.seconds:.4f} s = "
+          f"{bres.mrays_per_sec:.3f} Mrays/s through the RGB megakernel's BVH "
+          f"form (warm-up run {bwarm.seconds:.4f} s; {card}); launches "
+          f"{bcounts}; the timed launch {bvh_ms:.4f} ms (CUDA events, "
+          f"{len(btimes)} call) = {bvh_ms / 1e3 / bres.seconds:.2%} of "
+          f"render(); pool iterations {bres.iterations}, replays "
+          f"{bres.replays}; grid {blay['blocks']} x {blay['threads']}, "
+          f"{blay['replicas']} replicas, {blay['slots']} slots of "
+          f"{blay['spp_slot']} samples, {blay['slots_per_thread']:.3f} per "
+          f"resident thread", flush=True)
+    if (bcounts["megakernel_bvh"] != 2 or len(btimes) != 1
+            or sum(bcounts.values()) != 2 or bres.iterations is not None
+            or bres.replays is not None or bwarm.replays is not None):
+        raise AssertionError(f"the BVH main path launched {bcounts} "
+                             f"({len(btimes)} timed calls), pool iterations "
+                             f"{bres.iterations}, replays {bres.replays}")
+    if (bres.rays_traced != bwarm.rays_traced
+            or not np.array_equal(bimg, bwarm.image)):
+        raise AssertionError("two runs of the BVH main path differ")
+    cornell_checks("BVH main path", bimg)
+    # One more launch with the draw and traversal counter buffers: it
+    # repeats the image and rays, and its counts give the bound.
+    acc_d, rays_d, draws_d, trav_d = megakernel.render_slots(
+        bctx.cs, bctx.meta, settings, 256, 256, 128,
+        rng.render_key(0, device="cuda"), tables=btables, bvh=ks, draws=True)
+    if int(rays_d) != bres.rays_traced or not np.array_equal(
+            canvas(acc_d, 256, 128), bimg):
+        raise AssertionError("the BVH form's launch with counts differs from "
+                             "the main path's")
+    bvh_bound = launch_bound(
+        "megakernel_rgb_bvh per launch on the BVH main path",
+        bres.rays_traced, 256 * 256 * 128, draws_d,
+        bctx.cs.prims.kind.tolist(), False, blay, btable_bytes, card, trav_d)
+    print(f"BVH main path: megakernel_rgb_bvh {bvh_ms:.4f} ms per launch at "
+          f"{bvh_bound['bound_ms'] / bvh_ms:.2%} of its bound (SASS); its "
+          f"traversal {bvh_bound['nodes'] / bres.rays_traced:.4f}"
+          f" nodes popped and {bvh_bound['tests'] / bres.rays_traced:.4f} "
+          f"primitives tested a ray, against bvh4_traverse's "
+          f"{trav['per_ray']} on phase 7's rays on the same tree ({card})",
+          flush=True)
+
+    mark("phase 9, the BVH form")
+    # 9, the pool. The same render through the queue pool (mode "pool", as
+    # before the BVH form): the warm-up render captures the pool's
+    # iteration as a CUDA graph and records the cipher calls of the
+    # captured body; the timed render replays it.
+    zero_counts()
     with recorded_cipher_calls() as warm_calls:
         warm = renderer.render(None, 256, 256, 128, settings, seed=0,
-                               mode="wavefront", context=bctx, device="cuda")
+                               mode="pool", context=bctx, device="cuda")
     if bvh_kernel.launches != warm.trips or warm.replays != warm.trips - 1:
         raise AssertionError(f"warm-up: {bvh_kernel.launches} traversal "
                              f"launches for {warm.trips} pool bodies run "
                              f"({warm.replays} replayed)")
     zero_counts()
-    threefry.sample_launches = 0
     with recorded_cipher_calls() as timed_calls:
         ores = renderer.render(None, 256, 256, 128, settings, seed=0,
-                               mode="wavefront", context=bctx, device="cuda")
+                               mode="pool", context=bctx, device="cuda")
+    pool_counts = read_counts()
     bvh_launches, cipher_launches = bvh_kernel.launches, threefry.launches
     sample_launches = threefry.sample_launches
-    mega_moved = megakernel.launches + megakernel_spectral.launches
+    mega_moved = (pool_counts["megakernel"] + pool_counts["megakernel_bvh"]
+                  + pool_counts["megakernel_spectral"])
     oimg = ores.image
-    print(f"BVH main path: cornell_box_obj 256x256@128 depth 50 seed 0 on "
-          f"{ores.device}: {ores.rays_traced} rays in {ores.seconds:.4f} s = "
-          f"{ores.mrays_per_sec:.3f} Mrays/s in {ores.iterations} pool "
-          f"iterations, {ores.trips} bodies run, {ores.replays} replayed from "
-          f"the CUDA graph (warm-up run {warm.seconds:.4f} s with its capture "
-          f"{warm.capture_seconds:.4f} s, {warm.rays_traced} rays; {card}); "
-          f"traversal launches {bvh_launches}, cipher launches "
-          f"{cipher_launches} (new-sample form {sample_launches}), megakernel "
-          f"launches {mega_moved}", flush=True)
+    print(f"BVH pool path: cornell_box_obj 256x256@128 depth 50 seed 0 "
+          f"(mode pool) on {ores.device}: {ores.rays_traced} rays in "
+          f"{ores.seconds:.4f} s = {ores.mrays_per_sec:.3f} Mrays/s in "
+          f"{ores.iterations} pool iterations, {ores.trips} bodies run, "
+          f"{ores.replays} replayed from the CUDA graph (warm-up run "
+          f"{warm.seconds:.4f} s with its capture {warm.capture_seconds:.4f} "
+          f"s, {warm.rays_traced} rays; {card}); launches {pool_counts} "
+          f"(new-sample form {sample_launches})", flush=True)
     if (bvh_launches != ores.replays or ores.replays != ores.trips
             or mega_moved != 0 or sample_launches < 1
             or ores.capture_seconds != 0):
-        raise AssertionError(f"the BVH main path launched the traversal "
+        raise AssertionError(f"the BVH pool path launched the traversal "
                              f"kernel {bvh_launches} times in {ores.replays} "
                              f"replays of {ores.trips} bodies, the megakernels "
                              f"{mega_moved} times, the new-sample form "
                              f"{sample_launches} times")
-    if oimg.shape != (256, 256, 3) or not np.isfinite(oimg).all():
-        raise AssertionError("BVH main-path image is not finite (256, 256, 3)")
-    oleft = oimg[64:192, 4:24].mean(axis=(0, 1))
-    oright = oimg[64:192, -24:-4].mean(axis=(0, 1))
-    olight = float(np.percentile(oimg[:64].max(axis=2), 99.5))
-    print(f"BVH main path: left wall rgb {np.round(oleft, 4).tolist()}, right "
-          f"wall rgb {np.round(oright, 4).tolist()}, light patch {olight:.4f}, "
-          f"image mean {float(oimg.mean()):.5f}", flush=True)
-    if not (oleft[1] > oleft[0] and oright[0] > oright[1]):
-        raise AssertionError("walls: expected green on the left, red on the right")
-    if abs(olight - 15.0) > 0.5:
-        raise AssertionError(f"ceiling light patch {olight}, expected ~15")
+    cornell_checks("BVH pool path", oimg)
+    print(f"BVH main path vs pool: cornell_box_obj 256x256@128: the BVH form "
+          f"{bres.seconds:.4f} s, {bres.mrays_per_sec:.3f} Mrays/s; the graphed "
+          f"pool {ores.seconds:.4f} s, {ores.mrays_per_sec:.3f} Mrays/s; "
+          f"{ores.seconds / bres.seconds:.2f}x; rays {bres.rays_traced} vs "
+          f"{ores.rays_traced} ({card})", flush=True)
+    bvh_vs_pool_err = image_close(
+        "BVH main path vs the graphed pool (images)",
+        torch.as_tensor(bimg.reshape(-1, 3)), bres.rays_traced,
+        torch.as_tensor(oimg.reshape(-1, 3)), ores.rays_traced, 1)
+    if bres.rays_traced != ores.rays_traced:
+        raise AssertionError(f"the BVH form traced {bres.rays_traced} rays, "
+                             f"the pool {ores.rays_traced}")
     cipher_main = cipher_on_path(
         executed_cipher_calls(warm_calls, timed_calls, ores.replays),
-        cipher_launches, card)
+        cipher_launches, card, "the BVH pool path")
     loop9 = loop_phase("cornell_box_obj", bctx, 256, 128, settings, card, 16,
                        (bvh_kernel, "closest_hit"))
     trav_per_launch = loop9["kernel_ms"]
     kernel_s = trav_per_launch * bvh_launches / 1e3
     busy = loop9["graphed"]["profile"]["busy_s"]
     wall = loop9["graphed"]["profile"]["wall_s"]
-    print(f"BVH main path: the traversal kernel {trav_per_launch:.4f} ms per "
+    print(f"BVH pool path: the traversal kernel {trav_per_launch:.4f} ms per "
           f"launch (the plain loop's launches, CUDA events) x {bvh_launches} "
           f"launches = {kernel_s:.4f} s, {kernel_s / ores.seconds:.2%} of "
           f"render() ({card})", flush=True)
 
+    mark("phase 9, the pool")
     rows10, dragon_runs, dragon_res = row_stack_phases(bctx, dctx, rays7,
                                                        card, usage)
     del dctx, rays7
     drow = rows10["dragon"]
     torch.cuda.empty_cache()
+    mark("phases 10-12")
     paths13 = texture_phases(card, usage)
     torch.cuda.empty_cache()
+    mark("phases 13-15")
     train = training_phases(card)
     torch.cuda.empty_cache()
+    mark("phases 16-17")
     cli = cli_phases(card)
     torch.cuda.empty_cache()
+    mark("phase 18")
     distributed = distribution_phases(
         card, {"d1": D1, "d2": D2, "d3": D3, "d4": D4, "d5": D5, "d6": D6},
         {"d1": ores, "d1_warm": warm, "d2": res, "d3": dragon_res})
 
+    mark("phases D1-D6")
     print(json.dumps({
         "kernels": [{
             "name": "megakernel_rgb",
@@ -2996,7 +3286,6 @@ def main() -> None:
             "bound_ms": main_bound["bound_ms"],
             "bound_by": main_bound["bound_by"],
             "library_ms": None,
-            "bound_ms_eager": main_bound["bound_ms_eager"],
             "pairs_per_scatter": main_bound["pairs"] / main_bound["scatters"],
             "ms_at_2": mk_ms_2,
             "bound_ms_at_2": rgb_bound_2["bound_ms"],
@@ -3007,6 +3296,29 @@ def main() -> None:
                 "launches", "ms_per_launch", "bound_ms", "bound_by",
                 "max_abs_err")},
             **grids["megakernel_rgb"],
+        }, {
+            "name": "megakernel_rgb_bvh",
+            "route": "cuda",
+            "source": "izpi_tpu_torch/csrc/megakernel_rgb.cu",
+            "replaces": "izpi_tpu/ops/bvh_kernel.py:133",
+            "launches": bcounts["megakernel_bvh"],
+            "max_abs_err": max(bvh_errs),
+            "ms": bvh_ms,
+            "plain_ms": bvh_plain_ms,
+            "bound_ms": bvh_bound["bound_ms"],
+            "bound_by": bvh_bound["bound_by"],
+            "library_ms": None,
+            "nodes_per_ray": bvh_bound["nodes"] / bres.rays_traced,
+            "tests_per_ray": bvh_bound["tests"] / bres.rays_traced,
+            "bvh4_traverse_per_ray_phase7": trav["per_ray"],
+            "pairs_per_scatter": bvh_bound["pairs"] / bvh_bound["scatters"],
+            "ms_at_2": bvh_ms_2,
+            "bound_ms_at_2": bvh_bound_2["bound_ms"],
+            "max_abs_err_vs_graphed_pool": bvh_vs_pool_err,
+            "also_replaces": "izpi_tpu/ops/megakernel.py:628 (its loop)",
+            "traversal": "izpi_tpu_torch/csrc/bvh4.cuh",
+            "layout": blay,
+            **grids["megakernel_rgb_bvh"],
         }, {
             "name": "megakernel_spectral",
             "route": "cuda",
@@ -3019,7 +3331,6 @@ def main() -> None:
             "bound_ms": smain_bound["bound_ms"],
             "bound_by": smain_bound["bound_by"],
             "library_ms": None,
-            "bound_ms_eager": smain_bound["bound_ms_eager"],
             "pairs_per_scatter": smain_bound["pairs"] / smain_bound["scatters"],
             "ms_at_2": spec_ms_2,
             "bound_ms_at_2": spec_bound_2["bound_ms"],
@@ -3030,7 +3341,9 @@ def main() -> None:
             "route": "cuda",
             "source": "izpi_tpu_torch/csrc/bvh4_traverse.cu",
             "replaces": "izpi_tpu/ops/bvh_kernel.py:133",
-            "launches": bvh_launches,
+            "launches": dragon_runs["bvh4_traverse"]["launches"],
+            "launches_cornell_obj_default": bcounts["bvh_kernel"],
+            "launches_cornell_obj_pool": bvh_launches,
             "max_abs_err": max(trav["max_abs_err"], dtrav["max_abs_err"]),
             "ms": trav["ms"],
             "plain_ms": trav["plain_ms"],
@@ -3129,9 +3442,21 @@ def main() -> None:
                                    "path, the spectral pyramid 500x500@256 "
                                    "depth 50; plain_ms, ms_at_2, "
                                    "bound_ms_at_2: 500x500@2 depth 50",
+            "megakernel_rgb_bvh": "ms, bound_ms: per launch on the BVH "
+                                  "main path, cornell_box_obj 256x256@128 "
+                                  "depth 50 (CUDA events around the timed "
+                                  "render()'s launch); plain_ms, ms_at_2, "
+                                  "bound_ms_at_2: 256x256@2 depth 50; "
+                                  "bound_ms from the SASS probes' "
+                                  "instructions times the launch's units",
+            "bvh4_traverse_launches": "launches: the dragon main path's "
+                                      "timed render (its default route); "
+                                      "cornell_box_obj's default route "
+                                      "launches it no time, its mode "
+                                      "\"pool\" once a pool body",
             "izpi_threefry_uniforms": "the bounce form: ms, plain_ms, "
                                       "bound_ms per launch at the shape the "
-                                      "BVH main path calls it with most "
+                                      "BVH pool path calls it with most "
                                       "(shape: keys, uniforms), the launches "
                                       "its timed render's; ms timed over a "
                                       "CUDA graph of launches; bound_ms "
@@ -3141,7 +3466,7 @@ def main() -> None:
                                       "to the plain version "
                                       f"(phase 3, {n_keys} keys)",
             "izpi_threefry_new_sample": "a new sample's path key and camera "
-                                        "uniforms at the BVH main path's "
+                                        "uniforms at the BVH pool path's "
                                         "shape; forms: keys only, + camera, "
                                         "+ camera and λ",
             "bvh4_traverse": f"{TRAVERSE_RAYS} rays (half camera, half "
@@ -3160,7 +3485,12 @@ def main() -> None:
         "spectral_main_path": {"rays": sres.rays_traced,
                                "seconds": sres.seconds,
                                "mrays_per_sec": sres.mrays_per_sec},
-        "bvh_main_path": {"rays": ores.rays_traced, "seconds": ores.seconds,
+        "bvh_main_path": {"rays": bres.rays_traced, "seconds": bres.seconds,
+                          "mrays_per_sec": bres.mrays_per_sec,
+                          "launches": bcounts,
+                          "kernel_ms": bvh_ms,
+                          "kernel_share": bvh_ms / 1e3 / bres.seconds},
+        "bvh_pool_path": {"rays": ores.rays_traced, "seconds": ores.seconds,
                           "mrays_per_sec": ores.mrays_per_sec,
                           "iterations": ores.iterations,
                           "trips": ores.trips, "replays": ores.replays,

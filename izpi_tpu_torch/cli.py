@@ -17,10 +17,11 @@ every host has a card for each of its ranks, else gloo, named in the
 summary line) and render the frame sample-sharded (`parallel.dist.
 render_distributed`), or primitive-sharded with --shard-prims, on the
 first --num-workers ranks (0: all). Only rank 0 writes the image. A worker
-with a coordinator but no rank exits with the fix, as the JAX CLI does;
-the flags of a distributed run given to a standalone one, which the JAX
-CLI ignores, exit with an error here. As in the JAX CLI, a distributed run
-takes no checkpoint or preview.
+with a coordinator but no rank exits with the fix, as the JAX CLI does.
+The flags of a distributed run given without --role are ignored, as the
+JAX CLI ignores them, and the render runs standalone; here a warning on
+stderr names them. As in the JAX CLI, a distributed run takes no
+checkpoint or preview.
 
 An EXR of a spectral render (a spectral scene, or --sampler spectral) is
 ACEScg and carries the ACES chromaticities; the JAX CLI stamps them only on
@@ -145,8 +146,11 @@ def main(argv=None) -> int:
     distributed = args.role in ("leader", "worker")
     given = _multihost_flags(args)
     if given and not distributed:
-        raise SystemExit(f"{' '.join(given)}: a flag of multi-host "
-                         f"rendering; it needs --role leader or --role worker")
+        # As the JAX CLI (izpi_tpu/cli.py:95), --role alone decides: without
+        # it the flags do nothing and the render runs standalone.
+        print(f"warning: {' '.join(given)} ignored: multi-host rendering "
+              f"needs --role leader or --role worker; rendering standalone",
+              file=sys.stderr)
 
     from izpi_tpu_torch.integrator import path as path_mod
     from izpi_tpu_torch.io import output as output_mod

@@ -18,10 +18,11 @@
 // keep IEEE rounding: -fmad=false, no --use_fast_math, precise
 // sqrtf/expf/logf/sinf/cosf/powf.
 //
-// Bound: per-thread FP32 and INT32 issue — the primitive loop (every ray
-// tests every primitive, ~57 FP32 operations each) and the Threefry rounds
-// (79 INT32 operations a call, on the half-rate INT32 pipe). The scene
-// tables are a few KB, read at warp-uniform addresses, and stay in L1.
+// Bound: per-thread instruction issue and the half-rate INT32 pipe — the
+// primitive loop (every ray tests every primitive) and the Threefry rounds
+// (counted from the SASS of one-unit probes, csrc/sass_probes.cu). The
+// scene tables are a few KB, read at warp-uniform addresses, and stay in
+// L1.
 // Against the one-thread-per-slot kernel this replaces, whose warps idled
 // until their longest path ended and whose grid did not fill the card:
 //  1. Persistent threads. One grid of (blocks per SM from the occupancy
@@ -47,11 +48,26 @@
 // izpi_tpu_torch/ops/megakernel.py (pack_tables). The primitive tests, the
 // light list, the camera ray, the slot queue and the table layouts are in
 // common.cuh, shared with megakernel_spectral.cu.
+//
+// The BVH form (megakernel_rgb_bvh) is the same loop with the closest hit
+// through a BVH4 (bvh4.cuh, the traversal of bvh4_traverse.cu) in place of
+// the scan of every primitive: it renders what the queue pool renders
+// through that traversal kernel (izpi_tpu_torch/integrator/wavefront.py),
+// the same paths keyed by (pixel, sample), but keeps each path in one
+// thread's registers from the camera to the deposit, where the pool reads
+// and writes every slot's state through device memory a few hundred times
+// an iteration. Both calls of a bounce go through it: the closest hit and
+// the Beer–Lambert exit re-trace. The primitive tables (prim_f, prim_i) are
+// packed from the tree's reordered primitives, so a hit index names the
+// same primitive in the tree's table and in the scene's. The loop is a
+// template over its closest-hit function, so the brute-force form's code is
+// what it was.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bvh4.cuh"
 #include "common.cuh"
 
 namespace izpi {
@@ -60,12 +76,48 @@ namespace izpi {
 // The kernel
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
-    megakernel_rgb(Scene sc, Camera camera, uint32_t seed0, uint32_t seed1, uint32_t offset,
-                   int nx, int ny, int spp_slot, int n_slots, int max_depth, float bg_r,
-                   float bg_g, float bg_b, int book, int* __restrict__ queue,
-                   float* __restrict__ acc_out, int* __restrict__ cnt_out,
-                   int* __restrict__ draws_out) {
+// The closest hit of the brute-force form: every primitive (common.cuh).
+struct BruteHit {
+  __device__ __forceinline__ int operator()(const Scene& sc, int /*slot*/, V3 o, V3 d,
+                                            float tme, float t_min, float t_max,
+                                            float& t) const {
+    return closest_hit(sc, o, d, tme, t_min, t_max, t);
+  }
+};
+
+// The closest hit of the BVH form: the BVH4 traversal (bvh4.cuh) over the
+// tree's node table and its primitive table, whose primitives are the
+// scene's in the same (tree) order. With `counts`, each slot's nodes popped
+// and primitives tested are added to its row: no other thread writes it.
+struct BvhHit {
+  const int* __restrict__ nodes;
+  const float* __restrict__ prims;
+  int* __restrict__ counts;
+  __device__ __forceinline__ int operator()(const Scene& /*sc*/, int slot, V3 o, V3 d,
+                                            float tme, float t_min, float t_max,
+                                            float& t) const {
+    int visits = 0, tests = 0;
+    const int hit = bvh4_closest(nodes, prims, o, d, tme, t_min, t_max, t, visits, tests);
+    if (counts != nullptr) {
+      counts[2 * slot + 0] += visits;
+      counts[2 * slot + 1] += tests;
+    }
+    return hit;
+  }
+};
+
+// The render loop, over the closest-hit function `closest` (BruteHit or
+// BvhHit); everything else is the same code in both forms.
+template <class Hit>
+__device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
+                                            const Camera& camera, uint32_t seed0,
+                                            uint32_t seed1, uint32_t offset, int nx, int ny,
+                                            int spp_slot, int n_slots, int max_depth,
+                                            float bg_r, float bg_g, float bg_b, int book,
+                                            int* __restrict__ queue,
+                                            float* __restrict__ acc_out,
+                                            int* __restrict__ cnt_out,
+                                            int* __restrict__ draws_out) {
   const int n_pix = nx * ny;
   const V3 bg = mk(bg_r, bg_g, bg_b);
   const float cos_scale = book ? 2.0f : 1.0f;
@@ -92,7 +144,7 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
   for (;;) {  // one bounce of one path per trip
     ++cnt;
     float t;
-    const int hit = closest_hit(sc, o, d, tme, kTMin, kTMax, t);
+    const int hit = closest(sc, slot, o, d, tme, kTMin, kTMax, t);
     V3 p = o, n = d, albedo = bg;
     const float* M = sc.mat_f;
     const int* Mi = sc.mat_i;
@@ -173,7 +225,7 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
         if (Mi[2] != 0 && !is_refl) {  // Beer–Lambert exit re-trace (dielectric.go:118-153)
           const V3 start = p + d_new * 1e-3f;
           float te;
-          const int ex = closest_hit(sc, start, d_new, tme, 0.0f, 1000.0f, te);
+          const int ex = closest(sc, slot, start, d_new, tme, 0.0f, 1000.0f, te);
           float path_len = 10.0f;
           if (ex >= 0) path_len = clamp(length((start + d_new * te) - p), 0.1f, 100.0f);
           mult = mk(expf(-M[8] * path_len), expf(-M[9] * path_len), expf(-M[10] * path_len));
@@ -232,6 +284,26 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
   }
 }
 
+__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
+    megakernel_rgb(Scene sc, Camera camera, uint32_t seed0, uint32_t seed1, uint32_t offset,
+                   int nx, int ny, int spp_slot, int n_slots, int max_depth, float bg_r,
+                   float bg_g, float bg_b, int book, int* __restrict__ queue,
+                   float* __restrict__ acc_out, int* __restrict__ cnt_out,
+                   int* __restrict__ draws_out) {
+  render_loop(BruteHit{}, sc, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots,
+              max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out);
+}
+
+__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
+    megakernel_rgb_bvh(Scene sc, BvhHit bvh, Camera camera, uint32_t seed0, uint32_t seed1,
+                       uint32_t offset, int nx, int ny, int spp_slot, int n_slots,
+                       int max_depth, float bg_r, float bg_g, float bg_b, int book,
+                       int* __restrict__ queue, float* __restrict__ acc_out,
+                       int* __restrict__ cnt_out, int* __restrict__ draws_out) {
+  render_loop(bvh, sc, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots, max_depth,
+              bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out);
+}
+
 }  // namespace izpi
 
 extern "C" {
@@ -260,6 +332,33 @@ int izpi_megakernel_rgb(const float* prim_f, const int* prim_i, int n_prims,
   izpi::megakernel_rgb<<<blocks, izpi::kMegaThreads, 0, (cudaStream_t)stream>>>(
       sc, izpi::load_camera(cam), seed0, seed1, offset, nx, ny, spp_slot, n_slots, max_depth,
       bg_r, bg_g, bg_b, book, queue, acc, cnt, draws);
+  return (int)cudaGetLastError();
+}
+
+// The persistent grid of izpi_megakernel_rgb_bvh on the current device.
+int izpi_megakernel_rgb_bvh_grid(int* blocks, int* threads) {
+  *threads = izpi::kMegaThreads;
+  return izpi::persistent_blocks(izpi::megakernel_rgb_bvh, blocks);
+}
+
+// izpi_megakernel_rgb with the closest hit through a BVH4: nodes (Nn, 32)
+// i32 and bvh_prims (n_prims, 16) f32 (ops/bvh_kernel.py pack_tables) over
+// the primitives of prim_f and prim_i in the same (tree) order; trav: null,
+// or (n_slots, 2) i32, zeroed, that receives each slot's nodes popped and
+// primitives tested.
+int izpi_megakernel_rgb_bvh(const float* prim_f, const int* prim_i, int n_prims,
+                            const float* mat_f, const int* mat_i, const float* light_f,
+                            const int* light_i, int n_lights, const int* nodes,
+                            const float* bvh_prims, const float* cam, uint32_t seed0,
+                            uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
+                            int n_slots, int max_depth, float bg_r, float bg_g, float bg_b,
+                            int book, int blocks, int* queue, float* acc, int* cnt, int* draws,
+                            int* trav, void* stream) {
+  izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
+  izpi::BvhHit bvh{nodes, bvh_prims, trav};
+  izpi::megakernel_rgb_bvh<<<blocks, izpi::kMegaThreads, 0, (cudaStream_t)stream>>>(
+      sc, bvh, izpi::load_camera(cam), seed0, seed1, offset, nx, ny, spp_slot, n_slots,
+      max_depth, bg_r, bg_g, bg_b, book, queue, acc, cnt, draws);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,9 @@ Counterpart of `izpi_tpu/integrator/wavefront.py`: `trace_pool` (:87),
 (:176-178) and the XYZ deposit (:185-195) that the spectral megakernel's
 plain version shares. Each iteration advances every live path one bounce
 through the scene's intersector, deposits the radiance of finished paths
-into the pixel accumulator (`index_add_`), and refills freed slots with the
+into the pixel accumulator (`deposit`: a segment sum over the slots sorted
+by pixel, so that the image repeats bit for bit on the card, where a plain
+`index_add_` runs as float atomics), and refills freed slots with the
 next global sample ids, ranked by a cumsum over the free slots. The
 enumeration and keying of (pixel, sample) pairs are the JAX pool's, so the
 two agree up to floating-point accumulation order.
@@ -121,6 +123,22 @@ def _bounce_step(cs, meta, settings, intersect, st, spectral: bool,
                  nrays=nrays), died, contrib)
 
 
+def deposit(acc, pix, contrib):
+    """Add each slot's deposit `contrib` (N, 3) to row pix[slot] of `acc`
+    (a float32 (n_pix, 3) accumulator) in an order that the slots fix, so
+    that two renders give the same bits: the slots sorted by pixel (a
+    stable sort), each pixel's run summed in slot order by one thread
+    (`torch.segment_reduce`, whose kernel loops over a segment), and the
+    sums added to the rows. `index_add_` would add them with float atomics
+    in the order the card schedules them. No host sync: the runs' offsets
+    come from a search of the sorted pixels."""
+    keys, order = torch.sort(pix.to(torch.int32), stable=True)
+    offsets = torch.searchsorted(keys, torch.arange(
+        acc.shape[0] + 1, dtype=torch.int32, device=pix.device))
+    acc.add_(torch.segment_reduce(contrib[order], "sum", offsets=offsets,
+                                  axis=0, unsafe=True, initial=0.0))
+
+
 def pool_chunk(total: int, pool_size: int) -> int:
     """Pool iterations between two tests of the pool's end on the card.
 
@@ -213,8 +231,8 @@ def _pool(cs, meta, settings, intersect, nx: int, ny: int, spp: int,
         upd, died, contrib = _bounce_step(cs, meta, settings, intersect, st,
                                           spectral, bg_spd_id)
         acc = st["acc"]
-        acc.index_add_(0, st["pix"], torch.where(died[:, None], contrib,
-                                                 torch.zeros_like(contrib)))
+        deposit(acc, st["pix"], torch.where(died[:, None], contrib,
+                                            torch.zeros_like(contrib)))
         free = ~upd["active"]
         new_ids = st["next"] + torch.cumsum(free.long(), 0) - 1
         issue = free & (new_ids < st["total"])

@@ -26,10 +26,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
 SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
            "bvh4_rowstack.cu", "cipher.cu")
-HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh")
-# The kernels whose ptxas report `ptxas_usage` reads, by their names.
-KERNELS = ("megakernel_rgb", "megakernel_spectral", "bvh4_traverse",
-           "bvh4_rowstack")
+HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh", "bvh4.cuh")
+# The kernels whose ptxas report `ptxas_usage` reads, by their names (a
+# name that holds another comes first).
+KERNELS = ("megakernel_rgb_bvh", "megakernel_rgb", "megakernel_spectral",
+           "bvh4_traverse", "bvh4_rowstack")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
@@ -51,6 +52,19 @@ _SIGNATURES = {
         _c_void_p, _c_void_p,                  # draws (or null), stream
     ],
     "izpi_megakernel_rgb_grid": [_c_void_p, _c_void_p],  # blocks, threads
+    "izpi_megakernel_rgb_bvh": [
+        _c_void_p, _c_void_p, _c_int,          # prim_f, prim_i, n_prims
+        _c_void_p, _c_void_p,                  # mat_f, mat_i
+        _c_void_p, _c_void_p, _c_int,          # light_f, light_i, n_lights
+        _c_void_p, _c_void_p,                  # nodes, bvh prims
+        _c_void_p,                             # cam (host floats)
+        _c_uint32, _c_uint32, _c_uint32,       # seed0, seed1, offset
+        _c_int, _c_int, _c_int, _c_int, _c_int,  # nx, ny, spp_slot, n_slots, max_depth
+        _c_float, _c_float, _c_float, _c_int,  # background, book
+        _c_int, _c_void_p, _c_void_p, _c_void_p,  # blocks, queue, acc, cnt
+        _c_void_p, _c_void_p, _c_void_p,       # draws, traversal (or null), stream
+    ],
+    "izpi_megakernel_rgb_bvh_grid": [_c_void_p, _c_void_p],
     "izpi_megakernel_spectral": [
         _c_void_p, _c_void_p, _c_int,          # prim_f, prim_i, n_prims
         _c_void_p, _c_void_p,                  # mat_f, mat_i

@@ -19,7 +19,9 @@ What its design does about that (the source's head says more):
    branch read, and a lane's bounce and camera draws share one converged
    loop;
 4. registers: the camera passed by value (constant bank) and a
-   `__launch_bounds__` hint of 5 blocks per SM (96 registers, no spill).
+   `__launch_bounds__` hint of 5 blocks per SM (96 registers, no spill;
+   the BVH form spills ~100 bytes a thread there and still ran faster
+   than at 128 registers without a spill).
 
 Slots are pinned to pixels: slot s serves pixel s mod n_pix, and replicas
 (`pick_replication`) split a pixel's samples. Slot s walks samples
@@ -31,8 +33,18 @@ thread that was. The card's layout has more replicas than the JAX rule's
 (`MIN_SLOTS`), which the CPU keeps: the same samples and paths, the pixel
 sums added in another order.
 
+The BVH form (`render_slots(..., bvh=...)`, the entry
+`izpi_megakernel_rgb_bvh`) is the same kernel with the closest hit through
+a BVH4 (`csrc/bvh4.cuh`, the traversal of `csrc/bvh4_traverse.cu`) in
+place of the scan of every primitive: it takes the scenes the queue pool
+renders through that traversal (an RGB scene above the renderer's
+`BVH_THRESHOLD` whose materials the kernel shades, `eligible_bvh`) and
+renders the same paths in one launch. The JAX renderer sends those scenes
+to its pool; this route is the port's own.
+
 This module holds:
-- `eligible`, the JAX package's rule (megakernel.py:74-81);
+- `eligible`, the JAX package's rule (megakernel.py:74-81), and
+  `eligible_bvh`, the BVH form's;
 - `pack_tables`, the scene tables as contiguous f32/i32 tensors whose row
   layouts `csrc/megakernel_rgb.cu` reads;
 - `pick_replication`, `persistent_grid`, `card_grid`, `card_min_slots`
@@ -40,22 +52,26 @@ This module holds:
 - `render_slots`, the wrapper: a CUDA tensor launches the kernel (or the
   call raises), a CPU tensor runs the plain twin;
 - `render_slots_reference`, the plain twin: vectorised over slots, built
-  from `integrator.path.bounce_rgb` and `geometry.primitives.intersect_brute`,
-  with the same replica mapping and slot-pinned refill.
+  from `integrator.path.bounce_rgb` and the scene's intersector (brute
+  force, `geometry.primitives.intersect_brute`, unless given another; the
+  BVH form's is `bvh_plain_intersector`), with the same replica mapping
+  and slot-pinned refill.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from izpi_tpu_torch import camera as camera_mod
+from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.core import vecmath as vm
 from izpi_tpu_torch.integrator import path as path_mod
+from izpi_tpu_torch.ops import bvh_kernel
 from izpi_tpu_torch.ops import threefry as tf
 from izpi_tpu_torch.texture import tables as tex_tables
 
@@ -70,23 +86,48 @@ MIN_SLOTS = 8192
 # On the card, slots per resident thread of the persistent grid: with eight
 # or more, the slots still running when the queue drains are a short tail.
 SLOTS_PER_THREAD = 8
-# The kernel's C entry; "<ENTRY>_grid" reports its persistent grid.
+# The kernel's C entries, brute force and BVH; "<entry>_grid" reports each
+# one's persistent grid.
 ENTRY = "izpi_megakernel_rgb"
+ENTRY_BVH = "izpi_megakernel_rgb_bvh"
 
 # Row widths of the packed tables; csrc/megakernel_rgb.cu reads the same.
 PRIM_F, PRIM_I, MAT_F, MAT_I, LIGHT_F, CAM_F = 24, 4, 12, 4, 16, 24
 
-# Launches of the CUDA megakernel made by `render_slots`.
+# Launches made by `render_slots`: of the brute-force kernel (`launches`)
+# and of its BVH form (`bvh_launches`).
 launches = 0
+bvh_launches = 0
 
 
-def eligible(cs, meta) -> bool:
-    """The JAX package's rule: RGB, no media/PBR/image/noise, 1..560 prims."""
+def _shaded(meta) -> bool:
+    """The kernel shades the scene: RGB, no media/PBR/image/noise, and at
+    least one primitive."""
     if meta.spectral or meta.has_pbr or meta.n_media > 0:
         return False
     if meta.has_image or meta.has_noise:
         return False
-    return 0 < meta.n_prims <= MAX_PRIMS
+    return meta.n_prims > 0
+
+
+def eligible(cs, meta) -> bool:
+    """The JAX package's rule: RGB, no media/PBR/image/noise, 1..560 prims."""
+    return _shaded(meta) and meta.n_prims <= MAX_PRIMS
+
+
+def eligible_bvh(cs, meta, intersect) -> bool:
+    """The BVH form's rule: `eligible` without the 560-primitive cap, for a
+    scene whose intersector is the BVH4 traversal's
+    (`bvh_kernel.BVHKernelIntersector`, which `cs` is reordered for). The
+    row-stack pair (`bvh_rowkernel`) and brute force do not qualify."""
+    return (isinstance(intersect, bvh_kernel.BVHKernelIntersector)
+            and intersect.cs is cs and _shaded(meta))
+
+
+def bvh_plain_intersector(bvh: bvh_kernel.KernelScene):
+    """The BVH form's plain closest hit, on any device: the plain traversal
+    (`accel.traverse.intersect_bvh`) over the tree and its primitives."""
+    return functools.partial(traverse.intersect_bvh, bvh.prims, bvh.tree)
 
 
 def pick_replication(n_pix: int, spp: int, min_slots: int = MIN_SLOTS) -> int:
@@ -208,11 +249,13 @@ def _key_words(key):
 
 
 def render_slots_reference(cs, meta, settings, nx: int, ny: int, spp: int,
-                           key, offset: int = 0, min_slots: int = MIN_SLOTS):
+                           key, offset: int = 0, min_slots: int = MIN_SLOTS,
+                           intersect=None):
     """Plain twin of the CUDA kernel, on the layout `pick_replication` gives
-    for `min_slots` (the card's is `card_min_slots`). Returns (acc (nx·ny,
-    3) f32 radiance summed over the spp samples, rays traced as a 0-dim
-    int64 tensor)."""
+    for `min_slots` (the card's is `card_min_slots`), through `intersect`
+    (by default brute force over `cs`; the BVH form's twin takes
+    `bvh_plain_intersector`). Returns (acc (nx·ny, 3) f32 radiance summed
+    over the spp samples, rays traced as a 0-dim int64 tensor)."""
     dev = cs.device
     n_pix = nx * ny
     repl, spp_slot, n_slots = slot_layout(n_pix, spp, min_slots)
@@ -238,7 +281,8 @@ def render_slots_reference(cs, meta, settings, nx: int, ny: int, spp: int,
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
     sentinel = o.new_tensor([0.0, 0.0, 1.0])
     zero = torch.zeros((), device=dev)
-    intersect = path_mod.make_brute_intersector(cs)
+    if intersect is None:
+        intersect = path_mod.make_brute_intersector(cs)
     while bool(live.any()):
         o, d, thru, rad, active, nr = path_mod.bounce_rgb(
             cs, meta, settings, intersect, o, d, tme, keys, depth, thru, rad,
@@ -282,63 +326,94 @@ def check_tables(dev: torch.device, specs) -> None:
 
 def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
                  offset: int = 0, tables: SceneTables | None = None,
-                 draws: bool = False):
+                 draws: bool = False,
+                 bvh: Optional[bvh_kernel.KernelScene] = None):
     """Render nx×ny at spp samples per pixel, samples [offset, offset+spp).
 
     Returns (acc (nx·ny, 3) f32 summed radiance — divide by spp for the
     image — and rays traced, a 0-dim int64 tensor; int64 because a 256²
     frame at 1024 spp and depth up to 50 can pass 2³¹ rays). With `draws`
-    (on the card only) a third item: the int64 (scatters, bounce pairs
-    drawn) of the whole launch, from the kernel's counter buffer.
+    (on the card only) one more item: the int64 (scatters, bounce pairs
+    drawn) of the whole launch, from the kernel's counter buffer, and for
+    the BVH form a fourth: the int64 (nodes popped, primitives tested) of
+    the whole launch.
 
-    On a CUDA device this launches `izpi_megakernel_rgb` on the card's
-    layout (`card_min_slots`); any failure to build or launch raises. On
-    the CPU it runs `render_slots_reference` on the JAX rule's layout."""
-    if not eligible(cs, meta):
+    `bvh`, the BVH4 of `cs`'s (reordered) primitives (`bvh_kernel.attach`'s
+    intersector's `ks`), selects the BVH form, which takes any primitive
+    count; without it the scene must be `eligible`.
+
+    On a CUDA device this launches `izpi_megakernel_rgb` (or its BVH form,
+    `izpi_megakernel_rgb_bvh`) on the card's layout (`card_min_slots`);
+    any failure to build or launch raises. On the CPU it runs
+    `render_slots_reference` on the JAX rule's layout, through the plain
+    traversal for the BVH form."""
+    if not (_shaded(meta) if bvh is not None else eligible(cs, meta)):
         raise NotImplementedError(
             "scene not eligible for the megakernel; render it through the "
             "queue pool (render(mode='pool'), integrator.wavefront)")
+    if bvh is not None and bvh.prim_table.shape[0] != meta.n_prims:
+        raise ValueError(f"the tree holds {bvh.prim_table.shape[0]} "
+                         f"primitives, the scene {meta.n_prims}")
     dev = cs.device
     if dev.type == "cpu":
         if draws:
             raise ValueError("draw counts come from the CUDA kernel")
-        return render_slots_reference(cs, meta, settings, nx, ny, spp, key,
-                                      offset)
+        return render_slots_reference(
+            cs, meta, settings, nx, ny, spp, key, offset,
+            intersect=None if bvh is None else bvh_plain_intersector(bvh))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not (nx > 0 and ny > 0 and spp >= 0):
         raise ValueError("nx, ny must be positive and spp non-negative")
     if tables is None:
         tables = pack_tables(cs)
-    check_tables(dev, table_specs(tables, meta))
+    specs = table_specs(tables, meta)
+    if bvh is not None:
+        specs += [("nodes", bvh.nodes, (bvh.nodes.shape[0],
+                                        bvh_kernel.NODE_WORDS), torch.int32),
+                  ("prim_table", bvh.prim_table,
+                   (meta.n_prims, bvh_kernel.PRIM_WORDS), torch.float32)]
+    check_tables(dev, specs)
 
     from izpi_tpu_torch.ops import _build
 
     lib = _build.load()
     n_p, n_l = meta.n_prims, meta.n_lights
     n_pix = nx * ny
-    repl, spp_slot, n_slots, blocks = card_layout(ENTRY, dev, n_pix, spp)
+    entry = ENTRY if bvh is None else ENTRY_BVH
+    repl, spp_slot, n_slots, blocks = card_layout(entry, dev, n_pix, spp)
     seed0, seed1 = _key_words(key)
     bg = [float(x) for x in settings.background]
     cam = host_camera(tables.cam)
     queue, acc, cnt, counts = launch_buffers(n_slots, draws, dev)
+    traversal = draws and bvh is not None
+    trav = torch.zeros((n_slots, 2) if traversal else (0, 2),
+                       dtype=torch.int32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    scene = (ptr(tables.prim_f), ptr(tables.prim_i), n_p, ptr(tables.mat_f),
+             ptr(tables.mat_i), ptr(tables.light_f), ptr(tables.light_i), n_l)
+    tree = () if bvh is None else (ptr(bvh.nodes), ptr(bvh.prim_table))
+    launch = (cam, seed0, seed1, offset & tf.MASK, nx, ny, spp_slot, n_slots,
+              int(settings.max_depth), bg[0], bg[1], bg[2],
+              int(bool(settings.exact_book_cosine)), blocks, ptr(queue),
+              ptr(acc), ptr(cnt), ptr(counts) if draws else None)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.izpi_megakernel_rgb(
-            ptr(tables.prim_f), ptr(tables.prim_i), n_p,
-            ptr(tables.mat_f), ptr(tables.mat_i),
-            ptr(tables.light_f), ptr(tables.light_i), n_l, cam,
-            seed0, seed1, offset & tf.MASK, nx, ny, spp_slot, n_slots,
-            int(settings.max_depth), bg[0], bg[1], bg[2],
-            int(bool(settings.exact_book_cosine)), blocks, ptr(queue),
-            ptr(acc), ptr(cnt), ptr(counts) if draws else None,
-            ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if bvh is None:
+            err = lib.izpi_megakernel_rgb(*scene, *launch, stream)
+        else:
+            err = lib.izpi_megakernel_rgb_bvh(
+                *scene, *tree, *launch, ptr(trav) if traversal else None,
+                stream)
     if err != 0:
-        raise RuntimeError(f"izpi_megakernel_rgb launch failed: CUDA error {err}")
-    global launches
-    launches += 1
-    return launch_result(acc, cnt, counts, repl, n_pix, draws)
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    global launches, bvh_launches
+    if bvh is None:
+        launches += 1
+    else:
+        bvh_launches += 1
+    out = launch_result(acc, cnt, counts, repl, n_pix, draws)
+    return out + (trav.sum(dim=0, dtype=torch.int64),) if traversal else out
 
 
 def host_camera(cam: torch.Tensor):

@@ -114,8 +114,10 @@ def device_profile(fn):
     for attempt in range(TRIES):
         settle, n_pad = SETTLE_S * 2 ** attempt, PAD_KERNELS * 2 ** attempt
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # Device activity only: the rows are device records, and the host
+        # ops' records (several a launch) made a trace of an eager pool or
+        # training step take minutes to read back.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(settle)
             pad(n_pad)
             t0 = time.perf_counter()
@@ -136,6 +138,7 @@ def device_profile(fn):
                   flush=True)
         if not lost:
             break
+        # The runtime's launch records, where the trace holds them.
         launches = [e.time_range.start for e in prof.events()
                     if e.device_type == DeviceType.CPU
                     and e.name.startswith("cudaLaunchKernel")]

@@ -13,11 +13,17 @@ the first-hit AOVs "albedo", "normal" and "wireframe" (`integrator.aov`:
 jittered camera rays, one intersection each, averaged over spp).
 
 Modes of the colour and spectral samplers:
-- "wavefront" (the default): the megakernel when the scene is eligible
-  (`ops.megakernel.eligible` / `megakernel_spectral.eligible`), else the
-  queue pool (`integrator.wavefront.trace_pool`) of
-  `min(nx·ny·spp, 1<<18)` slots (renderer.py:298-311).
-- "mega": the megakernel, which must take the scene. On a CUDA device it
+- "wavefront" (the default): a megakernel when one takes the scene, else
+  the queue pool (`integrator.wavefront.trace_pool`) of
+  `min(nx·ny·spp, 1<<18)` slots (renderer.py:298-311). An RGB render whose
+  context traverses a BVH4 (`ops.bvh_kernel`) and whose materials the RGB
+  megakernel shades goes to the megakernel's BVH form
+  (`ops.megakernel.eligible_bvh`); the JAX renderer sends such a scene to
+  its pool, and this route is the port's own. Otherwise the megakernels'
+  rule is the JAX package's (`ops.megakernel.eligible` /
+  `megakernel_spectral.eligible`).
+- "mega": a megakernel, which must take the scene: the BVH form where
+  `eligible_bvh` holds, else the brute-force one. On a CUDA device it
   launches the CUDA kernel, on the CPU its plain version. An RGB render
   goes to `ops.megakernel.render_slots`, a spectral one to
   `ops.megakernel_spectral.render_slots_spectral`.
@@ -43,7 +49,8 @@ The intersector is picked once per `RenderContext` (`prepare`,
 renderer.py:128-169): a scene of more than BVH_THRESHOLD primitives (or
 `use_bvh=True`) gets a BVH4 over reordered primitives, traversed by the
 CUDA kernel (`ops.bvh_kernel`) on the card and by its plain version
-(`accel.traverse`) on the CPU; any other scene brute force. The row-stack
+(`accel.traverse`) on the CPU, or inside the RGB megakernel's BVH form;
+any other scene brute force. The row-stack
 traversal (`ops.bvh_rowkernel`) is never picked here: a caller selects it
 by putting the pair `bvh_rowkernel.attach(context.cs)` returns into the
 `cs` and `intersect` of a context built with `use_bvh=False`, as with the
@@ -57,6 +64,7 @@ the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 import time as time_mod
 from typing import Optional, Tuple
@@ -81,8 +89,9 @@ from izpi_tpu_torch.spectral import convert
 # 16384, a TPU choice). On the card the queue pool with the traversal kernel
 # is 1.7-2.5x faster than with brute force at 2k triangles and 17-19x at 20k;
 # at 100-500 the two are within the runs' spread (PERF.md, engine policy,
-# `measure_port.py --policy`). 560 is the megakernels' cap today, so no
-# scene they take is reordered; it stays 560 if that cap moves.
+# `measure_port.py --policy`). 560 is the brute-force megakernels' cap, so
+# no scene they take is reordered; an RGB scene above it whose materials
+# the RGB megakernel shades takes its BVH form (`megakernel.eligible_bvh`).
 BVH_THRESHOLD = 560
 POOL_MAX = 1 << 18  # the largest default pool (renderer.py:311)
 AOV_SAMPLERS = ("albedo", "normal", "wireframe")
@@ -139,9 +148,11 @@ def prepare(scene: st.Scene, device, use_bvh: Optional[bool] = None):
 class RenderContext:
     """A compiled scene and its intersector on one device ("cuda" unless the
     caller asks for "cpu"), plus the megakernel's packed tables (built once,
-    on first use) and the queue pool's CUDA graph (`graphs`, captured on
-    first use and replayed by later renders of the same pool size, frame
-    and sampler; one of another replaces it). `build_seconds` covers the compile and the BVH build."""
+    on first use; the BVH form's tree tables are the intersector's, packed
+    once by `bvh_kernel.attach`) and the queue pool's CUDA graph
+    (`graphs`, captured on first use and replayed by later renders of the
+    same pool size, frame and sampler; one of another replaces it).
+    `build_seconds` covers the compile and the BVH build."""
 
     def __init__(self, scene: st.Scene, use_bvh: Optional[bool] = None, *,
                  device="cuda"):
@@ -161,7 +172,16 @@ class RenderContext:
         scene's spectral render goes to the pool (renderer.py:293-304)."""
         if self.meta.spectral if spectral is None else spectral:
             return megakernel_spectral.eligible(self.cs, self.meta)
-        return megakernel.eligible(self.cs, self.meta)
+        return (self.mega_bvh() is not None
+                or megakernel.eligible(self.cs, self.meta))
+
+    def mega_bvh(self):
+        """The BVH4 tables (`bvh_kernel.KernelScene`, packed once by
+        `bvh_kernel.attach`) the RGB megakernel's BVH form renders this
+        scene through, or None where it does not take the scene."""
+        if megakernel.eligible_bvh(self.cs, self.meta, self.intersect):
+            return self.intersect.ks
+        return None
 
     def tables(self):
         """The scene tables of the megakernel that renders it: RGB
@@ -255,9 +275,12 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
     use_mega = mode == "mega" or (mode == "wavefront"
                                   and context.mega_supported(spectral))
     if use_mega:
-        slots = (megakernel_spectral.render_slots_spectral if spectral
-                 else megakernel.render_slots)
         tables = context.tables() if dev.type == "cuda" else None
+        if spectral:
+            slots = megakernel_spectral.render_slots_spectral
+        else:
+            slots = functools.partial(megakernel.render_slots,
+                                      bvh=context.mega_bvh())
 
         def run(n, off):
             acc, nrays = slots(cs, meta, settings, nx, ny, n, base_key, off,

@@ -2,24 +2,27 @@
 """Repeat measurement of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 measure_port.py [--scene cornell|pyramid|obj|dragon|shirley|
-                             pbr_ibl|final] [--row]
+                             pbr_ibl|final] [--row] [--mode pool]
                             [--size N] [--spp S] [--runs 7] [--seeds 0 1]
     python3 measure_port.py --policy [--size 64] [--spp 4] [--runs 2]
     python3 measure_port.py --build [--runs 2]
-    python3 measure_port.py --scene cornell|pyramid|obj|dragon [--row]
+    python3 measure_port.py --scene cornell|pyramid|obj|dragon|shirley|
+                            pbr_ibl|final [--row] [--mode pool]
                             --parent DIR [--runs 3]
     python3 measure_port.py --scene pbr_ibl|final|... --vs-cpu 16@2 64@8
                             [--seeds 0 1]
     python3 measure_port.py --cipher [--parent DIR] [--runs 3]
     python3 measure_port.py --trace-loop [--scene obj|cornell|pbr_ibl|final]
                             [--size 128] [--spp 4] [--runs 2]
+    python3 measure_port.py --deposit [--runs 3]
 
 Renders one main path of chip_smoke.py on one warm `RenderContext`, after
 one warm-up render: Cornell 256×256 at 1024 spp, `max_depth=50`, through
 the RGB megakernel (`--scene cornell`, the default), the spectral Cornell
 pyramid 500×500 at 256 spp, depth 50, through the spectral megakernel
 (`--scene pyramid`), `cornell_box_obj` 256×256 at 128 spp, depth 50,
-through the queue pool and the BVH4 traversal kernel (`--scene obj`), or
+through the RGB megakernel's BVH form (`--scene obj`; with `--mode pool`
+through the queue pool and the BVH4 traversal kernel), or
 the PBR dragon (`cornell_box_pbr_stanford_dragon_spectral()`, the
 871,200-triangle stand-in) 256×256 at 8 spp, depth 16, through the
 spectral queue pool (`--scene dragon`, bench.py's `dragon`). Three more
@@ -72,22 +75,22 @@ way, alternating: `ops._build.build()` (one nvcc per source, all started
 together, then a link) and one nvcc call that compiles and links every
 source.
 
-`--parent DIR` holds one of the first four scenes' main path against another tree of the
+`--parent DIR` holds a scene's main path against another tree of the
 repository, DIR (the parent commit's `git archive`, unpacked), on the same
 card: four subprocesses in turns — DIR, this tree, this tree, DIR — each
 rendering the main path through the public entry points (`RenderContext`,
-`render`, the kernel's wrapper timed by `profiling.event_timed`: the
-megakernel's, or for a pool scene the traversal kernel's, with `--row` the
-row-stack pair's), one warm-up and `--runs` timed renders (default 3).
+`render`, the kernel's wrapper timed by `profiling.event_timed`: a
+megakernel's, or for a pool render the traversal kernel's, with `--row`
+the row-stack pair's), one warm-up and `--runs` timed renders (default 3).
 Each prints its median render seconds, its median milliseconds per launch
 (CUDA events around each launch in `render()`, whose count must equal the
 pool's bodies run; a tree that replays its pool from a CUDA graph makes no
 launch the host sees, and prints nan) and its kernels' ptxas registers, spills and shared
 memory; then the two trees' rays must be equal and every pixel of the image
-(Cornell, cornell_box_obj) or of the XYZ canvas (the pyramid, the dragon)
-within 1e-4 + 1e-5·|DIR's| (a megakernel's turns must repeat bit for bit,
-a pool scene's, whose deposits are summed with atomics, within the same
-tolerance).
+(or of the XYZ canvas: the pyramid, the dragon) within 1e-4 + 1e-5·|DIR's|,
+this tree's turns must repeat bit for bit, and DIR's too where DIR renders
+through a megakernel (a tree whose pool sums its deposits with float
+atomics repeats within the tolerance).
 
 `--vs-cpu N@S ...` renders a pool scene (`--scene`) at N×N and S spp, at
 its main path's depth, on the card and on the CPU (`device="cpu"`, the
@@ -110,6 +113,15 @@ or 1 pairs), and prints each pair's ratio; with `--parent DIR` in four
 subprocesses in turns, DIR, this tree, this tree, DIR, whose outputs must
 be equal bit for bit (DIR's entry must take every count).
 
+`--deposit` times the queue pool's deposit alone (`wavefront.deposit`: a
+stable sort of the slots by pixel and a segment sum, whose order the slots
+fix) against `index_add_`'s float atomics, at the 262,144-slot pool over a
+256×256 frame, each over a CUDA graph of 100 calls, `--runs` turns.
+
+`--mode pool` renders through the queue pool where the default route
+takes a megakernel (cornell_box_obj's default is the RGB megakernel's BVH
+form), here and in `--parent`'s turns.
+
 `--trace-loop` times the lockstep oracle (`render(mode="simple")`,
 `integrator.path.trace`, its bounces through `core.loops.guarded_fori`
 uncaptured) on `--scene` (an RGB scene; `obj` by default) at `--size`
@@ -126,6 +138,7 @@ the ptxas log of the build. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -169,8 +182,9 @@ SCENES = {
 }
 # The renderer's background by scene (bench.py:39-40); black otherwise.
 BACKGROUND = {"shirley": (0.7, 0.8, 1.0)}
-# The scenes --parent takes (the trees before these scenes had the rest).
-PARENT_SCENES = ("cornell", "pyramid", "obj", "dragon")
+# The scenes --parent takes.
+PARENT_SCENES = ("cornell", "pyramid", "obj", "dragon", "shirley", "pbr_ibl",
+                 "final")
 POLICY_TRIS = (100, 500, 2000, 20_000)
 # --cipher: (keys, uniforms) shapes, the cornell_box_obj pool's batch and 4x
 # it; each count the pool draws beside a count of the same cipher calls
@@ -202,33 +216,57 @@ from izpi_tpu_torch.scene.library.cornell_spectral import (
     cornell_box_pyramid_spectral)
 from izpi_tpu_torch.scene.library.extracted import (
     cornell_box_pbr_stanford_dragon_spectral)
-from izpi_tpu_torch.scene.library.misc import cornell_box_obj
-scene, n, spp, depth, runs, row, out = sys.argv[1:8]
+from izpi_tpu_torch.scene.library.misc import cornell_box_obj, pbr_ibl
+from izpi_tpu_torch.scene.library.shirley import final, random_scene
+scene, n, spp, depth, runs, row, mode, out = sys.argv[1:9]
 n, spp, depth, runs, row = int(n), int(spp), int(depth), int(runs), row == "1"
 make = {"cornell": cornell_box, "pyramid": cornell_box_pyramid_spectral,
         "obj": cornell_box_obj,
-        "dragon": cornell_box_pbr_stanford_dragon_spectral}[scene]
-mod, fn = {"cornell": (megakernel, "render_slots"),
-           "pyramid": (megakernel_spectral, "render_slots_spectral")}.get(
-    scene, (bvh_rowkernel, "closest_hit_rows") if row
-    else (bvh_kernel, "closest_hit"))
+        "dragon": cornell_box_pbr_stanford_dragon_spectral,
+        "shirley": lambda: random_scene(aspect=1.0), "pbr_ibl": pbr_ibl,
+        "final": final}[scene]
 ctx = renderer.RenderContext(make(), use_bvh=False if row else None,
                              device="cuda")
 if row:
     ctx.cs, ctx.intersect = bvh_rowkernel.attach(ctx.cs)
-settings = path.RenderSettings(max_depth=depth)
-renderer.render(None, n, n, spp, settings, seed=0, context=ctx, device="cuda")
-seconds, ms = [], []
+bg = (0.7, 0.8, 1.0) if scene == "shirley" else (0.0, 0.0, 0.0)
+settings = path.RenderSettings(max_depth=depth, background=bg)
+warm = renderer.render(None, n, n, spp, settings, seed=0, mode=mode,
+                       context=ctx, device="cuda")
+# The kernel whose launches a render makes: a megakernel's (either RGB
+# form counts under the module's counters), else the pool's traversal
+# kernel, once a pool body (a pool by brute force has none).
+if warm.iterations is None:
+    mod, fn = ((megakernel_spectral, "render_slots_spectral")
+               if ctx.meta.spectral else (megakernel, "render_slots"))
+elif row or hasattr(ctx.intersect, "ks"):
+    mod, fn = ((bvh_rowkernel, "closest_hit_rows") if row
+               else (bvh_kernel, "closest_hit"))
+else:
+    mod, fn = None, None
+
+
+def launches():
+    if mod is None:
+        return 0
+    return mod.launches + getattr(mod, "bvh_launches", 0)
+
+
+seconds, ms, events = [], [], []
 for _ in range(runs):
-    before = mod.launches
-    with profiling.event_timed(mod, fn) as events:
-        res = renderer.render(None, n, n, spp, settings, seed=0, context=ctx,
-                              device="cuda")
+    before = launches()
+    if mod is None:
+        res = renderer.render(None, n, n, spp, settings, seed=0, mode=mode,
+                              context=ctx, device="cuda")
+    else:
+        with profiling.event_timed(mod, fn) as events:
+            res = renderer.render(None, n, n, spp, settings, seed=0,
+                                  mode=mode, context=ctx, device="cuda")
     # A pool launches once a body run (trips, where the tree counts them:
     # its iterations and the loop's overrun), a megakernel render once.
     bodies = getattr(res, "trips", None) or res.iterations or 1
-    if mod.launches - before != bodies:
-        raise SystemExit(f"{mod.launches - before} launches of {fn} in "
+    if mod is not None and launches() - before != bodies:
+        raise SystemExit(f"{launches() - before} launches of {fn} in "
                          f"{bodies} pool bodies")
     seconds.append(res.seconds)
     # A pool replayed from a CUDA graph makes no launch the host sees.
@@ -237,7 +275,9 @@ for _ in range(runs):
 usage = _build.ptxas_usage(_build.build().with_suffix(".log").read_text())
 np.savez(out, image=res.image, xyz=res.xyz if ctx.meta.spectral else res.image)
 print(json.dumps({"rays": res.rays_traced, "seconds": seconds, "ms": ms,
-                  "launches": len(events), "usage": usage}))
+                  "launches": len(events), "usage": usage,
+                  "engine": "pool" if res.iterations is not None else fn,
+                  "iterations": res.iterations}))
 """
 
 # One turn of --cipher, run like TURN: argv = shapes (JSON), reps, out.npz.
@@ -473,7 +513,8 @@ def run_turn(script: str, tree: Path, args) -> dict:
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
-def parent_turns(scene: str, row: bool, parent: Path, runs: int) -> None:
+def parent_turns(scene: str, row: bool, parent: Path, runs: int,
+                 mode: str = "wavefront") -> None:
     """--parent: the main path of `scene` from `parent` and from this tree,
     in turns parent, this, this, parent (the module docstring)."""
     _, n, spp, depth, slots = SCENES[scene]
@@ -484,9 +525,11 @@ def parent_turns(scene: str, row: bool, parent: Path, runs: int) -> None:
         for turn, name in enumerate(("parent", "this", "this", "parent")):
             out = Path(tmp) / f"{name}{turn}.npz"
             r = run_turn(TURN, trees[name], [scene, str(n), str(spp), str(depth),
-                                             str(runs), str(int(row)), str(out)])
+                                             str(runs), str(int(row)), mode,
+                                             str(out)])
             print(f"turn {turn} ({name}, {trees[name]}): {scene}"
-                  f"{' --row' if row else ''} "
+                  f"{' --row' if row else ''} mode {mode}, engine "
+                  f"{r['engine']} (pool iterations {r['iterations']}), "
                   f"{n}x{n}@{spp} depth {depth}: rays {r['rays']}; render() "
                   f"seconds {[round(x, 4) for x in r['seconds']]}, median "
                   f"{statistics.median(r['seconds']):.4f}; ms per launch "
@@ -502,24 +545,28 @@ def parent_turns(scene: str, row: bool, parent: Path, runs: int) -> None:
             for k, v in got.items()}
     diff = np.abs(ta - pa)
     ok = diff <= PARENT_ATOL + PARENT_RTOL * np.abs(pa)
-    # A megakernel's turns repeat bit for bit; the queue pool sums its
-    # deposits with atomics, in an order that changes from run to run, so
-    # a pool scene's turns repeat within the tolerance.
-    same = (np.array_equal if slots is not None else
-            lambda a, b: bool((np.abs(a - b) <= PARENT_ATOL
-                               + PARENT_RTOL * np.abs(b)).all()))
-    repeat = all(r["rays"] == v[0][0]["rays"] and same(a, v[0][1])
-                 for v in got.values() for r, a in v)
+    bits = {k: all(r["rays"] == v[0][0]["rays"] and np.array_equal(a, v[0][1])
+                   for r, a in v) for k, v in got.items()}
+    within = {k: all(r["rays"] == v[0][0]["rays"] and bool(
+        (np.abs(a - v[0][1]) <= PARENT_ATOL + PARENT_RTOL
+         * np.abs(v[0][1])).all()) for r, a in v) for k, v in got.items()}
     label = "XYZ" if scene in ("pyramid", "dragon") else "image"
     print(f"parent vs this tree: rays {pr['rays']} vs {tr['rays']} (equal "
           f"{pr['rays'] == tr['rays']}); {label} pixels within {PARENT_ATOL} + "
           f"{PARENT_RTOL}|parent|: {ok.all(axis=2).mean():.6f} (all: "
-          f"{bool(ok.all())}), max abs err {diff.max():.3e}; each tree's turns "
-          f"repeat {'bit for bit' if slots is not None else 'within it'} "
-          f"{repeat}; median ms per launch {med['parent']:.4f} "
-          f"-> {med['this']:.4f} ({med['parent'] / med['this']:.3f}x); median "
-          f"render() seconds {secs['parent']:.4f} -> {secs['this']:.4f} "
-          f"({smi()})", flush=True)
+          f"{bool(ok.all())}), max abs err {diff.max():.3e}, bit for bit "
+          f"{bool(np.array_equal(ta, pa))}; each tree's turns repeat bit for "
+          f"bit {bits}, within the tolerance {within}; median ms per launch "
+          f"{med['parent']:.4f} -> {med['this']:.4f} "
+          f"({med['parent'] / med['this']:.3f}x); median render() seconds "
+          f"{secs['parent']:.4f} -> {secs['this']:.4f} "
+          f"({secs['parent'] / secs['this']:.3f}x) ({smi()})", flush=True)
+    # A megakernel's turns repeat bit for bit, and this tree's pool too
+    # (its deposit is a segment sum in an order the slots fix); the
+    # parent's pool summed its deposits with float atomics, whose order
+    # changes from run to run, so its turns repeat within the tolerance.
+    repeat = bits["this"] and (within["parent"] if slots is None
+                               else bits["parent"])
     if pr["rays"] != tr["rays"] or not ok.all() or not repeat:
         raise SystemExit("measure_port: this tree's main path differs from "
                          "the parent's")
@@ -566,6 +613,32 @@ def cipher_turns(parent, runs: int) -> None:
           flush=True)
     if not same:
         raise SystemExit("measure_port: the cipher turns' outputs differ")
+
+
+def deposit_forms(runs: int) -> None:
+    """--deposit: the pool's deposit alone at the 262,144-slot pool's batch
+    over a 256x256 frame (slots' pixels from consecutive sample ids, 30% of
+    them older; 20% of the slots deposit), each form timed over a CUDA
+    graph of 100 calls, `runs` times in turns: `wavefront.deposit` (a
+    stable sort of the slots by pixel and a segment sum) against
+    `index_add_`'s float atomics."""
+    dev = torch.device("cuda")
+    n, n_pix = renderer.POOL_MAX, 256 * 256
+    gen = torch.Generator(device=dev).manual_seed(0)
+    old = torch.rand(n, device=dev, generator=gen) < 0.3
+    sid = torch.arange(n, device=dev) + old * torch.randint(
+        0, 4 * n, (n,), device=dev, generator=gen)
+    pix = sid % n_pix
+    contrib = torch.rand((n, 3), device=dev, generator=gen) * (
+        torch.rand((n, 1), device=dev, generator=gen) < 0.2)
+    acc = torch.zeros((n_pix, 3), device=dev)
+    forms = {"wavefront.deposit": lambda: wavefront.deposit(acc, pix, contrib),
+             "index_add_": lambda: acc.index_add_(0, pix, contrib)}
+    for turn in range(runs):
+        for name, fn in forms.items():
+            print(f"deposit turn {turn}: {name}: "
+                  f"{profiling.graph_ms(fn, 100):.4f} ms a call ({n} slots, "
+                  f"{n_pix} pixels; {smi()})", flush=True)
 
 
 def vs_cpu(scene: str, frames, seeds) -> None:
@@ -633,6 +706,12 @@ def main() -> None:
     ap.add_argument("--trace-loop", action="store_true",
                     help="time the lockstep oracle's bounces at chunks 8 "
                          "and 1")
+    ap.add_argument("--deposit", action="store_true",
+                    help="time the pool's deposit against index_add_")
+    ap.add_argument("--mode", default="wavefront",
+                    choices=["wavefront", "pool"],
+                    help="render()'s mode: the default route, or the queue "
+                         "pool")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("measure_port: torch.cuda.is_available() is False")
@@ -648,6 +727,9 @@ def main() -> None:
         print(f"smi before: {smi()}", flush=True)
         cipher_turns(args.parent, args.runs or 3)
         return
+    if args.deposit:
+        deposit_forms(args.runs or 3)
+        return
     if args.vs_cpu:
         vs_cpu(args.scene, args.vs_cpu, args.seeds)
         return
@@ -655,7 +737,8 @@ def main() -> None:
         raise SystemExit(f"measure_port: --parent takes {PARENT_SCENES}")
     if args.parent:
         print(f"smi before: {smi()}", flush=True)
-        parent_turns(args.scene, args.row, args.parent, args.runs or 3)
+        parent_turns(args.scene, args.row, args.parent, args.runs or 3,
+                     args.mode)
         return
     if args.build:
         print(f"smi: {smi()}", flush=True)
@@ -686,14 +769,18 @@ def main() -> None:
               f"{time.perf_counter() - t0:.4f} s, "
               f"{ctx.intersect.rs.nodes.shape[0]} nodes, "
               f"{ctx.intersect.rs.blocks.shape[0]} blocks", flush=True)
+    if args.mode == "wavefront" and ctx.mega_bvh() is not None:
+        # cornell_box_obj's default route: the RGB megakernel's BVH form.
+        slots = functools.partial(megakernel.render_slots,
+                                  bvh=ctx.mega_bvh())
     renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
-                    context=ctx, device="cuda")
+                    mode=args.mode, context=ctx, device="cuda")
     median_s = None
     for seed in args.seeds:
         secs, mrays = [], []
         for _ in range(runs):
             res = renderer.render(None, n, n, spp, settings, seed=seed,
-                                  context=ctx, device="cuda")
+                                  mode=args.mode, context=ctx, device="cuda")
             secs.append(res.seconds)
             mrays.append(res.mrays_per_sec)
         q1, med, q3 = np.percentile(mrays, [25, 50, 75])
@@ -712,7 +799,7 @@ def main() -> None:
         # kernel is the cipher entry.
         threefry.launches = 0
         timed = renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
-                                context=ctx, device="cuda")
+                                mode=args.mode, context=ctx, device="cuda")
         print(f"brute force ({ctx.meta.n_prims} prims): no traversal kernel; "
               f"the cipher entry launched {threefry.launches} times in one "
               f"render() of {timed.iterations} pool iterations", flush=True)
@@ -721,7 +808,7 @@ def main() -> None:
                       else (bvh_kernel, "closest_hit"))
         before = module.launches
         timed = renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
-                                context=ctx, device="cuda")
+                                mode=args.mode, context=ctx, device="cuda")
         if module.launches - before != timed.trips:
             raise SystemExit(f"measure_port: {module.launches - before} "
                              f"launches in {timed.trips} pool bodies")
@@ -752,17 +839,21 @@ def main() -> None:
             ctx.cs, ctx.meta, settings, n, n, spp, key, tables=tables), 5,
             warm_up=False)
         module = megakernel_spectral if ctx.meta.spectral else megakernel
-        with profiling.event_timed(module, slots.__name__) as events:
+        name = ("render_slots_spectral" if ctx.meta.spectral
+                else "render_slots")
+        with profiling.event_timed(module, name) as events:
             renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
-                            context=ctx, device="cuda")
+                            mode=args.mode, context=ctx, device="cuda")
         in_render = profiling.event_ms(events)
-        blocks, threads = megakernel.card_grid(module.ENTRY, ctx.cs.device)
+        entry = (megakernel.ENTRY_BVH if isinstance(slots, functools.partial)
+                 else module.ENTRY)
+        blocks, threads = megakernel.card_grid(entry, ctx.cs.device)
         repl, spp_slot, n_slots = megakernel.slot_layout(
-            n * n, spp, megakernel.card_min_slots(module.ENTRY, ctx.cs.device))
+            n * n, spp, megakernel.card_min_slots(entry, ctx.cs.device))
         log = _build.build().with_suffix(".log")
         print(f"build: registers and spill bytes (stores, loads) "
               f"{_build.ptxas_usage(log.read_text())}", flush=True)
-        print(f"{slots.__name__} (CUDA events): {ms:.3f} ms per call, "
+        print(f"{entry} via {name} (CUDA events): {ms:.3f} ms per call, "
               f"{ms / 1e3 / median_s:.2%} of the median render() seconds of "
               f"seed {args.seeds[0]}; its launch inside one render() "
               f"{in_render:.3f} ms; grid {blocks} x {threads}, {repl} "
@@ -773,7 +864,7 @@ def main() -> None:
     def profiled():
         nonlocal res
         res = renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
-                              context=ctx, device="cuda")
+                              mode=args.mode, context=ctx, device="cuda")
 
     wall, busy, rows = profiling.device_profile(profiled)
     events = sum(count for _, _, count in rows)

@@ -126,3 +126,24 @@ def spectral_mixed_scene(st, spd):
                     aspect=1.0, aperture=0.1, focus_dist=9.0, exposure=1.3)
     return st.Scene(world=world, camera=cam, spectral=True,
                     spectral_background=spd.SPD(lam, np.full(len(lam), 0.05)))
+
+
+# Beer–Lambert coefficients (per scene unit) that `with_absorbing_glass`
+# gives a glass: the light inside a Cornell sphere (radius 90) keeps
+# exp(-0.9), exp(-3.6) and exp(-9) of its red, green and blue.
+ABSORPTION = (0.005, 0.02, 0.05)
+
+
+def with_absorbing_glass(scene, types=tst, absorption=ABSORPTION):
+    """`scene` with the glass of each dielectric sphere absorbing
+    (Beer–Lambert), so that refraction into it re-traces to the exit: no
+    scene of the library sets an absorption. `types` is the scene's types
+    module, the JAX package's or the port's."""
+    world = [dataclasses.replace(h, material=dataclasses.replace(
+                 h.material, absorption=absorption))
+             if isinstance(h, types.Sphere)
+             and isinstance(h.material, types.Dielectric) else h
+             for h in scene.world]
+    if all(a is b for a, b in zip(world, scene.world)):
+        raise ValueError("the scene holds no dielectric sphere")
+    return dataclasses.replace(scene, world=world)

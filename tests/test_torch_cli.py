@@ -92,15 +92,28 @@ def test_checkpoint_and_profile_flags(tmp_path):
     ["--role", "leader"], ["--role", "worker"],
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--process-id", "1"], ["--shard-prims"], ["--num-workers", "2"]])
-def test_multihost_flags_exit_naming_a15(flags, tmp_path, monkeypatch):
-    """Multi-host rendering is ported; a flag of it alone exits before any
-    render with the flag it needs: --role leader|worker for the others,
-    --coordinator for a role without torchrun's environment."""
+def test_multihost_flags_without_role_render_standalone_a15(
+        flags, tmp_path, monkeypatch, capsys):
+    """Multi-host rendering is ported. --role alone decides, as in the JAX
+    CLI (izpi_tpu/cli.py:95): a role without a coordinator or torchrun's
+    environment exits before any render naming --coordinator; any other
+    flag of it without --role renders standalone, with one warning on
+    stderr that names the flag."""
     for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(k, raising=False)
-    with pytest.raises(SystemExit, match="--role leader|--coordinator"):
-        tcli.main(SMALL + flags + ["--output-file", str(tmp_path / "x.png")])
-    assert not (tmp_path / "x.png").exists()
+    out = tmp_path / "x.png"
+    argv = SMALL + flags + ["--output-file", str(out)]
+    if flags[0] == "--role":
+        with pytest.raises(SystemExit, match="--coordinator"):
+            tcli.main(argv)
+        assert not out.exists()
+        return
+    assert tcli.main(argv) == 0
+    assert toutput.read_image(str(out)).shape == (6, 8, 3)
+    err = capsys.readouterr().err
+    warnings = [line for line in err.splitlines() if "warning" in line]
+    assert len(warnings) == 1 and flags[0] in warnings[0]
+    assert "--role leader or --role worker" in warnings[0]
 
 
 def test_bare_host_worker_needs_a_rank(tmp_path, monkeypatch):

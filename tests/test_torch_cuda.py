@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import with_absorbing_glass
 from izpi_tpu_torch import camera
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import loops, rng
@@ -208,7 +209,8 @@ class _RefusingLibrary:
         self._lib = lib
 
     def __getattr__(self, name):
-        if name in ("izpi_megakernel_rgb", "izpi_megakernel_spectral"):
+        if name in ("izpi_megakernel_rgb", "izpi_megakernel_spectral",
+                    "izpi_megakernel_rgb_bvh"):
             return lambda *args: 701
         return getattr(self._lib, name)
 
@@ -316,20 +318,29 @@ def test_bvh_kernel_small_and_parked_batches_on_card(obj_context, n):
     assert (c_k[::3, 0] == 1).all()
 
 
-def test_cuda_obj_render_matches_cpu_render(obj_context):
-    """cornell_box_obj 16x16 at 2 spp through the queue pool: on the card
-    through the traversal kernel (one launch per pool body run), on the
-    CPU through the plain traversal, with the bounds of the kernel-vs-twin
-    tests above."""
+@pytest.mark.parametrize("mode", ["pool", "wavefront"])
+def test_cuda_obj_render_matches_cpu_render(obj_context, mode):
+    """cornell_box_obj 16x16 at 2 spp, on the card against the CPU, with
+    the bounds of the kernel-vs-twin tests above: through the queue pool
+    (mode "pool": on the card through the traversal kernel, one launch per
+    pool body run; on the CPU through the plain traversal), and through
+    the default route, the RGB megakernel's BVH form (one launch a render;
+    its plain version on the CPU)."""
     s = path.RenderSettings(max_depth=8)
-    before = bvh_kernel.launches
-    on_card = renderer.render(None, 16, 16, 2, s, seed=3, context=obj_context,
-                              device="cuda")
-    # One launch a pool body run: the iterations and any chunk's overrun.
-    assert bvh_kernel.launches - before == on_card.trips
+    before = bvh_kernel.launches, megakernel.bvh_launches
+    on_card = renderer.render(None, 16, 16, 2, s, seed=3, mode=mode,
+                              context=obj_context, device="cuda")
     on_cpu = renderer.render(cornell_box_obj(), 16, 16, 2, s, seed=3,
-                             device="cpu")
-    assert 1 <= on_card.iterations <= on_card.trips
+                             mode=mode, device="cpu")
+    if mode == "pool":
+        # One launch a pool body run: the iterations and any chunk's overrun.
+        assert (bvh_kernel.launches - before[0],
+                megakernel.bvh_launches - before[1]) == (on_card.trips, 0)
+        assert 1 <= on_card.iterations <= on_card.trips
+    else:
+        assert (bvh_kernel.launches - before[0],
+                megakernel.bvh_launches - before[1]) == (0, 1)
+        assert on_card.iterations is None and on_card.trips is None
     assert abs(on_card.rays_traced - on_cpu.rays_traced) <= 0.005 * on_cpu.rays_traced
     close = np.abs(on_card.image - on_cpu.image).max(axis=2) <= 1e-4
     assert close.mean() >= 0.99
@@ -551,16 +562,16 @@ def _ws1_render(rank, n, size, spp, depth):
 
 def test_world_size_1_nccl_render_matches_one_process():
     """D1 with NCCL at world size 1 (32²@4, depth 8): the rank renders as
-    one process does, rays equal, every pixel within 1e-5·|b| + 1e-6 (the
-    pool's deposits are atomics, whose order moves two runs of one process
-    apart too), through the BVH4 kernel."""
+    one process's pool does (mode "pool"; the default route of one process
+    is the megakernel's BVH form, which D1 does not take), rays equal,
+    every pixel within 1e-5·|b| + 1e-6, through the BVH4 kernel."""
     from izpi_tpu_torch.parallel import dist
 
     image, rays, launches, backend = dist.spawn(
         _ws1_render, 1, args=(32, 4, 8), timeout_s=300)[0]
     one = renderer.render(cornell_box_obj(), 32, 32, 4,
                           path.RenderSettings(max_depth=8), seed=0,
-                          device="cuda")
+                          mode="pool", device="cuda")
     assert backend == "nccl" and launches > 0 and rays == one.rays_traced
     np.testing.assert_allclose(image, one.image, rtol=1e-5, atol=1e-6)
 
@@ -667,14 +678,14 @@ def test_second_render_replays_without_capture():
     graph)."""
     ctx = renderer.RenderContext(cornell_box_obj(), device="cuda")
     s = path.RenderSettings(max_depth=8)
-    first = renderer.render(None, 16, 16, 4, s, seed=0, context=ctx,
-                            device="cuda")
+    first = renderer.render(None, 16, 16, 4, s, seed=0, mode="pool",
+                            context=ctx, device="cuda")
     assert first.capture_seconds > 0 and len(ctx.graphs) == 1
     assert first.replays == first.trips - 1
     graph = next(iter(ctx.graphs.values()))[0].graph
     before = bvh_kernel.launches
-    second = renderer.render(None, 16, 16, 4, s, seed=1, context=ctx,
-                             device="cuda")
+    second = renderer.render(None, 16, 16, 4, s, seed=1, mode="pool",
+                             context=ctx, device="cuda")
     assert second.capture_seconds == 0 and second.replays == second.trips
     assert bvh_kernel.launches - before == second.trips
     assert len(ctx.graphs) == 1
@@ -695,8 +706,8 @@ def test_render_of_another_frame_replaces_the_kept_graph():
     s = path.RenderSettings(max_depth=8)
     graphs = []
     for n in (16, 24, 16):
-        res = renderer.render(None, n, n, 4, s, seed=0, context=ctx,
-                              device="cuda")
+        res = renderer.render(None, n, n, 4, s, seed=0, mode="pool",
+                              context=ctx, device="cuda")
         assert res.capture_seconds > 0 and len(ctx.graphs) == 1
         runner = next(iter(ctx.graphs.values()))[0]
         assert runner.capture_bytes > 0
@@ -797,3 +808,126 @@ def test_path_keys_one_launch_no_torch_cipher(monkeypatch):
     assert threefry.launches == before + 2 and calls == []
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---- the RGB megakernel's BVH form ----
+
+
+@pytest.fixture(scope="module")
+def absorbing_obj_context():
+    """cornell_box_obj with its glass sphere absorbing: refraction into it
+    runs the Beer–Lambert exit re-trace through the tree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return renderer.RenderContext(with_absorbing_glass(cornell_box_obj()),
+                                  device="cuda")
+
+
+@pytest.mark.parametrize("scene", ["obj", "obj_absorbing"])
+@pytest.mark.parametrize("n,spp,depth,seed", [
+    (16, 2, 8, 3),     # the CPU tests' frame
+    (64, 64, 8, 5),    # every thread several slots, a ragged last round
+])
+def test_bvh_form_matches_plain_on_card(request, n, spp, depth, seed, scene):
+    """cornell_box_obj (and with its glass absorbing) through
+    `izpi_megakernel_rgb_bvh` against its plain version
+    (`render_slots_reference` through the plain BVH4 traversal) on the
+    card's layout, both on the card: equal rays, 99% of the pixels within
+    1e-4 (the kernel-vs-twin bounds), one launch, and the launch's
+    traversal counts (nodes popped, primitives tested) at least one node a
+    ray."""
+    obj_context = request.getfixturevalue(
+        "absorbing_obj_context" if scene == "obj_absorbing" else "obj_context")
+    ks = obj_context.mega_bvh()
+    assert ks is obj_context.intersect.ks
+    s = path.RenderSettings(max_depth=depth)
+    key = rng.render_key(seed, device="cuda")
+    before = megakernel.bvh_launches, megakernel.launches, bvh_kernel.launches
+    got, g_rays, _, trav = megakernel.render_slots(
+        obj_context.cs, obj_context.meta, s, n, n, spp, key, bvh=ks,
+        draws=True)
+    assert (megakernel.bvh_launches - before[0], megakernel.launches
+            - before[1], bvh_kernel.launches - before[2]) == (1, 0, 0)
+    want, w_rays = megakernel.render_slots_reference(
+        obj_context.cs, obj_context.meta, s, n, n, spp, key,
+        min_slots=megakernel.card_min_slots(megakernel.ENTRY_BVH,
+                                            obj_context.device),
+        intersect=megakernel.bvh_plain_intersector(ks))
+    torch.cuda.synchronize()
+    assert int(g_rays) == int(w_rays)
+    close = ((got - want).abs().amax(dim=1) / spp) <= 1e-4
+    assert close.float().mean().item() >= 0.99
+    assert torch.isfinite(got).all()
+    nodes, tests = (int(x) for x in trav)
+    assert int(g_rays) <= nodes and 0 < tests
+
+
+def test_bvh_form_launches_are_deterministic(obj_context):
+    """Two launches of the BVH form (64×64@16, depth 16) give the same bits
+    and rays; one with the draw and traversal counter buffers changes
+    neither."""
+    s = path.RenderSettings(max_depth=16)
+    key = rng.render_key(2, device="cuda")
+    ks = obj_context.mega_bvh()
+    outs = [megakernel.render_slots(obj_context.cs, obj_context.meta, s, 64,
+                                    64, 16, key, bvh=ks, draws=t)
+            for t in (False, False, True)]
+    torch.cuda.synchronize()
+    for acc, rays, *_ in outs[1:]:
+        assert torch.equal(acc.view(torch.int32), outs[0][0].view(torch.int32))
+        assert int(rays) == int(outs[0][1])
+
+
+def test_brute_form_unchanged_by_the_bvh_form():
+    """The Cornell box keeps the brute-force kernel on the default route
+    (13 primitives, no BVH), and on a context with a BVH (use_bvh=True,
+    the same primitives in tree order) the brute-force kernel and the BVH
+    form render the same bits: the two share every line of the loop but
+    the closest hit."""
+    s = path.RenderSettings(max_depth=8)
+    before = megakernel.launches, megakernel.bvh_launches
+    renderer.render(cornell_box(), 16, 16, 2, s, seed=3, device="cuda")
+    assert (megakernel.launches - before[0],
+            megakernel.bvh_launches - before[1]) == (1, 0)
+    ctx = renderer.RenderContext(cornell_box(), use_bvh=True, device="cuda")
+    key = rng.render_key(3, device="cuda")
+    brute, b_rays = megakernel.render_slots(ctx.cs, ctx.meta, s, 16, 16, 2,
+                                            key, tables=ctx.tables())
+    bvh, v_rays = megakernel.render_slots(ctx.cs, ctx.meta, s, 16, 16, 2,
+                                          key, tables=ctx.tables(),
+                                          bvh=ctx.mega_bvh())
+    assert int(b_rays) == int(v_rays)
+    assert torch.equal(brute.view(torch.int32), bvh.view(torch.int32))
+
+
+def test_graphed_pool_repeats_bit_for_bit():
+    """The pool's deposit is a segment sum in an order the slots fix, not
+    float atomics: `final` 32×32@4 (depth 50: media, an image, noise)
+    rendered twice through the graphed pool gives the same bits."""
+    ctx = renderer.RenderContext(get_scene("final"), device="cuda")
+    s = path.RenderSettings(max_depth=50)
+    runs = [renderer.render(None, 32, 32, 4, s, seed=0, mode="pool",
+                            context=ctx, device="cuda") for _ in range(2)]
+    assert runs[1].capture_seconds == 0 and runs[1].replays == runs[1].trips
+    assert runs[0].rays_traced == runs[1].rays_traced
+    assert np.array_equal(runs[0].image.view(np.int32),
+                          runs[1].image.view(np.int32))
+
+
+def test_bvh_form_refused_launch_raises(obj_context, monkeypatch):
+    """A BVH-form launch the runtime refuses raises and counts no launch;
+    neither the plain version nor the pool runs in its place."""
+    lib = _build.load()
+    monkeypatch.setattr(_build, "load", lambda: _RefusingLibrary(lib))
+
+    def no_fallback(*args, **kwargs):
+        raise AssertionError("fell back")
+
+    monkeypatch.setattr(megakernel, "render_slots_reference", no_fallback)
+    monkeypatch.setattr(wavefront, "trace_pool", no_fallback)
+    before = megakernel.bvh_launches
+    with pytest.raises(RuntimeError, match="izpi_megakernel_rgb_bvh launch "
+                                           "failed: CUDA error 701"):
+        renderer.render(None, 8, 8, 2, path.RenderSettings(max_depth=4),
+                        context=obj_context, device="cuda")
+    assert megakernel.bvh_launches == before

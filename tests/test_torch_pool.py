@@ -117,15 +117,16 @@ def test_spectral_pool_matches_jax():
 
 def test_cornell_box_obj_matches_jax():
     """cornell_box_obj (20,007 primitives, so a BVH on both sides) at 8×8,
-    1 spp, depth 4, in the default mode: both renderers take the queue
-    pool."""
+    1 spp, depth 4: JAX's default mode takes its queue pool, the port's
+    mode "pool" its own (its default takes the RGB megakernel's BVH form,
+    tests/test_torch_megakernel_bvh.py)."""
     s_j, s_t = jpath.RenderSettings(max_depth=4), tpath.RenderSettings(max_depth=4)
     want = jrenderer.render(j_obj(), 8, 8, 1, settings=s_j, seed=0)
     ctx = trenderer.RenderContext(t_obj(), device="cpu")
     assert ctx.cs.prims.count == 20_007 and ctx.meta.n_lights == 2
-    assert not ctx.mega_supported()
-    got = trenderer.render(None, 8, 8, 1, s_t, seed=0, context=ctx,
-                           device="cpu")
+    assert ctx.mega_supported() and ctx.mega_bvh() is ctx.intersect.ks
+    got = trenderer.render(None, 8, 8, 1, s_t, seed=0, mode="pool",
+                           context=ctx, device="cpu")
     assert got.iterations >= 1
     _assert_close_images(got.image, want.image, got.rays_traced,
                          want.rays_traced)

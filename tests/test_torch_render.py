@@ -179,14 +179,16 @@ def test_unknown_mode_and_device_raise():
 
 
 def test_ineligible_scene_raises_in_wavefront_mode():
-    """A scene the megakernel does not take: "wavefront" renders it through
-    the queue pool, as the JAX renderer does, and "mega" raises."""
+    """A scene the megakernels do not take (above the brute-force form's
+    560 primitives, without a BVH for the BVH form): "wavefront" renders it
+    through the queue pool, as the JAX renderer does, and "mega" raises."""
     white = tst.Lambertian(albedo=tst.ConstantTexture((0.5, 0.5, 0.5)))
     world = [tst.Sphere((i, 0, 0), (i, 0, 0), 0, 1, 0.4, white)
              for i in range(tmega.MAX_PRIMS + 1)]
     scene = tst.Scene(world=world, camera=tst.Camera(look_from=(0, 0, -5),
                                                      look_at=(0, 0, 0)))
-    res = trenderer.render(scene, 2, 2, 1, device="cpu")
+    res = trenderer.render(scene, 2, 2, 1, use_bvh=False, device="cpu")
     assert res.iterations >= 1 and res.rays_traced >= 4
     with pytest.raises(NotImplementedError, match="queue pool"):
-        trenderer.render(scene, 2, 2, 1, mode="mega", device="cpu")
+        trenderer.render(scene, 2, 2, 1, mode="mega", use_bvh=False,
+                         device="cpu")
