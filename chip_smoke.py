@@ -176,23 +176,41 @@ line of its own:
      within 1e-4 + 1e-5·|CPU|.
  16. the training step (`parallel.dist.build_train_step`, the
      differentiable sample pass, 1 spp, seed 0) on `cornell_box()` (13
-     primitives, brute force) at 256×256, depth 50: the target is the
-     colour render at the true parameters, 256×256@64; from tex_c0 at 0.7
-     of its values, five steps of plain gradient descent (every parameter,
-     rate 1), each printing its loss, seconds (CUDA-synchronised; the
-     median of the last four), the cipher entry's launches (forward, and
-     the backward's recompute) and `torch.cuda.max_memory_allocated`; every
-     gradient finite and the loss after the five steps below step 0's; the
-     peak memory at depth 8 and 50, whose growth a bounce must stay within
-     twice one bounce's carried state; and the card's loss and gradients
-     against the CPU's at 32×32, depth 8 (equal rays, the tolerances of
-     tests/test_torch_grad.py);
+     primitives, brute force) at 256×256, depth 50, as one CUDA graph
+     (`core.loops.Graphed`, the default on the card): the bounces the
+     step's fixed trip runs against those the early-exit form ran (equal
+     rays); the target is the colour render at the true parameters,
+     256×256@64; from tex_c0 at 0.7 of its values, five steps of plain
+     gradient descent (every parameter, rate 1) through the captured step,
+     each printing its loss, seconds (CUDA-synchronised; the first call
+     warms up and captures, the median of the last four), launches and
+     `torch.cuda.max_memory_allocated`; every gradient finite and the loss
+     after the five steps below step 0's; a replay launches the cipher
+     entry 51 + 50 times (forward, recompute), the gathers' backward
+     kernel (`csrc/table_grad.cu`) and nothing else; the capture's seconds
+     and the MiB its graph holds; the eager step (`runner=loops.Eager()`)
+     in the same call at the same parameters, its seconds (the median of
+     its runs after the first) beside the captured step's, two replays
+     bit for bit, and the captured step held to the eager one (equal rays,
+     the tolerances of tests/test_torch_grad.py); a replay under
+     torch.profiler (its idle share); the memory at depth 8 and 50 of the
+     eager step (peak above its start) and of the graph, whose growth a
+     bounce must each stay within twice one bounce's carried state; G
+     against its plain version at the step's own inputs of each table
+     (the float64 sum within the kernel's bound, the plain version within
+     that plus f32 summation's, two launches and the rows in another
+     order bit for bit), its ms beside `index_put_`'s (the plain version,
+     today's backward) and `index_add_`'s, its path and its bound by
+     bytes; and the card's captured step against the CPU's at 32×32,
+     depth 8 (equal rays, the tolerances above);
  17. the same step on `cornell_box_obj` (20,007 primitives) at 256×256,
-     depth 50, through the BVH4 kernel: its seconds, peak memory and the
-     kernel's and the cipher entry's launches (forward and recompute); at
-     64×64 against the same step through the plain traversal
-     (`accel.traverse.intersect_bvh`) on the card: equal rays and losses,
-     gradients within the tolerances above;
+     depth 50, through the BVH4 kernel, captured: its seconds, capture
+     and graph MiB, a replay's launches (the BVH4 kernel 50 + 50, the
+     cipher entry 51 + 50, G); the eager step in the same call, two
+     replays bit for bit, captured against eager; at 64×64 the captured
+     step against the same step through the plain traversal
+     (`accel.traverse.intersect_bvh`, which syncs, so eager) on the card:
+     equal rays and losses, gradients within the tolerances above;
  18. the command line: `python -m izpi_tpu_torch --output-file a.png` (the
      default: the spectral pyramid, 500×500@1000, depth 50, through the
      spectral megakernel) in a subprocess, and again with `--output-mode
@@ -310,13 +328,13 @@ import torch
 
 from izpi_tpu_torch import camera, entry, ops, profiling
 from izpi_tpu_torch.accel import traverse
-from izpi_tpu_torch.core import rng
+from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.geometry import primitives, procedural
 from izpi_tpu_torch.integrator import path, wavefront
 from izpi_tpu_torch.io import output
 from izpi_tpu_torch.materials import tables as mat_tables
 from izpi_tpu_torch.ops import (_build, bvh_kernel, bvh_rowkernel, megakernel,
-                                megakernel_spectral, threefry)
+                                megakernel_spectral, table_grad, threefry)
 from izpi_tpu_torch.parallel import dist
 from izpi_tpu_torch.render import checkpoint, renderer
 from izpi_tpu_torch.scene import compiler
@@ -1798,29 +1816,38 @@ def scaled_params(cs):
     return params
 
 
-def forward_counts(ctx, n: int, depth: int, params, intersect=None):
+def forward_counts(ctx, n: int, depth: int, params, intersect=None,
+                   early_exit=None):
     """Launches and rays of the training step's forward pass alone (the
-    differentiable sample pass under no_grad)."""
+    differentiable sample's trace under no_grad: the step's fixed trip,
+    or with early_exit the early-exit form the eager step ran before)."""
     xs, ys = train_pixels(n, ctx.device)
+    cs_p = dist.inject_params(ctx.cs, params)
     zero_counts()
     with torch.no_grad():
-        _, rays = renderer.sample_pass(
-            dist.inject_params(ctx.cs, params), ctx.meta,
-            path.RenderSettings(max_depth=depth), intersect or ctx.intersect,
-            n, n, xs, ys, rng.render_key(0, device=ctx.device), 0,
-            differentiable=True)
+        o, d, tme, keys = renderer.camera_rays(
+            cs_p, rng.render_key(0, device=ctx.device), xs, ys, n, n, 0)
+        _, rays = path.trace(cs_p, ctx.meta, path.RenderSettings(
+            max_depth=depth), intersect or ctx.intersect, o, d, tme, keys,
+            differentiable=True, early_exit=early_exit)
     return read_counts(), int(rays)
 
 
-def timed_step(ctx, n: int, depth: int, params, target, intersect=None):
-    """One training step through `dist.build_train_step`, every launch
-    counter zeroed just before and read just after: loss, grads, rays,
-    seconds (CUDA-synchronised), counts, and the peak memory allocated
-    during the step (absolute, and above what was allocated before)."""
-    dev = ctx.device
-    step = dist.build_train_step(ctx.cs, ctx.meta,
+def make_step(ctx, n: int, depth: int, intersect=None, runner=None):
+    """`dist.build_train_step` on the context's scene at n², 1 spp: by
+    default the captured step (a `loops.Graphed`, `step.runner`)."""
+    return dist.build_train_step(ctx.cs, ctx.meta,
                                  path.RenderSettings(max_depth=depth),
-                                 intersect or ctx.intersect, n, n)
+                                 intersect or ctx.intersect, n, n,
+                                 runner=runner)
+
+
+def timed_step(step, ctx, n: int, params, target) -> dict:
+    """One call of `step`, every launch counter zeroed just before and read
+    just after: loss, grads, rays, seconds (CUDA-synchronised), counts,
+    and the peak memory allocated during the call (absolute, and above
+    what was allocated before)."""
+    dev = ctx.device
     xs, ys = train_pixels(n, dev)
     key = rng.render_key(0, device=dev)
     cuda = dev.type == "cuda"
@@ -1868,6 +1895,183 @@ def steps_agree(label: str, got: dict, want: dict, card: str) -> float:
     return err
 
 
+def steps_equal(label: str, a: dict, b: dict) -> None:
+    """Raise unless two replays gave the same rays and the same bits."""
+    same = a["rays"] == b["rays"] and np.float32(a["loss"]).tobytes() == (
+        np.float32(b["loss"]).tobytes()) and all(
+        a["grads"][k].tobytes() == b["grads"][k].tobytes() for k in a["grads"])
+    print(f"{label}: two replays bit for bit {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{label}: two replays differ")
+
+
+def captured_vs_eager(label: str, ctx, n: int, depth: int, params, target,
+                      step, card: str, eager_runs: int = 2) -> dict:
+    """The captured `step` (already warm) and the eager step on the same
+    context at the same parameters, in one call: each one's seconds (the
+    eager median of its runs after the first), two replays bit for bit,
+    and the captured step held to the eager one."""
+    eager = make_step(ctx, n, depth, runner=loops.Eager())
+    e_runs = [timed_step(eager, ctx, n, params, target)
+              for _ in range(eager_runs + 1)]
+    c1 = timed_step(step, ctx, n, params, target)
+    c2 = timed_step(step, ctx, n, params, target)
+    steps_equal(label, c1, c2)
+    err = steps_agree(f"{label}, captured vs eager", c1, e_runs[-1], card)
+    eager_s = float(np.median([r["seconds"] for r in e_runs[1:]]))
+    return dict(eager=e_runs[-1], captured=c1, eager_seconds=eager_s,
+                eager_seconds_all=[r["seconds"] for r in e_runs],
+                captured_seconds=[c1["seconds"], c2["seconds"]],
+                max_grad_err_vs_eager=err)
+
+
+def replay_counts(label: str, s: dict, forward: dict, want: dict) -> dict:
+    """The launches of one replay, forward and in the recompute: raise
+    unless each kernel of `want` ran its launches and nothing else ran but
+    the gathers' backward kernel."""
+    counts = s["counts"]
+    others = {k: v for k, v in counts.items()
+              if k not in want and k != "table_grad" and v}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad or others or not counts["table_grad"]:
+        raise AssertionError(f"{label}: a replay launched {counts} (want "
+                             f"{want} and the gathers' backward)")
+    return {k: dict(forward=forward[k], recompute=counts[k] - forward[k])
+            for k in want}
+
+
+def table_grad_inputs(ctx, n: int, depth: int, params, target) -> dict:
+    """{table shape: (rows, g, calls a step)} of the gathers' backward in
+    one eager step (the first call's inputs of each shape, cloned)."""
+    seen = {}
+    original = table_grad.table_grad
+
+    def recording(rows, g, shape):
+        key = tuple(shape)
+        if key not in seen:
+            seen[key] = [rows.clone(), g.clone(), 0]
+        seen[key][2] += 1
+        return original(rows, g, shape)
+
+    table_grad.table_grad = recording
+    try:
+        timed_step(make_step(ctx, n, depth, runner=loops.Eager()), ctx, n,
+                   params, target)
+    finally:
+        table_grad.table_grad = original
+    return {k: tuple(v) for k, v in seen.items()}
+
+
+def table_grad_phase(inputs: dict, names: dict, card: str) -> dict:
+    """G (`csrc/table_grad.cu`) against its plain version at the step's
+    inputs of each table: the float64 sum within the kernel's bound (its
+    source), the plain version (`index_put_`, today's backward) within
+    that bound plus f32 recursive summation's γ_count·Σ|g|, two launches
+    and the rows in another order bit for bit; its ms, the plain
+    version's and `index_add_`'s (the atomic library call), each over a
+    CUDA graph of 100 calls, and its bound by bytes."""
+    out = {}
+    for shape, (rows, g, calls) in inputs.items():
+        n, c = g.shape
+        r = int(np.prod(shape)) // c
+        got = table_grad.table_grad(rows, g, shape)
+        again = table_grad.table_grad(rows, g, shape)
+        perm = torch.randperm(n, device=g.device, generator=torch.Generator(
+            device=g.device).manual_seed(0))
+        permuted = table_grad.table_grad(rows[perm].contiguous(),
+                                         g[perm].contiguous(), shape)
+        plain = table_grad.table_grad_reference(rows, g, shape)
+
+        def summed(x):
+            acc = torch.zeros((r, c), dtype=x.dtype, device=x.device)
+            return acc.index_put_((rows,), x, accumulate=True).reshape(shape)
+
+        exact = summed(g.double())
+        count = summed(torch.ones_like(g, dtype=torch.float64))
+        bound = n * n * float(g.abs().max()) * 2.0 ** -63 + (
+            exact.abs() * 2.0 ** -24)
+        gamma = count * 2.0 ** -24 / (1 - count * 2.0 ** -24)
+        err = float((got.double() - plain.double()).abs().max())
+        ok_exact = bool(((got.double() - exact).abs() <= bound).all())
+        ok_plain = bool(((got.double() - plain.double()).abs()
+                         <= bound + gamma * summed(g.abs().double())).all())
+        bits = torch.equal(got.view(torch.int32), again.view(torch.int32)) and (
+            torch.equal(got.view(torch.int32), permuted.view(torch.int32)))
+        flat = torch.zeros((r, c), device=g.device)
+        ms = profiling.graph_ms(lambda: table_grad.table_grad(rows, g, shape),
+                                100)
+        plain_ms = profiling.graph_ms(
+            lambda: table_grad.table_grad_reference(rows, g, shape), 100)
+        library_ms = profiling.graph_ms(
+            lambda: flat.index_add_(0, rows, g), 100)
+        nbytes = 8 * n + 4 * n * c + 4 * r * c
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        name = names.get(shape, str(shape))
+        print(f"table_grad: {name} {tuple(shape)} ({table_grad.path_for(shape)}"
+              f" path), {n} rows of {c}, {calls} calls a step: kernel "
+              f"{ms:.5f} ms, plain (index_put_) {plain_ms:.5f} ms, "
+              f"index_add_ {library_ms:.5f} ms, bound {bound_ms:.5f} ms by "
+              f"bytes ({bound_ms / ms:.2%}); max |kernel - plain| {err:.3e}, "
+              f"within the fixed point's bound of the float64 sum "
+              f"{ok_exact}, of the plain version (+ f32 summation's "
+              f"gamma·sum|g|) {ok_plain}; two launches and permuted rows bit "
+              f"for bit {bits} ({card})", flush=True)
+        if not (ok_exact and ok_plain and bits):
+            raise AssertionError(f"table_grad disagrees on {name}")
+        out[name] = dict(shape=list(shape), path=table_grad.path_for(shape),
+                         rows=n, width=c, calls_per_step=calls, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by="bytes",
+                         max_abs_err=err)
+    return out
+
+
+def memory_per_bounce(ctx, n: int, depth: int, target, step, eager_peak_above,
+                      card: str) -> dict:
+    """Memory against depth (the fixed trip runs `depth` bounces): the
+    eager step's peak above its start and the captured step's graph
+    (`capture_bytes`: its static buffers and private pool) at depth 8 and
+    at `depth`; each one's growth a bounce must stay within twice one
+    bounce's carried state."""
+    s8 = make_step(ctx, n, 8)
+    timed_step(s8, ctx, n, scaled_params(ctx.cs), target)
+    e8 = timed_step(make_step(ctx, n, 8, runner=loops.Eager()), ctx, n,
+                    scaled_params(ctx.cs), target)
+    state = n * n * STATE_BYTES_PER_RAY
+    out = dict(state_bytes=state)
+    for form, at8, atd in (("eager", e8["peak_above"], eager_peak_above),
+                           ("captured", s8.runner.capture_bytes,
+                            step.runner.capture_bytes)):
+        per = (atd - at8) / (depth - 8)
+        print(f"training step memory, {form}: depth 8 {at8 / 2**20:.1f} MiB, "
+              f"depth {depth} {atd / 2**20:.1f} MiB "
+              f"({'peak above the start' if form == 'eager' else 'the graph'}"
+              f"); growth {per / 2**20:.3f} MiB a bounce, one bounce's "
+              f"carried state {state / 2**20:.3f} MiB, ratio "
+              f"{per / state:.3f} (tol 2) ({card})", flush=True)
+        if not per <= 2 * state:
+            raise AssertionError(f"the {form} step's memory grows by more "
+                                 f"than two bounces' state a bounce")
+        out[form] = dict(at_8=at8, at_depth=atd, bytes_per_bounce=per)
+    del s8
+    return out
+
+
+def step_bound_ms(n: int, depth: int, params, g_tables: dict) -> float:
+    """The least milliseconds of the Cornell step: its kernels' bounds
+    (the cipher entry's from its SASS, a bounce form of 12 uniforms a
+    bounce forward and in the recompute and a new sample with the camera;
+    G's by bytes, at its calls a step) and the bytes of its inputs and
+    outputs (parameters in, gradients out; pixels, target, key). PyTorch's
+    own ops are not counted."""
+    rays = n * n
+    cipher = (2 * depth * cipher_bound("bounce", rays, 12)[0]
+              + cipher_bound("new_sample", rays, 5)[0])
+    g = sum(t["calls_per_step"] * t["bound_ms"] for t in g_tables.values())
+    nbytes = 2 * tensor_bytes(params.values()) + rays * (8 + 8 + 12) + 16
+    return cipher + g + 1e3 * nbytes / HBM_BYTES_PER_S
+
+
 def training_phases(card: str) -> dict:
     """Phases 16 and 17 (the module docstring)."""
     n, depth = TRAIN_SIZE, TRAIN_DEPTH
@@ -1882,94 +2086,116 @@ def training_phases(card: str) -> dict:
         n * n, 3), device="cuda")
     params = scaled_params(ctx.cs)
     fwd, fwd_rays = forward_counts(ctx, n, depth, params)
+    early, early_rays = forward_counts(ctx, n, depth, params, early_exit=True)
+    print(f"training step: cornell_box {n}x{n}@1 depth {depth}: the fixed "
+          f"trip runs {fwd['threefry'] - 1} bounces, the early exit (the "
+          f"eager step before) ran {early['threefry'] - 1}; rays "
+          f"{fwd_rays} vs {early_rays} ({card})", flush=True)
+    if fwd_rays != early_rays or fwd["threefry"] != depth + 1:
+        raise AssertionError("the fixed trip and the early exit differ")
+    step = make_step(ctx, n, depth)
     steps = []
     for i in range(TRAIN_STEPS):
-        s = timed_step(ctx, n, depth, params, target)
+        s = timed_step(step, ctx, n, params, target)
         steps.append(s)
-        print(f"training step {i}: cornell_box {n}x{n}@1 depth {depth}: loss "
-              f"{s['loss']:.7f}, {s['seconds']:.4f} s, {s['rays']} rays, "
-              f"cipher entry launches {s['counts']['threefry']}, "
+        print(f"training step {i} (captured): cornell_box {n}x{n}@1 depth "
+              f"{depth}: loss {s['loss']:.7f}, {s['seconds']:.4f} s, "
+              f"{s['rays']} rays, launches {s['counts']}, "
               f"max_memory_allocated {s['peak'] / 2**20:.1f} MiB "
               f"({s['peak_above'] / 2**20:.1f} MiB above the step's start) "
               f"({card})", flush=True)
         with torch.no_grad():
             for k, p in params.items():
                 p -= TRAIN_LR * torch.as_tensor(s["grads"][k], device="cuda")
-    after = timed_step(ctx, n, depth, params, target)
+    after = timed_step(step, ctx, n, params, target)
+    runner = step.runner
     secs = [s["seconds"] for s in steps]
     median = float(np.median(secs[1:]))
-    cipher = steps[0]["counts"]["threefry"]
-    print(f"training step: cornell_box {n}x{n}@1 depth {depth}, lr "
-          f"{TRAIN_LR}: loss {steps[0]['loss']:.7f} at step 0, "
-          f"{after['loss']:.7f} after {TRAIN_STEPS} steps; median of the last "
-          f"{TRAIN_STEPS - 1} steps {median:.4f} s ({n * n / median / 1e6:.4f} "
-          f"M pixel-samples/s, {steps[0]['rays'] / median / 1e6:.3f} Mrays/s "
-          f"forward); cipher entry launches a step {cipher}: forward "
-          f"{fwd['threefry']}, recompute {cipher - fwd['threefry']}; every "
-          f"other kernel {sum(v for k, v in fwd.items() if k != 'threefry')} "
-          f"({card})", flush=True)
+    launches = replay_counts("phase 16", steps[1], fwd, {"threefry": 2 * depth
+                                                         + 1})
+    print(f"training step (captured): cornell_box {n}x{n}@1 depth {depth}, "
+          f"lr {TRAIN_LR}: loss {steps[0]['loss']:.7f} at step 0, "
+          f"{after['loss']:.7f} after {TRAIN_STEPS} steps; first call "
+          f"{secs[0]:.4f} s (warm-up, capture {runner.capture_seconds:.4f} s, "
+          f"replay); median of the last {TRAIN_STEPS - 1} steps {median:.4f} "
+          f"s ({n * n / median / 1e6:.4f} M pixel-samples/s, "
+          f"{steps[0]['rays'] / median / 1e6:.3f} Mrays/s forward); the "
+          f"graph holds {runner.capture_bytes / 2**20:.1f} MiB; a replay "
+          f"launches {steps[1]['counts']}: the cipher entry "
+          f"{launches['threefry']} ({card})", flush=True)
     if not after["loss"] < steps[0]["loss"]:
         raise AssertionError("the loss did not fall over the steps")
-    step16 = dist.build_train_step(ctx.cs, ctx.meta,
-                                   path.RenderSettings(max_depth=depth),
-                                   ctx.intersect, n, n)
+    if runner.replays != TRAIN_STEPS + 1 or runner.trips != TRAIN_STEPS + 2:
+        raise AssertionError(f"the step ran {runner.trips} times, "
+                             f"{runner.replays} replayed")
+    versus = captured_vs_eager("training step cornell_box 256", ctx, n, depth,
+                               params, target, step, card)
+    print(f"training step: cornell_box {n}x{n}@1 depth {depth}: captured "
+          f"{median:.4f} s (median of steps 1-{TRAIN_STEPS - 1}) against "
+          f"eager {versus['eager_seconds']:.4f} s (median of its runs after "
+          f"the first: {versus['eager_seconds_all']}), "
+          f"{versus['eager_seconds'] / median:.2f}x ({card})", flush=True)
     xs, ys = train_pixels(n, ctx.device)
-    wall, busy, top = profiling.device_profile(lambda: step16(
+    wall, busy, top = profiling.device_profile(lambda: step(
         params, xs, ys, target, rng.render_key(0, device="cuda")))
-    print(f"training step profile: cornell_box {n}x{n}@1 depth {depth} under "
-          f"torch.profiler: wall {wall:.4f} s, device busy {busy:.4f} s, idle "
-          f"share {1 - busy / wall:.2%} ({card})", flush=True)
-    for dt, name, count in top[:6]:
+    print(f"training step profile: a replay of cornell_box {n}x{n}@1 depth "
+          f"{depth} under torch.profiler: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s, idle share {1 - busy / wall:.2%}, "
+          f"{sum(c for _, _, c in top)} device records ({card})", flush=True)
+    for dt, name, count in top[:8]:
         print(f"  {dt / 1e3:10.3f} ms  x{count}  {name[:90]}", flush=True)
-    if fwd_rays != steps[0]["rays"] or fwd["threefry"] < 2 or any(
-            v for k, v in steps[0]["counts"].items() if k != "threefry"):
-        raise AssertionError(f"training step launches {steps[0]['counts']}, "
-                             f"forward {fwd}")
-    # Peak memory against depth: the checkpointed bounces keep one bounce's
-    # carried state each.
-    peaks = {}
-    for d in (8, depth):
-        f, _ = forward_counts(ctx, n, d, scaled_params(ctx.cs))
-        s = timed_step(ctx, n, d, scaled_params(ctx.cs), target)
-        peaks[d] = dict(bounces=f["threefry"] - 1, peak=s["peak"],
-                        peak_above=s["peak_above"])
-    per_bounce = (peaks[depth]["peak_above"] - peaks[8]["peak_above"]) / (
-        peaks[depth]["bounces"] - peaks[8]["bounces"])
-    state = n * n * STATE_BYTES_PER_RAY
-    print(f"training step memory: depth 8: {peaks[8]['bounces']} bounces, "
-          f"peak {peaks[8]['peak'] / 2**20:.1f} MiB "
-          f"({peaks[8]['peak_above'] / 2**20:.1f} above the start); depth "
-          f"{depth}: {peaks[depth]['bounces']} bounces, peak "
-          f"{peaks[depth]['peak'] / 2**20:.1f} MiB "
-          f"({peaks[depth]['peak_above'] / 2**20:.1f}); growth "
-          f"{per_bounce / 2**20:.3f} MiB a bounce, one bounce's carried state "
-          f"{state / 2**20:.3f} MiB, ratio {per_bounce / state:.3f} (tol 2) "
-          f"({card})", flush=True)
-    if not per_bounce <= 2 * state:
-        raise AssertionError("the step's memory grows by more than two "
-                             "bounces' state a bounce")
-    # The card against the CPU.
+    memory = memory_per_bounce(ctx, n, depth, target, step,
+                               versus["eager"]["peak_above"], card)
+    names = {}
+    for k, v in dist.extract_params(ctx.cs).items():
+        shape = tuple(v.shape)
+        names[shape] = f"{names[shape]}/{k}" if shape in names else k
+    grad_inputs = table_grad_inputs(ctx, n, depth, params, target)
+    g_tables = table_grad_phase(grad_inputs, names, card)
+    step_bound = step_bound_ms(n, depth, params, g_tables)
+    # The card against the CPU, the card's step captured.
     mark("phase 16 before the CPU")
     n_c, d_c = TRAIN_VS_CPU
-    grey = {dev: torch.full((n_c * n_c, 3), 0.25, device=dev)
-            for dev in ("cuda", "cpu")}
     runs = {}
     for dev in ("cuda", "cpu"):
         c = renderer.RenderContext(cornell_box(), device=dev)
-        runs[dev] = timed_step(c, n_c, d_c, scaled_params(c.cs), grey[dev])
-    cpu_err = steps_agree(f"training step {n_c}x{n_c}@1 depth {d_c}, card vs "
-                          f"CPU", runs["cuda"], runs["cpu"], card)
+        grey = torch.full((n_c * n_c, 3), 0.25, device=dev)
+        st = make_step(c, n_c, d_c)
+        if dev == "cuda" and not isinstance(st.runner, loops.Graphed):
+            raise AssertionError("the card's step is not captured")
+        runs[dev] = timed_step(st, c, n_c, scaled_params(c.cs), grey)
+    cpu_err = steps_agree(f"training step {n_c}x{n_c}@1 depth {d_c}, card "
+                          f"(captured) vs CPU", runs["cuda"], runs["cpu"],
+                          card)
+    # The entry point's demo step, captured on the card.
+    zero_counts()
+    demo_loss, _ = entry.train_step_demo()
+    demo_counts = read_counts()
+    print(f"entry.train_step_demo(): loss {float(demo_loss):.7f}, launches "
+          f"{demo_counts} ({card})", flush=True)
+    if not demo_counts["table_grad"] or not demo_counts["threefry"]:
+        raise AssertionError("the demo step did not run the step's kernels")
     out["cornell"] = dict(
         frame=n, depth=depth, losses=[s["loss"] for s in steps],
         loss_after=after["loss"], seconds=secs, median_seconds=median,
+        eager_seconds=versus["eager_seconds"],
+        eager_seconds_all=versus["eager_seconds_all"],
+        capture_seconds=runner.capture_seconds,
+        graph_bytes=runner.capture_bytes, replays=runner.replays,
+        profiled_wall=wall, profiled_busy=busy,
         profiled_idle_share=1 - busy / wall,
-        rays=steps[0]["rays"], cipher_launches=cipher,
-        cipher_forward=fwd["threefry"],
-        cipher_recompute=cipher - fwd["threefry"],
-        peak_bytes=[s["peak"] for s in steps], memory=peaks,
-        bytes_per_bounce=per_bounce, state_bytes=state,
+        rays=steps[0]["rays"], launches_per_replay=steps[1]["counts"],
+        cipher_launches=steps[1]["counts"]["threefry"],
+        cipher_forward=launches["threefry"]["forward"],
+        cipher_recompute=launches["threefry"]["recompute"],
+        early_exit_bounces=early["threefry"] - 1,
+        fixed_trip_bounces=fwd["threefry"] - 1,
+        max_grad_err_vs_eager=versus["max_grad_err_vs_eager"],
+        peak_bytes=[s["peak"] for s in steps], memory=memory,
+        table_grad=g_tables, table_grad_launches=steps[1]["counts"][
+            "table_grad"], bound_ms=step_bound,
         vs_cpu=dict(frame=n_c, depth=d_c, max_grad_err=cpu_err))
-    del ctx, target, params
+    del ctx, target, params, step, versus, grad_inputs
     torch.cuda.empty_cache()
 
     mark("phase 16")
@@ -1978,43 +2204,57 @@ def training_phases(card: str) -> dict:
     grey = torch.full((n * n, 3), 0.25, device="cuda")
     params = scaled_params(octx.cs)
     fwd, fwd_rays = forward_counts(octx, n, depth, params)
-    warm = timed_step(octx, n, depth, params, grey)
-    s = timed_step(octx, n, depth, params, grey)
-    b3, cip = s["counts"]["bvh_kernel"], s["counts"]["threefry"]
-    print(f"training step: cornell_box_obj {n}x{n}@1 depth {depth} through "
-          f"the BVH4 kernel: loss {s['loss']:.7f}, {s['seconds']:.4f} s "
-          f"(warm-up {warm['seconds']:.4f} s), {s['rays']} rays, "
-          f"max_memory_allocated {s['peak'] / 2**20:.1f} MiB "
-          f"({s['peak_above'] / 2**20:.1f} above the start); BVH4 kernel "
-          f"launches {b3}: forward {fwd['bvh_kernel']}, recompute "
-          f"{b3 - fwd['bvh_kernel']}; cipher entry {cip}: forward "
-          f"{fwd['threefry']}, recompute {cip - fwd['threefry']} ({card})",
-          flush=True)
-    others = sum(v for k, v in s["counts"].items()
-                 if k not in ("bvh_kernel", "threefry"))
-    if (fwd["bvh_kernel"] < 1 or b3 <= fwd["bvh_kernel"] or others
-            or fwd_rays != s["rays"]):
-        raise AssertionError(f"the step through the BVH4 kernel launched "
-                             f"{s['counts']}, forward {fwd}")
+    early, _ = forward_counts(octx, n, depth, params, early_exit=True)
+    ostep = make_step(octx, n, depth)
+    warm = timed_step(ostep, octx, n, params, grey)
+    s = timed_step(ostep, octx, n, params, grey)
+    launches = replay_counts("phase 17", s, fwd, {"bvh_kernel": 2 * depth,
+                                                  "threefry": 2 * depth + 1})
+    print(f"training step (captured): cornell_box_obj {n}x{n}@1 depth "
+          f"{depth} through the BVH4 kernel: loss {s['loss']:.7f}, "
+          f"{s['seconds']:.4f} s (first call {warm['seconds']:.4f} s, capture "
+          f"{ostep.runner.capture_seconds:.4f} s, the graph "
+          f"{ostep.runner.capture_bytes / 2**20:.1f} MiB), {s['rays']} rays; "
+          f"the early exit ran {early['threefry'] - 1} bounces; a replay "
+          f"launches {s['counts']}: BVH4 kernel {launches['bvh_kernel']}, "
+          f"cipher entry {launches['threefry']} ({card})", flush=True)
+    if fwd_rays != s["rays"]:
+        raise AssertionError("the step's rays differ from its forward's")
+    oversus = captured_vs_eager("training step cornell_box_obj 256", octx, n,
+                                depth, params, grey, ostep, card,
+                                eager_runs=1)
     n_p = TRAIN_VS_PLAIN
     plain = functools.partial(traverse.intersect_bvh, octx.cs.prims,
                               octx.intersect.ks.tree)
     gp = torch.full((n_p * n_p, 3), 0.25, device="cuda")
-    kern = timed_step(octx, n_p, depth, scaled_params(octx.cs), gp)
-    ref = timed_step(octx, n_p, depth, scaled_params(octx.cs), gp,
-                     intersect=plain)
+    kern = timed_step(make_step(octx, n_p, depth), octx, n_p,
+                      scaled_params(octx.cs), gp)
+    ref = timed_step(make_step(octx, n_p, depth, intersect=plain,
+                               runner=loops.Eager()), octx, n_p,
+                     scaled_params(octx.cs), gp)
     if ref["counts"]["bvh_kernel"] or not kern["counts"]["bvh_kernel"]:
         raise AssertionError("the plain step launched the kernel, or the "
                              "kernel step did not")
     plain_err = steps_agree(f"training step {n_p}x{n_p}@1 depth {depth}, "
-                            f"BVH4 kernel vs plain traversal on the card",
-                            kern, ref, card)
+                            f"BVH4 kernel (captured) vs plain traversal "
+                            f"(eager) on the card", kern, ref, card)
     out["cornell_box_obj"] = dict(
         frame=n, depth=depth, loss=s["loss"], seconds=s["seconds"],
-        rays=s["rays"], peak_bytes=s["peak"], bvh_launches=b3,
-        bvh_forward=fwd["bvh_kernel"], bvh_recompute=b3 - fwd["bvh_kernel"],
-        cipher_launches=cip, cipher_forward=fwd["threefry"],
-        cipher_recompute=cip - fwd["threefry"],
+        first_call_seconds=warm["seconds"],
+        capture_seconds=ostep.runner.capture_seconds,
+        graph_bytes=ostep.runner.capture_bytes,
+        eager_seconds=oversus["eager_seconds"],
+        eager_seconds_all=oversus["eager_seconds_all"],
+        max_grad_err_vs_eager=oversus["max_grad_err_vs_eager"],
+        rays=s["rays"], peak_bytes=s["peak"],
+        launches_per_replay=s["counts"],
+        bvh_launches=s["counts"]["bvh_kernel"],
+        bvh_forward=launches["bvh_kernel"]["forward"],
+        bvh_recompute=launches["bvh_kernel"]["recompute"],
+        cipher_launches=s["counts"]["threefry"],
+        cipher_forward=launches["threefry"]["forward"],
+        cipher_recompute=launches["threefry"]["recompute"],
+        early_exit_bounces=early["threefry"] - 1,
         vs_plain=dict(frame=n_p, max_grad_err=plain_err,
                       kernel_seconds=kern["seconds"],
                       plain_seconds=ref["seconds"]))
@@ -3273,6 +3513,8 @@ def main() -> None:
         {"d1": ores, "d1_warm": warm, "d2": res, "d3": dragon_res})
 
     mark("phases D1-D6")
+    g_name, g_main = max(train["cornell"]["table_grad"].items(),
+                         key=lambda kv: kv[1]["calls_per_step"])
     print(json.dumps({
         "kernels": [{
             "name": "megakernel_rgb",
@@ -3430,6 +3672,43 @@ def main() -> None:
             "shape": (cipher_main["new_sample"]["keys"],
                       cipher_main["new_sample"]["uniforms"]),
             "forms": [f for f in cipher["forms"] if f["form"] == "new_sample"],
+        }, {
+            "name": "table_grad",
+            "route": "cuda",
+            "source": "izpi_tpu_torch/csrc/table_grad.cu",
+            "replaces": "izpi_tpu/parallel/dist.py:597 (no pallas_call: "
+                        "XLA's scatter-add, the backward of the table "
+                        "gathers in the jitted step)",
+            "launches": train["cornell"]["table_grad_launches"],
+            "max_abs_err": max(t["max_abs_err"]
+                               for t in train["cornell"]["table_grad"].values()),
+            "ms": g_main["ms"],
+            "plain_ms": g_main["plain_ms"],
+            "bound_ms": g_main["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": g_main["library_ms"],
+            "table": g_name,
+            "tables": train["cornell"]["table_grad"],
+        }, {
+            "name": "train_step_graph",
+            "route": "cuda",
+            "source": "izpi_tpu_torch/core/loops.py",
+            "replaces": "izpi_tpu/parallel/dist.py:597 (no pallas_call: the "
+                        "jitted step, one device program)",
+            "launches": train["cornell"]["replays"],
+            "max_abs_err": train["cornell"]["max_grad_err_vs_eager"],
+            "ms": 1e3 * train["cornell"]["median_seconds"],
+            "plain_ms": 1e3 * train["cornell"]["eager_seconds"],
+            "bound_ms": train["cornell"]["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": None,
+            "capture_seconds": train["cornell"]["capture_seconds"],
+            "graph_bytes": train["cornell"]["graph_bytes"],
+            "profiled_idle_share": train["cornell"]["profiled_idle_share"],
+            "launches_per_replay": train["cornell"]["launches_per_replay"],
+            "cornell_box_obj": {k: train["cornell_box_obj"][k] for k in (
+                "seconds", "eager_seconds", "capture_seconds", "graph_bytes",
+                "launches_per_replay", "max_grad_err_vs_eager")},
         }],
         "shapes": {
             "megakernel_rgb": "ms, bound_ms: per launch on its main path, "
@@ -3471,13 +3750,29 @@ def main() -> None:
                                         "+ camera and λ",
             "bvh4_traverse": f"{TRAVERSE_RAYS} rays (half camera, half "
                              f"incoherent) on cornell_box_obj's tree",
+            "table_grad": "ms, plain_ms (index_put_ with accumulate, the "
+                          "backward of indexing), library_ms (index_add_), "
+                          "bound_ms: per call over a CUDA graph of 100 "
+                          "calls at the step's inputs of the table the "
+                          "Cornell step calls it most for (`table`); "
+                          "launches: one replay of the Cornell step",
+            "train_step_graph": "the Cornell step at 256x256@1 depth 50 as "
+                                "one CUDA graph: ms the median of the "
+                                "replays of steps 1-4, plain_ms the eager "
+                                "step's (the same kernels, no graph); "
+                                "launches: replays in phase 16; "
+                                "max_abs_err: its gradients against the "
+                                "eager step's; bound_ms: its kernels' "
+                                "bounds and its inputs' and outputs' bytes, "
+                                "PyTorch's own ops not counted",
             "bvh4_rowstack": f"{TRAVERSE_RAYS} rays on phase 7's recipe, "
                              f"in their order, on the dragon scene's "
                              f"leaf-64 tree (its main path's); the third "
                              f"per-warp counter counts (ray, primitive) "
                              f"pairs tested"},
         "library_ms": "null: no PyTorch call computes a path tracer's render "
-                      "loop or a BVH traversal",
+                      "loop or a BVH traversal; table_grad's is index_add_ "
+                      "(float atomics, not deterministic)",
         "bvh4_traverse_dragon": dtrav,
         "bvh4_rowstack_phase10": rows10,
         "main_path": {"rays": res.rays_traced, "seconds": res.seconds,

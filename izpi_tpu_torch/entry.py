@@ -51,7 +51,9 @@ def entry(device="cuda"):
 
 def train_step_demo(device="cuda", n: int = 16, max_depth: int = 3):
     """One differentiable step on the Cornell box at n², against a black
-    target: returns (loss, grads) after checking that both are finite."""
+    target: returns (loss, grads) after checking that both are finite. On
+    the card the step is `build_train_step`'s captured one: its first call
+    warms up, captures the CUDA graph and replays it."""
     dev = renderer._device(device)
     cs, meta, settings, intersect = _compiled(n, n, max_depth, dev)
     step = dist.build_train_step(cs, meta, settings, intersect, n, n, spp=1)

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -47,6 +47,7 @@ from izpi_tpu_torch.geometry import primitives as prim
 from izpi_tpu_torch.integrator import lights as lights_mod
 from izpi_tpu_torch.materials import spectral_eval
 from izpi_tpu_torch.materials import tables as mt
+from izpi_tpu_torch.ops import table_grad
 from izpi_tpu_torch.spectral import spd as spd_mod
 from izpi_tpu_torch.texture import tables as tex_tables
 from izpi_tpu_torch.texture import uplift as uplift_mod
@@ -84,9 +85,10 @@ def make_brute_intersector(cs) -> IntersectFn:
 
 
 def _gather_mat(cs, mat_id):
-    """The rows `mat_id` (-1 reads row 0) of every material column."""
+    """The rows `mat_id` (-1 reads row 0) of every material column (a
+    trainable column through `table_grad.gather`)."""
     safe = torch.clamp(mat_id, min=0)
-    return {f: getattr(cs.materials, f)[safe]
+    return {f: table_grad.gather(getattr(cs.materials, f), safe)
             for f in mt.Materials._fields}
 
 
@@ -587,17 +589,21 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
 
 
 def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys,
-          differentiable: bool = False):
+          differentiable: bool = False, early_exit: Optional[bool] = None):
     """Trace a ray batch to completion (lockstep; the correctness oracle).
 
     o, d: (N,3); time: (N,); keys: (N,2) per-path keys. Returns (color (N,3),
     NOT DeNAN'd — the caller applies it per render/rgb.go:36 — and the total
     ray count as a 0-dim int64 tensor).
 
-    The bounces run through `core.loops.guarded_fori` (path.py:742-748),
-    TRACE_CHUNK bounces between two tests of the live flags and never more
-    than max_depth bounces; a bounce of dead paths changes nothing, so the
-    estimate (and its gradient) does not depend on where the loop ends.
+    With early_exit (the default unless differentiable) the bounces run
+    through `core.loops.guarded_fori` (path.py:742-748), TRACE_CHUNK
+    bounces between two tests of the live flags and never more than
+    max_depth bounces. Without it they run exactly max_depth bounces and
+    nothing reads the device (path.py:731-740, JAX's fixed-length scan):
+    what the training step's CUDA graph captures. A bounce of dead paths
+    changes nothing, so the estimate, the rays and the gradient do not
+    depend on where the loop ends.
 
     differentiable=True (path.py:699-740) makes the estimate differentiable
     in the scene's material, texture and light tensors, with the sampling
@@ -607,6 +613,8 @@ def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys,
     bounce and recomputes the rest: memory grows by one bounce's state per
     bounce. The uniforms are keyed, so the recompute draws the same
     numbers; it launches the cipher entry and a traversal kernel again."""
+    if early_exit is None:
+        early_exit = not differentiable
     n = o.shape[0]
     thru = torch.ones_like(o)
     rad = torch.zeros_like(o)
@@ -628,10 +636,15 @@ def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys,
         o, d, thru, rad, active, nr = out
         return depth + 1, o, d, thru, rad, active, nrays + nr
 
-    depth0 = torch.zeros((), dtype=torch.int64, device=o.device)
-    _, o, d, thru, rad, active, nrays = loops.guarded_fori(
-        settings.max_depth, lambda st: st[5].any(), body,
-        (depth0, o, d, thru, rad, active, nrays), TRACE_CHUNK)
+    state = (torch.zeros((), dtype=torch.int64, device=o.device), o, d, thru,
+             rad, active, nrays)
+    if early_exit:
+        state = loops.guarded_fori(settings.max_depth, lambda st: st[5].any(),
+                                   body, state, TRACE_CHUNK)
+    else:
+        for _ in range(settings.max_depth):
+            state = body(state)
+    _, o, d, thru, rad, active, nrays = state
     # Depth cap: the next Sample call would return {Z:1} (colour.go:34-36).
     sentinel = vm.const((0.0, 0.0, 1.0), o)
     rad = rad + torch.where(active[:, None], thru * sentinel[None, :],

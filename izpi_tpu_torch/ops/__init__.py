@@ -19,7 +19,8 @@ KERNEL_COUNTERS = {"bvh_kernel": ("bvh_kernel", "launches"),
                    "megakernel": ("megakernel", "launches"),
                    "megakernel_bvh": ("megakernel", "bvh_launches"),
                    "megakernel_spectral": ("megakernel_spectral", "launches"),
-                   "threefry": ("threefry", "launches")}
+                   "threefry": ("threefry", "launches"),
+                   "table_grad": ("table_grad", "launches")}
 LAUNCH_COUNTED = (*KERNEL_COUNTERS.values(), ("threefry", "sample_launches"))
 
 

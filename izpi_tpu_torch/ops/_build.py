@@ -25,18 +25,21 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
 SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
-           "bvh4_rowstack.cu", "cipher.cu")
+           "bvh4_rowstack.cu", "cipher.cu", "table_grad.cu")
 HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh", "bvh4.cuh")
 # The kernels whose ptxas report `ptxas_usage` reads, by their names (a
 # name that holds another comes first).
 KERNELS = ("megakernel_rgb_bvh", "megakernel_rgb", "megakernel_spectral",
-           "bvh4_traverse", "bvh4_rowstack")
+           "bvh4_traverse", "bvh4_rowstack", "table_grad_absmax",
+           "table_grad_scatter_shared", "table_grad_scatter",
+           "table_grad_finalize")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
+_c_int64 = ctypes.c_longlong
 _c_uint32 = ctypes.c_uint32
 _c_float = ctypes.c_float
 _SIGNATURES = {
@@ -97,6 +100,12 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,       # t, idx, counts (or null)
         _c_void_p,                             # stream
     ],
+    "izpi_table_grad": [
+        _c_void_p, _c_void_p, _c_int64,        # rows, g, n
+        _c_int, _c_int64,                      # c, r
+        _c_void_p, _c_void_p, _c_void_p,       # scratch, out, stream
+    ],
+    "izpi_table_grad_scratch": [_c_int64, _c_int],  # r, c -> bytes
     "izpi_bvh4_rowstack": [
         _c_void_p, _c_void_p,                  # nodes, blocks
         _c_void_p, _c_void_p, _c_void_p,       # o, d, time
@@ -105,6 +114,8 @@ _SIGNATURES = {
         _c_void_p,                             # stream
     ],
 }
+# Entries that return another type than a cudaError_t (int).
+_RESTYPES = {"izpi_table_grad_scratch": _c_int64}
 
 
 def _nvcc() -> str:
@@ -199,5 +210,5 @@ def load() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib

@@ -56,7 +56,7 @@ import torch
 import torch.distributed as dist
 
 from izpi_tpu_torch.accel import bvh_build, traverse
-from izpi_tpu_torch.core import rng
+from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.geometry import primitives as prim
 from izpi_tpu_torch.integrator import path as path_mod
 from izpi_tpu_torch.integrator import wavefront
@@ -858,7 +858,7 @@ def params_from_jax(leaves: Dict[str, np.ndarray], device
 
 
 def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
-                     spp: int = 1, group=None):
+                     spp: int = 1, group=None, runner=None):
     """Returns step(params, xs, ys, target, key) -> (loss, grads).
 
     The pixels xs, ys (N,) render `spp` samples each through the
@@ -867,7 +867,19 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
     over every pixel and channel, and grads holds d loss / d param for each
     of `PARAMS` (zeros for a parameter the render does not reach). The
     step runs on the device of `cs`. `step.rays` holds the rays its last
-    call traced (the forward pass's, not the backward's recompute).
+    call traced (the forward pass's, not the backward's recompute), read
+    once from the device a call.
+
+    `runner` (`core.loops`) runs the whole step: the sample passes, each
+    of their `max_depth` checkpointed bounces (`path.trace`'s fixed trip),
+    the loss and `torch.autograd.grad`, all on the device, no host read
+    among them. By default, on a CUDA device and without a group, a
+    `loops.Graphed` (`step.runner`): the first call warms up and captures
+    the step as one CUDA graph on static copies of its arguments (params,
+    xs, ys, target and the key), every call copies its arguments in and
+    replays it, and loss and grads are clones of the graph's outputs; a
+    call of other shapes captures again, and a failed capture raises.
+    Otherwise, and with `runner=loops.Eager()`, the step runs as calls.
 
     With a process group (`dist.group.WORLD` for all ranks; None keeps one
     device), every rank passes the whole xs, ys and target and renders its
@@ -875,29 +887,33 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
     are all-reduced, and so are the gradients after `autograd.grad` of the
     rank's share of the loss, which sums them as JAX's value_and_grad of a
     psum'd loss does. loss, grads and rays are then the same on every
-    rank."""
+    rank. Its all-reduces go through the host (gloo), so a sharded step
+    runs eagerly."""
     if spp < 1:
         raise ValueError(f"spp must be positive, got {spp}")
     if group is not None:
         rank, n = rank_and_world(group)
+        if runner is not None and not isinstance(runner, loops.Eager):
+            raise ValueError("a sharded step runs eagerly: its all-reduces "
+                             "go through the host")
+    if runner is None:
+        runner = (loops.Graphed() if group is None and cs.device.type == "cuda"
+                  else loops.Eager())
 
-    def step(params, xs, ys, target, key):
-        n_total = xs.shape[0] * 3
-        if group is not None:
-            xs, ys, target = (torch.tensor_split(x, n)[rank]
-                              for x in (xs, ys, target))
+    def local(params, xs, ys, target, key, n_total):
+        """The rank's squared error, its gradients of se / n_total and its
+        rays (a 0-dim device tensor)."""
         leaves = {k: (params[k] if params[k].requires_grad
                       else params[k].detach().requires_grad_(True))
                   for k in PARAMS}
         cs_p = inject_params(cs, leaves)
-        acc = None
-        rays = 0
+        acc = rays = None
         for s in range(spp):
             color, nr = renderer.sample_pass(cs_p, meta, settings, intersect,
                                              nx, ny, xs, ys, key, s,
                                              differentiable=True)
             acc = color if acc is None else acc + color
-            rays += int(nr)
+            rays = nr if rays is None else rays + nr
         color = acc / spp
         se = torch.sum((color - target) ** 2)
         grads = torch.autograd.grad(se / float(n_total),
@@ -905,20 +921,33 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
                                     allow_unused=True)
         grads = [torch.zeros_like(leaves[k]) if g is None else g
                  for k, g in zip(PARAMS, grads)]
-        if group is not None:
-            # One all-reduce for the loss and the rays (float64 holds the
-            # count exactly), one for every gradient.
-            tot = _all_reduce(torch.stack([se.detach().double(),
-                                           se.new_tensor(rays,
-                                                         dtype=torch.float64)]),
-                              SUM, group)
-            se, rays = tot[0].float(), int(tot[1])
-            flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]),
-                               SUM, group)
-            grads = [x.reshape(g.shape) for x, g in zip(
-                torch.split(flat, [g.numel() for g in grads]), grads)]
-        step.rays = rays
-        return se.detach() / float(n_total), dict(zip(PARAMS, grads))
+        return se.detach(), grads, rays
+
+    def whole(params, xs, ys, target, key):
+        se, grads, rays = local(params, xs, ys, target, key, xs.shape[0] * 3)
+        return se / float(xs.shape[0] * 3), grads, rays
+
+    def step(params, xs, ys, target, key):
+        if group is None:
+            loss, grads, rays = runner.call(whole, params, xs, ys, target, key)
+            step.rays = int(rays)
+            return loss, dict(zip(PARAMS, grads))
+        n_total = xs.shape[0] * 3
+        xs, ys, target = (torch.tensor_split(x, n)[rank]
+                          for x in (xs, ys, target))
+        se, grads, rays = runner.call(local, params, xs, ys, target, key,
+                                      n_total)
+        # One all-reduce for the loss and the rays (float64 holds the count
+        # exactly), one for every gradient.
+        tot = _all_reduce(torch.stack([se.double(), rays.double()]), SUM,
+                          group)
+        flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]), SUM,
+                           group)
+        grads = [x.reshape(g.shape) for x, g in zip(
+            torch.split(flat, [g.numel() for g in grads]), grads)]
+        step.rays = int(tot[1])
+        return tot[0].float() / float(n_total), dict(zip(PARAMS, grads))
 
     step.rays = 0
+    step.runner = runner
     return step

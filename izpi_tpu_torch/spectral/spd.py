@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from izpi_tpu_torch.ops import table_grad
 from izpi_tpu_torch.spectral import cie
 
 DEVICE_GRID_MIN = 380.0
@@ -91,6 +92,6 @@ def device_spd_value(table: torch.Tensor, spd_id, lam):
     i0 = torch.clamp(torch.floor(x).long(), 0, DEVICE_GRID_N - 2)
     t = x - i0.float()
     sid = spd_id.long()
-    v0 = table[sid, i0]
-    v1 = table[sid, i0 + 1]
+    v0 = table_grad.gather(table, sid, i0)
+    v1 = table_grad.gather(table, sid, i0 + 1)
     return v0 * (1.0 - t) + v1 * t

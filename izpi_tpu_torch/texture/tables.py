@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from izpi_tpu_torch.ops import table_grad
 from izpi_tpu_torch.texture import perlin as perlin_mod
 
 TEX_CONSTANT = 0
@@ -71,8 +72,8 @@ def image_lookup(images, img_w, img_h, img_id, u, v, local_id=None):
     h = img_h[img_id]
     i = texel_index(u * w.float(), w)
     j = texel_index((1.0 - v) * (h.float() - 0.001), h)
-    return images[img_id if local_id is None else local_id, j.long(),
-                  i.long()]
+    return table_grad.gather(images, img_id if local_id is None else local_id,
+                             j.long(), i.long())
 
 
 def sharded_rows(stack, base, row_id, index, group):
@@ -104,12 +105,12 @@ def eval_rgb(tex: Textures, tex_id, u, v, p, has_checker: bool = True,
     rank of the group must make the same calls."""
     tid = torch.clamp(tex_id, min=0).long()
     kind = tex.kind[tid]
-    c0 = tex.c0[tid]
+    c0 = table_grad.gather(tex.c0, tid)
     out = c0
     if has_checker:
         # CHECKER: sign of sin(10x)sin(10y)sin(10z) picks odd/even
         # (texture/checker.go:26).
-        c1 = tex.c1[tid]
+        c1 = table_grad.gather(tex.c1, tid)
         sines = (torch.sin(10.0 * p[..., 0]) * torch.sin(10.0 * p[..., 1])
                  * torch.sin(10.0 * p[..., 2]))
         checker = torch.where((sines < 0.0)[..., None], c0, c1)

@@ -15,6 +15,8 @@
     python3 measure_port.py --trace-loop [--scene obj|cornell|pbr_ibl|final]
                             [--size 128] [--spp 4] [--runs 2]
     python3 measure_port.py --deposit [--runs 3]
+    python3 measure_port.py --step [--scene cornell|obj] [--parent DIR]
+                            [--runs 4]
 
 Renders one main path of chip_smoke.py on one warm `RenderContext`, after
 one warm-up render: Cornell 256×256 at 1024 spp, `max_depth=50`, through
@@ -91,6 +93,18 @@ memory; then the two trees' rays must be equal and every pixel of the image
 this tree's turns must repeat bit for bit, and DIR's too where DIR renders
 through a megakernel (a tree whose pool sums its deposits with float
 atomics repeats within the tolerance).
+
+`--step` times the training step (`parallel.dist.build_train_step`, 1
+spp, seed 0, from tex_c0 at 0.7 of its values against a grey target) on
+`--scene` cornell (brute force, the default) or obj (`cornell_box_obj`
+through the BVH4 kernel) at 256×256, depth 50: one call to warm up (on
+this tree, the warm-up and the capture of its CUDA graph) and `--runs`
+timed calls (host clock to a CUDA sync), in this tree, or in four
+subprocesses in turns — DIR, this tree, this tree, DIR — with `--parent
+DIR`. Each turn prints its seconds, their median, the first call's, and
+the launches of its last call; the trees' rays must be equal, their
+losses within 1e-4 relative and every gradient within 1e-5 + 1e-3·|DIR's|
+(a new summation order), and each tree's turns must repeat bit for bit.
 
 `--vs-cpu N@S ...` renders a pool scene (`--scene`) at N×N and S spp, at
 its main path's depth, on the card and on the CPU (`device="cpu"`, the
@@ -501,6 +515,99 @@ def row_sort(ctx, n: int, spp: int, settings, seed: int, runs: int) -> None:
                          f"{sorted(rays)} rays")
 
 
+STEP_TURN = r"""
+import json, sys, time
+import numpy as np, torch
+from izpi_tpu_torch import ops
+from izpi_tpu_torch.core import rng
+from izpi_tpu_torch.integrator import path
+from izpi_tpu_torch.parallel import dist
+from izpi_tpu_torch.render import renderer
+from izpi_tpu_torch.scene.library.cornell import cornell_box
+from izpi_tpu_torch.scene.library.misc import cornell_box_obj
+scene, n, depth, runs, out = sys.argv[1:6]
+n, depth, runs = int(n), int(depth), int(runs)
+ctx = renderer.RenderContext(
+    cornell_box() if scene == "cornell" else cornell_box_obj(), device="cuda")
+step = dist.build_train_step(ctx.cs, ctx.meta,
+                             path.RenderSettings(max_depth=depth),
+                             ctx.intersect, n, n)
+params = dist.extract_params(ctx.cs)
+with torch.no_grad():
+    params["tex_c0"] *= 0.7
+ys = torch.arange(n, device="cuda").repeat_interleave(n)
+xs = torch.arange(n, device="cuda").repeat(n)
+target = torch.full((n * n, 3), 0.25, device="cuda")
+key = rng.render_key(0, device="cuda")
+seconds = []
+for _ in range(runs + 1):
+    ops.zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = step(params, xs, ys, target, key)
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+np.savez(out, loss=loss.cpu().numpy(),
+         **{k: g.cpu().numpy() for k, g in grads.items()})
+print(json.dumps({"seconds": seconds, "rays": step.rays,
+                  "loss": float(loss), "launches": ops.kernel_launches(),
+                  "runner": type(getattr(step, "runner", None)).__name__}))
+"""
+# Step turns' tolerances (tests/test_torch_grad.py's).
+STEP_LOSS_RTOL, STEP_GRAD_ATOL, STEP_GRAD_RTOL = 1e-4, 1e-5, 1e-3
+
+
+def step_turns(scene: str, parent, runs: int) -> None:
+    """--step: the training step on `scene` at 256x256, depth 50, in this
+    tree, or in turns parent, this, this, parent (the module
+    docstring)."""
+    here = Path(__file__).resolve().parent
+    order = (("parent", "this", "this", "parent") if parent else ("this",))
+    trees = {"parent": parent.resolve() if parent else None, "this": here}
+    got = {name: [] for name in set(order)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for turn, name in enumerate(order):
+            out = Path(tmp) / f"{name}{turn}.npz"
+            r = run_turn(STEP_TURN, trees[name],
+                         [scene, "256", "50", str(runs), str(out)])
+            with np.load(out) as z:
+                arrays = {k: z[k] for k in z.files}
+            got[name].append((r, arrays))
+            timed = r["seconds"][1:]
+            print(f"step turn {turn} ({name}, {trees[name]}): {scene} "
+                  f"256x256@1 depth 50, runner {r['runner']}: first call "
+                  f"{r['seconds'][0]:.4f} s, then "
+                  f"{[round(x, 4) for x in timed]}, median "
+                  f"{statistics.median(timed):.4f} s; rays {r['rays']}, loss "
+                  f"{r['loss']:.7f}; launches of the last call "
+                  f"{r['launches']}", flush=True)
+    med = {name: statistics.median(x for r, _ in v for x in r["seconds"][1:])
+           for name, v in got.items()}
+    repeat = {name: all(r["rays"] == v[0][0]["rays"] and all(
+        np.array_equal(a[k], v[0][1][k]) for k in a) for r, a in v)
+        for name, v in got.items()}
+    ok = True
+    if parent:
+        (pr, pa), (tr, ta) = got["parent"][0], got["this"][0]
+        err = max(float(np.abs(ta[k] - pa[k]).max()) for k in pa
+                  if k != "loss")
+        ok = pr["rays"] == tr["rays"] and abs(tr["loss"] - pr["loss"]) <= (
+            STEP_LOSS_RTOL * abs(pr["loss"])) and all(
+            bool(np.all(np.abs(ta[k] - pa[k])
+                        <= STEP_GRAD_ATOL + STEP_GRAD_RTOL * np.abs(pa[k])))
+            for k in pa if k != "loss")
+        print(f"step: parent vs this tree: rays {pr['rays']} vs {tr['rays']}, "
+              f"loss {pr['loss']:.7f} vs {tr['loss']:.7f}, largest gradient "
+              f"difference {err:.3e}, within the tolerances {ok}; median "
+              f"seconds {med['parent']:.4f} -> {med['this']:.4f} "
+              f"({med['parent'] / med['this']:.3f}x)", flush=True)
+    print(f"step: each tree's turns repeat bit for bit {repeat} ({smi()})",
+          flush=True)
+    if not ok or not repeat["this"]:
+        raise SystemExit("measure_port: the step differs from the parent's, "
+                         "or this tree's turns differ")
+
+
 def run_turn(script: str, tree: Path, args) -> dict:
     """Run a turn script from `tree`'s root with only its package on the
     path; returns the JSON of its last line."""
@@ -708,6 +815,8 @@ def main() -> None:
                          "and 1")
     ap.add_argument("--deposit", action="store_true",
                     help="time the pool's deposit against index_add_")
+    ap.add_argument("--step", action="store_true",
+                    help="time the training step (against --parent)")
     ap.add_argument("--mode", default="wavefront",
                     choices=["wavefront", "pool"],
                     help="render()'s mode: the default route, or the queue "
@@ -729,6 +838,12 @@ def main() -> None:
         return
     if args.deposit:
         deposit_forms(args.runs or 3)
+        return
+    if args.step:
+        if args.scene not in ("cornell", "obj"):
+            raise SystemExit("measure_port: --step takes cornell or obj")
+        print(f"smi before: {smi()}", flush=True)
+        step_turns(args.scene, args.parent, args.runs or 4)
         return
     if args.vs_cpu:
         vs_cpu(args.scene, args.vs_cpu, args.seeds)

@@ -7,10 +7,15 @@ as numpy arrays. JAX runs on the CPU (tests/conftest.py).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import shutil
+import subprocess
 
 import numpy as np
+import pytest
 
+from izpi_tpu_torch.ops import _build
 from izpi_tpu_torch.scene import compiler as tcompiler
 from izpi_tpu_torch.scene import types as tst
 from izpi_tpu_torch.spectral import spd as tspd
@@ -147,3 +152,195 @@ def with_absorbing_glass(scene, types=tst, absorption=ABSORPTION):
     if all(a is b for a, b in zip(world, scene.world)):
         raise ValueError("the scene holds no dielectric sphere")
     return dataclasses.replace(scene, world=world)
+
+
+# ---------------------------------------------------------------------------
+# CUDA sources as host C++
+# ---------------------------------------------------------------------------
+# A kernel source is compiled with g++ behind stand-ins for CUDA:
+# `threadIdx` and `blockIdx` as thread-locals, `__shared__` as statics,
+# atomics as `__atomic_*` builtins, the copy macros as a plain copy, and
+# one `std::thread` per lane, with a `std::barrier` of 32 per warp behind
+# the warp collectives (`__syncwarp`, `__ballot_sync`, `__shfl_sync`,
+# `__match_any_sync`, ...) and one of the block behind `__syncthreads`.
+# The source is cut before its C entries (the `<<<...>>>` launches); the
+# test's own entry `run` calls the kernels through `run_grid`.
+
+# The CUDA names the kernels use, for the host (`host_kernel`).
+CUDA_STAND_IN = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <math.h>
+
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
+#define __launch_bounds__(...)
+
+struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int*) { return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int) { return cudaSuccess; }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, K, int, size_t) {
+  return cudaSuccess;
+}
+
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+
+// A warp: 32 lanes as threads. A collective writes the lane's word into one
+// of two slot rows (alternating, so that one barrier separates a row's
+// writes from its next writes), waits for the warp, then reads the row.
+struct Warp {
+  std::barrier<> bar{32};
+  uint32_t slot[2][32];
+};
+inline thread_local Warp* tl_warp;
+inline thread_local int tl_lane, tl_row;
+inline thread_local std::barrier<>* tl_block;
+
+inline const uint32_t* exchange(uint32_t v) {
+  Warp& w = *tl_warp;
+  const int row = tl_row;
+  tl_row ^= 1;
+  w.slot[row][tl_lane] = v;
+  w.bar.arrive_and_wait();
+  return w.slot[row];
+}
+inline void __syncwarp(unsigned = 0xffffffffu) { tl_warp->bar.arrive_and_wait(); }
+inline void __syncthreads() { tl_block->arrive_and_wait(); }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const uint32_t* s = exchange(pred != 0);
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) m |= s[i] ? 1u << i : 0u;
+  return m;
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  const uint32_t* s = exchange(v);
+  unsigned m = s[0];
+  for (int i = 1; i < 32; ++i) m = s[i] < m ? s[i] : m;
+  return m;
+}
+inline int __shfl_sync(unsigned, int v, int src) {
+  return (int)exchange((uint32_t)v)[src];
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  return __uint_as_float(exchange(__float_as_uint(v))[src]);
+}
+inline long long __shfl_sync(unsigned, long long v, int src) {
+  const uint32_t lo = exchange((uint32_t)(uint64_t)v)[src];
+  const uint32_t hi = exchange((uint32_t)((uint64_t)v >> 32))[src];
+  return (long long)(((uint64_t)hi << 32) | lo);
+}
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+  return __uint_as_float(exchange(__float_as_uint(v))[tl_lane ^ m]);
+}
+inline unsigned __match_any_sync(unsigned, long long v) {
+  uint32_t lo[32], hi[32];
+  std::memcpy(lo, exchange((uint32_t)(uint64_t)v), sizeof lo);
+  std::memcpy(hi, exchange((uint32_t)((uint64_t)v >> 32)), sizeof hi);
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i)
+    m |= (((uint64_t)hi[i] << 32) | lo[i]) == (uint64_t)v ? 1u << i : 0u;
+  return m;
+}
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  unsigned old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+inline long long __double2ll_rn(double x) { return llrint(x); }
+inline int __clzll(long long x) { return __builtin_clzll((unsigned long long)x); }
+"""
+
+# Blocks one after another (their __shared__ statics are shared), the lanes
+# of a block all at once; the copy macros of bvh4_rowstack.cu as a plain copy
+# (the __syncwarp after each wait stands for the wait).
+HOST_GRID = r"""
+#include <memory>
+#include <thread>
+#include <vector>
+
+#define IZPI_CP_ASYNC_16(dst, src) std::memcpy((dst), (src), 16)
+#define IZPI_CP_ASYNC_COMMIT() ((void)0)
+#define IZPI_CP_ASYNC_WAIT(n) ((void)0)
+
+#include "kernel_cut.cu"
+
+template <class F>
+static void run_grid(int blocks, int threads, F body) {
+  blockDim.x = threads;
+  gridDim.x = blocks;
+  for (int b = 0; b < blocks; ++b) {
+    std::barrier<> block_bar(threads);
+    std::unique_ptr<Warp[]> warps(new Warp[threads / 32]);
+    std::vector<std::thread> lanes;
+    for (int t = 0; t < threads; ++t) {
+      lanes.emplace_back([&, t] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        tl_warp = &warps[t / 32];
+        tl_lane = t & 31;
+        tl_row = 0;
+        tl_block = &block_bar;
+        body();
+      });
+    }
+    for (auto& l : lanes) l.join();
+  }
+}
+"""
+
+
+def cut_source(name: str) -> str:
+    """A kernel source of csrc/ up to its C entries."""
+    text = (_build.CSRC / name).read_text()
+    return text[:text.index('extern "C" {')]
+
+
+def host_kernel(tmp, name: str, entry: str, argtypes):
+    """The kernel source `name` of csrc/ built as host C++ in the directory
+    tmp, with `entry` (C++ that defines `extern "C" void run(...)` over
+    `run_grid`) after it: a ctypes library whose `run` takes argtypes.
+    Skips the test without g++."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernels as host C++")
+    (tmp / "cuda_runtime.h").write_text(CUDA_STAND_IN)
+    (tmp / "kernel_cut.cu").write_text(cut_source(name))
+    (tmp / "runner.cpp").write_text(HOST_GRID + entry)
+    so = tmp / "libhost.so"
+    subprocess.run(["g++", "-O1", "-std=c++20", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-pthread", f"-I{tmp}", f"-I{_build.CSRC}", "-o",
+                    str(so), str(tmp / "runner.cpp")], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.run.argtypes = argtypes
+    return lib

@@ -22,7 +22,7 @@ from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.geometry import primitives
 from izpi_tpu_torch.integrator import path, wavefront
 from izpi_tpu_torch.ops import _build, bvh_kernel, bvh_rowkernel, megakernel
-from izpi_tpu_torch.ops import megakernel_spectral, threefry
+from izpi_tpu_torch.ops import megakernel_spectral, table_grad, threefry
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene import compiler
 from izpi_tpu_torch.scene.library.cornell import cornell_box
@@ -468,16 +468,19 @@ def test_final_pool_through_kernel_matches_plain_traversal():
 LOSS_RTOL, GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-5, 1e-3
 
 
-def _train_step(scene, n, depth, device, use_bvh=None, intersect=None):
-    """(loss, grads, rays, cipher launches, traversal launches) of one
-    differentiable step, 1 spp, seed 0, against the render at 0.7× tex_c0
-    of a grey target."""
+def _train_step(scene, n, depth, device, use_bvh=None, intersect=None,
+                runner=None):
+    """(loss, grads, rays, cipher launches, traversal launches, context) of
+    one differentiable step, 1 spp, seed 0, against the render at 0.7×
+    tex_c0 of a grey target (on the card: its first call, the warm-up and
+    a replay of the captured graph, unless `runner` says otherwise)."""
     from izpi_tpu_torch.parallel import dist
 
     ctx = renderer.RenderContext(scene, use_bvh=use_bvh, device=device)
     step = dist.build_train_step(ctx.cs, ctx.meta,
                                  path.RenderSettings(max_depth=depth),
-                                 intersect or ctx.intersect, n, n)
+                                 intersect or ctx.intersect, n, n,
+                                 runner=runner)
     params = dist.extract_params(ctx.cs)
     with torch.no_grad():
         params["tex_c0"] *= 0.7
@@ -511,16 +514,18 @@ def test_training_step_on_card_matches_cpu():
 
 def test_training_step_through_bvh_kernel_matches_plain_traversal():
     """Phase 17 at 16², depth 8: cornell_box_obj's step through the BVH4
-    kernel equals the same step through the plain traversal on the card
-    (rays and loss equal, gradients within the tolerances above: gather
-    backward sums with atomics); the kernel ran forward and in the
-    recompute."""
+    kernel (captured) equals the same step through the plain traversal on
+    the card (eager: the plain traversal syncs, so it cannot be captured;
+    rays and loss equal, gradients within the tolerances above: the plain
+    traversal's winners' t may differ in the last ulp); the kernel ran
+    forward and in the recompute."""
     kern = _train_step(cornell_box_obj(), 16, 8, "cuda")
     ctx = kern[5]
     plain = functools.partial(traverse.intersect_bvh, ctx.cs.prims,
                               ctx.intersect.ks.tree)
     b0 = bvh_kernel.launches
-    ref = _train_step(cornell_box_obj(), 16, 8, "cuda", intersect=plain)
+    ref = _train_step(cornell_box_obj(), 16, 8, "cuda", intersect=plain,
+                      runner=loops.Eager())
     assert kern[4] >= 2 and kern[4] % 2 == 0
     _assert_step_close(kern, ref)
     assert ref[4] == bvh_kernel.launches - b0 == 0
@@ -931,3 +936,191 @@ def test_bvh_form_refused_launch_raises(obj_context, monkeypatch):
         renderer.render(None, 8, 8, 2, path.RenderSettings(max_depth=4),
                         context=obj_context, device="cuda")
     assert megakernel.bvh_launches == before
+
+
+def _step_and_inputs(ctx, n, depth, runner=None, intersect=None):
+    """A training step on the card context's scene (1 spp, seed 0, 0.7×
+    tex_c0 against a grey target) and its arguments."""
+    from izpi_tpu_torch.parallel import dist
+
+    step = dist.build_train_step(ctx.cs, ctx.meta,
+                                 path.RenderSettings(max_depth=depth),
+                                 intersect or ctx.intersect, n, n,
+                                 runner=runner)
+    params = dist.extract_params(ctx.cs)
+    with torch.no_grad():
+        params["tex_c0"] *= 0.7
+    ys = torch.arange(n, device="cuda").repeat_interleave(n)
+    xs = torch.arange(n, device="cuda").repeat(n)
+    target = torch.full((n * n, 3), 0.25, device="cuda")
+    return step, (params, xs, ys, target, rng.render_key(0, device="cuda"))
+
+
+@pytest.mark.parametrize("name,n", [("cornell_box", 32),
+                                    ("cornell_box_obj", 16)])
+def test_captured_step_matches_eager_step(name, n):
+    """Depth 8: the step as one CUDA graph (the default on the card)
+    against the same step run eagerly: rays equal, loss and gradients
+    within the tolerances above (the same kernels; only the order of
+    PyTorch's own float reductions may differ). A replay launches the
+    cipher entry 9 times forward and 8 in the recompute, the BVH4 kernel
+    8 + 8 on cornell_box_obj, and the gathers' backward kernel."""
+    ctx = renderer.RenderContext(
+        cornell_box() if name == "cornell_box" else cornell_box_obj(),
+        device="cuda")
+    graphed, args = _step_and_inputs(ctx, n, 8)
+    eager, _ = _step_and_inputs(ctx, n, 8, runner=loops.Eager())
+    assert isinstance(graphed.runner, loops.Graphed)
+    tg0 = table_grad.launches
+    loss_e, grads_e = eager(*args)
+    assert table_grad.launches > tg0
+    loss_g, grads_g = graphed(*args)
+    runner = graphed.runner
+    assert runner.capture_seconds > 0 and runner.capture_bytes > 0
+    assert runner.replays == 1 and runner.trips == 2
+    assert graphed.rays == eager.rays > n * n
+    np.testing.assert_allclose(float(loss_g), float(loss_e), rtol=LOSS_RTOL)
+    for k, w in grads_e.items():
+        assert torch.isfinite(grads_g[k]).all(), k
+        np.testing.assert_allclose(grads_g[k].cpu().numpy(), w.cpu().numpy(),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=k)
+    deltas = {m: v for (m, a), v in runner.deltas.items()
+              if a == "launches"}
+    assert deltas["threefry"] == 9 + 8
+    assert deltas["bvh_kernel"] == (16 if name == "cornell_box_obj" else 0)
+    assert deltas["table_grad"] >= 2
+
+
+def test_captured_step_replays_bit_for_bit():
+    """Two replays of the captured step give the same bits; a third, with
+    other parameters, writes nothing the caller already holds (the loss
+    and gradients returned are clones)."""
+    ctx = renderer.RenderContext(cornell_box(), device="cuda")
+    step, (params, xs, ys, target, key) = _step_and_inputs(ctx, 32, 8)
+    loss1, grads1 = step(params, xs, ys, target, key)
+    loss2, grads2 = step(params, xs, ys, target, key)
+    assert torch.equal(loss1, loss2)
+    for k in grads1:
+        assert torch.equal(grads1[k], grads2[k]), k
+    kept = (loss1.clone(), {k: g.clone() for k, g in grads1.items()})
+    other = {k: p.detach() * 0.5 for k, p in params.items()}
+    loss3, grads3 = step(other, xs, ys, target, key)
+    assert not torch.equal(loss3, loss1)
+    assert torch.equal(loss1, kept[0])
+    for k in grads1:
+        assert torch.equal(grads1[k], kept[1][k]), k
+    assert step.runner.replays == 3 and step.runner.trips == 4
+
+
+def test_captured_step_reads_each_calls_key():
+    """A replay with another key (both keys alive) gives what the eager
+    step gives with it: the key is one of the graph's static inputs."""
+    ctx = renderer.RenderContext(cornell_box(), device="cuda")
+    step, (params, xs, ys, target, key) = _step_and_inputs(ctx, 16, 8)
+    eager, _ = _step_and_inputs(ctx, 16, 8, runner=loops.Eager())
+    step(params, xs, ys, target, key)
+    other = rng.render_key(7, device="cuda")
+    loss, _ = step(params, xs, ys, target, other)
+    want, _ = eager(params, xs, ys, target, other)
+    assert step.rays == eager.rays
+    np.testing.assert_allclose(float(loss), float(want), rtol=LOSS_RTOL)
+
+
+# Table shapes of the step's gathers (Cornell's materials and texture
+# rows, a spectral scene's SPD table, an image stack) at the step's 65,536
+# rays: (table shape, index tensors).
+TABLE_GRAD_CASES = [((9,), 1), ((9, 3), 1), ((8, 3), 1), ((6, 371), 2),
+                    ((2, 512, 512, 3), 3)]
+
+
+@pytest.mark.parametrize("shape,n_index", TABLE_GRAD_CASES)
+def test_table_grad_kernel_matches_plain_on_card(shape, n_index):
+    """`izpi_table_grad` against the float64 sum (the fixed point's bound,
+    csrc/table_grad.cu) and its plain version (`index_put_`, within the
+    f32 recursive-summation bound γ_count·Σ|g| of each element); two
+    launches, and the rows in another order, give the same bits."""
+    rs = np.random.RandomState(len(shape))
+    n = 65536
+    index = [torch.as_tensor(np.where(rs.rand(n) < 0.7,
+                                      rs.randint(0, min(d, 3), n),
+                                      rs.randint(0, d, n))).cuda()
+             for d in shape[:n_index]]
+    c = int(np.prod(shape[n_index:]))
+    g = torch.as_tensor(rs.randn(n, c).astype(np.float32)).cuda()
+    rows = table_grad.flat_rows(shape, index).reshape(-1).contiguous()
+    before = table_grad.launches
+    got = table_grad.table_grad(rows, g, shape)
+    again = table_grad.table_grad(rows, g, shape)
+    perm = torch.as_tensor(rs.permutation(n)).cuda()
+    permuted = table_grad.table_grad(rows[perm].contiguous(),
+                                     g[perm].contiguous(), shape)
+    assert table_grad.launches == before + 3
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), permuted.view(torch.int32))
+    plain = table_grad.table_grad_reference(rows, g, shape)
+    r = int(np.prod(shape)) // c
+
+    def summed(x):
+        out = torch.zeros((r, c), dtype=x.dtype, device="cuda")
+        return out.index_put_((rows,), x, accumulate=True).reshape(shape)
+
+    exact = summed(g.double())
+    abs_sum = summed(g.abs().double())
+    count = summed(torch.ones_like(g, dtype=torch.float64))
+    bound = n * n * float(g.abs().max()) * 2.0 ** -63 + exact.abs() * 2.0 ** -24
+    assert ((got.double() - exact).abs() <= bound).all()
+    gamma = count * 2.0 ** -24 / (1 - count * 2.0 ** -24)
+    assert ((got.double() - plain.double()).abs()
+            <= bound + gamma * abs_sum).all()
+
+
+def test_capture_survives_the_collector():
+    """A CUDA graph in a reference cycle that turns into garbage during a
+    capture must not be freed there, where its destruction is a call the
+    capture forbids and fails the capture: `Graphed` keeps Python's cyclic
+    collector off while it captures (here run at every allocation)."""
+    import gc
+
+    class Holder:
+        pass
+
+    graphs = [torch.cuda.CUDAGraph()]
+    x = torch.zeros(1, device="cuda")
+    with torch.cuda.graph(graphs[0]):
+        x += 1
+
+    def fn(t):
+        if torch.cuda.is_current_stream_capturing() and graphs:
+            holder = Holder()
+            holder.self = holder
+            holder.graph = graphs.pop()
+            del holder
+            for _ in range(100):
+                [[]]
+        return t * 2
+
+    runner = loops.Graphed()
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        out = runner.call(fn, torch.ones(4, device="cuda"))
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    assert not graphs and runner.replays == 1
+    assert torch.equal(out, torch.full((4,), 2.0, device="cuda"))
+
+
+def test_failed_capture_raises():
+    """A step whose forward syncs with the host (the plain traversal
+    compacts its rays) cannot be captured: the first call raises, and
+    nothing runs the step eagerly in its place."""
+    ctx = renderer.RenderContext(cornell_box_obj(), device="cuda")
+    plain = functools.partial(traverse.intersect_bvh, ctx.cs.prims,
+                              ctx.intersect.ks.tree)
+    step, args = _step_and_inputs(ctx, 8, 4, intersect=plain)
+    with pytest.raises(RuntimeError):
+        step(*args)
+    assert step.runner.graph is None and step.runner.replays == 0
+    assert step.rays == 0
+    torch.cuda.synchronize()

@@ -31,6 +31,7 @@ from izpi_tpu.scene.library.cornell import cornell_box as j_cornell
 from izpi_tpu_torch import entry as tentry
 from izpi_tpu_torch.core import rng as trng
 from izpi_tpu_torch.integrator import path as tpath
+from izpi_tpu_torch.ops import table_grad
 from izpi_tpu_torch.parallel import dist as tdist
 from izpi_tpu_torch.render import renderer as trenderer
 from izpi_tpu_torch.scene import compiler as tcompiler
@@ -120,13 +121,26 @@ def cornell(request):
     return tcs, tmeta, jparams, loss, grads
 
 
-def test_loss_and_grads_match_jax(cornell):
+def test_loss_and_grads_match_jax(cornell, monkeypatch):
     """Cornell 8×8, depth 4, seed 0, brute force: the loss and all six
     parameters' gradients equal JAX's; tex_c0 (the walls' and the light's
-    colours) carries a gradient."""
+    colours) carries a gradient. The step is the one the card captures,
+    run eagerly: its trace runs the fixed trip of max_depth bounces, and
+    the gathers of tex_c0 and mat_fuzz have their backward in
+    `ops.table_grad` (its plain version on the CPU)."""
     tcs, tmeta, jparams, want_loss, want = cornell
+    shapes = []
+    original = table_grad.table_grad
+
+    def recording(rows, g, shape):
+        shapes.append(tuple(shape))
+        return original(rows, g, shape)
+
+    monkeypatch.setattr(table_grad, "table_grad", recording)
     loss, got, rays = port_step(tcs, tmeta,
                                 tdist.params_from_jax(jparams, "cpu"))
+    assert tuple(tcs.textures.c0.shape) in shapes
+    assert tuple(tcs.materials.fuzz.shape) in shapes
     assert rays > N * N
     np.testing.assert_allclose(loss, want_loss, rtol=LOSS_RTOL)
     assert_grads_close(got, want)

@@ -18,143 +18,20 @@ plain version's (t, index) and counters bit for bit:
 """
 
 import ctypes
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_port import host_kernel
 from izpi_tpu_torch import camera
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.geometry import primitives, procedural
 from izpi_tpu_torch.integrator import path
-from izpi_tpu_torch.ops import _build, bvh_kernel, bvh_rowkernel
+from izpi_tpu_torch.ops import bvh_kernel, bvh_rowkernel
 from izpi_tpu_torch.scene import compiler
 from izpi_tpu_torch.scene import types as st
 from izpi_tpu_torch.scene.library.cornell import cornell_box
-
-# The CUDA names the two kernels and common.cuh use, for the host.
-STAND_IN = r"""
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <math.h>
-
-#define __device__
-#define __host__
-#define __global__
-#define __forceinline__ inline
-#define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
-#define __launch_bounds__(...)
-
-struct float4 { float x, y, z, w; };
-struct int4 { int x, y, z, w; };
-struct dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 blockDim, gridDim;
-
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
-inline cudaError_t cudaGetDevice(int*) { return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int) { return cudaSuccess; }
-template <class K>
-inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, K, int, size_t) {
-  return cudaSuccess;
-}
-
-template <class T> inline T __ldg(const T* p) { return *p; }
-inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
-inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
-inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
-inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
-inline int __popc(unsigned v) { return __builtin_popcount(v); }
-inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
-inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
-
-// A warp: 32 lanes as threads. A collective writes the lane's word into one
-// of two slot rows (alternating, so that one barrier separates a row's
-// writes from its next writes), waits for the warp, then reads the row.
-struct Warp {
-  std::barrier<> bar{32};
-  uint32_t slot[2][32];
-};
-inline thread_local Warp* tl_warp;
-inline thread_local int tl_lane, tl_row;
-inline thread_local std::barrier<>* tl_block;
-
-inline const uint32_t* exchange(uint32_t v) {
-  Warp& w = *tl_warp;
-  const int row = tl_row;
-  tl_row ^= 1;
-  w.slot[row][tl_lane] = v;
-  w.bar.arrive_and_wait();
-  return w.slot[row];
-}
-inline void __syncwarp(unsigned = 0xffffffffu) { tl_warp->bar.arrive_and_wait(); }
-inline void __syncthreads() { tl_block->arrive_and_wait(); }
-inline unsigned __ballot_sync(unsigned, int pred) {
-  const uint32_t* s = exchange(pred != 0);
-  unsigned m = 0;
-  for (int i = 0; i < 32; ++i) m |= s[i] ? 1u << i : 0u;
-  return m;
-}
-inline unsigned __reduce_min_sync(unsigned, unsigned v) {
-  const uint32_t* s = exchange(v);
-  unsigned m = s[0];
-  for (int i = 1; i < 32; ++i) m = s[i] < m ? s[i] : m;
-  return m;
-}
-inline int __shfl_sync(unsigned, int v, int src) {
-  return (int)exchange((uint32_t)v)[src];
-}
-inline float __shfl_sync(unsigned, float v, int src) {
-  return __uint_as_float(exchange(__float_as_uint(v))[src]);
-}
-"""
-
-# Blocks one after another (their __shared__ statics are shared), the lanes
-# of a block all at once; the copy macros of bvh4_rowstack.cu as a plain copy
-# (the __syncwarp after each wait stands for the wait).
-GRID = r"""
-#include <memory>
-#include <thread>
-#include <vector>
-
-#define IZPI_CP_ASYNC_16(dst, src) std::memcpy((dst), (src), 16)
-#define IZPI_CP_ASYNC_COMMIT() ((void)0)
-#define IZPI_CP_ASYNC_WAIT(n) ((void)0)
-
-#include "kernel_cut.cu"
-
-template <class F>
-static void run_grid(int blocks, int threads, F body) {
-  blockDim.x = threads;
-  gridDim.x = blocks;
-  for (int b = 0; b < blocks; ++b) {
-    std::barrier<> block_bar(threads);
-    std::unique_ptr<Warp[]> warps(new Warp[threads / 32]);
-    std::vector<std::thread> lanes;
-    for (int t = 0; t < threads; ++t) {
-      lanes.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        tl_warp = &warps[t / 32];
-        tl_lane = t & 31;
-        tl_row = 0;
-        tl_block = &block_bar;
-        body();
-      });
-    }
-    for (auto& l : lanes) l.join();
-  }
-}
-"""
 
 ENTRIES = {
     "bvh4_traverse.cu": r"""
@@ -180,34 +57,14 @@ extern "C" void run(const int* nodes, const float* blocks, const float* o, const
 }
 
 
-def _cut(name: str) -> str:
-    """A kernel source up to its C entries."""
-    text = (_build.CSRC / name).read_text()
-    return text[:text.index('extern "C" {')]
-
-
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
     """{source: its host build, a ctypes library with one entry `run`}."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to build the kernels as host C++")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    argtypes = {"bvh4_traverse.cu": [p, p, p, p, p, i, f, f, p, p, p],
-                "bvh4_rowstack.cu": [p, p, p, p, p, i, f, f, p, p, p]}
-    libs = {}
-    for name, entry in ENTRIES.items():
-        tmp = tmp_path_factory.mktemp(name.split(".")[0])
-        (tmp / "cuda_runtime.h").write_text(STAND_IN)
-        (tmp / "kernel_cut.cu").write_text(_cut(name))
-        (tmp / "runner.cpp").write_text(GRID + entry)
-        so = tmp / "libhost.so"
-        subprocess.run(["g++", "-O1", "-std=c++20", "-ffp-contract=off",
-                        "-shared", "-fPIC", "-pthread", f"-I{tmp}",
-                        f"-I{_build.CSRC}", "-o", str(so),
-                        str(tmp / "runner.cpp")], check=True)
-        libs[name] = ctypes.CDLL(str(so))
-        libs[name].run.argtypes = argtypes[name]
-    return libs
+    argtypes = [p, p, p, p, p, i, f, f, p, p, p]
+    return {name: host_kernel(tmp_path_factory.mktemp(name.split(".")[0]),
+                              name, entry, argtypes)
+            for name, entry in ENTRIES.items()}
 
 
 def _blob_box():
