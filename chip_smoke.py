@@ -177,40 +177,62 @@ line of its own:
  16. the training step (`parallel.dist.build_train_step`, the
      differentiable sample pass, 1 spp, seed 0) on `cornell_box()` (13
      primitives, brute force) at 256×256, depth 50, as one CUDA graph
-     (`core.loops.Graphed`, the default on the card): the bounces the
-     step's fixed trip runs against those the early-exit form ran (equal
-     rays); the target is the colour render at the true parameters,
-     256×256@64; from tex_c0 at 0.7 of its values, five steps of plain
-     gradient descent (every parameter, rate 1) through the captured step,
-     each printing its loss, seconds (CUDA-synchronised; the first call
-     warms up and captures, the median of the last four), launches and
+     (`core.loops.Graphed`, the default on the card) on the fused route
+     (`ops.diff_trace`, the default for the scene): the checkpointed
+     bounces' fixed trip against the early-exit form (equal rays, 50
+     bounces each) and the fused forward's launches (the new-sample cipher
+     and the forward kernel once each); the fused route's kernels
+     (`csrc/diff_trace.cu`) against their plain versions at the step's
+     camera rays: the forward kernel within phase 4's tolerances, the
+     paths that take the same branches (at least PIXEL_SHARE of them)
+     with records within rtol 1e-4, the reverse kernel on the plain
+     forward's records at the step's own cotangent bit for bit (one slot a
+     record, their count on the device equal to the rays), G on the
+     reverse kernel's slots and count against its plain version on the
+     counted slots (the float64 sum
+     within the kernel's bound, the plain version within that plus f32
+     summation's, two launches and the rows in another order bit for
+     bit; its ms beside `index_put_`'s and `index_add_`'s); each kernel's
+     ms beside its plain version's and its bound (the forward's from the
+     SASS probes' units and its bytes, the reverse's by bytes); the
+     target is the colour render at the true parameters, 256×256@64; from
+     tex_c0 at 0.7 of its values, five steps of plain gradient descent
+     (every parameter, rate 1) through the captured step, each printing
+     its loss, seconds (CUDA-synchronised; the first call warms up and
+     captures, the median of the last four), launches and
      `torch.cuda.max_memory_allocated`; every gradient finite and the loss
-     after the five steps below step 0's; a replay launches the cipher
-     entry 51 + 50 times (forward, recompute), the gathers' backward
-     kernel (`csrc/table_grad.cu`) and nothing else; the capture's seconds
-     and the MiB its graph holds; the eager step (`runner=loops.Eager()`)
-     in the same call at the same parameters, its seconds (the median of
-     its runs after the first) beside the captured step's, two replays
-     bit for bit, and the captured step held to the eager one (equal rays,
-     the tolerances of tests/test_torch_grad.py); a replay under
-     torch.profiler (its idle share); the memory at depth 8 and 50 of the
-     eager step (peak above its start) and of the graph, whose growth a
-     bounce must each stay within twice one bounce's carried state; G
-     against its plain version at the step's own inputs of each table
-     (the float64 sum within the kernel's bound, the plain version within
-     that plus f32 summation's, two launches and the rows in another
-     order bit for bit), its ms beside `index_put_`'s (the plain version,
-     today's backward) and `index_add_`'s, its path and its bound by
-     bytes; and the card's captured step against the CPU's at 32×32,
-     depth 8 (equal rays, the tolerances above);
- 17. the same step on `cornell_box_obj` (20,007 primitives) at 256×256,
-     depth 50, through the BVH4 kernel, captured: its seconds, capture
-     and graph MiB, a replay's launches (the BVH4 kernel 50 + 50, the
-     cipher entry 51 + 50, G); the eager step in the same call, two
-     replays bit for bit, captured against eager; at 64×64 the captured
-     step against the same step through the plain traversal
-     (`accel.traverse.intersect_bvh`, which syncs, so eager) on the card:
-     equal rays and losses, gradients within the tolerances above;
+     after the five steps below step 0's; a replay launches the
+     new-sample cipher, the forward kernel, the reverse kernel and G once
+     each and nothing else (the cipher's bounce form no time: its counter
+     less the new-sample form's); the capture's seconds and the MiB its graph
+     holds; the eager step on the same route in the same call, its
+     seconds beside the captured step's, two replays bit for bit, and the
+     captured step held to the eager one (equal rays, the tolerances of
+     tests/test_torch_grad.py); the checkpointed bounces' captured step
+     in the same call (a replay launches the cipher entry 51 + 50 times
+     and G): its seconds, and the fused step held to it (equal rays and
+     losses, every gradient within G's tolerances, rtol 1e-5 and atol
+     1e-6·max|g|); a replay under
+     torch.profiler (its device records, which must name the forward and
+     reverse kernels once each and no bounce-form cipher, and its idle
+     share); the memory at depth 8 and 50 of the eager step (peak above
+     its start) and of the graph, whose growth a bounce must each stay
+     within twice one checkpointed bounce's carried state; and the card's
+     captured step against the CPU's at 32×32, depth 8 (equal rays, the
+     tolerances above);
+ 17. the same on `cornell_box_obj` (20,007 primitives) at 256×256, depth
+     50, through its BVH4: the forward kernel's BVH form against its plain
+     version through the plain traversal at 64×64 (phase 16's checks;
+     its bound from the nodes and tests of its traversal, counted by the
+     BVH4 kernel on the same rays), the captured fused step (a replay:
+     the new-sample cipher, the two kernels and G once each, the BVH4
+     kernel no time), its seconds, capture and graph MiB, the eager step
+     in the same call, two replays bit for bit, captured against eager;
+     the checkpointed captured step (the BVH4 kernel 50 + 50, the cipher
+     entry 51 + 50) beside it and the fused step held to it likewise; at
+     64×64 the fused captured step against the checkpointed step through
+     the plain traversal (`accel.traverse.intersect_bvh`, which syncs, so
+     eager) on the card: equal rays, the tolerances above;
  18. the command line: `python -m izpi_tpu_torch --output-file a.png` (the
      default: the spectral pyramid, 500×500@1000, depth 50, through the
      spectral megakernel) in a subprocess, and again with `--output-mode
@@ -301,9 +323,10 @@ each unit of the megakernels' work from the SASS of its probe
 BVH4 node visit), from which the megakernels' bounds are counted: the
 units a launch ran (its counter buffers) times their instructions, the
 integer ALU ones over the INT32 pipe and all of them over the issue
-rate. The line before the last is a JSON object describing the seven
+rate. The line before the last is a JSON object describing the
 kernels (the two megakernels and the RGB one's BVH form, the two
-traversal kernels and the cipher entry's two forms), each with its time,
+traversal kernels, the cipher entry's two forms, G, the fused route's
+forward and reverse kernels, and the step's CUDA graph), each with its time,
 its plain version's time and its bound (the least time the card could
 take for the work this run's inputs needed); the last is {"ok": true,
 "device": {...}}. A "time:" line after each phase gives the seconds since
@@ -333,8 +356,10 @@ from izpi_tpu_torch.geometry import primitives, procedural
 from izpi_tpu_torch.integrator import path, wavefront
 from izpi_tpu_torch.io import output
 from izpi_tpu_torch.materials import tables as mat_tables
-from izpi_tpu_torch.ops import (_build, bvh_kernel, bvh_rowkernel, megakernel,
-                                megakernel_spectral, table_grad, threefry)
+from izpi_tpu_torch.core import vecmath as vm
+from izpi_tpu_torch.ops import (_build, bvh_kernel, bvh_rowkernel, diff_trace,
+                                megakernel, megakernel_spectral, table_grad,
+                                threefry)
 from izpi_tpu_torch.parallel import dist
 from izpi_tpu_torch.render import checkpoint, renderer
 from izpi_tpu_torch.scene import compiler
@@ -1772,6 +1797,9 @@ TRAIN_VS_PLAIN = 64           # frame of phase 17's kernel-vs-plain step
 # tests/test_torch_grad.py's tolerances: loss within STEP_LOSS_RTOL, each
 # gradient entry within STEP_GRAD_ATOL + STEP_GRAD_RTOL·|reference|.
 STEP_LOSS_RTOL, STEP_GRAD_ATOL, STEP_GRAD_RTOL = 1e-4, 1e-5, 1e-3
+# G's tolerances (tests/test_torch_step.py), which the fused step meets
+# against the checkpointed one on the CPU: reported on the card.
+STEP_TIGHT_RTOL, STEP_TIGHT_ATOL = 1e-5, 1e-6
 # Bytes of one bounce's carried state a ray: o, d, throughput, radiance
 # (f32 × 3 each), the live flag and the depth (int64), which each
 # checkpointed bounce keeps.
@@ -1817,10 +1845,12 @@ def scaled_params(cs):
 
 
 def forward_counts(ctx, n: int, depth: int, params, intersect=None,
-                   early_exit=None):
+                   early_exit=None, route="checkpoint"):
     """Launches and rays of the training step's forward pass alone (the
-    differentiable sample's trace under no_grad: the step's fixed trip,
-    or with early_exit the early-exit form the eager step ran before)."""
+    differentiable sample's trace under no_grad, on `route`: by default
+    the checkpointed bounces' fixed trip, or with early_exit the
+    early-exit form the eager step ran before; a `DiffScene` for the
+    fused route's forward kernel)."""
     xs, ys = train_pixels(n, ctx.device)
     cs_p = dist.inject_params(ctx.cs, params)
     zero_counts()
@@ -1829,24 +1859,27 @@ def forward_counts(ctx, n: int, depth: int, params, intersect=None,
             cs_p, rng.render_key(0, device=ctx.device), xs, ys, n, n, 0)
         _, rays = path.trace(cs_p, ctx.meta, path.RenderSettings(
             max_depth=depth), intersect or ctx.intersect, o, d, tme, keys,
-            differentiable=True, early_exit=early_exit)
+            differentiable=True, early_exit=early_exit, route=route)
     return read_counts(), int(rays)
 
 
-def make_step(ctx, n: int, depth: int, intersect=None, runner=None):
+def make_step(ctx, n: int, depth: int, intersect=None, runner=None,
+              route=None):
     """`dist.build_train_step` on the context's scene at n², 1 spp: by
-    default the captured step (a `loops.Graphed`, `step.runner`)."""
+    default the captured step (a `loops.Graphed`, `step.runner`) on the
+    route the step picks (the fused one for the Cornell scenes)."""
     return dist.build_train_step(ctx.cs, ctx.meta,
                                  path.RenderSettings(max_depth=depth),
                                  intersect or ctx.intersect, n, n,
-                                 runner=runner)
+                                 runner=runner, route=route)
 
 
 def timed_step(step, ctx, n: int, params, target) -> dict:
     """One call of `step`, every launch counter zeroed just before and read
     just after: loss, grads, rays, seconds (CUDA-synchronised), counts,
-    and the peak memory allocated during the call (absolute, and above
-    what was allocated before)."""
+    the cipher entry's launches in its bounce form (`bounce_cipher`: its
+    counter less the new-sample form's), and the peak memory allocated
+    during the call (absolute, and above what was allocated before)."""
     dev = ctx.device
     xs, ys = train_pixels(n, dev)
     key = rng.render_key(0, device=dev)
@@ -1862,6 +1895,7 @@ def timed_step(step, ctx, n: int, params, target) -> dict:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
+    samples = threefry.sample_launches
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     for k, g in grads.items():
         if not bool(torch.isfinite(g).all()):
@@ -1870,7 +1904,8 @@ def timed_step(step, ctx, n: int, params, target) -> dict:
         raise AssertionError(f"the loss is {float(loss)}")
     return dict(loss=float(loss), grads={k: g.cpu().numpy()
                                          for k, g in grads.items()},
-                rays=step.rays, seconds=seconds, counts=counts, peak=peak,
+                rays=step.rays, seconds=seconds, counts=counts,
+                bounce_cipher=counts["threefry"] - samples, peak=peak,
                 peak_above=peak - base if cuda else 0)
 
 
@@ -1907,11 +1942,11 @@ def steps_equal(label: str, a: dict, b: dict) -> None:
 
 def captured_vs_eager(label: str, ctx, n: int, depth: int, params, target,
                       step, card: str, eager_runs: int = 2) -> dict:
-    """The captured `step` (already warm) and the eager step on the same
-    context at the same parameters, in one call: each one's seconds (the
-    eager median of its runs after the first), two replays bit for bit,
-    and the captured step held to the eager one."""
-    eager = make_step(ctx, n, depth, runner=loops.Eager())
+    """The captured `step` (already warm) and the eager step on its route
+    on the same context at the same parameters, in one call: each one's
+    seconds (the eager median of its runs after the first), two replays
+    bit for bit, and the captured step held to the eager one."""
+    eager = make_step(ctx, n, depth, runner=loops.Eager(), route=step.route)
     e_runs = [timed_step(eager, ctx, n, params, target)
               for _ in range(eager_runs + 1)]
     c1 = timed_step(step, ctx, n, params, target)
@@ -1940,42 +1975,33 @@ def replay_counts(label: str, s: dict, forward: dict, want: dict) -> dict:
             for k in want}
 
 
-def table_grad_inputs(ctx, n: int, depth: int, params, target) -> dict:
-    """{table shape: (rows, g, calls a step)} of the gathers' backward in
-    one eager step (the first call's inputs of each shape, cloned)."""
-    seen = {}
-    original = table_grad.table_grad
-
-    def recording(rows, g, shape):
-        key = tuple(shape)
-        if key not in seen:
-            seen[key] = [rows.clone(), g.clone(), 0]
-        seen[key][2] += 1
-        return original(rows, g, shape)
-
-    table_grad.table_grad = recording
-    try:
-        timed_step(make_step(ctx, n, depth, runner=loops.Eager()), ctx, n,
-                   params, target)
-    finally:
-        table_grad.table_grad = original
-    return {k: tuple(v) for k, v in seen.items()}
-
-
-def table_grad_phase(inputs: dict, names: dict, card: str) -> dict:
+def table_grad_phase(inputs: dict, names: dict, card: str,
+                     plain_reps: int = 100) -> dict:
     """G (`csrc/table_grad.cu`) against its plain version at the step's
-    inputs of each table: the float64 sum within the kernel's bound (its
-    source), the plain version (`index_put_`, today's backward) within
-    that bound plus f32 recursive summation's γ_count·Σ|g|, two launches
-    and the rows in another order bit for bit; its ms, the plain
-    version's and `index_add_`'s (the atomic library call), each over a
-    CUDA graph of 100 calls, and its bound by bytes."""
+    inputs of each table, (rows, g, calls a step, count): where count (on
+    the device) is given, G is called as the fused step calls it, on the
+    reverse kernel's whole buffer with that count, and every other form
+    takes the first count rows alone. The float64 sum within the kernel's
+    bound (its source), the plain version (`index_put_`, the checkpointed
+    route's backward) within that bound plus f32 recursive summation's
+    γ_count·Σ|g|, two launches and the counted rows given alone in another
+    order bit for bit; its ms and `index_add_`'s (the atomic library call),
+    each over a CUDA graph of 100 calls, the plain version's over
+    plain_reps, and its bound by bytes (the rows that count)."""
     out = {}
-    for shape, (rows, g, calls) in inputs.items():
+    for shape, (slot_rows, slot_g, calls, n_live) in inputs.items():
+        slots = slot_g.shape[0]
+        live = slots if n_live is None else int(n_live)
+        rows, g = slot_rows[:live].contiguous(), slot_g[:live].contiguous()
         n, c = g.shape
         r = int(np.prod(shape)) // c
-        got = table_grad.table_grad(rows, g, shape)
-        again = table_grad.table_grad(rows, g, shape)
+
+        def kernel():
+            return table_grad.table_grad(slot_rows, slot_g, shape,
+                                         count=n_live)
+
+        got = kernel()
+        again = kernel()
         perm = torch.randperm(n, device=g.device, generator=torch.Generator(
             device=g.device).manual_seed(0))
         permuted = table_grad.table_grad(rows[perm].contiguous(),
@@ -1998,28 +2024,32 @@ def table_grad_phase(inputs: dict, names: dict, card: str) -> dict:
         bits = torch.equal(got.view(torch.int32), again.view(torch.int32)) and (
             torch.equal(got.view(torch.int32), permuted.view(torch.int32)))
         flat = torch.zeros((r, c), device=g.device)
-        ms = profiling.graph_ms(lambda: table_grad.table_grad(rows, g, shape),
-                                100)
+        ms = profiling.graph_ms(kernel, 100)
         plain_ms = profiling.graph_ms(
-            lambda: table_grad.table_grad_reference(rows, g, shape), 100)
+            lambda: table_grad.table_grad_reference(rows, g, shape),
+            plain_reps)
         library_ms = profiling.graph_ms(
             lambda: flat.index_add_(0, rows, g), 100)
-        nbytes = 8 * n + 4 * n * c + 4 * r * c
+        nbytes = 8 * n + 4 * n * c + 4 * r * c + (0 if n_live is None else 4)
         bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         name = names.get(shape, str(shape))
         print(f"table_grad: {name} {tuple(shape)} ({table_grad.path_for(shape)}"
-              f" path), {n} rows of {c}, {calls} calls a step: kernel "
+              f" path), {n} rows of {c}"
+              f"{'' if n_live is None else f' counted on the device in a buffer of {slots}'}"
+              f", {calls} calls a step: kernel "
               f"{ms:.5f} ms, plain (index_put_) {plain_ms:.5f} ms, "
               f"index_add_ {library_ms:.5f} ms, bound {bound_ms:.5f} ms by "
               f"bytes ({bound_ms / ms:.2%}); max |kernel - plain| {err:.3e}, "
               f"within the fixed point's bound of the float64 sum "
               f"{ok_exact}, of the plain version (+ f32 summation's "
-              f"gamma·sum|g|) {ok_plain}; two launches and permuted rows bit "
-              f"for bit {bits} ({card})", flush=True)
+              f"gamma·sum|g|) {ok_plain}; two launches and permuted rows "
+              f"{'given alone ' if n_live is not None else ''}bit for bit "
+              f"{bits} ({card})", flush=True)
         if not (ok_exact and ok_plain and bits):
             raise AssertionError(f"table_grad disagrees on {name}")
         out[name] = dict(shape=list(shape), path=table_grad.path_for(shape),
-                         rows=n, width=c, calls_per_step=calls, ms=ms,
+                         rows=n, slots=slots, width=c, calls_per_step=calls,
+                         ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by="bytes",
                          max_abs_err=err)
@@ -2057,19 +2087,297 @@ def memory_per_bounce(ctx, n: int, depth: int, target, step, eager_peak_above,
     return out
 
 
-def step_bound_ms(n: int, depth: int, params, g_tables: dict) -> float:
-    """The least milliseconds of the Cornell step: its kernels' bounds
-    (the cipher entry's from its SASS, a bounce form of 12 uniforms a
-    bounce forward and in the recompute and a new sample with the camera;
-    G's by bytes, at its calls a step) and the bytes of its inputs and
+def diff_pairs(keys, rec_i, cnt, depth: int) -> tuple:
+    """(scatters, bounce pairs drawn) of the forward kernel's records: a
+    dielectric draws pair 3, a diffuse bounce pair 4 and then the light
+    sample's four pairs or the cosine lobe's one, by its us[4]
+    (csrc/draws.cuh); us[4] from the cipher entry, bounce by bounce."""
+    code = rec_i & ((1 << diff_trace.CODE_BITS) - 1)
+    live = torch.arange(depth, device=rec_i.device)[:, None] < cnt[None, :]
+    scatters = pairs = 0
+    for k in range(depth):
+        diffuse = live[k] & (code[k] == diff_trace.SCATTER)
+        glass = live[k] & (code[k] == diff_trace.REFRACT)
+        if not bool((diffuse | glass).any()):
+            break
+        u4 = rng.bounce_uniforms(keys, k, 12)[:, 4]
+        scatters += int(diffuse.sum()) + int(glass.sum())
+        pairs += int(glass.sum()) + int(
+            torch.where(diffuse, torch.where(u4 < 0.5, 5, 2), 0).sum())
+    return scatters, pairs
+
+
+def counting_bvh(ctx):
+    """The BVH4 kernel's intersector over ctx's tree that adds the (nodes
+    popped, primitives tested) of each ray not parked outside the scene to
+    `.counts`: the traversal the forward kernel's BVH form runs
+    (bvh4.cuh), counted for its bound."""
+    ks, cs = ctx.intersect.ks, ctx.intersect.cs
+
+    def intersect(o, d, time, t_min, t_max):
+        t, idx, c = bvh_kernel.closest_hit(ks, o.contiguous(), d.contiguous(),
+                                           time.contiguous(), t_min, t_max,
+                                           counts=True)
+        live = o[:, 0] < 0.5 * path.PARK
+        intersect.counts += c[live].sum(dim=0)
+        return primitives.finalize_hit(cs.prims, o, d, time, t, idx, idx >= 0)
+
+    intersect.counts = torch.zeros(2, dtype=torch.int64, device=ctx.device)
+    return intersect
+
+
+def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
+                      card: str, plain_intersect=None, plain_n=None) -> dict:
+    """The fused route's kernels (`ops.diff_trace`) against their plain
+    versions on the card at the step's camera rays: the forward kernel
+    (its BVH form through the context's tree) against `forward_reference`
+    through `plain_intersect` (by default the context's) at plain_n² (by
+    default n²) within phase 4's tolerances, and on the paths that take the
+    same branches its records within rtol 1e-4; the reverse kernel on the
+    plain forward's records at the step's own cotangent of the radiance
+    (the loss's against `target`, through DeNAN) bit for bit on its slots
+    (one a record; their count on the device must equal the rays); G on
+    the reverse kernel's slots and count through `table_grad_phase`. Then
+    each kernel's ms at n² (CUDA events; the reverse kernel's over a CUDA
+    graph of 20 calls) beside its plain version's and
+    its bound: the forward's from the SASS probes' units (the draws its
+    records hold, the primitives every ray tests or, for the BVH form, the
+    nodes and tests of its traversal) and its bytes, its records among
+    them; the reverse's by bytes (its records, ray counts, the step's
+    cotangent and the texture rows read once, a slot a record and the
+    count written once)."""
+    dev = ctx.device
+    meta = ctx.meta
+    scene = diff_trace.prepare(ctx.cs, meta, ctx.intersect)
+    if scene is None:
+        raise AssertionError(f"{label}: the scene does not take the fused "
+                             f"route")
+    s = path.RenderSettings(max_depth=depth)
+    cs_p = dist.inject_params(ctx.cs, {k: v.detach()
+                                       for k, v in params.items()})
+    c0, c1 = cs_p.textures.c0, cs_p.textures.c1
+
+    def rays_of(m):
+        xs, ys = train_pixels(m, dev)
+        return tuple(x.contiguous() for x in renderer.camera_rays(
+            cs_p, rng.render_key(0, device=dev), xs, ys, m, m, 0))
+
+    def fwd(rays):
+        return diff_trace.forward(scene, cs_p, meta, s, ctx.intersect, *rays)
+
+    m = plain_n or n
+    small = rays_of(m)
+    zero_counts()
+    got = fwd(small)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["diff_trace_fwd"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"{label}: the forward kernel's wrapper "
+                             f"launched {counts}")
+    plain_int = plain_intersect or ctx.intersect
+    want = diff_trace.forward_reference(cs_p, meta, s, plain_int, *small)
+    rays_k, rays_p = int(got[1].sum()), int(want[1].sum())
+    fwd_err = image_close(f"{label}: diff_trace_fwd vs its plain version "
+                          f"{m}x{m} depth {depth}", vm.de_nan(got[0]), rays_k,
+                          vm.de_nan(want[0]), rays_p, 1)
+    live = torch.arange(depth, device=dev)[:, None] < want[1][None, :]
+    same = (got[1] == want[1]) & ((got[3] == want[3]) | ~live).all(0)
+    keep = live & same[None, :]
+    rec_err = float(((got[2][keep] - want[2][keep]).abs() / (
+        1e-6 + want[2][keep].abs())).max()) if bool(keep.any()) else 0.0
+    share = float(same.float().mean())
+    rec_ok = bool(torch.allclose(got[2][keep], want[2][keep], rtol=1e-4,
+                                 atol=1e-6))
+    print(f"{label}: diff_trace_fwd records: paths taking the plain "
+          f"version's branches {share:.6f} (tol {PIXEL_SHARE}), their "
+          f"records within rtol 1e-4 {rec_ok} (largest relative difference "
+          f"{rec_err:.3e}); rays equal {rays_k == rays_p} ({card})",
+          flush=True)
+    if not (share >= PIXEL_SHARE and rec_ok):
+        raise AssertionError(f"{label}: the forward kernel's records differ")
+
+    # The reverse kernel at the step's own cotangent of the radiance.
+    color = vm.de_nan(want[0])
+    tgt = target if m == n else torch.full_like(color, 0.25)
+    g_rad = torch.where(torch.isfinite(want[0]),
+                        2.0 * (color - tgt) / float(m * m * 3),
+                        torch.zeros((), device=dev)).contiguous()
+    zero_counts()
+    rows, g, count = diff_trace.reverse(scene, want[2], want[3], want[1],
+                                        g_rad, c0, c1, s)
+    torch.cuda.synchronize()
+    if read_counts()["diff_trace_bwd"] != 1:
+        raise AssertionError(f"{label}: the reverse kernel did not launch")
+    w_rows, w_g, w_count = diff_trace.reverse_reference(
+        want[2], want[3], want[1], g_rad, c0, c1, s, scene.checker)
+    slots = int(count)
+    bwd_bits = slots == int(w_count) == rays_p and torch.equal(
+        rows[:slots], w_rows[:slots]) and torch.equal(
+        g[:slots].view(torch.int32), w_g[:slots].view(torch.int32))
+    print(f"{label}: diff_trace_bwd vs its plain version on the plain "
+          f"forward's records ({m}x{m}, {slots} slots, one a record, of a "
+          f"buffer of {rows.shape[0]}): bit for bit {bwd_bits} ({card})",
+          flush=True)
+    if not bwd_bits:
+        raise AssertionError(f"{label}: the reverse kernel differs")
+    n_rows = scene.n_tex * (2 if scene.checker else 1)
+    g_tab = table_grad_phase({(n_rows, 3): (rows, g, 1, count)},
+                             {(n_rows, 3): "tex_c0" + (
+                                 "/tex_c1" if scene.checker else "")}, card,
+                             plain_reps=3)
+
+    # Times and bounds at the step's frame.
+    big = rays_of(n) if m != n else small
+    rad, cnt, rec_f, rec_i = fwd(big)
+    rays = int(cnt.sum())
+    ms = cuda_ms(lambda: fwd(big), 10)
+    plain_ms = cuda_ms(lambda: diff_trace.forward_reference(
+        cs_p, meta, s, plain_int, *big), 1)
+    if m == n:
+        g_big = g_rad
+    else:
+        g_big = torch.where(torch.isfinite(rad), 2.0 * (vm.de_nan(rad) - target)
+                            / float(n * n * 3), torch.zeros((), device=dev))
+    g_big = g_big.contiguous()
+    # A CUDA graph of 20 calls, as G's time is taken: the wrapper's host
+    # cost (its buffers, the ctypes call) is no part of the kernel's.
+    bwd_ms = profiling.graph_ms(lambda: diff_trace.reverse(
+        scene, rec_f, rec_i, cnt, g_big, c0, c1, s), 20)
+    bwd_plain_ms = cuda_ms(lambda: diff_trace.reverse_reference(
+        rec_f, rec_i, cnt, g_big, c0, c1, s, scene.checker), 2)
+    scatters, pairs = diff_pairs(big[3], rec_i, cnt, depth)
+    trav = None
+    if scene.bvh is not None:
+        counting = counting_bvh(ctx)
+        check = diff_trace.forward_reference(cs_p, meta, s, counting, *big)
+        if int(check[1].sum()) != rays:
+            raise AssertionError(f"{label}: the counted traversal's rays "
+                                 f"differ")
+        trav = tuple(int(x) for x in counting.counts)
+    tables = [scene.prim_f, scene.prim_i, scene.mat_f, scene.mat_i,
+              scene.light_f, scene.light_i, c0, c1, *big]
+    if scene.bvh is not None:
+        tables += [scene.bvh.nodes, scene.bvh.prim_table]
+    n_paths = n * n
+    rec_bytes = rays * 4 * (diff_trace.REC_F + 1)
+    bound, by, what = sass_bound_ms(
+        rays, 0, ctx.cs.prims.kind.tolist(), False,
+        rec_bytes + n_paths * (12 + 4), tensor_bytes(tables),
+        (scatters, pairs), trav)
+    # Read: the records, each path's count and cotangent, the texture rows;
+    # written: a (row int64, cotangent f32 × 3) slot a record, the count.
+    bwd_bytes = (rec_bytes + n_paths * (4 + 12) + tensor_bytes([c0, c1])
+                 + rays * (8 + 12) + 4)
+    bwd_bound = 1e3 * bwd_bytes / HBM_BYTES_PER_S
+    walk = ("" if trav is None else f", {trav[0]} nodes popped and "
+            f"{trav[1]} primitives tested ({trav[0] / rays:.4f} and "
+            f"{trav[1] / rays:.4f} a ray)")
+    print(f"{label}: diff_trace_fwd {n}x{n} depth {depth}: {rays} rays, "
+          f"{scatters} scatters drawing {pairs} pairs{walk}, {rec_bytes} "
+          f"record bytes: {ms:.4f} ms a launch, plain {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms by {what} ({bound / ms:.2%}) ({card})",
+          flush=True)
+    print(f"{label}: diff_trace_bwd {n}x{n}, {rays} slots (one a record): "
+          f"{bwd_ms:.4f} ms a call (a CUDA graph of 20), plain "
+          f"{bwd_plain_ms:.4f} ms, bound "
+          f"{bwd_bound:.4f} ms by bytes ({bwd_bytes} B, "
+          f"{bwd_bound / bwd_ms:.2%}) ({card})", flush=True)
+    return dict(fwd=dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, max_abs_err=fwd_err, rays=rays,
+                         rays_equal_at_plain_frame=rays_k == rays_p,
+                         plain_frame=m, branch_share=share,
+                         scatters=scatters, pairs=pairs, traversal=trav,
+                         record_bytes=rec_bytes),
+                bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound,
+                         bound_by="bytes", max_abs_err=0.0, bytes=bwd_bytes),
+                table_grad=g_tab)
+
+
+def step_bound_ms(n: int, fused: dict, params) -> float:
+    """The least milliseconds of a fused step at n², 1 spp: its kernels'
+    bounds (the cipher's new-sample form from its SASS, the forward and
+    reverse kernels', G's at its call) and the bytes of its inputs and
     outputs (parameters in, gradients out; pixels, target, key). PyTorch's
     own ops are not counted."""
     rays = n * n
-    cipher = (2 * depth * cipher_bound("bounce", rays, 12)[0]
-              + cipher_bound("new_sample", rays, 5)[0])
-    g = sum(t["calls_per_step"] * t["bound_ms"] for t in g_tables.values())
+    cipher = cipher_bound("new_sample", rays, 5)[0]
+    g = sum(t["calls_per_step"] * t["bound_ms"]
+            for t in fused["table_grad"].values())
     nbytes = 2 * tensor_bytes(params.values()) + rays * (8 + 8 + 12) + 16
-    return cipher + g + 1e3 * nbytes / HBM_BYTES_PER_S
+    return (cipher + fused["fwd"]["bound_ms"] + fused["bwd"]["bound_ms"] + g
+            + 1e3 * nbytes / HBM_BYTES_PER_S)
+
+
+def tight_agreement(label: str, got: dict, want: dict, card: str) -> dict:
+    """Raise unless two steps (the fused and the checkpointed, whose rays
+    `steps_agree` has held equal) have equal losses and every gradient
+    entry within G's tolerances (rtol STEP_TIGHT_RTOL, atol
+    STEP_TIGHT_ATOL · max|g| of its table); returns the loss's relative
+    difference and the largest ratio of a difference to that bound."""
+    worst = 0.0
+    for k, w in want["grads"].items():
+        bound = (STEP_TIGHT_RTOL * np.abs(w)
+                 + STEP_TIGHT_ATOL * max(float(np.abs(w).max()), 1e-30))
+        worst = max(worst, float((np.abs(got["grads"][k] - w) / bound).max()))
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    out = dict(rays_equal=got["rays"] == want["rays"], loss_rel=loss_rel,
+               within_g_tolerances=worst <= 1.0, worst_ratio=worst)
+    print(f"{label}: rays equal {out['rays_equal']} ({got['rays']} vs "
+          f"{want['rays']}), loss relative difference {loss_rel:.3e}, every "
+          f"gradient within rtol {STEP_TIGHT_RTOL} + atol {STEP_TIGHT_ATOL}"
+          f"·max|g| {worst <= 1.0} (largest difference {worst:.3f} of its "
+          f"bound) ({card})", flush=True)
+    if not (out["rays_equal"] and got["loss"] == want["loss"]
+            and out["within_g_tolerances"]):
+        raise AssertionError(f"{label}: the steps differ beyond G's "
+                             f"tolerances")
+    return out
+
+
+def fused_replay(label: str, s: dict, want_g: int = 1) -> None:
+    """Raise unless a replay of a fused step launched the new-sample
+    cipher, the forward and the reverse kernel once each, G `want_g`
+    times, no bounce-form cipher, and nothing else."""
+    want = {k: 0 for k in s["counts"]}
+    want.update(threefry=1, diff_trace_fwd=1, diff_trace_bwd=1,
+                table_grad=want_g)
+    if s["counts"] != want or s["bounce_cipher"] != 0:
+        raise AssertionError(f"{label}: a replay launched {s['counts']} "
+                             f"({s['bounce_cipher']} in the cipher's bounce "
+                             f"form), not {want} (none)")
+
+
+def profiled_replay(label: str, step, ctx, n: int, params, target,
+                    card: str) -> dict:
+    """One replay of a captured fused step under torch.profiler: its wall,
+    the device's busy time and idle share, its device records, the
+    largest rows; raise unless the records name the forward and the
+    reverse kernel once each and no checkpoint recompute ran (no
+    bounce-form cipher kernel)."""
+    xs, ys = train_pixels(n, ctx.device)
+    wall, busy, top = profiling.device_profile(lambda: step(
+        params, xs, ys, target, rng.render_key(0, device=ctx.device)))
+    records = sum(c for _, _, c in top)
+
+    def named(tag):
+        return sum(c for _, name, c in top if tag in name)
+
+    fwd, bwd, bounce = (named("diff_trace_fwd"), named("diff_trace_bwd"),
+                        named("bounce_tiles"))
+    print(f"{label} profile: a replay under torch.profiler: wall "
+          f"{wall:.5f} s, device busy {busy:.5f} s, idle share "
+          f"{1 - busy / wall:.2%}, {records} device records; "
+          f"diff_trace_fwd {fwd}, diff_trace_bwd {bwd}, bounce-form cipher "
+          f"{bounce} ({card})", flush=True)
+    for dt, name, count in top[:10]:
+        print(f"  {dt / 1e3:10.4f} ms  x{count}  {name[:90]}", flush=True)
+    if not (fwd == 1 and bwd == 1 and bounce == 0):
+        raise AssertionError(f"{label}: the profiled replay ran the forward "
+                             f"kernel {fwd} times, the reverse {bwd}, the "
+                             f"bounce-form cipher {bounce}")
+    return dict(wall=wall, busy=busy, idle_share=1 - busy / wall,
+                records=records,
+                top=[(dt, name[:120], c) for dt, name, c in top[:10]])
 
 
 def training_phases(card: str) -> dict:
@@ -2087,19 +2395,29 @@ def training_phases(card: str) -> dict:
     params = scaled_params(ctx.cs)
     fwd, fwd_rays = forward_counts(ctx, n, depth, params)
     early, early_rays = forward_counts(ctx, n, depth, params, early_exit=True)
-    print(f"training step: cornell_box {n}x{n}@1 depth {depth}: the fixed "
-          f"trip runs {fwd['threefry'] - 1} bounces, the early exit (the "
-          f"eager step before) ran {early['threefry'] - 1}; rays "
-          f"{fwd_rays} vs {early_rays} ({card})", flush=True)
+    fused_fwd, fused_rays = forward_counts(
+        ctx, n, depth, params,
+        route=diff_trace.prepare(ctx.cs, ctx.meta, ctx.intersect))
+    print(f"training step: cornell_box {n}x{n}@1 depth {depth}: the "
+          f"checkpointed bounces' fixed trip runs {fwd['threefry'] - 1} "
+          f"bounces, the early exit {early['threefry'] - 1}; rays "
+          f"{fwd_rays} vs {early_rays}; the fused route's forward {fused_rays} "
+          f"rays, launches {fused_fwd} ({card})", flush=True)
     if fwd_rays != early_rays or fwd["threefry"] != depth + 1:
         raise AssertionError("the fixed trip and the early exit differ")
+    if fused_fwd["diff_trace_fwd"] != 1 or fused_fwd["threefry"] != 1:
+        raise AssertionError("the fused forward did not run its kernel once")
+    kernels = diff_kernel_phase("phase 16 cornell_box", ctx, n, depth, params,
+                                target, card)
     step = make_step(ctx, n, depth)
+    if not isinstance(step.route, diff_trace.DiffScene):
+        raise AssertionError("the Cornell step does not take the fused route")
     steps = []
     for i in range(TRAIN_STEPS):
         s = timed_step(step, ctx, n, params, target)
         steps.append(s)
-        print(f"training step {i} (captured): cornell_box {n}x{n}@1 depth "
-              f"{depth}: loss {s['loss']:.7f}, {s['seconds']:.4f} s, "
+        print(f"training step {i} (captured, fused): cornell_box {n}x{n}@1 "
+              f"depth {depth}: loss {s['loss']:.7f}, {s['seconds']:.5f} s, "
               f"{s['rays']} rays, launches {s['counts']}, "
               f"max_memory_allocated {s['peak'] / 2**20:.1f} MiB "
               f"({s['peak_above'] / 2**20:.1f} MiB above the step's start) "
@@ -2111,48 +2429,52 @@ def training_phases(card: str) -> dict:
     runner = step.runner
     secs = [s["seconds"] for s in steps]
     median = float(np.median(secs[1:]))
-    launches = replay_counts("phase 16", steps[1], fwd, {"threefry": 2 * depth
-                                                         + 1})
-    print(f"training step (captured): cornell_box {n}x{n}@1 depth {depth}, "
-          f"lr {TRAIN_LR}: loss {steps[0]['loss']:.7f} at step 0, "
+    for s in steps[1:] + [after]:
+        fused_replay("phase 16", s)
+    print(f"training step (captured, fused): cornell_box {n}x{n}@1 depth "
+          f"{depth}, lr {TRAIN_LR}: loss {steps[0]['loss']:.7f} at step 0, "
           f"{after['loss']:.7f} after {TRAIN_STEPS} steps; first call "
           f"{secs[0]:.4f} s (warm-up, capture {runner.capture_seconds:.4f} s, "
-          f"replay); median of the last {TRAIN_STEPS - 1} steps {median:.4f} "
+          f"replay); median of the last {TRAIN_STEPS - 1} steps {median:.5f} "
           f"s ({n * n / median / 1e6:.4f} M pixel-samples/s, "
           f"{steps[0]['rays'] / median / 1e6:.3f} Mrays/s forward); the "
           f"graph holds {runner.capture_bytes / 2**20:.1f} MiB; a replay "
-          f"launches {steps[1]['counts']}: the cipher entry "
-          f"{launches['threefry']} ({card})", flush=True)
+          f"launches {steps[1]['counts']} ({card})", flush=True)
     if not after["loss"] < steps[0]["loss"]:
         raise AssertionError("the loss did not fall over the steps")
     if runner.replays != TRAIN_STEPS + 1 or runner.trips != TRAIN_STEPS + 2:
         raise AssertionError(f"the step ran {runner.trips} times, "
                              f"{runner.replays} replayed")
-    versus = captured_vs_eager("training step cornell_box 256", ctx, n, depth,
-                               params, target, step, card)
-    print(f"training step: cornell_box {n}x{n}@1 depth {depth}: captured "
-          f"{median:.4f} s (median of steps 1-{TRAIN_STEPS - 1}) against "
-          f"eager {versus['eager_seconds']:.4f} s (median of its runs after "
-          f"the first: {versus['eager_seconds_all']}), "
-          f"{versus['eager_seconds'] / median:.2f}x ({card})", flush=True)
-    xs, ys = train_pixels(n, ctx.device)
-    wall, busy, top = profiling.device_profile(lambda: step(
-        params, xs, ys, target, rng.render_key(0, device="cuda")))
-    print(f"training step profile: a replay of cornell_box {n}x{n}@1 depth "
-          f"{depth} under torch.profiler: wall {wall:.4f} s, device busy "
-          f"{busy:.4f} s, idle share {1 - busy / wall:.2%}, "
-          f"{sum(c for _, _, c in top)} device records ({card})", flush=True)
-    for dt, name, count in top[:8]:
-        print(f"  {dt / 1e3:10.3f} ms  x{count}  {name[:90]}", flush=True)
+    versus = captured_vs_eager("training step cornell_box 256 (fused)", ctx,
+                               n, depth, params, target, step, card)
+    # The checkpointed bounces captured, at the same parameters.
+    ckpt = make_step(ctx, n, depth, route="checkpoint")
+    c_warm = timed_step(ckpt, ctx, n, params, target)
+    c_runs = [timed_step(ckpt, ctx, n, params, target) for _ in range(2)]
+    c_launch = replay_counts("phase 16 checkpointed", c_runs[0], fwd,
+                             {"threefry": 2 * depth + 1})
+    ckpt_s = float(np.median([r["seconds"] for r in c_runs]))
+    f_now = timed_step(step, ctx, n, params, target)
+    fused_err = steps_agree(f"training step cornell_box {n}x{n}@1 depth "
+                            f"{depth}, fused (captured) vs checkpointed "
+                            f"(captured)", f_now, c_runs[0], card)
+    fused_tight = tight_agreement("cornell_box fused vs checkpointed", f_now,
+                                  c_runs[0], card)
+    print(f"training step: cornell_box {n}x{n}@1 depth {depth}: fused "
+          f"captured {median:.5f} s (median of steps 1-{TRAIN_STEPS - 1}), "
+          f"checkpointed captured {ckpt_s:.5f} s (its first call "
+          f"{c_warm['seconds']:.4f} s, capture "
+          f"{ckpt.runner.capture_seconds:.4f} s), fused eager "
+          f"{versus['eager_seconds']:.5f} s; {ckpt_s / median:.2f}x the "
+          f"checkpointed step; rays {f_now['rays']} vs {c_runs[0]['rays']} "
+          f"({card})", flush=True)
+    del ckpt
+    torch.cuda.empty_cache()
+    prof = profiled_replay("training step cornell_box 256 (fused)", step, ctx,
+                           n, params, target, card)
     memory = memory_per_bounce(ctx, n, depth, target, step,
                                versus["eager"]["peak_above"], card)
-    names = {}
-    for k, v in dist.extract_params(ctx.cs).items():
-        shape = tuple(v.shape)
-        names[shape] = f"{names[shape]}/{k}" if shape in names else k
-    grad_inputs = table_grad_inputs(ctx, n, depth, params, target)
-    g_tables = table_grad_phase(grad_inputs, names, card)
-    step_bound = step_bound_ms(n, depth, params, g_tables)
+    step_bound = step_bound_ms(n, kernels, params)
     # The card against the CPU, the card's step captured.
     mark("phase 16 before the CPU")
     n_c, d_c = TRAIN_VS_CPU
@@ -2165,79 +2487,114 @@ def training_phases(card: str) -> dict:
             raise AssertionError("the card's step is not captured")
         runs[dev] = timed_step(st, c, n_c, scaled_params(c.cs), grey)
     cpu_err = steps_agree(f"training step {n_c}x{n_c}@1 depth {d_c}, card "
-                          f"(captured) vs CPU", runs["cuda"], runs["cpu"],
-                          card)
+                          f"(captured, fused) vs CPU (fused, plain versions)",
+                          runs["cuda"], runs["cpu"], card)
     # The entry point's demo step, captured on the card.
     zero_counts()
     demo_loss, _ = entry.train_step_demo()
     demo_counts = read_counts()
     print(f"entry.train_step_demo(): loss {float(demo_loss):.7f}, launches "
           f"{demo_counts} ({card})", flush=True)
-    if not demo_counts["table_grad"] or not demo_counts["threefry"]:
+    if not (demo_counts["table_grad"] and demo_counts["threefry"]
+            and demo_counts["diff_trace_fwd"]):
         raise AssertionError("the demo step did not run the step's kernels")
     out["cornell"] = dict(
         frame=n, depth=depth, losses=[s["loss"] for s in steps],
         loss_after=after["loss"], seconds=secs, median_seconds=median,
         eager_seconds=versus["eager_seconds"],
         eager_seconds_all=versus["eager_seconds_all"],
+        checkpointed_seconds=ckpt_s,
+        checkpointed_seconds_all=[r["seconds"] for r in c_runs],
+        checkpointed_launches_per_replay=c_runs[0]["counts"],
+        checkpointed_cipher_forward=c_launch["threefry"]["forward"],
+        checkpointed_cipher_recompute=c_launch["threefry"]["recompute"],
+        max_grad_err_vs_checkpointed=fused_err,
+        vs_checkpointed=fused_tight,
         capture_seconds=runner.capture_seconds,
         graph_bytes=runner.capture_bytes, replays=runner.replays,
-        profiled_wall=wall, profiled_busy=busy,
-        profiled_idle_share=1 - busy / wall,
+        profiled_wall=prof["wall"], profiled_busy=prof["busy"],
+        profiled_idle_share=prof["idle_share"],
+        profiled_records=prof["records"], profiled_top=prof["top"],
         rays=steps[0]["rays"], launches_per_replay=steps[1]["counts"],
         cipher_launches=steps[1]["counts"]["threefry"],
-        cipher_forward=launches["threefry"]["forward"],
-        cipher_recompute=launches["threefry"]["recompute"],
+        bounce_cipher_per_replay=steps[1]["bounce_cipher"],
         early_exit_bounces=early["threefry"] - 1,
         fixed_trip_bounces=fwd["threefry"] - 1,
         max_grad_err_vs_eager=versus["max_grad_err_vs_eager"],
         peak_bytes=[s["peak"] for s in steps], memory=memory,
-        table_grad=g_tables, table_grad_launches=steps[1]["counts"][
-            "table_grad"], bound_ms=step_bound,
+        kernels=kernels, table_grad=kernels["table_grad"],
+        table_grad_launches=steps[1]["counts"]["table_grad"],
+        bound_ms=step_bound,
         vs_cpu=dict(frame=n_c, depth=d_c, max_grad_err=cpu_err))
-    del ctx, target, params, step, versus, grad_inputs
+    del ctx, target, params, step, versus
     torch.cuda.empty_cache()
 
     mark("phase 16")
-    # 17. cornell_box_obj through the BVH4 kernel.
+    # 17. cornell_box_obj through its BVH4: the forward kernel's BVH form.
     octx = renderer.RenderContext(cornell_box_obj(), device="cuda")
     grey = torch.full((n * n, 3), 0.25, device="cuda")
     params = scaled_params(octx.cs)
-    fwd, fwd_rays = forward_counts(octx, n, depth, params)
-    early, _ = forward_counts(octx, n, depth, params, early_exit=True)
-    ostep = make_step(octx, n, depth)
-    warm = timed_step(ostep, octx, n, params, grey)
-    s = timed_step(ostep, octx, n, params, grey)
-    launches = replay_counts("phase 17", s, fwd, {"bvh_kernel": 2 * depth,
-                                                  "threefry": 2 * depth + 1})
-    print(f"training step (captured): cornell_box_obj {n}x{n}@1 depth "
-          f"{depth} through the BVH4 kernel: loss {s['loss']:.7f}, "
-          f"{s['seconds']:.4f} s (first call {warm['seconds']:.4f} s, capture "
-          f"{ostep.runner.capture_seconds:.4f} s, the graph "
-          f"{ostep.runner.capture_bytes / 2**20:.1f} MiB), {s['rays']} rays; "
-          f"the early exit ran {early['threefry'] - 1} bounces; a replay "
-          f"launches {s['counts']}: BVH4 kernel {launches['bvh_kernel']}, "
-          f"cipher entry {launches['threefry']} ({card})", flush=True)
-    if fwd_rays != s["rays"]:
-        raise AssertionError("the step's rays differ from its forward's")
-    oversus = captured_vs_eager("training step cornell_box_obj 256", octx, n,
-                                depth, params, grey, ostep, card,
-                                eager_runs=1)
-    n_p = TRAIN_VS_PLAIN
     plain = functools.partial(traverse.intersect_bvh, octx.cs.prims,
                               octx.intersect.ks.tree)
+    fwd, fwd_rays = forward_counts(octx, n, depth, params)
+    okernels = diff_kernel_phase("phase 17 cornell_box_obj", octx, n, depth,
+                                 params, grey, card, plain_intersect=plain,
+                                 plain_n=TRAIN_VS_PLAIN)
+    ostep = make_step(octx, n, depth)
+    if not isinstance(ostep.route, diff_trace.DiffScene) or (
+            ostep.route.bvh is None):
+        raise AssertionError("cornell_box_obj's step does not take the fused "
+                             "route's BVH form")
+    warm = timed_step(ostep, octx, n, params, grey)
+    s = timed_step(ostep, octx, n, params, grey)
+    fused_replay("phase 17", s)
+    print(f"training step (captured, fused): cornell_box_obj {n}x{n}@1 depth "
+          f"{depth} through the forward kernel's BVH form: loss "
+          f"{s['loss']:.7f}, {s['seconds']:.5f} s (first call "
+          f"{warm['seconds']:.4f} s, capture "
+          f"{ostep.runner.capture_seconds:.4f} s, the graph "
+          f"{ostep.runner.capture_bytes / 2**20:.1f} MiB), {s['rays']} rays; "
+          f"a replay launches {s['counts']} ({card})", flush=True)
+    if fwd_rays != s["rays"]:
+        raise AssertionError("the step's rays differ from the checkpointed "
+                             "forward's")
+    oversus = captured_vs_eager("training step cornell_box_obj 256 (fused)",
+                                octx, n, depth, params, grey, ostep, card,
+                                eager_runs=1)
+    ockpt = make_step(octx, n, depth, route="checkpoint")
+    oc_warm = timed_step(ockpt, octx, n, params, grey)
+    oc = timed_step(ockpt, octx, n, params, grey)
+    oc_launch = replay_counts("phase 17 checkpointed", oc, fwd,
+                              {"bvh_kernel": 2 * depth,
+                               "threefry": 2 * depth + 1})
+    oc_capture = ockpt.runner.capture_seconds
+    ofused_err = steps_agree(f"training step cornell_box_obj {n}x{n}@1 depth "
+                             f"{depth}, fused (captured) vs checkpointed "
+                             f"(captured)", s, oc, card)
+    ofused_tight = tight_agreement("cornell_box_obj fused vs checkpointed", s,
+                                   oc, card)
+    print(f"training step: cornell_box_obj {n}x{n}@1 depth {depth}: fused "
+          f"captured {s['seconds']:.5f} s, checkpointed captured "
+          f"{oc['seconds']:.5f} s (first call {oc_warm['seconds']:.4f} s, "
+          f"capture {oc_capture:.4f} s; B3 "
+          f"{oc_launch['bvh_kernel']}), {oc['seconds'] / s['seconds']:.2f}x "
+          f"({card})", flush=True)
+    del ockpt
+    torch.cuda.empty_cache()
+    n_p = TRAIN_VS_PLAIN
     gp = torch.full((n_p * n_p, 3), 0.25, device="cuda")
     kern = timed_step(make_step(octx, n_p, depth), octx, n_p,
                       scaled_params(octx.cs), gp)
     ref = timed_step(make_step(octx, n_p, depth, intersect=plain,
                                runner=loops.Eager()), octx, n_p,
                      scaled_params(octx.cs), gp)
-    if ref["counts"]["bvh_kernel"] or not kern["counts"]["bvh_kernel"]:
-        raise AssertionError("the plain step launched the kernel, or the "
-                             "kernel step did not")
+    if ref["counts"]["bvh_kernel"] or ref["counts"]["diff_trace_fwd"] or (
+            not kern["counts"]["diff_trace_fwd"]):
+        raise AssertionError("the plain step launched a kernel of the fused "
+                             "route, or the fused step did not")
     plain_err = steps_agree(f"training step {n_p}x{n_p}@1 depth {depth}, "
-                            f"BVH4 kernel (captured) vs plain traversal "
-                            f"(eager) on the card", kern, ref, card)
+                            f"fused BVH form (captured) vs checkpointed plain "
+                            f"traversal (eager) on the card", kern, ref, card)
     out["cornell_box_obj"] = dict(
         frame=n, depth=depth, loss=s["loss"], seconds=s["seconds"],
         first_call_seconds=warm["seconds"],
@@ -2246,15 +2603,18 @@ def training_phases(card: str) -> dict:
         eager_seconds=oversus["eager_seconds"],
         eager_seconds_all=oversus["eager_seconds_all"],
         max_grad_err_vs_eager=oversus["max_grad_err_vs_eager"],
+        checkpointed_seconds=oc["seconds"],
+        checkpointed_capture_seconds=oc_capture,
+        checkpointed_launches_per_replay=oc["counts"],
+        checkpointed_bvh_forward=oc_launch["bvh_kernel"]["forward"],
+        checkpointed_bvh_recompute=oc_launch["bvh_kernel"]["recompute"],
+        checkpointed_cipher_forward=oc_launch["threefry"]["forward"],
+        checkpointed_cipher_recompute=oc_launch["threefry"]["recompute"],
+        max_grad_err_vs_checkpointed=ofused_err,
+        vs_checkpointed=ofused_tight,
         rays=s["rays"], peak_bytes=s["peak"],
         launches_per_replay=s["counts"],
-        bvh_launches=s["counts"]["bvh_kernel"],
-        bvh_forward=launches["bvh_kernel"]["forward"],
-        bvh_recompute=launches["bvh_kernel"]["recompute"],
-        cipher_launches=s["counts"]["threefry"],
-        cipher_forward=launches["threefry"]["forward"],
-        cipher_recompute=launches["threefry"]["recompute"],
-        early_exit_bounces=early["threefry"] - 1,
+        bounce_cipher_per_replay=s["bounce_cipher"], kernels=okernels,
         vs_plain=dict(frame=n_p, max_grad_err=plain_err,
                       kernel_seconds=kern["seconds"],
                       plain_seconds=ref["seconds"]))
@@ -2979,6 +3339,13 @@ def main() -> None:
         if name not in usage:
             raise AssertionError(f"no ptxas report of {name} in {log}")
     trav_build = traversal_build(usage, "grid")
+    for name in ("diff_trace_fwd", "diff_trace_fwd_bvh", "diff_trace_bwd"):
+        if name not in usage:
+            raise AssertionError(f"no ptxas report of {name} in {log}")
+        u = usage[name]
+        print(f"grid: {name}: {u.registers} registers, spill stores "
+              f"{u.spill_stores} B, loads {u.spill_loads} B, stack frame "
+              f"{u.stack_frame} B; one thread a path, 128 a block", flush=True)
 
     # 3. Cipher, bit for bit.
     rs = np.random.RandomState(0)
@@ -3596,9 +3963,13 @@ def main() -> None:
             "launches_distributed": dist_launches(distributed, "bvh_kernel",
                                                   "bvh4_traverse"),
             "launches_per_training_step": {
-                "cornell_box_obj_256_depth50": {
-                    "forward": train["cornell_box_obj"]["bvh_forward"],
-                    "recompute": train["cornell_box_obj"]["bvh_recompute"]}},
+                "cornell_box_obj_256_depth50_fused": train["cornell_box_obj"][
+                    "launches_per_replay"]["bvh_kernel"],
+                "cornell_box_obj_256_depth50_checkpointed": {
+                    "forward": train["cornell_box_obj"][
+                        "checkpointed_bvh_forward"],
+                    "recompute": train["cornell_box_obj"][
+                        "checkpointed_bvh_recompute"]}},
             "ms_per_launch_dragon_main_path":
                 dragon_runs["bvh4_traverse"]["ms_per_launch"],
             "final_main_path": {
@@ -3643,12 +4014,20 @@ def main() -> None:
             "launches_distributed": dist_launches(
                 distributed, "threefry", "izpi_threefry_uniforms"),
             "launches_per_training_step": {
-                "cornell_256_depth50": {
-                    "forward": train["cornell"]["cipher_forward"],
-                    "recompute": train["cornell"]["cipher_recompute"]},
-                "cornell_box_obj_256_depth50": {
-                    "forward": train["cornell_box_obj"]["cipher_forward"],
-                    "recompute": train["cornell_box_obj"]["cipher_recompute"]}},
+                "cornell_256_depth50_fused": train["cornell"][
+                    "bounce_cipher_per_replay"],
+                "cornell_box_obj_256_depth50_fused": train[
+                    "cornell_box_obj"]["bounce_cipher_per_replay"],
+                "cornell_256_depth50_checkpointed": {
+                    "forward": train["cornell"][
+                        "checkpointed_cipher_forward"] - 1,
+                    "recompute": train["cornell"][
+                        "checkpointed_cipher_recompute"]},
+                "cornell_box_obj_256_depth50_checkpointed": {
+                    "forward": train["cornell_box_obj"][
+                        "checkpointed_cipher_forward"] - 1,
+                    "recompute": train["cornell_box_obj"][
+                        "checkpointed_cipher_recompute"]}},
             "shapes_on_pbr_ibl_main_path": paths13["pbr_ibl"]["cipher"]["shapes"],
             "shapes_on_final_main_path": paths13["final"]["cipher"]["shapes"],
             "device_functions": ["csrc/threefry.cuh", "csrc/draws.cuh"],
@@ -3689,7 +4068,32 @@ def main() -> None:
             "library_ms": g_main["library_ms"],
             "table": g_name,
             "tables": train["cornell"]["table_grad"],
-        }, {
+        }, *[{
+            "name": f"diff_trace_{part}",
+            "route": "cuda",
+            "source": "izpi_tpu_torch/csrc/diff_trace.cu",
+            "replaces": "izpi_tpu/parallel/dist.py:597 / "
+                        "izpi_tpu/integrator/path.py:699-740",
+            "launches": train["cornell"]["launches_per_replay"][
+                f"diff_trace_{part}"],
+            "max_abs_err": train["cornell"]["kernels"][part]["max_abs_err"],
+            "ms": train["cornell"]["kernels"][part]["ms"],
+            "plain_ms": train["cornell"]["kernels"][part]["plain_ms"],
+            "bound_ms": train["cornell"]["kernels"][part]["bound_ms"],
+            "bound_by": train["cornell"]["kernels"][part]["bound_by"],
+            "library_ms": None,
+            "registers": usage[f"diff_trace_{part}"].registers,
+            "spill_bytes": (usage[f"diff_trace_{part}"].spill_stores
+                            + usage[f"diff_trace_{part}"].spill_loads),
+            "cornell_box_obj": {
+                **train["cornell_box_obj"]["kernels"][part],
+                "launches": train["cornell_box_obj"]["launches_per_replay"][
+                    f"diff_trace_{part}"],
+                **({"registers": usage["diff_trace_fwd_bvh"].registers,
+                    "spill_bytes": usage["diff_trace_fwd_bvh"].spill_stores
+                    + usage["diff_trace_fwd_bvh"].spill_loads}
+                   if part == "fwd" else {})},
+        } for part in ("fwd", "bwd")], {
             "name": "train_step_graph",
             "route": "cuda",
             "source": "izpi_tpu_torch/core/loops.py",
@@ -3702,13 +4106,20 @@ def main() -> None:
             "bound_ms": train["cornell"]["bound_ms"],
             "bound_by": "operations",
             "library_ms": None,
+            "checkpointed_ms": 1e3 * train["cornell"]["checkpointed_seconds"],
+            "max_grad_err_vs_checkpointed": train["cornell"][
+                "max_grad_err_vs_checkpointed"],
+            "vs_checkpointed": train["cornell"]["vs_checkpointed"],
             "capture_seconds": train["cornell"]["capture_seconds"],
             "graph_bytes": train["cornell"]["graph_bytes"],
             "profiled_idle_share": train["cornell"]["profiled_idle_share"],
+            "profiled_records": train["cornell"]["profiled_records"],
             "launches_per_replay": train["cornell"]["launches_per_replay"],
             "cornell_box_obj": {k: train["cornell_box_obj"][k] for k in (
-                "seconds", "eager_seconds", "capture_seconds", "graph_bytes",
-                "launches_per_replay", "max_grad_err_vs_eager")},
+                "seconds", "eager_seconds", "checkpointed_seconds",
+                "capture_seconds", "graph_bytes", "launches_per_replay",
+                "max_grad_err_vs_eager", "max_grad_err_vs_checkpointed",
+                "vs_checkpointed")},
         }],
         "shapes": {
             "megakernel_rgb": "ms, bound_ms: per launch on its main path, "
@@ -3750,21 +4161,40 @@ def main() -> None:
                                         "+ camera and λ",
             "bvh4_traverse": f"{TRAVERSE_RAYS} rays (half camera, half "
                              f"incoherent) on cornell_box_obj's tree",
-            "table_grad": "ms, plain_ms (index_put_ with accumulate, the "
-                          "backward of indexing), library_ms (index_add_), "
-                          "bound_ms: per call over a CUDA graph of 100 "
-                          "calls at the step's inputs of the table the "
-                          "Cornell step calls it most for (`table`); "
-                          "launches: one replay of the Cornell step",
+            "table_grad": "ms, library_ms (index_add_), bound_ms: per "
+                          "call over a CUDA graph of 100 calls, plain_ms "
+                          "(index_put_ with accumulate, the backward of "
+                          "indexing) of 3, at the fused Cornell step's "
+                          "inputs (the reverse kernel's slots, one a "
+                          "record, over tex_c0's rows, their count read on "
+                          "the device); launches: one replay of the "
+                          "Cornell step",
             "train_step_graph": "the Cornell step at 256x256@1 depth 50 as "
-                                "one CUDA graph: ms the median of the "
-                                "replays of steps 1-4, plain_ms the eager "
-                                "step's (the same kernels, no graph); "
-                                "launches: replays in phase 16; "
+                                "one CUDA graph on the fused route: ms the "
+                                "median of the replays of steps 1-4, "
+                                "plain_ms the eager step's (the same "
+                                "kernels, no graph), checkpointed_ms the "
+                                "checkpointed bounces' captured step in the "
+                                "same call; launches: replays in phase 16; "
                                 "max_abs_err: its gradients against the "
                                 "eager step's; bound_ms: its kernels' "
                                 "bounds and its inputs' and outputs' bytes, "
                                 "PyTorch's own ops not counted",
+            "diff_trace": "fwd: ms a launch at the Cornell step's camera "
+                          "rays, 256x256 depth 50 (CUDA events), plain_ms "
+                          "forward_reference's, bound_ms from the SASS "
+                          "probes' units (the draws its records hold, every "
+                          "primitive a ray or the BVH form's nodes and "
+                          "tests) and its bytes (its records among them); "
+                          "bwd: ms a call (a CUDA graph of 20 calls) on "
+                          "those records at the step's own cotangent (its "
+                          "blocks' record counts and its walk), bound by "
+                          "bytes (the "
+                          "records read, a slot a record written); "
+                          "max_abs_err: the forward's largest "
+                          "pixel difference from its plain version, the "
+                          "reverse's 0 (bit for bit); launches: one replay "
+                          "of the Cornell step",
             "bvh4_rowstack": f"{TRAVERSE_RAYS} rays on phase 7's recipe, "
                              f"in their order, on the dragon scene's "
                              f"leaf-64 tree (its main path's); the third "

@@ -10,7 +10,10 @@
 // and a segment sum) took most of the eager step's device time.
 //
 // out[rows[i], :] += g[i, :] for i < n: out (r, c) f32, g (n, c) f32, rows
-// (n,) int64 in [0, r).
+// (n,) int64 in [0, r). Where a count is given (device memory), only its
+// first *count rows add: a producer that knows how many rows it wrote only
+// on the device (ops/diff_trace.py's reverse kernel) hands over its
+// buffer and that count, and the host reads neither.
 //
 // What bounds it on the H100: bytes (a row id and c cotangents read a
 // gathered row, c floats written a table row), a few µs at the step's
@@ -62,9 +65,18 @@ __device__ __forceinline__ int fixed_exponent(unsigned bits, long long n) {
   return 62 - e - lg;
 }
 
-__global__ void table_grad_absmax(const float* __restrict__ g, long long count,
+// The rows that add: n, or the first *count of them where count is given.
+__device__ __forceinline__ long long live_rows(long long n, const int* count) {
+  if (count == nullptr) return n;
+  const long long k = *count;
+  return k < 0 ? 0 : (k < n ? k : n);
+}
+
+__global__ void table_grad_absmax(const float* __restrict__ g, long long n, int c,
+                                  const int* __restrict__ rows_count,
                                   unsigned* __restrict__ stat) {
   __shared__ float warp_max[kGradThreads / 32];
+  const long long count = live_rows(n, rows_count) * c;
   float m = 0.0f;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < count;
        i += (long long)gridDim.x * blockDim.x) {
@@ -112,10 +124,12 @@ __device__ __forceinline__ void scatter_batch(const long long* __restrict__ rows
 }
 
 __global__ void table_grad_scatter(const long long* __restrict__ rows,
-                                   const float* __restrict__ g, long long n, int c,
+                                   const float* __restrict__ g, long long n,
+                                   const int* __restrict__ count, int c,
                                    const unsigned* __restrict__ stat,
                                    unsigned long long* __restrict__ acc,
                                    unsigned* __restrict__ flags) {
+  n = live_rows(n, count);
   const int k = fixed_exponent(*stat, n);
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
@@ -125,7 +139,8 @@ __global__ void table_grad_scatter(const long long* __restrict__ rows,
 }
 
 __global__ void table_grad_scatter_shared(const long long* __restrict__ rows,
-                                          const float* __restrict__ g, long long n, int c,
+                                          const float* __restrict__ g, long long n,
+                                          const int* __restrict__ count, int c,
                                           long long elems,
                                           const unsigned* __restrict__ stat,
                                           unsigned long long* __restrict__ acc,
@@ -133,6 +148,7 @@ __global__ void table_grad_scatter_shared(const long long* __restrict__ rows,
   __shared__ unsigned long long part[kSharedElems];
   for (long long e = threadIdx.x; e < elems; e += blockDim.x) part[e] = 0ull;
   __syncthreads();
+  n = live_rows(n, count);
   const int k = fixed_exponent(*stat, n);
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
@@ -149,8 +165,9 @@ __global__ void table_grad_scatter_shared(const long long* __restrict__ rows,
 __global__ void table_grad_finalize(const unsigned long long* __restrict__ acc,
                                     const unsigned* __restrict__ flags,
                                     const unsigned* __restrict__ stat, long long n,
-                                    long long elems, float* __restrict__ out) {
-  const int k = fixed_exponent(*stat, n);
+                                    const int* __restrict__ count, long long elems,
+                                    float* __restrict__ out) {
+  const int k = fixed_exponent(*stat, live_rows(n, count));
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < elems;
        e += (long long)gridDim.x * blockDim.x) {
     const unsigned f = flags[e];
@@ -178,16 +195,17 @@ inline int grad_blocks(long long work, long long per_block) {
 extern "C" {
 
 // The table gradient out (r, c) f32 of n gathered rows: out[rows[i], :] +=
-// g[i, :]. scratch: zero-filled device memory of izpi_table_grad_scratch
-// bytes (the int64 sums, the flags and the largest |g|). Returns a
-// cudaError_t.
+// g[i, :], for i < *count where count (one int in device memory) is not
+// null. scratch: zero-filled device memory of izpi_table_grad_scratch
+// bytes (the int64 sums, the flags and the largest |g|). The grid is sized
+// for n rows. Returns a cudaError_t.
 long long izpi_table_grad_scratch(long long r, int c) {
   const long long elems = r * c;
   return 8 * elems + 4 * elems + 4;
 }
 
-int izpi_table_grad(const long long* rows, const float* g, long long n, int c, long long r,
-                    void* scratch, float* out, void* stream) {
+int izpi_table_grad(const long long* rows, const float* g, long long n, const int* count, int c,
+                    long long r, void* scratch, float* out, void* stream) {
   if (n < 0 || c < 1 || r < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long elems = r * c;
@@ -195,16 +213,17 @@ int izpi_table_grad(const long long* rows, const float* g, long long n, int c, l
   unsigned* flags = (unsigned*)(acc + elems);
   unsigned* stat = flags + elems;
   using namespace izpi;
-  table_grad_absmax<<<grad_blocks(n * c, kGradThreads), kGradThreads, 0, s>>>(g, n * c, stat);
+  table_grad_absmax<<<grad_blocks(n * c, kGradThreads), kGradThreads, 0, s>>>(g, n, c, count,
+                                                                             stat);
   if (elems <= kSharedElems) {
     table_grad_scatter_shared<<<grad_blocks(n, kGradThreads * kSharedBatches), kGradThreads, 0,
-                                s>>>(rows, g, n, c, elems, stat, acc, flags);
+                                s>>>(rows, g, n, count, c, elems, stat, acc, flags);
   } else {
-    table_grad_scatter<<<grad_blocks(n, kGradThreads), kGradThreads, 0, s>>>(rows, g, n, c, stat,
-                                                                          acc, flags);
+    table_grad_scatter<<<grad_blocks(n, kGradThreads), kGradThreads, 0, s>>>(
+        rows, g, n, count, c, stat, acc, flags);
   }
   table_grad_finalize<<<grad_blocks(elems, kGradThreads), kGradThreads, 0, s>>>(
-      acc, flags, stat, n, elems, out);
+      acc, flags, stat, n, count, elems, out);
   return (int)cudaGetLastError();
 }
 

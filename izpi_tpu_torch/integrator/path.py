@@ -81,6 +81,7 @@ def make_brute_intersector(cs) -> IntersectFn:
     def intersect(o, d, time, t_min, t_max):
         return prim.intersect_brute(cs.prims, o, d, time, t_min, t_max)
 
+    intersect.brute_cs = cs  # the scene it scans (ops.diff_trace reads it)
     return intersect
 
 
@@ -342,7 +343,8 @@ def _exit_retrace(intersect, p, d_in, time, apply):
 
 
 def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
-               rad, active, differentiable: bool = False):
+               rad, active, differentiable: bool = False,
+               record: Optional[dict] = None):
     """Advance every live RGB path one bounce (per-ray depth (N,)).
     Returns (o, d, thru, rad, active, n_rays_this_bounce).
 
@@ -354,7 +356,12 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
     the absorption path length see only their own rays' gradient
     (`primitives.own`, as the intersectors' records do), a degenerate NEE
     direction is zeroed before its cosine, and the ratio divides by a safe
-    pdf where the pdf is 0. No forward value changes."""
+    pdf where the pdf is 0. No forward value changes.
+
+    `record`, a dict, receives the bounce's hit record ("rec"), material
+    rows ("mat"), whether each hit faces its normal ("facing") and the
+    diffuse lobe's ratio ("ratio"): what `ops.diff_trace`'s plain forward
+    records."""
     bg = vm.const(settings.background, o)
     zero = torch.zeros((), dtype=o.dtype, device=o.device)
 
@@ -464,6 +471,8 @@ def bounce_rgb(cs, meta, settings, intersect, o, d, time, keys, depth, thru,
     mult = torch.where(is_metal[:, None], albedo,
                        torch.where(is_diel[:, None], diel_att, diff_mult))
 
+    if record is not None:
+        record.update(rec=rec, mat=mat, facing=facing, ratio=ratio)
     thru = torch.where(active[:, None], thru * mult, thru)
     o = torch.where(active[:, None], rec.p, o)
     d = torch.where(active[:, None], d_new, d)
@@ -589,7 +598,8 @@ def bounce_spectral(cs, meta, settings, intersect, o, d, time, lam, keys,
 
 
 def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys,
-          differentiable: bool = False, early_exit: Optional[bool] = None):
+          differentiable: bool = False, early_exit: Optional[bool] = None,
+          route=None):
     """Trace a ray batch to completion (lockstep; the correctness oracle).
 
     o, d: (N,3); time: (N,); keys: (N,2) per-path keys. Returns (color (N,3),
@@ -612,7 +622,23 @@ def trace(cs, meta, settings: RenderSettings, intersect, o, d, time, keys,
     scan), so the backward pass keeps only the carried state of each
     bounce and recomputes the rest: memory grows by one bounce's state per
     bounce. The uniforms are keyed, so the recompute draws the same
-    numbers; it launches the cipher entry and a traversal kernel again."""
+    numbers; it launches the cipher entry and a traversal kernel again.
+
+    `route` picks how a differentiable trace runs, as its caller decided
+    it on the host (`parallel.dist.build_train_step` decides it once, with
+    `diff_trace.prepare`, and passes it on): an `ops.diff_trace.DiffScene`,
+    the fused route, two kernels and one call of the gathers' backward
+    (`ops.diff_trace.DiffTrace`: the same rays and estimate, its gradient
+    walked back over a record of each bounce); None or "checkpoint", the
+    checkpointed bounces above. The fused route ignores early_exit: each
+    path ends in its thread."""
+    if differentiable and route is not None and route != "checkpoint":
+        from izpi_tpu_torch.ops import diff_trace
+
+        if not isinstance(route, diff_trace.DiffScene):
+            raise ValueError(f"unknown route {route!r}")
+        return diff_trace.trace(route, cs, meta, settings, intersect, o, d,
+                                time, keys)
     if early_exit is None:
         early_exit = not differentiable
     n = o.shape[0]

@@ -2,7 +2,8 @@
 
 Each wrapper module keeps a plain integer `launches`, which its wrapper
 adds one to where it launches its kernel (`megakernel` counts its BVH
-form's launches apart, in `bvh_launches`). `KERNEL_COUNTERS` names each
+form's launches apart, in `bvh_launches`; `diff_trace` its two kernels', in
+`fwd_launches` and `bwd_launches`). `KERNEL_COUNTERS` names each
 kernel's counter; `threefry` also counts its new-sample form's share of
 its launches in `sample_launches`. `LAUNCH_COUNTED` holds them all;
 `launch_counts` and `add_launch_counts` read and advance them together (a
@@ -20,7 +21,9 @@ KERNEL_COUNTERS = {"bvh_kernel": ("bvh_kernel", "launches"),
                    "megakernel_bvh": ("megakernel", "bvh_launches"),
                    "megakernel_spectral": ("megakernel_spectral", "launches"),
                    "threefry": ("threefry", "launches"),
-                   "table_grad": ("table_grad", "launches")}
+                   "table_grad": ("table_grad", "launches"),
+                   "diff_trace_fwd": ("diff_trace", "fwd_launches"),
+                   "diff_trace_bwd": ("diff_trace", "bwd_launches")}
 LAUNCH_COUNTED = (*KERNEL_COUNTERS.values(), ("threefry", "sample_launches"))
 
 

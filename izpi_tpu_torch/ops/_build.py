@@ -25,14 +25,15 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
 SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
-           "bvh4_rowstack.cu", "cipher.cu", "table_grad.cu")
+           "bvh4_rowstack.cu", "cipher.cu", "table_grad.cu", "diff_trace.cu")
 HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh", "bvh4.cuh")
 # The kernels whose ptxas report `ptxas_usage` reads, by their names (a
 # name that holds another comes first).
 KERNELS = ("megakernel_rgb_bvh", "megakernel_rgb", "megakernel_spectral",
            "bvh4_traverse", "bvh4_rowstack", "table_grad_absmax",
            "table_grad_scatter_shared", "table_grad_scatter",
-           "table_grad_finalize")
+           "table_grad_finalize", "diff_trace_fwd_bvh", "diff_trace_fwd",
+           "diff_trace_block_counts", "diff_trace_bwd")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
@@ -102,10 +103,31 @@ _SIGNATURES = {
     ],
     "izpi_table_grad": [
         _c_void_p, _c_void_p, _c_int64,        # rows, g, n
-        _c_int, _c_int64,                      # c, r
+        _c_void_p, _c_int, _c_int64,           # count (or null), c, r
         _c_void_p, _c_void_p, _c_void_p,       # scratch, out, stream
     ],
     "izpi_table_grad_scratch": [_c_int64, _c_int],  # r, c -> bytes
+    "izpi_diff_trace_fwd": [
+        _c_void_p, _c_void_p, _c_int,          # prim_f, prim_i, n_prims
+        _c_void_p, _c_void_p,                  # mat_f, mat_i
+        _c_void_p, _c_void_p, _c_int,          # light_f, light_i, n_lights
+        _c_void_p, _c_void_p,                  # nodes, bvh prims (or null)
+        _c_void_p, _c_void_p, _c_int,          # c0, c1, n_tex
+        _c_void_p, _c_void_p, _c_void_p,       # o, d, time
+        _c_void_p, _c_int, _c_int,             # keys, n, max_depth
+        _c_float, _c_float, _c_float, _c_int,  # background, book
+        _c_void_p, _c_void_p,                  # rad, cnt
+        _c_void_p, _c_void_p, _c_void_p,       # rec_f, rec_i, stream
+    ],
+    "izpi_diff_trace_bwd": [
+        _c_void_p, _c_void_p, _c_void_p,       # rec_f, rec_i, cnt
+        _c_void_p, _c_void_p, _c_void_p,       # g_rad, c0, c1
+        _c_int, _c_int, _c_int,                # n_tex, n, max_depth
+        _c_float, _c_float, _c_float,          # background
+        _c_void_p, _c_void_p,                  # blk, total
+        _c_void_p, _c_void_p, _c_void_p,       # rows, g, stream
+    ],
+    "izpi_diff_trace_bwd_blocks": [_c_int],   # n -> ints of blk
     "izpi_bvh4_rowstack": [
         _c_void_p, _c_void_p,                  # nodes, blocks
         _c_void_p, _c_void_p, _c_void_p,       # o, d, time

@@ -11,8 +11,10 @@ segment sum) took most of the eager step's device time.
   that requires grad, through `TableGather`, whose forward is that same
   indexing (the same values, bit for bit) and whose backward is
   `table_grad`.
-- `table_grad(rows, g, shape)`: the table's gradient, `g` (N, C) added at
-  the flat rows `rows` (N,) of a table viewed as (R, C). On a CUDA tensor
+- `table_grad(rows, g, shape, count=None)`: the table's gradient, `g`
+  (N, C) added at the flat rows `rows` (N,) of a table viewed as (R, C),
+  or at its first `count` rows where a producer counted them on the
+  device (`ops.diff_trace`'s reverse kernel). On a CUDA tensor
   it launches `csrc/table_grad.cu` (`izpi_table_grad`: a deterministic
   scatter-add in 64-bit fixed point, see the source) on the current stream
   or raises; on a CPU tensor it runs `table_grad_reference`, the backward
@@ -75,13 +77,18 @@ def _check(name, t, dtype, shape, dev):
                          f"{tuple(t.shape)}")
 
 
-def table_grad(rows, g, shape):
+def table_grad(rows, g, shape, count=None):
     """The gradient of a float32 table of `shape`, viewed as (R, C) with C =
-    g.shape[1]: g (N, C) added at rows (N,) int64 in [0, R). On a CUDA
-    tensor this launches `izpi_table_grad`; on a CPU tensor it runs
-    `table_grad_reference`."""
+    g.shape[1]: g (N, C) added at rows (N,) int64 in [0, R); where `count`
+    (a one-element int32 tensor on g's device) is given, only the first
+    count of them add, and the rest are never read. On a CUDA tensor this
+    launches `izpi_table_grad`, which reads the count on the device; on a
+    CPU tensor it runs `table_grad_reference`."""
     dev = g.device
     if dev.type == "cpu":
+        if count is not None:
+            live = int(count.reshape(()))
+            rows, g = rows[:live], g[:live]
         return table_grad_reference(rows, g, shape)
     if dev.type != "cuda":
         raise ValueError(f"table_grad: unsupported device {dev}")
@@ -89,6 +96,8 @@ def table_grad(rows, g, shape):
     n_rows = math.prod(shape) // c
     _check("rows", rows, torch.int64, (n,), dev)
     _check("g", g, torch.float32, (n, c), dev)
+    if count is not None:
+        _check("count", count, torch.int32, (1,), dev)
     if n_rows * c != math.prod(shape):
         raise ValueError(f"table_grad: rows of {c} do not tile {tuple(shape)}")
     from izpi_tpu_torch.ops import _build
@@ -101,7 +110,8 @@ def table_grad(rows, g, shape):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.izpi_table_grad(
             ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(g.data_ptr()),
-            n, c, n_rows, ctypes.c_void_p(scratch.data_ptr()),
+            n, ctypes.c_void_p(None if count is None else count.data_ptr()),
+            c, n_rows, ctypes.c_void_p(scratch.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"izpi_table_grad launch failed: CUDA error {err}")

@@ -60,7 +60,7 @@ from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.geometry import primitives as prim
 from izpi_tpu_torch.integrator import path as path_mod
 from izpi_tpu_torch.integrator import wavefront
-from izpi_tpu_torch.ops import bvh_kernel, megakernel
+from izpi_tpu_torch.ops import bvh_kernel, diff_trace, megakernel
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene import types as st
 from izpi_tpu_torch.scene.compiler import compile_scene
@@ -807,11 +807,13 @@ def spawn(fn, n: int, args: tuple = (), device="cuda",
 # The parameter names, as the JAX package's `extract_params` keys them. The
 # parameters are the scene's material, texture and light tensors (the JAX
 # package's BASELINE contract: "differentiable w.r.t. material/texture/light
-# parameters"). Sampling is detached (`integrator.path.bounce_rgb`). No
-# kernel has a backward pass, and none needs one: the cipher entry draws
-# keyed uniforms, which carry no gradient, and a traversal kernel picks the
-# winning primitive, whose t then gets its gradient from PyTorch ops
-# (`geometry.primitives.differentiable_t`).
+# parameters"). Sampling is detached (`integrator.path.bounce_rgb`). On
+# the checkpointed route no kernel has a backward pass, and none needs one:
+# the cipher entry draws keyed uniforms, which carry no gradient, and a
+# traversal kernel picks the winning primitive, whose t then gets its
+# gradient from PyTorch ops (`geometry.primitives.differentiable_t`). The
+# fused route's reverse kernel (`ops.diff_trace`) is the backward of its
+# forward kernel.
 PARAMS = ("tex_c0", "tex_c1", "tex_images", "mat_absorption", "mat_fuzz",
           "spd_table")
 
@@ -858,7 +860,7 @@ def params_from_jax(leaves: Dict[str, np.ndarray], device
 
 
 def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
-                     spp: int = 1, group=None, runner=None):
+                     spp: int = 1, group=None, runner=None, route=None):
     """Returns step(params, xs, ys, target, key) -> (loss, grads).
 
     The pixels xs, ys (N,) render `spp` samples each through the
@@ -870,10 +872,17 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
     call traced (the forward pass's, not the backward's recompute), read
     once from the device a call.
 
-    `runner` (`core.loops`) runs the whole step: the sample passes, each
-    of their `max_depth` checkpointed bounces (`path.trace`'s fixed trip),
-    the loss and `torch.autograd.grad`, all on the device, no host read
-    among them. By default, on a CUDA device and without a group, a
+    `route` is `path.trace`'s, decided here, on the host, once: by
+    default the fused route (`ops.diff_trace`: a forward kernel, a reverse
+    kernel and one call of G a sample pass) where
+    `diff_trace.eligible_diff` holds, else "checkpoint"; pass "checkpoint"
+    to force the checkpointed bounces. `step.route` holds it (a
+    `diff_trace.DiffScene`, or "checkpoint").
+
+    `runner` (`core.loops`) runs the whole step: the sample passes (on the
+    checkpointed route each of their `max_depth` checkpointed bounces,
+    `path.trace`'s fixed trip), the loss and `torch.autograd.grad`, all on
+    the device, no host read among them. By default, on a CUDA device and without a group, a
     `loops.Graphed` (`step.runner`): the first call warms up and captures
     the step as one CUDA graph on static copies of its arguments (params,
     xs, ys, target and the key), every call copies its arguments in and
@@ -899,6 +908,8 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
     if runner is None:
         runner = (loops.Graphed() if group is None and cs.device.type == "cuda"
                   else loops.Eager())
+    if route is None:
+        route = diff_trace.prepare(cs, meta, intersect) or "checkpoint"
 
     def local(params, xs, ys, target, key, n_total):
         """The rank's squared error, its gradients of se / n_total and its
@@ -911,7 +922,7 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
         for s in range(spp):
             color, nr = renderer.sample_pass(cs_p, meta, settings, intersect,
                                              nx, ny, xs, ys, key, s,
-                                             differentiable=True)
+                                             differentiable=True, route=route)
             acc = color if acc is None else acc + color
             rays = nr if rays is None else rays + nr
         color = acc / spp
@@ -950,4 +961,5 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
 
     step.rays = 0
     step.runner = runner
+    step.route = route
     return step

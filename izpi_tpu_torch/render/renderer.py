@@ -205,14 +205,17 @@ def camera_rays(cs, base_key, xs, ys, nx: int, ny: int, sample_id: int):
 
 
 def sample_pass(cs, meta, settings, intersect, nx: int, ny: int, xs, ys,
-                base_key, sample_id: int, differentiable: bool = False):
+                base_key, sample_id: int, differentiable: bool = False,
+                route=None):
     """One sample for a batch of pixels (xs, ys: (N,) pixel coords).
     Returns (colour (N, 3) DeNAN'd, rays as a 0-dim int64 tensor).
     differentiable=True traces the differentiable estimate
-    (`integrator.path.trace`), the training step's (renderer.py:55-69)."""
+    (`integrator.path.trace`, through `route`), the training step's
+    (renderer.py:55-69)."""
     o, d, tme, keys = camera_rays(cs, base_key, xs, ys, nx, ny, sample_id)
     color, nrays = path_mod.trace(cs, meta, settings, intersect, o, d, tme,
-                                  keys, differentiable=differentiable)
+                                  keys, differentiable=differentiable,
+                                  route=route)
     return vm.de_nan(color), nrays
 
 

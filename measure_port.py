@@ -97,7 +97,9 @@ atomics repeats within the tolerance).
 `--step` times the training step (`parallel.dist.build_train_step`, 1
 spp, seed 0, from tex_c0 at 0.7 of its values against a grey target) on
 `--scene` cornell (brute force, the default) or obj (`cornell_box_obj`
-through the BVH4 kernel) at 256×256, depth 50: one call to warm up (on
+through the BVH4 kernel) at 256×256, depth 50, on the route
+`build_train_step` picks (the fused one, `ops.diff_trace`, for both; a
+tree without routes runs the checkpointed bounces): one call to warm up (on
 this tree, the warm-up and the capture of its CUDA graph) and `--runs`
 timed calls (host clock to a CUDA sync), in this tree, or in four
 subprocesses in turns — DIR, this tree, this tree, DIR — with `--parent
@@ -549,9 +551,11 @@ for _ in range(runs + 1):
     seconds.append(time.perf_counter() - t0)
 np.savez(out, loss=loss.cpu().numpy(),
          **{k: g.cpu().numpy() for k, g in grads.items()})
+route = getattr(step, "route", "checkpoint")
 print(json.dumps({"seconds": seconds, "rays": step.rays,
                   "loss": float(loss), "launches": ops.kernel_launches(),
-                  "runner": type(getattr(step, "runner", None)).__name__}))
+                  "runner": type(getattr(step, "runner", None)).__name__,
+                  "route": route if isinstance(route, str) else "fused"}))
 """
 # Step turns' tolerances (tests/test_torch_grad.py's).
 STEP_LOSS_RTOL, STEP_GRAD_ATOL, STEP_GRAD_RTOL = 1e-4, 1e-5, 1e-3
@@ -575,7 +579,8 @@ def step_turns(scene: str, parent, runs: int) -> None:
             got[name].append((r, arrays))
             timed = r["seconds"][1:]
             print(f"step turn {turn} ({name}, {trees[name]}): {scene} "
-                  f"256x256@1 depth 50, runner {r['runner']}: first call "
+                  f"256x256@1 depth 50, runner {r['runner']}, route "
+                  f"{r['route']}: first call "
                   f"{r['seconds'][0]:.4f} s, then "
                   f"{[round(x, 4) for x in timed]}, median "
                   f"{statistics.median(timed):.4f} s; rays {r['rays']}, loss "

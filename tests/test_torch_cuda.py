@@ -21,8 +21,9 @@ from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.geometry import primitives
 from izpi_tpu_torch.integrator import path, wavefront
-from izpi_tpu_torch.ops import _build, bvh_kernel, bvh_rowkernel, megakernel
-from izpi_tpu_torch.ops import megakernel_spectral, table_grad, threefry
+from izpi_tpu_torch.ops import _build, bvh_kernel, bvh_rowkernel, diff_trace
+from izpi_tpu_torch.ops import megakernel, megakernel_spectral, table_grad
+from izpi_tpu_torch.ops import threefry
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene import compiler
 from izpi_tpu_torch.scene.library.cornell import cornell_box
@@ -469,18 +470,19 @@ LOSS_RTOL, GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-5, 1e-3
 
 
 def _train_step(scene, n, depth, device, use_bvh=None, intersect=None,
-                runner=None):
+                runner=None, route=None):
     """(loss, grads, rays, cipher launches, traversal launches, context) of
     one differentiable step, 1 spp, seed 0, against the render at 0.7×
     tex_c0 of a grey target (on the card: its first call, the warm-up and
-    a replay of the captured graph, unless `runner` says otherwise)."""
+    a replay of the captured graph, unless `runner` says otherwise), on
+    `route` (`build_train_step`'s)."""
     from izpi_tpu_torch.parallel import dist
 
     ctx = renderer.RenderContext(scene, use_bvh=use_bvh, device=device)
     step = dist.build_train_step(ctx.cs, ctx.meta,
                                  path.RenderSettings(max_depth=depth),
                                  intersect or ctx.intersect, n, n,
-                                 runner=runner)
+                                 runner=runner, route=route)
     params = dist.extract_params(ctx.cs)
     with torch.no_grad():
         params["tex_c0"] *= 0.7
@@ -502,31 +504,49 @@ def _assert_step_close(got, want):
                                    atol=GRAD_ATOL, err_msg=k)
 
 
-def test_training_step_on_card_matches_cpu():
-    """Phase 16 at 16², depth 8: the Cornell box's step on the card, its
+@pytest.mark.parametrize("route", ["checkpoint", None])
+def test_training_step_on_card_matches_cpu(route):
+    """Phase 16 at 16², depth 8: the Cornell box's step on the card equals
+    the step on the CPU, on each route: the checkpointed bounces, their
     draws through the cipher entry (forward and the backward's recompute),
-    equals the step on the CPU."""
-    card = _train_step(cornell_box(), 16, 8, "cuda")
-    cpu = _train_step(cornell_box(), 16, 8, "cpu")
+    and the fused route (the default: `ops.diff_trace`'s two kernels, the
+    cipher entry only for the camera)."""
+    f0, b0 = diff_trace.fwd_launches, diff_trace.bwd_launches
+    card = _train_step(cornell_box(), 16, 8, "cuda", route=route)
+    cpu = _train_step(cornell_box(), 16, 8, "cpu", route=route)
     _assert_step_close(card, cpu)
-    assert card[3] > 1 + 8 and cpu[3] == 0   # camera, bounces, recompute
+    assert cpu[3] == 0
+    if route == "checkpoint":
+        assert card[3] > 1 + 8   # camera, bounces, recompute
+        assert diff_trace.fwd_launches == f0
+    else:
+        assert card[3] == 2      # the camera's, warm-up and replay
+        assert diff_trace.fwd_launches == f0 + 2
+        assert diff_trace.bwd_launches == b0 + 2
 
 
-def test_training_step_through_bvh_kernel_matches_plain_traversal():
+@pytest.mark.parametrize("route", ["checkpoint", None])
+def test_training_step_through_bvh_kernel_matches_plain_traversal(route):
     """Phase 17 at 16², depth 8: cornell_box_obj's step through the BVH4
     kernel (captured) equals the same step through the plain traversal on
     the card (eager: the plain traversal syncs, so it cannot be captured;
     rays and loss equal, gradients within the tolerances above: the plain
-    traversal's winners' t may differ in the last ulp); the kernel ran
-    forward and in the recompute."""
-    kern = _train_step(cornell_box_obj(), 16, 8, "cuda")
+    traversal's winners' t may differ in the last ulp). On the checkpointed
+    bounces the kernel ran forward and in the recompute; on the fused route
+    (the default) the forward kernel's BVH form traverses, and the BVH4
+    kernel runs no time."""
+    f0 = diff_trace.fwd_launches
+    kern = _train_step(cornell_box_obj(), 16, 8, "cuda", route=route)
     ctx = kern[5]
     plain = functools.partial(traverse.intersect_bvh, ctx.cs.prims,
                               ctx.intersect.ks.tree)
     b0 = bvh_kernel.launches
     ref = _train_step(cornell_box_obj(), 16, 8, "cuda", intersect=plain,
                       runner=loops.Eager())
-    assert kern[4] >= 2 and kern[4] % 2 == 0
+    if route == "checkpoint":
+        assert kern[4] >= 2 and kern[4] % 2 == 0
+    else:
+        assert kern[4] == 0 and diff_trace.fwd_launches >= f0 + 2
     _assert_step_close(kern, ref)
     assert ref[4] == bvh_kernel.launches - b0 == 0
 
@@ -938,7 +958,8 @@ def test_bvh_form_refused_launch_raises(obj_context, monkeypatch):
     assert megakernel.bvh_launches == before
 
 
-def _step_and_inputs(ctx, n, depth, runner=None, intersect=None):
+def _step_and_inputs(ctx, n, depth, runner=None, intersect=None,
+                     route=None):
     """A training step on the card context's scene (1 spp, seed 0, 0.7×
     tex_c0 against a grey target) and its arguments."""
     from izpi_tpu_torch.parallel import dist
@@ -946,7 +967,7 @@ def _step_and_inputs(ctx, n, depth, runner=None, intersect=None):
     step = dist.build_train_step(ctx.cs, ctx.meta,
                                  path.RenderSettings(max_depth=depth),
                                  intersect or ctx.intersect, n, n,
-                                 runner=runner)
+                                 runner=runner, route=route)
     params = dist.extract_params(ctx.cs)
     with torch.no_grad():
         params["tex_c0"] *= 0.7
@@ -956,20 +977,24 @@ def _step_and_inputs(ctx, n, depth, runner=None, intersect=None):
     return step, (params, xs, ys, target, rng.render_key(0, device="cuda"))
 
 
+@pytest.mark.parametrize("route", ["checkpoint", None])
 @pytest.mark.parametrize("name,n", [("cornell_box", 32),
                                     ("cornell_box_obj", 16)])
-def test_captured_step_matches_eager_step(name, n):
+def test_captured_step_matches_eager_step(name, n, route):
     """Depth 8: the step as one CUDA graph (the default on the card)
     against the same step run eagerly: rays equal, loss and gradients
     within the tolerances above (the same kernels; only the order of
-    PyTorch's own float reductions may differ). A replay launches the
-    cipher entry 9 times forward and 8 in the recompute, the BVH4 kernel
-    8 + 8 on cornell_box_obj, and the gathers' backward kernel."""
+    PyTorch's own float reductions may differ). On the checkpointed
+    bounces a replay launches the cipher entry 9 times forward and 8 in
+    the recompute, the BVH4 kernel 8 + 8 on cornell_box_obj, and the
+    gathers' backward kernel; on the fused route (the default) the cipher
+    entry once (the camera), the forward and reverse kernels once each,
+    G once and the BVH4 kernel no time."""
     ctx = renderer.RenderContext(
         cornell_box() if name == "cornell_box" else cornell_box_obj(),
         device="cuda")
-    graphed, args = _step_and_inputs(ctx, n, 8)
-    eager, _ = _step_and_inputs(ctx, n, 8, runner=loops.Eager())
+    graphed, args = _step_and_inputs(ctx, n, 8, route=route)
+    eager, _ = _step_and_inputs(ctx, n, 8, runner=loops.Eager(), route=route)
     assert isinstance(graphed.runner, loops.Graphed)
     tg0 = table_grad.launches
     loss_e, grads_e = eager(*args)
@@ -984,11 +1009,19 @@ def test_captured_step_matches_eager_step(name, n):
         assert torch.isfinite(grads_g[k]).all(), k
         np.testing.assert_allclose(grads_g[k].cpu().numpy(), w.cpu().numpy(),
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=k)
-    deltas = {m: v for (m, a), v in runner.deltas.items()
-              if a == "launches"}
-    assert deltas["threefry"] == 9 + 8
-    assert deltas["bvh_kernel"] == (16 if name == "cornell_box_obj" else 0)
-    assert deltas["table_grad"] >= 2
+    deltas = {(m, a): v for (m, a), v in runner.deltas.items()}
+    if route == "checkpoint":
+        assert deltas[("threefry", "launches")] == 9 + 8
+        assert deltas[("bvh_kernel", "launches")] == (
+            16 if name == "cornell_box_obj" else 0)
+        assert deltas[("table_grad", "launches")] >= 2
+        assert deltas[("diff_trace", "fwd_launches")] == 0
+    else:
+        assert deltas[("threefry", "launches")] == 1
+        assert deltas[("bvh_kernel", "launches")] == 0
+        assert deltas[("table_grad", "launches")] == 1
+        assert deltas[("diff_trace", "fwd_launches")] == 1
+        assert deltas[("diff_trace", "bwd_launches")] == 1
 
 
 def test_captured_step_replays_bit_for_bit():
@@ -1074,6 +1107,38 @@ def test_table_grad_kernel_matches_plain_on_card(shape, n_index):
             <= bound + gamma * abs_sum).all()
 
 
+@pytest.mark.parametrize("shape,n_index", [((8, 3), 1), ((2, 512, 512, 3), 3)])
+def test_table_grad_counted_rows_on_card(shape, n_index):
+    """With its row count in device memory (the fused route's reverse
+    kernel hands over a buffer sized for every slot and the rows it wrote),
+    `izpi_table_grad` adds the first count rows alone, on both paths: the
+    same bits as the kernel given those rows alone, with rows out of range
+    and NaN cotangents past the count, and inside a CUDA graph whose count
+    changes between replays."""
+    rs = np.random.RandomState(3)
+    n, live = 65536, 20011
+    index = [torch.as_tensor(rs.randint(0, d, n)).cuda()
+             for d in shape[:n_index]]
+    c = int(np.prod(shape[n_index:]))
+    g = torch.as_tensor(rs.randn(n, c).astype(np.float32)).cuda()
+    rows = table_grad.flat_rows(shape, index).reshape(-1).contiguous()
+    rows[live:] = -7
+    g[live:] = float("nan")
+    count = torch.tensor([live], dtype=torch.int32, device="cuda")
+    got = table_grad.table_grad(rows, g, shape, count=count)
+    alone = table_grad.table_grad(rows[:live].contiguous(),
+                                  g[:live].contiguous(), shape)
+    assert torch.equal(got.view(torch.int32), alone.view(torch.int32))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = table_grad.table_grad(rows, g, shape, count=count)
+    count.fill_(live // 2)
+    graph.replay()
+    half = table_grad.table_grad(rows[:live // 2].contiguous(),
+                                 g[:live // 2].contiguous(), shape)
+    assert torch.equal(out.view(torch.int32), half.view(torch.int32))
+
+
 def test_capture_survives_the_collector():
     """A CUDA graph in a reference cycle that turns into garbage during a
     capture must not be freed there, where its destruction is a call the
@@ -1124,3 +1189,91 @@ def test_failed_capture_raises():
     assert step.runner.graph is None and step.runner.replays == 0
     assert step.rays == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_box_obj"])
+def test_diff_trace_kernels_match_plain_on_card(name):
+    """The fused route's kernels against their plain versions, both on the
+    card, at the step's camera rays (64², depth 16, seed 0): the forward
+    kernel (brute force, or its BVH form on cornell_box_obj) within chip
+    phase 4's tolerances (rays within RAYS_RTOL, 99% of the paths'
+    radiance within 1e-4, the mean within 0.5%: libdevice and torch's
+    division by a scalar round the last ulp otherwise, which can turn a
+    rare path), and on the paths whose records take the same branches the
+    records within rtol 1e-4; the reverse kernel on the plain forward's
+    records bit for bit (the same IEEE operations in the same order), one
+    slot a record, its count on the device."""
+    ctx = renderer.RenderContext(
+        cornell_box() if name == "cornell_box" else cornell_box_obj(),
+        device="cuda")
+    scene = diff_trace.prepare(ctx.cs, ctx.meta, ctx.intersect)
+    assert scene is not None and (scene.bvh is not None) == (
+        name == "cornell_box_obj")
+    n, depth = 64, 16
+    s = path.RenderSettings(max_depth=depth)
+    ys = torch.arange(n, device="cuda").repeat_interleave(n)
+    xs = torch.arange(n, device="cuda").repeat(n)
+    o, d, tme, keys = (x.contiguous() for x in renderer.camera_rays(
+        ctx.cs, rng.render_key(0, device="cuda"), xs, ys, n, n, 0))
+    f0, b0 = diff_trace.fwd_launches, diff_trace.bwd_launches
+    got = diff_trace.forward(scene, ctx.cs, ctx.meta, s, ctx.intersect, o, d,
+                             tme, keys)
+    want = diff_trace.forward_reference(ctx.cs, ctx.meta, s, ctx.intersect,
+                                        o, d, tme, keys)
+    assert diff_trace.fwd_launches == f0 + 1
+    rays_g, rays_w = int(got[1].sum()), int(want[1].sum())
+    assert abs(rays_g - rays_w) <= 0.005 * rays_w
+    err = (got[0] - want[0]).abs().amax(dim=1)
+    assert float((err <= 1e-4).float().mean()) >= 0.99
+    assert abs(float(got[0].mean()) / float(want[0].mean()) - 1) <= 0.005
+    live = torch.arange(depth, device="cuda")[:, None] < want[1][None, :]
+    same = (got[1] == want[1]) & ((got[3] == want[3]) | ~live).all(0)
+    assert float(same.float().mean()) >= 0.99
+    keep = live & same[None, :]
+    torch.testing.assert_close(got[2][keep], want[2][keep], rtol=1e-4,
+                               atol=1e-6)
+
+    g_rad = torch.randn((n * n, 3), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    c0, c1 = ctx.cs.textures.c0, ctx.cs.textures.c1
+    rows, g, count = diff_trace.reverse(scene, want[2], want[3], want[1],
+                                        g_rad, c0, c1, s)
+    w_rows, w_g, w_count = diff_trace.reverse_reference(
+        want[2], want[3], want[1], g_rad, c0, c1, s, scene.checker)
+    assert diff_trace.bwd_launches == b0 + 1
+    live_slots = int(want[1].sum())
+    assert int(count) == int(w_count) == live_slots
+    assert torch.equal(rows[:live_slots], w_rows[:live_slots])
+    assert torch.equal(g[:live_slots].view(torch.int32),
+                       w_g[:live_slots].view(torch.int32))
+
+
+@pytest.mark.parametrize("name,n", [("cornell_box", 32),
+                                    ("cornell_box_obj", 16)])
+def test_fused_step_matches_checkpointed_step_on_card(name, n):
+    """Depth 8: the fused captured step (the default) against the
+    checkpointed captured step on the card: equal rays and loss, every
+    gradient within G's tolerances (rtol 1e-5, atol 1e-6·max|g| of its
+    table: the two sum the rows' cotangents in another order); two replays
+    of the fused step bit for bit."""
+    ctx = renderer.RenderContext(
+        cornell_box() if name == "cornell_box" else cornell_box_obj(),
+        device="cuda")
+    fused, args = _step_and_inputs(ctx, n, 8)
+    ckpt, _ = _step_and_inputs(ctx, n, 8, route="checkpoint")
+    assert isinstance(fused.route, diff_trace.DiffScene)
+    assert ckpt.route == "checkpoint"
+    loss_f, grads_f = fused(*args)
+    again, grads_a = fused(*args)
+    loss_c, grads_c = ckpt(*args)
+    assert torch.equal(loss_f, again)
+    for k in grads_f:
+        assert torch.equal(grads_f[k], grads_a[k]), k
+    assert fused.rays == ckpt.rays
+    assert float(loss_f) == float(loss_c)
+    for k, w in grads_c.items():
+        assert torch.isfinite(grads_f[k]).all(), k
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(
+            grads_f[k].cpu().numpy(), w, rtol=1e-5,
+            atol=1e-6 * max(float(np.abs(w).max()), 1e-30), err_msg=k)

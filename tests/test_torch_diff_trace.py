@@ -1,0 +1,415 @@
+"""The training step's fused route (`ops.diff_trace`, `csrc/diff_trace.cu`)
+on the CPU.
+
+The same pixels, key and parameters go through the fused route (a forward
+path kernel that records each bounce, a reverse kernel that walks the
+record back, one call of the gathers' backward) and through the
+checkpointed bounces (`path.trace(..., route="checkpoint")`); the JAX
+package's step is in tests/test_torch_diff_trace_jax.py. Tolerances:
+- the plain forward against the checkpointed bounce's forward: equal rays,
+  the colour bit for bit (it runs `path.bounce_rgb` itself);
+- the fused step's gradients against the checkpointed step's: equal loss,
+  each entry within rtol 1e-5 and atol 1e-6·max|g| (G's tolerances,
+  tests/test_torch_step.py: the two sum the rows' cotangents in another
+  order);
+- `csrc/diff_trace.cu` built as host C++: the reverse kernel equals its
+  plain version bit for bit on the plain forward's records (the same
+  IEEE operations in the same order); the forward kernel's rays, records
+  and radiance agree with the plain version's within rtol 1e-4 on every
+  path that takes the same branches, which all but a few do (host libm's
+  sin and cos against PyTorch's differ in the last ulp, which moves a
+  direction and can turn a path).
+"""
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import host_kernel, with_absorbing_glass
+from izpi_tpu_torch.core import rng
+from izpi_tpu_torch.integrator import path
+from izpi_tpu_torch.ops import bvh_kernel, diff_trace, table_grad
+from izpi_tpu_torch.parallel import dist
+from izpi_tpu_torch.render import renderer
+from izpi_tpu_torch.scene import compiler
+from izpi_tpu_torch.scene import types as st
+from izpi_tpu_torch.scene.library import get_scene
+from izpi_tpu_torch.scene.library.cornell import cornell_box
+from izpi_tpu_torch.scene.library.misc import cornell_box_obj
+
+N, DEPTH, SEED = 16, 8, 0
+GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-6
+# The host forward kernel against its plain version on the paths that take
+# the same branches: the last ulps of sin and cos move a direction, and
+# with it the ratios and throughputs that follow.
+REC_RTOL, REC_ATOL = 1e-4, 1e-6
+
+
+def _checker_box():
+    """The Cornell box with a checker floor: the fused route reads c1."""
+    scene = cornell_box()
+    checker = st.Lambertian(albedo=st.CheckerTexture(
+        st.ConstantTexture((0.2, 0.3, 0.1)), st.ConstantTexture((0.9, 0.9,
+                                                                  0.8))))
+    scene.world[4] = st.XZRect(0, 555, 0, 555, 0, checker)
+    return scene
+
+
+def _context(name):
+    """(cs, meta, intersect) on the CPU: brute force, or cornell_box_obj
+    through the BVH4 kernel's intersector (its plain traversal here)."""
+    if name == "cornell_box_obj":
+        cs, meta = compiler.compile_scene(cornell_box_obj(), "cpu")
+        cs, intersect = bvh_kernel.attach(cs)
+        return cs, meta, intersect
+    scene = _checker_box() if name == "checker" else cornell_box()
+    cs, meta = compiler.compile_scene(scene, "cpu")
+    return cs, meta, path.make_brute_intersector(cs)
+
+
+@pytest.fixture(scope="module", params=["cornell_box", "checker",
+                                        "cornell_box_obj"])
+def ctx(request):
+    return request.param, _context(request.param)
+
+
+def _pixels(n=N):
+    return (torch.arange(n).repeat(n), torch.arange(n).repeat_interleave(n))
+
+
+def _rays(cs, n=N, seed=SEED):
+    xs, ys = _pixels(n)
+    return renderer.camera_rays(cs, rng.render_key(seed), xs, ys, n, n, 0)
+
+
+def _target(n=N):
+    return torch.as_tensor(
+        np.random.RandomState(1).rand(n * n, 3).astype(np.float32) * 0.3)
+
+
+def test_plain_forward_equals_checkpointed_bounces(ctx):
+    """The plain forward (`forward_reference`) against `path.trace`'s
+    checkpointed bounces on the same camera rays: equal rays, a path's
+    records as many as its rays, the colour bit for bit."""
+    name, (cs, meta, intersect) = ctx
+    scene = diff_trace.prepare(cs, meta, intersect)
+    assert scene is not None and (scene.bvh is not None) == (
+        name == "cornell_box_obj") and scene.checker == (name == "checker")
+    settings = path.RenderSettings(max_depth=DEPTH)
+    o, d, tme, keys = _rays(cs)
+    want, w_rays = path.trace(cs, meta, settings, intersect, o, d, tme, keys,
+                              differentiable=True, route="checkpoint")
+    rad, cnt, rec_f, rec_i = diff_trace.forward_reference(
+        cs, meta, settings, intersect, o, d, tme, keys)
+    got, g_rays = path.trace(cs, meta, settings, intersect, o, d, tme, keys,
+                             differentiable=True, route=scene)
+    assert int(cnt.sum()) == int(w_rays) == int(g_rays) > N * N
+    assert torch.equal(rad, want) and torch.equal(got, want)
+    codes = rec_i & 7
+    live = torch.arange(DEPTH)[:, None] < cnt[None, :]
+    assert bool((codes[~live] == 0).all()) and bool((rec_f[~live] == 0).all())
+    # Every path's first record starts at thru 1; a bounce past the first
+    # starts from a scatter.
+    assert bool((rec_f[0, :, :3] == 1).all())
+    for code in (diff_trace.MISS, diff_trace.EMIT, diff_trace.SCATTER):
+        assert bool((codes[live] == code).any()), code
+    if name == "checker":
+        assert bool(((rec_i >> 3) >= cs.textures.c0.shape[0]).any())
+
+
+def _step(cs, meta, intersect, route, params=None, n=N, depth=DEPTH):
+    step = dist.build_train_step(cs, meta, path.RenderSettings(
+        max_depth=depth), intersect, n, n, route=route)
+    params = params if params is not None else dist.extract_params(cs)
+    with torch.no_grad():
+        params["tex_c0"] *= 0.7
+    xs, ys = _pixels(n)
+    loss, grads = step(params, xs, ys, _target(n), rng.render_key(SEED))
+    return step, float(loss), grads
+
+
+def test_fused_step_equals_checkpointed_step(ctx, monkeypatch):
+    """The step's gradients through `DiffTrace` against the checkpointed
+    route: equal loss and rays, every gradient within rtol 1e-5 and atol
+    1e-6·max|g|; the fused step calls G once a sample pass, over c0's rows
+    (and c1's after them where a texture is a checker)."""
+    name, (cs, meta, intersect) = ctx
+    calls = []
+    original = table_grad.table_grad
+
+    def recording(rows, g, shape, count=None):
+        calls.append(tuple(shape))
+        return original(rows, g, shape, count=count)
+
+    monkeypatch.setattr(table_grad, "table_grad", recording)
+    fused, loss, grads = _step(cs, meta, intersect, None)
+    n_tex = cs.textures.c0.shape[0]
+    assert isinstance(fused.route, diff_trace.DiffScene)
+    assert calls == [(n_tex * (2 if name == "checker" else 1), 3)]
+    ref, ref_loss, ref_grads = _step(cs, meta, intersect, "checkpoint")
+    assert ref.route == "checkpoint" and len(calls) > 1
+    assert fused.rays == ref.rays and loss == ref_loss
+    for k in dist.PARAMS:
+        g, w = grads[k].numpy(), ref_grads[k].numpy()
+        assert np.isfinite(g).all(), k
+        atol = GRAD_ATOL_REL * max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(g, w, rtol=GRAD_RTOL, atol=atol,
+                                   err_msg=k)
+    assert np.abs(grads["tex_c0"].numpy()).max() > 1e-4
+    if name == "checker":
+        assert np.abs(grads["tex_c1"].numpy()).max() > 1e-5
+
+
+def _with_sphere_material(scene, material):
+    world = [dataclasses.replace(h, material=material)
+             if isinstance(h, st.Sphere) else h for h in scene.world]
+    return dataclasses.replace(scene, world=world)
+
+
+def _ineligible(name):
+    if name == "metal":
+        return _with_sphere_material(cornell_box(), st.Metal(
+            albedo=(0.8, 0.6, 0.4), fuzz=0.2))
+    if name == "absorbing_glass":
+        return with_absorbing_glass(cornell_box())
+    if name == "pbr":
+        return _with_sphere_material(cornell_box(), st.PBR(
+            albedo=st.ConstantTexture((0.7, 0.5, 0.3)),
+            roughness=st.ConstantTexture((0.4, 0.4, 0.4))))
+    if name == "media":
+        scene = cornell_box()
+        smoke = st.ConstantMedium(
+            boundary=st.Sphere((370, 100, 180), (370, 100, 180), 0, 1, 80,
+                               st.Lambertian(albedo=st.ConstantTexture(
+                                   (1.0, 1.0, 1.0)))),
+            density=0.01, phase=st.Isotropic(albedo=st.ConstantTexture(
+                (0.8, 0.8, 0.8))))
+        return dataclasses.replace(scene, world=scene.world + [smoke])
+    return get_scene(name)
+
+
+@pytest.mark.parametrize("name", ["metal", "absorbing_glass", "pbr", "media",
+                                  "cornell_box_spectral_simple"])
+def test_ineligible_scenes_keep_the_checkpointed_bounces(name):
+    """Metal, absorbing glass, PBR, media and spectral scenes: not
+    `eligible_diff`, so the step takes the checkpointed bounces by itself,
+    and its loss, rays and gradients are those of the step told to
+    (route "checkpoint"), bit for bit."""
+    cs, meta = compiler.compile_scene(_ineligible(name), "cpu")
+    intersect = path.make_brute_intersector(cs)
+    assert not diff_trace.eligible_diff(cs, meta, intersect)
+    assert diff_trace.prepare(cs, meta, intersect) is None
+    runs = [_step(cs, meta, intersect, route, n=8, depth=3)
+            for route in (None, "checkpoint")]
+    (s1, l1, g1), (s2, l2, g2) = runs
+    assert s1.route == s2.route == "checkpoint"
+    assert s1.rays == s2.rays and l1 == l2
+    for k in dist.PARAMS:
+        assert torch.equal(g1[k], g2[k]), k
+        assert torch.isfinite(g1[k]).all(), k
+
+
+def test_eligibility_needs_the_scanned_scene():
+    """The intersector must scan the scene's own primitives: brute force
+    within 560 primitives, or the BVH4 kernel's; the row-stack pair and
+    another scene's brute force keep the checkpointed bounces."""
+    from izpi_tpu_torch.ops import bvh_rowkernel
+
+    cs, meta = compiler.compile_scene(cornell_box(), "cpu")
+    assert diff_trace.eligible_diff(cs, meta, path.make_brute_intersector(cs))
+    params = dist.extract_params(cs)
+    cs_p = dist.inject_params(cs, params)   # the step's: same primitives
+    assert diff_trace.eligible_diff(cs_p, meta,
+                                    path.make_brute_intersector(cs))
+    other, _ = compiler.compile_scene(cornell_box(), "cpu")
+    assert not diff_trace.eligible_diff(cs, meta,
+                                        path.make_brute_intersector(other))
+    cs_r, row = bvh_rowkernel.attach(cs)
+    assert not diff_trace.eligible_diff(cs_r, meta, row)
+    cs_b, bvh = bvh_kernel.attach(cs)
+    assert diff_trace.eligible_diff(cs_b, meta, bvh)
+    big = dataclasses.replace(meta, n_prims=600)
+    assert not diff_trace.eligible_diff(cs, big,
+                                        path.make_brute_intersector(cs))
+    with pytest.raises(ValueError, match="route"):
+        path.trace(cs, meta, path.RenderSettings(max_depth=2),
+                   path.make_brute_intersector(cs), *_rays(cs, 2),
+                   differentiable=True, route="fused")
+
+
+# ---------------------------------------------------------------------------
+# csrc/diff_trace.cu as host C++
+# ---------------------------------------------------------------------------
+
+HOST_ENTRY = r"""
+extern "C" void fwd(const float* prim_f, const int* prim_i, int n_prims, const float* mat_f,
+                    const int* mat_i, const float* light_f, const int* light_i, int n_lights,
+                    const int* nodes, const float* bvh_prims, const float* c0, const float* c1,
+                    int n_tex, const float* o, const float* d, const float* t,
+                    const long long* keys, int n, int max_depth, float bg_r, float bg_g,
+                    float bg_b, int book, float* rad, int* cnt, float* rec_f, int* rec_i) {
+  const izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
+  const izpi::diff::Tex tex{c0, c1, n_tex};
+  const izpi::V3 bg = izpi::mk(bg_r, bg_g, bg_b);
+  const float cos_scale = book ? 2.0f : 1.0f;
+  const int threads = izpi::diff::kThreads;
+  run_grid((n + threads - 1) / threads, threads, [&] {
+    if (nodes == nullptr) {
+      izpi::diff::diff_trace_fwd(sc, tex, o, d, t, keys, n, max_depth, bg, cos_scale, rad, cnt,
+                                 rec_f, rec_i);
+    } else {
+      izpi::diff::diff_trace_fwd_bvh(sc, izpi::diff::BvhHit{nodes, bvh_prims}, tex, o, d, t,
+                                     keys, n, max_depth, bg, cos_scale, rad, cnt, rec_f,
+                                     rec_i);
+    }
+  });
+}
+
+extern "C" void run(const float* rec_f, const int* rec_i, const int* cnt, const float* g_rad,
+                    const float* c0, const float* c1, int n_tex, int n, int max_depth,
+                    float bg_r, float bg_g, float bg_b, int* blk, int* total, long long* rows,
+                    float* g) {
+  const izpi::diff::Tex tex{c0, c1, n_tex};
+  const int threads = izpi::diff::kThreads;
+  const int blocks = (n + threads - 1) / threads;
+  run_grid(blocks, threads, [&] { izpi::diff::diff_trace_block_counts(cnt, n, blk); });
+  run_grid(blocks, threads, [&] {
+    izpi::diff::diff_trace_bwd(tex, rec_f, rec_i, cnt, blk, g_rad, n,
+                               izpi::mk(bg_r, bg_g, bg_b), rows, g, total);
+  });
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = host_kernel(tmp_path_factory.mktemp("diff_trace"), "diff_trace.cu",
+                      HOST_ENTRY, [p, p, p, p, p, p, i, i, i, f, f, f, p, p,
+                                   p, p])
+    lib.fwd.argtypes = ([p, p, i, p, p, p, p, i, p, p, p, p, i, p, p, p, p, i,
+                         i, f, f, f, i] + [p] * 4)
+    return lib
+
+
+def _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1, background):
+    """The reverse kernel as host C++: (count, rows, g), the slots past the
+    count as the buffers were filled (row -5, NaN)."""
+    depth, n = rec_i.shape
+    blk = torch.full(((n + 127) // 128,), -1, dtype=torch.int32)
+    total = torch.full((1,), -1, dtype=torch.int32)
+    rows = torch.full((depth * n,), -5, dtype=torch.int64)
+    g = torch.full((depth * n, 3), torch.nan)
+    host.run(_p(rec_f), _p(rec_i), _p(cnt), _p(g_rad), _p(c0), _p(c1),
+             c0.shape[0], n, depth, *[float(x) for x in background],
+             _p(blk), _p(total), _p(rows), _p(g))
+    return int(total), rows, g
+
+
+def _p(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _host_forward(host, scene, cs, meta, settings, o, d, tme, keys):
+    n, depth = o.shape[0], settings.max_depth
+    rad = torch.zeros((n, 3))
+    cnt = torch.zeros((n,), dtype=torch.int32)
+    rec_f = torch.zeros((depth, n, 4))
+    rec_i = torch.zeros((depth, n), dtype=torch.int32)
+    bvh = scene.bvh
+    c0, c1 = cs.textures.c0.contiguous(), cs.textures.c1.contiguous()
+    host.fwd(_p(scene.prim_f), _p(scene.prim_i), meta.n_prims,
+             _p(scene.mat_f), _p(scene.mat_i), _p(scene.light_f),
+             _p(scene.light_i), meta.n_lights,
+             _p(None if bvh is None else bvh.nodes),
+             _p(None if bvh is None else bvh.prim_table), _p(c0), _p(c1),
+             scene.n_tex, _p(o), _p(d), _p(tme), _p(keys), n, depth,
+             *[float(x) for x in settings.background],
+             int(settings.exact_book_cosine), _p(rad), _p(cnt), _p(rec_f),
+             _p(rec_i))
+    return rad, cnt, rec_f, rec_i
+
+
+@pytest.mark.parametrize("background", [(0.0, 0.0, 0.0), (0.7, 0.8, 1.0)])
+def test_kernels_on_host_equal_plain(host, ctx, background):
+    """The forward kernel on the step's camera rays (brute force and the
+    BVH form) and the reverse kernel on the plain forward's records, as
+    host C++, against their plain versions (the module docstring's
+    tolerances): at most 2% of the paths turn (another ray count or
+    record code or row), the others' records and radiance agree within
+    REC_RTOL, REC_ATOL; the reverse kernel's rows and cotangents bit for
+    bit, under a black and a sky background."""
+    name, (cs, meta, intersect) = ctx
+    scene = diff_trace.prepare(cs, meta, intersect)
+    settings = path.RenderSettings(max_depth=DEPTH, background=background)
+    o, d, tme, keys = (x.contiguous() for x in _rays(cs))
+    want = diff_trace.forward_reference(cs, meta, settings, intersect, o, d,
+                                        tme, keys)
+    got = _host_forward(host, scene, cs, meta, settings, o, d, tme, keys)
+    live = torch.arange(DEPTH)[:, None] < want[1][None, :]
+    same = (got[1] == want[1]) & ((got[3] == want[3]) | ~live).all(0)
+    assert float(same.float().mean()) >= 0.98, float(same.float().mean())
+    keep = live & same[None, :]
+    np.testing.assert_allclose(got[2][keep].numpy(), want[2][keep].numpy(),
+                               rtol=REC_RTOL, atol=REC_ATOL)
+    np.testing.assert_allclose(got[0][same].numpy(), want[0][same].numpy(),
+                               rtol=REC_RTOL, atol=REC_ATOL)
+
+    rs = np.random.RandomState(7)
+    g_rad = torch.as_tensor(rs.randn(N * N, 3).astype(np.float32))
+    rec_f, rec_i, cnt = want[2], want[3], want[1]
+    # Slots past a path's records hold what the kernel never reads.
+    rec_f = torch.where(live[..., None], rec_f, torch.nan)
+    rec_i = torch.where(live, rec_i, -1)
+    c0, c1 = cs.textures.c0.contiguous(), cs.textures.c1.contiguous()
+    count, rows, g = _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1,
+                                   background)
+    w_rows, w_g, w_count = diff_trace.reverse_reference(
+        want[2], want[3], cnt, g_rad, c0, c1, settings, scene.checker)
+    total = int(cnt.sum())
+    assert int(w_count) == count == total < DEPTH * N * N
+    # The live records alone, path after path; nothing written past them.
+    assert torch.equal(rows[:total], w_rows[:total])
+    assert torch.equal(g[:total].view(torch.int32),
+                       w_g[:total].view(torch.int32))
+    assert bool((rows[total:] == -5).all()) and bool(g[total:].isnan().all())
+    assert bool((w_rows[total:] == 0).all()) and bool((w_g[total:] == 0).all())
+    assert float(w_g.abs().max()) > 0
+
+
+@pytest.mark.parametrize("n", [1, 128, 1000, 4100])
+def test_reverse_kernel_places_slots_on_host(host, n):
+    """The reverse kernel's slots over many blocks (one, a whole one, and
+    partial last blocks; blocks and paths with no record): on random
+    records of every code, as host C++, path i's record k at the records
+    of the paths before i plus k, the count their sum, rows and
+    cotangents bit for bit its plain version's, nothing past the count."""
+    depth = 6
+    rs = np.random.RandomState(n)
+    cnt = torch.as_tensor(rs.randint(0, depth + 1, size=n).astype(np.int32))
+    cnt[: min(n, 300)] = torch.where(torch.arange(min(n, 300)) % 3 == 0, 0,
+                                     cnt[: min(n, 300)])
+    n_tex = 5
+    codes = rs.randint(0, 5, size=(depth, n))
+    rec_i = torch.as_tensor(((rs.randint(0, 2 * n_tex, size=(depth, n))
+                              << diff_trace.CODE_BITS) | codes).astype(
+                                  np.int32))
+    rec_f = torch.as_tensor(rs.rand(depth, n, 4).astype(np.float32))
+    g_rad = torch.as_tensor(rs.randn(n, 3).astype(np.float32))
+    c0 = torch.as_tensor(rs.rand(n_tex, 3).astype(np.float32))
+    c1 = torch.as_tensor(rs.rand(n_tex, 3).astype(np.float32))
+    background = (0.7, 0.8, 1.0)
+    count, rows, g = _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1,
+                                   background)
+    w_rows, w_g, w_count = diff_trace.reverse_reference(
+        rec_f, rec_i, cnt, g_rad, c0, c1,
+        path.RenderSettings(max_depth=depth, background=background), True)
+    total = int(cnt.sum())
+    assert count == int(w_count) == total
+    assert torch.equal(rows[:total], w_rows[:total])
+    assert torch.equal(g[:total].view(torch.int32),
+                       w_g[:total].view(torch.int32))
+    assert bool((rows[total:] == -5).all()) and bool(g[total:].isnan().all())

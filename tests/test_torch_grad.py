@@ -82,10 +82,12 @@ def jax_step(scene, eager: bool, depth: int = DEPTH):
             float(loss), {k: np.asarray(v) for k, v in grads.items()})
 
 
-def port_step(cs, meta, params, use_bvh=None, depth=DEPTH):
+def port_step(cs, meta, params, use_bvh=None, depth=DEPTH, route=None):
     """The port's step through brute force, or through a traversal's
     intersector: "bvh4" (`ops.bvh_kernel`) or "row" (`ops.bvh_rowkernel`),
-    each running its plain traversal on the CPU."""
+    each running its plain traversal on the CPU; `route` is
+    `build_train_step`'s (by default the fused route where the scene takes
+    it, `ops.diff_trace`)."""
     intersect = tpath.make_brute_intersector(cs)
     if use_bvh == "bvh4":
         from izpi_tpu_torch.ops import bvh_kernel
@@ -96,7 +98,7 @@ def port_step(cs, meta, params, use_bvh=None, depth=DEPTH):
 
         cs, intersect = bvh_rowkernel.attach(cs)
     step = tdist.build_train_step(cs, meta, tpath.RenderSettings(
-        max_depth=depth), intersect, N, N)
+        max_depth=depth), intersect, N, N, route=route)
     xs, ys = (torch.as_tensor(a) for a in _pixels())
     loss, grads = step(params, xs, ys, torch.as_tensor(_target()),
                        trng.render_key(SEED))
@@ -125,26 +127,34 @@ def test_loss_and_grads_match_jax(cornell, monkeypatch):
     """Cornell 8×8, depth 4, seed 0, brute force: the loss and all six
     parameters' gradients equal JAX's; tex_c0 (the walls' and the light's
     colours) carries a gradient. The step is the one the card captures,
-    run eagerly: its trace runs the fixed trip of max_depth bounces, and
-    the gathers of tex_c0 and mat_fuzz have their backward in
-    `ops.table_grad` (its plain version on the CPU)."""
+    run eagerly, on both routes: the checkpointed bounces, whose trace
+    runs the fixed trip of max_depth bounces and whose gathers of tex_c0
+    and mat_fuzz have their backward in `ops.table_grad` (its plain
+    version on the CPU), and the fused route (the default here,
+    `ops.diff_trace`), whose one call of `table_grad` covers tex_c0."""
     tcs, tmeta, jparams, want_loss, want = cornell
     shapes = []
     original = table_grad.table_grad
 
-    def recording(rows, g, shape):
+    def recording(rows, g, shape, count=None):
         shapes.append(tuple(shape))
-        return original(rows, g, shape)
+        return original(rows, g, shape, count=count)
 
     monkeypatch.setattr(table_grad, "table_grad", recording)
-    loss, got, rays = port_step(tcs, tmeta,
-                                tdist.params_from_jax(jparams, "cpu"))
-    assert tuple(tcs.textures.c0.shape) in shapes
-    assert tuple(tcs.materials.fuzz.shape) in shapes
-    assert rays > N * N
-    np.testing.assert_allclose(loss, want_loss, rtol=LOSS_RTOL)
-    assert_grads_close(got, want)
-    assert np.abs(got["tex_c0"]).max() > 1e-3
+    for route in ("checkpoint", None):
+        shapes.clear()
+        loss, got, rays = port_step(tcs, tmeta,
+                                    tdist.params_from_jax(jparams, "cpu"),
+                                    route=route)
+        assert tuple(tcs.textures.c0.shape) in shapes
+        if route == "checkpoint":
+            assert tuple(tcs.materials.fuzz.shape) in shapes
+        else:
+            assert shapes == [tuple(tcs.textures.c0.shape)]
+        assert rays > N * N
+        np.testing.assert_allclose(loss, want_loss, rtol=LOSS_RTOL)
+        assert_grads_close(got, want)
+        assert np.abs(got["tex_c0"]).max() > 1e-3
 
 
 @pytest.mark.parametrize("traversal", ["bvh4", "row"])

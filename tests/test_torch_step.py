@@ -104,24 +104,24 @@ def test_flat_rows_and_paths():
 # The kernel's C entry, for the host: the same three kernels, grids and
 # paths as `izpi_table_grad`.
 TABLE_GRAD_ENTRY = r"""
-extern "C" void run(const long long* rows, const float* g, long long n, int c, long long r,
-                    void* scratch, float* out) {
+extern "C" void run(const long long* rows, const float* g, long long n, const int* count, int c,
+                    long long r, void* scratch, float* out) {
   using namespace izpi;
   const long long elems = r * c;
   unsigned long long* acc = (unsigned long long*)scratch;
   unsigned* flags = (unsigned*)(acc + elems);
   unsigned* stat = flags + elems;
   run_grid(grad_blocks(n * c, kGradThreads), kGradThreads,
-           [&] { table_grad_absmax(g, n * c, stat); });
+           [&] { table_grad_absmax(g, n, c, count, stat); });
   if (elems <= kSharedElems) {
     run_grid(grad_blocks(n, kGradThreads * kSharedBatches), kGradThreads,
-             [&] { table_grad_scatter_shared(rows, g, n, c, elems, stat, acc, flags); });
+             [&] { table_grad_scatter_shared(rows, g, n, count, c, elems, stat, acc, flags); });
   } else {
     run_grid(grad_blocks(n, kGradThreads), kGradThreads,
-             [&] { table_grad_scatter(rows, g, n, c, stat, acc, flags); });
+             [&] { table_grad_scatter(rows, g, n, count, c, stat, acc, flags); });
   }
   run_grid(grad_blocks(elems, kGradThreads), kGradThreads,
-           [&] { table_grad_finalize(acc, flags, stat, n, elems, out); });
+           [&] { table_grad_finalize(acc, flags, stat, n, count, elems, out); });
 }
 """
 
@@ -130,16 +130,18 @@ extern "C" void run(const long long* rows, const float* g, long long n, int c, l
 def host(tmp_path_factory):
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     return host_kernel(tmp_path_factory.mktemp("table_grad"), "table_grad.cu",
-                       TABLE_GRAD_ENTRY, [p, p, ll, i, ll, p, p])
+                       TABLE_GRAD_ENTRY, [p, p, ll, p, i, ll, p, p])
 
 
-def _host_grad(host, rows, g, shape):
+def _host_grad(host, rows, g, shape, count=None):
     c = g.shape[1]
     r = int(np.prod(shape)) // c
     scratch = torch.zeros(r * c * 12 // 8 + 1, dtype=torch.int64)
     out = torch.empty(shape, dtype=torch.float32)
     host.run(ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(g.data_ptr()),
-             rows.shape[0], c, r, ctypes.c_void_p(scratch.data_ptr()),
+             rows.shape[0], ctypes.c_void_p(
+                 None if count is None else count.data_ptr()), c, r,
+             ctypes.c_void_p(scratch.data_ptr()),
              ctypes.c_void_p(out.data_ptr()))
     return out
 
@@ -177,6 +179,35 @@ def test_table_grad_kernel_on_host(host, name, n):
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
+@pytest.mark.parametrize("name,n,live", [("tex_c0", 3000, 1234),
+                                         ("big_images", 1100, 517)])
+def test_table_grad_kernel_counted_rows(host, name, n, live):
+    """With a row count in memory (the fused route's form: a buffer sized
+    for every slot, the rows written counted on the device) the kernel adds
+    only the first `live` rows, on each path: the same bits as the kernel
+    given those rows alone, however the rows past them are filled; the
+    wrapper's plain version agrees within G's tolerances."""
+    shape, n_index = TABLES.get(name, ((2, 16, 48, 3), 3))
+    table, index, g = _gather_inputs(shape, n_index, n, 3)
+    rows = table_grad.flat_rows(shape, index).reshape(-1).contiguous()
+    c = int(np.prod(shape[n_index:]))
+    g2 = g.reshape(n, c).contiguous()
+    # Past the count: rows out of range and cotangents that would poison
+    # the sums and the fixed point's exponent if they were read.
+    rows[live:] = -7
+    g2[live:] = float("nan")
+    count = torch.tensor([live], dtype=torch.int32)
+    got = _host_grad(host, rows, g2, shape, count)
+    alone = _host_grad(host, rows[:live].contiguous(),
+                       g2[:live].contiguous(), shape)
+    assert torch.equal(got.view(torch.int32), alone.view(torch.int32))
+    plain = table_grad.table_grad(rows, g2, shape, count=count)
+    want = table_grad.table_grad_reference(rows[:live], g2[:live], shape)
+    assert torch.equal(plain, want)
+    big = float(g2[:live].abs().max())
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6 * big)
+
+
 def test_table_grad_kernel_non_finite(host):
     """A NaN, or +Inf beside -Inf, makes its element NaN; an Inf beside
     finite values keeps its sign; the other elements stay finite sums."""
@@ -202,8 +233,9 @@ def _pixels(n, stride, dev="cpu"):
 def _traced_loss(cs, meta, intersect, params, frame, xs, ys, depth,
                  early_exit):
     """(loss, rays, grads by name, bounces run forward) of the
-    differentiable trace of one sample through (xs, ys) of a frame² image,
-    the loss the mean of the colour."""
+    differentiable trace's checkpointed bounces (route "checkpoint") of one
+    sample through (xs, ys) of a frame² image, the loss the mean of the
+    colour."""
     bounces = []
     original = path.bounce_rgb
 
@@ -218,7 +250,7 @@ def _traced_loss(cs, meta, intersect, params, frame, xs, ys, depth,
     try:
         color, rays = path.trace(cs_p, meta, path.RenderSettings(
             max_depth=depth), intersect, o, d, tme, keys, differentiable=True,
-            early_exit=early_exit)
+            early_exit=early_exit, route="checkpoint")
         forward = len(bounces)
     finally:
         path.bounce_rgb = original
@@ -256,21 +288,26 @@ def test_fixed_trip_trace_equals_early_exit(name):
     assert g1["tex_c0"].abs().max() > 0
 
 
-def test_step_runs_eagerly_on_the_cpu():
+@pytest.mark.parametrize("route", ["checkpoint", None])
+def test_step_runs_eagerly_on_the_cpu(route):
     """On the CPU the step's runner is `loops.Eager` (a CUDA graph needs a
     card: `loops.Graphed` refuses CPU tensors), the rays are read once
     from the device into `step.rays`, and every gather of a trainable
-    table the step reaches has its backward in `table_grad`."""
+    table the step reaches has its backward in `table_grad`: on the
+    checkpointed bounces each gather of tex_c0 and mat_fuzz, on the fused
+    route (the default for the Cornell box, `ops.diff_trace`) one call
+    over tex_c0's rows a sample pass."""
     cs, meta = compiler.compile_scene(cornell_box(), "cpu")
     step = dist.build_train_step(cs, meta, path.RenderSettings(max_depth=3),
-                                 path.make_brute_intersector(cs), 8, 8, spp=2)
+                                 path.make_brute_intersector(cs), 8, 8, spp=2,
+                                 route=route)
     assert isinstance(step.runner, loops.Eager)
     shapes = []
     original = table_grad.table_grad
 
-    def recording(rows, g, shape):
+    def recording(rows, g, shape, count=None):
         shapes.append(tuple(shape))
-        return original(rows, g, shape)
+        return original(rows, g, shape, count=count)
 
     table_grad.table_grad = recording
     try:
@@ -281,7 +318,10 @@ def test_step_runs_eagerly_on_the_cpu():
         table_grad.table_grad = original
     assert isinstance(step.rays, int) and step.rays >= 2 * 64
     assert step.runner.trips == 1 and torch.isfinite(loss)
-    for k in ("tex_c0", "mat_fuzz"):   # the tables the Cornell box reaches
-        assert tuple(grads[k].shape) in shapes, k
+    if route == "checkpoint":
+        for k in ("tex_c0", "mat_fuzz"):   # the tables the Cornell box reaches
+            assert tuple(grads[k].shape) in shapes, k
+    else:
+        assert shapes == [tuple(grads["tex_c0"].shape)] * 2
     with pytest.raises(ValueError, match="CUDA"):
         loops.Graphed().call(lambda x: x + 1, torch.zeros(3))
