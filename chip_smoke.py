@@ -3688,7 +3688,7 @@ def main() -> None:
             intersect=plain_bvh)
         torch.cuda.synchronize()
         blay = card_layout(megakernel, n, spp, megakernel.ENTRY_BVH)
-        nodes, tests = (int(x) for x in trav_k)
+        nodes, tests = (int(x) for x in trav_k.sum(dim=0))
         bvh_errs.append(image_close(
             f"BVH form vs plain: cornell_box_obj {n}x{n}@{spp} depth {depth} "
             f"seed {seed} ({blay['slots']} slots of {blay['spp_slot']} "
@@ -3735,7 +3735,7 @@ def main() -> None:
         "megakernel_rgb_bvh at 256x256@2 depth 50", int(brays_2),
         256 * 256 * 2, bdraws_2, bctx.cs.prims.kind.tolist(), False,
         card_layout(megakernel, 256, 2, megakernel.ENTRY_BVH), btable_bytes,
-        card, btrav_2)
+        card, btrav_2.sum(dim=0))
 
     mark("phase 8, the BVH form")
     # 9. The BVH main path, through the entry points a user calls: the RGB
@@ -3784,7 +3784,8 @@ def main() -> None:
     bvh_bound = launch_bound(
         "megakernel_rgb_bvh per launch on the BVH main path",
         bres.rays_traced, 256 * 256 * 128, draws_d,
-        bctx.cs.prims.kind.tolist(), False, blay, btable_bytes, card, trav_d)
+        bctx.cs.prims.kind.tolist(), False, blay, btable_bytes, card,
+        trav_d.sum(dim=0))
     print(f"BVH main path: megakernel_rgb_bvh {bvh_ms:.4f} ms per launch at "
           f"{bvh_bound['bound_ms'] / bvh_ms:.2%} of its bound (SASS); its "
           f"traversal {bvh_bound['nodes'] / bres.rays_traced:.4f}"

@@ -106,9 +106,125 @@ struct BvhHit {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The probe
+// ---------------------------------------------------------------------------
+
+// The probe instance of the BVH form (izpi_megakernel_rgb_bvh_probe) renders
+// what the main instance renders, through the same visits in the same
+// order, and adds over the launch how the warps spend the traversal. Each
+// lane keeps its counts and adds them to the launch's row once, at its
+// exit; the warp's counts are kept by the lowest lane that traces. Read by
+// ops/megakernel.py probe_bvh in this order.
+enum ProbeCounter : int {
+  kPrCalls = 0,     // warp traversal calls: the lanes of a warp that trace together
+  kPrRays,          // lane traversal calls
+  kPrVisits,        // nodes popped, over the lanes
+  kPrVisitPasses,   // passes of the warp through its visit loop
+  kPrTests,         // primitives tested, over the lanes
+  kPrTestPasses,    // passes of the warp through its primitive tests
+  kPrMaxVisits,     // the most nodes one lane of the warp popped in a call
+  kPrCyTraversal,   // clock64 cycles over the lanes: in the closest hit,
+  kPrCyRegen,       // in regeneration (take_slot, the deposit, the camera ray),
+  kPrCyLoop,        // in the whole loop (the rest is shading and the cipher)
+  kProbeCounters
+};
+
+// bvh4_closest (bvh4.cuh) with the lanes that trace together stepping
+// through the visit loop in passes, as the warp's SIMT loop does: each pass
+// pops one node in each lane that has one left, and tests each leaf slot's
+// primitives for as many rounds as the longest of them in the pass.
+__device__ __forceinline__ int bvh4_closest_probed(const int* __restrict__ nodes,
+                                                   const float* __restrict__ prims, V3 o,
+                                                   V3 d, float tme, float t_min, float t_max,
+                                                   float& t_out, int& visits, int& tests,
+                                                   unsigned long long* pc) {
+  const unsigned mask = __activemask();
+  const int lane = threadIdx.x & 31;
+  const bool lead = lane == __ffs(mask) - 1;
+  const float od[3] = {o.x, o.y, o.z};
+  const float inv[3] = {1.0f / (d.x == 0.0f ? kInvEps : d.x), 1.0f / (d.y == 0.0f ? kInvEps : d.y),
+                        1.0f / (d.z == 0.0f ? kInvEps : d.z)};
+  const bool live = !(isnan(o.x) || isnan(o.y) || isnan(o.z) || isnan(d.x) || isnan(d.y) ||
+                      isnan(d.z));
+  float t_best = t_max;
+  int best = -1;
+  int stack[kStack];
+  int sp = 0;
+  stack[sp++] = 0;
+  int my_visits = 0, my_tests = 0;
+  for (;;) {
+    const unsigned m = __ballot_sync(mask, sp > 0);
+    if (m == 0) break;
+    if (lead) ++pc[kPrVisitPasses];
+    if (sp == 0) continue;
+    const bool first = lane == __ffs(m) - 1;
+    const int node = stack[--sp];
+    ++my_visits;
+    float key[4];
+    bool hit[4];
+    int ch[4], cnt[4];
+    bvh4_children(nodes, node, od, inv, live, t_min, t_best, key, hit, ch, cnt);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int n_s = hit[s] && cnt[s] > 0 ? cnt[s] : 0;
+      const int rounds = __reduce_max_sync(m, n_s);
+      if (first) pc[kPrTestPasses] += rounds;
+      for (int k = 0; k < n_s; ++k) {
+        const int p = ch[s] + k;
+        const float* g = prims + (size_t)p * kPrimWords;
+        float t;
+        const bool ok = prim_test(g, __float_as_int(__ldg(g + 12)), o, d, tme, t_min, t_best, t);
+        ++my_tests;
+        if (ok && t < t_best) {
+          t_best = t;
+          best = p;
+        }
+      }
+    }
+    bvh4_push(key, ch, hit, cnt, stack, sp);
+  }
+  const int most = __reduce_max_sync(mask, my_visits);
+  if (lead) {
+    ++pc[kPrCalls];
+    pc[kPrMaxVisits] += most;
+  }
+  ++pc[kPrRays];
+  pc[kPrVisits] += my_visits;
+  pc[kPrTests] += my_tests;
+  visits += my_visits;
+  tests += my_tests;
+  t_out = t_best;
+  return best;
+}
+
+// The probe's closest hit: BvhHit through bvh4_closest_probed.
+struct BvhProbeHit {
+  BvhHit hit;
+  __device__ __forceinline__ int operator()(const Scene& /*sc*/, int slot, V3 o, V3 d,
+                                            float tme, float t_min, float t_max, float& t,
+                                            unsigned long long* pc) const {
+    int visits = 0, tests = 0;
+    const long long c0 = clock64();
+    const int best = bvh4_closest_probed(hit.nodes, hit.prims, o, d, tme, t_min, t_max, t,
+                                         visits, tests, pc);
+    pc[kPrCyTraversal] += (unsigned long long)(clock64() - c0);
+    if (hit.counts != nullptr) {
+      hit.counts[2 * slot + 0] += visits;
+      hit.counts[2 * slot + 1] += tests;
+    }
+    return best;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The render loop
+// ---------------------------------------------------------------------------
+
 // The render loop, over the closest-hit function `closest` (BruteHit or
-// BvhHit); everything else is the same code in both forms.
-template <class Hit>
+// BvhHit; BvhProbeHit in the probe instance, kProbe, which adds its counts
+// to probe_out); everything else is the same code in both forms.
+template <bool kProbe = false, class Hit>
 __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
                                             const Camera& camera, uint32_t seed0,
                                             uint32_t seed1, uint32_t offset, int nx, int ny,
@@ -117,13 +233,37 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
                                             int* __restrict__ queue,
                                             float* __restrict__ acc_out,
                                             int* __restrict__ cnt_out,
-                                            int* __restrict__ draws_out) {
+                                            int* __restrict__ draws_out,
+                                            unsigned long long* __restrict__ probe_out =
+                                                nullptr) {
+  // The probe instance's counts (kProbe); the main instances compile them out.
+  unsigned long long pc[kProbe ? kProbeCounters : 1] = {};
+  long long c_loop = 0, c_regen = 0;
+  if constexpr (kProbe) c_loop = clock64();
+  // The lane's counts into the launch's row, at its exit.
+  const auto flush = [&]() {
+    if constexpr (kProbe) {
+      pc[kPrCyLoop] += (unsigned long long)(clock64() - c_loop);
+      for (int i = 0; i < kProbeCounters; ++i) atomicAdd(probe_out + i, pc[i]);
+    }
+  };
+  // The closest hit of a ray of this slot's path.
+  const auto trace = [&](int slot, V3 ro, V3 rd, float tme, float t0, float t1, float& t) {
+    if constexpr (kProbe) {
+      return closest(sc, slot, ro, rd, tme, t0, t1, t, pc);
+    } else {
+      return closest(sc, slot, ro, rd, tme, t0, t1, t);
+    }
+  };
   const int n_pix = nx * ny;
   const V3 bg = mk(bg_r, bg_g, bg_b);
   const float cos_scale = book ? 2.0f : 1.0f;
 
   int slot = take_slot(queue, n_slots, spp_slot, acc_out, cnt_out);
-  if (slot >= n_slots) return;
+  if (slot >= n_slots) {
+    flush();
+    return;
+  }
   int samp = 0;
   Draws<false> dr;
   dr.clear();
@@ -144,7 +284,7 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
   for (;;) {  // one bounce of one path per trip
     ++cnt;
     float t;
-    const int hit = closest(sc, slot, o, d, tme, kTMin, kTMax, t);
+    const int hit = trace(slot, o, d, tme, kTMin, kTMax, t);
     V3 p = o, n = d, albedo = bg;
     const float* M = sc.mat_f;
     const int* Mi = sc.mat_i;
@@ -177,8 +317,10 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
     // The next sample, from the next slot once this one is done.
     int next_slot = slot, next_samp = samp;
     if (ends && ++next_samp == spp_slot) {
+      if constexpr (kProbe) c_regen = clock64();
       next_slot = take_slot(queue, n_slots, spp_slot, acc_out, cnt_out);
       next_samp = 0;
+      if constexpr (kProbe) pc[kPrCyRegen] += (unsigned long long)(clock64() - c_regen);
     }
     const uint32_t pair_list = kind == kMetal        ? kPairsMetal
                                : kind == kDielectric ? kPairsDielectric
@@ -225,7 +367,7 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
         if (Mi[2] != 0 && !is_refl) {  // Beer–Lambert exit re-trace (dielectric.go:118-153)
           const V3 start = p + d_new * 1e-3f;
           float te;
-          const int ex = closest(sc, slot, start, d_new, tme, 0.0f, 1000.0f, te);
+          const int ex = trace(slot, start, d_new, tme, 0.0f, 1000.0f, te);
           float path_len = 10.0f;
           if (ex >= 0) path_len = clamp(length((start + d_new * te) - p), 0.1f, 100.0f);
           mult = mk(expf(-M[8] * path_len), expf(-M[9] * path_len), expf(-M[10] * path_len));
@@ -262,6 +404,7 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
     }
     if (!ends) continue;
 
+    if constexpr (kProbe) c_regen = clock64();
     // DeNAN per component (vec3.DeNAN, render/rgb.go:36).
     acc = acc + mk(finite_or_zero(rad.x), finite_or_zero(rad.y), finite_or_zero(rad.z));
     if (next_slot != slot) {
@@ -269,7 +412,11 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
       acc_out[3 * slot + 1] = acc.y;
       acc_out[3 * slot + 2] = acc.z;
       cnt_out[slot] = cnt;
-      if (next_slot >= n_slots) return;
+      if (next_slot >= n_slots) {
+        if constexpr (kProbe) pc[kPrCyRegen] += (unsigned long long)(clock64() - c_regen);
+        flush();
+        return;
+      }
       slot = next_slot;
       acc = mk(0.0f, 0.0f, 0.0f);
       cnt = 0;
@@ -281,6 +428,7 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
     thru = mk(1.0f, 1.0f, 1.0f);
     rad = mk(0.0f, 0.0f, 0.0f);
     depth = 0;
+    if constexpr (kProbe) pc[kPrCyRegen] += (unsigned long long)(clock64() - c_regen);
   }
 }
 
@@ -302,6 +450,20 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
                        int* __restrict__ cnt_out, int* __restrict__ draws_out) {
   render_loop(bvh, sc, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots, max_depth,
               bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out);
+}
+
+// The probe instance of megakernel_rgb_bvh: the same paths, with the
+// counts of ProbeCounter added to probe_out (kProbeCounters u64, zeroed).
+__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
+    megakernel_rgb_bvh_probe(Scene sc, BvhHit bvh, Camera camera, uint32_t seed0,
+                             uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
+                             int n_slots, int max_depth, float bg_r, float bg_g, float bg_b,
+                             int book, int* __restrict__ queue, float* __restrict__ acc_out,
+                             int* __restrict__ cnt_out, int* __restrict__ draws_out,
+                             unsigned long long* __restrict__ probe_out) {
+  render_loop<true>(BvhProbeHit{bvh}, sc, camera, seed0, seed1, offset, nx, ny, spp_slot,
+                    n_slots, max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out,
+                    draws_out, probe_out);
 }
 
 }  // namespace izpi
@@ -361,5 +523,28 @@ int izpi_megakernel_rgb_bvh(const float* prim_f, const int* prim_i, int n_prims,
       max_depth, bg_r, bg_g, bg_b, book, queue, acc, cnt, draws);
   return (int)cudaGetLastError();
 }
+
+// izpi_megakernel_rgb_bvh's probe instance, launched like it over `blocks`
+// blocks (the main instance's grid), with probe: (kProbeCounters,) u64,
+// zeroed, that receives the launch's counts (ProbeCounter).
+int izpi_megakernel_rgb_bvh_probe(const float* prim_f, const int* prim_i, int n_prims,
+                                  const float* mat_f, const int* mat_i, const float* light_f,
+                                  const int* light_i, int n_lights, const int* nodes,
+                                  const float* bvh_prims, const float* cam, uint32_t seed0,
+                                  uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
+                                  int n_slots, int max_depth, float bg_r, float bg_g,
+                                  float bg_b, int book, int blocks, int* queue, float* acc,
+                                  int* cnt, int* draws, int* trav, unsigned long long* probe,
+                                  void* stream) {
+  izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
+  izpi::BvhHit bvh{nodes, bvh_prims, trav};
+  izpi::megakernel_rgb_bvh_probe<<<blocks, izpi::kMegaThreads, 0, (cudaStream_t)stream>>>(
+      sc, bvh, izpi::load_camera(cam), seed0, seed1, offset, nx, ny, spp_slot, n_slots,
+      max_depth, bg_r, bg_g, bg_b, book, queue, acc, cnt, draws, probe);
+  return (int)cudaGetLastError();
+}
+
+// The number of counters izpi_megakernel_rgb_bvh_probe writes.
+int izpi_megakernel_rgb_bvh_probe_counters() { return izpi::kProbeCounters; }
 
 }  // extern "C"

@@ -335,8 +335,8 @@ def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
     frame at 1024 spp and depth up to 50 can pass 2³¹ rays). With `draws`
     (on the card only) one more item: the int64 (scatters, bounce pairs
     drawn) of the whole launch, from the kernel's counter buffer, and for
-    the BVH form a fourth: the int64 (nodes popped, primitives tested) of
-    the whole launch.
+    the BVH form a fourth: each slot's int64 (nodes popped, primitives
+    tested), (slots, 2), the slots of `card_layout`.
 
     `bvh`, the BVH4 of `cs`'s (reordered) primitives (`bvh_kernel.attach`'s
     intersector's `ks`), selects the BVH form, which takes any primitive
@@ -361,6 +361,54 @@ def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
         return render_slots_reference(
             cs, meta, settings, nx, ny, spp, key, offset,
             intersect=None if bvh is None else bvh_plain_intersector(bvh))
+    return _launch(cs, meta, settings, nx, ny, spp, key, offset, tables,
+                   draws, bvh)
+
+
+# The probe instance's counters (csrc/megakernel_rgb.cu ProbeCounter), in
+# the order the kernel writes them.
+PROBE_COUNTERS = ("calls", "rays", "visits", "visit_passes", "tests",
+                  "test_passes", "max_visits", "cycles_traversal",
+                  "cycles_regeneration", "cycles_loop")
+
+
+def probe_bvh(cs, meta, settings, nx: int, ny: int, spp: int, key,
+              offset: int = 0, tables: SceneTables | None = None,
+              bvh: Optional[bvh_kernel.KernelScene] = None):
+    """The BVH form's probe instance (`izpi_megakernel_rgb_bvh_probe`, on the
+    card only, never on a main path): the render of `render_slots(...,
+    bvh=bvh, draws=True)`, launched on the main instance's grid, and a dict
+    of how its warps spent the traversal: the raw counters of
+    PROBE_COUNTERS and, from them, `use_visits` and `use_tests` (lane
+    iterations over 32 × the warps' passes through the visit loop and
+    through the primitive tests), `nodes_mean` and `nodes_warp_max` (nodes
+    popped a traversal call: the lanes' mean and the warp's most, averaged
+    over the warps' calls), and the shares of the lanes' cycles in the
+    traversal, in regeneration and in shading and the cipher. Returns
+    (render_slots' four items, that dict)."""
+    if bvh is None or cs.device.type != "cuda":
+        raise ValueError("the probe runs the BVH form on a CUDA device")
+    probe = torch.zeros(len(PROBE_COUNTERS), dtype=torch.int64,
+                        device=cs.device)
+    out = _launch(cs, meta, settings, nx, ny, spp, key, offset, tables, True,
+                  bvh, probe)
+    c = dict(zip(PROBE_COUNTERS, probe.tolist()))
+    loop = max(c["cycles_loop"], 1)
+    trav, regen = c["cycles_traversal"] / loop, c["cycles_regeneration"] / loop
+    return out, dict(
+        c, use_visits=c["visits"] / max(32 * c["visit_passes"], 1),
+        use_tests=c["tests"] / max(32 * c["test_passes"], 1),
+        nodes_mean=c["visits"] / max(c["rays"], 1),
+        nodes_warp_max=c["max_visits"] / max(c["calls"], 1),
+        share_traversal=trav, share_regeneration=regen,
+        share_shading=1.0 - trav - regen)
+
+
+def _launch(cs, meta, settings, nx, ny, spp, key, offset, tables, draws, bvh,
+            probe=None):
+    """`render_slots` on a CUDA device; with `probe` (a zeroed int64 tensor
+    of PROBE_COUNTERS), the BVH form's probe instance, counted apart."""
+    dev = cs.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not (nx > 0 and ny > 0 and spp >= 0):
@@ -401,6 +449,10 @@ def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if bvh is None:
             err = lib.izpi_megakernel_rgb(*scene, *launch, stream)
+        elif probe is not None:
+            entry = ENTRY_BVH + "_probe"
+            err = lib.izpi_megakernel_rgb_bvh_probe(
+                *scene, *tree, *launch, ptr(trav), ptr(probe), stream)
         else:
             err = lib.izpi_megakernel_rgb_bvh(
                 *scene, *tree, *launch, ptr(trav) if traversal else None,
@@ -410,10 +462,10 @@ def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
     global launches, bvh_launches
     if bvh is None:
         launches += 1
-    else:
+    elif probe is None:
         bvh_launches += 1
     out = launch_result(acc, cnt, counts, repl, n_pix, draws)
-    return out + (trav.sum(dim=0, dtype=torch.int64),) if traversal else out
+    return out + (trav.long(),) if traversal else out
 
 
 def host_camera(cam: torch.Tensor):

@@ -288,12 +288,31 @@ for _ in range(runs):
     # A pool replayed from a CUDA graph makes no launch the host sees.
     ms.append(profiling.event_ms(events) / len(events) if events
               else float("nan"))
+# The RGB megakernel's BVH form: one more launch of the frame with its
+# traversal counts (nodes popped, primitives tested; summed, whatever shape
+# the tree's wrapper returns them in), and where the tree has it, its probe
+# instance on the same frame, which must render the same bits and counts.
+extra = {}
+if ctx.mega_bvh() is not None and warm.iterations is None:
+    from izpi_tpu_torch.core import rng
+    frame = (ctx.cs, ctx.meta, settings, n, n, spp,
+             rng.render_key(0, device="cuda"))
+    kw = dict(tables=ctx.tables(), bvh=ctx.mega_bvh())
+    main = megakernel.render_slots(*frame, draws=True, **kw)
+    extra["traversal"] = [int(x) for x in main[3].reshape(-1, 2).sum(dim=0)]
+    if hasattr(megakernel, "probe_bvh"):
+        probed, summary = megakernel.probe_bvh(*frame, **kw)
+        extra["probe"] = summary
+        extra["probe_same"] = bool(
+            torch.equal(probed[0].view(torch.int32), main[0].view(torch.int32))
+            and int(probed[1]) == int(main[1])
+            and torch.equal(probed[3], main[3]))
 usage = _build.ptxas_usage(_build.build().with_suffix(".log").read_text())
 np.savez(out, image=res.image, xyz=res.xyz if ctx.meta.spectral else res.image)
 print(json.dumps({"rays": res.rays_traced, "seconds": seconds, "ms": ms,
                   "launches": len(events), "usage": usage,
                   "engine": "pool" if res.iterations is not None else fn,
-                  "iterations": res.iterations}))
+                  "iterations": res.iterations, **extra}))
 """
 
 # One turn of --cipher, run like TURN: argv = shapes (JSON), reps, out.npz.
@@ -648,6 +667,16 @@ def parent_turns(scene: str, row: bool, parent: Path, runs: int,
                   f"{[round(x, 4) for x in r['ms']]} ({r['launches']} launches "
                   f"a render), median {statistics.median(r['ms']):.4f}; ptxas "
                   f"{r['usage']}", flush=True)
+            if "traversal" in r:
+                print(f"turn {turn} ({name}): traversal of the frame (one "
+                      f"more launch): {r['traversal'][0]} nodes popped, "
+                      f"{r['traversal'][1]} primitives tested "
+                      f"({r['traversal'][0] / r['rays']:.4f} and "
+                      f"{r['traversal'][1] / r['rays']:.4f} a ray)", flush=True)
+            if "probe" in r:
+                print(f"turn {turn} ({name}): {probe_line(r['probe'])}; the "
+                      f"probe's render, rays and counts equal the main "
+                      f"instance's: {r['probe_same']}", flush=True)
             with np.load(out) as z:
                 got[name].append((r, z["xyz"].astype(np.float64)))
     (pr, pa), (tr, ta) = got["parent"][0], got["this"][0]
@@ -679,9 +708,28 @@ def parent_turns(scene: str, row: bool, parent: Path, runs: int,
     # changes from run to run, so its turns repeat within the tolerance.
     repeat = bits["this"] and (within["parent"] if slots is None
                                else bits["parent"])
-    if pr["rays"] != tr["rays"] or not ok.all() or not repeat:
+    if "traversal" in pr and "traversal" in tr:
+        print(f"parent vs this tree: traversal counts {pr['traversal']} vs "
+              f"{tr['traversal']} (equal {pr['traversal'] == tr['traversal']})",
+              flush=True)
+    probes = all(r.get("probe_same", True) for v in got.values() for r, _ in v)
+    if pr["rays"] != tr["rays"] or not ok.all() or not repeat or not probes:
         raise SystemExit("measure_port: this tree's main path differs from "
-                         "the parent's")
+                         "the parent's, or a probe from its main instance")
+
+
+def probe_line(p: dict) -> str:
+    """The BVH form's probe (`megakernel.probe_bvh`'s dict) on one line."""
+    return (f"probe: lane use {p['use_visits']:.4f} of the visit passes "
+            f"({p['visits']} nodes popped in {p['visit_passes']} warp passes), "
+            f"{p['use_tests']:.4f} of the test passes ({p['tests']} primitives "
+            f"tested in {p['test_passes']}); nodes popped a traversal call "
+            f"{p['nodes_mean']:.4f} a lane against the warp's most "
+            f"{p['nodes_warp_max']:.4f} ({p['rays']} lane calls in "
+            f"{p['calls']} warp calls); cycles: traversal "
+            f"{p['share_traversal']:.2%}, shading and cipher "
+            f"{p['share_shading']:.2%}, regeneration "
+            f"{p['share_regeneration']:.2%}")
 
 
 def cipher_turns(parent, runs: int) -> None:

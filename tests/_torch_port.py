@@ -170,6 +170,7 @@ def with_absorbing_glass(scene, types=tst, absorption=ABSORPTION):
 CUDA_STAND_IN = r"""
 #pragma once
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -236,6 +237,18 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   for (int i = 0; i < 32; ++i) m |= s[i] ? 1u << i : 0u;
   return m;
 }
+inline unsigned __activemask() { return 0xffffffffu; }
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  const uint32_t* s = exchange((uint32_t)v);
+  int m = (int)s[0];
+  for (int i = 1; i < 32; ++i) m = (int)s[i] > m ? (int)s[i] : m;
+  return m;
+}
+inline int __any_sync(unsigned, int pred) { return __ballot_sync(0xffffffffu, pred) != 0; }
+inline int __all_sync(unsigned, int pred) { return __ballot_sync(0xffffffffu, pred) == 0xffffffffu; }
 inline unsigned __reduce_min_sync(unsigned, unsigned v) {
   const uint32_t* s = exchange(v);
   unsigned m = s[0];

@@ -883,7 +883,7 @@ def test_bvh_form_matches_plain_on_card(request, n, spp, depth, seed, scene):
     close = ((got - want).abs().amax(dim=1) / spp) <= 1e-4
     assert close.float().mean().item() >= 0.99
     assert torch.isfinite(got).all()
-    nodes, tests = (int(x) for x in trav)
+    nodes, tests = (int(x) for x in trav.sum(dim=0))
     assert int(g_rays) <= nodes and 0 < tests
 
 
