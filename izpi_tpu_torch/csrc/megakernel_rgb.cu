@@ -78,6 +78,7 @@ namespace izpi {
 
 // The closest hit of the brute-force form: every primitive (common.cuh).
 struct BruteHit {
+  static constexpr bool kOneTrace = false;  // the exit re-trace inline
   __device__ __forceinline__ int operator()(const Scene& sc, int /*slot*/, V3 o, V3 d,
                                             float tme, float t_min, float t_max,
                                             float& t) const {
@@ -90,6 +91,7 @@ struct BruteHit {
 // scene's in the same (tree) order. With `counts`, each slot's nodes popped
 // and primitives tested are added to its row: no other thread writes it.
 struct BvhHit {
+  static constexpr bool kOneTrace = true;  // the exit re-trace a trip of its own
   const int* __restrict__ nodes;
   const float* __restrict__ prims;
   int* __restrict__ counts;
@@ -200,6 +202,7 @@ __device__ __forceinline__ int bvh4_closest_probed(const int* __restrict__ nodes
 
 // The probe's closest hit: BvhHit through bvh4_closest_probed.
 struct BvhProbeHit {
+  static constexpr bool kOneTrace = true;
   BvhHit hit;
   __device__ __forceinline__ int operator()(const Scene& /*sc*/, int slot, V3 o, V3 d,
                                             float tme, float t_min, float t_max, float& t,
@@ -280,129 +283,164 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
   int depth = 0;
   V3 acc = mk(0.0f, 0.0f, 0.0f);  // the slot's sums
   int cnt = 0;
+  int next_slot = slot, next_samp = samp;  // the sample after this path
+  // Hit::kOneTrace: the material of the absorbing glass whose exit this trip
+  // re-traces, or -1.
+  int exit_mat = -1;
 
   for (;;) {  // one bounce of one path per trip
-    ++cnt;
-    float t;
-    const int hit = trace(slot, o, d, tme, kTMin, kTMax, t);
-    V3 p = o, n = d, albedo = bg;
-    const float* M = sc.mat_f;
-    const int* Mi = sc.mat_i;
-    int kind = -1;
-    if (hit < 0) {
-      rad = rad + thru * bg;
+    // A form that traces once a trip (Hit::kOneTrace) leaves the exit
+    // re-trace of a refraction into absorbing glass to the next trip, and
+    // finishes that bounce there: lanes that re-trace then traverse
+    // together with lanes that trace their next bounce.
+    const bool retrace = Hit::kOneTrace && exit_mat >= 0;
+    V3 ro = o;
+    float t0 = kTMin, t1 = kTMax;
+    if (retrace) {
+      ro = o + d * 1e-3f;
+      t0 = 0.0f;
+      t1 = 1000.0f;
     } else {
-      p = o + d * t;
-      n = record_normal(sc, hit, o, d, tme, p);
-      const int mat = sc.prim_i[hit * kPrimI + 1];
-      M = sc.mat_f + mat * kMatF;
-      Mi = sc.mat_i + mat * kMatI;
-      kind = Mi[0];
-      albedo = ld3(M);
-      if (Mi[1] != 0) {  // 3D sine checker (texture/checker.go:26)
-        const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y) * sinf(10.0f * p.z);
-        if (!(sines < 0.0f)) albedo = ld3(M + 3);
-      }
-      // One-sided light keyed on the record normal (diffuselight.go:49-63).
-      // thru * 0 is added for every other hit, as the twin does, so a
-      // non-finite throughput poisons the sample the same way.
-      const bool emits = kind == kDiffuseLight && dot(n, d) < 0.0f;
-      rad = rad + thru * (emits ? albedo : mk(0.0f, 0.0f, 0.0f));
+      ++cnt;
     }
-    const bool scatters = hit >= 0 && kind != kDiffuseLight;
-    // The depth cap: the {Z:1} sentinel after the scatter (colour.go:34-36).
-    const bool capped = scatters && depth + 1 >= max_depth;
-    const bool ends = !scatters || capped;
-
-    // The next sample, from the next slot once this one is done.
-    int next_slot = slot, next_samp = samp;
-    if (ends && ++next_samp == spp_slot) {
-      if constexpr (kProbe) c_regen = clock64();
-      next_slot = take_slot(queue, n_slots, spp_slot, acc_out, cnt_out);
-      next_samp = 0;
-      if constexpr (kProbe) pc[kPrCyRegen] += (unsigned long long)(clock64() - c_regen);
-    }
-    const uint32_t pair_list = kind == kMetal        ? kPairsMetal
-                               : kind == kDielectric ? kPairsDielectric
-                                                     : kPairsDiffuse;
-    dr.clear();
-    if (ends && next_slot < n_slots) {
-      dr.new_sample(seed0, seed1, sample_id(next_slot, next_samp, n_pix, spp_slot, offset),
-                    (uint32_t)(next_slot % n_pix));
-    }
-    if (scatters) dr.bounce(k0, k1, (uint32_t)depth, pair_list);
-    dr.run(seed0, seed1, k0, k1, (uint32_t)depth);
-
-    if (scatters) {
-      const float* us = dr.us;
-      V3 d_new, mult;
-      if (kind == kMetal) {  // metal.go:34-40
-        const float z = 1.0f - 2.0f * us[0];
-        const float phib = kTwoPi * us[1];
-        const float sb = sqrtf(clamp_min(1.0f - z * z, 0.0f));
-        // cbrt as exp(log/3), the form the twin and the JAX package use.
-        const float rb = expf(logf(clamp_min(us[2], 1e-30f)) * (1.0f / 3.0f));
-        const V3 fuzz_vec = mk(sb * cosf(phib), sb * sinf(phib), z) * rb;
-        d_new = reflect(normalize(d), n) + fuzz_vec * M[6];
-        mult = albedo;
-      } else if (kind == kDielectric) {  // dielectric.go:66-102, raw direction
-        const float ref_idx = M[7];
-        const V3 reflected = reflect(d, n);
-        const float d_dot_n = dot(d, n);
-        const bool exiting = d_dot_n > 0.0f;
-        const V3 outward = exiting ? -n : n;
-        const float ni = exiting ? ref_idx : 1.0f / ref_idx;
-        const float dlen = length(d);
-        const float cosine = exiting ? ref_idx * d_dot_n / dlen : -d_dot_n / dlen;
-        const V3 uv = normalize(d);
-        const float dt = dot(uv, outward);
-        const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
-        const V3 refracted = (uv - outward * dt) * ni - outward * sqrtf(clamp_min(disc, 0.0f));
-        float r0 = (1.0f - ref_idx) / (1.0f + ref_idx);
-        r0 = r0 * r0;
-        const float schlick = r0 + (1.0f - r0) * powf(1.0f - cosine, 5.0f);
-        const bool is_refl = us[3] < (disc > 0.0f ? schlick : 1.0f);
-        d_new = is_refl ? reflected : refracted;
-        mult = mk(1.0f, 1.0f, 1.0f);
-        if (Mi[2] != 0 && !is_refl) {  // Beer–Lambert exit re-trace (dielectric.go:118-153)
-          const V3 start = p + d_new * 1e-3f;
-          float te;
-          const int ex = trace(slot, start, d_new, tme, 0.0f, 1000.0f, te);
-          float path_len = 10.0f;
-          if (ex >= 0) path_len = clamp(length((start + d_new * te) - p), 0.1f, 100.0f);
-          mult = mk(expf(-M[8] * path_len), expf(-M[9] * path_len), expf(-M[10] * path_len));
+    float t;
+    const int hit = trace(slot, ro, d, tme, t0, t1, t);
+    bool ends;
+    if (retrace) {  // Beer–Lambert (dielectric.go:118-153): the bounce's mult
+      float path_len = 10.0f;
+      if (hit >= 0) path_len = clamp(length((ro + d * t) - o), 0.1f, 100.0f);
+      const float* A = sc.mat_f + exit_mat * kMatF + 8;
+      thru = thru * mk(expf(-A[0] * path_len), expf(-A[1] * path_len),
+                       expf(-A[2] * path_len));
+      exit_mat = -1;
+      ends = depth >= max_depth;  // the bounce's cap: depth has advanced
+      if (ends) rad = rad + thru * mk(0.0f, 0.0f, 1.0f);
+    } else {
+      V3 p = o, n = d, albedo = bg;
+      const float* M = sc.mat_f;
+      const int* Mi = sc.mat_i;
+      int kind = -1, mat = -1;
+      if (hit < 0) {
+        rad = rad + thru * bg;
+      } else {
+        p = o + d * t;
+        n = record_normal(sc, hit, o, d, tme, p);
+        mat = sc.prim_i[hit * kPrimI + 1];
+        M = sc.mat_f + mat * kMatF;
+        Mi = sc.mat_i + mat * kMatI;
+        kind = Mi[0];
+        albedo = ld3(M);
+        if (Mi[1] != 0) {  // 3D sine checker (texture/checker.go:26)
+          const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y) * sinf(10.0f * p.z);
+          if (!(sines < 0.0f)) albedo = ld3(M + 3);
         }
-      } else {  // diffuse: mixture of light and cosine pdfs (colour.go:48-57)
-        V3 d_diff;
-        if (us[4] < 0.5f) {
-          d_diff = lights_sample(sc, p, us[5], us[6], us[7], us[8]);
-        } else {
-          V3 ou, ov, ow;
-          onb_from_w(n, ou, ov, ow);
-          const float zc = sqrtf(1.0f - us[10]);
-          const float phic = kTwoPi * us[9];
-          const float rc = cos_scale * sqrtf(us[10]);
-          d_diff = ou * (cosf(phic) * rc) + ov * (sinf(phic) * rc) + ow * zc;
+        // One-sided light keyed on the record normal (diffuselight.go:49-63).
+        // thru * 0 is added for every other hit, as the twin does, so a
+        // non-finite throughput poisons the sample the same way.
+        const bool emits = kind == kDiffuseLight && dot(n, d) < 0.0f;
+        rad = rad + thru * (emits ? albedo : mk(0.0f, 0.0f, 0.0f));
+      }
+      const bool scatters = hit >= 0 && kind != kDiffuseLight;
+      // The depth cap: the {Z:1} sentinel after the scatter (colour.go:34-36).
+      const bool capped = scatters && depth + 1 >= max_depth;
+      ends = !scatters || capped;
+
+      // The next sample, from the next slot once this one is done.
+      next_slot = slot;
+      next_samp = samp;
+      if (ends && ++next_samp == spp_slot) {
+        if constexpr (kProbe) c_regen = clock64();
+        next_slot = take_slot(queue, n_slots, spp_slot, acc_out, cnt_out);
+        next_samp = 0;
+        if constexpr (kProbe) pc[kPrCyRegen] += (unsigned long long)(clock64() - c_regen);
+      }
+      const uint32_t pair_list = kind == kMetal        ? kPairsMetal
+                                 : kind == kDielectric ? kPairsDielectric
+                                                       : kPairsDiffuse;
+      dr.clear();
+      if (ends && next_slot < n_slots) {
+        dr.new_sample(seed0, seed1, sample_id(next_slot, next_samp, n_pix, spp_slot, offset),
+                      (uint32_t)(next_slot % n_pix));
+      }
+      if (scatters) dr.bounce(k0, k1, (uint32_t)depth, pair_list);
+      dr.run(seed0, seed1, k0, k1, (uint32_t)depth);
+
+      if (scatters) {
+        const float* us = dr.us;
+        V3 d_new, mult;
+        if (kind == kMetal) {  // metal.go:34-40
+          const float z = 1.0f - 2.0f * us[0];
+          const float phib = kTwoPi * us[1];
+          const float sb = sqrtf(clamp_min(1.0f - z * z, 0.0f));
+          // cbrt as exp(log/3), the form the twin and the JAX package use.
+          const float rb = expf(logf(clamp_min(us[2], 1e-30f)) * (1.0f / 3.0f));
+          const V3 fuzz_vec = mk(sb * cosf(phib), sb * sinf(phib), z) * rb;
+          d_new = reflect(normalize(d), n) + fuzz_vec * M[6];
+          mult = albedo;
+        } else if (kind == kDielectric) {  // dielectric.go:66-102, raw direction
+          const float ref_idx = M[7];
+          const V3 reflected = reflect(d, n);
+          const float d_dot_n = dot(d, n);
+          const bool exiting = d_dot_n > 0.0f;
+          const V3 outward = exiting ? -n : n;
+          const float ni = exiting ? ref_idx : 1.0f / ref_idx;
+          const float dlen = length(d);
+          const float cosine = exiting ? ref_idx * d_dot_n / dlen : -d_dot_n / dlen;
+          const V3 uv = normalize(d);
+          const float dt = dot(uv, outward);
+          const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
+          const V3 refracted = (uv - outward * dt) * ni - outward * sqrtf(clamp_min(disc, 0.0f));
+          float r0 = (1.0f - ref_idx) / (1.0f + ref_idx);
+          r0 = r0 * r0;
+          const float schlick = r0 + (1.0f - r0) * powf(1.0f - cosine, 5.0f);
+          const bool is_refl = us[3] < (disc > 0.0f ? schlick : 1.0f);
+          d_new = is_refl ? reflected : refracted;
+          mult = mk(1.0f, 1.0f, 1.0f);
+          if (Mi[2] != 0 && !is_refl) {  // Beer–Lambert exit re-trace (dielectric.go:118-153)
+            if constexpr (Hit::kOneTrace) {
+              exit_mat = mat;  // the next trip's; thru * 1 here keeps thru's bits
+            } else {
+              const V3 start = p + d_new * 1e-3f;
+              float te;
+              const int ex = trace(slot, start, d_new, tme, 0.0f, 1000.0f, te);
+              float path_len = 10.0f;
+              if (ex >= 0) path_len = clamp(length((start + d_new * te) - p), 0.1f, 100.0f);
+              mult = mk(expf(-M[8] * path_len), expf(-M[9] * path_len),
+                        expf(-M[10] * path_len));
+            }
+          }
+        } else {  // diffuse: mixture of light and cosine pdfs (colour.go:48-57)
+          V3 d_diff;
+          if (us[4] < 0.5f) {
+            d_diff = lights_sample(sc, p, us[5], us[6], us[7], us[8]);
+          } else {
+            V3 ou, ov, ow;
+            onb_from_w(n, ou, ov, ow);
+            const float zc = sqrtf(1.0f - us[10]);
+            const float phic = kTwoPi * us[9];
+            const float rc = cos_scale * sqrtf(us[10]);
+            d_diff = ou * (cosf(phic) * rc) + ov * (sinf(phic) * rc) + ow * zc;
+          }
+          const V3 dd_unit = normalize(d_diff);
+          const float cos_lobe = dot(dd_unit, normalize(n));
+          const float pdf_cos = cos_lobe > 0.0f ? cos_lobe / kPi : 0.0f;
+          const float pdf_val = 0.5f * lights_pdf(sc, p, d_diff) + 0.5f * pdf_cos;
+          const float spdf = kind == kLambert ? clamp_min(dot(n, dd_unit), 0.0f) / kPi : 0.0f;
+          d_new = d_diff;
+          mult = albedo * (spdf / pdf_val);
         }
-        const V3 dd_unit = normalize(d_diff);
-        const float cos_lobe = dot(dd_unit, normalize(n));
-        const float pdf_cos = cos_lobe > 0.0f ? cos_lobe / kPi : 0.0f;
-        const float pdf_val = 0.5f * lights_pdf(sc, p, d_diff) + 0.5f * pdf_cos;
-        const float spdf = kind == kLambert ? clamp_min(dot(n, dd_unit), 0.0f) / kPi : 0.0f;
-        d_new = d_diff;
-        mult = albedo * (spdf / pdf_val);
+        thru = thru * mult;
+        o = p;
+        d = d_new;
+        ++depth;
+        if (draws_out != nullptr) {  // the slot's own counts: no other thread writes them
+          draws_out[2 * slot + 0] += 1;
+          draws_out[2 * slot + 1] += pairs_drawn(pair_list, us[4]);
+        }
+        if (capped && exit_mat < 0) rad = rad + thru * mk(0.0f, 0.0f, 1.0f);
       }
-      thru = thru * mult;
-      o = p;
-      d = d_new;
-      ++depth;
-      if (draws_out != nullptr) {  // the slot's own counts: no other thread writes them
-        draws_out[2 * slot + 0] += 1;
-        draws_out[2 * slot + 1] += pairs_drawn(pair_list, us[4]);
-      }
-      if (capped) rad = rad + thru * mk(0.0f, 0.0f, 1.0f);
     }
-    if (!ends) continue;
+    if (!ends || exit_mat >= 0) continue;
 
     if constexpr (kProbe) c_regen = clock64();
     // DeNAN per component (vec3.DeNAN, render/rgb.go:36).

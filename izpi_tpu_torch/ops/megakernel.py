@@ -70,6 +70,7 @@ from izpi_tpu_torch import camera as camera_mod
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.core import vecmath as vm
+from izpi_tpu_torch.geometry import primitives as prim
 from izpi_tpu_torch.integrator import path as path_mod
 from izpi_tpu_torch.ops import bvh_kernel
 from izpi_tpu_torch.ops import threefry as tf
@@ -124,10 +125,25 @@ def eligible_bvh(cs, meta, intersect) -> bool:
             and intersect.cs is cs and _shaded(meta))
 
 
-def bvh_plain_intersector(bvh: bvh_kernel.KernelScene):
+def bvh_plain_intersector(bvh: bvh_kernel.KernelScene, counts=None):
     """The BVH form's plain closest hit, on any device: the plain traversal
-    (`accel.traverse.intersect_bvh`) over the tree and its primitives."""
-    return functools.partial(traverse.intersect_bvh, bvh.prims, bvh.tree)
+    (`accel.traverse.intersect_bvh`) over the tree and its primitives. With
+    `counts`, an int64 tensor of a row a ray (the slots of
+    `render_slots_reference`, whose calls pass every slot's ray), each call
+    adds each ray's (nodes popped, primitives tested) to its row, but for
+    rays parked outside the scene (dead slots, which the kernel does not
+    trace): the kernel's per-slot traversal counts."""
+    if counts is None:
+        return functools.partial(traverse.intersect_bvh, bvh.prims, bvh.tree)
+
+    def intersect(o, d, time, t_min, t_max):
+        t, idx, c = traverse.closest_bvh(bvh.prims, bvh.tree, o, d, time,
+                                         t_min, t_max, counts=True)
+        counts.add_(torch.where((o[:, 0] < 0.5 * path_mod.PARK)[:, None], c,
+                                0))
+        return prim.finalize_hit(bvh.prims, o, d, time, t, idx, idx >= 0)
+
+    return intersect
 
 
 def pick_replication(n_pix: int, spp: int, min_slots: int = MIN_SLOTS) -> int:
