@@ -93,9 +93,11 @@ __device__ __forceinline__ void bvh4_children(const int* __restrict__ nodes, int
 }
 
 // A visit's push: the internal children it hit, sorted by entry distance,
-// farthest pushed first, so that the nearest is popped next.
+// farthest pushed first, so that the nearest is popped next. `stack` is an
+// int* or a lane's column of a shared stack (LaneStack) of kCap entries.
+template <int kCap = kStack, class Stack>
 __device__ __forceinline__ void bvh4_push(float (&key)[4], int (&ch)[4], const bool (&hit)[4],
-                                          const int (&cnt)[4], int* stack, int& sp) {
+                                          const int (&cnt)[4], Stack stack, int& sp) {
   bool push[4];
 #pragma unroll
   for (int s = 0; s < 4; ++s) push[s] = hit[s] && cnt[s] == 0;
@@ -106,9 +108,9 @@ __device__ __forceinline__ void bvh4_push(float (&key)[4], int (&ch)[4], const b
   cmp_exchange(key, ch, push, 1, 2);
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    // The build checks the worst-case stack against kStack, so the guard
-    // never drops a node.
-    if (push[s] && sp < kStack) stack[sp++] = ch[s];
+    // The build checks the worst-case stack against kStack (the wrapper of
+    // a smaller stack against kCap), so the guard never drops a node.
+    if (push[s] && sp < kCap) stack[sp++] = ch[s];
   }
 }
 
@@ -161,6 +163,76 @@ __device__ __forceinline__ int bvh4_closest(const int* __restrict__ nodes,
 
     bvh4_push(key, ch, hit, cnt, stack, sp);
   }
+  t_out = t_best;
+  return best;
+}
+
+// ---------------------------------------------------------------------------
+// The RGB megakernel's BVH form (megakernel_rgb.cu): the same visits
+// ---------------------------------------------------------------------------
+
+// One lane's column of a block's stack in shared memory: entry i of lane t
+// at base[i * kThreads + t], so a warp's lanes at any entries touch 32
+// different banks.
+template <int kThreads>
+struct LaneStack {
+  int* base;  // the lane's entry 0
+  __device__ __forceinline__ int& operator[](int i) const { return base[i * kThreads]; }
+};
+
+// bvh4_closest with its stack of kEntries entries in `stack`, for the BVH
+// form: each lane pops, tests and pushes exactly the nodes and primitives of
+// bvh4_closest, in its order. `tally` (megakernel_rgb.cu: nothing in a main
+// instance, the probe's counts in the probe instance) sees each pass of the
+// visit loop (keep(more) returns whether to pass again), each leaf slot's
+// primitive count (rounds) and the call's counts (done).
+template <int kEntries, class Stack, class Tally>
+__device__ __forceinline__ int bvh4_closest_lanes(const int* __restrict__ nodes,
+                                                  const float* __restrict__ prims, Stack stack,
+                                                  V3 o, V3 d, float tme, float t_min,
+                                                  float t_max, float& t_out, int& visits,
+                                                  int& tests, Tally& tally) {
+  const float od[3] = {o.x, o.y, o.z};
+  const float inv[3] = {1.0f / (d.x == 0.0f ? kInvEps : d.x), 1.0f / (d.y == 0.0f ? kInvEps : d.y),
+                        1.0f / (d.z == 0.0f ? kInvEps : d.z)};
+  const bool live = !(isnan(o.x) || isnan(o.y) || isnan(o.z) || isnan(d.x) || isnan(d.y) ||
+                      isnan(d.z));
+  float t_best = t_max;
+  int best = -1;
+  int sp = 0;
+  stack[sp++] = 0;
+  int my_visits = 0, my_tests = 0;
+  for (;;) {
+    const bool more = sp > 0;
+    if (!tally.keep(more)) break;
+    if (!more) continue;
+    const int node = stack[--sp];
+    ++my_visits;
+    float key[4];
+    bool hit[4];
+    int ch[4], cnt[4];
+    bvh4_children(nodes, node, od, inv, live, t_min, t_best, key, hit, ch, cnt);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int n_s = hit[s] && cnt[s] > 0 ? cnt[s] : 0;
+      tally.rounds(n_s);
+      for (int k = 0; k < n_s; ++k) {
+        const int p = ch[s] + k;
+        const float* g = prims + (size_t)p * kPrimWords;
+        float t;
+        const bool ok = prim_test(g, __float_as_int(__ldg(g + 12)), o, d, tme, t_min, t_best, t);
+        ++my_tests;
+        if (ok && t < t_best) {
+          t_best = t;
+          best = p;
+        }
+      }
+    }
+    bvh4_push<kEntries>(key, ch, hit, cnt, stack, sp);
+  }
+  tally.done(my_visits, my_tests);
+  visits += my_visits;
+  tests += my_tests;
   t_out = t_best;
   return best;
 }

@@ -86,28 +86,6 @@ struct BruteHit {
   }
 };
 
-// The closest hit of the BVH form: the BVH4 traversal (bvh4.cuh) over the
-// tree's node table and its primitive table, whose primitives are the
-// scene's in the same (tree) order. With `counts`, each slot's nodes popped
-// and primitives tested are added to its row: no other thread writes it.
-struct BvhHit {
-  static constexpr bool kOneTrace = true;  // the exit re-trace a trip of its own
-  const int* __restrict__ nodes;
-  const float* __restrict__ prims;
-  int* __restrict__ counts;
-  __device__ __forceinline__ int operator()(const Scene& /*sc*/, int slot, V3 o, V3 d,
-                                            float tme, float t_min, float t_max,
-                                            float& t) const {
-    int visits = 0, tests = 0;
-    const int hit = bvh4_closest(nodes, prims, o, d, tme, t_min, t_max, t, visits, tests);
-    if (counts != nullptr) {
-      counts[2 * slot + 0] += visits;
-      counts[2 * slot + 1] += tests;
-    }
-    return hit;
-  }
-};
-
 // ---------------------------------------------------------------------------
 // The probe
 // ---------------------------------------------------------------------------
@@ -116,7 +94,7 @@ struct BvhHit {
 // what the main instance renders, through the same visits in the same
 // order, and adds over the launch how the warps spend the traversal. Each
 // lane keeps its counts and adds them to the launch's row once, at its
-// exit; the warp's counts are kept by the lowest lane that traces. Read by
+// exit; the warp's counts are kept by its lowest lane that traces. Read by
 // ops/megakernel.py probe_bvh in this order.
 enum ProbeCounter : int {
   kPrCalls = 0,     // warp traversal calls: the lanes of a warp that trace together
@@ -132,91 +110,81 @@ enum ProbeCounter : int {
   kProbeCounters
 };
 
-// bvh4_closest (bvh4.cuh) with the lanes that trace together stepping
-// through the visit loop in passes, as the warp's SIMT loop does: each pass
-// pops one node in each lane that has one left, and tests each leaf slot's
-// primitives for as many rounds as the longest of them in the pass.
-__device__ __forceinline__ int bvh4_closest_probed(const int* __restrict__ nodes,
-                                                   const float* __restrict__ prims, V3 o,
-                                                   V3 d, float tme, float t_min, float t_max,
-                                                   float& t_out, int& visits, int& tests,
-                                                   unsigned long long* pc) {
-  const unsigned mask = __activemask();
-  const int lane = threadIdx.x & 31;
-  const bool lead = lane == __ffs(mask) - 1;
-  const float od[3] = {o.x, o.y, o.z};
-  const float inv[3] = {1.0f / (d.x == 0.0f ? kInvEps : d.x), 1.0f / (d.y == 0.0f ? kInvEps : d.y),
-                        1.0f / (d.z == 0.0f ? kInvEps : d.z)};
-  const bool live = !(isnan(o.x) || isnan(o.y) || isnan(o.z) || isnan(d.x) || isnan(d.y) ||
-                      isnan(d.z));
-  float t_best = t_max;
-  int best = -1;
-  int stack[kStack];
-  int sp = 0;
-  stack[sp++] = 0;
-  int my_visits = 0, my_tests = 0;
-  for (;;) {
-    const unsigned m = __ballot_sync(mask, sp > 0);
-    if (m == 0) break;
-    if (lead) ++pc[kPrVisitPasses];
-    if (sp == 0) continue;
-    const bool first = lane == __ffs(m) - 1;
-    const int node = stack[--sp];
-    ++my_visits;
-    float key[4];
-    bool hit[4];
-    int ch[4], cnt[4];
-    bvh4_children(nodes, node, od, inv, live, t_min, t_best, key, hit, ch, cnt);
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int n_s = hit[s] && cnt[s] > 0 ? cnt[s] : 0;
-      const int rounds = __reduce_max_sync(m, n_s);
-      if (first) pc[kPrTestPasses] += rounds;
-      for (int k = 0; k < n_s; ++k) {
-        const int p = ch[s] + k;
-        const float* g = prims + (size_t)p * kPrimWords;
-        float t;
-        const bool ok = prim_test(g, __float_as_int(__ldg(g + 12)), o, d, tme, t_min, t_best, t);
-        ++my_tests;
-        if (ok && t < t_best) {
-          t_best = t;
-          best = p;
-        }
-      }
+// The probe's tally of one traversal call (bvh4.cuh bvh4_closest_lanes): the
+// lanes that trace together step through the visit loop in passes, as the
+// warp's SIMT loop does; each pass pops a node in each lane that has one
+// left and tests each leaf slot's primitives for as many rounds as the most
+// of them in the pass.
+struct WarpTally {
+  static constexpr bool kOn = true;
+  unsigned long long* pc;  // the lane's counters
+  unsigned mask, m;        // the call's lanes; those of the pass
+  bool lead;               // the call's lowest lane
+  __device__ __forceinline__ explicit WarpTally(unsigned long long* counters)
+      : pc(counters), mask(__activemask()), m(0u) {
+    lead = (int)(threadIdx.x & 31) == __ffs(mask) - 1;
+  }
+  __device__ __forceinline__ bool keep(bool more) {
+    m = __ballot_sync(mask, more);
+    if (m != 0u && lead) ++pc[kPrVisitPasses];
+    return m != 0u;
+  }
+  __device__ __forceinline__ void rounds(int n) {
+    const int most = __reduce_max_sync(m, n);
+    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) pc[kPrTestPasses] += most;
+  }
+  __device__ __forceinline__ void done(int visits, int tests) {
+    const int most = __reduce_max_sync(mask, visits);
+    if (lead) {
+      ++pc[kPrCalls];
+      pc[kPrMaxVisits] += most;
     }
-    bvh4_push(key, ch, hit, cnt, stack, sp);
+    ++pc[kPrRays];
+    pc[kPrVisits] += visits;
+    pc[kPrTests] += tests;
   }
-  const int most = __reduce_max_sync(mask, my_visits);
-  if (lead) {
-    ++pc[kPrCalls];
-    pc[kPrMaxVisits] += most;
-  }
-  ++pc[kPrRays];
-  pc[kPrVisits] += my_visits;
-  pc[kPrTests] += my_tests;
-  visits += my_visits;
-  tests += my_tests;
-  t_out = t_best;
-  return best;
-}
+};
 
-// The probe's closest hit: BvhHit through bvh4_closest_probed.
-struct BvhProbeHit {
-  static constexpr bool kOneTrace = true;
-  BvhHit hit;
+// A main instance's tally: nothing.
+struct NoCount {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ explicit NoCount(unsigned long long*) {}
+  __device__ __forceinline__ bool keep(bool more) { return more; }
+  __device__ __forceinline__ void rounds(int) {}
+  __device__ __forceinline__ void done(int, int) {}
+};
+
+// The BVH form's tables, as its C entry receives them.
+struct BvhTables {
+  const int* __restrict__ nodes;
+  const float* __restrict__ prims;
+  int* __restrict__ counts;
+};
+
+// The closest hit of the BVH form: the BVH4 traversal (bvh4.cuh
+// bvh4_closest_lanes) over the tree's node table and its primitive table,
+// whose primitives are the scene's in the same (tree) order, with a stack
+// of kEntries entries in the lane's column of the block's shared stack.
+// With `counts`, each slot's nodes popped and primitives tested are added to
+// its row: no other thread writes it. Tally: NoCount, or the probe's
+// WarpTally.
+template <int kEntries, class Tally>
+struct BvhHit {
+  static constexpr bool kOneTrace = true;  // the exit re-trace a trip of its own
+  BvhTables tab;
+  LaneStack<kMegaThreads> stack;
   __device__ __forceinline__ int operator()(const Scene& /*sc*/, int slot, V3 o, V3 d,
                                             float tme, float t_min, float t_max, float& t,
-                                            unsigned long long* pc) const {
+                                            unsigned long long* pc = nullptr) const {
     int visits = 0, tests = 0;
-    const long long c0 = clock64();
-    const int best = bvh4_closest_probed(hit.nodes, hit.prims, o, d, tme, t_min, t_max, t,
-                                         visits, tests, pc);
-    pc[kPrCyTraversal] += (unsigned long long)(clock64() - c0);
-    if (hit.counts != nullptr) {
-      hit.counts[2 * slot + 0] += visits;
-      hit.counts[2 * slot + 1] += tests;
+    Tally tally(pc);
+    const int hit = bvh4_closest_lanes<kEntries>(tab.nodes, tab.prims, stack, o, d, tme,
+                                                 t_min, t_max, t, visits, tests, tally);
+    if (tab.counts != nullptr) {
+      tab.counts[2 * slot + 0] += visits;
+      tab.counts[2 * slot + 1] += tests;
     }
-    return best;
+    return hit;
   }
 };
 
@@ -225,8 +193,9 @@ struct BvhProbeHit {
 // ---------------------------------------------------------------------------
 
 // The render loop, over the closest-hit function `closest` (BruteHit or
-// BvhHit; BvhProbeHit in the probe instance, kProbe, which adds its counts
-// to probe_out); everything else is the same code in both forms.
+// BvhHit; in the probe instance, kProbe, a BvhHit whose WarpTally and the
+// loop's cycle counts are added to probe_out); everything else is the same
+// code in both forms.
 template <bool kProbe = false, class Hit>
 __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
                                             const Camera& camera, uint32_t seed0,
@@ -253,7 +222,10 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
   // The closest hit of a ray of this slot's path.
   const auto trace = [&](int slot, V3 ro, V3 rd, float tme, float t0, float t1, float& t) {
     if constexpr (kProbe) {
-      return closest(sc, slot, ro, rd, tme, t0, t1, t, pc);
+      const long long c0 = clock64();
+      const int hit = closest(sc, slot, ro, rd, tme, t0, t1, t, pc);
+      pc[kPrCyTraversal] += (unsigned long long)(clock64() - c0);
+      return hit;
     } else {
       return closest(sc, slot, ro, rd, tme, t0, t1, t);
     }
@@ -480,28 +452,53 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
               max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out);
 }
 
-__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
-    megakernel_rgb_bvh(Scene sc, BvhHit bvh, Camera camera, uint32_t seed0, uint32_t seed1,
-                       uint32_t offset, int nx, int ny, int spp_slot, int n_slots,
-                       int max_depth, float bg_r, float bg_g, float bg_b, int book,
-                       int* __restrict__ queue, float* __restrict__ acc_out,
-                       int* __restrict__ cnt_out, int* __restrict__ draws_out) {
-  render_loop(bvh, sc, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots, max_depth,
-              bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out);
+// The BVH form over a tree whose worst-case stack is at most kEntries: the
+// block's stack in shared memory, a column of kEntries a lane (16 KB a
+// block at 32 entries, 32 KB at 64); Tally NoCount, or WarpTally for the
+// probe, which adds its counts to probe_out.
+template <int kEntries, class Tally>
+__device__ __forceinline__ void render_bvh(const Scene& sc, const BvhTables& tab,
+                                           const Camera& camera, uint32_t seed0,
+                                           uint32_t seed1, uint32_t offset, int nx, int ny,
+                                           int spp_slot, int n_slots, int max_depth,
+                                           float bg_r, float bg_g, float bg_b, int book,
+                                           int* __restrict__ queue, float* __restrict__ acc_out,
+                                           int* __restrict__ cnt_out,
+                                           int* __restrict__ draws_out,
+                                           unsigned long long* __restrict__ probe_out) {
+  __shared__ int stack[kEntries * kMegaThreads];
+  const BvhHit<kEntries, Tally> hit{tab, LaneStack<kMegaThreads>{stack + threadIdx.x}};
+  render_loop<Tally::kOn>(hit, sc, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots,
+                          max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out,
+                          draws_out, probe_out);
 }
 
-// The probe instance of megakernel_rgb_bvh: the same paths, with the
-// counts of ProbeCounter added to probe_out (kProbeCounters u64, zeroed).
+// The BVH form's instances: stacks of 32 and 64 entries (the wrapper picks
+// the smallest that holds its tree's worst-case stack), and the probe of
+// the 32-entry one. One signature: the main instances take no probe_out.
+#define IZPI_BVH_PARAMS                                                                   \
+  Scene sc, BvhTables tab, Camera camera, uint32_t seed0, uint32_t seed1, uint32_t offset, \
+      int nx, int ny, int spp_slot, int n_slots, int max_depth, float bg_r, float bg_g,    \
+      float bg_b, int book, int *__restrict__ queue, float *__restrict__ acc_out,          \
+      int *__restrict__ cnt_out, int *__restrict__ draws_out,                              \
+      unsigned long long *__restrict__ probe_out
+#define IZPI_BVH_ARGS                                                                     \
+  sc, tab, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots, max_depth, bg_r, bg_g, \
+      bg_b, book, queue, acc_out, cnt_out, draws_out, probe_out
+
 __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
-    megakernel_rgb_bvh_probe(Scene sc, BvhHit bvh, Camera camera, uint32_t seed0,
-                             uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
-                             int n_slots, int max_depth, float bg_r, float bg_g, float bg_b,
-                             int book, int* __restrict__ queue, float* __restrict__ acc_out,
-                             int* __restrict__ cnt_out, int* __restrict__ draws_out,
-                             unsigned long long* __restrict__ probe_out) {
-  render_loop<true>(BvhProbeHit{bvh}, sc, camera, seed0, seed1, offset, nx, ny, spp_slot,
-                    n_slots, max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out,
-                    draws_out, probe_out);
+    megakernel_rgb_bvh_s32(IZPI_BVH_PARAMS) {
+  render_bvh<32, NoCount>(IZPI_BVH_ARGS);
+}
+
+__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
+    megakernel_rgb_bvh_s64(IZPI_BVH_PARAMS) {
+  render_bvh<64, NoCount>(IZPI_BVH_ARGS);
+}
+
+__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
+    megakernel_rgb_bvh_probe(IZPI_BVH_PARAMS) {
+  render_bvh<32, WarpTally>(IZPI_BVH_ARGS);
 }
 
 }  // namespace izpi
@@ -535,52 +532,55 @@ int izpi_megakernel_rgb(const float* prim_f, const int* prim_i, int n_prims,
   return (int)cudaGetLastError();
 }
 
-// The persistent grid of izpi_megakernel_rgb_bvh on the current device.
-int izpi_megakernel_rgb_bvh_grid(int* blocks, int* threads) {
-  *threads = izpi::kMegaThreads;
-  return izpi::persistent_blocks(izpi::megakernel_rgb_bvh, blocks);
-}
+// The BVH form's launch: izpi_megakernel_rgb with the closest hit through a
+// BVH4, nodes (Nn, 32) i32 and bvh_prims (n_prims, 16) f32
+// (ops/bvh_kernel.py pack_tables) over the primitives of prim_f and prim_i
+// in the same (tree) order; trav: null, or (n_slots, 2) i32, zeroed, that
+// receives each slot's nodes popped and primitives tested; probe: null, or
+// for the probe kernel (kProbeCounters,) u64, zeroed (ProbeCounter).
+typedef void (*BvhKernel)(izpi::Scene, izpi::BvhTables, izpi::Camera, uint32_t, uint32_t,
+                          uint32_t, int, int, int, int, int, float, float, float, int, int*,
+                          float*, int*, int*, unsigned long long*);
 
-// izpi_megakernel_rgb with the closest hit through a BVH4: nodes (Nn, 32)
-// i32 and bvh_prims (n_prims, 16) f32 (ops/bvh_kernel.py pack_tables) over
-// the primitives of prim_f and prim_i in the same (tree) order; trav: null,
-// or (n_slots, 2) i32, zeroed, that receives each slot's nodes popped and
-// primitives tested.
-int izpi_megakernel_rgb_bvh(const float* prim_f, const int* prim_i, int n_prims,
-                            const float* mat_f, const int* mat_i, const float* light_f,
-                            const int* light_i, int n_lights, const int* nodes,
-                            const float* bvh_prims, const float* cam, uint32_t seed0,
-                            uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
-                            int n_slots, int max_depth, float bg_r, float bg_g, float bg_b,
-                            int book, int blocks, int* queue, float* acc, int* cnt, int* draws,
-                            int* trav, void* stream) {
+static int launch_bvh(BvhKernel kernel, const float* prim_f, const int* prim_i, int n_prims,
+                      const float* mat_f, const int* mat_i, const float* light_f,
+                      const int* light_i, int n_lights, const int* nodes,
+                      const float* bvh_prims, const float* cam, uint32_t seed0, uint32_t seed1,
+                      uint32_t offset, int nx, int ny, int spp_slot, int n_slots,
+                      int max_depth, float bg_r, float bg_g, float bg_b, int book, int blocks,
+                      int* queue, float* acc, int* cnt, int* draws, int* trav,
+                      unsigned long long* probe, void* stream) {
   izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
-  izpi::BvhHit bvh{nodes, bvh_prims, trav};
-  izpi::megakernel_rgb_bvh<<<blocks, izpi::kMegaThreads, 0, (cudaStream_t)stream>>>(
-      sc, bvh, izpi::load_camera(cam), seed0, seed1, offset, nx, ny, spp_slot, n_slots,
-      max_depth, bg_r, bg_g, bg_b, book, queue, acc, cnt, draws);
-  return (int)cudaGetLastError();
-}
-
-// izpi_megakernel_rgb_bvh's probe instance, launched like it over `blocks`
-// blocks (the main instance's grid), with probe: (kProbeCounters,) u64,
-// zeroed, that receives the launch's counts (ProbeCounter).
-int izpi_megakernel_rgb_bvh_probe(const float* prim_f, const int* prim_i, int n_prims,
-                                  const float* mat_f, const int* mat_i, const float* light_f,
-                                  const int* light_i, int n_lights, const int* nodes,
-                                  const float* bvh_prims, const float* cam, uint32_t seed0,
-                                  uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
-                                  int n_slots, int max_depth, float bg_r, float bg_g,
-                                  float bg_b, int book, int blocks, int* queue, float* acc,
-                                  int* cnt, int* draws, int* trav, unsigned long long* probe,
-                                  void* stream) {
-  izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
-  izpi::BvhHit bvh{nodes, bvh_prims, trav};
-  izpi::megakernel_rgb_bvh_probe<<<blocks, izpi::kMegaThreads, 0, (cudaStream_t)stream>>>(
-      sc, bvh, izpi::load_camera(cam), seed0, seed1, offset, nx, ny, spp_slot, n_slots,
+  izpi::BvhTables tab{nodes, bvh_prims, trav};
+  kernel<<<blocks, izpi::kMegaThreads, 0, (cudaStream_t)stream>>>(
+      sc, tab, izpi::load_camera(cam), seed0, seed1, offset, nx, ny, spp_slot, n_slots,
       max_depth, bg_r, bg_g, bg_b, book, queue, acc, cnt, draws, probe);
   return (int)cudaGetLastError();
 }
+
+// Each instance's entry (the arguments of launch_bvh but the kernel) and
+// its persistent grid on the current device.
+#define IZPI_BVH_ENTRY(name)                                                                   \
+  int izpi_##name(const float* prim_f, const int* prim_i, int n_prims, const float* mat_f,     \
+                  const int* mat_i, const float* light_f, const int* light_i, int n_lights,    \
+                  const int* nodes, const float* bvh_prims, const float* cam, uint32_t seed0,  \
+                  uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot, int n_slots,  \
+                  int max_depth, float bg_r, float bg_g, float bg_b, int book, int blocks,     \
+                  int* queue, float* acc, int* cnt, int* draws, int* trav,                     \
+                  unsigned long long* probe, void* stream) {                                   \
+    return launch_bvh(izpi::name, prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i,     \
+                      n_lights, nodes, bvh_prims, cam, seed0, seed1, offset, nx, ny, spp_slot, \
+                      n_slots, max_depth, bg_r, bg_g, bg_b, book, blocks, queue, acc, cnt,     \
+                      draws, trav, probe, stream);                                             \
+  }                                                                                            \
+  int izpi_##name##_grid(int* blocks, int* threads) {                                          \
+    *threads = izpi::kMegaThreads;                                                             \
+    return izpi::persistent_blocks(izpi::name, blocks);                                        \
+  }
+
+IZPI_BVH_ENTRY(megakernel_rgb_bvh_s32)
+IZPI_BVH_ENTRY(megakernel_rgb_bvh_s64)
+IZPI_BVH_ENTRY(megakernel_rgb_bvh_probe)
 
 // The number of counters izpi_megakernel_rgb_bvh_probe writes.
 int izpi_megakernel_rgb_bvh_probe_counters() { return izpi::kProbeCounters; }

@@ -1013,8 +1013,8 @@ def main() -> None:
             renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
                             mode=args.mode, context=ctx, device="cuda")
         in_render = profiling.event_ms(events)
-        entry = (megakernel.ENTRY_BVH if isinstance(slots, functools.partial)
-                 else module.ENTRY)
+        entry = (megakernel.bvh_entry(ctx.mega_bvh())
+                 if isinstance(slots, functools.partial) else module.ENTRY)
         blocks, threads = megakernel.card_grid(entry, ctx.cs.device)
         repl, spp_slot, n_slots = megakernel.slot_layout(
             n * n, spp, megakernel.card_min_slots(entry, ctx.cs.device))

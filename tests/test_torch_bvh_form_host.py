@@ -40,25 +40,26 @@ THREADS = 32
 # PIXEL_SHARE of them must.
 PIXEL_ATOL, PIXEL_SHARE = 1e-4, 0.99
 
+# The host entry: the instance `which` (0: the 32-entry stack, 1: the
+# 64-entry one, 2: the probe of the 32-entry one) over one block of
+# `threads` lanes.
 ENTRY = r"""
-extern "C" void run(int probe_on, const float* prim_f, const int* prim_i, int n_prims,
+extern "C" void run(int which, const float* prim_f, const int* prim_i, int n_prims,
                     const float* mat_f, const int* mat_i, const float* light_f,
                     const int* light_i, int n_lights, const int* nodes, const float* bvh_prims,
                     const float* cam, uint32_t seed0, uint32_t seed1, int nx, int ny,
                     int spp_slot, int n_slots, int max_depth, int threads, int* queue,
                     float* acc, int* cnt, int* trav, unsigned long long* probe) {
   const izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
-  const izpi::BvhHit bvh{nodes, bvh_prims, trav};
+  const izpi::BvhTables tab{nodes, bvh_prims, trav};
   const izpi::Camera camera = izpi::load_camera(cam);
+  const decltype(&izpi::megakernel_rgb_bvh_s32) kernels[3] = {
+      izpi::megakernel_rgb_bvh_s32, izpi::megakernel_rgb_bvh_s64,
+      izpi::megakernel_rgb_bvh_probe};
   run_grid(1, threads, [&] {
-    if (probe_on) {
-      izpi::megakernel_rgb_bvh_probe(sc, bvh, camera, seed0, seed1, 0u, nx, ny, spp_slot,
-                                     n_slots, max_depth, 0.0f, 0.0f, 0.0f, 1, queue, acc, cnt,
-                                     nullptr, probe);
-    } else {
-      izpi::megakernel_rgb_bvh(sc, bvh, camera, seed0, seed1, 0u, nx, ny, spp_slot, n_slots,
-                               max_depth, 0.0f, 0.0f, 0.0f, 1, queue, acc, cnt, nullptr);
-    }
+    kernels[which](sc, tab, camera, seed0, seed1, 0u, nx, ny, spp_slot, n_slots, max_depth,
+                   0.0f, 0.0f, 0.0f, 1, queue, acc, cnt, nullptr,
+                   which == 2 ? probe : nullptr);
   });
 }
 """
@@ -97,7 +98,7 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _kernel(host, scene, seed: int, probe_on: bool):
+def _kernel(host, scene, seed: int, which: int = 0):
     """(acc summed over replicas (64, 3), rays, per-slot traversal counts
     (slots, 2), probe counters) of one host launch."""
     cs, meta, ks = scene
@@ -109,7 +110,7 @@ def _kernel(host, scene, seed: int, probe_on: bool):
     cnt = torch.empty(n_slots, dtype=torch.int32)
     trav = torch.zeros((n_slots, 2), dtype=torch.int32)
     probe = torch.zeros(len(megakernel.PROBE_COUNTERS), dtype=torch.int64)
-    host.run(int(probe_on), _ptr(tables.prim_f), _ptr(tables.prim_i),
+    host.run(which, _ptr(tables.prim_f), _ptr(tables.prim_i),
              meta.n_prims, _ptr(tables.mat_f), _ptr(tables.mat_i),
              _ptr(tables.light_f), _ptr(tables.light_i), meta.n_lights,
              _ptr(ks.nodes), _ptr(ks.prim_table), _ptr(tables.cam), seed0,
@@ -135,7 +136,7 @@ def _plain(scene, seed: int):
 def test_bvh_form_equals_plain(host, scene, seed):
     """Rays and every slot's traversal counts equal the plain version's;
     the pixels within chip phase 4's tolerances."""
-    acc, rays, trav, _ = _kernel(host, scene, seed, False)
+    acc, rays, trav, _ = _kernel(host, scene, seed)
     acc_p, rays_p, trav_p = _plain(scene, seed)
     assert rays == rays_p
     assert torch.equal(trav, trav_p)

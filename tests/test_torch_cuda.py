@@ -211,7 +211,8 @@ class _RefusingLibrary:
 
     def __getattr__(self, name):
         if name in ("izpi_megakernel_rgb", "izpi_megakernel_spectral",
-                    "izpi_megakernel_rgb_bvh"):
+                    "izpi_megakernel_rgb_bvh_s32",
+                    "izpi_megakernel_rgb_bvh_s64"):
             return lambda *args: 701
         return getattr(self._lib, name)
 
@@ -875,7 +876,7 @@ def test_bvh_form_matches_plain_on_card(request, n, spp, depth, seed, scene):
             - before[1], bvh_kernel.launches - before[2]) == (1, 0, 0)
     want, w_rays = megakernel.render_slots_reference(
         obj_context.cs, obj_context.meta, s, n, n, spp, key,
-        min_slots=megakernel.card_min_slots(megakernel.ENTRY_BVH,
+        min_slots=megakernel.card_min_slots(megakernel.bvh_entry(ks),
                                             obj_context.device),
         intersect=megakernel.bvh_plain_intersector(ks))
     torch.cuda.synchronize()
@@ -951,8 +952,8 @@ def test_bvh_form_refused_launch_raises(obj_context, monkeypatch):
     monkeypatch.setattr(megakernel, "render_slots_reference", no_fallback)
     monkeypatch.setattr(wavefront, "trace_pool", no_fallback)
     before = megakernel.bvh_launches
-    with pytest.raises(RuntimeError, match="izpi_megakernel_rgb_bvh launch "
-                                           "failed: CUDA error 701"):
+    with pytest.raises(RuntimeError, match="izpi_megakernel_rgb_bvh_s32 "
+                                           "launch failed: CUDA error 701"):
         renderer.render(None, 8, 8, 2, path.RenderSettings(max_depth=4),
                         context=obj_context, device="cuda")
     assert megakernel.bvh_launches == before
