@@ -180,18 +180,32 @@ struct LaneStack {
   __device__ __forceinline__ int& operator[](int i) const { return base[i * kThreads]; }
 };
 
-// bvh4_closest with its stack of kEntries entries in `stack`, for the BVH
-// form: each lane pops, tests and pushes exactly the nodes and primitives of
-// bvh4_closest, in its order. `tally` (megakernel_rgb.cu: nothing in a main
-// instance, the probe's counts in the probe instance) sees each pass of the
-// visit loop (keep(more) returns whether to pass again), each leaf slot's
-// primitive count (rounds) and the call's counts (done).
+// The closest hit of bvh4_closest for the BVH form, taken by the 32 lanes of
+// a warp together (every lane calls it, `active` or not: it holds warp
+// collectives over the whole warp), with each lane's stack of kEntries
+// entries in `stack`. Each active lane pops, box-tests, pushes and tests
+// exactly the nodes and primitives of bvh4_closest, in its order, against
+// the same running best t; only when it does so changes. The warp runs a
+// non-speculative "while-while" (Aila and Laine, 2009):
+//  - inner passes: each lane that holds no leaves pops a node, box-tests its
+//    children against its best t, pushes the internal ones it hits and
+//    holds the leaf ones, until every lane holds leaves or has an empty
+//    stack;
+//  - a leaf pass: the lanes that hold leaves test their primitives
+//    together, each its own in slot order, one primitive a round.
+// A node's children are pushed before its leaves are tested, which leaves
+// the stack and every later box test as bvh4_closest has them: the push
+// reads the box tests of the pop, not the leaves' hits. An inactive lane
+// visits nothing. `tally` (megakernel_rgb.cu: nothing in a main instance,
+// the probe's counts in the probe instance) sees each inner pass
+// (visit_pass), each lane's primitives at each leaf pass (test_pass) and the
+// call's counts (done).
 template <int kEntries, class Stack, class Tally>
-__device__ __forceinline__ int bvh4_closest_lanes(const int* __restrict__ nodes,
-                                                  const float* __restrict__ prims, Stack stack,
-                                                  V3 o, V3 d, float tme, float t_min,
-                                                  float t_max, float& t_out, int& visits,
-                                                  int& tests, Tally& tally) {
+__device__ __forceinline__ int bvh4_closest_warp(const int* __restrict__ nodes,
+                                                 const float* __restrict__ prims, Stack stack,
+                                                 bool active, V3 o, V3 d, float tme,
+                                                 float t_min, float t_max, float& t_out,
+                                                 int& visits, int& tests, Tally& tally) {
   const float od[3] = {o.x, o.y, o.z};
   const float inv[3] = {1.0f / (d.x == 0.0f ? kInvEps : d.x), 1.0f / (d.y == 0.0f ? kInvEps : d.y),
                         1.0f / (d.z == 0.0f ? kInvEps : d.z)};
@@ -200,24 +214,41 @@ __device__ __forceinline__ int bvh4_closest_lanes(const int* __restrict__ nodes,
   float t_best = t_max;
   int best = -1;
   int sp = 0;
-  stack[sp++] = 0;
+  if (active) stack[sp++] = 0;
   int my_visits = 0, my_tests = 0;
+  int leaf_node = 0;      // the node whose leaf children the lane holds
+  unsigned leaves = 0u;   // their slots, a bit each
+  int held = 0;           // their primitives
   for (;;) {
-    const bool more = sp > 0;
-    if (!tally.keep(more)) break;
-    if (!more) continue;
-    const int node = stack[--sp];
-    ++my_visits;
-    float key[4];
-    bool hit[4];
-    int ch[4], cnt[4];
-    bvh4_children(nodes, node, od, inv, live, t_min, t_best, key, hit, ch, cnt);
+    for (;;) {  // inner passes
+      const bool more = leaves == 0u && sp > 0;
+      if (!__any_sync(0xffffffffu, more)) break;
+      tally.visit_pass();
+      if (!more) continue;
+      const int node = stack[--sp];
+      ++my_visits;
+      float key[4];
+      bool hit[4];
+      int ch[4], cnt[4];
+      bvh4_children(nodes, node, od, inv, live, t_min, t_best, key, hit, ch, cnt);
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int n_s = hit[s] && cnt[s] > 0 ? cnt[s] : 0;
-      tally.rounds(n_s);
-      for (int k = 0; k < n_s; ++k) {
-        const int p = ch[s] + k;
+      for (int s = 0; s < 4; ++s) {
+        if (hit[s] && cnt[s] > 0) {
+          leaves |= 1u << s;
+          held += cnt[s];
+        }
+      }
+      leaf_node = node;
+      bvh4_push<kEntries>(key, ch, hit, cnt, stack, sp);
+    }
+    if (!__any_sync(0xffffffffu, leaves != 0u)) break;
+    tally.test_pass(held);
+    if (leaves != 0u) {  // the leaf pass: the held slots' runs, one after another
+      const int* row = nodes + (size_t)leaf_node * kNodeWords;
+      int s = __ffs(leaves) - 1;
+      int p = __ldg(row + 24 + s);
+      int end = p + __ldg(row + 28 + s);
+      for (;;) {
         const float* g = prims + (size_t)p * kPrimWords;
         float t;
         const bool ok = prim_test(g, __float_as_int(__ldg(g + 12)), o, d, tme, t_min, t_best, t);
@@ -226,11 +257,18 @@ __device__ __forceinline__ int bvh4_closest_lanes(const int* __restrict__ nodes,
           t_best = t;
           best = p;
         }
+        if (++p == end) {
+          leaves &= leaves - 1u;
+          if (leaves == 0u) break;
+          s = __ffs(leaves) - 1;
+          p = __ldg(row + 24 + s);
+          end = p + __ldg(row + 28 + s);
+        }
       }
+      held = 0;
     }
-    bvh4_push<kEntries>(key, ch, hit, cnt, stack, sp);
   }
-  tally.done(my_visits, my_tests);
+  tally.done(active, my_visits, my_tests);
   visits += my_visits;
   tests += my_tests;
   t_out = t_best;

@@ -79,6 +79,7 @@ namespace izpi {
 // The closest hit of the brute-force form: every primitive (common.cuh).
 struct BruteHit {
   static constexpr bool kOneTrace = false;  // the exit re-trace inline
+  static constexpr bool kWarp = false;      // each lane on its own
   __device__ __forceinline__ int operator()(const Scene& sc, int /*slot*/, V3 o, V3 d,
                                             float tme, float t_min, float t_max,
                                             float& t) const {
@@ -110,36 +111,30 @@ enum ProbeCounter : int {
   kProbeCounters
 };
 
-// The probe's tally of one traversal call (bvh4.cuh bvh4_closest_lanes): the
-// lanes that trace together step through the visit loop in passes, as the
-// warp's SIMT loop does; each pass pops a node in each lane that has one
-// left and tests each leaf slot's primitives for as many rounds as the most
-// of them in the pass.
+// The probe's tally of one traversal call (bvh4.cuh bvh4_closest_warp), which
+// every lane of the warp takes: the warp's inner passes, its leaf passes'
+// rounds (the most primitives a lane tests in the pass), and the lanes'
+// counts, the warp's by lane 0.
 struct WarpTally {
   static constexpr bool kOn = true;
   unsigned long long* pc;  // the lane's counters
-  unsigned mask, m;        // the call's lanes; those of the pass
-  bool lead;               // the call's lowest lane
+  bool lead;               // lane 0
   __device__ __forceinline__ explicit WarpTally(unsigned long long* counters)
-      : pc(counters), mask(__activemask()), m(0u) {
-    lead = (int)(threadIdx.x & 31) == __ffs(mask) - 1;
+      : pc(counters), lead((threadIdx.x & 31) == 0) {}
+  __device__ __forceinline__ void visit_pass() {
+    if (lead) ++pc[kPrVisitPasses];
   }
-  __device__ __forceinline__ bool keep(bool more) {
-    m = __ballot_sync(mask, more);
-    if (m != 0u && lead) ++pc[kPrVisitPasses];
-    return m != 0u;
+  __device__ __forceinline__ void test_pass(int held) {
+    const int most = __reduce_max_sync(0xffffffffu, held);
+    if (lead) pc[kPrTestPasses] += most;
   }
-  __device__ __forceinline__ void rounds(int n) {
-    const int most = __reduce_max_sync(m, n);
-    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) pc[kPrTestPasses] += most;
-  }
-  __device__ __forceinline__ void done(int visits, int tests) {
-    const int most = __reduce_max_sync(mask, visits);
-    if (lead) {
+  __device__ __forceinline__ void done(bool active, int visits, int tests) {
+    const int most = __reduce_max_sync(0xffffffffu, visits);
+    if (lead && most > 0) {
       ++pc[kPrCalls];
       pc[kPrMaxVisits] += most;
     }
-    ++pc[kPrRays];
+    if (active) ++pc[kPrRays];
     pc[kPrVisits] += visits;
     pc[kPrTests] += tests;
   }
@@ -149,9 +144,9 @@ struct WarpTally {
 struct NoCount {
   static constexpr bool kOn = false;
   __device__ __forceinline__ explicit NoCount(unsigned long long*) {}
-  __device__ __forceinline__ bool keep(bool more) { return more; }
-  __device__ __forceinline__ void rounds(int) {}
-  __device__ __forceinline__ void done(int, int) {}
+  __device__ __forceinline__ void visit_pass() {}
+  __device__ __forceinline__ void test_pass(int) {}
+  __device__ __forceinline__ void done(bool, int, int) {}
 };
 
 // The BVH form's tables, as its C entry receives them.
@@ -162,15 +157,17 @@ struct BvhTables {
 };
 
 // The closest hit of the BVH form: the BVH4 traversal (bvh4.cuh
-// bvh4_closest_lanes) over the tree's node table and its primitive table,
+// bvh4_closest_warp) over the tree's node table and its primitive table,
 // whose primitives are the scene's in the same (tree) order, with a stack
 // of kEntries entries in the lane's column of the block's shared stack.
-// With `counts`, each slot's nodes popped and primitives tested are added to
-// its row: no other thread writes it. Tally: NoCount, or the probe's
-// WarpTally.
+// Every lane of the warp calls it in every trip (kWarp), a lane with no
+// path with slot -1, which traces nothing. With `counts`, each slot's
+// nodes popped and primitives tested are added to its row: no other thread
+// writes it. Tally: NoCount, or the probe's WarpTally.
 template <int kEntries, class Tally>
 struct BvhHit {
   static constexpr bool kOneTrace = true;  // the exit re-trace a trip of its own
+  static constexpr bool kWarp = true;      // the warp's lanes trace together
   BvhTables tab;
   LaneStack<kMegaThreads> stack;
   __device__ __forceinline__ int operator()(const Scene& /*sc*/, int slot, V3 o, V3 d,
@@ -178,9 +175,9 @@ struct BvhHit {
                                             unsigned long long* pc = nullptr) const {
     int visits = 0, tests = 0;
     Tally tally(pc);
-    const int hit = bvh4_closest_lanes<kEntries>(tab.nodes, tab.prims, stack, o, d, tme,
-                                                 t_min, t_max, t, visits, tests, tally);
-    if (tab.counts != nullptr) {
+    const int hit = bvh4_closest_warp<kEntries>(tab.nodes, tab.prims, stack, slot >= 0, o, d,
+                                                tme, t_min, t_max, t, visits, tests, tally);
+    if (tab.counts != nullptr && slot >= 0) {
       tab.counts[2 * slot + 0] += visits;
       tab.counts[2 * slot + 1] += tests;
     }
@@ -235,21 +232,27 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
   const float cos_scale = book ? 2.0f : 1.0f;
 
   int slot = take_slot(queue, n_slots, spp_slot, acc_out, cnt_out);
-  if (slot >= n_slots) {
+  // Hit::kWarp: the lanes of a warp trace together, so a lane whose queue
+  // has drained (done) stays in the loop, tracing nothing, until every
+  // lane of its warp is done.
+  bool done = slot >= n_slots;
+  if (!Hit::kWarp && done) {
     flush();
     return;
   }
   int samp = 0;
   Draws<false> dr;
   dr.clear();
-  dr.new_sample(seed0, seed1, sample_id(slot, 0, n_pix, spp_slot, offset),
-                (uint32_t)(slot % n_pix));
+  if (!done) {
+    dr.new_sample(seed0, seed1, sample_id(slot, 0, n_pix, spp_slot, offset),
+                  (uint32_t)(slot % n_pix));
+  }
   dr.run(seed0, seed1, 0u, 0u, 0u);
 
   uint32_t k0 = dr.key0, k1 = dr.key1;  // the path's key
-  V3 o, d;
-  float tme;
-  pixel_ray(camera, dr.cu, slot % n_pix, nx, ny, o, d, tme);
+  V3 o = mk(0.0f, 0.0f, 0.0f), d = o;
+  float tme = 0.0f;
+  if (!done) pixel_ray(camera, dr.cu, slot % n_pix, nx, ny, o, d, tme);
   V3 thru = mk(1.0f, 1.0f, 1.0f);
   V3 rad = mk(0.0f, 0.0f, 0.0f);
   int depth = 0;
@@ -261,6 +264,9 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
   int exit_mat = -1;
 
   for (;;) {  // one bounce of one path per trip
+    if constexpr (Hit::kWarp) {
+      if (__all_sync(0xffffffffu, done)) break;
+    }
     // A form that traces once a trip (Hit::kOneTrace) leaves the exit
     // re-trace of a refraction into absorbing glass to the next trip, and
     // finishes that bounce there: lanes that re-trace then traverse
@@ -276,7 +282,8 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
       ++cnt;
     }
     float t;
-    const int hit = trace(slot, ro, d, tme, t0, t1, t);
+    const int hit = trace(done ? -1 : slot, ro, d, tme, t0, t1, t);
+    if (Hit::kWarp && done) continue;
     bool ends;
     if (retrace) {  // Beer–Lambert (dielectric.go:118-153): the bounce's mult
       float path_len = 10.0f;
@@ -424,6 +431,8 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
       cnt_out[slot] = cnt;
       if (next_slot >= n_slots) {
         if constexpr (kProbe) pc[kPrCyRegen] += (unsigned long long)(clock64() - c_regen);
+        done = true;
+        if constexpr (Hit::kWarp) continue;
         flush();
         return;
       }
@@ -440,6 +449,7 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
     depth = 0;
     if constexpr (kProbe) pc[kPrCyRegen] += (unsigned long long)(clock64() - c_regen);
   }
+  flush();
 }
 
 __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from _torch_port import host_kernel, with_absorbing_glass
+from izpi_tpu_torch.accel import bvh_build, traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import procedural
 from izpi_tpu_torch.integrator import path
@@ -144,3 +145,78 @@ def test_bvh_form_equals_plain(host, scene, seed):
     close = ((acc - acc_p).abs().amax(dim=1) / SPP) <= PIXEL_ATOL
     assert close.float().mean().item() >= PIXEL_SHARE
     assert torch.isfinite(acc).all() and acc.sum() > 0
+
+
+def _probe_summary(raw):
+    """megakernel.probe_bvh's derived figures from the raw counters."""
+    c = dict(zip(megakernel.PROBE_COUNTERS, raw))
+    return dict(c, use_visits=c["visits"] / (32 * c["visit_passes"]),
+                use_tests=c["tests"] / (32 * c["test_passes"]))
+
+
+@pytest.mark.parametrize("seed", [np.random.RandomState(16).randint(1 << 16)])
+def test_probe_and_large_stack_render_the_main_instance(host, scene, seed):
+    """The probe instance and the 64-entry stack's render the 32-entry
+    instance's bits, rays and per-slot counts; the probe's lane use of the
+    visit and test passes lies in (0, 1], its traversal calls are the rays
+    and, with absorbing glass, the exit re-traces besides, and its cycle
+    counts are positive."""
+    acc, rays, trav, _ = _kernel(host, scene, seed)
+    for which in (1, 2):
+        acc_i, rays_i, trav_i, raw = _kernel(host, scene, seed, which)
+        assert torch.equal(acc_i.view(torch.int32), acc.view(torch.int32))
+        assert rays_i == rays and torch.equal(trav_i, trav)
+    c = _probe_summary(raw)
+    assert 0 < c["use_visits"] <= 1 and 0 < c["use_tests"] <= 1
+    assert c["visits"] == int(trav[:, 0].sum())
+    assert c["tests"] == int(trav[:, 1].sum())
+    assert c["max_visits"] >= c["visits"] / max(c["calls"], 1)
+    absorbing = scene[1].has_absorbing_dielectric
+    assert c["rays"] > rays if absorbing else c["rays"] == rays
+    assert (c["cycles_loop"] >= c["cycles_traversal"] + c["cycles_regeneration"]
+            and min(c["cycles_traversal"], c["cycles_regeneration"]) > 0)
+
+
+def _chain_tree(depth: int):
+    """A BVH4 whose worst-case stack is depth + 1: a spine of `depth` nodes,
+    each with a node of one leaf and the next spine node as internal
+    children, ending in a node of one leaf (tests/test_torch_bvh.py's
+    pathological tree); (arrays, primitive count)."""
+    n_nodes = 2 * depth + 1
+    child = np.full((n_nodes, 4), -1, np.int32)
+    count = np.full((n_nodes, 4), -1, np.int32)
+    for i in range(depth):
+        child[i, :2], count[i, :2] = (depth + 1 + i, i + 1), (0, 0)
+        child[depth + 1 + i, 0], count[depth + 1 + i, 0] = i, 1
+    child[depth, 0], count[depth, 0] = depth, 1
+    bounds = np.zeros((n_nodes, 24), np.float32)
+    order = np.arange(depth + 1, dtype=np.int32)
+    return bvh_build.BVH4Arrays(bounds, child, count, order), depth + 1
+
+
+@pytest.mark.parametrize("depth,entry", [
+    (20, "izpi_megakernel_rgb_bvh_s32"), (31, "izpi_megakernel_rgb_bvh_s32"),
+    (32, "izpi_megakernel_rgb_bvh_s64"), (63, "izpi_megakernel_rgb_bvh_s64")])
+def test_stack_instance_follows_the_tree(depth, entry):
+    """The wrapper takes the smallest stack instance that holds the tree's
+    worst-case stack, which the tree's check records; the blob box's tree
+    takes the small one."""
+    arrays, p = _chain_tree(depth)
+    max_stack = traverse.check(arrays, p)
+    assert max_stack == depth + 1 == bvh_build.max_stack_occupancy(arrays)
+    ks = bvh_kernel.KernelScene(None, None, None, None, max_stack)
+    assert megakernel.bvh_entry(ks) == entry
+
+
+def test_deeper_tree_raises():
+    """A tree deeper than the largest stack raises, at its check and in the
+    wrapper: no instance drops a node."""
+    arrays, p = _chain_tree(64)
+    with pytest.raises(ValueError, match="stack 65 exceeds"):
+        traverse.check(arrays, p)
+    ks = bvh_kernel.KernelScene(None, None, None, None, 65)
+    with pytest.raises(ValueError, match="worst-case stack 65"):
+        megakernel.bvh_entry(ks)
+    _, _, small = _scene(False)
+    assert small.max_stack <= megakernel.BVH_STACKS[0]
+    assert megakernel.bvh_entry(small) == "izpi_megakernel_rgb_bvh_s32"
