@@ -171,6 +171,14 @@ __device__ __forceinline__ int bvh4_closest(const int* __restrict__ nodes,
 // The RGB megakernel's BVH form (megakernel_rgb.cu): the same visits
 // ---------------------------------------------------------------------------
 
+// Asks for the 128-byte line at p in L1, with no register and no wait (the
+// host build of the tests: nothing).
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+#endif
+}
+
 // One lane's column of a block's stack in shared memory: entry i of lane t
 // at base[i * kThreads + t], so a warp's lanes at any entries touch 32
 // different banks.
@@ -195,7 +203,10 @@ struct LaneStack {
 //    together, each its own in slot order, one primitive a round.
 // A node's children are pushed before its leaves are tested, which leaves
 // the stack and every later box test as bvh4_closest has them: the push
-// reads the box tests of the pop, not the leaves' hits. An inactive lane
+// reads the box tests of the pop, not the leaves' hits. A lane that takes
+// leaves asks for their primitives' rows and for the node on top of its
+// stack in L1 (prefetch_l1), which the other lanes' inner passes and its
+// leaf pass then cover. An inactive lane
 // visits nothing. `tally` (megakernel_rgb.cu: nothing in a main instance,
 // the probe's counts in the probe instance) sees each inner pass
 // (visit_pass), each lane's primitives at each leaf pass (test_pass) and the
@@ -236,10 +247,15 @@ __device__ __forceinline__ int bvh4_closest_warp(const int* __restrict__ nodes,
         if (hit[s] && cnt[s] > 0) {
           leaves |= 1u << s;
           held += cnt[s];
+          const char* run = reinterpret_cast<const char*>(prims + (size_t)ch[s] * kPrimWords);
+          const char* run_end = run + (size_t)cnt[s] * kPrimWords * sizeof(float);
+          for (const char* line = run; line < run_end; line += 128) prefetch_l1(line);
+          prefetch_l1(run_end - 1);
         }
       }
       leaf_node = node;
       bvh4_push<kEntries>(key, ch, hit, cnt, stack, sp);
+      if (leaves != 0u && sp > 0) prefetch_l1(nodes + (size_t)stack[sp - 1] * kNodeWords);
     }
     if (!__any_sync(0xffffffffu, leaves != 0u)) break;
     tally.test_pass(held);
