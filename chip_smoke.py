@@ -349,6 +349,7 @@ import time
 import numpy as np
 import torch
 
+import measure_port
 from izpi_tpu_torch import camera, entry, ops, profiling
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import loops, rng
@@ -3307,13 +3308,14 @@ def main() -> None:
             print(f"ptxas: {line.strip()}", flush=True)
     usage = _build.ptxas_usage(log_text)
     for name in ("megakernel_rgb", "megakernel_spectral",
-                 "megakernel_rgb_bvh"):
+                 "megakernel_rgb_bvh", "megakernel_rgb_bvh_probe"):
         if name not in usage:
             raise AssertionError(f"no ptxas report of {name} in {log}")
-        # The BVH form spills at its launch bounds' 96 registers, which ran
-        # faster than 128 registers without a spill (csrc/common.cuh): its
-        # spill is printed below, not refused.
-        if name != "megakernel_rgb_bvh" and (usage[name][1] or usage[name][2]):
+        # The BVH form spills at its launch bounds (csrc/common.cuh
+        # kBvhMinBlocks), which ran faster than fewer blocks with less
+        # spill: its spill is printed below, not refused.
+        if not name.startswith("megakernel_rgb_bvh") and (
+                usage[name][1] or usage[name][2]):
             raise AssertionError(f"{name} spills registers: {usage[name]}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     grids = {}
@@ -3328,13 +3330,19 @@ def main() -> None:
         grids[name] = dict(registers=regs, spill_bytes=spill_st + spill_ld,
                            spill_stores=spill_st, spill_loads=spill_ld,
                            stack_frame=usage[name].stack_frame,
-                           blocks=blocks, threads=threads,
-                           blocks_per_sm=blocks / sms)
+                           smem=usage[name].smem, blocks=blocks,
+                           threads=threads, blocks_per_sm=blocks / sms)
         print(f"grid: {name}: {regs} registers, spill stores {spill_st} B, "
-              f"loads {spill_ld} B, stack frame {usage[name].stack_frame} B; "
+              f"loads {spill_ld} B, stack frame {usage[name].stack_frame} B, "
+              f"shared memory {usage[name].smem} B; "
               f"persistent grid {blocks} blocks x "
               f"{threads} threads ({blocks / sms:g} per SM of {sms}; "
               f"{blocks * threads} resident threads)", flush=True)
+    u = usage["megakernel_rgb_bvh_probe"]
+    print(f"grid: megakernel_rgb_bvh_probe: {u.registers} registers, spill "
+          f"stores {u.spill_stores} B, loads {u.spill_loads} B, stack frame "
+          f"{u.stack_frame} B, shared memory {u.smem} B; launched on the "
+          f"BVH form's grid, never on a main path", flush=True)
     for name in ("bvh4_traverse", "bvh4_rowstack"):
         if name not in usage:
             raise AssertionError(f"no ptxas report of {name} in {log}")
@@ -3736,6 +3744,20 @@ def main() -> None:
         256 * 256 * 2, bdraws_2, bctx.cs.prims.kind.tolist(), False,
         card_layout(megakernel, 256, 2, megakernel.ENTRY_BVH), btable_bytes,
         card, btrav_2.sum(dim=0))
+    # Each slot's traversal counts at 256x256@2 equal the plain version's
+    # (its calls counted per slot, `bvh_plain_intersector`'s counts).
+    per_slot = torch.zeros_like(btrav_2)
+    megakernel.render_slots_reference(
+        bctx.cs, bctx.meta, settings, 256, 256, 2, key, min_slots=bvh_min,
+        intersect=megakernel.bvh_plain_intersector(ks, per_slot))
+    same_counts = torch.equal(per_slot, btrav_2)
+    print(f"BVH form vs plain: cornell_box_obj 256x256@2 depth 50: each "
+          f"slot's (nodes popped, primitives tested) equal: {same_counts} "
+          f"({tuple(int(x) for x in btrav_2.sum(dim=0))} against "
+          f"{tuple(int(x) for x in per_slot.sum(dim=0))})", flush=True)
+    if not same_counts:
+        raise AssertionError("the BVH form's traversal counts differ from "
+                             "its plain version's")
 
     mark("phase 8, the BVH form")
     # 9. The BVH main path, through the entry points a user calls: the RGB
@@ -3793,6 +3815,20 @@ def main() -> None:
           f"primitives tested a ray, against bvh4_traverse's "
           f"{trav['per_ray']} on phase 7's rays on the same tree ({card})",
           flush=True)
+    # The probe instance on the main path's frame (not a main-path launch):
+    # it renders the draws launch's bits, rays and counts, and says how the
+    # warps spent the traversal.
+    (pacc, prays, _, ptrav), probe9 = megakernel.probe_bvh(
+        bctx.cs, bctx.meta, settings, 256, 256, 128,
+        rng.render_key(0, device="cuda"), tables=btables, bvh=ks)
+    probe_same = (torch.equal(pacc.view(torch.int32), acc_d.view(torch.int32))
+                  and int(prays) == int(rays_d) and torch.equal(ptrav, trav_d))
+    print(f"BVH main path: {measure_port.probe_line(probe9)}; its render, "
+          f"rays and counts equal the main instance's: {probe_same} "
+          f"({card})", flush=True)
+    if not probe_same:
+        raise AssertionError("the BVH form's probe renders other bits than "
+                             "its main instance")
 
     mark("phase 9, the BVH form")
     # 9, the pool. The same render through the queue pool (mode "pool", as
@@ -3927,6 +3963,7 @@ def main() -> None:
             "max_abs_err_vs_graphed_pool": bvh_vs_pool_err,
             "also_replaces": "izpi_tpu/ops/megakernel.py:628 (its loop)",
             "traversal": "izpi_tpu_torch/csrc/bvh4.cuh",
+            "probe": probe9,
             "layout": blay,
             **grids["megakernel_rgb_bvh"],
         }, {

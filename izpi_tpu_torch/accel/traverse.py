@@ -182,19 +182,13 @@ def intersect_bvh(prims: prim.Prims, bvh: BVH4Device, o, d, time, t_min,
     return prim.finalize_hit(prims, o, d, time, t, idx, hit)
 
 
-def check(arrays: bvh_build.BVH4Arrays, p_count: int) -> int:
+def check(arrays: bvh_build.BVH4Arrays, p_count: int) -> None:
     """Raise unless the tree covers each of the p_count primitives once and
     its worst-case stack fits STACK_DEPTH (the reference's construction-time
-    self-check, bvh4.go:535-545); returns that worst-case stack
-    (`bvh_build.max_stack_occupancy`)."""
-    errors = bvh_build.validate(arrays, p_count)
-    occupancy = bvh_build.max_stack_occupancy(arrays) if not errors else 0
-    if occupancy > STACK_DEPTH:
-        errors.append(f"worst-case traversal stack {occupancy} exceeds "
-                      f"device stack depth {STACK_DEPTH}")
+    self-check, bvh4.go:535-545)."""
+    errors = bvh_build.validate(arrays, p_count, stack_depth=STACK_DEPTH)
     if errors:
         raise ValueError(f"BVH4 validation failed: {errors[:5]}")
-    return occupancy
 
 
 def build(prims: prim.Prims) -> bvh_build.BVH4Arrays:

@@ -1,7 +1,9 @@
 // Closest hit through a BVH4 for one ray, with a 64-entry stack in the
-// thread's local memory: the traversal of bvh4_traverse.cu (one thread per
-// ray) and of the RGB megakernel's BVH form (megakernel_rgb.cu, one path per
-// thread from the camera to the deposit).
+// thread's local memory: the traversal of bvh4_traverse.cu and of the
+// forward kernel's BVH form (diff_trace.cu), one thread per ray
+// (bvh4_closest), and of the RGB megakernel's BVH form (megakernel_rgb.cu,
+// one path per thread from the camera to the deposit), the same visits
+// taken by a warp together (bvh4_closest_warp).
 //
 // A visit pops one node, slab-tests its four children against the ray's
 // shrinking best t (the reference's tMax shrink, bvh4.go:130), tests the
@@ -93,11 +95,9 @@ __device__ __forceinline__ void bvh4_children(const int* __restrict__ nodes, int
 }
 
 // A visit's push: the internal children it hit, sorted by entry distance,
-// farthest pushed first, so that the nearest is popped next. `stack` is an
-// int* or a lane's column of a shared stack (LaneStack) of kCap entries.
-template <int kCap = kStack, class Stack>
+// farthest pushed first, so that the nearest is popped next.
 __device__ __forceinline__ void bvh4_push(float (&key)[4], int (&ch)[4], const bool (&hit)[4],
-                                          const int (&cnt)[4], Stack stack, int& sp) {
+                                          const int (&cnt)[4], int* stack, int& sp) {
   bool push[4];
 #pragma unroll
   for (int s = 0; s < 4; ++s) push[s] = hit[s] && cnt[s] == 0;
@@ -108,9 +108,9 @@ __device__ __forceinline__ void bvh4_push(float (&key)[4], int (&ch)[4], const b
   cmp_exchange(key, ch, push, 1, 2);
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    // The build checks the worst-case stack against kStack (the wrapper of
-    // a smaller stack against kCap), so the guard never drops a node.
-    if (push[s] && sp < kCap) stack[sp++] = ch[s];
+    // The build checks the worst-case stack against kStack, so the guard
+    // never drops a node.
+    if (push[s] && sp < kStack) stack[sp++] = ch[s];
   }
 }
 
@@ -167,56 +167,34 @@ __device__ __forceinline__ int bvh4_closest(const int* __restrict__ nodes,
   return best;
 }
 
-// ---------------------------------------------------------------------------
-// The RGB megakernel's BVH form (megakernel_rgb.cu): the same visits
-// ---------------------------------------------------------------------------
-
-// Asks for the 128-byte line at p in L1, with no register and no wait (the
-// host build of the tests: nothing).
-__device__ __forceinline__ void prefetch_l1(const void* p) {
-#ifdef __CUDA_ARCH__
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
-#endif
-}
-
-// One lane's column of a block's stack in shared memory: entry i of lane t
-// at base[i * kThreads + t], so a warp's lanes at any entries touch 32
-// different banks.
-template <int kThreads>
-struct LaneStack {
-  int* base;  // the lane's entry 0
-  __device__ __forceinline__ int& operator[](int i) const { return base[i * kThreads]; }
-};
-
-// The closest hit of bvh4_closest for the BVH form, taken by the 32 lanes of
-// a warp together (every lane calls it, `active` or not: it holds warp
-// collectives over the whole warp), with each lane's stack of kEntries
-// entries in `stack`. Each active lane pops, box-tests, pushes and tests
-// exactly the nodes and primitives of bvh4_closest, in its order, against
-// the same running best t; only when it does so changes. The warp runs a
-// non-speculative "while-while" (Aila and Laine, 2009):
+// The closest hit of bvh4_closest for the RGB megakernel's BVH form
+// (megakernel_rgb.cu), taken by the 32 lanes of a warp together: every lane
+// calls it, `active` or not, since it holds warp collectives over the whole
+// warp. Each active lane pops, box-tests, pushes and tests exactly the nodes
+// and primitives of bvh4_closest, in its order, against the same running
+// best t; only when it does so changes. The warp runs a non-speculative
+// "while-while" (Aila and Laine, 2009):
 //  - inner passes: each lane that holds no leaves pops a node, box-tests its
 //    children against its best t, pushes the internal ones it hits and
 //    holds the leaf ones, until every lane holds leaves or has an empty
 //    stack;
 //  - a leaf pass: the lanes that hold leaves test their primitives
 //    together, each its own in slot order, one primitive a round.
-// A node's children are pushed before its leaves are tested, which leaves
-// the stack and every later box test as bvh4_closest has them: the push
-// reads the box tests of the pop, not the leaves' hits. A lane that takes
-// leaves asks for their primitives' rows and for the node on top of its
-// stack in L1 (prefetch_l1), which the other lanes' inner passes and its
-// leaf pass then cover. An inactive lane
-// visits nothing. `tally` (megakernel_rgb.cu: nothing in a main instance,
-// the probe's counts in the probe instance) sees each inner pass
-// (visit_pass), each lane's primitives at each leaf pass (test_pass) and the
-// call's counts (done).
-template <int kEntries, class Stack, class Tally>
+// bvh4_closest's warp passes its visit loop as often as its longest lane
+// pops, and in each pass tests only the leaves of that pass's nodes; here
+// the leaf tests of many passes share one. A node's children are pushed
+// before its leaves are tested, which leaves the stack and every later box
+// test as bvh4_closest has them: the push reads the box tests of the pop,
+// not the leaves' hits. An inactive lane visits nothing. `tally`
+// (megakernel_rgb.cu: nothing in a main instance, the probe's counts in
+// the probe instance) sees each inner pass (visit_pass), each lane's
+// primitives at each leaf pass (test_pass) and the call's counts (done).
+template <class Tally>
 __device__ __forceinline__ int bvh4_closest_warp(const int* __restrict__ nodes,
-                                                 const float* __restrict__ prims, Stack stack,
-                                                 bool active, V3 o, V3 d, float tme,
-                                                 float t_min, float t_max, float& t_out,
-                                                 int& visits, int& tests, Tally& tally) {
+                                                 const float* __restrict__ prims, bool active,
+                                                 V3 o, V3 d, float tme, float t_min,
+                                                 float t_max, float& t_out, int& visits,
+                                                 int& tests, Tally& tally) {
   const float od[3] = {o.x, o.y, o.z};
   const float inv[3] = {1.0f / (d.x == 0.0f ? kInvEps : d.x), 1.0f / (d.y == 0.0f ? kInvEps : d.y),
                         1.0f / (d.z == 0.0f ? kInvEps : d.z)};
@@ -224,12 +202,13 @@ __device__ __forceinline__ int bvh4_closest_warp(const int* __restrict__ nodes,
                       isnan(d.z));
   float t_best = t_max;
   int best = -1;
+  int stack[kStack];
   int sp = 0;
   if (active) stack[sp++] = 0;
   int my_visits = 0, my_tests = 0;
-  int leaf_node = 0;      // the node whose leaf children the lane holds
-  unsigned leaves = 0u;   // their slots, a bit each
-  int held = 0;           // their primitives
+  int leaf_node = 0;     // the node whose leaf children the lane holds
+  unsigned leaves = 0u;  // their slots, a bit each
+  int held = 0;          // their primitives
   for (;;) {
     for (;;) {  // inner passes
       const bool more = leaves == 0u && sp > 0;
@@ -247,15 +226,10 @@ __device__ __forceinline__ int bvh4_closest_warp(const int* __restrict__ nodes,
         if (hit[s] && cnt[s] > 0) {
           leaves |= 1u << s;
           held += cnt[s];
-          const char* run = reinterpret_cast<const char*>(prims + (size_t)ch[s] * kPrimWords);
-          const char* run_end = run + (size_t)cnt[s] * kPrimWords * sizeof(float);
-          for (const char* line = run; line < run_end; line += 128) prefetch_l1(line);
-          prefetch_l1(run_end - 1);
         }
       }
       leaf_node = node;
-      bvh4_push<kEntries>(key, ch, hit, cnt, stack, sp);
-      if (leaves != 0u && sp > 0) prefetch_l1(nodes + (size_t)stack[sp - 1] * kNodeWords);
+      bvh4_push(key, ch, hit, cnt, stack, sp);
     }
     if (!__any_sync(0xffffffffu, leaves != 0u)) break;
     tally.test_pass(held);

@@ -339,12 +339,14 @@ constexpr int kMegaThreads = 128;
 // The blocks per SM the megakernels' __launch_bounds__ asks ptxas to fit:
 // 5 caps them at 96 registers, which both fit with no spill, for 20 warps
 // per SM instead of 16 (1 would be no hint).
-//
-// The RGB megakernel's BVH form (megakernel_rgb.cu) takes the same hint: its
-// traversal's node and leaf state then spill ~100 bytes a thread (ptxas),
-// and it still ran 8% faster than at 4 blocks (115 registers, no spill) and
-// within 2% of 6 (80 registers, 260 bytes spilled) on the H100 (PERF.md).
 constexpr int kMegaMinBlocks = 5;
+// The RGB megakernel's BVH form (megakernel_rgb.cu) asks for 7: 72
+// registers and ~380 bytes a thread spilled, 28 warps an SM to cover the
+// traversal's loads, ran 2% faster than 5 (96 registers, ~130 bytes
+// spilled) on the H100, and 6 ran 2% slower (PERF.md). 8 ran faster still
+// but grows the persistent grid past the next doubling of the slots'
+// replicas (card_min_slots), which sums each pixel in another order.
+constexpr int kBvhMinBlocks = 7;
 
 // Slot s serves pixel s % n_pix with samples replica·spp_slot + [0, spp_slot)
 // + offset, replica = s / n_pix (the mapping of izpi_tpu/ops/megakernel.py:647).

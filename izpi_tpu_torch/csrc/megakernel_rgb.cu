@@ -95,10 +95,10 @@ struct BruteHit {
 // what the main instance renders, through the same visits in the same
 // order, and adds over the launch how the warps spend the traversal. Each
 // lane keeps its counts and adds them to the launch's row once, at its
-// exit; the warp's counts are kept by its lowest lane that traces. Read by
-// ops/megakernel.py probe_bvh in this order.
+// exit; the warp's counts are kept by lane 0. Read by ops/megakernel.py
+// probe_bvh in this order.
 enum ProbeCounter : int {
-  kPrCalls = 0,     // warp traversal calls: the lanes of a warp that trace together
+  kPrCalls = 0,     // warp traversal calls in which a lane traces
   kPrRays,          // lane traversal calls
   kPrVisits,        // nodes popped, over the lanes
   kPrVisitPasses,   // passes of the warp through its visit loop
@@ -158,25 +158,23 @@ struct BvhTables {
 
 // The closest hit of the BVH form: the BVH4 traversal (bvh4.cuh
 // bvh4_closest_warp) over the tree's node table and its primitive table,
-// whose primitives are the scene's in the same (tree) order, with a stack
-// of kEntries entries in the lane's column of the block's shared stack.
-// Every lane of the warp calls it in every trip (kWarp), a lane with no
-// path with slot -1, which traces nothing. With `counts`, each slot's
-// nodes popped and primitives tested are added to its row: no other thread
-// writes it. Tally: NoCount, or the probe's WarpTally.
-template <int kEntries, class Tally>
+// whose primitives are the scene's in the same (tree) order. Every lane of
+// the warp calls it in every trip (kWarp), a lane with no path with slot
+// -1, which traces nothing. With `counts`, each slot's nodes popped and
+// primitives tested are added to its row: no other thread writes it.
+// Tally: NoCount, or the probe's WarpTally.
+template <class Tally>
 struct BvhHit {
   static constexpr bool kOneTrace = true;  // the exit re-trace a trip of its own
   static constexpr bool kWarp = true;      // the warp's lanes trace together
   BvhTables tab;
-  LaneStack<kMegaThreads> stack;
   __device__ __forceinline__ int operator()(const Scene& /*sc*/, int slot, V3 o, V3 d,
                                             float tme, float t_min, float t_max, float& t,
                                             unsigned long long* pc = nullptr) const {
     int visits = 0, tests = 0;
     Tally tally(pc);
-    const int hit = bvh4_closest_warp<kEntries>(tab.nodes, tab.prims, stack, slot >= 0, o, d,
-                                                tme, t_min, t_max, t, visits, tests, tally);
+    const int hit = bvh4_closest_warp(tab.nodes, tab.prims, slot >= 0, o, d, tme, t_min,
+                                      t_max, t, visits, tests, tally);
     if (tab.counts != nullptr && slot >= 0) {
       tab.counts[2 * slot + 0] += visits;
       tab.counts[2 * slot + 1] += tests;
@@ -462,11 +460,10 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
               max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out);
 }
 
-// The BVH form over a tree whose worst-case stack is at most kEntries: the
-// block's stack in shared memory, a column of kEntries a lane (16 KB a
-// block at 32 entries, 32 KB at 64); Tally NoCount, or WarpTally for the
-// probe, which adds its counts to probe_out.
-template <int kEntries, class Tally>
+// The BVH form (Tally NoCount) and its probe (WarpTally, which adds its
+// counts to probe_out; the main kernel takes none) at kBvhMinBlocks blocks
+// an SM.
+template <class Tally>
 __device__ __forceinline__ void render_bvh(const Scene& sc, const BvhTables& tab,
                                            const Camera& camera, uint32_t seed0,
                                            uint32_t seed1, uint32_t offset, int nx, int ny,
@@ -476,39 +473,33 @@ __device__ __forceinline__ void render_bvh(const Scene& sc, const BvhTables& tab
                                            int* __restrict__ cnt_out,
                                            int* __restrict__ draws_out,
                                            unsigned long long* __restrict__ probe_out) {
-  __shared__ int stack[kEntries * kMegaThreads];
-  const BvhHit<kEntries, Tally> hit{tab, LaneStack<kMegaThreads>{stack + threadIdx.x}};
-  render_loop<Tally::kOn>(hit, sc, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots,
-                          max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out,
-                          draws_out, probe_out);
+  render_loop<Tally::kOn>(BvhHit<Tally>{tab}, sc, camera, seed0, seed1, offset, nx, ny,
+                          spp_slot, n_slots, max_depth, bg_r, bg_g, bg_b, book, queue,
+                          acc_out, cnt_out, draws_out, probe_out);
 }
 
-// The BVH form's instances: stacks of 32 and 64 entries (the wrapper picks
-// the smallest that holds its tree's worst-case stack), and the probe of
-// the 32-entry one. One signature: the main instances take no probe_out.
-#define IZPI_BVH_PARAMS                                                                   \
-  Scene sc, BvhTables tab, Camera camera, uint32_t seed0, uint32_t seed1, uint32_t offset, \
-      int nx, int ny, int spp_slot, int n_slots, int max_depth, float bg_r, float bg_g,    \
-      float bg_b, int book, int *__restrict__ queue, float *__restrict__ acc_out,          \
-      int *__restrict__ cnt_out, int *__restrict__ draws_out,                              \
-      unsigned long long *__restrict__ probe_out
-#define IZPI_BVH_ARGS                                                                     \
-  sc, tab, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots, max_depth, bg_r, bg_g, \
-      bg_b, book, queue, acc_out, cnt_out, draws_out, probe_out
-
-__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
-    megakernel_rgb_bvh_s32(IZPI_BVH_PARAMS) {
-  render_bvh<32, NoCount>(IZPI_BVH_ARGS);
+__global__ void __launch_bounds__(kMegaThreads, kBvhMinBlocks)
+    megakernel_rgb_bvh(Scene sc, BvhTables tab, Camera camera, uint32_t seed0,
+                       uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
+                       int n_slots, int max_depth, float bg_r, float bg_g, float bg_b,
+                       int book, int* __restrict__ queue, float* __restrict__ acc_out,
+                       int* __restrict__ cnt_out, int* __restrict__ draws_out,
+                       unsigned long long* __restrict__ probe_out) {
+  render_bvh<NoCount>(sc, tab, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots,
+                      max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out,
+                      probe_out);
 }
 
-__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
-    megakernel_rgb_bvh_s64(IZPI_BVH_PARAMS) {
-  render_bvh<64, NoCount>(IZPI_BVH_ARGS);
-}
-
-__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
-    megakernel_rgb_bvh_probe(IZPI_BVH_PARAMS) {
-  render_bvh<32, WarpTally>(IZPI_BVH_ARGS);
+__global__ void __launch_bounds__(kMegaThreads, kBvhMinBlocks)
+    megakernel_rgb_bvh_probe(Scene sc, BvhTables tab, Camera camera, uint32_t seed0,
+                             uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
+                             int n_slots, int max_depth, float bg_r, float bg_g, float bg_b,
+                             int book, int* __restrict__ queue, float* __restrict__ acc_out,
+                             int* __restrict__ cnt_out, int* __restrict__ draws_out,
+                             unsigned long long* __restrict__ probe_out) {
+  render_bvh<WarpTally>(sc, tab, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots,
+                        max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out,
+                        probe_out);
 }
 
 }  // namespace izpi
@@ -542,15 +533,13 @@ int izpi_megakernel_rgb(const float* prim_f, const int* prim_i, int n_prims,
   return (int)cudaGetLastError();
 }
 
-// The BVH form's launch: izpi_megakernel_rgb with the closest hit through a
-// BVH4, nodes (Nn, 32) i32 and bvh_prims (n_prims, 16) f32
-// (ops/bvh_kernel.py pack_tables) over the primitives of prim_f and prim_i
-// in the same (tree) order; trav: null, or (n_slots, 2) i32, zeroed, that
-// receives each slot's nodes popped and primitives tested; probe: null, or
-// for the probe kernel (kProbeCounters,) u64, zeroed (ProbeCounter).
-typedef void (*BvhKernel)(izpi::Scene, izpi::BvhTables, izpi::Camera, uint32_t, uint32_t,
-                          uint32_t, int, int, int, int, int, float, float, float, int, int*,
-                          float*, int*, int*, unsigned long long*);
+// The persistent grid of izpi_megakernel_rgb_bvh on the current device.
+int izpi_megakernel_rgb_bvh_grid(int* blocks, int* threads) {
+  *threads = izpi::kMegaThreads;
+  return izpi::persistent_blocks(izpi::megakernel_rgb_bvh, blocks);
+}
+
+typedef decltype(&izpi::megakernel_rgb_bvh) BvhKernel;
 
 static int launch_bvh(BvhKernel kernel, const float* prim_f, const int* prim_i, int n_prims,
                       const float* mat_f, const int* mat_i, const float* light_f,
@@ -568,31 +557,41 @@ static int launch_bvh(BvhKernel kernel, const float* prim_f, const int* prim_i, 
   return (int)cudaGetLastError();
 }
 
-// Each instance's entry (the arguments of launch_bvh but the kernel) and
-// its persistent grid on the current device.
-#define IZPI_BVH_ENTRY(name)                                                                   \
-  int izpi_##name(const float* prim_f, const int* prim_i, int n_prims, const float* mat_f,     \
-                  const int* mat_i, const float* light_f, const int* light_i, int n_lights,    \
-                  const int* nodes, const float* bvh_prims, const float* cam, uint32_t seed0,  \
-                  uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot, int n_slots,  \
-                  int max_depth, float bg_r, float bg_g, float bg_b, int book, int blocks,     \
-                  int* queue, float* acc, int* cnt, int* draws, int* trav,                     \
-                  unsigned long long* probe, void* stream) {                                   \
-    return launch_bvh(izpi::name, prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i,     \
-                      n_lights, nodes, bvh_prims, cam, seed0, seed1, offset, nx, ny, spp_slot, \
-                      n_slots, max_depth, bg_r, bg_g, bg_b, book, blocks, queue, acc, cnt,     \
-                      draws, trav, probe, stream);                                             \
-  }                                                                                            \
-  int izpi_##name##_grid(int* blocks, int* threads) {                                          \
-    *threads = izpi::kMegaThreads;                                                             \
-    return izpi::persistent_blocks(izpi::name, blocks);                                        \
-  }
+// izpi_megakernel_rgb with the closest hit through a BVH4: nodes (Nn, 32)
+// i32 and bvh_prims (n_prims, 16) f32 (ops/bvh_kernel.py pack_tables) over
+// the primitives of prim_f and prim_i in the same (tree) order; trav: null,
+// or (n_slots, 2) i32, zeroed, that receives each slot's nodes popped and
+// primitives tested.
+int izpi_megakernel_rgb_bvh(const float* prim_f, const int* prim_i, int n_prims,
+                            const float* mat_f, const int* mat_i, const float* light_f,
+                            const int* light_i, int n_lights, const int* nodes,
+                            const float* bvh_prims, const float* cam, uint32_t seed0,
+                            uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
+                            int n_slots, int max_depth, float bg_r, float bg_g, float bg_b,
+                            int book, int blocks, int* queue, float* acc, int* cnt, int* draws,
+                            int* trav, void* stream) {
+  return launch_bvh(izpi::megakernel_rgb_bvh, prim_f, prim_i, n_prims, mat_f, mat_i, light_f,
+                    light_i, n_lights, nodes, bvh_prims, cam, seed0, seed1, offset, nx, ny,
+                    spp_slot, n_slots, max_depth, bg_r, bg_g, bg_b, book, blocks, queue, acc,
+                    cnt, draws, trav, nullptr, stream);
+}
 
-IZPI_BVH_ENTRY(megakernel_rgb_bvh_s32)
-IZPI_BVH_ENTRY(megakernel_rgb_bvh_s64)
-IZPI_BVH_ENTRY(megakernel_rgb_bvh_probe)
-
-// The number of counters izpi_megakernel_rgb_bvh_probe writes.
-int izpi_megakernel_rgb_bvh_probe_counters() { return izpi::kProbeCounters; }
+// Its probe instance, launched like it over `blocks` blocks (the main
+// kernel's grid), with probe: (kProbeCounters,) u64, zeroed, that receives
+// the launch's counts (ProbeCounter).
+int izpi_megakernel_rgb_bvh_probe(const float* prim_f, const int* prim_i, int n_prims,
+                                  const float* mat_f, const int* mat_i, const float* light_f,
+                                  const int* light_i, int n_lights, const int* nodes,
+                                  const float* bvh_prims, const float* cam, uint32_t seed0,
+                                  uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
+                                  int n_slots, int max_depth, float bg_r, float bg_g,
+                                  float bg_b, int book, int blocks, int* queue, float* acc,
+                                  int* cnt, int* draws, int* trav, unsigned long long* probe,
+                                  void* stream) {
+  return launch_bvh(izpi::megakernel_rgb_bvh_probe, prim_f, prim_i, n_prims, mat_f, mat_i,
+                    light_f, light_i, n_lights, nodes, bvh_prims, cam, seed0, seed1, offset, nx,
+                    ny, spp_slot, n_slots, max_depth, bg_r, bg_g, bg_b, book, blocks, queue,
+                    acc, cnt, draws, trav, probe, stream);
+}
 
 }  // extern "C"

@@ -29,8 +29,7 @@ SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
 HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh", "bvh4.cuh")
 # The kernels whose ptxas report `ptxas_usage` reads, by their names (a
 # name that holds another comes first).
-KERNELS = ("megakernel_rgb_bvh_probe", "megakernel_rgb_bvh_s32",
-           "megakernel_rgb_bvh_s64", "megakernel_rgb", "megakernel_spectral",
+KERNELS = ("megakernel_rgb_bvh_probe", "megakernel_rgb_bvh", "megakernel_rgb", "megakernel_spectral",
            "bvh4_traverse", "bvh4_rowstack", "table_grad_absmax",
            "table_grad_scatter_shared", "table_grad_scatter",
            "table_grad_finalize", "diff_trace_fwd_bvh", "diff_trace_fwd",
@@ -124,7 +123,7 @@ _SIGNATURES = {
         _c_void_p,                             # stream
     ],
 }
-# The RGB megakernel's BVH form: one entry (and grid) an instance.
+# The RGB megakernel's BVH form and its probe instance.
 _BVH_ARGS = [
     _c_void_p, _c_void_p, _c_int,          # prim_f, prim_i, n_prims
     _c_void_p, _c_void_p,                  # mat_f, mat_i
@@ -135,12 +134,13 @@ _BVH_ARGS = [
     _c_int, _c_int, _c_int, _c_int, _c_int,  # nx, ny, spp_slot, n_slots, max_depth
     _c_float, _c_float, _c_float, _c_int,  # background, book
     _c_int, _c_void_p, _c_void_p, _c_void_p,  # blocks, queue, acc, cnt
-    _c_void_p, _c_void_p, _c_void_p,       # draws, traversal, probe (or null)
-    _c_void_p,                             # stream
+    _c_void_p, _c_void_p,                  # draws, traversal (or null)
 ]
-for _name in ("s32", "s64", "probe"):
-    _SIGNATURES[f"izpi_megakernel_rgb_bvh_{_name}"] = _BVH_ARGS
-    _SIGNATURES[f"izpi_megakernel_rgb_bvh_{_name}_grid"] = [_c_void_p, _c_void_p]
+_SIGNATURES.update({
+    "izpi_megakernel_rgb_bvh": [*_BVH_ARGS, _c_void_p],  # stream
+    "izpi_megakernel_rgb_bvh_grid": [_c_void_p, _c_void_p],
+    "izpi_megakernel_rgb_bvh_probe": [*_BVH_ARGS, _c_void_p, _c_void_p],  # probe, stream
+})
 # Entries that return another type than a cudaError_t (int).
 _RESTYPES = {"izpi_table_grad_scratch": _c_int64}
 

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from izpi_tpu_torch.accel import bvh_build, traverse
+from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.geometry import primitives as prim
 
 NODE_WORDS, PRIM_WORDS = 32, 16  # row widths csrc/bvh4_traverse.cu reads
@@ -43,17 +43,11 @@ class KernelScene(NamedTuple):
     tree: traverse.BVH4Device   # the node arrays (plain version)
     nodes: torch.Tensor         # (Nn, NODE_WORDS) i32: bounds bits | child | count
     prim_table: torch.Tensor    # (P, PRIM_WORDS) f32: g0 g1 g2 g3 | kind bits | pad
-    # The tree's worst-case traversal stack (`traverse.check`), which sizes
-    # the RGB megakernel's BVH form's stack; the kernels' own size when the
-    # tree was not measured.
-    max_stack: int = traverse.STACK_DEPTH
 
 
-def pack_tables(prims: prim.Prims, tree: traverse.BVH4Device,
-                max_stack: int = traverse.STACK_DEPTH) -> KernelScene:
+def pack_tables(prims: prim.Prims, tree: traverse.BVH4Device) -> KernelScene:
     """Pack the tree and its (reordered) primitives as the kernel reads
-    them: one 128-byte row per node, one 64-byte row per primitive; with the
-    tree's worst-case stack."""
+    them: one 128-byte row per node, one 64-byte row per primitive."""
     nodes = torch.cat([tree.bounds.view(torch.int32), tree.child, tree.count],
                       dim=1).contiguous()
     # Filled as 32-bit words, so every float keeps its bits.
@@ -62,8 +56,7 @@ def pack_tables(prims: prim.Prims, tree: traverse.BVH4Device,
     words[:, 0:12] = torch.cat([prims.g0, prims.g1, prims.g2, prims.g3],
                                dim=1).view(torch.int32)
     words[:, 12] = prims.kind.to(torch.int32)
-    return KernelScene(prims, tree, nodes, words.view(torch.float32),
-                       max_stack)
+    return KernelScene(prims, tree, nodes, words.view(torch.float32))
 
 
 def _check(name, t, shape, dtype, dev):
@@ -142,14 +135,12 @@ class BVHKernelIntersector:
 
 
 def attach(cs):
-    """Build the port's BVH4 over a compiled scene (as `traverse.build`:
-    `traverse.check` raises on a tree too deep for the kernel's stack),
-    reorder its primitives and pack the tables on the scene's device with
-    the tree's worst-case stack. Returns (cs_reordered,
-    BVHKernelIntersector)."""
-    arrays = bvh_build.build_bvh4(cs.prims)
-    max_stack = traverse.check(arrays, cs.prims.count)
+    """Build the port's BVH4 over a compiled scene (`traverse.build`, which
+    raises on a tree too deep for the kernel's stack), reorder its
+    primitives and pack the tables on the scene's device. Returns
+    (cs_reordered, BVHKernelIntersector)."""
+    arrays = traverse.build(cs.prims)
     cs2 = cs._replace(prims=traverse.reorder_prims(cs.prims,
                                                    arrays.prim_order))
-    ks = pack_tables(cs2.prims, traverse.upload(arrays, cs.device), max_stack)
+    ks = pack_tables(cs2.prims, traverse.upload(arrays, cs.device))
     return cs2, BVHKernelIntersector(cs2, ks)

@@ -87,11 +87,10 @@ MIN_SLOTS = 8192
 # On the card, slots per resident thread of the persistent grid: with eight
 # or more, the slots still running when the queue drains are a short tail.
 SLOTS_PER_THREAD = 8
-# The kernel's C entries: brute force, and the BVH form's instances by the
-# entries of their stacks (`bvh_entry`); "<entry>_grid" reports each one's
-# persistent grid.
+# The kernel's C entries, brute force and BVH; "<entry>_grid" reports each
+# one's persistent grid.
 ENTRY = "izpi_megakernel_rgb"
-BVH_STACKS = (32, 64)
+ENTRY_BVH = "izpi_megakernel_rgb_bvh"
 
 # Row widths of the packed tables; csrc/megakernel_rgb.cu reads the same.
 PRIM_F, PRIM_I, MAT_F, MAT_I, LIGHT_F, CAM_F = 24, 4, 12, 4, 16, 24
@@ -145,18 +144,6 @@ def bvh_plain_intersector(bvh: bvh_kernel.KernelScene, counts=None):
         return prim.finalize_hit(bvh.prims, o, d, time, t, idx, idx >= 0)
 
     return intersect
-
-
-def bvh_entry(bvh: bvh_kernel.KernelScene) -> str:
-    """The C entry of the BVH form's instance for `bvh`: the smallest stack
-    of BVH_STACKS that holds the tree's worst-case stack (`max_stack`).
-    Raises for a deeper tree (`traverse.check` refuses one deeper than the
-    largest at its build)."""
-    for entries in BVH_STACKS:
-        if bvh.max_stack <= entries:
-            return f"izpi_megakernel_rgb_bvh_s{entries}"
-    raise ValueError(f"the tree's worst-case stack {bvh.max_stack} exceeds "
-                     f"the BVH form's largest, {BVH_STACKS[-1]}")
 
 
 def pick_replication(n_pix: int, spp: int, min_slots: int = MIN_SLOTS) -> int:
@@ -372,9 +359,8 @@ def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
     count; without it the scene must be `eligible`.
 
     On a CUDA device this launches `izpi_megakernel_rgb` (or its BVH form,
-    the instance `bvh_entry` picks by the tree's worst-case stack) on the
-    card's layout (`card_min_slots`); any failure to build or launch
-    raises. On the CPU it runs
+    `izpi_megakernel_rgb_bvh`) on the card's layout (`card_min_slots`);
+    any failure to build or launch raises. On the CPU it runs
     `render_slots_reference` on the JAX rule's layout, through the plain
     traversal for the BVH form."""
     if not (_shaded(meta) if bvh is not None else eligible(cs, meta)):
@@ -405,10 +391,9 @@ PROBE_COUNTERS = ("calls", "rays", "visits", "visit_passes", "tests",
 def probe_bvh(cs, meta, settings, nx: int, ny: int, spp: int, key,
               offset: int = 0, tables: SceneTables | None = None,
               bvh: Optional[bvh_kernel.KernelScene] = None):
-    """The BVH form's probe instance (`izpi_megakernel_rgb_bvh_probe`, the
-    32-entry stack's, on the card only, never on a main path): the render
-    of `render_slots(..., bvh=bvh, draws=True)`, launched on the main
-    instance's grid, and a dict
+    """The BVH form's probe instance (`izpi_megakernel_rgb_bvh_probe`, on the
+    card only, never on a main path): the render of `render_slots(...,
+    bvh=bvh, draws=True)`, launched on the main instance's grid, and a dict
     of how its warps spent the traversal: the raw counters of
     PROBE_COUNTERS and, from them, `use_visits` and `use_tests` (lane
     iterations over 32 × the warps' passes through the visit loop and
@@ -419,9 +404,6 @@ def probe_bvh(cs, meta, settings, nx: int, ny: int, spp: int, key,
     (render_slots' four items, that dict)."""
     if bvh is None or cs.device.type != "cuda":
         raise ValueError("the probe runs the BVH form on a CUDA device")
-    if bvh_entry(bvh) != f"izpi_megakernel_rgb_bvh_s{BVH_STACKS[0]}":
-        raise ValueError(f"the probe takes trees whose worst-case stack is "
-                         f"at most {BVH_STACKS[0]}, not {bvh.max_stack}")
     probe = torch.zeros(len(PROBE_COUNTERS), dtype=torch.int64,
                         device=cs.device)
     out = _launch(cs, meta, settings, nx, ny, spp, key, offset, tables, True,
@@ -462,7 +444,7 @@ def _launch(cs, meta, settings, nx, ny, spp, key, offset, tables, draws, bvh,
     lib = _build.load()
     n_p, n_l = meta.n_prims, meta.n_lights
     n_pix = nx * ny
-    entry = ENTRY if bvh is None else bvh_entry(bvh)
+    entry = ENTRY if bvh is None else ENTRY_BVH
     repl, spp_slot, n_slots, blocks = card_layout(entry, dev, n_pix, spp)
     seed0, seed1 = _key_words(key)
     bg = [float(x) for x in settings.background]
@@ -483,12 +465,14 @@ def _launch(cs, meta, settings, nx, ny, spp, key, offset, tables, draws, bvh,
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if bvh is None:
             err = lib.izpi_megakernel_rgb(*scene, *launch, stream)
-        else:
-            if probe is not None:
-                entry = "izpi_megakernel_rgb_bvh_probe"
-            err = getattr(lib, entry)(
+        elif probe is None:
+            err = lib.izpi_megakernel_rgb_bvh(
                 *scene, *tree, *launch, ptr(trav) if traversal else None,
-                None if probe is None else ptr(probe), stream)
+                stream)
+        else:
+            entry = ENTRY_BVH + "_probe"
+            err = lib.izpi_megakernel_rgb_bvh_probe(
+                *scene, *tree, *launch, ptr(trav), ptr(probe), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     global launches, bvh_launches

@@ -70,7 +70,13 @@ cornell_box_obj puts its mesh, rendered in mode "pool" at 64×64 and 4 spp
 (`--size`, `--spp`; the pool holds every sample), depth 50, seed 0, once
 with `use_bvh=False` (brute force, 512 primitives per pass) and once with
 `use_bvh=True` (the traversal kernel), `--runs` timed renders each after a
-small warm-up.
+small warm-up. Then Shirley's `random_scene` (485 spheres, below the
+threshold) at its main path's frame (256×256 at 128 spp, depth 50, under
+the sky) through the RGB megakernel's brute force (the default) and
+through its BVH form (`use_bvh=True`), in turns after a warm-up round:
+each one's rays, seconds and median, their ratio and the largest pixel
+difference (the BVH context's primitives are in tree order, so exact-t
+ties may pick another primitive).
 
 `--build` times a build of the kernels from nothing, `--runs` times each
 way, alternating: `ops._build.build()` (one nvcc per source, all started
@@ -92,7 +98,14 @@ memory; then the two trees' rays must be equal and every pixel of the image
 (or of the XYZ canvas: the pyramid, the dragon) within 1e-4 + 1e-5·|DIR's|,
 this tree's turns must repeat bit for bit, and DIR's too where DIR renders
 through a megakernel (a tree whose pool sums its deposits with float
-atomics repeats within the tolerance).
+atomics repeats within the tolerance). Through the RGB megakernel's BVH
+form (`--scene obj`) each turn also launches the frame once more with its
+traversal counts and prints them (nodes popped, primitives tested, and a
+ray), and the two trees' counts side by side; where the tree has the
+form's probe instance (`megakernel.probe_bvh`), the turn prints its
+figures (the lanes' use of the warps' visit and test passes, nodes a call
+a lane against the warp's most, the shares of the lanes' cycles), and its
+render, rays and counts must equal the main instance's.
 
 `--step` times the training step (`parallel.dist.build_train_step`, 1
 spp, seed 0, from tex_c0 at 0.7 of its values against a grey target) on
@@ -443,6 +456,35 @@ def policy(n: int, spp: int, runs: int) -> None:
             torch.cuda.empty_cache()
         print(f"policy: {n_tris} triangles: rays brute {rays[False]}, bvh "
               f"{rays[True]}", flush=True)
+    # The megakernels on random_scene (485 spheres, below BVH_THRESHOLD) at
+    # its main path's frame: the RGB megakernel's brute force (the default)
+    # against its BVH form (use_bvh=True), in turns.
+    make, n_s, spp_s, depth_s, _ = SCENES["shirley"]
+    sky = path.RenderSettings(max_depth=depth_s,
+                              background=BACKGROUND["shirley"])
+    ctxs = {use_bvh: renderer.RenderContext(make(), use_bvh=use_bvh,
+                                            device="cuda")
+            for use_bvh in (False, True)}
+    secs, res = {False: [], True: []}, {}
+    for turn in range(runs + 1):
+        for use_bvh in ((False, True) if turn % 2 else (True, False)):
+            r = renderer.render(None, n_s, n_s, spp_s, sky, seed=0,
+                                context=ctxs[use_bvh], device="cuda")
+            if turn:  # the first round warms up
+                secs[use_bvh].append(r.seconds)
+            res[use_bvh] = r
+    diff = np.abs(res[True].image - res[False].image).max()
+    for use_bvh, name in ((False, "brute force (RGB megakernel)"),
+                          (True, "BVH form")):
+        med = statistics.median(secs[use_bvh])
+        print(f"policy: random_scene {n_s}x{n_s}@{spp_s} depth {depth_s}, "
+              f"{ctxs[use_bvh].meta.n_prims} prims, {name}: rays "
+              f"{res[use_bvh].rays_traced}; seconds "
+              f"{[round(x, 4) for x in secs[use_bvh]]}, median {med:.4f} = "
+              f"{res[use_bvh].rays_traced / med / 1e6:.3f} Mrays/s", flush=True)
+    print(f"policy: random_scene: BVH form / brute force median seconds "
+          f"{statistics.median(secs[True]) / statistics.median(secs[False]):.3f}"
+          f"; largest pixel difference {diff:.3e} ({smi()})", flush=True)
 
 
 def build_times(runs: int) -> None:
@@ -1013,8 +1055,8 @@ def main() -> None:
             renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
                             mode=args.mode, context=ctx, device="cuda")
         in_render = profiling.event_ms(events)
-        entry = (megakernel.bvh_entry(ctx.mega_bvh())
-                 if isinstance(slots, functools.partial) else module.ENTRY)
+        entry = (megakernel.ENTRY_BVH if isinstance(slots, functools.partial)
+                 else module.ENTRY)
         blocks, threads = megakernel.card_grid(entry, ctx.cs.device)
         repl, spp_slot, n_slots = megakernel.slot_layout(
             n * n, spp, megakernel.card_min_slots(entry, ctx.cs.device))

@@ -12,8 +12,7 @@ Beer–Lambert exit re-trace), 8×8 at 2 spp, depth 8, the kernel is held to
 its plain version, `megakernel.render_slots_reference` through the plain
 traversal on the same layout: rays equal, each slot's (nodes popped,
 primitives tested) equal, and the image within chip phase 4's tolerances.
-The probe instance renders the same and counts a lane use in (0, 1]; the
-wrapper picks the stack instance by the tree's worst-case stack.
+The probe instance renders the same and counts a lane use in (0, 1].
 """
 
 import ctypes
@@ -23,7 +22,6 @@ import pytest
 import torch
 
 from _torch_port import host_kernel, with_absorbing_glass
-from izpi_tpu_torch.accel import bvh_build, traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import procedural
 from izpi_tpu_torch.integrator import path
@@ -41,9 +39,8 @@ THREADS = 32
 # PIXEL_SHARE of them must.
 PIXEL_ATOL, PIXEL_SHARE = 1e-4, 0.99
 
-# The host entry: the instance `which` (0: the 32-entry stack, 1: the
-# 64-entry one, 2: the probe of the 32-entry one) over one block of
-# `threads` lanes.
+# The host entry: the BVH form (which 0) or its probe instance (which 1)
+# over one block of `threads` lanes.
 ENTRY = r"""
 extern "C" void run(int which, const float* prim_f, const int* prim_i, int n_prims,
                     const float* mat_f, const int* mat_i, const float* light_f,
@@ -54,13 +51,10 @@ extern "C" void run(int which, const float* prim_f, const int* prim_i, int n_pri
   const izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
   const izpi::BvhTables tab{nodes, bvh_prims, trav};
   const izpi::Camera camera = izpi::load_camera(cam);
-  const decltype(&izpi::megakernel_rgb_bvh_s32) kernels[3] = {
-      izpi::megakernel_rgb_bvh_s32, izpi::megakernel_rgb_bvh_s64,
-      izpi::megakernel_rgb_bvh_probe};
+  const auto kernel = which ? izpi::megakernel_rgb_bvh_probe : izpi::megakernel_rgb_bvh;
   run_grid(1, threads, [&] {
-    kernels[which](sc, tab, camera, seed0, seed1, 0u, nx, ny, spp_slot, n_slots, max_depth,
-                   0.0f, 0.0f, 0.0f, 1, queue, acc, cnt, nullptr,
-                   which == 2 ? probe : nullptr);
+    kernel(sc, tab, camera, seed0, seed1, 0u, nx, ny, spp_slot, n_slots, max_depth, 0.0f,
+           0.0f, 0.0f, 1, queue, acc, cnt, nullptr, which ? probe : nullptr);
   });
 }
 """
@@ -155,17 +149,15 @@ def _probe_summary(raw):
 
 
 @pytest.mark.parametrize("seed", [np.random.RandomState(16).randint(1 << 16)])
-def test_probe_and_large_stack_render_the_main_instance(host, scene, seed):
-    """The probe instance and the 64-entry stack's render the 32-entry
-    instance's bits, rays and per-slot counts; the probe's lane use of the
-    visit and test passes lies in (0, 1], its traversal calls are the rays
-    and, with absorbing glass, the exit re-traces besides, and its cycle
-    counts are positive."""
+def test_probe_renders_the_main_instance(host, scene, seed):
+    """The probe instance renders the main instance's bits, rays and
+    per-slot counts; its lane use of the visit and test passes lies in
+    (0, 1], its traversal calls are the rays and, with absorbing glass, the
+    exit re-traces besides, and its cycle counts are positive."""
     acc, rays, trav, _ = _kernel(host, scene, seed)
-    for which in (1, 2):
-        acc_i, rays_i, trav_i, raw = _kernel(host, scene, seed, which)
-        assert torch.equal(acc_i.view(torch.int32), acc.view(torch.int32))
-        assert rays_i == rays and torch.equal(trav_i, trav)
+    acc_p, rays_p, trav_p, raw = _kernel(host, scene, seed, 1)
+    assert torch.equal(acc_p.view(torch.int32), acc.view(torch.int32))
+    assert rays_p == rays and torch.equal(trav_p, trav)
     c = _probe_summary(raw)
     assert 0 < c["use_visits"] <= 1 and 0 < c["use_tests"] <= 1
     assert c["visits"] == int(trav[:, 0].sum())
@@ -175,48 +167,3 @@ def test_probe_and_large_stack_render_the_main_instance(host, scene, seed):
     assert c["rays"] > rays if absorbing else c["rays"] == rays
     assert (c["cycles_loop"] >= c["cycles_traversal"] + c["cycles_regeneration"]
             and min(c["cycles_traversal"], c["cycles_regeneration"]) > 0)
-
-
-def _chain_tree(depth: int):
-    """A BVH4 whose worst-case stack is depth + 1: a spine of `depth` nodes,
-    each with a node of one leaf and the next spine node as internal
-    children, ending in a node of one leaf (tests/test_torch_bvh.py's
-    pathological tree); (arrays, primitive count)."""
-    n_nodes = 2 * depth + 1
-    child = np.full((n_nodes, 4), -1, np.int32)
-    count = np.full((n_nodes, 4), -1, np.int32)
-    for i in range(depth):
-        child[i, :2], count[i, :2] = (depth + 1 + i, i + 1), (0, 0)
-        child[depth + 1 + i, 0], count[depth + 1 + i, 0] = i, 1
-    child[depth, 0], count[depth, 0] = depth, 1
-    bounds = np.zeros((n_nodes, 24), np.float32)
-    order = np.arange(depth + 1, dtype=np.int32)
-    return bvh_build.BVH4Arrays(bounds, child, count, order), depth + 1
-
-
-@pytest.mark.parametrize("depth,entry", [
-    (20, "izpi_megakernel_rgb_bvh_s32"), (31, "izpi_megakernel_rgb_bvh_s32"),
-    (32, "izpi_megakernel_rgb_bvh_s64"), (63, "izpi_megakernel_rgb_bvh_s64")])
-def test_stack_instance_follows_the_tree(depth, entry):
-    """The wrapper takes the smallest stack instance that holds the tree's
-    worst-case stack, which the tree's check records; the blob box's tree
-    takes the small one."""
-    arrays, p = _chain_tree(depth)
-    max_stack = traverse.check(arrays, p)
-    assert max_stack == depth + 1 == bvh_build.max_stack_occupancy(arrays)
-    ks = bvh_kernel.KernelScene(None, None, None, None, max_stack)
-    assert megakernel.bvh_entry(ks) == entry
-
-
-def test_deeper_tree_raises():
-    """A tree deeper than the largest stack raises, at its check and in the
-    wrapper: no instance drops a node."""
-    arrays, p = _chain_tree(64)
-    with pytest.raises(ValueError, match="stack 65 exceeds"):
-        traverse.check(arrays, p)
-    ks = bvh_kernel.KernelScene(None, None, None, None, 65)
-    with pytest.raises(ValueError, match="worst-case stack 65"):
-        megakernel.bvh_entry(ks)
-    _, _, small = _scene(False)
-    assert small.max_stack <= megakernel.BVH_STACKS[0]
-    assert megakernel.bvh_entry(small) == "izpi_megakernel_rgb_bvh_s32"

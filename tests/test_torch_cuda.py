@@ -211,8 +211,7 @@ class _RefusingLibrary:
 
     def __getattr__(self, name):
         if name in ("izpi_megakernel_rgb", "izpi_megakernel_spectral",
-                    "izpi_megakernel_rgb_bvh_s32",
-                    "izpi_megakernel_rgb_bvh_s64"):
+                    "izpi_megakernel_rgb_bvh"):
             return lambda *args: 701
         return getattr(self._lib, name)
 
@@ -876,7 +875,7 @@ def test_bvh_form_matches_plain_on_card(request, n, spp, depth, seed, scene):
             - before[1], bvh_kernel.launches - before[2]) == (1, 0, 0)
     want, w_rays = megakernel.render_slots_reference(
         obj_context.cs, obj_context.meta, s, n, n, spp, key,
-        min_slots=megakernel.card_min_slots(megakernel.bvh_entry(ks),
+        min_slots=megakernel.card_min_slots(megakernel.ENTRY_BVH,
                                             obj_context.device),
         intersect=megakernel.bvh_plain_intersector(ks))
     torch.cuda.synchronize()
@@ -886,6 +885,37 @@ def test_bvh_form_matches_plain_on_card(request, n, spp, depth, seed, scene):
     assert torch.isfinite(got).all()
     nodes, tests = (int(x) for x in trav.sum(dim=0))
     assert int(g_rays) <= nodes and 0 < tests
+
+
+@pytest.mark.parametrize("scene", ["obj", "obj_absorbing"])
+def test_bvh_form_traversal_counts_equal_plain(request, scene):
+    """Each slot's (nodes popped, primitives tested) of the BVH form at
+    64×64@2, depth 8, equals its plain version's on the card's layout (the
+    plain traversal counted per slot): the warp's schedule changes when a
+    lane traverses, not what it visits; with absorbing glass the exit
+    re-traces are counted too. The probe instance renders the same bits,
+    rays and counts."""
+    ctx = request.getfixturevalue(
+        "absorbing_obj_context" if scene == "obj_absorbing" else "obj_context")
+    ks = ctx.mega_bvh()
+    s = path.RenderSettings(max_depth=8)
+    key = rng.render_key(4, device="cuda")
+    got, g_rays, _, trav = megakernel.render_slots(
+        ctx.cs, ctx.meta, s, 64, 64, 2, key, bvh=ks, draws=True)
+    counts = torch.zeros_like(trav)
+    _, w_rays = megakernel.render_slots_reference(
+        ctx.cs, ctx.meta, s, 64, 64, 2, key,
+        min_slots=megakernel.card_min_slots(megakernel.ENTRY_BVH,
+                                            ctx.device),
+        intersect=megakernel.bvh_plain_intersector(ks, counts))
+    (p_acc, p_rays, _, p_trav), probe = megakernel.probe_bvh(
+        ctx.cs, ctx.meta, s, 64, 64, 2, key, bvh=ks)
+    torch.cuda.synchronize()
+    assert int(g_rays) == int(w_rays) == int(p_rays)
+    assert torch.equal(trav, counts) and torch.equal(p_trav, trav)
+    assert torch.equal(p_acc.view(torch.int32), got.view(torch.int32))
+    assert 0 < probe["use_visits"] <= 1 and 0 < probe["use_tests"] <= 1
+    assert probe["visits"] == int(trav[:, 0].sum())
 
 
 def test_bvh_form_launches_are_deterministic(obj_context):
@@ -952,8 +982,8 @@ def test_bvh_form_refused_launch_raises(obj_context, monkeypatch):
     monkeypatch.setattr(megakernel, "render_slots_reference", no_fallback)
     monkeypatch.setattr(wavefront, "trace_pool", no_fallback)
     before = megakernel.bvh_launches
-    with pytest.raises(RuntimeError, match="izpi_megakernel_rgb_bvh_s32 "
-                                           "launch failed: CUDA error 701"):
+    with pytest.raises(RuntimeError, match="izpi_megakernel_rgb_bvh launch "
+                                           "failed: CUDA error 701"):
         renderer.render(None, 8, 8, 2, path.RenderSettings(max_depth=4),
                         context=obj_context, device="cuda")
     assert megakernel.bvh_launches == before
