@@ -56,12 +56,25 @@
 // the same paths keyed by (pixel, sample), but keeps each path in one
 // thread's registers from the camera to the deposit, where the pool reads
 // and writes every slot's state through device memory a few hundred times
-// an iteration. Both calls of a bounce go through it: the closest hit and
-// the Beer–Lambert exit re-trace. The primitive tables (prim_f, prim_i) are
-// packed from the tree's reordered primitives, so a hit index names the
-// same primitive in the tree's table and in the scene's. The loop is a
-// template over its closest-hit function, so the brute-force form's code is
-// what it was.
+// an iteration. The primitive tables (prim_f, prim_i) are packed from the
+// tree's reordered primitives, so a hit index names the same primitive in
+// the tree's table and in the scene's. The loop is a template over its
+// closest-hit function, so the brute-force form's code is what it was.
+// Bound: latency, not issue (4.45% of its SASS bound before this schedule):
+// a warp's lanes pop 2.2 nodes a ray on cornell_box_obj, the longest of
+// them 17, so the warp waits on its longest traversal, and each pass of a
+// leaf test waits for primitive rows from L2. What the form does about it,
+// each kept because it measured faster on the H100 (PERF.md):
+//  1. The warp traverses together (bvh4.cuh bvh4_closest_warp): inner passes
+//     until every lane holds leaves, then one leaf pass for all of them,
+//     each lane keeping its own visits, tests and their order. So every
+//     lane calls the closest hit once a trip, at one call site: a
+//     refraction into absorbing glass leaves its Beer–Lambert exit re-trace
+//     to the lane's next trip, and a lane whose queue has drained stays in
+//     the loop, tracing nothing, until its warp is done.
+//  2. kBvhMinBlocks = 7 blocks an SM (common.cuh), for the loads' latency.
+// Its probe instance (megakernel_rgb_bvh_probe) counts how the warps spend
+// the traversal; only the scripts launch it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,8 +91,7 @@ namespace izpi {
 
 // The closest hit of the brute-force form: every primitive (common.cuh).
 struct BruteHit {
-  static constexpr bool kOneTrace = false;  // the exit re-trace inline
-  static constexpr bool kWarp = false;      // each lane on its own
+  static constexpr bool kWarp = false;  // each lane on its own
   __device__ __forceinline__ int operator()(const Scene& sc, int /*slot*/, V3 o, V3 d,
                                             float tme, float t_min, float t_max,
                                             float& t) const {
@@ -116,7 +128,6 @@ enum ProbeCounter : int {
 // rounds (the most primitives a lane tests in the pass), and the lanes'
 // counts, the warp's by lane 0.
 struct WarpTally {
-  static constexpr bool kOn = true;
   unsigned long long* pc;  // the lane's counters
   bool lead;               // lane 0
   __device__ __forceinline__ explicit WarpTally(unsigned long long* counters)
@@ -142,7 +153,6 @@ struct WarpTally {
 
 // A main instance's tally: nothing.
 struct NoCount {
-  static constexpr bool kOn = false;
   __device__ __forceinline__ explicit NoCount(unsigned long long*) {}
   __device__ __forceinline__ void visit_pass() {}
   __device__ __forceinline__ void test_pass(int) {}
@@ -165,8 +175,7 @@ struct BvhTables {
 // Tally: NoCount, or the probe's WarpTally.
 template <class Tally>
 struct BvhHit {
-  static constexpr bool kOneTrace = true;  // the exit re-trace a trip of its own
-  static constexpr bool kWarp = true;      // the warp's lanes trace together
+  static constexpr bool kWarp = true;  // the warp's lanes trace together, once a trip
   BvhTables tab;
   __device__ __forceinline__ int operator()(const Scene& /*sc*/, int slot, V3 o, V3 d,
                                             float tme, float t_min, float t_max, float& t,
@@ -230,9 +239,9 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
   const float cos_scale = book ? 2.0f : 1.0f;
 
   int slot = take_slot(queue, n_slots, spp_slot, acc_out, cnt_out);
-  // Hit::kWarp: the lanes of a warp trace together, so a lane whose queue
-  // has drained (done) stays in the loop, tracing nothing, until every
-  // lane of its warp is done.
+  // Hit::kWarp: the lanes of a warp trace together, once a trip, so a lane
+  // whose queue has drained (done) stays in the loop, tracing nothing, until
+  // every lane of its warp is done.
   bool done = slot >= n_slots;
   if (!Hit::kWarp && done) {
     flush();
@@ -257,7 +266,7 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
   V3 acc = mk(0.0f, 0.0f, 0.0f);  // the slot's sums
   int cnt = 0;
   int next_slot = slot, next_samp = samp;  // the sample after this path
-  // Hit::kOneTrace: the material of the absorbing glass whose exit this trip
+  // Hit::kWarp: the material of the absorbing glass whose exit this trip
   // re-traces, or -1.
   int exit_mat = -1;
 
@@ -265,11 +274,11 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
     if constexpr (Hit::kWarp) {
       if (__all_sync(0xffffffffu, done)) break;
     }
-    // A form that traces once a trip (Hit::kOneTrace) leaves the exit
-    // re-trace of a refraction into absorbing glass to the next trip, and
-    // finishes that bounce there: lanes that re-trace then traverse
-    // together with lanes that trace their next bounce.
-    const bool retrace = Hit::kOneTrace && exit_mat >= 0;
+    // A form that traces once a trip (Hit::kWarp) leaves the exit re-trace
+    // of a refraction into absorbing glass to the next trip, and finishes
+    // that bounce there: lanes that re-trace then traverse together with
+    // lanes that trace their next bounce.
+    const bool retrace = Hit::kWarp && exit_mat >= 0;
     V3 ro = o;
     float t0 = kTMin, t1 = kTMax;
     if (retrace) {
@@ -374,7 +383,7 @@ __device__ __forceinline__ void render_loop(const Hit& closest, const Scene& sc,
           d_new = is_refl ? reflected : refracted;
           mult = mk(1.0f, 1.0f, 1.0f);
           if (Mi[2] != 0 && !is_refl) {  // Beer–Lambert exit re-trace (dielectric.go:118-153)
-            if constexpr (Hit::kOneTrace) {
+            if constexpr (Hit::kWarp) {
               exit_mat = mat;  // the next trip's; thru * 1 here keeps thru's bits
             } else {
               const V3 start = p + d_new * 1e-3f;
@@ -460,24 +469,8 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
               max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out);
 }
 
-// The BVH form (Tally NoCount) and its probe (WarpTally, which adds its
-// counts to probe_out; the main kernel takes none) at kBvhMinBlocks blocks
-// an SM.
-template <class Tally>
-__device__ __forceinline__ void render_bvh(const Scene& sc, const BvhTables& tab,
-                                           const Camera& camera, uint32_t seed0,
-                                           uint32_t seed1, uint32_t offset, int nx, int ny,
-                                           int spp_slot, int n_slots, int max_depth,
-                                           float bg_r, float bg_g, float bg_b, int book,
-                                           int* __restrict__ queue, float* __restrict__ acc_out,
-                                           int* __restrict__ cnt_out,
-                                           int* __restrict__ draws_out,
-                                           unsigned long long* __restrict__ probe_out) {
-  render_loop<Tally::kOn>(BvhHit<Tally>{tab}, sc, camera, seed0, seed1, offset, nx, ny,
-                          spp_slot, n_slots, max_depth, bg_r, bg_g, bg_b, book, queue,
-                          acc_out, cnt_out, draws_out, probe_out);
-}
-
+// The BVH form, and its probe instance, whose counts go to probe_out (the
+// main kernel takes none), at kBvhMinBlocks blocks an SM.
 __global__ void __launch_bounds__(kMegaThreads, kBvhMinBlocks)
     megakernel_rgb_bvh(Scene sc, BvhTables tab, Camera camera, uint32_t seed0,
                        uint32_t seed1, uint32_t offset, int nx, int ny, int spp_slot,
@@ -485,9 +478,9 @@ __global__ void __launch_bounds__(kMegaThreads, kBvhMinBlocks)
                        int book, int* __restrict__ queue, float* __restrict__ acc_out,
                        int* __restrict__ cnt_out, int* __restrict__ draws_out,
                        unsigned long long* __restrict__ probe_out) {
-  render_bvh<NoCount>(sc, tab, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots,
-                      max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out,
-                      probe_out);
+  render_loop<false>(BvhHit<NoCount>{tab}, sc, camera, seed0, seed1, offset, nx, ny,
+                     spp_slot, n_slots, max_depth, bg_r, bg_g, bg_b, book, queue, acc_out,
+                     cnt_out, draws_out, probe_out);
 }
 
 __global__ void __launch_bounds__(kMegaThreads, kBvhMinBlocks)
@@ -497,9 +490,9 @@ __global__ void __launch_bounds__(kMegaThreads, kBvhMinBlocks)
                              int book, int* __restrict__ queue, float* __restrict__ acc_out,
                              int* __restrict__ cnt_out, int* __restrict__ draws_out,
                              unsigned long long* __restrict__ probe_out) {
-  render_bvh<WarpTally>(sc, tab, camera, seed0, seed1, offset, nx, ny, spp_slot, n_slots,
-                        max_depth, bg_r, bg_g, bg_b, book, queue, acc_out, cnt_out, draws_out,
-                        probe_out);
+  render_loop<true>(BvhHit<WarpTally>{tab}, sc, camera, seed0, seed1, offset, nx, ny,
+                    spp_slot, n_slots, max_depth, bg_r, bg_g, bg_b, book, queue, acc_out,
+                    cnt_out, draws_out, probe_out);
 }
 
 }  // namespace izpi

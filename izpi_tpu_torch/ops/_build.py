@@ -29,9 +29,9 @@ SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
 HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh", "bvh4.cuh")
 # The kernels whose ptxas report `ptxas_usage` reads, by their names (a
 # name that holds another comes first).
-KERNELS = ("megakernel_rgb_bvh_probe", "megakernel_rgb_bvh", "megakernel_rgb", "megakernel_spectral",
-           "bvh4_traverse", "bvh4_rowstack", "table_grad_absmax",
-           "table_grad_scatter_shared", "table_grad_scatter",
+KERNELS = ("megakernel_rgb_bvh_probe", "megakernel_rgb_bvh", "megakernel_rgb",
+           "megakernel_spectral", "bvh4_traverse", "bvh4_rowstack",
+           "table_grad_absmax", "table_grad_scatter_shared", "table_grad_scatter",
            "table_grad_finalize", "diff_trace_fwd_bvh", "diff_trace_fwd",
            "diff_trace_block_counts", "diff_trace_bwd")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

@@ -20,8 +20,7 @@ What its design does about that (the source's head says more):
    loop;
 4. registers: the camera passed by value (constant bank) and a
    `__launch_bounds__` hint of 5 blocks per SM (96 registers, no spill;
-   the BVH form spills ~100 bytes a thread there and still ran faster
-   than at 128 registers without a spill).
+   the BVH form asks for 7, which spills and ran faster).
 
 Slots are pinned to pixels: slot s serves pixel s mod n_pix, and replicas
 (`pick_replication`) split a pixel's samples. Slot s walks samples
@@ -39,8 +38,11 @@ a BVH4 (`csrc/bvh4.cuh`, the traversal of `csrc/bvh4_traverse.cu`) in
 place of the scan of every primitive: it takes the scenes the queue pool
 renders through that traversal (an RGB scene above the renderer's
 `BVH_THRESHOLD` whose materials the kernel shades, `eligible_bvh`) and
-renders the same paths in one launch. The JAX renderer sends those scenes
-to its pool; this route is the port's own.
+renders the same paths in one launch. Its warp's lanes traverse together
+(`csrc/bvh4.cuh` `bvh4_closest_warp`), each with its own visits; its probe
+instance (`probe_bvh`, which only the scripts call) counts how they spend
+the traversal. The JAX renderer sends those scenes to its pool; this route
+is the port's own.
 
 This module holds:
 - `eligible`, the JAX package's rule (megakernel.py:74-81), and
@@ -50,7 +52,8 @@ This module holds:
 - `pick_replication`, `persistent_grid`, `card_grid`, `card_min_slots`
   and `card_layout`, the layout and the grid the wrappers launch;
 - `render_slots`, the wrapper: a CUDA tensor launches the kernel (or the
-  call raises), a CPU tensor runs the plain twin;
+  call raises), a CPU tensor runs the plain twin; `probe_bvh`, the BVH
+  form's probe;
 - `render_slots_reference`, the plain twin: vectorised over slots, built
   from `integrator.path.bounce_rgb` and the scene's intersector (brute
   force, `geometry.primitives.intersect_brute`, unless given another; the

@@ -237,7 +237,6 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   for (int i = 0; i < 32; ++i) m |= s[i] ? 1u << i : 0u;
   return m;
 }
-inline unsigned __activemask() { return 0xffffffffu; }
 inline long long clock64() {
   return std::chrono::steady_clock::now().time_since_epoch().count();
 }
