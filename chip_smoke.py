@@ -3719,13 +3719,21 @@ def main() -> None:
     bvh_ms_2 = cuda_ms(lambda: megakernel.render_slots(
         bctx.cs, bctx.meta, settings, 256, 256, 2, key, tables=btables,
         bvh=ks), 10)
-    # One plain run, not warmed up: it takes seconds.
+    # One plain run, not warmed up: it takes seconds. It counts each slot's
+    # traversal as it goes (`bvh_plain_intersector`'s counts), which the
+    # kernel's launch with its counts is held to below.
+    per_slot = torch.zeros((card_layout(megakernel, 256, 2,
+                                        megakernel.ENTRY_BVH)["slots"], 2),
+                           dtype=torch.int64, device="cuda")
     (acc_p2, rays_p2), bvh_plain_ms = profiling.cuda_ms(
         lambda: megakernel.render_slots_reference(
             bctx.cs, bctx.meta, settings, 256, 256, 2, key,
-            min_slots=bvh_min, intersect=plain_bvh), 1, warm_up=False)
+            min_slots=bvh_min,
+            intersect=megakernel.bvh_plain_intersector(ks, per_slot)), 1,
+        warm_up=False)
     print(f"BVH form: time at 256x256@2 depth 50: kernel {bvh_ms_2:.4f} ms, "
-          f"plain version {bvh_plain_ms:.4f} ms ({card})", flush=True)
+          f"plain version {bvh_plain_ms:.4f} ms, its per-slot traversal "
+          f"counts with it ({card})", flush=True)
     acc_k2, brays_2, bdraws_2, btrav_2 = megakernel.render_slots(
         bctx.cs, bctx.meta, settings, 256, 256, 2, key, tables=btables, bvh=ks,
         draws=True)
@@ -3744,12 +3752,7 @@ def main() -> None:
         256 * 256 * 2, bdraws_2, bctx.cs.prims.kind.tolist(), False,
         card_layout(megakernel, 256, 2, megakernel.ENTRY_BVH), btable_bytes,
         card, btrav_2.sum(dim=0))
-    # Each slot's traversal counts at 256x256@2 equal the plain version's
-    # (its calls counted per slot, `bvh_plain_intersector`'s counts).
-    per_slot = torch.zeros_like(btrav_2)
-    megakernel.render_slots_reference(
-        bctx.cs, bctx.meta, settings, 256, 256, 2, key, min_slots=bvh_min,
-        intersect=megakernel.bvh_plain_intersector(ks, per_slot))
+    # Each slot's traversal counts at 256x256@2 equal the plain version's.
     same_counts = torch.equal(per_slot, btrav_2)
     print(f"BVH form vs plain: cornell_box_obj 256x256@2 depth 50: each "
           f"slot's (nodes popped, primitives tested) equal: {same_counts} "
