@@ -2128,7 +2128,8 @@ def counting_bvh(ctx):
 
 
 def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
-                      card: str, plain_intersect=None, plain_n=None) -> dict:
+                      card: str, plain_intersect=None, plain_n=None,
+                      probe: bool = False) -> dict:
     """The fused route's kernels (`ops.diff_trace`) against their plain
     versions on the card at the step's camera rays: the forward kernel
     (its BVH form through the context's tree) against `forward_reference`
@@ -2139,14 +2140,16 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
     (the loss's against `target`, through DeNAN) bit for bit on its slots
     (one a record; their count on the device must equal the rays); G on
     the reverse kernel's slots and count through `table_grad_phase`. Then
-    each kernel's ms at n² (CUDA events; the reverse kernel's over a CUDA
-    graph of 20 calls) beside its plain version's and
+    each kernel's ms at n² (over a CUDA graph of 20 calls, so that the
+    wrapper's host cost is not timed) beside its plain version's and
     its bound: the forward's from the SASS probes' units (the draws its
     records hold, the primitives every ray tests or, for the BVH form, the
     nodes and tests of its traversal) and its bytes, its records among
     them; the reverse's by bytes (its records, ray counts, the step's
     cotangent and the texture rows read once, a slot a record and the
-    count written once)."""
+    count written once). With `probe`, the forward kernel's probe instance
+    at n² (`diff_trace.probe`): its outputs must equal the kernel's bit
+    for bit, its passes each warp's longest path; its figures printed."""
     dev = ctx.device
     meta = ctx.meta
     scene = diff_trace.prepare(ctx.cs, meta, ctx.intersect)
@@ -2231,7 +2234,23 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
     big = rays_of(n) if m != n else small
     rad, cnt, rec_f, rec_i = fwd(big)
     rays = int(cnt.sum())
-    ms = cuda_ms(lambda: fwd(big), 10)
+    # A CUDA graph of 20 calls, as R's and G's times are taken: the
+    # wrapper's host cost (its table checks, buffers, the ctypes call) is
+    # no part of the kernel's.
+    ms = profiling.graph_ms(lambda: fwd(big), 20)
+    probed = None
+    if probe:
+        out, probed = diff_trace.probe(scene, cs_p, meta, s, *big)
+        same = measure_port.fwd_digest(out) == measure_port.fwd_digest(
+            (rad, cnt, rec_f, rec_i))
+        print(f"{label}: diff_trace_fwd {measure_port.step_probe_line(probed)}"
+              f"; its outputs equal the kernel's bit for bit {same}, its "
+              f"passes each warp's longest path "
+              f"{probed['passes_equal_longest']} ({card})", flush=True)
+        if not (same and probed["passes_equal_longest"]):
+            raise AssertionError(f"{label}: the forward kernel's probe "
+                                 f"differs from its main instance")
+        probed = {k: v for k, v in probed.items() if k != "rows"}
     plain_ms = cuda_ms(lambda: diff_trace.forward_reference(
         cs_p, meta, s, plain_int, *big), 1)
     if m == n:
@@ -2275,7 +2294,8 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
             f"{trav[1] / rays:.4f} a ray)")
     print(f"{label}: diff_trace_fwd {n}x{n} depth {depth}: {rays} rays, "
           f"{scatters} scatters drawing {pairs} pairs{walk}, {rec_bytes} "
-          f"record bytes: {ms:.4f} ms a launch, plain {plain_ms:.4f} ms, "
+          f"record bytes: {ms:.4f} ms a launch (a CUDA graph of 20), plain "
+          f"{plain_ms:.4f} ms, "
           f"bound {bound:.4f} ms by {what} ({bound / ms:.2%}) ({card})",
           flush=True)
     print(f"{label}: diff_trace_bwd {n}x{n}, {rays} slots (one a record): "
@@ -2288,7 +2308,7 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
                          rays_equal_at_plain_frame=rays_k == rays_p,
                          plain_frame=m, branch_share=share,
                          scatters=scatters, pairs=pairs, traversal=trav,
-                         record_bytes=rec_bytes),
+                         record_bytes=rec_bytes, probe=probed),
                 bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound,
                          bound_by="bytes", max_abs_err=0.0, bytes=bwd_bytes),
                 table_grad=g_tab)
@@ -2409,7 +2429,7 @@ def training_phases(card: str) -> dict:
     if fused_fwd["diff_trace_fwd"] != 1 or fused_fwd["threefry"] != 1:
         raise AssertionError("the fused forward did not run its kernel once")
     kernels = diff_kernel_phase("phase 16 cornell_box", ctx, n, depth, params,
-                                target, card)
+                                target, card, probe=True)
     step = make_step(ctx, n, depth)
     if not isinstance(step.route, diff_trace.DiffScene):
         raise AssertionError("the Cornell step does not take the fused route")

@@ -69,6 +69,11 @@
 // Both keep a path in one thread's registers, so the bounce's state never
 // goes through device memory but as the record the reverse walk reads.
 //
+// The forward's probe instance (izpi_diff_trace_fwd_probe, ops/diff_trace.py
+// probe; never on a main path) writes the same outputs and, a row a warp,
+// how the warp spent its launch (ProbeColumn); the main instances compile
+// the counts out.
+//
 // The arithmetic follows integrator/path.py operation for operation, so
 // the build keeps IEEE rounding: -fmad=false, no --use_fast_math.
 
@@ -90,6 +95,34 @@ constexpr int kEmit = 2;       // a light it faces: the path ends
 constexpr int kScatter = 3;    // a diffuse bounce: mult = albedo · ratio
 constexpr int kRefract = 4;    // a dielectric: mult = 1
 constexpr int kCodeBits = 3;
+
+// The probe instance's columns, a row of u64 a warp (ops/diff_trace.py
+// PROBE_COLUMNS): the warp's bounce passes; its live lanes' clock64 cycles
+// in their bounces, and within them in the closest hit and in the cipher;
+// the %globaltimer (ns) at the warp's start and end; its passes by lanes a
+// path (1, 2, ..., 32).
+enum ProbeColumn : int {
+  kPrPasses = 0,
+  kPrCyBounce,
+  kPrCyHit,
+  kPrCyDraws,
+  kPrStart,
+  kPrEnd,
+  kPrPassesG1,  // then G2, G4, G8, G16, G32
+  kProbeColumns = kPrPassesG1 + 6
+};
+
+// The device's wall clock in ns (%globaltimer), for the probe's start and
+// end times; on a host build, clock64.
+__device__ __forceinline__ unsigned long long wall_ns() {
+#ifdef __CUDA_ARCH__
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+#else
+  return (unsigned long long)clock64();
+#endif
+}
 
 // The closest hit over every primitive.
 struct BruteHit {
@@ -121,21 +154,27 @@ struct Tex {
   }
 };
 
-template <class Hit>
-__device__ __forceinline__ void forward_path(const Hit& closest, const Scene& sc, const Tex& tex,
-                                             int i, int n, V3 o, V3 d, float tme, uint32_t k0,
-                                             uint32_t k1, int max_depth, V3 bg,
-                                             float cos_scale, float* __restrict__ rad_out,
-                                             int* __restrict__ cnt_out,
-                                             float* __restrict__ rec_f,
-                                             int* __restrict__ rec_i) {
+// The path of thread i from its camera ray to its end; returns its rays.
+// kProbe: adds the bounces' cycles to the lane's probe counts pc.
+template <bool kProbe, class Hit>
+__device__ __forceinline__ int forward_path(const Hit& closest, const Scene& sc, const Tex& tex,
+                                            int i, int n, V3 o, V3 d, float tme, uint32_t k0,
+                                            uint32_t k1, int max_depth, V3 bg,
+                                            float cos_scale, float* __restrict__ rad_out,
+                                            int* __restrict__ cnt_out,
+                                            float* __restrict__ rec_f,
+                                            int* __restrict__ rec_i,
+                                            unsigned long long* pc) {
   V3 thru = mk(1.0f, 1.0f, 1.0f);
   V3 rad = mk(0.0f, 0.0f, 0.0f);
   int depth = 0;
   bool scatters = false;
   while (depth < max_depth) {
+    long long c_bounce = 0, c0 = 0;
+    if constexpr (kProbe) c_bounce = clock64();
     float t;
     const int hit = closest(sc, o, d, tme, kTMin, kTMax, t);
+    if constexpr (kProbe) pc[kPrCyHit] += (unsigned long long)(clock64() - c_bounce);
     int code = kMiss, row = 0;
     float ratio = 0.0f;
     V3 p = o, d_new = d, mult = mk(1.0f, 1.0f, 1.0f);
@@ -163,10 +202,12 @@ __device__ __forceinline__ void forward_path(const Hit& closest, const Scene& sc
         code = emits ? kEmit : kNone;
       } else {
         scatters = true;
+        if constexpr (kProbe) c0 = clock64();
         Draws<false> dr;
         dr.clear();
         dr.bounce(k0, k1, (uint32_t)depth, kind == kDielectric ? kPairsDielectric : kPairsDiffuse);
         dr.run(0u, 0u, k0, k1, (uint32_t)depth);
+        if constexpr (kProbe) pc[kPrCyDraws] += (unsigned long long)(clock64() - c0);
         const float* us = dr.us;
         if (kind == kDielectric) {  // dielectric.go:66-102, raw direction, no absorption
           code = kRefract;
@@ -228,6 +269,7 @@ __device__ __forceinline__ void forward_path(const Hit& closest, const Scene& sc
     reinterpret_cast<float4*>(rec_f)[slot] = rf;
     rec_i[slot] = ((code == kEmit || code == kScatter ? row : 0) << kCodeBits) | code;
     ++depth;
+    if constexpr (kProbe) pc[kPrCyBounce] += (unsigned long long)(clock64() - c_bounce);
     if (!scatters) break;
     thru = thru * mult;
     o = p;
@@ -239,45 +281,73 @@ __device__ __forceinline__ void forward_path(const Hit& closest, const Scene& sc
   rad_out[3 * i + 1] = rad.y;
   rad_out[3 * i + 2] = rad.z;
   cnt_out[i] = depth;
+  return depth;
 }
 
-template <class Hit>
+// The launch's inputs and outputs, which every instance takes.
+struct FwdArgs {
+  const float* __restrict__ ray_o;
+  const float* __restrict__ ray_d;
+  const float* __restrict__ ray_t;
+  const long long* __restrict__ keys;
+  int n, max_depth;
+  V3 bg;
+  float cos_scale;
+  float* __restrict__ rad_out;
+  int* __restrict__ cnt_out;
+  float* __restrict__ rec_f;
+  int* __restrict__ rec_i;
+  unsigned long long* __restrict__ probe_out;  // kProbe: (warps, kProbeColumns)
+};
+
+template <bool kProbe, class Hit>
 __device__ __forceinline__ void forward_thread(const Hit& closest, const Scene& sc, Tex tex,
-                                               const float* __restrict__ ray_o,
-                                               const float* __restrict__ ray_d,
-                                               const float* __restrict__ ray_t,
-                                               const long long* __restrict__ keys, int n,
-                                               int max_depth, V3 bg, float cos_scale,
-                                               float* __restrict__ rad_out,
-                                               int* __restrict__ cnt_out,
-                                               float* __restrict__ rec_f,
-                                               int* __restrict__ rec_i) {
+                                               const FwdArgs& a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  forward_path(closest, sc, tex, i, n, ld3(ray_o + 3 * i), ld3(ray_d + 3 * i), ray_t[i],
-               (uint32_t)keys[2 * i], (uint32_t)keys[2 * i + 1], max_depth, bg, cos_scale,
-               rad_out, cnt_out, rec_f, rec_i);
+  const auto path = [&](unsigned long long* pc) {
+    return forward_path<kProbe>(closest, sc, tex, i, a.n, ld3(a.ray_o + 3 * i),
+                                ld3(a.ray_d + 3 * i), a.ray_t[i], (uint32_t)a.keys[2 * i],
+                                (uint32_t)a.keys[2 * i + 1], a.max_depth, a.bg, a.cos_scale,
+                                a.rad_out, a.cnt_out, a.rec_f, a.rec_i, pc);
+  };
+  if constexpr (!kProbe) {
+    if (i >= a.n) return;
+    path(nullptr);
+  } else {
+    // The warp's row: its lanes' cycles, its passes (its longest path) and
+    // its start and end, read once every lane is done.
+    unsigned long long pc[kProbeColumns] = {};
+    const unsigned long long start = wall_ns();
+    const int rays = i < a.n ? path(pc) : 0;
+    __syncwarp();
+    const int passes = __reduce_max_sync(0xffffffffu, rays);
+    unsigned long long* row = a.probe_out + (size_t)(i / 32) * kProbeColumns;
+    if (i / 32 * 32 >= a.n) return;  // a warp past the paths has no row
+    for (int c = kPrCyBounce; c <= kPrCyDraws; ++c) atomicAdd(row + c, pc[c]);
+    if ((threadIdx.x & 31) == 0) {
+      row[kPrPasses] = (unsigned long long)passes;
+      row[kPrStart] = start;
+      row[kPrEnd] = wall_ns();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) diff_trace_fwd(Scene sc, Tex tex, FwdArgs a) {
+  forward_thread<false>(BruteHit{}, sc, tex, a);
 }
 
 __global__ void __launch_bounds__(kThreads)
-    diff_trace_fwd(Scene sc, Tex tex, const float* __restrict__ ray_o,
-                   const float* __restrict__ ray_d, const float* __restrict__ ray_t,
-                   const long long* __restrict__ keys, int n, int max_depth, V3 bg,
-                   float cos_scale, float* __restrict__ rad_out, int* __restrict__ cnt_out,
-                   float* __restrict__ rec_f, int* __restrict__ rec_i) {
-  forward_thread(BruteHit{}, sc, tex, ray_o, ray_d, ray_t, keys, n, max_depth, bg, cos_scale,
-                 rad_out, cnt_out, rec_f, rec_i);
+    diff_trace_fwd_bvh(Scene sc, BvhHit bvh, Tex tex, FwdArgs a) {
+  forward_thread<false>(bvh, sc, tex, a);
+}
+
+__global__ void __launch_bounds__(kThreads) diff_trace_fwd_probe(Scene sc, Tex tex, FwdArgs a) {
+  forward_thread<true>(BruteHit{}, sc, tex, a);
 }
 
 __global__ void __launch_bounds__(kThreads)
-    diff_trace_fwd_bvh(Scene sc, BvhHit bvh, Tex tex, const float* __restrict__ ray_o,
-                       const float* __restrict__ ray_d, const float* __restrict__ ray_t,
-                       const long long* __restrict__ keys, int n, int max_depth, V3 bg,
-                       float cos_scale, float* __restrict__ rad_out,
-                       int* __restrict__ cnt_out, float* __restrict__ rec_f,
-                       int* __restrict__ rec_i) {
-  forward_thread(bvh, sc, tex, ray_o, ray_d, ray_t, keys, n, max_depth, bg, cos_scale,
-                 rad_out, cnt_out, rec_f, rec_i);
+    diff_trace_fwd_bvh_probe(Scene sc, BvhHit bvh, Tex tex, FwdArgs a) {
+  forward_thread<true>(bvh, sc, tex, a);
 }
 
 // The sum of `v` over the block's kThreads threads, in `part` (shared);
@@ -391,6 +461,35 @@ extern "C" {
 // int64 (32-bit words) of the camera rays. Writes rad (n, 3) f32, cnt (n,)
 // i32 (the rays of each path) and the records rec_f (max_depth, n, 4) f32,
 // rec_i (max_depth, n) i32 (a path's first cnt rows). Returns a cudaError_t.
+static int launch_fwd(const float* prim_f, const int* prim_i, int n_prims, const float* mat_f,
+                      const int* mat_i, const float* light_f, const int* light_i, int n_lights,
+                      const int* nodes, const float* bvh_prims, const float* c0,
+                      const float* c1, int n_tex, const float* o, const float* d,
+                      const float* time, const long long* keys, int n, int max_depth,
+                      float bg_r, float bg_g, float bg_b, int book, float* rad, int* cnt,
+                      float* rec_f, int* rec_i, unsigned long long* probe, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
+  izpi::diff::Tex tex{c0, c1, n_tex};
+  const izpi::diff::FwdArgs a{o, d, time, keys, n, max_depth,
+                              izpi::mk(bg_r, bg_g, bg_b), book ? 2.0f : 1.0f,
+                              rad, cnt, rec_f, rec_i, probe};
+  const int threads = izpi::diff::kThreads;
+  const int blocks = (n + threads - 1) / threads;
+  cudaStream_t s = (cudaStream_t)stream;
+  const izpi::diff::BvhHit bvh{nodes, bvh_prims};
+  if (nodes == nullptr && probe == nullptr) {
+    izpi::diff::diff_trace_fwd<<<blocks, threads, 0, s>>>(sc, tex, a);
+  } else if (nodes == nullptr) {
+    izpi::diff::diff_trace_fwd_probe<<<blocks, threads, 0, s>>>(sc, tex, a);
+  } else if (probe == nullptr) {
+    izpi::diff::diff_trace_fwd_bvh<<<blocks, threads, 0, s>>>(sc, bvh, tex, a);
+  } else {
+    izpi::diff::diff_trace_fwd_bvh_probe<<<blocks, threads, 0, s>>>(sc, bvh, tex, a);
+  }
+  return (int)cudaGetLastError();
+}
+
 int izpi_diff_trace_fwd(const float* prim_f, const int* prim_i, int n_prims, const float* mat_f,
                         const int* mat_i, const float* light_f, const int* light_i,
                         int n_lights, const int* nodes, const float* bvh_prims,
@@ -398,22 +497,26 @@ int izpi_diff_trace_fwd(const float* prim_f, const int* prim_i, int n_prims, con
                         const float* d, const float* time, const long long* keys, int n,
                         int max_depth, float bg_r, float bg_g, float bg_b, int book,
                         float* rad, int* cnt, float* rec_f, int* rec_i, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
-  izpi::diff::Tex tex{c0, c1, n_tex};
-  const izpi::V3 bg = izpi::mk(bg_r, bg_g, bg_b);
-  const float cos_scale = book ? 2.0f : 1.0f;
-  const int threads = izpi::diff::kThreads;
-  const int blocks = (n + threads - 1) / threads;
-  if (nodes == nullptr) {
-    izpi::diff::diff_trace_fwd<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        sc, tex, o, d, time, keys, n, max_depth, bg, cos_scale, rad, cnt, rec_f, rec_i);
-  } else {
-    izpi::diff::BvhHit bvh{nodes, bvh_prims};
-    izpi::diff::diff_trace_fwd_bvh<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        sc, bvh, tex, o, d, time, keys, n, max_depth, bg, cos_scale, rad, cnt, rec_f, rec_i);
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd(prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights, nodes,
+                    bvh_prims, c0, c1, n_tex, o, d, time, keys, n, max_depth, bg_r, bg_g, bg_b,
+                    book, rad, cnt, rec_f, rec_i, nullptr, stream);
+}
+
+// Its probe instance, launched like it, with probe: (ceil(n / 32),
+// kProbeColumns) u64, zeroed, that receives each warp's row (ProbeColumn).
+int izpi_diff_trace_fwd_probe(const float* prim_f, const int* prim_i, int n_prims,
+                              const float* mat_f, const int* mat_i, const float* light_f,
+                              const int* light_i, int n_lights, const int* nodes,
+                              const float* bvh_prims, const float* c0, const float* c1,
+                              int n_tex, const float* o, const float* d, const float* time,
+                              const long long* keys, int n, int max_depth, float bg_r,
+                              float bg_g, float bg_b, int book, float* rad, int* cnt,
+                              float* rec_f, int* rec_i, unsigned long long* probe,
+                              void* stream) {
+  if (probe == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_fwd(prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights, nodes,
+                    bvh_prims, c0, c1, n_tex, o, d, time, keys, n, max_depth, bg_r, bg_g, bg_b,
+                    book, rad, cnt, rec_f, rec_i, probe, stream);
 }
 
 // The reverse kernel over n paths on `stream`: the forward's records and

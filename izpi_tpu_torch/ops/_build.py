@@ -32,8 +32,9 @@ HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh", "bvh4.cuh")
 KERNELS = ("megakernel_rgb_bvh_probe", "megakernel_rgb_bvh", "megakernel_rgb",
            "megakernel_spectral", "bvh4_traverse", "bvh4_rowstack",
            "table_grad_absmax", "table_grad_scatter_shared", "table_grad_scatter",
-           "table_grad_finalize", "diff_trace_fwd_bvh", "diff_trace_fwd",
-           "diff_trace_block_counts", "diff_trace_bwd")
+           "table_grad_finalize", "diff_trace_fwd_bvh_probe", "diff_trace_fwd_probe",
+           "diff_trace_fwd_bvh", "diff_trace_fwd", "diff_trace_block_counts",
+           "diff_trace_bwd")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
@@ -94,18 +95,6 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,       # scratch, out, stream
     ],
     "izpi_table_grad_scratch": [_c_int64, _c_int],  # r, c -> bytes
-    "izpi_diff_trace_fwd": [
-        _c_void_p, _c_void_p, _c_int,          # prim_f, prim_i, n_prims
-        _c_void_p, _c_void_p,                  # mat_f, mat_i
-        _c_void_p, _c_void_p, _c_int,          # light_f, light_i, n_lights
-        _c_void_p, _c_void_p,                  # nodes, bvh prims (or null)
-        _c_void_p, _c_void_p, _c_int,          # c0, c1, n_tex
-        _c_void_p, _c_void_p, _c_void_p,       # o, d, time
-        _c_void_p, _c_int, _c_int,             # keys, n, max_depth
-        _c_float, _c_float, _c_float, _c_int,  # background, book
-        _c_void_p, _c_void_p,                  # rad, cnt
-        _c_void_p, _c_void_p, _c_void_p,       # rec_f, rec_i, stream
-    ],
     "izpi_diff_trace_bwd": [
         _c_void_p, _c_void_p, _c_void_p,       # rec_f, rec_i, cnt
         _c_void_p, _c_void_p, _c_void_p,       # g_rad, c0, c1
@@ -136,7 +125,22 @@ _BVH_ARGS = [
     _c_int, _c_void_p, _c_void_p, _c_void_p,  # blocks, queue, acc, cnt
     _c_void_p, _c_void_p,                  # draws, traversal (or null)
 ]
+# The forward path kernel and its probe instance.
+_FWD_ARGS = [
+    _c_void_p, _c_void_p, _c_int,          # prim_f, prim_i, n_prims
+    _c_void_p, _c_void_p,                  # mat_f, mat_i
+    _c_void_p, _c_void_p, _c_int,          # light_f, light_i, n_lights
+    _c_void_p, _c_void_p,                  # nodes, bvh prims (or null)
+    _c_void_p, _c_void_p, _c_int,          # c0, c1, n_tex
+    _c_void_p, _c_void_p, _c_void_p,       # o, d, time
+    _c_void_p, _c_int, _c_int,             # keys, n, max_depth
+    _c_float, _c_float, _c_float, _c_int,  # background, book
+    _c_void_p, _c_void_p,                  # rad, cnt
+    _c_void_p, _c_void_p,                  # rec_f, rec_i
+]
 _SIGNATURES.update({
+    "izpi_diff_trace_fwd": [*_FWD_ARGS, _c_void_p],  # stream
+    "izpi_diff_trace_fwd_probe": [*_FWD_ARGS, _c_void_p, _c_void_p],  # probe, stream
     "izpi_megakernel_rgb_bvh": [*_BVH_ARGS, _c_void_p],  # stream
     "izpi_megakernel_rgb_bvh_grid": [_c_void_p, _c_void_p],
     "izpi_megakernel_rgb_bvh_probe": [*_BVH_ARGS, _c_void_p, _c_void_p],  # probe, stream

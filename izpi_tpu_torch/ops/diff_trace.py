@@ -31,6 +31,8 @@ This module holds:
   on the current stream (or the call raises), a CPU tensor runs the plain
   version, `forward_reference` (built from `bounce_rgb` itself) or
   `reverse_reference`;
+- `probe`, the forward kernel's probe instance (the card only, never on a
+  main path): the same outputs and how its warps spent the launch;
 - `DiffTrace`, the `torch.autograd.Function` over both, and `trace`, which
   `integrator.path.trace` calls.
 """
@@ -255,6 +257,76 @@ def forward(scene: DiffScene, cs, meta, settings, intersect, o, d, time,
                                  keys)
     if dev.type != "cuda":
         raise ValueError(f"diff_trace: unsupported device {dev}")
+    return _launch_fwd(scene, cs, meta, settings, o, d, time, keys)
+
+
+# Paths a warp of the forward kernel (csrc/diff_trace.cu kWarpPaths).
+WARP_PATHS = 32
+# The probe instance's columns, a row a warp (csrc/diff_trace.cu
+# ProbeColumn), in the order the kernel writes them.
+PROBE_COLUMNS = ("passes", "cycles_bounce", "cycles_hit", "cycles_draws",
+                 "start_ns", "end_ns", "passes_g1", "passes_g2", "passes_g4",
+                 "passes_g8", "passes_g16", "passes_g32")
+GROUPS = (1, 2, 4, 8, 16, 32)
+
+
+def probe(scene: DiffScene, cs, meta, settings, o, d, time, keys):
+    """The forward kernel's probe instance (`izpi_diff_trace_fwd_probe`, on
+    the card only, never on a main path, not counted in `fwd_launches`):
+    the outputs of `forward` and a dict of how its warps spent the launch:
+    `rows`, the raw (warps, PROBE_COLUMNS) counts; `lane_use`, the paths'
+    bounces over 32 × the warps' bounce passes; `longest_mean`, a warp's
+    longest path (its passes) averaged over the warps; the shares of the
+    live lanes' cycles in the closest hit, the cipher and the rest of the
+    bounce, and `cycles_per_bounce`; `span_us`, the first warp's start to
+    the last warp's end, and the warps' ends after that start as shares of
+    it (`end_p50`, `end_p90`, `end_max`), so `tail_share` = 1 − end_p50 is
+    the share of the launch after half its warps had ended; `start_spread`,
+    the last warp's start as a share of it; and `passes_by_group`, the
+    shares of the passes run at 1, 2, ..., 32 lanes a path."""
+    if o.device.type != "cuda":
+        raise ValueError("the probe runs the forward kernel on a CUDA device")
+    n = o.shape[0]
+    rows = torch.zeros((-(-n // WARP_PATHS), len(PROBE_COLUMNS)),
+                       dtype=torch.int64, device=o.device)
+    out = _launch_fwd(scene, cs, meta, settings, o, d, time, keys, rows)
+    return out, probe_summary(rows.cpu(), out[1].cpu())
+
+
+def probe_summary(rows, cnt) -> dict:
+    """The figures of `probe` from its rows and the paths' ray counts."""
+    c = {k: rows[:, i] for i, k in enumerate(PROBE_COLUMNS)}
+    n = cnt.shape[0]
+    longest = torch.nn.functional.pad(cnt, (0, (-n) % WARP_PATHS)).view(
+        -1, WARP_PATHS).amax(1)
+    passes = int(c["passes"].sum())
+    bounce = max(int(c["cycles_bounce"].sum()), 1)
+    hit, draws = int(c["cycles_hit"].sum()), int(c["cycles_draws"].sum())
+    start = int(c["start_ns"].min())
+    span = max(int(c["end_ns"].max()) - start, 1)
+    ends = (c["end_ns"] - start).double() / span
+    by_group = [int(c[f"passes_g{g}"].sum()) for g in GROUPS]
+    return dict(
+        rows=rows.tolist(), passes=passes, bounces=int(cnt.sum()),
+        passes_equal_longest=bool(torch.equal(c["passes"], longest.long())),
+        lane_use=int(cnt.sum()) / max(32 * passes, 1),
+        longest_mean=float(longest.double().mean()),
+        share_hit=hit / bounce, share_draws=draws / bounce,
+        share_rest=1.0 - (hit + draws) / bounce,
+        cycles_per_bounce=bounce / max(int(cnt.sum()), 1),
+        span_us=span / 1e3, end_p50=float(ends.quantile(0.5)),
+        end_p90=float(ends.quantile(0.9)), end_max=float(ends.max()),
+        tail_share=1.0 - float(ends.quantile(0.5)),
+        start_spread=int(c["start_ns"].max() - start) / span,
+        passes_by_group={g: k / max(sum(by_group), 1)
+                         for g, k in zip(GROUPS, by_group)})
+
+
+def _launch_fwd(scene: DiffScene, cs, meta, settings, o, d, time, keys,
+                probe_rows=None):
+    """`forward` on a CUDA device; with `probe_rows` (a zeroed int64 tensor
+    of (warps, PROBE_COLUMNS)), the probe instance, counted apart."""
+    dev = o.device
     n, depth_max = o.shape[0], int(settings.max_depth)
     c0, c1 = cs.textures.c0, cs.textures.c1
     tables = [("prim_f", scene.prim_f, (meta.n_prims, megakernel.PRIM_F),
@@ -289,9 +361,7 @@ def forward(scene: DiffScene, cs, meta, settings, intersect, o, d, time,
                         device=dev)
     rec_i = torch.empty((depth_max, n), dtype=torch.int32, device=dev)
     bg = [float(x) for x in settings.background]
-    with torch.cuda.device(dev):
-        err = lib.izpi_diff_trace_fwd(
-            _ptr(scene.prim_f), _ptr(scene.prim_i), meta.n_prims,
+    args = (_ptr(scene.prim_f), _ptr(scene.prim_i), meta.n_prims,
             _ptr(scene.mat_f), _ptr(scene.mat_i), _ptr(scene.light_f),
             _ptr(scene.light_i), meta.n_lights,
             _ptr(None if bvh is None else bvh.nodes),
@@ -299,11 +369,22 @@ def forward(scene: DiffScene, cs, meta, settings, intersect, o, d, time,
             scene.n_tex, _ptr(o), _ptr(d), _ptr(time), _ptr(keys), n,
             depth_max, bg[0], bg[1], bg[2],
             int(bool(settings.exact_book_cosine)), _ptr(rad), _ptr(cnt),
-            _ptr(rec_f), _ptr(rec_i), _stream(dev))
+            _ptr(rec_f), _ptr(rec_i))
+    entry = ENTRY_FWD if probe_rows is None else ENTRY_FWD + "_probe"
+    with torch.cuda.device(dev):
+        if probe_rows is None:
+            err = lib.izpi_diff_trace_fwd(*args, _stream(dev))
+        else:
+            megakernel.check_tables(dev, [
+                ("probe", probe_rows, (-(-n // WARP_PATHS),
+                                       len(PROBE_COLUMNS)), torch.int64)])
+            err = lib.izpi_diff_trace_fwd_probe(*args, _ptr(probe_rows),
+                                                _stream(dev))
     if err != 0:
-        raise RuntimeError(f"{ENTRY_FWD} launch failed: CUDA error {err}")
-    global fwd_launches
-    fwd_launches += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    if probe_rows is None:
+        global fwd_launches
+        fwd_launches += 1
     return rad, cnt, rec_f, rec_i
 
 

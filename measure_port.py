@@ -168,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import json
 import os
 import statistics
@@ -610,13 +611,48 @@ for _ in range(runs + 1):
     loss, grads = step(params, xs, ys, target, key)
     torch.cuda.synchronize()
     seconds.append(time.perf_counter() - t0)
+launches = ops.kernel_launches()
 np.savez(out, loss=loss.cpu().numpy(),
          **{k: g.cpu().numpy() for k, g in grads.items()})
 route = getattr(step, "route", "checkpoint")
+fused = {}
+if not isinstance(route, str):
+    # The forward kernel alone at the step's camera rays: a CUDA graph of 20
+    # launches, the digest of its outputs (a path's records up to its
+    # count), and where the tree has it, its probe instance.
+    import hashlib
+    from izpi_tpu_torch import profiling
+    from izpi_tpu_torch.ops import diff_trace
+
+    def digest(out):
+        rad, cnt, rec_f, rec_i = out
+        live = torch.arange(rec_i.shape[0], device="cuda")[:, None] < cnt[None, :]
+        h = hashlib.sha256()
+        for t in (rad, cnt, torch.where(live[..., None], rec_f, 0.0),
+                  torch.where(live, rec_i, 0)):
+            h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    cs_p = dist.inject_params(ctx.cs, {k: v.detach() for k, v in params.items()})
+    rays = tuple(x.contiguous() for x in renderer.camera_rays(
+        cs_p, key, xs, ys, n, n, 0))
+    s = path.RenderSettings(max_depth=depth)
+
+    def fwd():
+        return diff_trace.forward(route, cs_p, ctx.meta, s, ctx.intersect, *rays)
+
+    fused = {"fwd_digest": digest(fwd()),
+             "fwd_ms": profiling.graph_ms(fwd, 20)}
+    if hasattr(diff_trace, "probe"):
+        probed, summary = diff_trace.probe(route, cs_p, ctx.meta, s, *rays)
+        summary.pop("rows")
+        fused["probe"] = summary
+        fused["probe_same"] = digest(probed) == fused["fwd_digest"]
 print(json.dumps({"seconds": seconds, "rays": step.rays,
-                  "loss": float(loss), "launches": ops.kernel_launches(),
+                  "loss": float(loss), "launches": launches,
                   "runner": type(getattr(step, "runner", None)).__name__,
-                  "route": route if isinstance(route, str) else "fused"}))
+                  "route": route if isinstance(route, str) else "fused",
+                  **fused}))
 """
 # Step turns' tolerances (tests/test_torch_grad.py's).
 STEP_LOSS_RTOL, STEP_GRAD_ATOL, STEP_GRAD_RTOL = 1e-4, 1e-5, 1e-3
@@ -647,11 +683,27 @@ def step_turns(scene: str, parent, runs: int) -> None:
                   f"{statistics.median(timed):.4f} s; rays {r['rays']}, loss "
                   f"{r['loss']:.7f}; launches of the last call "
                   f"{r['launches']}", flush=True)
+            if "fwd_ms" in r:
+                print(f"step turn {turn} ({name}): diff_trace_fwd "
+                      f"{r['fwd_ms']:.4f} ms a launch (a CUDA graph of 20), "
+                      f"outputs {r['fwd_digest'][:16]}", flush=True)
+            if "probe" in r:
+                print(f"step turn {turn} ({name}): diff_trace_fwd "
+                      f"{step_probe_line(r['probe'])}; the probe's outputs "
+                      f"equal the kernel's: {r['probe_same']}", flush=True)
     med = {name: statistics.median(x for r, _ in v for x in r["seconds"][1:])
            for name, v in got.items()}
     repeat = {name: all(r["rays"] == v[0][0]["rays"] and all(
-        np.array_equal(a[k], v[0][1][k]) for k in a) for r, a in v)
+        np.array_equal(a[k], v[0][1][k]) for k in a)
+        and r.get("fwd_digest") == v[0][0].get("fwd_digest") for r, a in v)
         for name, v in got.items()}
+    probes = all(r.get("probe_same", True) for v in got.values() for r, _ in v)
+    if all("fwd_ms" in r for v in got.values() for r, _ in v):
+        fwd_ms = {name: statistics.median(r["fwd_ms"] for r, _ in v)
+                  for name, v in got.items()}
+        print(f"step: diff_trace_fwd median ms a launch "
+              f"{' -> '.join(f'{fwd_ms[k]:.4f}' for k in dict.fromkeys(order))}",
+              flush=True)
     ok = True
     if parent:
         (pr, pa), (tr, ta) = got["parent"][0], got["this"][0]
@@ -662,16 +714,47 @@ def step_turns(scene: str, parent, runs: int) -> None:
             bool(np.all(np.abs(ta[k] - pa[k])
                         <= STEP_GRAD_ATOL + STEP_GRAD_RTOL * np.abs(pa[k])))
             for k in pa if k != "loss")
+        bits = all(np.array_equal(ta[k], pa[k]) for k in pa)
+        fwd_bits = pr.get("fwd_digest") == tr.get("fwd_digest")
         print(f"step: parent vs this tree: rays {pr['rays']} vs {tr['rays']}, "
               f"loss {pr['loss']:.7f} vs {tr['loss']:.7f}, largest gradient "
-              f"difference {err:.3e}, within the tolerances {ok}; median "
-              f"seconds {med['parent']:.4f} -> {med['this']:.4f} "
-              f"({med['parent'] / med['this']:.3f}x)", flush=True)
+              f"difference {err:.3e}, within the tolerances {ok}, loss and "
+              f"gradients bit for bit {bits}, the forward kernel's outputs "
+              f"bit for bit {fwd_bits}; median seconds {med['parent']:.4f} -> "
+              f"{med['this']:.4f} ({med['parent'] / med['this']:.3f}x)",
+              flush=True)
     print(f"step: each tree's turns repeat bit for bit {repeat} ({smi()})",
           flush=True)
-    if not ok or not repeat["this"]:
+    if not ok or not repeat["this"] or not probes:
         raise SystemExit("measure_port: the step differs from the parent's, "
-                         "or this tree's turns differ")
+                         "this tree's turns differ, or a probe differs from "
+                         "its main instance")
+
+
+def step_probe_line(p: dict) -> str:
+    """The forward kernel's probe (`diff_trace.probe`'s dict) on one line."""
+    groups = ", ".join(f"{g}: {v:.4f}" for g, v in p["passes_by_group"].items())
+    return (f"probe: lane use {p['lane_use']:.4f} ({p['bounces']} bounces in "
+            f"{p['passes']} warp passes; a warp's longest path "
+            f"{p['longest_mean']:.4f} bounces on average); cycles a bounce "
+            f"{p['cycles_per_bounce']:.1f}: closest hit {p['share_hit']:.2%}, "
+            f"cipher {p['share_draws']:.2%}, the rest {p['share_rest']:.2%}; "
+            f"span {p['span_us']:.2f} us, the warps' ends at "
+            f"{p['end_p50']:.4f} (median), {p['end_p90']:.4f} (90%) of it, "
+            f"tail share {p['tail_share']:.2%}, last start at "
+            f"{p['start_spread']:.4f}; passes by lanes a path {{{groups}}}")
+
+
+def fwd_digest(out) -> str:
+    """The digest of the forward kernel's (rad, cnt, rec_f, rec_i), a path's
+    records up to its count (STEP_TURN's `digest`)."""
+    rad, cnt, rec_f, rec_i = out
+    live = torch.arange(rec_i.shape[0], device=cnt.device)[:, None] < cnt[None, :]
+    h = hashlib.sha256()
+    for t in (rad, cnt, torch.where(live[..., None], rec_f, 0.0),
+              torch.where(live, rec_i, 0)):
+        h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def run_turn(script: str, tree: Path, args) -> dict:

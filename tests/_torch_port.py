@@ -268,6 +268,9 @@ inline long long __shfl_sync(unsigned, long long v, int src) {
 inline float __shfl_xor_sync(unsigned, float v, int m) {
   return __uint_as_float(exchange(__float_as_uint(v))[tl_lane ^ m]);
 }
+inline int __shfl_xor_sync(unsigned, int v, int m) {
+  return (int)exchange((uint32_t)v)[tl_lane ^ m];
+}
 inline unsigned __match_any_sync(unsigned, long long v) {
   uint32_t lo[32], hi[32];
   std::memcpy(lo, exchange((uint32_t)(uint64_t)v), sizeof lo);

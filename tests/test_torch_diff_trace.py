@@ -250,20 +250,24 @@ extern "C" void fwd(const float* prim_f, const int* prim_i, int n_prims, const f
                     const int* nodes, const float* bvh_prims, const float* c0, const float* c1,
                     int n_tex, const float* o, const float* d, const float* t,
                     const long long* keys, int n, int max_depth, float bg_r, float bg_g,
-                    float bg_b, int book, float* rad, int* cnt, float* rec_f, int* rec_i) {
+                    float bg_b, int book, float* rad, int* cnt, float* rec_f, int* rec_i,
+                    unsigned long long* probe) {
   const izpi::Scene sc{prim_f, prim_i, n_prims, mat_f, mat_i, light_f, light_i, n_lights};
   const izpi::diff::Tex tex{c0, c1, n_tex};
-  const izpi::V3 bg = izpi::mk(bg_r, bg_g, bg_b);
-  const float cos_scale = book ? 2.0f : 1.0f;
+  const izpi::diff::FwdArgs a{o, d, t, keys, n, max_depth, izpi::mk(bg_r, bg_g, bg_b),
+                              book ? 2.0f : 1.0f, rad, cnt, rec_f, rec_i, probe};
+  const izpi::diff::BvhHit bvh{nodes, bvh_prims};
   const int threads = izpi::diff::kThreads;
-  run_grid((n + threads - 1) / threads, threads, [&] {
-    if (nodes == nullptr) {
-      izpi::diff::diff_trace_fwd(sc, tex, o, d, t, keys, n, max_depth, bg, cos_scale, rad, cnt,
-                                 rec_f, rec_i);
+  const int warps = (n + 31) / 32;
+  run_grid((32 * warps + threads - 1) / threads, threads, [&] {
+    if (nodes == nullptr && probe == nullptr) {
+      izpi::diff::diff_trace_fwd(sc, tex, a);
+    } else if (nodes == nullptr) {
+      izpi::diff::diff_trace_fwd_probe(sc, tex, a);
+    } else if (probe == nullptr) {
+      izpi::diff::diff_trace_fwd_bvh(sc, bvh, tex, a);
     } else {
-      izpi::diff::diff_trace_fwd_bvh(sc, izpi::diff::BvhHit{nodes, bvh_prims}, tex, o, d, t,
-                                     keys, n, max_depth, bg, cos_scale, rad, cnt, rec_f,
-                                     rec_i);
+      izpi::diff::diff_trace_fwd_bvh_probe(sc, bvh, tex, a);
     }
   });
 }
@@ -291,7 +295,7 @@ def host(tmp_path_factory):
                       HOST_ENTRY, [p, p, p, p, p, p, i, i, i, f, f, f, p, p,
                                    p, p])
     lib.fwd.argtypes = ([p, p, i, p, p, p, p, i, p, p, p, p, i, p, p, p, p, i,
-                         i, f, f, f, i] + [p] * 4)
+                         i, f, f, f, i] + [p] * 5)
     return lib
 
 
@@ -313,7 +317,10 @@ def _p(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _host_forward(host, scene, cs, meta, settings, o, d, tme, keys):
+def _host_forward(host, scene, cs, meta, settings, o, d, tme, keys,
+                  probe=None):
+    """The forward kernel as host C++ (with `probe`, a zeroed int64 tensor
+    of (warps, PROBE_COLUMNS), its probe instance)."""
     n, depth = o.shape[0], settings.max_depth
     rad = torch.zeros((n, 3))
     cnt = torch.zeros((n,), dtype=torch.int32)
@@ -329,7 +336,7 @@ def _host_forward(host, scene, cs, meta, settings, o, d, tme, keys):
              scene.n_tex, _p(o), _p(d), _p(tme), _p(keys), n, depth,
              *[float(x) for x in settings.background],
              int(settings.exact_book_cosine), _p(rad), _p(cnt), _p(rec_f),
-             _p(rec_i))
+             _p(rec_i), _p(probe))
     return rad, cnt, rec_f, rec_i
 
 
