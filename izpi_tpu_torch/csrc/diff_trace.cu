@@ -96,6 +96,11 @@ constexpr int kScatter = 3;    // a diffuse bounce: mult = albedo · ratio
 constexpr int kRefract = 4;    // a dielectric: mult = 1
 constexpr int kCodeBits = 3;
 
+// The paths a warp owns: lane l owns path warp · kWarpPaths + l, for l <
+// kWarpPaths.
+constexpr int kWarpPaths = 32;
+constexpr unsigned kFull = 0xffffffffu;
+
 // The probe instance's columns, a row of u64 a warp (ops/diff_trace.py
 // PROBE_COLUMNS): the warp's bounce passes; its live lanes' clock64 cycles
 // in their bounces, and within them in the closest hit and in the cipher;
@@ -124,16 +129,57 @@ __device__ __forceinline__ unsigned long long wall_ns() {
 #endif
 }
 
-// The closest hit over every primitive.
+// The lexicographic least (t, q) of the aligned group of G lanes that holds
+// this lane (G a power of two), in every lane of the group; every lane of
+// the warp calls it.
+__device__ __forceinline__ void group_min(float& t, int& q, int G) {
+  for (int m = 1; m < G; m <<= 1) {
+    const float ot = __shfl_xor_sync(kFull, t, m);
+    const int oq = __shfl_xor_sync(kFull, q, m);
+    if (ot < t || (ot == t && oq < q)) {
+      t = ot;
+      q = oq;
+    }
+  }
+}
+
+// The closest hit over every primitive: one lane's (closest_hit), or a
+// group's.
 struct BruteHit {
   __device__ __forceinline__ int operator()(const Scene& sc, V3 o, V3 d, float tme,
                                             float t_min, float t_max, float& t) const {
     return closest_hit(sc, o, d, tme, t_min, t_max, t);
   }
+  // closest_hit taken by the G lanes of an aligned group (lane r of it;
+  // `has` false where the group serves no ray): lane r tests primitives r,
+  // r + G, ...; the group's lexicographic least (t, index) of the hits
+  // below kTMax is the primitive closest_hit's strict < keeps (the first
+  // of an exact-t tie). Every lane of the warp calls it; each lane of the
+  // group returns the result.
+  __device__ __forceinline__ int group(const Scene& sc, bool has, V3 o, V3 d, float tme,
+                                       float t_min, float t_max, int G, int r,
+                                       float& t_out) const {
+    float bt = kTMax;
+    int bq = 0x7fffffff;
+    if (has) {
+      for (int j = r; j < sc.n_prims; j += G) {
+        float t;
+        const bool ok =
+            prim_test(sc.prim_f + j * kPrimF, sc.prim_i[j * kPrimI], o, d, tme, t_min, t_max, t);
+        if (ok && t < bt) {
+          bt = t;
+          bq = j;
+        }
+      }
+    }
+    group_min(bt, bq, G);
+    t_out = bt;
+    return bq == 0x7fffffff ? -1 : bq;
+  }
 };
 
 // The closest hit through the BVH4 over the scene's (tree-ordered)
-// primitives.
+// primitives: one lane's (bvh4_closest), or a group's (bvh4_closest_group).
 struct BvhHit {
   const int* __restrict__ nodes;
   const float* __restrict__ prims;
@@ -141,6 +187,13 @@ struct BvhHit {
                                             float t_min, float t_max, float& t) const {
     int visits = 0, tests = 0;
     return bvh4_closest(nodes, prims, o, d, tme, t_min, t_max, t, visits, tests);
+  }
+  __device__ __forceinline__ int group(const Scene& /*sc*/, bool has, V3 o, V3 d, float tme,
+                                       float t_min, float t_max, int G, int r,
+                                       float& t_out) const {
+    int visits = 0, tests = 0;
+    return bvh4_closest_group(nodes, prims, has, o, d, tme, t_min, t_max, G, r, t_out, visits,
+                              tests);
   }
 };
 
@@ -153,136 +206,6 @@ struct Tex {
     return r < n_tex ? ld3(c0 + 3 * r) : ld3(c1 + 3 * (r - n_tex));
   }
 };
-
-// The path of thread i from its camera ray to its end; returns its rays.
-// kProbe: adds the bounces' cycles to the lane's probe counts pc.
-template <bool kProbe, class Hit>
-__device__ __forceinline__ int forward_path(const Hit& closest, const Scene& sc, const Tex& tex,
-                                            int i, int n, V3 o, V3 d, float tme, uint32_t k0,
-                                            uint32_t k1, int max_depth, V3 bg,
-                                            float cos_scale, float* __restrict__ rad_out,
-                                            int* __restrict__ cnt_out,
-                                            float* __restrict__ rec_f,
-                                            int* __restrict__ rec_i,
-                                            unsigned long long* pc) {
-  V3 thru = mk(1.0f, 1.0f, 1.0f);
-  V3 rad = mk(0.0f, 0.0f, 0.0f);
-  int depth = 0;
-  bool scatters = false;
-  while (depth < max_depth) {
-    long long c_bounce = 0, c0 = 0;
-    if constexpr (kProbe) c_bounce = clock64();
-    float t;
-    const int hit = closest(sc, o, d, tme, kTMin, kTMax, t);
-    if constexpr (kProbe) pc[kPrCyHit] += (unsigned long long)(clock64() - c_bounce);
-    int code = kMiss, row = 0;
-    float ratio = 0.0f;
-    V3 p = o, d_new = d, mult = mk(1.0f, 1.0f, 1.0f);
-    scatters = false;
-    if (hit < 0) {
-      rad = rad + thru * bg;
-    } else {
-      p = o + d * t;
-      const V3 n = record_normal(sc, hit, o, d, tme, p);
-      const int mat = sc.prim_i[hit * kPrimI + 1];
-      const float* M = sc.mat_f + mat * kMatF;
-      const int* Mi = sc.mat_i + mat * kMatI;
-      const int kind = Mi[0];
-      row = Mi[3];
-      if (Mi[1] != 0) {  // 3D sine checker (texture/checker.go:26): c1 unless negative
-        const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y) * sinf(10.0f * p.z);
-        if (!(sines < 0.0f)) row += tex.n_tex;
-      }
-      const V3 albedo = tex.row(row);
-      // One-sided light keyed on the record normal (diffuselight.go:49-63);
-      // thru * 0 on every other hit, as the plain bounce adds it.
-      const bool emits = kind == kDiffuseLight && dot(n, d) < 0.0f;
-      rad = rad + thru * (emits ? albedo : mk(0.0f, 0.0f, 0.0f));
-      if (kind == kDiffuseLight) {
-        code = emits ? kEmit : kNone;
-      } else {
-        scatters = true;
-        if constexpr (kProbe) c0 = clock64();
-        Draws<false> dr;
-        dr.clear();
-        dr.bounce(k0, k1, (uint32_t)depth, kind == kDielectric ? kPairsDielectric : kPairsDiffuse);
-        dr.run(0u, 0u, k0, k1, (uint32_t)depth);
-        if constexpr (kProbe) pc[kPrCyDraws] += (unsigned long long)(clock64() - c0);
-        const float* us = dr.us;
-        if (kind == kDielectric) {  // dielectric.go:66-102, raw direction, no absorption
-          code = kRefract;
-          const float ref_idx = M[7];
-          const V3 reflected = reflect(d, n);
-          const float d_dot_n = dot(d, n);
-          const bool exiting = d_dot_n > 0.0f;
-          const V3 outward = exiting ? -n : n;
-          const float ni = exiting ? ref_idx : 1.0f / ref_idx;
-          const float dlen = length(d);
-          const float cosine = exiting ? ref_idx * d_dot_n / dlen : -d_dot_n / dlen;
-          const V3 uv = normalize(d);
-          const float dt = dot(uv, outward);
-          const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
-          const V3 refracted =
-              (uv - outward * dt) * ni - outward * sqrtf(clamp_min(disc, 0.0f));
-          float r0 = (1.0f - ref_idx) / (1.0f + ref_idx);
-          r0 = r0 * r0;
-          const float schlick = r0 + (1.0f - r0) * powf(1.0f - cosine, 5.0f);
-          const bool is_refl = us[3] < (disc > 0.0f ? schlick : 1.0f);
-          d_new = is_refl ? reflected : refracted;
-        } else {  // diffuse: mixture of light and cosine pdfs (colour.go:48-57)
-          code = kScatter;
-          V3 d_diff;
-          if (us[4] < 0.5f) {
-            d_diff = lights_sample(sc, p, us[5], us[6], us[7], us[8]);
-          } else {
-            V3 ou, ov, ow;
-            onb_from_w(n, ou, ov, ow);
-            const float zc = sqrtf(1.0f - us[10]);
-            const float phic = kTwoPi * us[9];
-            const float rc = cos_scale * sqrtf(us[10]);
-            d_diff = ou * (cosf(phic) * rc) + ov * (sinf(phic) * rc) + ow * zc;
-          }
-          const V3 dd_unit = normalize(d_diff);
-          const float cos_lobe = dot(dd_unit, normalize(n));
-          const float pdf_cos = cos_lobe > 0.0f ? cos_lobe / kPi : 0.0f;
-          const float pdf_val = 0.5f * lights_pdf(sc, p, d_diff) + 0.5f * pdf_cos;
-          // The differentiable bounce's guards (path.py bounce_rgb): a
-          // degenerate direction is zeroed before its cosine, and a sample
-          // of no finite ratio weighs 0.
-          const V3 du = mk(finite_or_zero(dd_unit.x), finite_or_zero(dd_unit.y),
-                           finite_or_zero(dd_unit.z));
-          const float spdf = kind == kLambert ? clamp_min(dot(n, du), 0.0f) / kPi : 0.0f;
-          const bool live = pdf_val > 0.0f;
-          const float r = spdf / (live ? pdf_val : 1.0f);
-          ratio = live && isfinite(r) ? r : 0.0f;
-          d_new = d_diff;
-          mult = albedo * ratio;
-        }
-      }
-    }
-    const size_t slot = (size_t)depth * n + i;
-    float4 rf;
-    rf.x = thru.x;
-    rf.y = thru.y;
-    rf.z = thru.z;
-    rf.w = ratio;
-    reinterpret_cast<float4*>(rec_f)[slot] = rf;
-    rec_i[slot] = ((code == kEmit || code == kScatter ? row : 0) << kCodeBits) | code;
-    ++depth;
-    if constexpr (kProbe) pc[kPrCyBounce] += (unsigned long long)(clock64() - c_bounce);
-    if (!scatters) break;
-    thru = thru * mult;
-    o = p;
-    d = d_new;
-  }
-  // The depth cap: the {Z:1} sentinel (colour.go:34-36).
-  if (scatters) rad = rad + thru * mk(0.0f, 0.0f, 1.0f);
-  rad_out[3 * i + 0] = rad.x;
-  rad_out[3 * i + 1] = rad.y;
-  rad_out[3 * i + 2] = rad.z;
-  cnt_out[i] = depth;
-  return depth;
-}
 
 // The launch's inputs and outputs, which every instance takes.
 struct FwdArgs {
@@ -300,54 +223,311 @@ struct FwdArgs {
   unsigned long long* __restrict__ probe_out;  // kProbe: (warps, kProbeColumns)
 };
 
+// The lanes a path gets at L live paths of a warp: 32 / (L rounded up to a
+// power of two).
+__device__ __forceinline__ int group_lanes(int live) {
+  int p = 1;
+  while (p < live) p <<= 1;
+  return 32 / p;
+}
+
+// The lane of the k-th (from 0) set bit of mask.
+__device__ __forceinline__ int nth_lane(unsigned mask, int k) {
+  int lane = 0;
+  for (int w = 16; w > 0; w >>= 1) {
+    const int below = __popc(mask & ((1u << w) - 1u));
+    if (k >= below) {
+      k -= below;
+      mask >>= w;
+      lane += w;
+    }
+  }
+  return lane;
+}
+
+// A diffuse bounce's pairs, in the order a group draws them: pair 4, which
+// picks the lobe, the light sample's 5, 0, 1, 2 and the cosine lobe's 3;
+// a dielectric draws pair 3 alone.
+__device__ __forceinline__ uint32_t group_pair(int want, int q) {
+  return want == 1 ? 3u : (0x321054u >> (4 * q)) & 0xFu;
+}
+
+// The warp's paths (lane l owns path warp · kWarpPaths + l), each from its
+// camera ray to its end (a miss, a light, or max_depth bounces), a bounce a
+// pass for every live path. A path's state (ray, throughput, radiance,
+// depth) stays in its owner's registers. At L live paths each gets a group
+// of G = group_lanes(L) lanes:
+// - G == 1: each owner traces, draws and shades its own bounce, as one
+//   thread a path does (closest, Draws);
+// - G > 1: group g serves the g-th live lane's path. Its lanes take the
+//   path's ray (__shfl_sync) and split the closest hit (closest.group);
+//   then the bounce key's two fold-ins and the pairs of the owner's
+//   material (group_pair), one pair a lane a round, which go back to the
+//   owner: Threefry is counter-based, so a pair another lane draws has the
+//   bits the owner's Draws would give, and a pair the shading does not
+//   read changes nothing.
+// The shading, the record and the path's throughput and radiance are the
+// owner's alone, in one thread a path's order of operations, so every
+// output keeps its bits whatever G. Every collective is reached by the
+// whole warp once a pass (G is the same in every lane). kProbe: the
+// warp's counts into its row of a.probe_out.
 template <bool kProbe, class Hit>
-__device__ __forceinline__ void forward_thread(const Hit& closest, const Scene& sc, Tex tex,
-                                               const FwdArgs& a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const auto path = [&](unsigned long long* pc) {
-    return forward_path<kProbe>(closest, sc, tex, i, a.n, ld3(a.ray_o + 3 * i),
-                                ld3(a.ray_d + 3 * i), a.ray_t[i], (uint32_t)a.keys[2 * i],
-                                (uint32_t)a.keys[2 * i + 1], a.max_depth, a.bg, a.cos_scale,
-                                a.rad_out, a.cnt_out, a.rec_f, a.rec_i, pc);
-  };
-  if constexpr (!kProbe) {
-    if (i >= a.n) return;
-    path(nullptr);
-  } else {
-    // The warp's row: its lanes' cycles, its passes (its longest path) and
-    // its start and end, read once every lane is done.
-    unsigned long long pc[kProbeColumns] = {};
-    const unsigned long long start = wall_ns();
-    const int rays = i < a.n ? path(pc) : 0;
-    __syncwarp();
-    const int passes = __reduce_max_sync(0xffffffffu, rays);
-    unsigned long long* row = a.probe_out + (size_t)(i / 32) * kProbeColumns;
-    if (i / 32 * 32 >= a.n) return;  // a warp past the paths has no row
-    for (int c = kPrCyBounce; c <= kPrCyDraws; ++c) atomicAdd(row + c, pc[c]);
-    if ((threadIdx.x & 31) == 0) {
-      row[kPrPasses] = (unsigned long long)passes;
-      row[kPrStart] = start;
-      row[kPrEnd] = wall_ns();
+__device__ __forceinline__ void forward_warp(const Hit& closest, const Scene& sc, const Tex& tex,
+                                             const FwdArgs& a) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int i = warp * kWarpPaths + lane;
+  const int n = a.n;
+  const bool owns = lane < kWarpPaths && i < n;
+  V3 o = mk(0.0f, 0.0f, 0.0f), d = o;
+  float tme = 0.0f;
+  uint32_t k0 = 0u, k1 = 0u;
+  if (owns) {
+    o = ld3(a.ray_o + 3 * i);
+    d = ld3(a.ray_d + 3 * i);
+    tme = a.ray_t[i];
+    k0 = (uint32_t)a.keys[2 * i];
+    k1 = (uint32_t)a.keys[2 * i + 1];
+  }
+  V3 thru = mk(1.0f, 1.0f, 1.0f);
+  V3 rad = mk(0.0f, 0.0f, 0.0f);
+  int depth = 0;
+  bool scatters = false;
+  bool live = owns && a.max_depth > 0;
+
+  unsigned long long pc[kProbe ? kProbeColumns : 1] = {};
+  unsigned long long start = 0;
+  if constexpr (kProbe) start = wall_ns();
+
+  for (;;) {
+    const unsigned ballot = __ballot_sync(kFull, live);
+    if (ballot == 0u) break;
+    const int G = group_lanes(__popc(ballot));
+    long long c_bounce = 0, c0 = 0;
+    if constexpr (kProbe) {
+      ++pc[kPrPasses];
+      ++pc[kPrPassesG1 + __ffs(G) - 1];
+      c_bounce = clock64();
+    }
+    // The group this lane serves, its path's owner, and the first lane of
+    // the group that serves this lane's own path.
+    const int grp = lane / G, r = lane % G;
+    const bool has = G > 1 && grp < __popc(ballot);
+    const int src = has ? nth_lane(ballot, grp) : lane;
+    const int lead = live ? __popc(ballot & ((1u << lane) - 1u)) * G : lane;
+
+    // The closest hit.
+    float t = kTMax;
+    int hit = -1;
+    if (G == 1) {
+      if (live) hit = closest(sc, o, d, tme, kTMin, kTMax, t);
+    } else {
+      const V3 go = mk(__shfl_sync(kFull, o.x, src), __shfl_sync(kFull, o.y, src),
+                       __shfl_sync(kFull, o.z, src));
+      const V3 gd = mk(__shfl_sync(kFull, d.x, src), __shfl_sync(kFull, d.y, src),
+                       __shfl_sync(kFull, d.z, src));
+      const float gt = __shfl_sync(kFull, tme, src);
+      float tg;
+      const int hg = closest.group(sc, has, go, gd, gt, kTMin, kTMax, G, r, tg);
+      t = __shfl_sync(kFull, tg, lead);
+      hit = __shfl_sync(kFull, hg, lead);
+    }
+    if constexpr (kProbe) pc[kPrCyHit] += live ? (unsigned long long)(clock64() - c_bounce) : 0;
+
+    // The bounce up to its draws (the owner's).
+    int code = kMiss, row = 0, kind = kLambert, want = 0;
+    float ratio = 0.0f;
+    V3 p = o, d_new = d, mult = mk(1.0f, 1.0f, 1.0f), n_rec = o, albedo = o;
+    const float* M = nullptr;
+    bool scat = false;  // this bounce scatters
+    if (live) {
+      if (hit < 0) {
+        rad = rad + thru * a.bg;
+      } else {
+        p = o + d * t;
+        n_rec = record_normal(sc, hit, o, d, tme, p);
+        const int mat = sc.prim_i[hit * kPrimI + 1];
+        M = sc.mat_f + mat * kMatF;
+        const int* Mi = sc.mat_i + mat * kMatI;
+        kind = Mi[0];
+        row = Mi[3];
+        if (Mi[1] != 0) {  // 3D sine checker (texture/checker.go:26): c1 unless negative
+          const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y) * sinf(10.0f * p.z);
+          if (!(sines < 0.0f)) row += tex.n_tex;
+        }
+        albedo = tex.row(row);
+        // One-sided light keyed on the record normal (diffuselight.go:49-63);
+        // thru * 0 on every other hit, as the plain bounce adds it.
+        const bool emits = kind == kDiffuseLight && dot(n_rec, d) < 0.0f;
+        rad = rad + thru * (emits ? albedo : mk(0.0f, 0.0f, 0.0f));
+        if (kind == kDiffuseLight) {
+          code = emits ? kEmit : kNone;
+        } else {
+          scat = true;
+          want = kind == kDielectric ? 1 : 6;
+        }
+      }
+    }
+
+    // The draws: us holds the uniforms of the pairs the bounce reads.
+    if constexpr (kProbe) c0 = clock64();
+    Draws<false> dr;
+    float* us = dr.us;
+    if (G == 1) {
+      if (scat) {
+        dr.clear();
+        dr.bounce(k0, k1, (uint32_t)depth, want == 1 ? kPairsDielectric : kPairsDiffuse);
+        dr.run(0u, 0u, k0, k1, (uint32_t)depth);
+      }
+    } else if (__any_sync(kFull, want > 0)) {
+      const int g_want = __shfl_sync(kFull, want, src);
+      const uint32_t gk0 = (uint32_t)__shfl_sync(kFull, (int)k0, src);
+      const uint32_t gk1 = (uint32_t)__shfl_sync(kFull, (int)k1, src);
+      const int g_depth = __shfl_sync(kFull, depth, src);
+      // Lane r draws the group's pairs r, r + G, r + 2G (G >= 2: at most 3).
+      float ua[3] = {0.0f, 0.0f, 0.0f}, ub[3] = {0.0f, 0.0f, 0.0f};
+      if (has && r < g_want) {
+        uint32_t y0 = 0u, y1 = (uint32_t)g_depth;  // fold_in(path key, depth)
+        threefry2x32(gk0, gk1, y0, y1);
+        uint32_t b0 = 0u, b1 = 0u;  // fold_in(., 0): the bounce key
+        threefry2x32(y0, y1, b0, b1);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const int q = r + k * G;
+          if (q < g_want) {
+            const uint32_t pair = group_pair(g_want, q);
+            uint32_t x0 = pair, x1 = pair + 6u;
+            threefry2x32(b0, b1, x0, x1);
+            ua[k] = bits_to_uniform(x0);
+            ub[k] = bits_to_uniform(x1);
+          }
+        }
+      }
+      // Pair q of the owner's list is lane lead + q % G's round q / G.
+      for (int q = 0; q < 6; ++q) {
+        const int k = q / G;
+        const float va = k == 0 ? ua[0] : (k == 1 ? ua[1] : ua[2]);
+        const float vb = k == 0 ? ub[0] : (k == 1 ? ub[1] : ub[2]);
+        const int from = (lead + q % G) & 31;
+        const float fa = __shfl_sync(kFull, va, from);
+        const float fb = __shfl_sync(kFull, vb, from);
+        if (q < want) {
+          const uint32_t pair = group_pair(want, q);
+          us[pair] = fa;
+          us[pair + 6] = fb;
+        }
+      }
+    }
+    if constexpr (kProbe) pc[kPrCyDraws] += live ? (unsigned long long)(clock64() - c0) : 0;
+
+    // The rest of the bounce and its record (the owner's).
+    if (live) {
+      if (scat && kind == kDielectric) {  // dielectric.go:66-102, raw direction, no absorption
+        code = kRefract;
+        const float ref_idx = M[7];
+        const V3 reflected = reflect(d, n_rec);
+        const float d_dot_n = dot(d, n_rec);
+        const bool exiting = d_dot_n > 0.0f;
+        const V3 outward = exiting ? -n_rec : n_rec;
+        const float ni = exiting ? ref_idx : 1.0f / ref_idx;
+        const float dlen = length(d);
+        const float cosine = exiting ? ref_idx * d_dot_n / dlen : -d_dot_n / dlen;
+        const V3 uv = normalize(d);
+        const float dt = dot(uv, outward);
+        const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
+        const V3 refracted =
+            (uv - outward * dt) * ni - outward * sqrtf(clamp_min(disc, 0.0f));
+        float r0 = (1.0f - ref_idx) / (1.0f + ref_idx);
+        r0 = r0 * r0;
+        const float schlick = r0 + (1.0f - r0) * powf(1.0f - cosine, 5.0f);
+        const bool is_refl = us[3] < (disc > 0.0f ? schlick : 1.0f);
+        d_new = is_refl ? reflected : refracted;
+      } else if (scat) {  // diffuse: mixture of light and cosine pdfs (colour.go:48-57)
+        code = kScatter;
+        V3 d_diff;
+        if (us[4] < 0.5f) {
+          d_diff = lights_sample(sc, p, us[5], us[6], us[7], us[8]);
+        } else {
+          V3 ou, ov, ow;
+          onb_from_w(n_rec, ou, ov, ow);
+          const float zc = sqrtf(1.0f - us[10]);
+          const float phic = kTwoPi * us[9];
+          const float rc = a.cos_scale * sqrtf(us[10]);
+          d_diff = ou * (cosf(phic) * rc) + ov * (sinf(phic) * rc) + ow * zc;
+        }
+        const V3 dd_unit = normalize(d_diff);
+        const float cos_lobe = dot(dd_unit, normalize(n_rec));
+        const float pdf_cos = cos_lobe > 0.0f ? cos_lobe / kPi : 0.0f;
+        const float pdf_val = 0.5f * lights_pdf(sc, p, d_diff) + 0.5f * pdf_cos;
+        // The differentiable bounce's guards (path.py bounce_rgb): a
+        // degenerate direction is zeroed before its cosine, and a sample
+        // of no finite ratio weighs 0.
+        const V3 du = mk(finite_or_zero(dd_unit.x), finite_or_zero(dd_unit.y),
+                         finite_or_zero(dd_unit.z));
+        const float spdf = kind == kLambert ? clamp_min(dot(n_rec, du), 0.0f) / kPi : 0.0f;
+        const bool pos = pdf_val > 0.0f;
+        const float rr = spdf / (pos ? pdf_val : 1.0f);
+        ratio = pos && isfinite(rr) ? rr : 0.0f;
+        d_new = d_diff;
+        mult = albedo * ratio;
+      }
+      const size_t slot = (size_t)depth * n + i;
+      float4 rf;
+      rf.x = thru.x;
+      rf.y = thru.y;
+      rf.z = thru.z;
+      rf.w = ratio;
+      reinterpret_cast<float4*>(a.rec_f)[slot] = rf;
+      a.rec_i[slot] = ((code == kEmit || code == kScatter ? row : 0) << kCodeBits) | code;
+      ++depth;
+      scatters = scat;
+      if (scat) {
+        thru = thru * mult;
+        o = p;
+        d = d_new;
+      }
+      live = scat && depth < a.max_depth;
+      if constexpr (kProbe) pc[kPrCyBounce] += (unsigned long long)(clock64() - c_bounce);
+    }
+  }
+  if (owns) {
+    // The depth cap: the {Z:1} sentinel (colour.go:34-36).
+    if (scatters) rad = rad + thru * mk(0.0f, 0.0f, 1.0f);
+    a.rad_out[3 * i + 0] = rad.x;
+    a.rad_out[3 * i + 1] = rad.y;
+    a.rad_out[3 * i + 2] = rad.z;
+    a.cnt_out[i] = depth;
+  }
+  if constexpr (kProbe) {
+    if (warp * kWarpPaths < n) {  // a warp past the paths has no row
+      unsigned long long* row = a.probe_out + (size_t)warp * kProbeColumns;
+      for (int c = kPrCyBounce; c <= kPrCyDraws; ++c) atomicAdd(row + c, pc[c]);
+      if (lane == 0) {
+        row[kPrPasses] = pc[kPrPasses];
+        for (int g = 0; g < 6; ++g) row[kPrPassesG1 + g] = pc[kPrPassesG1 + g];
+        row[kPrStart] = start;
+        row[kPrEnd] = wall_ns();
+      }
     }
   }
 }
 
 __global__ void __launch_bounds__(kThreads) diff_trace_fwd(Scene sc, Tex tex, FwdArgs a) {
-  forward_thread<false>(BruteHit{}, sc, tex, a);
+  forward_warp<false>(BruteHit{}, sc, tex, a);
 }
 
 __global__ void __launch_bounds__(kThreads)
     diff_trace_fwd_bvh(Scene sc, BvhHit bvh, Tex tex, FwdArgs a) {
-  forward_thread<false>(bvh, sc, tex, a);
+  forward_warp<false>(bvh, sc, tex, a);
 }
 
 __global__ void __launch_bounds__(kThreads) diff_trace_fwd_probe(Scene sc, Tex tex, FwdArgs a) {
-  forward_thread<true>(BruteHit{}, sc, tex, a);
+  forward_warp<true>(BruteHit{}, sc, tex, a);
 }
 
 __global__ void __launch_bounds__(kThreads)
     diff_trace_fwd_bvh_probe(Scene sc, BvhHit bvh, Tex tex, FwdArgs a) {
-  forward_thread<true>(bvh, sc, tex, a);
+  forward_warp<true>(bvh, sc, tex, a);
 }
 
 // The sum of `v` over the block's kThreads threads, in `part` (shared);
@@ -453,6 +633,11 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
+// The warps of the forward kernel over n paths: rows of its probe.
+int izpi_diff_trace_fwd_warps(int n) {
+  return (n + izpi::diff::kWarpPaths - 1) / izpi::diff::kWarpPaths;
+}
+
 // The forward kernel over n paths on `stream`: the scene tables of
 // ops/megakernel.py pack_tables with each material's (clamped) albedo
 // texture id in mat_i's fourth column; nodes and bvh_prims (ops/bvh_kernel.py
@@ -475,7 +660,7 @@ static int launch_fwd(const float* prim_f, const int* prim_i, int n_prims, const
                               izpi::mk(bg_r, bg_g, bg_b), book ? 2.0f : 1.0f,
                               rad, cnt, rec_f, rec_i, probe};
   const int threads = izpi::diff::kThreads;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = (izpi_diff_trace_fwd_warps(n) * 32 + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
   const izpi::diff::BvhHit bvh{nodes, bvh_prims};
   if (nodes == nullptr && probe == nullptr) {
@@ -502,8 +687,9 @@ int izpi_diff_trace_fwd(const float* prim_f, const int* prim_i, int n_prims, con
                     book, rad, cnt, rec_f, rec_i, nullptr, stream);
 }
 
-// Its probe instance, launched like it, with probe: (ceil(n / 32),
-// kProbeColumns) u64, zeroed, that receives each warp's row (ProbeColumn).
+// Its probe instance, launched like it, with probe:
+// (izpi_diff_trace_fwd_warps(n), kProbeColumns) u64, zeroed, that receives
+// each warp's row (ProbeColumn).
 int izpi_diff_trace_fwd_probe(const float* prim_f, const int* prim_i, int n_prims,
                               const float* mat_f, const int* mat_i, const float* light_f,
                               const int* light_i, int n_lights, const int* nodes,

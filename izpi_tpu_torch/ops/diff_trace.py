@@ -376,7 +376,7 @@ def _launch_fwd(scene: DiffScene, cs, meta, settings, o, d, time, keys,
             err = lib.izpi_diff_trace_fwd(*args, _stream(dev))
         else:
             megakernel.check_tables(dev, [
-                ("probe", probe_rows, (-(-n // WARP_PATHS),
+                ("probe", probe_rows, (lib.izpi_diff_trace_fwd_warps(n),
                                        len(PROBE_COLUMNS)), torch.int64)])
             err = lib.izpi_diff_trace_fwd_probe(*args, _ptr(probe_rows),
                                                 _stream(dev))

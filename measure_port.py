@@ -648,6 +648,10 @@ if not isinstance(route, str):
         summary.pop("rows")
         fused["probe"] = summary
         fused["probe_same"] = digest(probed) == fused["fwd_digest"]
+from izpi_tpu_torch.ops import _build
+usage = _build.ptxas_usage(_build.build().with_suffix(".log").read_text())
+fused["usage"] = {k: list(v) for k, v in usage.items()
+                  if k.startswith("diff_trace_fwd")}
 print(json.dumps({"seconds": seconds, "rays": step.rays,
                   "loss": float(loss), "launches": launches,
                   "runner": type(getattr(step, "runner", None)).__name__,
@@ -686,7 +690,9 @@ def step_turns(scene: str, parent, runs: int) -> None:
             if "fwd_ms" in r:
                 print(f"step turn {turn} ({name}): diff_trace_fwd "
                       f"{r['fwd_ms']:.4f} ms a launch (a CUDA graph of 20), "
-                      f"outputs {r['fwd_digest'][:16]}", flush=True)
+                      f"outputs {r['fwd_digest'][:16]}; ptxas (registers, "
+                      f"spill stores, loads, smem, stack frame) "
+                      f"{r['usage']}", flush=True)
             if "probe" in r:
                 print(f"step turn {turn} ({name}): diff_trace_fwd "
                       f"{step_probe_line(r['probe'])}; the probe's outputs "

@@ -1234,36 +1234,9 @@ def test_diff_trace_kernels_match_plain_on_card(name):
     records within rtol 1e-4; the reverse kernel on the plain forward's
     records bit for bit (the same IEEE operations in the same order), one
     slot a record, its count on the device."""
-    ctx = renderer.RenderContext(
-        cornell_box() if name == "cornell_box" else cornell_box_obj(),
-        device="cuda")
-    scene = diff_trace.prepare(ctx.cs, ctx.meta, ctx.intersect)
-    assert scene is not None and (scene.bvh is not None) == (
-        name == "cornell_box_obj")
-    n, depth = 64, 16
-    s = path.RenderSettings(max_depth=depth)
-    ys = torch.arange(n, device="cuda").repeat_interleave(n)
-    xs = torch.arange(n, device="cuda").repeat(n)
-    o, d, tme, keys = (x.contiguous() for x in renderer.camera_rays(
-        ctx.cs, rng.render_key(0, device="cuda"), xs, ys, n, n, 0))
-    f0, b0 = diff_trace.fwd_launches, diff_trace.bwd_launches
-    got = diff_trace.forward(scene, ctx.cs, ctx.meta, s, ctx.intersect, o, d,
-                             tme, keys)
-    want = diff_trace.forward_reference(ctx.cs, ctx.meta, s, ctx.intersect,
-                                        o, d, tme, keys)
-    assert diff_trace.fwd_launches == f0 + 1
-    rays_g, rays_w = int(got[1].sum()), int(want[1].sum())
-    assert abs(rays_g - rays_w) <= 0.005 * rays_w
-    err = (got[0] - want[0]).abs().amax(dim=1)
-    assert float((err <= 1e-4).float().mean()) >= 0.99
-    assert abs(float(got[0].mean()) / float(want[0].mean()) - 1) <= 0.005
-    live = torch.arange(depth, device="cuda")[:, None] < want[1][None, :]
-    same = (got[1] == want[1]) & ((got[3] == want[3]) | ~live).all(0)
-    assert float(same.float().mean()) >= 0.99
-    keep = live & same[None, :]
-    torch.testing.assert_close(got[2][keep], want[2][keep], rtol=1e-4,
-                               atol=1e-6)
-
+    n = 64
+    ctx, scene, s, _, want = _fwd_vs_plain(name, n, 16)
+    b0 = diff_trace.bwd_launches
     g_rad = torch.randn((n * n, 3), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(1))
     c0, c1 = ctx.cs.textures.c0, ctx.cs.textures.c1
@@ -1277,6 +1250,65 @@ def test_diff_trace_kernels_match_plain_on_card(name):
     assert torch.equal(rows[:live_slots], w_rows[:live_slots])
     assert torch.equal(g[:live_slots].view(torch.int32),
                        w_g[:live_slots].view(torch.int32))
+
+
+def _fwd_vs_plain(name, n, depth):
+    """The forward kernel against its plain version on the card at the
+    step's camera rays (n², depth, seed 0) within chip phase 4's tolerances
+    (rays within 0.5%, 99% of the paths' radiance within 1e-4, the mean
+    within 0.5%: libdevice and torch's division by a scalar round the last
+    ulp otherwise, which can turn a rare path), and on the paths whose
+    records take the same branches (99% of them) the records within rtol
+    1e-4. Returns (context, DiffScene, settings, rays, plain outputs)."""
+    ctx = renderer.RenderContext(
+        cornell_box() if name == "cornell_box" else cornell_box_obj(),
+        device="cuda")
+    scene = diff_trace.prepare(ctx.cs, ctx.meta, ctx.intersect)
+    assert scene is not None and (scene.bvh is not None) == (
+        name == "cornell_box_obj")
+    s = path.RenderSettings(max_depth=depth)
+    ys = torch.arange(n, device="cuda").repeat_interleave(n)
+    xs = torch.arange(n, device="cuda").repeat(n)
+    rays = tuple(x.contiguous() for x in renderer.camera_rays(
+        ctx.cs, rng.render_key(0, device="cuda"), xs, ys, n, n, 0))
+    f0 = diff_trace.fwd_launches
+    got = diff_trace.forward(scene, ctx.cs, ctx.meta, s, ctx.intersect, *rays)
+    want = diff_trace.forward_reference(ctx.cs, ctx.meta, s, ctx.intersect,
+                                        *rays)
+    assert diff_trace.fwd_launches == f0 + 1
+    rays_g, rays_w = int(got[1].sum()), int(want[1].sum())
+    assert abs(rays_g - rays_w) <= 0.005 * rays_w
+    err = (got[0] - want[0]).abs().amax(dim=1)
+    assert float((err <= 1e-4).float().mean()) >= 0.99
+    assert abs(float(got[0].mean()) / float(want[0].mean()) - 1) <= 0.005
+    live = torch.arange(depth, device="cuda")[:, None] < want[1][None, :]
+    same = (got[1] == want[1]) & ((got[3] == want[3]) | ~live).all(0)
+    assert float(same.float().mean()) >= 0.99
+    keep = live & same[None, :]
+    torch.testing.assert_close(got[2][keep], want[2][keep], rtol=1e-4,
+                               atol=1e-6)
+    return ctx, scene, s, rays, want
+
+
+def test_diff_trace_fwd_full_step_frame_on_card():
+    """The forward kernel at the Cornell step's own frame (256², depth 50,
+    seed 0), where a warp's last paths, the 76 that reach the cap among
+    them, run with up to 32 lanes each: against its plain version within
+    `_fwd_vs_plain`'s tolerances; its probe instance's outputs equal the
+    kernel's bit for bit, each warp's passes are its longest path, and
+    passes ran at every group size, 1 to 32 lanes a path."""
+    ctx, scene, s, rays, want = _fwd_vs_plain("cornell_box", 256, 50)
+    got = diff_trace.forward(scene, ctx.cs, ctx.meta, s, ctx.intersect, *rays)
+    probed, summary = diff_trace.probe(scene, ctx.cs, ctx.meta, s, *rays)
+    live = torch.arange(50, device="cuda")[:, None] < got[1][None, :]
+    assert torch.equal(probed[0].view(torch.int32), got[0].view(torch.int32))
+    assert torch.equal(probed[1], got[1])
+    assert torch.equal(probed[2][live].view(torch.int32),
+                       got[2][live].view(torch.int32))
+    assert torch.equal(probed[3][live], got[3][live])
+    assert int((want[1] == 50).sum()) > 0
+    assert summary["passes_equal_longest"]
+    assert all(v > 0 for v in summary["passes_by_group"].values())
 
 
 @pytest.mark.parametrize("name,n", [("cornell_box", 32),

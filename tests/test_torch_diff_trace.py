@@ -258,7 +258,7 @@ extern "C" void fwd(const float* prim_f, const int* prim_i, int n_prims, const f
                               book ? 2.0f : 1.0f, rad, cnt, rec_f, rec_i, probe};
   const izpi::diff::BvhHit bvh{nodes, bvh_prims};
   const int threads = izpi::diff::kThreads;
-  const int warps = (n + 31) / 32;
+  const int warps = (n + izpi::diff::kWarpPaths - 1) / izpi::diff::kWarpPaths;
   run_grid((32 * warps + threads - 1) / threads, threads, [&] {
     if (nodes == nullptr && probe == nullptr) {
       izpi::diff::diff_trace_fwd(sc, tex, a);
@@ -268,6 +268,49 @@ extern "C" void fwd(const float* prim_f, const int* prim_i, int n_prims, const f
       izpi::diff::diff_trace_fwd_bvh(sc, bvh, tex, a);
     } else {
       izpi::diff::diff_trace_fwd_bvh_probe(sc, bvh, tex, a);
+    }
+  });
+}
+
+// The closest hit of n_rays rays taken by groups of G lanes (brute force
+// over the primitive rows, or the BVH4 when nodes is given), and one lane's
+// (closest_hit, bvh4_closest) beside it: t, index and the traversal's
+// (visits, tests) a ray.
+extern "C" void group_hits(const float* prim_f, const int* prim_i, int n_prims,
+                           const int* nodes, const float* bvh_prims, const float* o,
+                           const float* d, const float* t, int n_rays, int G, float* t_out,
+                           int* idx_out, int* cnt_out, float* t_ref, int* idx_ref,
+                           int* cnt_ref) {
+  const izpi::Scene sc{prim_f, prim_i, n_prims, nullptr, nullptr, nullptr, nullptr, 0};
+  const int per = 32 / G;
+  run_grid((n_rays + per - 1) / per, 32, [&] {
+    const int lane = threadIdx.x & 31, r = lane % G;
+    const int ray = blockIdx.x * per + lane / G;
+    const bool has = ray < n_rays;
+    const int k = has ? ray : 0;
+    const izpi::V3 ro = izpi::ld3(o + 3 * k), rd = izpi::ld3(d + 3 * k);
+    float tg;
+    int visits = 0, tests = 0;
+    const int hit =
+        nodes == nullptr
+            ? izpi::diff::BruteHit{}.group(sc, has, ro, rd, t[k], izpi::kTMin, izpi::kTMax, G,
+                                           r, tg)
+            : izpi::bvh4_closest_group(nodes, bvh_prims, has, ro, rd, t[k], izpi::kTMin,
+                                       izpi::kTMax, G, r, tg, visits, tests);
+    if (has && r == 0) {
+      t_out[ray] = tg;
+      idx_out[ray] = hit;
+      cnt_out[2 * ray] = visits;
+      cnt_out[2 * ray + 1] = tests;
+      float tr;
+      int v = 0, n = 0;
+      idx_ref[ray] = nodes == nullptr
+                         ? izpi::closest_hit(sc, ro, rd, t[k], izpi::kTMin, izpi::kTMax, tr)
+                         : izpi::bvh4_closest(nodes, bvh_prims, ro, rd, t[k], izpi::kTMin,
+                                              izpi::kTMax, tr, v, n);
+      t_ref[ray] = tr;
+      cnt_ref[2 * ray] = v;
+      cnt_ref[2 * ray + 1] = n;
     }
   });
 }
@@ -296,6 +339,7 @@ def host(tmp_path_factory):
                                    p, p])
     lib.fwd.argtypes = ([p, p, i, p, p, p, p, i, p, p, p, p, i, p, p, p, p, i,
                          i, f, f, f, i] + [p] * 5)
+    lib.group_hits.argtypes = [p, p, i, p, p, p, p, p, i, i] + [p] * 6
     return lib
 
 
@@ -420,3 +464,101 @@ def test_reverse_kernel_places_slots_on_host(host, n):
     assert torch.equal(g[:total].view(torch.int32),
                        w_g[:total].view(torch.int32))
     assert bool((rows[total:] == -5).all()) and bool(g[total:].isnan().all())
+
+
+def _random_rays(n, seed, lo, hi):
+    """n rays from points in the box [lo, hi]³ in random directions, at
+    random times, from numpy's seed."""
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    t = rs.rand(n).astype(np.float32)
+    return tuple(torch.as_tensor(x) for x in (o, d, t))
+
+
+def _group_hits(host, prim_f, prim_i, n_prims, bvh, rays, g):
+    """(t, index, counts) of the rays by groups of g lanes and by one lane."""
+    o, d, t = rays
+    n = o.shape[0]
+    out = [torch.full((n,), torch.nan), torch.full((n,), -7, dtype=torch.int32),
+           torch.full((n, 2), -7, dtype=torch.int32)]
+    ref = [torch.full((n,), torch.nan), torch.full((n,), -7, dtype=torch.int32),
+           torch.full((n, 2), -7, dtype=torch.int32)]
+    host.group_hits(_p(prim_f), _p(prim_i), n_prims,
+                    _p(None if bvh is None else bvh.nodes),
+                    _p(None if bvh is None else bvh.prim_table), _p(o), _p(d),
+                    _p(t), n, g, *[_p(x) for x in out + ref])
+    return out, ref
+
+
+@pytest.mark.parametrize("g", diff_trace.GROUPS)
+def test_group_closest_hit_equals_one_lane_on_host(host, g):
+    """The forward kernel's closest hit taken by groups of g lanes (each
+    lane a share of the primitives, the group's lexicographic least (t,
+    index)) against one lane's `closest_hit`, as host C++, bit for bit: on
+    the Cornell box's camera rays and rays in random directions from inside
+    it, and on its primitive table twice over, where every hit is an exact-t
+    tie that the first copy must win."""
+    cs, meta, intersect = _context("cornell_box")
+    scene = diff_trace.prepare(cs, meta, intersect)
+    o, d, tme, _ = _rays(cs, 8)
+    rays = [torch.cat([a, b]).contiguous() for a, b in zip(
+        (o, d, tme), _random_rays(192, 3, 20.0, 530.0))]
+    n_p = meta.n_prims
+    for twice in (False, True):
+        prim_f = torch.cat([scene.prim_f] * (2 if twice else 1)).contiguous()
+        prim_i = torch.cat([scene.prim_i] * (2 if twice else 1)).contiguous()
+        (t, idx, _), (t_ref, idx_ref, _) = _group_hits(
+            host, prim_f, prim_i, prim_f.shape[0], None, rays, g)
+        assert torch.equal(idx, idx_ref) and torch.equal(
+            t.view(torch.int32), t_ref.view(torch.int32))
+        hits = idx >= 0
+        assert float(hits.float().mean()) > 0.5
+        assert bool((idx[hits] < n_p).all()) or not twice
+
+
+@pytest.mark.parametrize("g", diff_trace.GROUPS)
+def test_group_bvh_traversal_equals_one_lane_on_host(host, g):
+    """`bvh4_closest_group` with groups of g lanes against `bvh4_closest`
+    on cornell_box_obj's tree, as host C++: t bit for bit, the primitive,
+    and the nodes popped and primitives tested a ray equal, on its camera
+    rays and on rays in random directions from inside the box."""
+    cs, meta, intersect = _context("cornell_box_obj")
+    scene = diff_trace.prepare(cs, meta, intersect)
+    o, d, tme, _ = _rays(cs, 8)
+    rays = [torch.cat([a, b]).contiguous() for a, b in zip(
+        (o, d, tme), _random_rays(192, 4, 20.0, 530.0))]
+    (t, idx, cnt), (t_ref, idx_ref, cnt_ref) = _group_hits(
+        host, scene.prim_f, scene.prim_i, meta.n_prims, scene.bvh, rays, g)
+    assert torch.equal(idx, idx_ref) and torch.equal(
+        t.view(torch.int32), t_ref.view(torch.int32))
+    assert torch.equal(cnt, cnt_ref)
+    assert float((idx >= 0).float().mean()) > 0.5
+    assert int(cnt[:, 1].max()) > 4   # leaves of several primitives
+
+
+def test_probe_on_host_sees_every_group_size(host, ctx):
+    """The forward kernel's probe instance as host C++ at depth 50, where a
+    warp's last paths run with few others: its outputs equal the main
+    instance's bit for bit, each warp's passes are its longest path, and
+    passes ran at every group size, 1 to 32 lanes a path (at depth 8 the
+    16² frame's warps never get below 3 live paths)."""
+    name, (cs, meta, intersect) = ctx
+    scene = diff_trace.prepare(cs, meta, intersect)
+    settings = path.RenderSettings(max_depth=50)
+    rays = [x.contiguous() for x in _rays(cs)]
+    main = _host_forward(host, scene, cs, meta, settings, *rays)
+    rows = torch.zeros((-(-N * N // diff_trace.WARP_PATHS),
+                        len(diff_trace.PROBE_COLUMNS)), dtype=torch.int64)
+    probed = _host_forward(host, scene, cs, meta, settings, *rays,
+                           probe=rows)
+    live = torch.arange(50)[:, None] < main[1][None, :]
+    assert torch.equal(probed[0].view(torch.int32), main[0].view(torch.int32))
+    assert torch.equal(probed[1], main[1])
+    assert torch.equal(probed[2][live], main[2][live])
+    assert torch.equal(probed[3][live], main[3][live])
+    summary = diff_trace.probe_summary(rows, probed[1])
+    assert summary["passes_equal_longest"]
+    assert summary["bounces"] == int(main[1].sum())
+    assert all(v > 0 for v in summary["passes_by_group"].values()), summary[
+        "passes_by_group"]
