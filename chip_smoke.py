@@ -3367,13 +3367,18 @@ def main() -> None:
         if name not in usage:
             raise AssertionError(f"no ptxas report of {name} in {log}")
     trav_build = traversal_build(usage, "grid")
-    for name in ("diff_trace_fwd", "diff_trace_fwd_bvh", "diff_trace_bwd"):
+    for name, how in (("diff_trace_fwd", "a warp's 32 paths, one a lane"),
+                      ("diff_trace_fwd_bvh", "one thread a path"),
+                      ("diff_trace_fwd_probe", "the probe, never on a main path"),
+                      ("diff_trace_fwd_bvh_probe",
+                       "the probe, never on a main path"),
+                      ("diff_trace_bwd", "one thread a path")):
         if name not in usage:
             raise AssertionError(f"no ptxas report of {name} in {log}")
         u = usage[name]
         print(f"grid: {name}: {u.registers} registers, spill stores "
               f"{u.spill_stores} B, loads {u.spill_loads} B, stack frame "
-              f"{u.stack_frame} B; one thread a path, 128 a block", flush=True)
+              f"{u.stack_frame} B; {how}, 128 a block", flush=True)
 
     # 3. Cipher, bit for bit.
     rs = np.random.RandomState(0)

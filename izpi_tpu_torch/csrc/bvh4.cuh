@@ -1,11 +1,9 @@
 // Closest hit through a BVH4 for one ray, with a 64-entry stack in the
 // thread's local memory: the traversal of bvh4_traverse.cu and of the
 // forward kernel's BVH form (diff_trace.cu), one thread per ray
-// (bvh4_closest); of the RGB megakernel's BVH form (megakernel_rgb.cu,
+// (bvh4_closest), and of the RGB megakernel's BVH form (megakernel_rgb.cu,
 // one path per thread from the camera to the deposit), the same visits
-// taken by a warp together (bvh4_closest_warp); and of the forward
-// kernel's BVH form once its warp has fewer paths than lanes, one ray's
-// visits taken by a group of lanes (bvh4_closest_group).
+// taken by a warp together (bvh4_closest_warp).
 //
 // A visit pops one node, slab-tests its four children against the ray's
 // shrinking best t (the reference's tMax shrink, bvh4.go:130), tests the
@@ -263,93 +261,6 @@ __device__ __forceinline__ int bvh4_closest_warp(const int* __restrict__ nodes,
   tally.done(active, my_visits, my_tests);
   visits += my_visits;
   tests += my_tests;
-  t_out = t_best;
-  return best;
-}
-
-// bvh4_closest for one ray taken by a group of G lanes of a warp (G a
-// power of two; the groups are the warp's aligned runs of G lanes; lane r
-// of its group): every lane of the warp calls it, with its group's ray and
-// `has` false where the group serves none, since it holds warp
-// collectives. The first W = min(G, 4) lanes of a group take each visit
-// together: each pops the same node from its own copy of the stack and
-// slab-tests its four children against the best t at the pop (four
-// independent slab tests of one node row: little latency to split), then
-// lane r tests the primitives r, r + W, ... of the hit leaves, numbered in
-// bvh4_closest's order (slot by slot, each leaf's run in order), each
-// against that best t. The group takes the lexicographic least (t,
-// number) of the tests that beat it, which is the primitive bvh4_closest's
-// running strict < keeps (a primitive it rejects at a smaller running best
-// loses to the earlier one that set it), and each lane pushes the same
-// children. So the group pops, culls and tests exactly bvh4_closest's nodes
-// and primitives, in its order, and the W lanes return its (t, primitive)
-// and add its visits and tests; the lanes past them only take part in the
-// collectives (and return -1).
-__device__ __forceinline__ int bvh4_closest_group(const int* __restrict__ nodes,
-                                                  const float* __restrict__ prims, bool has,
-                                                  V3 o, V3 d, float tme, float t_min,
-                                                  float t_max, int G, int r, float& t_out,
-                                                  int& visits, int& tests) {
-  const int W = G < 4 ? G : 4;
-  const float od[3] = {o.x, o.y, o.z};
-  const float inv[3] = {1.0f / (d.x == 0.0f ? kInvEps : d.x), 1.0f / (d.y == 0.0f ? kInvEps : d.y),
-                        1.0f / (d.z == 0.0f ? kInvEps : d.z)};
-  const bool live = !(isnan(o.x) || isnan(o.y) || isnan(o.z) || isnan(d.x) || isnan(d.y) ||
-                      isnan(d.z));
-  float t_best = t_max;
-  int best = -1;
-  int stack[kStack];
-  int sp = 0;
-  if (has && r < W) stack[sp++] = 0;
-  for (;;) {
-    const bool more = sp > 0;
-    if (!__any_sync(0xffffffffu, more)) break;
-    float bt = t_best;       // the lane's least (t, number, primitive)
-    int bq = 0x7fffffff, bp = -1;
-    float key[4];
-    bool hit[4];
-    int ch[4], cnt[4];
-    if (more) {
-      const int node = stack[--sp];
-      ++visits;
-      bvh4_children(nodes, node, od, inv, live, t_min, t_best, key, hit, ch, cnt);
-      int q = 0;  // the number of the slot's first primitive
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        if (!(hit[s] && cnt[s] > 0)) continue;
-        tests += cnt[s];
-        for (int k = (r - q % W + W) % W; k < cnt[s]; k += W) {
-          const int p = ch[s] + k;
-          const float* g = prims + (size_t)p * kPrimWords;
-          float t;
-          const bool ok = prim_test(g, __float_as_int(__ldg(g + 12)), o, d, tme, t_min, t_best, t);
-          if (ok && t < bt) {
-            bt = t;
-            bq = q + k;
-            bp = p;
-          }
-        }
-        q += cnt[s];
-      }
-    }
-    for (int m = 1; m < W; m <<= 1) {
-      const float ot = __shfl_xor_sync(0xffffffffu, bt, m);
-      const int oq = __shfl_xor_sync(0xffffffffu, bq, m);
-      const int op = __shfl_xor_sync(0xffffffffu, bp, m);
-      if (ot < bt || (ot == bt && oq < bq)) {
-        bt = ot;
-        bq = oq;
-        bp = op;
-      }
-    }
-    if (more) {
-      if (bp >= 0) {
-        t_best = bt;
-        best = bp;
-      }
-      bvh4_push(key, ch, hit, cnt, stack, sp);
-    }
-  }
   t_out = t_best;
   return best;
 }

@@ -29,25 +29,36 @@
 // memory grows by one small record a bounce, where JAX keeps the scan's
 // carry and recomputes the rest.
 //
-// izpi_diff_trace_fwd: one thread a path (the step's camera rays, made by
-// the cipher entry's new-sample form). The path's bounces run in the
-// thread from the camera to the end (a miss, a light, or max_depth
-// bounces), with the lazy draws of draws.cuh: a bounce ciphers only the
-// pairs its material and branch read. The forward is the differentiable
-// bounce's (path.py bounce_rgb, differentiable=True): a non-finite ratio
-// weighs 0, a degenerate NEE direction is zeroed before its cosine, and
-// the depth cap adds the {Z:1} sentinel. Each live bounce writes one record
-// of 20 bytes, planes of (bounce, path): thru_k and ratio_k as a float4,
-// and (row << 3) | code as an int, the row being the flat row of the
-// stacked [c0; c1] table it gathered (c1's rows after c0's). A path's
-// records end at its ray count, written with its radiance.
+// izpi_diff_trace_fwd: each path (the step's camera rays, made by the
+// cipher entry's new-sample form) from the camera to its end (a miss, a
+// light, or max_depth bounces), a warp's 32 paths one a lane. The forward
+// is the differentiable bounce's (path.py bounce_rgb, differentiable=True):
+// a non-finite ratio weighs 0, a degenerate NEE direction is zeroed before
+// its cosine, and the depth cap adds the {Z:1} sentinel. Each live bounce
+// writes one record of 20 bytes, planes of (bounce, path): thru_k and
+// ratio_k as a float4, and (row << 3) | code as an int, the row being the
+// flat row of the stacked [c0; c1] table it gathered (c1's rows after
+// c0's). A path's records end at its ray count, written with its radiance.
 //
-// The closest hit is a template argument, as in megakernel_rgb.cu's
-// render_loop: every primitive (common.cuh closest_hit) or the BVH4
-// traversal (bvh4.cuh). The one-bounce shading is copied from render_loop,
-// not shared through a header: the differentiable bounce's guards and the
-// record differ from it, and factoring it would put the RGB megakernel's
-// register allocation (96, no spill) and its images at stake.
+// Why a warp's paths share its lanes. At the step's 1 spp the paths end
+// at every depth (a Cornell step: 5.26 bounces on average, the longest of
+// a warp's 32 paths 19.9, 76 of 65,536 at the cap of 50), so a warp whose
+// lanes each trace their own path runs at a quarter of its lanes, and the
+// launch ends with a few paths' bounces, each at its full latency: the
+// primitive tests in a row, a chain of Threefry calls. In the brute-force
+// form (forward_warp) a lane whose path has ended stays in the loop and
+// helps: at L live paths each gets 32 / next_pow2(L) lanes, which split
+// its closest hit and draw its pairs, while its owner keeps the shading,
+// the record and its state, in one thread a path's order of operations.
+// The BVH form (forward_path) keeps one thread a path: a warp pass a
+// bounce, with or without groups splitting the leaves, measured slower
+// there (PERF.md). Both give every output the bits of one thread a path.
+//
+// The one-bounce shading (bounce_hit, bounce_scatter) is copied from
+// megakernel_rgb.cu's render_loop, not shared through a header: the
+// differentiable bounce's guards and the record differ from it, and
+// factoring it would put the RGB megakernel's register allocation (96, no
+// spill) and its images at stake.
 //
 // izpi_diff_trace_bwd: first diff_trace_block_counts, the records of each
 // block of kThreads paths; then diff_trace_bwd, one thread a path. Its
@@ -66,7 +77,7 @@
 // bytes. The reverse is memory-bound: the records read, a (row,
 // cotangent) slot written a record, the counts and cotangents of the paths
 // beside them.
-// Both keep a path in one thread's registers, so the bounce's state never
+// Both keep a path in one lane's registers, so the bounce's state never
 // goes through device memory but as the record the reverse walk reads.
 //
 // The forward's probe instance (izpi_diff_trace_fwd_probe, ops/diff_trace.py
@@ -96,16 +107,13 @@ constexpr int kScatter = 3;    // a diffuse bounce: mult = albedo · ratio
 constexpr int kRefract = 4;    // a dielectric: mult = 1
 constexpr int kCodeBits = 3;
 
-// The paths a warp owns: lane l owns path warp · kWarpPaths + l, for l <
-// kWarpPaths.
-constexpr int kWarpPaths = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The probe instance's columns, a row of u64 a warp (ops/diff_trace.py
 // PROBE_COLUMNS): the warp's bounce passes; its live lanes' clock64 cycles
 // in their bounces, and within them in the closest hit and in the cipher;
 // the %globaltimer (ns) at the warp's start and end; its passes by lanes a
-// path (1, 2, ..., 32).
+// path (1, 2, ..., 32), and their clock64 cycles (ballot to ballot).
 enum ProbeColumn : int {
   kPrPasses = 0,
   kPrCyBounce,
@@ -113,8 +121,9 @@ enum ProbeColumn : int {
   kPrCyDraws,
   kPrStart,
   kPrEnd,
-  kPrPassesG1,  // then G2, G4, G8, G16, G32
-  kProbeColumns = kPrPassesG1 + 6
+  kPrPassesG1,                // then G2, G4, G8, G16, G32
+  kPrCyPassG1 = kPrPassesG1 + 6,  // then G2, ..., G32
+  kProbeColumns = kPrCyPassG1 + 6
 };
 
 // The device's wall clock in ns (%globaltimer), for the probe's start and
@@ -143,13 +152,8 @@ __device__ __forceinline__ void group_min(float& t, int& q, int G) {
   }
 }
 
-// The closest hit over every primitive: one lane's (closest_hit), or a
-// group's.
+// The closest hit over every primitive.
 struct BruteHit {
-  __device__ __forceinline__ int operator()(const Scene& sc, V3 o, V3 d, float tme,
-                                            float t_min, float t_max, float& t) const {
-    return closest_hit(sc, o, d, tme, t_min, t_max, t);
-  }
   // closest_hit taken by the G lanes of an aligned group (lane r of it;
   // `has` false where the group serves no ray): lane r tests primitives r,
   // r + G, ...; the group's lexicographic least (t, index) of the hits
@@ -179,21 +183,14 @@ struct BruteHit {
 };
 
 // The closest hit through the BVH4 over the scene's (tree-ordered)
-// primitives: one lane's (bvh4_closest), or a group's (bvh4_closest_group).
+// primitives, one lane's.
 struct BvhHit {
   const int* __restrict__ nodes;
   const float* __restrict__ prims;
-  __device__ __forceinline__ int operator()(const Scene& /*sc*/, V3 o, V3 d, float tme,
-                                            float t_min, float t_max, float& t) const {
+  __device__ __forceinline__ int operator()(V3 o, V3 d, float tme, float t_min, float t_max,
+                                            float& t) const {
     int visits = 0, tests = 0;
     return bvh4_closest(nodes, prims, o, d, tme, t_min, t_max, t, visits, tests);
-  }
-  __device__ __forceinline__ int group(const Scene& /*sc*/, bool has, V3 o, V3 d, float tme,
-                                       float t_min, float t_max, int G, int r,
-                                       float& t_out) const {
-    int visits = 0, tests = 0;
-    return bvh4_closest_group(nodes, prims, has, o, d, tme, t_min, t_max, G, r, t_out, visits,
-                              tests);
   }
 };
 
@@ -245,40 +242,198 @@ __device__ __forceinline__ int nth_lane(unsigned mask, int k) {
   return lane;
 }
 
-// A diffuse bounce's pairs, in the order a group draws them: pair 4, which
-// picks the lobe, the light sample's 5, 0, 1, 2 and the cosine lobe's 3;
-// a dielectric draws pair 3 alone.
-__device__ __forceinline__ uint32_t group_pair(int want, int q) {
-  return want == 1 ? 3u : (0x321054u >> (4 * q)) & 0xFu;
+// The bounce pairs in the order a group draws them (draws.cuh): pair 4,
+// which picks a diffuse bounce's lobe, the light sample's 5, 0, 1, 2 and
+// the cosine lobe's and a dielectric's 3. want: 6, a diffuse bounce's
+// (both lobes'), or 1, a dielectric's (the last alone).
+__device__ __forceinline__ uint32_t group_pair(int q) { return (0x321054u >> (4 * q)) & 0xFu; }
+__device__ __forceinline__ bool group_draws(int want, int q) {
+  return want == 6 || (want == 1 && q == 5);
 }
 
-// The warp's paths (lane l owns path warp · kWarpPaths + l), each from its
+// Pair `pair` of the bounce keyed (b0, b1): uniforms pair and pair + 6.
+__device__ __forceinline__ void draw_pair(uint32_t b0, uint32_t b1, uint32_t pair, float& u,
+                                          float& u6) {
+  uint32_t x0 = pair, x1 = pair + 6u;
+  threefry2x32(b0, b1, x0, x1);
+  u = bits_to_uniform(x0);
+  u6 = bits_to_uniform(x1);
+}
+
+// One lane's draws for a scattering bounce of the path keyed (k0, k1) at
+// `depth` (want: group_draws): the pairs draws.cuh's lazy draws would
+// give, the light sample's four as independent chains. us: the uniforms
+// of the pairs drawn.
+__device__ __forceinline__ void draw_bounce(uint32_t k0, uint32_t k1, int depth, int want,
+                                            float (&us)[12]) {
+  uint32_t y0 = 0u, y1 = (uint32_t)depth;  // fold_in(path key, depth)
+  threefry2x32(k0, k1, y0, y1);
+  uint32_t b0 = 0u, b1 = 0u;  // fold_in(., 0): the bounce key
+  threefry2x32(y0, y1, b0, b1);
+  if (want == 6) draw_pair(b0, b1, 4u, us[4], us[10]);
+  if (want == 6 && us[4] < 0.5f) {
+#pragma unroll
+    for (int q = 1; q < 5; ++q) {
+      draw_pair(b0, b1, group_pair(q), us[group_pair(q)], us[group_pair(q) + 6]);
+    }
+  } else {
+    draw_pair(b0, b1, 3u, us[3], us[9]);
+  }
+}
+
+// A bounce at its closest hit, up to its draws (path.py bounce_rgb,
+// differentiable=True): the hit point, record normal, material and texture
+// row, and whether it scatters (want: its pairs, group_draws). A miss adds
+// the background to rad, a light it faces its radiance.
+struct Bounce {
+  int code = kMiss, row = 0, kind = kLambert, want = 0;
+  bool scat = false;
+  V3 p, n, albedo;
+  const float* M = nullptr;
+};
+
+__device__ __forceinline__ Bounce bounce_hit(const Scene& sc, const Tex& tex, V3 bg, int hit,
+                                             float t, V3 o, V3 d, float tme, V3 thru, V3& rad) {
+  Bounce b;
+  b.p = o;
+  if (hit < 0) {
+    rad = rad + thru * bg;
+    return b;
+  }
+  b.p = o + d * t;
+  b.n = record_normal(sc, hit, o, d, tme, b.p);
+  const int mat = sc.prim_i[hit * kPrimI + 1];
+  b.M = sc.mat_f + mat * kMatF;
+  const int* Mi = sc.mat_i + mat * kMatI;
+  b.kind = Mi[0];
+  b.row = Mi[3];
+  if (Mi[1] != 0) {  // 3D sine checker (texture/checker.go:26): c1 unless negative
+    const float sines = sinf(10.0f * b.p.x) * sinf(10.0f * b.p.y) * sinf(10.0f * b.p.z);
+    if (!(sines < 0.0f)) b.row += tex.n_tex;
+  }
+  b.albedo = tex.row(b.row);
+  // One-sided light keyed on the record normal (diffuselight.go:49-63);
+  // thru * 0 on every other hit, as the plain bounce adds it.
+  const bool emits = b.kind == kDiffuseLight && dot(b.n, d) < 0.0f;
+  rad = rad + thru * (emits ? b.albedo : mk(0.0f, 0.0f, 0.0f));
+  if (b.kind == kDiffuseLight) {
+    b.code = emits ? kEmit : kNone;
+  } else {
+    b.scat = true;
+    b.want = b.kind == kDielectric ? 1 : 6;
+  }
+  return b;
+}
+
+// The rest of a scattering bounce b of direction d from its uniforms us:
+// its code, its next direction and, for a diffuse bounce, its ratio and
+// throughput factor.
+__device__ __forceinline__ void bounce_scatter(const Scene& sc, const Bounce& b, V3 d,
+                                               const float (&us)[12], float cos_scale, int& code,
+                                               float& ratio, V3& d_new, V3& mult) {
+  if (b.kind == kDielectric) {  // dielectric.go:66-102, raw direction, no absorption
+    code = kRefract;
+    const float ref_idx = b.M[7];
+    const V3 reflected = reflect(d, b.n);
+    const float d_dot_n = dot(d, b.n);
+    const bool exiting = d_dot_n > 0.0f;
+    const V3 outward = exiting ? -b.n : b.n;
+    const float ni = exiting ? ref_idx : 1.0f / ref_idx;
+    const float dlen = length(d);
+    const float cosine = exiting ? ref_idx * d_dot_n / dlen : -d_dot_n / dlen;
+    const V3 uv = normalize(d);
+    const float dt = dot(uv, outward);
+    const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
+    const V3 refracted = (uv - outward * dt) * ni - outward * sqrtf(clamp_min(disc, 0.0f));
+    float r0 = (1.0f - ref_idx) / (1.0f + ref_idx);
+    r0 = r0 * r0;
+    const float schlick = r0 + (1.0f - r0) * powf(1.0f - cosine, 5.0f);
+    const bool is_refl = us[3] < (disc > 0.0f ? schlick : 1.0f);
+    d_new = is_refl ? reflected : refracted;
+    return;
+  }
+  // diffuse: mixture of light and cosine pdfs (colour.go:48-57)
+  code = kScatter;
+  V3 d_diff;
+  if (us[4] < 0.5f) {
+    d_diff = lights_sample(sc, b.p, us[5], us[6], us[7], us[8]);
+  } else {
+    V3 ou, ov, ow;
+    onb_from_w(b.n, ou, ov, ow);
+    const float zc = sqrtf(1.0f - us[10]);
+    const float phic = kTwoPi * us[9];
+    const float rc = cos_scale * sqrtf(us[10]);
+    d_diff = ou * (cosf(phic) * rc) + ov * (sinf(phic) * rc) + ow * zc;
+  }
+  const V3 dd_unit = normalize(d_diff);
+  const float cos_lobe = dot(dd_unit, normalize(b.n));
+  const float pdf_cos = cos_lobe > 0.0f ? cos_lobe / kPi : 0.0f;
+  const float pdf_val = 0.5f * lights_pdf(sc, b.p, d_diff) + 0.5f * pdf_cos;
+  // The differentiable bounce's guards (path.py bounce_rgb): a degenerate
+  // direction is zeroed before its cosine, and a sample of no finite ratio
+  // weighs 0.
+  const V3 du =
+      mk(finite_or_zero(dd_unit.x), finite_or_zero(dd_unit.y), finite_or_zero(dd_unit.z));
+  const float spdf = b.kind == kLambert ? clamp_min(dot(b.n, du), 0.0f) / kPi : 0.0f;
+  const bool pos = pdf_val > 0.0f;
+  const float r = spdf / (pos ? pdf_val : 1.0f);
+  ratio = pos && isfinite(r) ? r : 0.0f;
+  d_new = d_diff;
+  mult = b.albedo * ratio;
+}
+
+// Record `depth` of path i: the throughput before the bounce, its ratio,
+// and the row it gathered with its code.
+__device__ __forceinline__ void write_record(const FwdArgs& a, int depth, int i, V3 thru,
+                                             float ratio, int code, int row) {
+  const size_t slot = (size_t)depth * a.n + i;
+  float4 rf;
+  rf.x = thru.x;
+  rf.y = thru.y;
+  rf.z = thru.z;
+  rf.w = ratio;
+  reinterpret_cast<float4*>(a.rec_f)[slot] = rf;
+  a.rec_i[slot] = ((code == kEmit || code == kScatter ? row : 0) << kCodeBits) | code;
+}
+
+// Path i's radiance and rays at its end, with the depth cap's {Z:1}
+// sentinel (colour.go:34-36) if its last bounce scattered.
+__device__ __forceinline__ void write_path(const FwdArgs& a, int i, V3 rad, V3 thru,
+                                           bool scatters, int depth) {
+  if (scatters) rad = rad + thru * mk(0.0f, 0.0f, 1.0f);
+  a.rad_out[3 * i + 0] = rad.x;
+  a.rad_out[3 * i + 1] = rad.y;
+  a.rad_out[3 * i + 2] = rad.z;
+  a.cnt_out[i] = depth;
+}
+
+// The warp's paths (lane l owns path 32 · warp + l), each from its
 // camera ray to its end (a miss, a light, or max_depth bounces), a bounce a
-// pass for every live path. A path's state (ray, throughput, radiance,
-// depth) stays in its owner's registers. At L live paths each gets a group
-// of G = group_lanes(L) lanes:
-// - G == 1: each owner traces, draws and shades its own bounce, as one
-//   thread a path does (closest, Draws);
-// - G > 1: group g serves the g-th live lane's path. Its lanes take the
-//   path's ray (__shfl_sync) and split the closest hit (closest.group);
-//   then the bounce key's two fold-ins and the pairs of the owner's
-//   material (group_pair), one pair a lane a round, which go back to the
-//   owner: Threefry is counter-based, so a pair another lane draws has the
-//   bits the owner's Draws would give, and a pair the shading does not
-//   read changes nothing.
-// The shading, the record and the path's throughput and radiance are the
-// owner's alone, in one thread a path's order of operations, so every
-// output keeps its bits whatever G. Every collective is reached by the
-// whole warp once a pass (G is the same in every lane). kProbe: the
+// pass for every live path: the brute-force form. A path's state (ray,
+// throughput, radiance, depth) stays in its owner's registers. At L live
+// paths each gets a group of G = group_lanes(L) lanes: at G == 1 each live
+// lane serves its own path; at G > 1 group g (lanes gG .. gG + G - 1)
+// serves the g-th live lane's, whose ray it takes by __shfl_sync. A pass:
+// - the closest hit, at one call site for every G (closest.group: one copy
+//   of the scan's code): at G > 1 the group splits the primitives;
+// - the draws of the owner's material: at G == 1 the owner's
+//   (draw_bounce); at G > 1 the group's, the bounce key's two fold-ins in
+//   every lane, then the pairs one a lane a round (group_pair), which go
+//   back to the owner: Threefry is counter-based, so a pair another lane
+//   draws has the bits the owner would draw, and a pair the shading does
+//   not read changes nothing;
+// - the shading, the record and the path's throughput and radiance: the
+//   owner's alone (bounce_hit, bounce_scatter), the operations of one
+//   thread a path in its order.
+// So every output keeps its bits whatever G. Every collective is reached
+// by the whole warp once a pass (G is the same in every lane). kProbe: the
 // warp's counts into its row of a.probe_out.
-template <bool kProbe, class Hit>
-__device__ __forceinline__ void forward_warp(const Hit& closest, const Scene& sc, const Tex& tex,
-                                             const FwdArgs& a) {
-  const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int i = warp * kWarpPaths + lane;
-  const int n = a.n;
-  const bool owns = lane < kWarpPaths && i < n;
+template <bool kProbe>
+__device__ __forceinline__ void forward_warp(const BruteHit& closest, const Scene& sc,
+                                             const Tex& tex, const FwdArgs& a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = i & 31;
+  const bool owns = i < a.n;
   V3 o = mk(0.0f, 0.0f, 0.0f), d = o;
   float tme = 0.0f;
   uint32_t k0 = 0u, k1 = 0u;
@@ -297,217 +452,193 @@ __device__ __forceinline__ void forward_warp(const Hit& closest, const Scene& sc
 
   unsigned long long pc[kProbe ? kProbeColumns : 1] = {};
   unsigned long long start = 0;
+  long long c_pass = 0;  // the last pass's ballot
+  int g_pass = -1;       // and its column
   if constexpr (kProbe) start = wall_ns();
 
   for (;;) {
     const unsigned ballot = __ballot_sync(kFull, live);
+    if constexpr (kProbe) {
+      const long long now = clock64();
+      if (g_pass >= 0) pc[g_pass] += (unsigned long long)(now - c_pass);
+      c_pass = now;
+    }
     if (ballot == 0u) break;
     const int G = group_lanes(__popc(ballot));
+    const int lg = __ffs(G) - 1;  // G = 1 << lg
     long long c_bounce = 0, c0 = 0;
     if constexpr (kProbe) {
       ++pc[kPrPasses];
-      ++pc[kPrPassesG1 + __ffs(G) - 1];
+      ++pc[kPrPassesG1 + lg];
+      g_pass = kPrCyPassG1 + lg;
       c_bounce = clock64();
     }
-    // The group this lane serves, its path's owner, and the first lane of
-    // the group that serves this lane's own path.
-    const int grp = lane / G, r = lane % G;
-    const bool has = G > 1 && grp < __popc(ballot);
-    const int src = has ? nth_lane(ballot, grp) : lane;
-    const int lead = live ? __popc(ballot & ((1u << lane) - 1u)) * G : lane;
+    // The group this lane serves (G == 1: each live lane its own path), its
+    // path's owner, and the first lane of the group that serves this lane's
+    // own path.
+    const int grp = lane >> lg, r = lane & (G - 1);
+    const bool has = G == 1 ? live : grp < __popc(ballot);
+    const int src = G == 1 || !has ? lane : nth_lane(ballot, grp);
+    const int lead = G == 1 || !live ? lane : __popc(ballot & ((1u << lane) - 1u)) << lg;
 
-    // The closest hit.
-    float t = kTMax;
-    int hit = -1;
-    if (G == 1) {
-      if (live) hit = closest(sc, o, d, tme, kTMin, kTMax, t);
-    } else {
-      const V3 go = mk(__shfl_sync(kFull, o.x, src), __shfl_sync(kFull, o.y, src),
-                       __shfl_sync(kFull, o.z, src));
-      const V3 gd = mk(__shfl_sync(kFull, d.x, src), __shfl_sync(kFull, d.y, src),
-                       __shfl_sync(kFull, d.z, src));
-      const float gt = __shfl_sync(kFull, tme, src);
-      float tg;
-      const int hg = closest.group(sc, has, go, gd, gt, kTMin, kTMax, G, r, tg);
-      t = __shfl_sync(kFull, tg, lead);
-      hit = __shfl_sync(kFull, hg, lead);
-    }
+    // The closest hit, at one call site whatever G.
+    const V3 go = mk(__shfl_sync(kFull, o.x, src), __shfl_sync(kFull, o.y, src),
+                     __shfl_sync(kFull, o.z, src));
+    const V3 gd = mk(__shfl_sync(kFull, d.x, src), __shfl_sync(kFull, d.y, src),
+                     __shfl_sync(kFull, d.z, src));
+    const float gt = __shfl_sync(kFull, tme, src);
+    float tg;
+    const int hg = closest.group(sc, has, go, gd, gt, kTMin, kTMax, G, r, tg);
+    const float t = __shfl_sync(kFull, tg, lead);
+    const int hit = __shfl_sync(kFull, hg, lead);
     if constexpr (kProbe) pc[kPrCyHit] += live ? (unsigned long long)(clock64() - c_bounce) : 0;
 
     // The bounce up to its draws (the owner's).
-    int code = kMiss, row = 0, kind = kLambert, want = 0;
-    float ratio = 0.0f;
-    V3 p = o, d_new = d, mult = mk(1.0f, 1.0f, 1.0f), n_rec = o, albedo = o;
-    const float* M = nullptr;
-    bool scat = false;  // this bounce scatters
-    if (live) {
-      if (hit < 0) {
-        rad = rad + thru * a.bg;
-      } else {
-        p = o + d * t;
-        n_rec = record_normal(sc, hit, o, d, tme, p);
-        const int mat = sc.prim_i[hit * kPrimI + 1];
-        M = sc.mat_f + mat * kMatF;
-        const int* Mi = sc.mat_i + mat * kMatI;
-        kind = Mi[0];
-        row = Mi[3];
-        if (Mi[1] != 0) {  // 3D sine checker (texture/checker.go:26): c1 unless negative
-          const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y) * sinf(10.0f * p.z);
-          if (!(sines < 0.0f)) row += tex.n_tex;
-        }
-        albedo = tex.row(row);
-        // One-sided light keyed on the record normal (diffuselight.go:49-63);
-        // thru * 0 on every other hit, as the plain bounce adds it.
-        const bool emits = kind == kDiffuseLight && dot(n_rec, d) < 0.0f;
-        rad = rad + thru * (emits ? albedo : mk(0.0f, 0.0f, 0.0f));
-        if (kind == kDiffuseLight) {
-          code = emits ? kEmit : kNone;
-        } else {
-          scat = true;
-          want = kind == kDielectric ? 1 : 6;
-        }
-      }
-    }
+    Bounce b;
+    if (live) b = bounce_hit(sc, tex, a.bg, hit, t, o, d, tme, thru, rad);
 
     // The draws: us holds the uniforms of the pairs the bounce reads.
     if constexpr (kProbe) c0 = clock64();
-    Draws<false> dr;
-    float* us = dr.us;
+    float us[12];
     if (G == 1) {
-      if (scat) {
-        dr.clear();
-        dr.bounce(k0, k1, (uint32_t)depth, want == 1 ? kPairsDielectric : kPairsDiffuse);
-        dr.run(0u, 0u, k0, k1, (uint32_t)depth);
-      }
-    } else if (__any_sync(kFull, want > 0)) {
-      const int g_want = __shfl_sync(kFull, want, src);
+      if (b.scat) draw_bounce(k0, k1, depth, b.want, us);
+    } else if (__any_sync(kFull, b.want > 0)) {
+      const int g_want = __shfl_sync(kFull, b.want, src);
       const uint32_t gk0 = (uint32_t)__shfl_sync(kFull, (int)k0, src);
       const uint32_t gk1 = (uint32_t)__shfl_sync(kFull, (int)k1, src);
       const int g_depth = __shfl_sync(kFull, depth, src);
       // Lane r draws the group's pairs r, r + G, r + 2G (G >= 2: at most 3).
       float ua[3] = {0.0f, 0.0f, 0.0f}, ub[3] = {0.0f, 0.0f, 0.0f};
-      if (has && r < g_want) {
+      if (has && g_want > 0) {
         uint32_t y0 = 0u, y1 = (uint32_t)g_depth;  // fold_in(path key, depth)
         threefry2x32(gk0, gk1, y0, y1);
         uint32_t b0 = 0u, b1 = 0u;  // fold_in(., 0): the bounce key
         threefry2x32(y0, y1, b0, b1);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          const int q = r + k * G;
-          if (q < g_want) {
-            const uint32_t pair = group_pair(g_want, q);
-            uint32_t x0 = pair, x1 = pair + 6u;
-            threefry2x32(b0, b1, x0, x1);
-            ua[k] = bits_to_uniform(x0);
-            ub[k] = bits_to_uniform(x1);
-          }
+          const int q = r + (k << lg);
+          if (q < 6 && group_draws(g_want, q)) draw_pair(b0, b1, group_pair(q), ua[k], ub[k]);
         }
       }
-      // Pair q of the owner's list is lane lead + q % G's round q / G.
+      // Pair q is lane lead + q % G's round q / G.
+#pragma unroll
       for (int q = 0; q < 6; ++q) {
-        const int k = q / G;
+        const int k = q >> lg;
         const float va = k == 0 ? ua[0] : (k == 1 ? ua[1] : ua[2]);
         const float vb = k == 0 ? ub[0] : (k == 1 ? ub[1] : ub[2]);
-        const int from = (lead + q % G) & 31;
+        const int from = (lead + (q & (G - 1))) & 31;
         const float fa = __shfl_sync(kFull, va, from);
         const float fb = __shfl_sync(kFull, vb, from);
-        if (q < want) {
-          const uint32_t pair = group_pair(want, q);
-          us[pair] = fa;
-          us[pair + 6] = fb;
+        if (group_draws(b.want, q)) {
+          us[group_pair(q)] = fa;
+          us[group_pair(q) + 6] = fb;
         }
       }
     }
     if constexpr (kProbe) pc[kPrCyDraws] += live ? (unsigned long long)(clock64() - c0) : 0;
 
-    // The rest of the bounce and its record (the owner's).
+    // The rest of the bounce, its record and the path's next ray (the
+    // owner's).
     if (live) {
-      if (scat && kind == kDielectric) {  // dielectric.go:66-102, raw direction, no absorption
-        code = kRefract;
-        const float ref_idx = M[7];
-        const V3 reflected = reflect(d, n_rec);
-        const float d_dot_n = dot(d, n_rec);
-        const bool exiting = d_dot_n > 0.0f;
-        const V3 outward = exiting ? -n_rec : n_rec;
-        const float ni = exiting ? ref_idx : 1.0f / ref_idx;
-        const float dlen = length(d);
-        const float cosine = exiting ? ref_idx * d_dot_n / dlen : -d_dot_n / dlen;
-        const V3 uv = normalize(d);
-        const float dt = dot(uv, outward);
-        const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
-        const V3 refracted =
-            (uv - outward * dt) * ni - outward * sqrtf(clamp_min(disc, 0.0f));
-        float r0 = (1.0f - ref_idx) / (1.0f + ref_idx);
-        r0 = r0 * r0;
-        const float schlick = r0 + (1.0f - r0) * powf(1.0f - cosine, 5.0f);
-        const bool is_refl = us[3] < (disc > 0.0f ? schlick : 1.0f);
-        d_new = is_refl ? reflected : refracted;
-      } else if (scat) {  // diffuse: mixture of light and cosine pdfs (colour.go:48-57)
-        code = kScatter;
-        V3 d_diff;
-        if (us[4] < 0.5f) {
-          d_diff = lights_sample(sc, p, us[5], us[6], us[7], us[8]);
-        } else {
-          V3 ou, ov, ow;
-          onb_from_w(n_rec, ou, ov, ow);
-          const float zc = sqrtf(1.0f - us[10]);
-          const float phic = kTwoPi * us[9];
-          const float rc = a.cos_scale * sqrtf(us[10]);
-          d_diff = ou * (cosf(phic) * rc) + ov * (sinf(phic) * rc) + ow * zc;
-        }
-        const V3 dd_unit = normalize(d_diff);
-        const float cos_lobe = dot(dd_unit, normalize(n_rec));
-        const float pdf_cos = cos_lobe > 0.0f ? cos_lobe / kPi : 0.0f;
-        const float pdf_val = 0.5f * lights_pdf(sc, p, d_diff) + 0.5f * pdf_cos;
-        // The differentiable bounce's guards (path.py bounce_rgb): a
-        // degenerate direction is zeroed before its cosine, and a sample
-        // of no finite ratio weighs 0.
-        const V3 du = mk(finite_or_zero(dd_unit.x), finite_or_zero(dd_unit.y),
-                         finite_or_zero(dd_unit.z));
-        const float spdf = kind == kLambert ? clamp_min(dot(n_rec, du), 0.0f) / kPi : 0.0f;
-        const bool pos = pdf_val > 0.0f;
-        const float rr = spdf / (pos ? pdf_val : 1.0f);
-        ratio = pos && isfinite(rr) ? rr : 0.0f;
-        d_new = d_diff;
-        mult = albedo * ratio;
-      }
-      const size_t slot = (size_t)depth * n + i;
-      float4 rf;
-      rf.x = thru.x;
-      rf.y = thru.y;
-      rf.z = thru.z;
-      rf.w = ratio;
-      reinterpret_cast<float4*>(a.rec_f)[slot] = rf;
-      a.rec_i[slot] = ((code == kEmit || code == kScatter ? row : 0) << kCodeBits) | code;
+      int code = b.code;
+      float ratio = 0.0f;
+      V3 d_new = d, mult = mk(1.0f, 1.0f, 1.0f);
+      if (b.scat) bounce_scatter(sc, b, d, us, a.cos_scale, code, ratio, d_new, mult);
+      write_record(a, depth, i, thru, ratio, code, b.row);
       ++depth;
-      scatters = scat;
-      if (scat) {
+      scatters = b.scat;
+      if (b.scat) {
         thru = thru * mult;
-        o = p;
+        o = b.p;
         d = d_new;
       }
-      live = scat && depth < a.max_depth;
+      live = b.scat && depth < a.max_depth;
       if constexpr (kProbe) pc[kPrCyBounce] += (unsigned long long)(clock64() - c_bounce);
     }
   }
-  if (owns) {
-    // The depth cap: the {Z:1} sentinel (colour.go:34-36).
-    if (scatters) rad = rad + thru * mk(0.0f, 0.0f, 1.0f);
-    a.rad_out[3 * i + 0] = rad.x;
-    a.rad_out[3 * i + 1] = rad.y;
-    a.rad_out[3 * i + 2] = rad.z;
-    a.cnt_out[i] = depth;
-  }
+  if (owns) write_path(a, i, rad, thru, scatters, depth);
   if constexpr (kProbe) {
-    if (warp * kWarpPaths < n) {  // a warp past the paths has no row
-      unsigned long long* row = a.probe_out + (size_t)warp * kProbeColumns;
+    if (i - lane < a.n) {  // a warp past the paths has no row
+      unsigned long long* row = a.probe_out + (size_t)(i >> 5) * kProbeColumns;
       for (int c = kPrCyBounce; c <= kPrCyDraws; ++c) atomicAdd(row + c, pc[c]);
       if (lane == 0) {
         row[kPrPasses] = pc[kPrPasses];
-        for (int g = 0; g < 6; ++g) row[kPrPassesG1 + g] = pc[kPrPassesG1 + g];
+        for (int g = 0; g < 12; ++g) row[kPrPassesG1 + g] = pc[kPrPassesG1 + g];
         row[kPrStart] = start;
         row[kPrEnd] = wall_ns();
       }
+    }
+  }
+}
+
+// Path i from its camera ray to its end in its own lane: the BVH form,
+// whose lanes run apart (a warp pass a bounce measured slower there, with
+// or without groups: PERF.md). Returns its rays. kProbe: adds the bounces'
+// cycles to the lane's probe counts pc.
+template <bool kProbe>
+__device__ __forceinline__ int forward_path(const BvhHit& closest, const Scene& sc,
+                                            const Tex& tex, const FwdArgs& a, int i,
+                                            unsigned long long* pc) {
+  V3 o = ld3(a.ray_o + 3 * i), d = ld3(a.ray_d + 3 * i);
+  const float tme = a.ray_t[i];
+  const uint32_t k0 = (uint32_t)a.keys[2 * i], k1 = (uint32_t)a.keys[2 * i + 1];
+  V3 thru = mk(1.0f, 1.0f, 1.0f);
+  V3 rad = mk(0.0f, 0.0f, 0.0f);
+  int depth = 0;
+  bool scatters = false;
+  while (depth < a.max_depth) {
+    long long c_bounce = 0, c0 = 0;
+    if constexpr (kProbe) c_bounce = clock64();
+    float t;
+    const int hit = closest(o, d, tme, kTMin, kTMax, t);
+    if constexpr (kProbe) pc[kPrCyHit] += (unsigned long long)(clock64() - c_bounce);
+    const Bounce b = bounce_hit(sc, tex, a.bg, hit, t, o, d, tme, thru, rad);
+    int code = b.code;
+    float ratio = 0.0f;
+    V3 d_new = d, mult = mk(1.0f, 1.0f, 1.0f);
+    if (b.scat) {  // draws.cuh's lazy draws: fewer registers than draw_bounce
+      if constexpr (kProbe) c0 = clock64();
+      Draws<false> dr;
+      dr.clear();
+      dr.bounce(k0, k1, (uint32_t)depth, b.want == 1 ? kPairsDielectric : kPairsDiffuse);
+      dr.run(0u, 0u, k0, k1, (uint32_t)depth);
+      if constexpr (kProbe) pc[kPrCyDraws] += (unsigned long long)(clock64() - c0);
+      bounce_scatter(sc, b, d, dr.us, a.cos_scale, code, ratio, d_new, mult);
+    }
+    write_record(a, depth, i, thru, ratio, code, b.row);
+    ++depth;
+    scatters = b.scat;
+    if constexpr (kProbe) pc[kPrCyBounce] += (unsigned long long)(clock64() - c_bounce);
+    if (!scatters) break;
+    thru = thru * mult;
+    o = b.p;
+    d = d_new;
+  }
+  write_path(a, i, rad, thru, scatters, depth);
+  return depth;
+}
+
+// The BVH form's thread: path i (a warp's 32 paths, one a thread); the
+// probe instance writes the warp's row once every lane is done.
+template <bool kProbe>
+__device__ __forceinline__ void forward_thread(const BvhHit& closest, const Scene& sc,
+                                               const Tex& tex, const FwdArgs& a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (!kProbe) {
+    if (i < a.n) forward_path<false>(closest, sc, tex, a, i, nullptr);
+  } else {
+    unsigned long long pc[kProbeColumns] = {};
+    const unsigned long long start = wall_ns();
+    const int rays = i < a.n ? forward_path<true>(closest, sc, tex, a, i, pc) : 0;
+    __syncwarp();
+    const int passes = __reduce_max_sync(kFull, rays);
+    if (i / 32 * 32 >= a.n) return;  // a warp past the paths has no row
+    unsigned long long* row = a.probe_out + (size_t)(i / 32) * kProbeColumns;
+    for (int c = kPrCyBounce; c <= kPrCyDraws; ++c) atomicAdd(row + c, pc[c]);
+    if ((threadIdx.x & 31) == 0) {
+      row[kPrPasses] = (unsigned long long)passes;
+      row[kPrStart] = start;
+      row[kPrEnd] = wall_ns();
     }
   }
 }
@@ -518,7 +649,7 @@ __global__ void __launch_bounds__(kThreads) diff_trace_fwd(Scene sc, Tex tex, Fw
 
 __global__ void __launch_bounds__(kThreads)
     diff_trace_fwd_bvh(Scene sc, BvhHit bvh, Tex tex, FwdArgs a) {
-  forward_warp<false>(bvh, sc, tex, a);
+  forward_thread<false>(bvh, sc, tex, a);
 }
 
 __global__ void __launch_bounds__(kThreads) diff_trace_fwd_probe(Scene sc, Tex tex, FwdArgs a) {
@@ -527,7 +658,7 @@ __global__ void __launch_bounds__(kThreads) diff_trace_fwd_probe(Scene sc, Tex t
 
 __global__ void __launch_bounds__(kThreads)
     diff_trace_fwd_bvh_probe(Scene sc, BvhHit bvh, Tex tex, FwdArgs a) {
-  forward_warp<true>(bvh, sc, tex, a);
+  forward_thread<true>(bvh, sc, tex, a);
 }
 
 // The sum of `v` over the block's kThreads threads, in `part` (shared);
@@ -633,11 +764,6 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// The warps of the forward kernel over n paths: rows of its probe.
-int izpi_diff_trace_fwd_warps(int n) {
-  return (n + izpi::diff::kWarpPaths - 1) / izpi::diff::kWarpPaths;
-}
-
 // The forward kernel over n paths on `stream`: the scene tables of
 // ops/megakernel.py pack_tables with each material's (clamped) albedo
 // texture id in mat_i's fourth column; nodes and bvh_prims (ops/bvh_kernel.py
@@ -660,7 +786,7 @@ static int launch_fwd(const float* prim_f, const int* prim_i, int n_prims, const
                               izpi::mk(bg_r, bg_g, bg_b), book ? 2.0f : 1.0f,
                               rad, cnt, rec_f, rec_i, probe};
   const int threads = izpi::diff::kThreads;
-  const int blocks = (izpi_diff_trace_fwd_warps(n) * 32 + threads - 1) / threads;
+  const int blocks = (n + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
   const izpi::diff::BvhHit bvh{nodes, bvh_prims};
   if (nodes == nullptr && probe == nullptr) {
@@ -687,9 +813,8 @@ int izpi_diff_trace_fwd(const float* prim_f, const int* prim_i, int n_prims, con
                     book, rad, cnt, rec_f, rec_i, nullptr, stream);
 }
 
-// Its probe instance, launched like it, with probe:
-// (izpi_diff_trace_fwd_warps(n), kProbeColumns) u64, zeroed, that receives
-// each warp's row (ProbeColumn).
+// Its probe instance, launched like it, with probe: (ceil(n / 32),
+// kProbeColumns) u64, zeroed, that receives each warp's row (ProbeColumn).
 int izpi_diff_trace_fwd_probe(const float* prim_f, const int* prim_i, int n_prims,
                               const float* mat_f, const int* mat_i, const float* light_f,
                               const int* light_i, int n_lights, const int* nodes,

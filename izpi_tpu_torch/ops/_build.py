@@ -104,7 +104,6 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,       # rows, g, stream
     ],
     "izpi_diff_trace_bwd_blocks": [_c_int],   # n -> ints of blk
-    "izpi_diff_trace_fwd_warps": [_c_int],    # n -> rows of the probe
     "izpi_bvh4_rowstack": [
         _c_void_p, _c_void_p,                  # nodes, blocks
         _c_void_p, _c_void_p, _c_void_p,       # o, d, time

@@ -6,10 +6,13 @@ Counterpart of the JAX package's jitted step (izpi_tpu/parallel/dist.py:
 (izpi_tpu/integrator/path.py:699-740); no `pallas_call`. Its kernels are
 `csrc/diff_trace.cu` (the source's head says what they compute and why
 that needs no geometry adjoint):
-- `izpi_diff_trace_fwd`, one thread a path: the differentiable bounce of
-  `integrator.path.bounce_rgb` from the camera ray to the path's end, with
-  one 20-byte record a live bounce (thru, ratio, the texture row gathered
-  and a code), its radiance and its ray count;
+- `izpi_diff_trace_fwd`, a warp's 32 paths in its lanes (brute force: a
+  bounce a pass, the lanes of ended paths helping the live ones with their
+  closest hits and draws; the BVH form: one thread a path): the
+  differentiable bounce of `integrator.path.bounce_rgb` from the camera
+  ray to the path's end, with one 20-byte record a live bounce (thru,
+  ratio, the texture row gathered and a code), its radiance and its ray
+  count, the bits of one thread a path;
 - `izpi_diff_trace_bwd`, one thread a path: the records walked back from
   the radiance's cotangent to each gathered row's, one (row, cotangent)
   slot a record, path after path (each block places its paths' slots from
@@ -260,14 +263,14 @@ def forward(scene: DiffScene, cs, meta, settings, intersect, o, d, time,
     return _launch_fwd(scene, cs, meta, settings, o, d, time, keys)
 
 
-# Paths a warp of the forward kernel (csrc/diff_trace.cu kWarpPaths).
+# Paths a warp of the forward kernel, one a lane (csrc/diff_trace.cu).
 WARP_PATHS = 32
 # The probe instance's columns, a row a warp (csrc/diff_trace.cu
 # ProbeColumn), in the order the kernel writes them.
-PROBE_COLUMNS = ("passes", "cycles_bounce", "cycles_hit", "cycles_draws",
-                 "start_ns", "end_ns", "passes_g1", "passes_g2", "passes_g4",
-                 "passes_g8", "passes_g16", "passes_g32")
 GROUPS = (1, 2, 4, 8, 16, 32)
+PROBE_COLUMNS = ("passes", "cycles_bounce", "cycles_hit", "cycles_draws",
+                 "start_ns", "end_ns", *[f"passes_g{g}" for g in GROUPS],
+                 *[f"cycles_pass_g{g}" for g in GROUPS])
 
 
 def probe(scene: DiffScene, cs, meta, settings, o, d, time, keys):
@@ -282,8 +285,10 @@ def probe(scene: DiffScene, cs, meta, settings, o, d, time, keys):
     the last warp's end, and the warps' ends after that start as shares of
     it (`end_p50`, `end_p90`, `end_max`), so `tail_share` = 1 − end_p50 is
     the share of the launch after half its warps had ended; `start_spread`,
-    the last warp's start as a share of it; and `passes_by_group`, the
-    shares of the passes run at 1, 2, ..., 32 lanes a path."""
+    the last warp's start as a share of it; `passes_by_group`, the shares
+    of the passes run at 1, 2, ..., 32 lanes a path, and
+    `cycles_per_pass_by_group`, a pass's clock64 cycles at each (ballot to
+    ballot; the BVH form, one thread a path, counts no group)."""
     if o.device.type != "cuda":
         raise ValueError("the probe runs the forward kernel on a CUDA device")
     n = o.shape[0]
@@ -319,7 +324,10 @@ def probe_summary(rows, cnt) -> dict:
         tail_share=1.0 - float(ends.quantile(0.5)),
         start_spread=int(c["start_ns"].max() - start) / span,
         passes_by_group={g: k / max(sum(by_group), 1)
-                         for g, k in zip(GROUPS, by_group)})
+                         for g, k in zip(GROUPS, by_group)},
+        cycles_per_pass_by_group={
+            g: int(c[f"cycles_pass_g{g}"].sum()) / max(k, 1)
+            for g, k in zip(GROUPS, by_group)})
 
 
 def _launch_fwd(scene: DiffScene, cs, meta, settings, o, d, time, keys,
@@ -376,7 +384,7 @@ def _launch_fwd(scene: DiffScene, cs, meta, settings, o, d, time, keys,
             err = lib.izpi_diff_trace_fwd(*args, _stream(dev))
         else:
             megakernel.check_tables(dev, [
-                ("probe", probe_rows, (lib.izpi_diff_trace_fwd_warps(n),
+                ("probe", probe_rows, (-(-n // WARP_PATHS),
                                        len(PROBE_COLUMNS)), torch.int64)])
             err = lib.izpi_diff_trace_fwd_probe(*args, _ptr(probe_rows),
                                                 _stream(dev))

@@ -117,9 +117,17 @@ this tree, the warm-up and the capture of its CUDA graph) and `--runs`
 timed calls (host clock to a CUDA sync), in this tree, or in four
 subprocesses in turns — DIR, this tree, this tree, DIR — with `--parent
 DIR`. Each turn prints its seconds, their median, the first call's, and
-the launches of its last call; the trees' rays must be equal, their
+the launches of its last call; on the fused route also the forward kernel
+alone at the step's camera rays: its ms a launch over a CUDA graph of 20
+launches (`profiling.graph_ms`: the wrapper's host cost untimed), a digest
+of its outputs (radiance, ray counts, each path's records up to its
+count), its kernels' ptxas registers, spills and stack frames, and where
+the tree has it, its probe instance's figures (`diff_trace.probe`, whose
+outputs must equal the kernel's). The trees' rays must be equal, their
 losses within 1e-4 relative and every gradient within 1e-5 + 1e-3·|DIR's|
-(a new summation order), and each tree's turns must repeat bit for bit.
+(a new summation order), and each tree's turns must repeat bit for bit,
+the forward kernel's digest too; whether the loss, the gradients and the
+forward kernel's outputs equal DIR's bit for bit is printed.
 
 `--vs-cpu N@S ...` renders a pool scene (`--scene`) at N×N and S spp, at
 its main path's depth, on the card and on the CPU (`device="cpu"`, the
@@ -740,6 +748,9 @@ def step_turns(scene: str, parent, runs: int) -> None:
 def step_probe_line(p: dict) -> str:
     """The forward kernel's probe (`diff_trace.probe`'s dict) on one line."""
     groups = ", ".join(f"{g}: {v:.4f}" for g, v in p["passes_by_group"].items())
+    if "cycles_per_pass_by_group" in p:
+        groups += "; cycles a pass " + ", ".join(
+            f"{g}: {v:.0f}" for g, v in p["cycles_per_pass_by_group"].items())
     return (f"probe: lane use {p['lane_use']:.4f} ({p['bounces']} bounces in "
             f"{p['passes']} warp passes; a warp's longest path "
             f"{p['longest_mean']:.4f} bounces on average); cycles a bounce "

@@ -18,7 +18,10 @@ package's step is in tests/test_torch_diff_trace_jax.py. Tolerances:
   and radiance agree with the plain version's within rtol 1e-4 on every
   path that takes the same branches, which all but a few do (host libm's
   sin and cos against PyTorch's differ in the last ulp, which moves a
-  direction and can turn a path).
+  direction and can turn a path); the closest hit split over a group of
+  lanes equals one lane's `closest_hit` bit for bit at every group size
+  (the same tests, the first primitive of an exact-t tie), and the probe
+  instance writes the main instance's outputs bit for bit.
 """
 
 import ctypes
@@ -258,8 +261,7 @@ extern "C" void fwd(const float* prim_f, const int* prim_i, int n_prims, const f
                               book ? 2.0f : 1.0f, rad, cnt, rec_f, rec_i, probe};
   const izpi::diff::BvhHit bvh{nodes, bvh_prims};
   const int threads = izpi::diff::kThreads;
-  const int warps = (n + izpi::diff::kWarpPaths - 1) / izpi::diff::kWarpPaths;
-  run_grid((32 * warps + threads - 1) / threads, threads, [&] {
+  run_grid((n + threads - 1) / threads, threads, [&] {
     if (nodes == nullptr && probe == nullptr) {
       izpi::diff::diff_trace_fwd(sc, tex, a);
     } else if (nodes == nullptr) {
@@ -272,15 +274,11 @@ extern "C" void fwd(const float* prim_f, const int* prim_i, int n_prims, const f
   });
 }
 
-// The closest hit of n_rays rays taken by groups of G lanes (brute force
-// over the primitive rows, or the BVH4 when nodes is given), and one lane's
-// (closest_hit, bvh4_closest) beside it: t, index and the traversal's
-// (visits, tests) a ray.
-extern "C" void group_hits(const float* prim_f, const int* prim_i, int n_prims,
-                           const int* nodes, const float* bvh_prims, const float* o,
+// The closest hit of n_rays rays over the primitive rows taken by groups
+// of G lanes, and one lane's (closest_hit) beside it: t and index a ray.
+extern "C" void group_hits(const float* prim_f, const int* prim_i, int n_prims, const float* o,
                            const float* d, const float* t, int n_rays, int G, float* t_out,
-                           int* idx_out, int* cnt_out, float* t_ref, int* idx_ref,
-                           int* cnt_ref) {
+                           int* idx_out, float* t_ref, int* idx_ref) {
   const izpi::Scene sc{prim_f, prim_i, n_prims, nullptr, nullptr, nullptr, nullptr, 0};
   const int per = 32 / G;
   run_grid((n_rays + per - 1) / per, 32, [&] {
@@ -290,27 +288,12 @@ extern "C" void group_hits(const float* prim_f, const int* prim_i, int n_prims,
     const int k = has ? ray : 0;
     const izpi::V3 ro = izpi::ld3(o + 3 * k), rd = izpi::ld3(d + 3 * k);
     float tg;
-    int visits = 0, tests = 0;
     const int hit =
-        nodes == nullptr
-            ? izpi::diff::BruteHit{}.group(sc, has, ro, rd, t[k], izpi::kTMin, izpi::kTMax, G,
-                                           r, tg)
-            : izpi::bvh4_closest_group(nodes, bvh_prims, has, ro, rd, t[k], izpi::kTMin,
-                                       izpi::kTMax, G, r, tg, visits, tests);
+        izpi::diff::BruteHit{}.group(sc, has, ro, rd, t[k], izpi::kTMin, izpi::kTMax, G, r, tg);
     if (has && r == 0) {
       t_out[ray] = tg;
       idx_out[ray] = hit;
-      cnt_out[2 * ray] = visits;
-      cnt_out[2 * ray + 1] = tests;
-      float tr;
-      int v = 0, n = 0;
-      idx_ref[ray] = nodes == nullptr
-                         ? izpi::closest_hit(sc, ro, rd, t[k], izpi::kTMin, izpi::kTMax, tr)
-                         : izpi::bvh4_closest(nodes, bvh_prims, ro, rd, t[k], izpi::kTMin,
-                                              izpi::kTMax, tr, v, n);
-      t_ref[ray] = tr;
-      cnt_ref[2 * ray] = v;
-      cnt_ref[2 * ray + 1] = n;
+      idx_ref[ray] = izpi::closest_hit(sc, ro, rd, t[k], izpi::kTMin, izpi::kTMax, t_ref[ray]);
     }
   });
 }
@@ -339,7 +322,7 @@ def host(tmp_path_factory):
                                    p, p])
     lib.fwd.argtypes = ([p, p, i, p, p, p, p, i, p, p, p, p, i, p, p, p, p, i,
                          i, f, f, f, i] + [p] * 5)
-    lib.group_hits.argtypes = [p, p, i, p, p, p, p, p, i, i] + [p] * 6
+    lib.group_hits.argtypes = [p, p, i, p, p, p, i, i] + [p] * 4
     return lib
 
 
@@ -476,17 +459,13 @@ def _random_rays(n, seed, lo, hi):
     return tuple(torch.as_tensor(x) for x in (o, d, t))
 
 
-def _group_hits(host, prim_f, prim_i, n_prims, bvh, rays, g):
-    """(t, index, counts) of the rays by groups of g lanes and by one lane."""
+def _group_hits(host, prim_f, prim_i, rays, g):
+    """(t, index) of the rays by groups of g lanes and by one lane."""
     o, d, t = rays
     n = o.shape[0]
-    out = [torch.full((n,), torch.nan), torch.full((n,), -7, dtype=torch.int32),
-           torch.full((n, 2), -7, dtype=torch.int32)]
-    ref = [torch.full((n,), torch.nan), torch.full((n,), -7, dtype=torch.int32),
-           torch.full((n, 2), -7, dtype=torch.int32)]
-    host.group_hits(_p(prim_f), _p(prim_i), n_prims,
-                    _p(None if bvh is None else bvh.nodes),
-                    _p(None if bvh is None else bvh.prim_table), _p(o), _p(d),
+    out = [torch.full((n,), torch.nan), torch.full((n,), -7, dtype=torch.int32)]
+    ref = [torch.full((n,), torch.nan), torch.full((n,), -7, dtype=torch.int32)]
+    host.group_hits(_p(prim_f), _p(prim_i), prim_f.shape[0], _p(o), _p(d),
                     _p(t), n, g, *[_p(x) for x in out + ref])
     return out, ref
 
@@ -508,8 +487,8 @@ def test_group_closest_hit_equals_one_lane_on_host(host, g):
     for twice in (False, True):
         prim_f = torch.cat([scene.prim_f] * (2 if twice else 1)).contiguous()
         prim_i = torch.cat([scene.prim_i] * (2 if twice else 1)).contiguous()
-        (t, idx, _), (t_ref, idx_ref, _) = _group_hits(
-            host, prim_f, prim_i, prim_f.shape[0], None, rays, g)
+        (t, idx), (t_ref, idx_ref) = _group_hits(host, prim_f, prim_i, rays,
+                                                 g)
         assert torch.equal(idx, idx_ref) and torch.equal(
             t.view(torch.int32), t_ref.view(torch.int32))
         hits = idx >= 0
@@ -517,32 +496,13 @@ def test_group_closest_hit_equals_one_lane_on_host(host, g):
         assert bool((idx[hits] < n_p).all()) or not twice
 
 
-@pytest.mark.parametrize("g", diff_trace.GROUPS)
-def test_group_bvh_traversal_equals_one_lane_on_host(host, g):
-    """`bvh4_closest_group` with groups of g lanes against `bvh4_closest`
-    on cornell_box_obj's tree, as host C++: t bit for bit, the primitive,
-    and the nodes popped and primitives tested a ray equal, on its camera
-    rays and on rays in random directions from inside the box."""
-    cs, meta, intersect = _context("cornell_box_obj")
-    scene = diff_trace.prepare(cs, meta, intersect)
-    o, d, tme, _ = _rays(cs, 8)
-    rays = [torch.cat([a, b]).contiguous() for a, b in zip(
-        (o, d, tme), _random_rays(192, 4, 20.0, 530.0))]
-    (t, idx, cnt), (t_ref, idx_ref, cnt_ref) = _group_hits(
-        host, scene.prim_f, scene.prim_i, meta.n_prims, scene.bvh, rays, g)
-    assert torch.equal(idx, idx_ref) and torch.equal(
-        t.view(torch.int32), t_ref.view(torch.int32))
-    assert torch.equal(cnt, cnt_ref)
-    assert float((idx >= 0).float().mean()) > 0.5
-    assert int(cnt[:, 1].max()) > 4   # leaves of several primitives
-
-
 def test_probe_on_host_sees_every_group_size(host, ctx):
     """The forward kernel's probe instance as host C++ at depth 50, where a
     warp's last paths run with few others: its outputs equal the main
     instance's bit for bit, each warp's passes are its longest path, and
-    passes ran at every group size, 1 to 32 lanes a path (at depth 8 the
-    16² frame's warps never get below 3 live paths)."""
+    the brute-force form's passes ran at every group size, 1 to 32 lanes a
+    path (at depth 8 the 16² frame's warps never get below 3 live paths);
+    the BVH form, one thread a path, counts no group."""
     name, (cs, meta, intersect) = ctx
     scene = diff_trace.prepare(cs, meta, intersect)
     settings = path.RenderSettings(max_depth=50)
@@ -560,5 +520,8 @@ def test_probe_on_host_sees_every_group_size(host, ctx):
     summary = diff_trace.probe_summary(rows, probed[1])
     assert summary["passes_equal_longest"]
     assert summary["bounces"] == int(main[1].sum())
-    assert all(v > 0 for v in summary["passes_by_group"].values()), summary[
-        "passes_by_group"]
+    by_group = summary["passes_by_group"].values()
+    if scene.bvh is None:
+        assert all(v > 0 for v in by_group), summary["passes_by_group"]
+    else:
+        assert not any(by_group), summary["passes_by_group"]
