@@ -276,9 +276,9 @@ PROBE_COLUMNS = ("passes", "cycles_bounce", "cycles_hit", "cycles_draws",
 def probe(scene: DiffScene, cs, meta, settings, o, d, time, keys):
     """The forward kernel's probe instance (`izpi_diff_trace_fwd_probe`, on
     the card only, never on a main path, not counted in `fwd_launches`):
-    the outputs of `forward` and a dict of how its warps spent the launch:
-    `rows`, the raw (warps, PROBE_COLUMNS) counts; `lane_use`, the paths'
-    bounces over 32 × the warps' bounce passes; `longest_mean`, a warp's
+    the outputs of `forward` and a dict of how its warps spent the launch
+    (`probe_summary` of its (warps, PROBE_COLUMNS) rows): `lane_use`, the
+    paths' bounces over 32 × the warps' bounce passes; `longest_mean`, a warp's
     longest path (its passes) averaged over the warps; the shares of the
     live lanes' cycles in the closest hit, the cipher and the rest of the
     bounce, and `cycles_per_bounce`; `span_us`, the first warp's start to
@@ -312,7 +312,7 @@ def probe_summary(rows, cnt) -> dict:
     ends = (c["end_ns"] - start).double() / span
     by_group = [int(c[f"passes_g{g}"].sum()) for g in GROUPS]
     return dict(
-        rows=rows.tolist(), passes=passes, bounces=int(cnt.sum()),
+        passes=passes, bounces=int(cnt.sum()),
         passes_equal_longest=bool(torch.equal(c["passes"], longest.long())),
         lane_use=int(cnt.sum()) / max(32 * passes, 1),
         longest_mean=float(longest.double().mean()),

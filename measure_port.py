@@ -176,7 +176,6 @@ from __future__ import annotations
 
 import argparse
 import functools
-import hashlib
 import json
 import os
 import statistics
@@ -653,7 +652,7 @@ if not isinstance(route, str):
              "fwd_ms": profiling.graph_ms(fwd, 20)}
     if hasattr(diff_trace, "probe"):
         probed, summary = diff_trace.probe(route, cs_p, ctx.meta, s, *rays)
-        summary.pop("rows")
+        summary.pop("rows", None)  # a tree whose summary keeps them
         fused["probe"] = summary
         fused["probe_same"] = digest(probed) == fused["fwd_digest"]
 from izpi_tpu_torch.ops import _build
@@ -760,18 +759,6 @@ def step_probe_line(p: dict) -> str:
             f"{p['end_p50']:.4f} (median), {p['end_p90']:.4f} (90%) of it, "
             f"tail share {p['tail_share']:.2%}, last start at "
             f"{p['start_spread']:.4f}; passes by lanes a path {{{groups}}}")
-
-
-def fwd_digest(out) -> str:
-    """The digest of the forward kernel's (rad, cnt, rec_f, rec_i), a path's
-    records up to its count (STEP_TURN's `digest`)."""
-    rad, cnt, rec_f, rec_i = out
-    live = torch.arange(rec_i.shape[0], device=cnt.device)[:, None] < cnt[None, :]
-    h = hashlib.sha256()
-    for t in (rad, cnt, torch.where(live[..., None], rec_f, 0.0),
-              torch.where(live, rec_i, 0)):
-        h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
-    return h.hexdigest()
 
 
 def run_turn(script: str, tree: Path, args) -> dict:
