@@ -50,9 +50,10 @@
 // helps: at L live paths each gets 32 / next_pow2(L) lanes, which split
 // its closest hit and draw its pairs, while its owner keeps the shading,
 // the record and its state, in one thread a path's order of operations.
-// The BVH form (forward_path) keeps one thread a path: a warp pass a
-// bounce, with or without groups splitting the leaves, measured slower
-// there (PERF.md). Both give every output the bits of one thread a path.
+// The BVH form (forward_path) keeps one thread a path, through the same
+// one-bounce helpers: a warp pass a bounce, with or without groups
+// splitting the leaves, measured slower there (PERF.md). Both give every
+// output the bits of one thread a path.
 //
 // The one-bounce shading (bounce_hit, bounce_scatter) is copied from
 // megakernel_rgb.cu's render_loop, not shared through a header: the
@@ -573,135 +574,52 @@ __device__ __forceinline__ void forward_warp(const BruteHit& closest, const Scen
 
 // Path i from its camera ray to its end in its own lane: the BVH form,
 // whose lanes run apart (a warp pass a bounce measured slower there, with
-// or without groups: PERF.md). Returns its rays. kProbe: adds the bounces'
-// cycles to the lane's probe counts pc. Its shading is bounce_hit's and
-// bounce_scatter's, written out in line and with draws.cuh's lazy draws:
-// through the helpers the form spilled registers and ran 2-3% slower.
+// or without groups: PERF.md). Its bounce is the brute-force form's
+// owner's (bounce_hit, bounce_scatter, write_record, write_path), with
+// draws.cuh's lazy draws, a pair at a time: draw_bounce's four independent
+// light chains spilled more of its registers beside the traversal's stack
+// and ran 5% slower (PERF.md). Returns its rays. kProbe: adds the
+// bounces' cycles to the lane's probe counts pc.
 template <bool kProbe, class Hit>
 __device__ __forceinline__ int forward_path(const Hit& closest, const Scene& sc, const Tex& tex,
-                                            int i, int n, V3 o, V3 d, float tme, uint32_t k0,
-                                            uint32_t k1, int max_depth, V3 bg,
-                                            float cos_scale, float* __restrict__ rad_out,
-                                            int* __restrict__ cnt_out,
-                                            float* __restrict__ rec_f,
-                                            int* __restrict__ rec_i,
-                                            unsigned long long* pc) {
+                                            const FwdArgs& a, int i, unsigned long long* pc) {
+  V3 o = ld3(a.ray_o + 3 * i);
+  V3 d = ld3(a.ray_d + 3 * i);
+  const float tme = a.ray_t[i];
+  const uint32_t k0 = (uint32_t)a.keys[2 * i], k1 = (uint32_t)a.keys[2 * i + 1];
   V3 thru = mk(1.0f, 1.0f, 1.0f);
   V3 rad = mk(0.0f, 0.0f, 0.0f);
   int depth = 0;
   bool scatters = false;
-  while (depth < max_depth) {
+  while (depth < a.max_depth) {
     long long c_bounce = 0, c0 = 0;
     if constexpr (kProbe) c_bounce = clock64();
     float t;
     const int hit = closest(o, d, tme, kTMin, kTMax, t);
     if constexpr (kProbe) pc[kPrCyHit] += (unsigned long long)(clock64() - c_bounce);
-    int code = kMiss, row = 0;
+    const Bounce b = bounce_hit(sc, tex, a.bg, hit, t, o, d, tme, thru, rad);
+    int code = b.code;
     float ratio = 0.0f;
-    V3 p = o, d_new = d, mult = mk(1.0f, 1.0f, 1.0f);
-    scatters = false;
-    if (hit < 0) {
-      rad = rad + thru * bg;
-    } else {
-      p = o + d * t;
-      const V3 n = record_normal(sc, hit, o, d, tme, p);
-      const int mat = sc.prim_i[hit * kPrimI + 1];
-      const float* M = sc.mat_f + mat * kMatF;
-      const int* Mi = sc.mat_i + mat * kMatI;
-      const int kind = Mi[0];
-      row = Mi[3];
-      if (Mi[1] != 0) {  // 3D sine checker (texture/checker.go:26): c1 unless negative
-        const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y) * sinf(10.0f * p.z);
-        if (!(sines < 0.0f)) row += tex.n_tex;
-      }
-      const V3 albedo = tex.row(row);
-      // One-sided light keyed on the record normal (diffuselight.go:49-63);
-      // thru * 0 on every other hit, as the plain bounce adds it.
-      const bool emits = kind == kDiffuseLight && dot(n, d) < 0.0f;
-      rad = rad + thru * (emits ? albedo : mk(0.0f, 0.0f, 0.0f));
-      if (kind == kDiffuseLight) {
-        code = emits ? kEmit : kNone;
-      } else {
-        scatters = true;
-        if constexpr (kProbe) c0 = clock64();
-        Draws<false> dr;
-        dr.clear();
-        dr.bounce(k0, k1, (uint32_t)depth, kind == kDielectric ? kPairsDielectric : kPairsDiffuse);
-        dr.run(0u, 0u, k0, k1, (uint32_t)depth);
-        if constexpr (kProbe) pc[kPrCyDraws] += (unsigned long long)(clock64() - c0);
-        const float* us = dr.us;
-        if (kind == kDielectric) {  // dielectric.go:66-102, raw direction, no absorption
-          code = kRefract;
-          const float ref_idx = M[7];
-          const V3 reflected = reflect(d, n);
-          const float d_dot_n = dot(d, n);
-          const bool exiting = d_dot_n > 0.0f;
-          const V3 outward = exiting ? -n : n;
-          const float ni = exiting ? ref_idx : 1.0f / ref_idx;
-          const float dlen = length(d);
-          const float cosine = exiting ? ref_idx * d_dot_n / dlen : -d_dot_n / dlen;
-          const V3 uv = normalize(d);
-          const float dt = dot(uv, outward);
-          const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
-          const V3 refracted =
-              (uv - outward * dt) * ni - outward * sqrtf(clamp_min(disc, 0.0f));
-          float r0 = (1.0f - ref_idx) / (1.0f + ref_idx);
-          r0 = r0 * r0;
-          const float schlick = r0 + (1.0f - r0) * powf(1.0f - cosine, 5.0f);
-          const bool is_refl = us[3] < (disc > 0.0f ? schlick : 1.0f);
-          d_new = is_refl ? reflected : refracted;
-        } else {  // diffuse: mixture of light and cosine pdfs (colour.go:48-57)
-          code = kScatter;
-          V3 d_diff;
-          if (us[4] < 0.5f) {
-            d_diff = lights_sample(sc, p, us[5], us[6], us[7], us[8]);
-          } else {
-            V3 ou, ov, ow;
-            onb_from_w(n, ou, ov, ow);
-            const float zc = sqrtf(1.0f - us[10]);
-            const float phic = kTwoPi * us[9];
-            const float rc = cos_scale * sqrtf(us[10]);
-            d_diff = ou * (cosf(phic) * rc) + ov * (sinf(phic) * rc) + ow * zc;
-          }
-          const V3 dd_unit = normalize(d_diff);
-          const float cos_lobe = dot(dd_unit, normalize(n));
-          const float pdf_cos = cos_lobe > 0.0f ? cos_lobe / kPi : 0.0f;
-          const float pdf_val = 0.5f * lights_pdf(sc, p, d_diff) + 0.5f * pdf_cos;
-          // The differentiable bounce's guards (path.py bounce_rgb): a
-          // degenerate direction is zeroed before its cosine, and a sample
-          // of no finite ratio weighs 0.
-          const V3 du = mk(finite_or_zero(dd_unit.x), finite_or_zero(dd_unit.y),
-                           finite_or_zero(dd_unit.z));
-          const float spdf = kind == kLambert ? clamp_min(dot(n, du), 0.0f) / kPi : 0.0f;
-          const bool live = pdf_val > 0.0f;
-          const float r = spdf / (live ? pdf_val : 1.0f);
-          ratio = live && isfinite(r) ? r : 0.0f;
-          d_new = d_diff;
-          mult = albedo * ratio;
-        }
-      }
+    V3 d_new = d, mult = mk(1.0f, 1.0f, 1.0f);
+    if (b.scat) {
+      if constexpr (kProbe) c0 = clock64();
+      Draws<false> dr;
+      dr.clear();
+      dr.bounce(k0, k1, (uint32_t)depth, b.want == 1 ? kPairsDielectric : kPairsDiffuse);
+      dr.run(0u, 0u, k0, k1, (uint32_t)depth);
+      if constexpr (kProbe) pc[kPrCyDraws] += (unsigned long long)(clock64() - c0);
+      bounce_scatter(sc, b, d, dr.us, a.cos_scale, code, ratio, d_new, mult);
     }
-    const size_t slot = (size_t)depth * n + i;
-    float4 rf;
-    rf.x = thru.x;
-    rf.y = thru.y;
-    rf.z = thru.z;
-    rf.w = ratio;
-    reinterpret_cast<float4*>(rec_f)[slot] = rf;
-    rec_i[slot] = ((code == kEmit || code == kScatter ? row : 0) << kCodeBits) | code;
+    write_record(a, depth, i, thru, ratio, code, b.row);
     ++depth;
     if constexpr (kProbe) pc[kPrCyBounce] += (unsigned long long)(clock64() - c_bounce);
+    scatters = b.scat;
     if (!scatters) break;
     thru = thru * mult;
-    o = p;
+    o = b.p;
     d = d_new;
   }
-  // The depth cap: the {Z:1} sentinel (colour.go:34-36).
-  if (scatters) rad = rad + thru * mk(0.0f, 0.0f, 1.0f);
-  rad_out[3 * i + 0] = rad.x;
-  rad_out[3 * i + 1] = rad.y;
-  rad_out[3 * i + 2] = rad.z;
-  cnt_out[i] = depth;
+  write_path(a, i, rad, thru, scatters, depth);
   return depth;
 }
 
@@ -711,21 +629,15 @@ template <bool kProbe, class Hit>
 __device__ __forceinline__ void forward_thread(const Hit& closest, const Scene& sc, Tex tex,
                                                const FwdArgs& a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const auto path = [&](unsigned long long* pc) {
-    return forward_path<kProbe>(closest, sc, tex, i, a.n, ld3(a.ray_o + 3 * i),
-                                ld3(a.ray_d + 3 * i), a.ray_t[i], (uint32_t)a.keys[2 * i],
-                                (uint32_t)a.keys[2 * i + 1], a.max_depth, a.bg, a.cos_scale,
-                                a.rad_out, a.cnt_out, a.rec_f, a.rec_i, pc);
-  };
   if constexpr (!kProbe) {
     if (i >= a.n) return;
-    path(nullptr);
+    forward_path<kProbe>(closest, sc, tex, a, i, nullptr);
   } else {
     // The warp's row: its lanes' cycles, its passes (its longest path) and
     // its start and end, read once every lane is done.
     unsigned long long pc[kProbeColumns] = {};
     const unsigned long long start = wall_ns();
-    const int rays = i < a.n ? path(pc) : 0;
+    const int rays = i < a.n ? forward_path<kProbe>(closest, sc, tex, a, i, pc) : 0;
     __syncwarp();
     const int passes = __reduce_max_sync(kFull, rays);
     if (i - (i & 31) >= a.n) return;  // a warp past the paths has no row
