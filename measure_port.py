@@ -16,7 +16,7 @@
                             [--size 128] [--spp 4] [--runs 2]
     python3 measure_port.py --deposit [--runs 3]
     python3 measure_port.py --step [--scene cornell|obj] [--parent DIR]
-                            [--runs 4]
+                            [--rounds 1] [--runs 20]
 
 Renders one main path of chip_smoke.py on one warm `RenderContext`, after
 one warm-up render: Cornell 256×256 at 1024 spp, `max_depth=50`, through
@@ -112,22 +112,28 @@ spp, seed 0, from tex_c0 at 0.7 of its values against a grey target) on
 `--scene` cornell (brute force, the default) or obj (`cornell_box_obj`
 through the BVH4 kernel) at 256×256, depth 50, on the route
 `build_train_step` picks (the fused one, `ops.diff_trace`, for both; a
-tree without routes runs the checkpointed bounces): one call to warm up (on
-this tree, the warm-up and the capture of its CUDA graph) and `--runs`
-timed calls (host clock to a CUDA sync), in this tree, or in four
-subprocesses in turns — DIR, this tree, this tree, DIR — with `--parent
-DIR`. Each turn prints its seconds, their median, the first call's, and
-the launches of its last call; on the fused route also the forward kernel
-alone at the step's camera rays: its ms a launch over a CUDA graph of 20
-launches (`profiling.graph_ms`: the wrapper's host cost untimed), a digest
-of its outputs (radiance, ray counts, each path's records up to its
-count), its kernels' ptxas registers, spills and stack frames, and where
-the tree has it, its probe instance's figures (`diff_trace.probe`, whose
-outputs must equal the kernel's). The trees' rays must be equal, their
-losses within 1e-4 relative and every gradient within 1e-5 + 1e-3·|DIR's|
-(a new summation order), and each tree's turns must repeat bit for bit,
-the forward kernel's digest too; whether the loss, the gradients and the
-forward kernel's outputs equal DIR's bit for bit is printed.
+tree without routes runs the checkpointed bounces): one call to warm up
+(on this tree, the warm-up and the capture of its CUDA graph) and
+`--runs` timed calls (host clock to a CUDA sync), in this tree, or with
+`--parent DIR` in `--rounds` rounds of four subprocesses in turns — DIR,
+this tree, this tree, DIR. Each turn prints its calls' ms, their median,
+the first call's, and the launches of its last call; on the fused route
+also the forward kernel alone at the step's camera rays: its ms a launch
+over a CUDA graph of 20 launches (`profiling.graph_ms`: the wrapper's
+host cost untimed), a digest of its outputs (radiance, ray counts, each
+path's records up to its count), its kernels' ptxas registers, spills
+and stack frames, and where the tree has it, its probe instance's
+figures (`diff_trace.probe`, whose outputs must equal the kernel's).
+Each tree's step ms (the median of its turns' medians) and forward
+kernel ms are printed with the range of its turns' figures, and with
+`--parent`, each pair's ratio of DIR's to this tree's, the pairs this
+tree wins and DIR's interquartile distance (with more than one round).
+The trees' rays must be equal, their losses within 1e-4 relative and
+every gradient within 1e-5 + 1e-3·|DIR's| (a new summation order), and
+each tree's turns must repeat bit for bit, the forward kernel's digest
+too; where both trees take the fused route, the loss, every gradient and
+the forward kernel's outputs must also equal DIR's bit for bit (its
+arithmetic is one thread a path's, whatever the schedule).
 
 `--vs-cpu N@S ...` renders a pool scene (`--scene`) at N×N and S spp, at
 its main path's depth, on the card and on the CPU (`device="cpu"`, the
@@ -652,7 +658,6 @@ if not isinstance(route, str):
              "fwd_ms": profiling.graph_ms(fwd, 20)}
     if hasattr(diff_trace, "probe"):
         probed, summary = diff_trace.probe(route, cs_p, ctx.meta, s, *rays)
-        summary.pop("rows", None)  # a tree whose summary keeps them
         fused["probe"] = summary
         fused["probe_same"] = digest(probed) == fused["fwd_digest"]
 from izpi_tpu_torch.ops import _build
@@ -669,12 +674,13 @@ print(json.dumps({"seconds": seconds, "rays": step.rays,
 STEP_LOSS_RTOL, STEP_GRAD_ATOL, STEP_GRAD_RTOL = 1e-4, 1e-5, 1e-3
 
 
-def step_turns(scene: str, parent, runs: int) -> None:
+def step_turns(scene: str, parent, runs: int, rounds: int) -> None:
     """--step: the training step on `scene` at 256x256, depth 50, in this
-    tree, or in turns parent, this, this, parent (the module
-    docstring)."""
+    tree, or in `rounds` rounds of turns parent, this, this, parent (the
+    module docstring)."""
     here = Path(__file__).resolve().parent
-    order = (("parent", "this", "this", "parent") if parent else ("this",))
+    order = (("parent", "this", "this", "parent") * rounds if parent
+             else ("this",))
     trees = {"parent": parent.resolve() if parent else None, "this": here}
     got = {name: [] for name in set(order)}
     with tempfile.TemporaryDirectory() as tmp:
@@ -684,14 +690,14 @@ def step_turns(scene: str, parent, runs: int) -> None:
                          [scene, "256", "50", str(runs), str(out)])
             with np.load(out) as z:
                 arrays = {k: z[k] for k in z.files}
+            r["step_ms"] = statistics.median(r["seconds"][1:]) * 1e3
             got[name].append((r, arrays))
-            timed = r["seconds"][1:]
             print(f"step turn {turn} ({name}, {trees[name]}): {scene} "
                   f"256x256@1 depth 50, runner {r['runner']}, route "
                   f"{r['route']}: first call "
-                  f"{r['seconds'][0]:.4f} s, then "
-                  f"{[round(x, 4) for x in timed]}, median "
-                  f"{statistics.median(timed):.4f} s; rays {r['rays']}, loss "
+                  f"{r['seconds'][0]:.4f} s, then ms "
+                  f"{[round(x * 1e3, 4) for x in r['seconds'][1:]]}, median "
+                  f"{r['step_ms']:.4f} ms; rays {r['rays']}, loss "
                   f"{r['loss']:.7f}; launches of the last call "
                   f"{r['launches']}", flush=True)
             if "fwd_ms" in r:
@@ -704,19 +710,32 @@ def step_turns(scene: str, parent, runs: int) -> None:
                 print(f"step turn {turn} ({name}): diff_trace_fwd "
                       f"{step_probe_line(r['probe'])}; the probe's outputs "
                       f"equal the kernel's: {r['probe_same']}", flush=True)
-    med = {name: statistics.median(x for r, _ in v for x in r["seconds"][1:])
-           for name, v in got.items()}
+    keys = dict.fromkeys(order)
+    summary = {"step_ms": "step", "fwd_ms": "diff_trace_fwd"}
+    for key, label in summary.items():
+        if not all(key in r for v in got.values() for r, _ in v):
+            continue
+        figs = {name: [r[key] for r, _ in got[name]] for name in keys}
+        line = "; ".join(
+            f"{name} {statistics.median(v):.4f} (range {min(v):.4f}-"
+            f"{max(v):.4f}, {len(v)} turns)" for name, v in figs.items())
+        if parent:
+            # A round's two pairs: turns (parent, this) and (this, parent).
+            ratios = [x / y for x, y in zip(figs["parent"], figs["this"])]
+            wins = sum(x > y for x, y in zip(figs["parent"], figs["this"]))
+            q = (statistics.quantiles(figs["parent"], n=4)
+                 if rounds > 1 else [0.0, 0.0, 0.0])
+            line += (f"; parent / this by pair "
+                     f"{[round(x, 4) for x in ratios]}, median "
+                     f"{statistics.median(ratios):.4f}x, this tree faster "
+                     f"in {wins} of {len(ratios)} pairs; the parent's "
+                     f"interquartile distance {q[2] - q[0]:.4f}")
+        print(f"step: {label} median ms {line}", flush=True)
     repeat = {name: all(r["rays"] == v[0][0]["rays"] and all(
         np.array_equal(a[k], v[0][1][k]) for k in a)
         and r.get("fwd_digest") == v[0][0].get("fwd_digest") for r, a in v)
         for name, v in got.items()}
     probes = all(r.get("probe_same", True) for v in got.values() for r, _ in v)
-    if all("fwd_ms" in r for v in got.values() for r, _ in v):
-        fwd_ms = {name: statistics.median(r["fwd_ms"] for r, _ in v)
-                  for name, v in got.items()}
-        print(f"step: diff_trace_fwd median ms a launch "
-              f"{' -> '.join(f'{fwd_ms[k]:.4f}' for k in dict.fromkeys(order))}",
-              flush=True)
     ok = True
     if parent:
         (pr, pa), (tr, ta) = got["parent"][0], got["this"][0]
@@ -733,9 +752,9 @@ def step_turns(scene: str, parent, runs: int) -> None:
               f"loss {pr['loss']:.7f} vs {tr['loss']:.7f}, largest gradient "
               f"difference {err:.3e}, within the tolerances {ok}, loss and "
               f"gradients bit for bit {bits}, the forward kernel's outputs "
-              f"bit for bit {fwd_bits}; median seconds {med['parent']:.4f} -> "
-              f"{med['this']:.4f} ({med['parent'] / med['this']:.3f}x)",
-              flush=True)
+              f"bit for bit {fwd_bits}", flush=True)
+        if pr["route"] == tr["route"] == "fused":
+            ok = ok and bits and fwd_bits
     print(f"step: each tree's turns repeat bit for bit {repeat} ({smi()})",
           flush=True)
     if not ok or not repeat["this"] or not probes:
@@ -999,6 +1018,8 @@ def main() -> None:
                     help="time the pool's deposit against index_add_")
     ap.add_argument("--step", action="store_true",
                     help="time the training step (against --parent)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="--step with --parent: rounds of four turns")
     ap.add_argument("--mode", default="wavefront",
                     choices=["wavefront", "pool"],
                     help="render()'s mode: the default route, or the queue "
@@ -1025,7 +1046,7 @@ def main() -> None:
         if args.scene not in ("cornell", "obj"):
             raise SystemExit("measure_port: --step takes cornell or obj")
         print(f"smi before: {smi()}", flush=True)
-        step_turns(args.scene, args.parent, args.runs or 4)
+        step_turns(args.scene, args.parent, args.runs or 20, args.rounds)
         return
     if args.vs_cpu:
         vs_cpu(args.scene, args.vs_cpu, args.seeds)
