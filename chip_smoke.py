@@ -185,16 +185,18 @@ line of its own:
      (`csrc/diff_trace.cu`) against their plain versions at the step's
      camera rays: the forward kernel within phase 4's tolerances, the
      paths that take the same branches (at least PIXEL_SHARE of them)
-     with records within rtol 1e-4, the reverse kernel on the plain
-     forward's records at the step's own cotangent bit for bit (one slot a
-     record, their count on the device equal to the rays), G on the
-     reverse kernel's slots and count against its plain version on the
-     counted slots (the float64 sum
+     with records within rtol 1e-4, the fused reverse (its table
+     gradient, two launches and no slot) on the plain forward's records at
+     the step's own cotangent bit for bit G's on the plain version's slots
+     (`reverse_reference`: one slot a record, their count on the device
+     equal to the rays), G on those slots and count against its plain
+     version on the counted slots (the float64 sum
      within the kernel's bound, the plain version within that plus f32
      summation's, two launches and the rows in another order bit for
      bit; its ms beside `index_put_`'s and `index_add_`'s); each kernel's
      ms beside its plain version's and its bound (the forward's from the
-     SASS probes' units and its bytes, the reverse's by bytes); the
+     SASS probes' units and its bytes, the reverse's by bytes, beside R's
+     and G's bounds before they were fused); the
      target is the colour render at the true parameters, 256×256@64; from
      tex_c0 at 0.7 of its values, five steps of plain gradient descent
      (every parameter, rate 1) through the captured step, each printing
@@ -202,8 +204,8 @@ line of its own:
      captures, the median of the last four), launches and
      `torch.cuda.max_memory_allocated`; every gradient finite and the loss
      after the five steps below step 0's; a replay launches the
-     new-sample cipher, the forward kernel, the reverse kernel and G once
-     each and nothing else (the cipher's bounce form no time: its counter
+     new-sample cipher, the forward kernel and the reverse once each and
+     nothing else, G no time (the cipher's bounce form no time: its counter
      less the new-sample form's); the capture's seconds and the MiB its graph
      holds; the eager step on the same route in the same call, its
      seconds beside the captured step's, two replays bit for bit, and the
@@ -213,8 +215,9 @@ line of its own:
      and G): its seconds, and the fused step held to it (equal rays and
      losses, every gradient within G's tolerances, rtol 1e-5 and atol
      1e-6·max|g|); a replay under
-     torch.profiler (its device records, which must name the forward and
-     reverse kernels once each and no bounce-form cipher, and its idle
+     torch.profiler (its device records, which must name the forward
+     kernel and the reverse's two passes once each, and no G and no
+     bounce-form cipher, and its idle
      share); the memory at depth 8 and 50 of the eager step (peak above
      its start) and of the graph, whose growth a bounce must each stay
      within twice one checkpointed bounce's carried state; and the card's
@@ -225,7 +228,7 @@ line of its own:
      version through the plain traversal at 64×64 (phase 16's checks;
      its bound from the nodes and tests of its traversal, counted by the
      BVH4 kernel on the same rays), the captured fused step (a replay:
-     the new-sample cipher, the two kernels and G once each, the BVH4
+     the new-sample cipher, the two kernels once each, G and the BVH4
      kernel no time), its seconds, capture and graph MiB, the eager step
      in the same call, two replays bit for bit, captured against eager;
      the checkpointed captured step (the BVH4 kernel 50 + 50, the cipher
@@ -2135,19 +2138,21 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
     (its BVH form through the context's tree) against `forward_reference`
     through `plain_intersect` (by default the context's) at plain_n² (by
     default n²) within phase 4's tolerances, and on the paths that take the
-    same branches its records within rtol 1e-4; the reverse kernel on the
+    same branches its records within rtol 1e-4; the fused reverse on the
     plain forward's records at the step's own cotangent of the radiance
-    (the loss's against `target`, through DeNAN) bit for bit on its slots
-    (one a record; their count on the device must equal the rays); G on
-    the reverse kernel's slots and count through `table_grad_phase`. Then
+    (the loss's against `target`, through DeNAN): its table gradient bit
+    for bit G's on `reverse_reference`'s slots (one a record; their count
+    on the device must equal the rays); G on those slots and count through
+    `table_grad_phase`. Then
     each kernel's ms at n² (over a CUDA graph of 20 calls, so that the
     wrapper's host cost is not timed) beside its plain version's and
     its bound: the forward's from the SASS probes' units (the draws its
     records hold, the primitives every ray tests or, for the BVH form, the
     nodes and tests of its traversal) and its bytes, its records among
     them; the reverse's by bytes (its records, ray counts, the step's
-    cotangent and the texture rows read once, a slot a record and the
-    count written once). With `probe`, the forward kernel's probe instance
+    cotangent and the texture rows read once, the table written once),
+    beside R's and G's bounds before they were fused. With `probe`, the
+    forward kernel's probe instance
     at n² (`diff_trace.probe`): its outputs must equal the kernel's bit
     for bit, its passes each warp's longest path; its figures printed."""
     dev = ctx.device
@@ -2200,32 +2205,35 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
     if not (share >= PIXEL_SHARE and rec_ok):
         raise AssertionError(f"{label}: the forward kernel's records differ")
 
-    # The reverse kernel at the step's own cotangent of the radiance.
+    # The fused reverse at the step's own cotangent of the radiance,
+    # against G on the plain version's slots.
     color = vm.de_nan(want[0])
     tgt = target if m == n else torch.full_like(color, 0.25)
     g_rad = torch.where(torch.isfinite(want[0]),
                         2.0 * (color - tgt) / float(m * m * 3),
                         torch.zeros((), device=dev)).contiguous()
     zero_counts()
-    rows, g, count = diff_trace.reverse(scene, want[2], want[3], want[1],
-                                        g_rad, c0, c1, s)
+    grad = diff_trace.reverse(scene, want[2], want[3], want[1], g_rad, c0, c1,
+                              s)
     torch.cuda.synchronize()
-    if read_counts()["diff_trace_bwd"] != 1:
-        raise AssertionError(f"{label}: the reverse kernel did not launch")
+    counts = read_counts()
+    if counts["diff_trace_bwd"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"{label}: the reverse's wrapper launched "
+                             f"{counts}")
     w_rows, w_g, w_count = diff_trace.reverse_reference(
         want[2], want[3], want[1], g_rad, c0, c1, s, scene.checker)
-    slots = int(count)
-    bwd_bits = slots == int(w_count) == rays_p and torch.equal(
-        rows[:slots], w_rows[:slots]) and torch.equal(
-        g[:slots].view(torch.int32), w_g[:slots].view(torch.int32))
-    print(f"{label}: diff_trace_bwd vs its plain version on the plain "
-          f"forward's records ({m}x{m}, {slots} slots, one a record, of a "
-          f"buffer of {rows.shape[0]}): bit for bit {bwd_bits} ({card})",
-          flush=True)
-    if not bwd_bits:
-        raise AssertionError(f"{label}: the reverse kernel differs")
     n_rows = scene.n_tex * (2 if scene.checker else 1)
-    g_tab = table_grad_phase({(n_rows, 3): (rows, g, 1, count)},
+    via_g = table_grad.table_grad(w_rows, w_g, (n_rows, 3), count=w_count)
+    slots = int(w_count)
+    bwd_bits = slots == rays_p and torch.equal(
+        grad.view(torch.int32), via_g.view(torch.int32))
+    print(f"{label}: diff_trace_bwd (the fused reverse) vs G on its plain "
+          f"version's slots ({m}x{m}, {slots} slots, one a record, of a "
+          f"buffer of {w_rows.shape[0]}): the ({n_rows}, 3) table gradient "
+          f"bit for bit {bwd_bits} ({card})", flush=True)
+    if not bwd_bits:
+        raise AssertionError(f"{label}: the fused reverse differs from G")
+    g_tab = table_grad_phase({(n_rows, 3): (w_rows, w_g, 0, w_count)},
                              {(n_rows, 3): "tex_c0" + (
                                  "/tex_c1" if scene.checker else "")}, card,
                              plain_reps=3)
@@ -2266,8 +2274,15 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
     # cost (its buffers, the ctypes call) is no part of the kernel's.
     bwd_ms = profiling.graph_ms(lambda: diff_trace.reverse(
         scene, rec_f, rec_i, cnt, g_big, c0, c1, s), 20)
-    bwd_plain_ms = cuda_ms(lambda: diff_trace.reverse_reference(
-        rec_f, rec_i, cnt, g_big, c0, c1, s, scene.checker), 2)
+
+    def plain_reverse():
+        rows, g, count = diff_trace.reverse_reference(
+            rec_f, rec_i, cnt, g_big, c0, c1, s, scene.checker)
+        live = int(count)
+        return table_grad.table_grad_reference(rows[:live], g[:live],
+                                               (n_rows, 3))
+
+    bwd_plain_ms = cuda_ms(plain_reverse, 2)
     scatters, pairs = diff_pairs(big[3], rec_i, cnt, depth)
     trav = None
     if scene.bvh is not None:
@@ -2287,11 +2302,16 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
         rays, 0, ctx.cs.prims.kind.tolist(), False,
         rec_bytes + n_paths * (12 + 4), tensor_bytes(tables),
         (scatters, pairs), trav)
-    # Read: the records, each path's count and cotangent, the texture rows;
-    # written: a (row int64, cotangent f32 × 3) slot a record, the count.
+    # Read once: the records, each path's count and cotangent, the texture
+    # rows; written once: the table gradient. Beside it the bounds of R and
+    # G before they were fused: R wrote a (row int64, cotangent f32 × 3)
+    # slot a record and their count, which G read back.
     bwd_bytes = (rec_bytes + n_paths * (4 + 12) + tensor_bytes([c0, c1])
-                 + rays * (8 + 12) + 4)
+                 + 4 * 3 * n_rows)
     bwd_bound = 1e3 * bwd_bytes / HBM_BYTES_PER_S
+    r_bytes = (rec_bytes + n_paths * (4 + 12) + tensor_bytes([c0, c1])
+               + rays * (8 + 12) + 4)
+    g_bytes = rays * (8 + 12) + 4 + 4 * 3 * n_rows
     walk = ("" if trav is None else f", {trav[0]} nodes popped and "
             f"{trav[1]} primitives tested ({trav[0] / rays:.4f} and "
             f"{trav[1] / rays:.4f} a ray)")
@@ -2301,11 +2321,16 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
           f"{plain_ms:.4f} ms, "
           f"bound {bound:.4f} ms by {what} ({bound / ms:.2%}) ({card})",
           flush=True)
-    print(f"{label}: diff_trace_bwd {n}x{n}, {rays} slots (one a record): "
-          f"{bwd_ms:.4f} ms a call (a CUDA graph of 20), plain "
+    print(f"{label}: diff_trace_bwd (the fused reverse) {n}x{n}, {rays} "
+          f"records into a ({n_rows}, 3) table ({diff_trace.add_path(n_rows)} "
+          f"path): {bwd_ms:.4f} ms a call (a "
+          f"CUDA graph of 20), plain (reverse_reference, then index_put_) "
           f"{bwd_plain_ms:.4f} ms, bound "
           f"{bwd_bound:.4f} ms by bytes ({bwd_bytes} B, "
-          f"{bwd_bound / bwd_ms:.2%}) ({card})", flush=True)
+          f"{bwd_bound / bwd_ms:.2%}); R's and G's bounds before they were "
+          f"fused {1e3 * r_bytes / HBM_BYTES_PER_S:.4f} and "
+          f"{1e3 * g_bytes / HBM_BYTES_PER_S:.4f} ms ({r_bytes} and "
+          f"{g_bytes} B) ({card})", flush=True)
     return dict(fwd=dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                          bound_by=by, max_abs_err=fwd_err, rays=rays,
                          rays_equal_at_plain_frame=rays_k == rays_p,
@@ -2313,7 +2338,9 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
                          scatters=scatters, pairs=pairs, traversal=trav,
                          record_bytes=rec_bytes, probe=probed),
                 bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound,
-                         bound_by="bytes", max_abs_err=0.0, bytes=bwd_bytes),
+                         bound_by="bytes", max_abs_err=0.0, bytes=bwd_bytes,
+                         r_bound_ms=1e3 * r_bytes / HBM_BYTES_PER_S,
+                         g_bound_ms=1e3 * g_bytes / HBM_BYTES_PER_S),
                 table_grad=g_tab)
 
 
@@ -2358,13 +2385,19 @@ def tight_agreement(label: str, got: dict, want: dict, card: str) -> dict:
     return out
 
 
-def fused_replay(label: str, s: dict, want_g: int = 1) -> None:
+# The kernels of each part of the fused route on the Cornell step: the
+# forward, and the reverse's two passes (pass 2 in the lanes' copies of
+# its 12-element table).
+BWD_KERNELS = {"fwd": ("diff_trace_fwd",),
+               "bwd": ("diff_trace_bwd_stat", "diff_trace_bwd_lane")}
+
+
+def fused_replay(label: str, s: dict) -> None:
     """Raise unless a replay of a fused step launched the new-sample
-    cipher, the forward and the reverse kernel once each, G `want_g`
-    times, no bounce-form cipher, and nothing else."""
+    cipher, the forward kernel and the reverse once each, G no time, no
+    bounce-form cipher, and nothing else."""
     want = {k: 0 for k in s["counts"]}
-    want.update(threefry=1, diff_trace_fwd=1, diff_trace_bwd=1,
-                table_grad=want_g)
+    want.update(threefry=1, diff_trace_fwd=1, diff_trace_bwd=1)
     if s["counts"] != want or s["bounce_cipher"] != 0:
         raise AssertionError(f"{label}: a replay launched {s['counts']} "
                              f"({s['bounce_cipher']} in the cipher's bounce "
@@ -2376,8 +2409,8 @@ def profiled_replay(label: str, step, ctx, n: int, params, target,
     """One replay of a captured fused step under torch.profiler: its wall,
     the device's busy time and idle share, its device records, the
     largest rows; raise unless the records name the forward and the
-    reverse kernel once each and no checkpoint recompute ran (no
-    bounce-form cipher kernel)."""
+    reverse's two passes once each, G no time, and no checkpoint recompute
+    ran (no bounce-form cipher kernel)."""
     xs, ys = train_pixels(n, ctx.device)
     wall, busy, top = profiling.device_profile(lambda: step(
         params, xs, ys, target, rng.render_key(0, device=ctx.device)))
@@ -2386,18 +2419,21 @@ def profiled_replay(label: str, step, ctx, n: int, params, target,
     def named(tag):
         return sum(c for _, name, c in top if tag in name)
 
-    fwd, bwd, bounce = (named("diff_trace_fwd"), named("diff_trace_bwd"),
-                        named("bounce_tiles"))
+    fwd, stat, bwd = (named("diff_trace_fwd"), named("diff_trace_bwd_stat"),
+                      named("diff_trace_bwd"))
+    g, bounce = named("table_grad"), named("bounce_tiles")
     print(f"{label} profile: a replay under torch.profiler: wall "
           f"{wall:.5f} s, device busy {busy:.5f} s, idle share "
           f"{1 - busy / wall:.2%}, {records} device records; "
-          f"diff_trace_fwd {fwd}, diff_trace_bwd {bwd}, bounce-form cipher "
-          f"{bounce} ({card})", flush=True)
+          f"diff_trace_fwd {fwd}, the reverse's passes {stat} and "
+          f"{bwd - stat}, G {g}, bounce-form cipher {bounce} ({card})",
+          flush=True)
     for dt, name, count in top[:10]:
         print(f"  {dt / 1e3:10.4f} ms  x{count}  {name[:90]}", flush=True)
-    if not (fwd == 1 and bwd == 1 and bounce == 0):
+    if not (fwd == 1 and stat == 1 and bwd == 2 and g == 0 and bounce == 0):
         raise AssertionError(f"{label}: the profiled replay ran the forward "
-                             f"kernel {fwd} times, the reverse {bwd}, the "
+                             f"kernel {fwd} times, the reverse's passes "
+                             f"{stat} and {bwd - stat}, G {g}, the "
                              f"bounce-form cipher {bounce}")
     return dict(wall=wall, busy=busy, idle_share=1 - busy / wall,
                 records=records,
@@ -2519,7 +2555,7 @@ def training_phases(card: str) -> dict:
     demo_counts = read_counts()
     print(f"entry.train_step_demo(): loss {float(demo_loss):.7f}, launches "
           f"{demo_counts} ({card})", flush=True)
-    if not (demo_counts["table_grad"] and demo_counts["threefry"]
+    if not (demo_counts["diff_trace_bwd"] and demo_counts["threefry"]
             and demo_counts["diff_trace_fwd"]):
         raise AssertionError("the demo step did not run the step's kernels")
     out["cornell"] = dict(
@@ -2547,7 +2583,7 @@ def training_phases(card: str) -> dict:
         max_grad_err_vs_eager=versus["max_grad_err_vs_eager"],
         peak_bytes=[s["peak"] for s in steps], memory=memory,
         kernels=kernels, table_grad=kernels["table_grad"],
-        table_grad_launches=steps[1]["counts"]["table_grad"],
+        table_grad_launches=c_runs[0]["counts"]["table_grad"],
         bound_ms=step_bound,
         vs_cpu=dict(frame=n_c, depth=d_c, max_grad_err=cpu_err))
     del ctx, target, params, step, versus
@@ -3375,13 +3411,23 @@ def main() -> None:
                       ("diff_trace_fwd_probe", "the probe, never on a main path"),
                       ("diff_trace_fwd_bvh_probe",
                        "the probe, never on a main path"),
-                      ("diff_trace_bwd", "one thread a path")):
+                      ("diff_trace_bwd_stat", "the reverse's pass 1: a "
+                       "block's paths sorted by length, a warp's walked "
+                       "back plane by plane, their cotangents kept"),
+                      ("diff_trace_bwd_lane", "its pass 2, the lanes' own "
+                       "copies of a table of up to 16 elements"),
+                      ("diff_trace_bwd_block", "its pass 2, the block's "
+                       "copy of up to 4,096"),
+                      ("diff_trace_bwd_global", "its pass 2 into device "
+                       "memory")):
         if name not in usage:
             raise AssertionError(f"no ptxas report of {name} in {log}")
         u = usage[name]
         print(f"grid: {name}: {u.registers} registers, spill stores "
               f"{u.spill_stores} B, loads {u.spill_loads} B, stack frame "
-              f"{u.stack_frame} B; {how}, 128 a block", flush=True)
+              f"{u.stack_frame} B; {how}, "
+              f"{256 if name.startswith('diff_trace_bwd') else 128} a block",
+              flush=True)
 
     # 3. Cipher, bit for bit.
     rs = np.random.RandomState(0)
@@ -4151,9 +4197,11 @@ def main() -> None:
             "bound_ms": train["cornell"]["kernels"][part]["bound_ms"],
             "bound_by": train["cornell"]["kernels"][part]["bound_by"],
             "library_ms": None,
-            "registers": usage[f"diff_trace_{part}"].registers,
-            "spill_bytes": (usage[f"diff_trace_{part}"].spill_stores
-                            + usage[f"diff_trace_{part}"].spill_loads),
+            # The reverse's registers: its two passes' on the Cornell
+            # step's table (12 elements: pass 2 in the lanes' copies).
+            "registers": max(usage[k].registers for k in BWD_KERNELS[part]),
+            "spill_bytes": sum(usage[k].spill_stores + usage[k].spill_loads
+                               for k in BWD_KERNELS[part]),
             "cornell_box_obj": {
                 **train["cornell_box_obj"]["kernels"][part],
                 "launches": train["cornell_box_obj"]["launches_per_replay"][
@@ -4234,10 +4282,11 @@ def main() -> None:
                           "call over a CUDA graph of 100 calls, plain_ms "
                           "(index_put_ with accumulate, the backward of "
                           "indexing) of 3, at the fused Cornell step's "
-                          "inputs (the reverse kernel's slots, one a "
+                          "inputs (reverse_reference's slots, one a "
                           "record, over tex_c0's rows, their count read on "
-                          "the device); launches: one replay of the "
-                          "Cornell step",
+                          "the device: the fused reverse sums them itself "
+                          "and calls G no time); launches: one replay of "
+                          "the checkpointed Cornell step",
             "train_step_graph": "the Cornell step at 256x256@1 depth 50 as "
                                 "one CUDA graph on the fused route: ms the "
                                 "median of the replays of steps 1-4, "
@@ -4255,15 +4304,18 @@ def main() -> None:
                           "probes' units (the draws its records hold, every "
                           "primitive a ray or the BVH form's nodes and "
                           "tests) and its bytes (its records among them); "
-                          "bwd: ms a call (a CUDA graph of 20 calls) on "
-                          "those records at the step's own cotangent (its "
-                          "blocks' record counts and its walk), bound by "
-                          "bytes (the "
-                          "records read, a slot a record written); "
-                          "max_abs_err: the forward's largest "
-                          "pixel difference from its plain version, the "
-                          "reverse's 0 (bit for bit); launches: one replay "
-                          "of the Cornell step",
+                          "bwd: the fused reverse, ms a call (a CUDA graph "
+                          "of 20 calls: its two passes) on those records at "
+                          "the step's own cotangent to the table gradient, "
+                          "plain_ms reverse_reference then index_put_, "
+                          "bound by bytes (the records, each path's count "
+                          "and cotangent and the texture rows read once, "
+                          "the table written once), beside R's and G's "
+                          "bounds before they were fused; max_abs_err: the "
+                          "forward's largest pixel difference from its "
+                          "plain version, the reverse's 0 (bit for bit G's "
+                          "on the plain slots); launches: one replay of "
+                          "the Cornell step",
             "bvh4_rowstack": f"{TRAVERSE_RAYS} rays on phase 7's recipe, "
                              f"in their order, on the dragon scene's "
                              f"leaf-64 tree (its main path's); the third "

@@ -7,8 +7,9 @@
 // `jax.checkpoint`ed bounces, which XLA fuses into a few device programs
 // forward and a few backward. In the port that scan was a CUDA graph of
 // ~162,000 small PyTorch kernels a Cornell step (the bounce, its
-// checkpoint recompute and its backward, 50 times over). Here it is two
-// launches and one call of the gathers' backward (ops/table_grad.py, G).
+// checkpoint recompute and its backward, 50 times over). Here it is one
+// forward launch and a reverse of two launches that also does the work of
+// the gathers' backward (ops/table_grad.py, G) for the texture rows.
 //
 // What it computes. In a scene with no metal and no absorbing dielectric
 // (ops/diff_trace.py eligible_diff), no trainable parameter reaches a
@@ -61,23 +62,38 @@
 // factoring it would put the RGB megakernel's register allocation (96, no
 // spill) and its images at stake.
 //
-// izpi_diff_trace_bwd: first diff_trace_block_counts, the records of each
-// block of kThreads paths; then diff_trace_bwd, one thread a path. Its
-// block adds up the records of the blocks before it and scans its own
-// paths' counts, which gives each path its first slot off_i, and the last
-// block writes the number of records. The thread walks the path's records
-// from the last to the first, from ā_thru_D = ā_rad ⊙ (0, 0, 1) when the
-// path reached the cap, and writes (row, ā_albedo) for each record k at
-// slot off_i + k (row 0 and zeros on a bounce that gathers nothing that
-// counts): the slots hold the live records alone, path after path, and G
-// sums that many of them in one call, the count read on the device.
+// izpi_diff_trace_bwd, the fused reverse: the walk of R and the sum of G
+// in two launches, with no (row, cotangent) slot in device memory. A
+// block takes 256 paths and sorts them by record count (sorted_path), so
+// that a warp's lanes hold paths of about one length; a warp walks its
+// lanes' records plane by plane, from its longest count down, lane l
+// taking record k where k < its count, 8 planes' loads in flight and the
+// texture rows staged in shared memory. A path's walk keeps the order of
+// one thread a path: from ā_thru_D = ā_rad ⊙ (0, 0, 1) when the path
+// reached the cap, each record's albedo cotangent ā_albedo in path.py's
+// order of operations.
+// - diff_trace_bwd_stat (pass 1) walks, keeps each record's ā_albedo and
+//   row at its path's rank (`keep`, one access a warp's plane), and writes
+//   its block's largest finite |ā_albedo| and records. It zeroes pass 2's
+//   sums.
+// - diff_trace_bwd_lane / _block / _global (pass 2) take the fixed point's
+//   exponent from those partials, exactly G's (fixed_point.cuh: the
+//   largest finite value and n = Σ cnt, every record a slot as G counted
+//   R's), and add every kept record's terms, an even run of them a thread
+//   (no walk, no tail): into the lanes' own copies of the table in shared
+//   memory (up to kLaneElems elements), the block's copy (the warp's
+//   same-row sum, up to kSharedElems), or device memory. The last block to
+//   finish (an atomic ticket; no grid barrier) writes the table.
+// So the gradient is G's on R's slots bit for bit: the same terms, and
+// int64 sums that any order and any grouping leave the same.
 //
 // Bound. The forward is the RGB megakernel's work (bound by instruction
 // throughput: the primitive tests or node visits and the Threefry rounds,
 // counted from the SASS probes of sass_probes.cu) plus its records'
-// bytes. The reverse is memory-bound: the records read, a (row,
-// cotangent) slot written a record, the counts and cotangents of the paths
-// beside them.
+// bytes. The reverse is memory-bound: the records read once, the counts
+// and cotangents of the paths, the texture rows, the table written once.
+// What it waits on is latency: a warp's longest walk, a dependent plane at
+// a time (PERF.md).
 // Both keep a path in one lane's registers, so the bounce's state never
 // goes through device memory but as the record the reverse walk reads.
 //
@@ -95,6 +111,7 @@
 
 #include "bvh4.cuh"
 #include "common.cuh"
+#include "fixed_point.cuh"
 
 namespace izpi {
 namespace diff {
@@ -669,102 +686,421 @@ __global__ void __launch_bounds__(kThreads)
   forward_thread<true>(bvh, sc, tex, a);
 }
 
-// The sum of `v` over the block's kThreads threads, in `part` (shared);
-// every thread gets it.
-__device__ __forceinline__ int block_sum(int v, int* part) {
+// The reverse's block: kRevThreads paths, sorted by their record count
+// (sorted_path) before they are walked.
+constexpr int kRevThreads = 256;
+// The reverse walk's planes in flight: while a warp walks plane k back, its
+// loads of plane k - kAhead are issued (a record does not depend on the ā
+// chain).
+constexpr int kAhead = 8;
+// Rows of the stacked [c0; c1] table a block stages in shared memory; a
+// larger table is read from device memory.
+constexpr int kStageRows = 256;
+// Record counts the block's sort tells apart; longer paths share its last
+// bin.
+constexpr int kLenBins = 64;
+
+// The texture rows as the reverse walk reads them: the stacked [c0; c1]
+// rows staged in shared memory, or tex's.
+struct RowTable {
+  const float* staged;
+  Tex tex;
+  __device__ __forceinline__ V3 row(int r) const {
+    return staged != nullptr ? ld3(staged + 3 * r) : tex.row(r);
+  }
+};
+
+// c0's and c1's rows staged in s (3·kStageRows floats of shared memory)
+// where they fit; every thread of the block calls it.
+__device__ __forceinline__ RowTable stage_rows(const Tex& tex, float* s) {
+  const int floats = 3 * tex.n_tex;
+  if (2 * tex.n_tex > kStageRows) return RowTable{nullptr, tex};
+  for (int e = threadIdx.x; e < 2 * floats; e += blockDim.x) {
+    s[e] = e < floats ? tex.c0[e] : tex.c1[e - floats];
+  }
+  __syncthreads();
+  return RowTable{s, tex};
+}
+
+// The reverse kernels' inputs: the forward's records and ray counts, the
+// radiance's cotangent g_rad (n, 3), the background.
+struct RevArgs {
+  const float* __restrict__ rec_f;
+  const int* __restrict__ rec_i;
+  const int* __restrict__ cnt;
+  const float* __restrict__ g_rad;
+  int n;
+  V3 bg;
+};
+
+// The path this thread walks back, and its record count `len`: the
+// block's kRevThreads paths sorted by count, longest first (a counting sort
+// in shared memory, bins: 2·kLenBins ints; paths of one count in any
+// order; a path past n counts 0 records), so that a warp's lanes hold
+// paths of about one length and the warp walks few planes its lanes do not
+// use. Which lane walks which path changes no bit: a path's walk is its
+// own, and the fixed point's sums are taken in any order. Every thread of
+// the block calls it.
+__device__ __forceinline__ int sorted_path(const RevArgs& a, int* bins, int* order, int& len) {
   const int t = threadIdx.x;
-  part[t] = v;
+  const int first = blockIdx.x * blockDim.x;
+  const int own = first + t < a.n ? a.cnt[first + t] : 0;
+  const int bin = own < kLenBins - 1 ? own : kLenBins - 1;
+  for (int j = t; j < 2 * kLenBins; j += blockDim.x) bins[j] = 0;
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (t < s) part[t] += part[t + s];
-    __syncthreads();
+  atomicAdd(bins + bin, 1);
+  __syncthreads();
+  if (t < kLenBins) {  // the paths in the bins above bin t
+    int above = 0;
+    for (int j = t + 1; j < kLenBins; ++j) above += bins[j];
+    bins[kLenBins + t] = above;
   }
-  const int sum = part[0];
   __syncthreads();
-  return sum;
+  order[atomicAdd(bins + kLenBins + bin, 1)] = t;
+  __syncthreads();
+  const int path = first + order[t];
+  len = path < a.n ? a.cnt[path] : 0;
+  return path;
 }
 
-// blk[b]: the records of paths [b·kThreads, (b + 1)·kThreads).
-__global__ void __launch_bounds__(kThreads)
-    diff_trace_block_counts(const int* __restrict__ cnt, int n, int* __restrict__ blk) {
-  __shared__ int part[kThreads];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int sum = block_sum(i < n ? cnt[i] : 0, part);
-  if (threadIdx.x == 0) blk[blockIdx.x] = sum;
-}
-
-// The reverse walk of path i over its len records; writes its (row,
-// cotangent) slots from `base`, one a record.
-__device__ __forceinline__ void reverse_path(int i, int n, int len, size_t base, const Tex& tex,
-                                             V3 bg, const float* __restrict__ rec_f,
-                                             const int* __restrict__ rec_i,
-                                             const float* __restrict__ g_rad,
-                                             long long* __restrict__ rows_out,
-                                             float* __restrict__ g_out) {
-  const V3 g = ld3(g_rad + 3 * i);
+// One record of a path walked back: ā_thru after the bounce (a) becomes
+// ā_thru before it, and the cotangent of the albedo row it gathered is
+// returned (zeros where it gathers nothing that counts). `last`: the path's
+// last record, where a starts from the sentinel's ā_thru if the path
+// reached the cap (its last bounce scattered), else from zeros.
+__device__ __forceinline__ V3 reverse_step(float4 rf, int code, int row, V3 g, V3 bg,
+                                           const RowTable& rows, bool last, V3& a) {
   const V3 zero = mk(0.0f, 0.0f, 0.0f);
-  // ā_thru after the last bounce: the sentinel's, if the path reached the
-  // cap (its last bounce scattered).
-  V3 a = zero;
-  if (len > 0) {
-    const int last = rec_i[(size_t)(len - 1) * n + i] & ((1 << kCodeBits) - 1);
-    if (last == kScatter || last == kRefract) a = g * mk(0.0f, 0.0f, 1.0f);
+  if (last) a = code == kScatter || code == kRefract ? g * mk(0.0f, 0.0f, 1.0f) : zero;
+  const V3 thru = mk(rf.x, rf.y, rf.z);
+  V3 ga = zero;
+  if (code == kMiss) {
+    a = g * bg;
+  } else if (code == kEmit) {
+    ga = g * thru;
+    a = g * rows.row(row);
+  } else if (code == kScatter) {
+    ga = (a * thru) * rf.w;
+    a = a * (rows.row(row) * rf.w);
+  } else if (code == kNone) {
+    a = zero;
+  }  // kRefract: mult = 1, ā_thru passes through
+  return ga;
+}
+
+// The reverse walk of path i (len records; i >= n: none) in this lane,
+// plane by plane with the warp's other lanes: k steps down from the warp's
+// longest count, and the lane takes record k where k < len, so the path's
+// records go from its last to its first, the order of one thread a path.
+// visit(k, live, row, ga) is called by every lane of the warp at each
+// plane (live: the lane took record k, of texture row `row` and albedo
+// cotangent ga).
+template <class Visit>
+__device__ __forceinline__ void reverse_walk(const RevArgs& a, const RowTable& rows, int i,
+                                             int len, Visit&& visit) {
+  const V3 g = i < a.n ? ld3(a.g_rad + 3 * i) : mk(0.0f, 0.0f, 0.0f);
+  const int top = __reduce_max_sync(kFull, len);
+  const float4* __restrict__ recs = reinterpret_cast<const float4*>(a.rec_f);
+  float4 rf[kAhead];
+  int word[kAhead];
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    const int k = top - 1 - j;
+    rf[j] = float4{0.0f, 0.0f, 0.0f, 0.0f};
+    word[j] = 0;
+    if (k >= 0 && k < len) {
+      rf[j] = recs[(size_t)k * a.n + i];
+      word[j] = a.rec_i[(size_t)k * a.n + i];
+    }
   }
-  for (int k = len - 1; k >= 0; --k) {
-    const size_t slot = (size_t)k * n + i;
-    const float4 rf = reinterpret_cast<const float4*>(rec_f)[slot];
-    const int word = rec_i[slot];
-    const int code = word & ((1 << kCodeBits) - 1);
-    const int row = word >> kCodeBits;
-    const V3 thru = mk(rf.x, rf.y, rf.z);
-    V3 ga = zero;
-    if (code == kMiss) {
-      a = g * bg;
-    } else if (code == kEmit) {
-      ga = g * thru;
-      a = g * tex.row(row);
-    } else if (code == kScatter) {
-      ga = (a * thru) * rf.w;
-      a = a * (tex.row(row) * rf.w);
-    } else if (code == kNone) {
-      a = zero;
-    }  // kRefract: mult = 1, ā_thru passes through
-    const size_t out = base + k;
-    rows_out[out] = row;
-    g_out[3 * out + 0] = ga.x;
-    g_out[3 * out + 1] = ga.y;
-    g_out[3 * out + 2] = ga.z;
+  V3 ac = mk(0.0f, 0.0f, 0.0f);
+  for (int base = top - 1; base >= 0; base -= kAhead) {
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int k = base - j;
+      if (k < 0) break;  // the same k in every lane
+      const float4 r = rf[j];
+      const int w = word[j];
+      const int kn = k - kAhead;
+      if (kn >= 0 && kn < len) {
+        rf[j] = recs[(size_t)kn * a.n + i];
+        word[j] = a.rec_i[(size_t)kn * a.n + i];
+      }
+      const bool live = k < len;
+      const int row = w >> kCodeBits;
+      V3 ga = mk(0.0f, 0.0f, 0.0f);
+      if (live) {
+        ga = reverse_step(r, w & ((1 << kCodeBits) - 1), row, g, a.bg, rows, k == len - 1, ac);
+      }
+      visit(k, live, row, ga);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    diff_trace_bwd(Tex tex, const float* __restrict__ rec_f, const int* __restrict__ rec_i,
-                   const int* __restrict__ cnt, const int* __restrict__ blk,
-                   const float* __restrict__ g_rad, int n, V3 bg,
-                   long long* __restrict__ rows_out, float* __restrict__ g_out,
-                   int* __restrict__ total) {
-  __shared__ int part[kThreads];
-  const int t = threadIdx.x, b = blockIdx.x;
-  const int i = b * kThreads + t;
-  // The records of the blocks before this one.
-  int before = 0;
-  for (int j = t; j < b; j += kThreads) before += blk[j];
-  const int base = block_sum(before, part);
-  // An inclusive scan of this block's paths' counts.
-  const int len = i < n ? cnt[i] : 0;
-  part[t] = len;
+// The fused reverse's scratch in device memory, unzeroed: pass 1 zeroes
+// the sums, flags and ticket that pass 2 adds into, and writes its
+// blocks' partials, which pass 2 reads whole.
+struct GradScratch {
+  unsigned long long* acc;  // the table's int64 sums (elems)
+  unsigned* flags;          // their NaN and ±Inf flags (elems)
+  unsigned* part_max;       // a pass-1 block's largest finite |ā_albedo| (its bits)
+  int* part_cnt;            // a pass-1 block's records
+  int* ticket;              // pass 2's blocks done
+  int* rank_len;            // the records of a block's path of each rank (n)
+};
+
+__host__ __device__ __forceinline__ GradScratch grad_scratch(void* p, long long elems,
+                                                             int blocks) {
+  GradScratch gs;
+  gs.acc = (unsigned long long*)p;
+  gs.flags = (unsigned*)(gs.acc + elems);
+  gs.part_max = gs.flags + elems;
+  gs.part_cnt = (int*)(gs.part_max + blocks);
+  gs.ticket = gs.part_cnt + blocks;
+  gs.rank_len = gs.ticket + 1;
+  return gs;
+}
+
+// Where pass 2 adds a block's terms: in its lanes' own copies of the table
+// in shared memory (kLaneElems elements or fewer: no atomics, no
+// conflicts), in the block's copy (kSharedElems or fewer: the warp's
+// same-row sum, then shared atomics), or in device memory.
+enum AddPath : int { kAddLane = 0, kAddBlock, kAddGlobal };
+constexpr int kLaneElems = 16;
+using fixed::kSharedElems;
+
+__host__ __device__ __forceinline__ int add_path(long long elems) {
+  return elems <= kLaneElems ? kAddLane : (elems <= kSharedElems ? kAddBlock : kAddGlobal);
+}
+
+// The largest m (>= 0) and the sum of c over the block's kRevThreads
+// threads, in every thread (wm, wc: shared, a warp's entry each).
+__device__ __forceinline__ void block_max_sum(float& m, long long& c, float* wm, long long* wc) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 16; o > 0; o >>= 1) {
+    m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+    c += __shfl_sync(kFull, c, lane ^ o);
+  }
+  if (lane == 0) {
+    wm[threadIdx.x >> 5] = m;
+    wc[threadIdx.x >> 5] = c;
+  }
   __syncthreads();
-  for (int s = 1; s < kThreads; s <<= 1) {
-    const int v = t >= s ? part[t - s] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
+  m = wm[0];
+  c = wc[0];
+  for (int w = 1; w < kRevThreads / 32; ++w) {
+    m = fmaxf(m, wm[w]);
+    c += wc[w];
   }
-  if (b == gridDim.x - 1 && t == kThreads - 1) *total = base + part[t];
-  if (i < n) {
-    reverse_path(i, n, len, (size_t)(base + part[t] - len), tex, bg, rec_f, rec_i, g_rad,
-                 rows_out, g_out);
+  __syncthreads();
+}
+
+// The exclusive prefix sum of v over the block's kRevThreads threads, and
+// their total (ws: shared, a warp's entry each). Every thread calls it.
+__device__ __forceinline__ int block_scan(int v, int* ws, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_sync(kFull, x, lane >= o ? lane - o : 0);
+    if (lane >= o) x += y;
   }
+  if (lane == 31) ws[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+  for (int w = 0; w < kRevThreads / 32; ++w) {
+    before += w < warp ? ws[w] : 0;
+    total += ws[w];
+  }
+  __syncthreads();
+  return before + x - v;
+}
+
+// Pass 1: the walk's largest finite |ā_albedo| and its records, a block's
+// into its partials; each record's cotangent and row kept for pass 2 at
+// the path's rank in its block (sorted_path), so that a warp's stores are
+// one access: keep[k·n + first + rank] = (ā_albedo, the row's bits) for
+// record k, and rank_len[first + rank] its records; the sums, flags and
+// ticket of pass 2 zeroed.
+__global__ void __launch_bounds__(kRevThreads)
+    diff_trace_bwd_stat(Tex tex, RevArgs ra, GradScratch gs, long long elems,
+                        float4* __restrict__ keep) {
+  __shared__ float staged[3 * kStageRows];
+  __shared__ int bins[2 * kLenBins];
+  __shared__ int order[kRevThreads];
+  __shared__ float wm[kRevThreads / 32];
+  __shared__ long long wc[kRevThreads / 32];
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long e = gid; e < elems; e += (long long)gridDim.x * blockDim.x) {
+    gs.acc[e] = 0ull;
+    gs.flags[e] = 0u;
+  }
+  if (gid == 0) *gs.ticket = 0;
+  const RowTable rows = stage_rows(tex, staged);
+  int len = 0;
+  const int i = sorted_path(ra, bins, order, len);
+  float m = 0.0f;
+  reverse_walk(ra, rows, i, len, [&](int k, bool live, int row, V3 ga) {
+    if (live) {
+      m = fmaxf(m, fmaxf(fixed::finite_abs(ga.x),
+                         fmaxf(fixed::finite_abs(ga.y), fixed::finite_abs(ga.z))));
+      keep[(size_t)k * ra.n + blockIdx.x * blockDim.x + threadIdx.x] =
+          float4{ga.x, ga.y, ga.z, __int_as_float(row)};
+    }
+  });
+  // A rank past the paths holds none: the sort puts them last.
+  if (gid < ra.n) gs.rank_len[gid] = len;
+  long long c = len;
+  block_max_sum(m, c, wm, wc);
+  if (threadIdx.x == 0) {
+    gs.part_max[blockIdx.x] = __float_as_uint(m);
+    gs.part_cnt[blockIdx.x] = (int)c;
+  }
+}
+
+// Pass 2: the exponent from pass 1's partials (the largest |ā_albedo| and
+// n = Σ cnt, G's over the slots of every record), then the block's records
+// from pass 1's keep, rank after rank, an even run of them a thread (no
+// walk: every lane busy to the end), each record's terms added (kPath)
+// into the table's sums; the last block to finish turns the sums into out
+// (elems f32).
+template <int kPath>
+__device__ __forceinline__ void reverse_add(const RevArgs& ra, const GradScratch& gs,
+                                            long long elems,
+                                            const float4* __restrict__ keep,
+                                            float* __restrict__ out) {
+  __shared__ int lens[kRevThreads];
+  __shared__ int start[kRevThreads];
+  __shared__ int ws[kRevThreads / 32];
+  __shared__ float wm[kRevThreads / 32];
+  __shared__ long long wc[kRevThreads / 32];
+  __shared__ unsigned long long part[kPath == kAddGlobal ? 1 : kSharedElems];
+  __shared__ int last;
+  static_assert(kLaneElems * kRevThreads <= kSharedElems, "a lane's copies fit the block's");
+  const int t = threadIdx.x;
+  float m = 0.0f;
+  long long n = 0;
+  for (int j = t; j < (int)gridDim.x; j += blockDim.x) {
+    m = fmaxf(m, __uint_as_float(gs.part_max[j]));
+    n += gs.part_cnt[j];
+  }
+  block_max_sum(m, n, wm, wc);
+  const int k = fixed::exponent(__float_as_uint(m), n);
+  const double scale = fixed::scale_of(k);
+  if constexpr (kPath != kAddGlobal) {
+    const long long slots = kPath == kAddLane ? elems * kRevThreads : elems;
+    for (long long e = t; e < slots; e += blockDim.x) part[e] = 0ull;
+  }
+  // The block's ranks, and the first record of each.
+  const int first = blockIdx.x * blockDim.x;
+  const int len = first + t < ra.n ? gs.rank_len[first + t] : 0;
+  int total = 0;
+  lens[t] = len;
+  start[t] = block_scan(len, ws, total);
+  __syncthreads();
+  auto add = [&](bool live, int row, V3 ga) {
+    const float x[3] = {ga.x, ga.y, ga.z};
+    if constexpr (kPath == kAddLane) {
+      if (!live) return;
+#pragma unroll
+      for (int col = 0; col < 3; ++col) {
+        unsigned flag = 0u;
+        const long long q = fixed::term(x[col], scale, flag);
+        if (flag != 0u) atomicOr(gs.flags + 3 * row + col, flag);
+        if (q != 0) part[(size_t)(3 * row + col) * kRevThreads + t] += (unsigned long long)q;
+      }
+    } else {
+      unsigned long long* acc = kPath == kAddBlock ? part : gs.acc;
+      const unsigned peers = __match_any_sync(kFull, live ? (long long)row : -1ll);
+      const bool leader = live && __ffs(peers) - 1 == (t & 31);
+#pragma unroll
+      for (int col = 0; col < 3; ++col) {
+        unsigned flag = 0u;
+        const long long q = live ? fixed::term(x[col], scale, flag) : 0;
+        if (flag != 0u) atomicOr(gs.flags + 3 * row + col, flag);
+        fixed::warp_add(peers, leader, q, leader ? acc + 3 * row + col : acc);
+      }
+    }
+  };
+  // Records [r, r_end) of the block, from rank p's record rec.
+  const int per = (total + kRevThreads - 1) / kRevThreads;
+  int r = t * per;
+  const int r_end = r + per < total ? r + per : total;
+  int p = 0, rec = 0;
+  if (r < r_end) {  // the last rank that starts at or before r
+    for (int step = kRevThreads / 2; step > 0; step >>= 1) {
+      if (start[p + step] <= r) p += step;
+    }
+    rec = r - start[p];
+  }
+#pragma unroll 4
+  for (int j = 0; j < per; ++j) {
+    const bool live = r < r_end;
+    int row = 0;
+    V3 ga = mk(0.0f, 0.0f, 0.0f);
+    if (live) {
+      const float4 v = keep[(size_t)rec * ra.n + first + p];
+      ga = mk(v.x, v.y, v.z);
+      row = __float_as_int(v.w);
+      ++r;
+      ++rec;
+      if (r < r_end) {
+        while (rec == lens[p]) {
+          ++p;
+          rec = 0;
+        }
+      }
+    }
+    add(live, row, ga);
+  }
+  __syncthreads();
+  if constexpr (kPath == kAddLane) {
+    // Element e's copies (a lane's at e·kRevThreads + t) summed by warp e
+    // mod (kRevThreads / 32), each lane over a run of them, then by
+    // shuffles.
+    const int lane = t & 31;
+    for (long long e = t >> 5; e < elems; e += kRevThreads / 32) {
+      unsigned long long sum = 0ull;
+      for (int j = lane; j < kRevThreads; j += 32) sum += part[e * kRevThreads + j];
+      for (int o = 16; o > 0; o >>= 1) {
+        sum += (unsigned long long)__shfl_sync(kFull, (long long)sum, lane ^ o);
+      }
+      if (lane == 0 && sum != 0ull) atomicAdd(gs.acc + e, sum);
+    }
+  } else if constexpr (kPath == kAddBlock) {
+    for (long long e = t; e < elems; e += blockDim.x) {
+      if (part[e] != 0ull) atomicAdd(gs.acc + e, part[e]);
+    }
+  }
+  // The last block to finish reads every block's sums.
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(gs.ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (long long e = t; e < elems; e += blockDim.x) {
+    out[e] = fixed::value(*(volatile unsigned long long*)(gs.acc + e),
+                          *(volatile unsigned*)(gs.flags + e), k);
+  }
+}
+
+__global__ void __launch_bounds__(kRevThreads)
+    diff_trace_bwd_lane(RevArgs ra, GradScratch gs, long long elems,
+                        const float4* __restrict__ keep, float* __restrict__ out) {
+  reverse_add<kAddLane>(ra, gs, elems, keep, out);
+}
+
+__global__ void __launch_bounds__(kRevThreads)
+    diff_trace_bwd_block(RevArgs ra, GradScratch gs, long long elems,
+                         const float4* __restrict__ keep, float* __restrict__ out) {
+  reverse_add<kAddBlock>(ra, gs, elems, keep, out);
+}
+
+__global__ void __launch_bounds__(kRevThreads)
+    diff_trace_bwd_global(RevArgs ra, GradScratch gs, long long elems,
+                          const float4* __restrict__ keep, float* __restrict__ out) {
+  reverse_add<kAddGlobal>(ra, gs, elems, keep, out);
 }
 
 }  // namespace diff
@@ -838,29 +1174,42 @@ int izpi_diff_trace_fwd_probe(const float* prim_f, const int* prim_i, int n_prim
                     book, rad, cnt, rec_f, rec_i, probe, stream);
 }
 
-// The reverse kernel over n paths on `stream`: the forward's records and
+// The fused reverse over n paths on `stream`: the forward's records and
 // ray counts, g_rad (n, 3) f32 the radiance's cotangent, c0, c1 as above.
-// blk: scratch of izpi_diff_trace_bwd_blocks(n) ints. Writes total (one
-// int), the number of records, and rows (max_depth·n,) int64 and g
-// (max_depth·n, 3) f32, whose slot off_i + k holds bounce k of path i,
-// off_i the records of the paths before i (the slots from total on are
-// not written). Returns a cudaError_t.
-int izpi_diff_trace_bwd_blocks(int n) {
-  return (n + izpi::diff::kThreads - 1) / izpi::diff::kThreads;
+// Writes out (n_rows, 3) f32, the gradient of the stacked [c0; c1] table's
+// first n_rows rows (n_tex, or 2·n_tex where a texture is a checker): each
+// record's albedo cotangent added at its row in the 64-bit fixed point of
+// fixed_point.cuh, whose exponent counts every record. scratch:
+// izpi_diff_trace_bwd_scratch(n, n_rows) bytes of device memory, not
+// zeroed; keep: (max_depth, n, 4) f32, pass 1's cotangents and rows for
+// pass 2. Two launches. Returns a cudaError_t.
+long long izpi_diff_trace_bwd_scratch(int n, int n_rows) {
+  const long long blocks = (n + izpi::diff::kRevThreads - 1) / izpi::diff::kRevThreads;
+  return 12LL * 3 * n_rows + 8 * blocks + 4 + 4LL * n;
 }
 
 int izpi_diff_trace_bwd(const float* rec_f, const int* rec_i, const int* cnt, const float* g_rad,
                         const float* c0, const float* c1, int n_tex, int n, int max_depth,
-                        float bg_r, float bg_g, float bg_b, int* blk, int* total,
-                        long long* rows, float* g, void* stream) {
-  if (n <= 0 || max_depth <= 0) return (int)cudaErrorInvalidValue;
-  izpi::diff::Tex tex{c0, c1, n_tex};
+                        float bg_r, float bg_g, float bg_b, int n_rows, void* scratch,
+                        float* keep, float* out, void* stream) {
+  if (n <= 0 || max_depth <= 0 || n_rows <= 0) return (int)cudaErrorInvalidValue;
+  using namespace izpi::diff;
+  const Tex tex{c0, c1, n_tex};
+  const RevArgs ra{rec_f, rec_i, cnt, g_rad, n, izpi::mk(bg_r, bg_g, bg_b)};
+  const long long elems = 3LL * n_rows;
+  const int blocks = (n + kRevThreads - 1) / kRevThreads;
+  const GradScratch gs = grad_scratch(scratch, elems, blocks);
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads = izpi::diff::kThreads;
-  const int blocks = izpi_diff_trace_bwd_blocks(n);
-  izpi::diff::diff_trace_block_counts<<<blocks, threads, 0, s>>>(cnt, n, blk);
-  izpi::diff::diff_trace_bwd<<<blocks, threads, 0, s>>>(
-      tex, rec_f, rec_i, cnt, blk, g_rad, n, izpi::mk(bg_r, bg_g, bg_b), rows, g, total);
+  float4* kept = reinterpret_cast<float4*>(keep);
+  diff_trace_bwd_stat<<<blocks, kRevThreads, 0, s>>>(tex, ra, gs, elems, kept);
+  const int path = add_path(elems);
+  if (path == kAddLane) {
+    diff_trace_bwd_lane<<<blocks, kRevThreads, 0, s>>>(ra, gs, elems, kept, out);
+  } else if (path == kAddBlock) {
+    diff_trace_bwd_block<<<blocks, kRevThreads, 0, s>>>(ra, gs, elems, kept, out);
+  } else {
+    diff_trace_bwd_global<<<blocks, kRevThreads, 0, s>>>(ra, gs, elems, kept, out);
+  }
   return (int)cudaGetLastError();
 }
 

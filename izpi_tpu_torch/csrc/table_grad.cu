@@ -12,76 +12,52 @@
 // out[rows[i], :] += g[i, :] for i < n: out (r, c) f32, g (n, c) f32, rows
 // (n,) int64 in [0, r). Where a count is given (device memory), only its
 // first *count rows add: a producer that knows how many rows it wrote only
-// on the device (ops/diff_trace.py's reverse kernel) hands over its
-// buffer and that count, and the host reads neither.
+// on the device hands over its buffer and that count, and the host reads
+// neither. The fused route's reverse (diff_trace.cu) sums its records'
+// cotangents itself, in the same fixed point, and calls G no time.
 //
 // What bounds it on the H100: bytes (a row id and c cotangents read a
 // gathered row, c floats written a table row), a few µs at the step's
 // 65,536 rays; what costs in practice is conflicts, since every ray that
 // hits a wall adds into the same few rows. Float atomics serialise those
 // and sum in an order that changes from run to run. So the sums are taken
-// in 64-bit fixed point, where addition is associative and every order
-// gives the same bits:
-// 1. table_grad_absmax: the largest finite |g| (atomicMax on the bits of a
-//    non-negative float, which order as unsigned integers; order-free);
-// 2. table_grad_scatter: each value times 2^k, k the largest power that
-//    keeps the sum of n such values below 2^62, rounded to an int64. The
-//    lanes of a warp that share a row (__match_any_sync) sum theirs by
-//    shuffles, and the lowest of them adds the sum with one integer
-//    atomic: into the block's copy of the table in shared memory when the
-//    table holds at most kSharedElems elements (materials, texture rows,
-//    small SPD tables: the conflicts stay on the SM, and each block then
-//    adds its non-zero elements once to device memory), else straight into
-//    device memory (an image stack, whose texels see few conflicts). A NaN
-//    or an infinity sets a flag bit of its element instead;
-// 3. table_grad_finalize: each element back to f32, acc·2^-k, or NaN or
-//    ±Inf by its flags, as an IEEE sum would give them.
-// A row's sum is off by at most n²·max|g|·2^-63 (the rounding of n terms
-// at 2^-k), below 5e-10·max|g| at 65,536 rays, where f32 summation is off
-// by up to ~n·2^-24 of the row's absolute sum.
+// in the 64-bit fixed point of fixed_point.cuh, where every order gives the
+// same bits (the fused route's reverse, diff_trace.cu, sums in it too):
+// 1. table_grad_absmax: the largest finite |g| (atomicMax on its bits;
+//    order-free);
+// 2. table_grad_scatter: each value's term (fixed::term). The lanes of a
+//    warp that share a row (__match_any_sync) sum theirs by shuffles, and
+//    the lowest of them adds the sum with one integer atomic
+//    (fixed::warp_add): into the block's copy of the table in shared
+//    memory when the table holds at most kSharedElems elements (materials,
+//    texture rows, small SPD tables: the conflicts stay on the SM, and each
+//    block then adds its non-zero elements once to device memory), else
+//    straight into device memory (an image stack, whose texels see few
+//    conflicts). A NaN or an infinity sets a flag bit of its element;
+// 3. table_grad_finalize: each element back to f32 (fixed::value).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "fixed_point.cuh"
+
 namespace izpi {
 
 constexpr int kGradThreads = 256;
-constexpr int kSharedElems = 4096;   // 32 KB of int64 a block
+using fixed::kSharedElems;
 constexpr int kMaxGradBlocks = 1056; // 8 blocks on each of 132 SMs
 constexpr int kSharedBatches = 4;    // 32-ray batches a warp, shared path
 constexpr unsigned kFull = 0xffffffffu;
-
-// Flag bits of an element that received a NaN, +Inf or -Inf.
-constexpr unsigned kNaN = 1u, kPosInf = 2u, kNegInf = 4u;
-
-// The fixed point's exponent k for n terms whose largest |value| has the
-// bits `bits`: m < 2^e, so each |q| < 2^(e + k) = 2^(62 - ceil(log2 n)).
-__device__ __forceinline__ int fixed_exponent(unsigned bits, long long n) {
-  const float m = __uint_as_float(bits);
-  if (!(m > 0.0f)) return 0;
-  int e = 0;
-  frexpf(m, &e);
-  const int lg = n <= 1 ? 0 : 64 - __clzll(n - 1);
-  return 62 - e - lg;
-}
-
-// The rows that add: n, or the first *count of them where count is given.
-__device__ __forceinline__ long long live_rows(long long n, const int* count) {
-  if (count == nullptr) return n;
-  const long long k = *count;
-  return k < 0 ? 0 : (k < n ? k : n);
-}
 
 __global__ void table_grad_absmax(const float* __restrict__ g, long long n, int c,
                                   const int* __restrict__ rows_count,
                                   unsigned* __restrict__ stat) {
   __shared__ float warp_max[kGradThreads / 32];
-  const long long count = live_rows(n, rows_count) * c;
+  const long long count = fixed::live_rows(n, rows_count) * c;
   float m = 0.0f;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < count;
        i += (long long)gridDim.x * blockDim.x) {
-    const float a = fabsf(g[i]);
-    if (a <= 3.402823466e38f) m = fmaxf(m, a);  // NaN and Inf are flags
+    m = fmaxf(m, fixed::finite_abs(g[i]));
   }
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
@@ -92,12 +68,12 @@ __global__ void table_grad_absmax(const float* __restrict__ g, long long n, int 
   }
 }
 
-// One warp's 32 rays from `first`: their fixed-point values summed over
-// the lanes that share a row, added by the lowest such lane to
-// acc[row * c + col] (shared or device memory: the caller's `acc`).
+// One warp's 32 rays from `first`: their terms summed over the lanes that
+// share a row, added by the lowest such lane to acc[row * c + col] (shared
+// or device memory: the caller's `acc`).
 __device__ __forceinline__ void scatter_batch(const long long* __restrict__ rows,
                                               const float* __restrict__ g, long long n,
-                                              int c, int k, long long first,
+                                              int c, double scale, long long first,
                                               unsigned long long* acc,
                                               unsigned* __restrict__ flags) {
   const int lane = threadIdx.x & 31;
@@ -107,19 +83,10 @@ __device__ __forceinline__ void scatter_batch(const long long* __restrict__ rows
   const unsigned peers = __match_any_sync(kFull, row);
   const bool leader = live && __ffs(peers) - 1 == lane;
   for (int col = 0; col < c; ++col) {
-    const float x = live ? g[i * c + col] : 0.0f;
-    long long q = 0;
-    if (isfinite(x)) {
-      q = __double2ll_rn(ldexp((double)x, k));
-    } else {
-      atomicOr(flags + row * c + col, isnan(x) ? kNaN : (x > 0.0f ? kPosInf : kNegInf));
-    }
-    long long sum = 0;
-    for (int src = 0; src < 32; ++src) {
-      const long long v = __shfl_sync(kFull, q, src);
-      if ((peers >> src) & 1u) sum += v;
-    }
-    if (leader && sum != 0) atomicAdd(acc + row * c + col, (unsigned long long)sum);
+    unsigned flag = 0u;
+    const long long q = fixed::term(live ? g[i * c + col] : 0.0f, scale, flag);
+    if (flag != 0u) atomicOr(flags + row * c + col, flag);
+    fixed::warp_add(peers, leader, q, leader ? acc + row * c + col : acc);
   }
 }
 
@@ -129,12 +96,12 @@ __global__ void table_grad_scatter(const long long* __restrict__ rows,
                                    const unsigned* __restrict__ stat,
                                    unsigned long long* __restrict__ acc,
                                    unsigned* __restrict__ flags) {
-  n = live_rows(n, count);
-  const int k = fixed_exponent(*stat, n);
+  n = fixed::live_rows(n, count);
+  const double scale = fixed::scale_of(fixed::exponent(*stat, n));
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
   for (long long first = warp * 32; first < n; first += warps * 32) {
-    scatter_batch(rows, g, n, c, k, first, acc, flags);
+    scatter_batch(rows, g, n, c, scale, first, acc, flags);
   }
 }
 
@@ -148,12 +115,12 @@ __global__ void table_grad_scatter_shared(const long long* __restrict__ rows,
   __shared__ unsigned long long part[kSharedElems];
   for (long long e = threadIdx.x; e < elems; e += blockDim.x) part[e] = 0ull;
   __syncthreads();
-  n = live_rows(n, count);
-  const int k = fixed_exponent(*stat, n);
+  n = fixed::live_rows(n, count);
+  const double scale = fixed::scale_of(fixed::exponent(*stat, n));
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
   for (long long first = warp * 32; first < n; first += warps * 32) {
-    scatter_batch(rows, g, n, c, k, first, part, flags);
+    scatter_batch(rows, g, n, c, scale, first, part, flags);
   }
   __syncthreads();
   for (long long e = threadIdx.x; e < elems; e += blockDim.x) {
@@ -167,21 +134,10 @@ __global__ void table_grad_finalize(const unsigned long long* __restrict__ acc,
                                     const unsigned* __restrict__ stat, long long n,
                                     const int* __restrict__ count, long long elems,
                                     float* __restrict__ out) {
-  const int k = fixed_exponent(*stat, live_rows(n, count));
+  const int k = fixed::exponent(*stat, fixed::live_rows(n, count));
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < elems;
        e += (long long)gridDim.x * blockDim.x) {
-    const unsigned f = flags[e];
-    float v;
-    if ((f & kNaN) || (f & (kPosInf | kNegInf)) == (kPosInf | kNegInf)) {
-      v = nanf("");
-    } else if (f & kPosInf) {
-      v = INFINITY;
-    } else if (f & kNegInf) {
-      v = -INFINITY;
-    } else {
-      v = (float)ldexp((double)(long long)acc[e], -k);
-    }
-    out[e] = v;
+    out[e] = fixed::value(acc[e], flags[e], k);
   }
 }
 

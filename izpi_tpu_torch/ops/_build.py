@@ -26,15 +26,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "izpi_tpu_torch"
 SOURCES = ("megakernel_rgb.cu", "megakernel_spectral.cu", "bvh4_traverse.cu",
            "bvh4_rowstack.cu", "cipher.cu", "table_grad.cu", "diff_trace.cu")
-HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh", "bvh4.cuh")
+HEADERS = ("threefry.cuh", "draws.cuh", "common.cuh", "bvh4.cuh",
+           "fixed_point.cuh")
 # The kernels whose ptxas report `ptxas_usage` reads, by their names (a
 # name that holds another comes first).
 KERNELS = ("megakernel_rgb_bvh_probe", "megakernel_rgb_bvh", "megakernel_rgb",
            "megakernel_spectral", "bvh4_traverse", "bvh4_rowstack",
            "table_grad_absmax", "table_grad_scatter_shared", "table_grad_scatter",
            "table_grad_finalize", "diff_trace_fwd_bvh_probe", "diff_trace_fwd_probe",
-           "diff_trace_fwd_bvh", "diff_trace_fwd", "diff_trace_block_counts",
-           "diff_trace_bwd")
+           "diff_trace_fwd_bvh", "diff_trace_fwd", "diff_trace_bwd_stat",
+           "diff_trace_bwd_lane", "diff_trace_bwd_block", "diff_trace_bwd_global")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
@@ -100,10 +101,10 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,       # g_rad, c0, c1
         _c_int, _c_int, _c_int,                # n_tex, n, max_depth
         _c_float, _c_float, _c_float,          # background
-        _c_void_p, _c_void_p,                  # blk, total
-        _c_void_p, _c_void_p, _c_void_p,       # rows, g, stream
+        _c_int, _c_void_p, _c_void_p,          # n_rows, scratch, keep
+        _c_void_p, _c_void_p,                  # out, stream
     ],
-    "izpi_diff_trace_bwd_blocks": [_c_int],   # n -> ints of blk
+    "izpi_diff_trace_bwd_scratch": [_c_int, _c_int],  # n, n_rows -> bytes
     "izpi_bvh4_rowstack": [
         _c_void_p, _c_void_p,                  # nodes, blocks
         _c_void_p, _c_void_p, _c_void_p,       # o, d, time
@@ -146,7 +147,8 @@ _SIGNATURES.update({
     "izpi_megakernel_rgb_bvh_probe": [*_BVH_ARGS, _c_void_p, _c_void_p],  # probe, stream
 })
 # Entries that return another type than a cudaError_t (int).
-_RESTYPES = {"izpi_table_grad_scratch": _c_int64}
+_RESTYPES = {"izpi_table_grad_scratch": _c_int64,
+             "izpi_diff_trace_bwd_scratch": _c_int64}
 
 
 def _nvcc() -> str:

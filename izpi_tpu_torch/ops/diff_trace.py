@@ -13,12 +13,13 @@ that needs no geometry adjoint):
   ray to the path's end, with one 20-byte record a live bounce (thru,
   ratio, the texture row gathered and a code), its radiance and its ray
   count, the bits of one thread a path;
-- `izpi_diff_trace_bwd`, one thread a path: the records walked back from
-  the radiance's cotangent to each gathered row's, one (row, cotangent)
-  slot a record, path after path (each block places its paths' slots from
-  the record counts of the blocks before it), which
-  `ops.table_grad.table_grad` (G) sums into the texture tables in one
-  call, the number of slots read on the device.
+- `izpi_diff_trace_bwd`, the fused reverse, in two launches: the first
+  sorts a block's paths by record count and walks a warp's records back
+  plane by plane from the radiance's cotangent to each gathered row's,
+  keeping those and finding their largest value; the second sums them
+  straight into the texture tables' gradient in the 64-bit fixed point of
+  G (`ops.table_grad`, `csrc/fixed_point.cuh`), whose bits it gives, with
+  no (row, cotangent) slot and no call of G.
 
 It takes the scenes where no trainable parameter reaches a ray's origin or
 direction (`eligible_diff`): the RGB megakernel's shading without metal
@@ -33,7 +34,7 @@ This module holds:
 - `forward` and `reverse`, the wrappers: a CUDA tensor launches the kernel
   on the current stream (or the call raises), a CPU tensor runs the plain
   version, `forward_reference` (built from `bounce_rgb` itself) or
-  `reverse_reference`;
+  `reverse_reference`'s slots summed by `table_grad_reference`;
 - `probe`, the forward kernel's probe instance (the card only, never on a
   main path): the same outputs and how its warps spent the launch;
 - `DiffTrace`, the `torch.autograd.Function` over both, and `trace`, which
@@ -60,6 +61,11 @@ ENTRY_BWD = "izpi_diff_trace_bwd"
 NONE, MISS, EMIT, SCATTER, REFRACT = 0, 1, 2, 3, 4
 CODE_BITS = 3
 REC_F = 4  # floats a record: thru (3), ratio
+
+# A table of at most this many elements is summed in the reverse's lanes'
+# own copies in shared memory (csrc/diff_trace.cu kLaneElems); up to
+# table_grad.SHARED_ELEMS in its block's copy, beyond that in device memory.
+LANE_ELEMS = 16
 
 # Launches of the forward and the reverse kernel.
 fwd_launches = 0
@@ -188,11 +194,13 @@ def forward_reference(cs, meta, settings, intersect, o, d, time, keys):
 
 def reverse_reference(rec_f, rec_i, cnt, g_rad, c0, c1, settings,
                       checker: bool):
-    """Plain version of the reverse kernel: the records walked back, every
+    """Plain version of the reverse's walk: the records walked back, every
     path at once. Returns (rows (D·N,) int64, g (D·N, 3) f32, count (1,)
     i32): the first count = Σ cnt slots hold the live records, path after
     path and bounce after bounce within a path (row 0 and zeros where
-    nothing is gathered); the slots past them are zeros."""
+    nothing is gathered); the slots past them are zeros. G
+    (`table_grad.table_grad(rows, g, shape, count=count)`) on them gives
+    the fused reverse's bits."""
     depth_max, n = rec_i.shape
     dev = g_rad.device
     table = torch.cat([c0, c1]) if checker else c0
@@ -396,16 +404,33 @@ def _launch_fwd(scene: DiffScene, cs, meta, settings, o, d, time, keys,
     return rad, cnt, rec_f, rec_i
 
 
+def add_path(n_rows: int) -> str:
+    """Where the reverse's second pass sums a table of n_rows rows of 3:
+    "lane", "block" or "global" (csrc/diff_trace.cu add_path)."""
+    elems = 3 * n_rows
+    if elems <= LANE_ELEMS:
+        return "lane"
+    return "block" if elems <= table_grad.SHARED_ELEMS else "global"
+
+
 def reverse(scene: DiffScene, rec_f, rec_i, cnt, g_rad, c0, c1, settings):
-    """(rows (D·N,) int64, g (D·N, 3) f32, count (1,) i32) of the reverse
-    kernel (`reverse_reference` says what they hold; the kernel leaves the
-    slots past count unwritten, and count stays on the device). On a CUDA
-    tensor this launches `izpi_diff_trace_bwd` on the current stream, or
-    raises; on a CPU tensor it runs `reverse_reference`."""
+    """The gradient (n_rows, 3) f32 of the stacked [c0; c1] table's first
+    n_rows rows (c0's alone where no texture is a checker) from the
+    forward's records and the radiance's cotangent g_rad: each record's
+    albedo cotangent (`reverse_reference`'s slots) summed at its row as G
+    sums them (`table_grad`: the same bits). On a CUDA tensor this launches
+    `izpi_diff_trace_bwd` on the current stream (two launches; a buffer
+    the size of rec_f keeps each record's cotangent between them), or
+    raises; on a CPU tensor it runs `reverse_reference` and then
+    `table_grad.table_grad_reference` on its counted slots."""
+    n_rows = scene.n_tex * (2 if scene.checker else 1)
     dev = g_rad.device
     if dev.type == "cpu":
-        return reverse_reference(rec_f, rec_i, cnt, g_rad, c0, c1, settings,
-                                 scene.checker)
+        rows, g, count = reverse_reference(rec_f, rec_i, cnt, g_rad, c0, c1,
+                                           settings, scene.checker)
+        live = int(count.reshape(()))
+        return table_grad.table_grad_reference(rows[:live], g[:live],
+                                               (n_rows, 3))
     if dev.type != "cuda":
         raise ValueError(f"diff_trace: unsupported device {dev}")
     depth_max, n = rec_i.shape
@@ -419,30 +444,31 @@ def reverse(scene: DiffScene, rec_f, rec_i, cnt, g_rad, c0, c1, settings):
     from izpi_tpu_torch.ops import _build
 
     lib = _build.load()
-    blk = torch.empty((lib.izpi_diff_trace_bwd_blocks(n),), dtype=torch.int32,
-                      device=dev)
-    count = torch.empty((1,), dtype=torch.int32, device=dev)
-    rows = torch.empty((depth_max * n,), dtype=torch.int64, device=dev)
-    g = torch.empty((depth_max * n, 3), dtype=torch.float32, device=dev)
+    scratch = torch.empty(((lib.izpi_diff_trace_bwd_scratch(n, n_rows) + 7)
+                           // 8,), dtype=torch.int64, device=dev)
+    # Pass 1's cotangent and row of each record, for pass 2 (written and
+    # read at a path's records alone).
+    keep = torch.empty((depth_max, n, REC_F), dtype=torch.float32, device=dev)
+    out = torch.empty((n_rows, 3), dtype=torch.float32, device=dev)
     bg = [float(x) for x in settings.background]
     with torch.cuda.device(dev):
         err = lib.izpi_diff_trace_bwd(
             _ptr(rec_f), _ptr(rec_i), _ptr(cnt), _ptr(g_rad), _ptr(c0),
-            _ptr(c1), scene.n_tex, n, depth_max, bg[0], bg[1], bg[2],
-            _ptr(blk), _ptr(count), _ptr(rows), _ptr(g), _stream(dev))
+            _ptr(c1), scene.n_tex, n, depth_max, bg[0], bg[1], bg[2], n_rows,
+            _ptr(scratch), _ptr(keep), _ptr(out), _stream(dev))
     if err != 0:
         raise RuntimeError(f"{ENTRY_BWD} launch failed: CUDA error {err}")
     global bwd_launches
     bwd_launches += 1
-    return rows, g, count
+    return out
 
 
 class DiffTrace(torch.autograd.Function):
     """(rad, rays) of `path.trace(..., differentiable=True)` on an eligible
     scene, differentiable in the texture colours c0 and c1: the forward
-    kernel, then in the backward the reverse kernel and one call of G
-    (`table_grad.table_grad`) over the stacked [c0; c1] rows (c0's alone
-    where no texture is a checker). The other tables get no gradient."""
+    kernel, then in the backward the reverse, which sums the stacked [c0;
+    c1] rows' gradient (c0's alone where no texture is a checker) itself.
+    The other tables get no gradient."""
 
     @staticmethod
     def forward(ctx, args, o, d, time, keys, c0, c1):
@@ -460,10 +486,8 @@ class DiffTrace(torch.autograd.Function):
     def backward(ctx, g_rad, _g_rays):
         rec_f, rec_i, cnt, c0, c1 = ctx.saved_tensors
         scene = ctx.scene
-        rows, g, count = reverse(scene, rec_f, rec_i, cnt, g_rad.contiguous(),
-                                 c0, c1, ctx.settings)
-        n_rows = scene.n_tex * (2 if scene.checker else 1)
-        grad = table_grad.table_grad(rows, g, (n_rows, 3), count=count)
+        grad = reverse(scene, rec_f, rec_i, cnt, g_rad.contiguous(), c0, c1,
+                       ctx.settings)
         g0 = grad[:scene.n_tex]
         g1 = grad[scene.n_tex:] if scene.checker else None
         return None, None, None, None, None, g0, g1

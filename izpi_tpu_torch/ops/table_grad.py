@@ -14,7 +14,7 @@ segment sum) took most of the eager step's device time.
 - `table_grad(rows, g, shape, count=None)`: the table's gradient, `g`
   (N, C) added at the flat rows `rows` (N,) of a table viewed as (R, C),
   or at its first `count` rows where a producer counted them on the
-  device (`ops.diff_trace`'s reverse kernel). On a CUDA tensor
+  device (`ops.diff_trace.reverse_reference`'s slots). On a CUDA tensor
   it launches `csrc/table_grad.cu` (`izpi_table_grad`: a deterministic
   scatter-add in 64-bit fixed point, see the source) on the current stream
   or raises; on a CPU tensor it runs `table_grad_reference`, the backward

@@ -17,6 +17,8 @@
     python3 measure_port.py --deposit [--runs 3]
     python3 measure_port.py --step [--scene cornell|obj] [--parent DIR]
                             [--rounds 1] [--runs 20]
+    python3 measure_port.py --reverse [--scene cornell|obj] [--parent DIR]
+                            [--rounds 1] [--runs 20]
 
 Renders one main path of chip_smoke.py on one warm `RenderContext`, after
 one warm-up render: Cornell 256×256 at 1024 spp, `max_depth=50`, through
@@ -123,17 +125,34 @@ over a CUDA graph of 20 launches (`profiling.graph_ms`: the wrapper's
 host cost untimed), a digest of its outputs (radiance, ray counts, each
 path's records up to its count), its kernels' ptxas registers, spills
 and stack frames, and where the tree has it, its probe instance's
-figures (`diff_trace.probe`, whose outputs must equal the kernel's).
-Each tree's step ms (the median of its turns' medians) and forward
-kernel ms are printed with the range of its turns' figures, and with
+figures (`diff_trace.probe`, whose outputs must equal the kernel's); and
+the reverse from F's records to the table gradient, at depth 50 and 8,
+over a CUDA graph of 20 calls, with a digest of the gradient: a tree
+whose `diff_trace.reverse` returns slots runs R and then G
+(`table_grad`), and R alone is timed too; a tree whose `reverse`
+returns the gradient runs that call. Each tree's step ms (the median of
+its turns' medians), forward kernel ms and reverse ms are printed with
+the range of its turns' figures, and with
 `--parent`, each pair's ratio of DIR's to this tree's, the pairs this
 tree wins and DIR's interquartile distance (with more than one round).
 The trees' rays must be equal, their losses within 1e-4 relative and
 every gradient within 1e-5 + 1e-3·|DIR's| (a new summation order), and
-each tree's turns must repeat bit for bit, the forward kernel's digest
-too; where both trees take the fused route, the loss, every gradient and
-the forward kernel's outputs must also equal DIR's bit for bit (its
-arithmetic is one thread a path's, whatever the schedule).
+each tree's turns must repeat bit for bit, the forward kernel's and the
+reverse's digests too; where both trees take the fused route, the loss,
+every gradient, the forward kernel's outputs and the reverse's table
+gradients must also equal DIR's bit for bit (F's and R's arithmetic is
+one thread a path's, whatever the schedule, and G's fixed point sums in
+any order to the same bits).
+
+`--reverse` times the training step's reverse alone (`diff_trace.reverse`
+from F's records to the texture table's gradient; R and then G in a tree
+whose `reverse` returns slots) on `--scene` cornell or obj at 256×256,
+depth 50 and 8, the step's cotangent of F's radiance against a grey
+target: its ms a call over a CUDA graph of 20 calls, and from
+torch.profiler over `--runs` calls each device kernel's µs a call, with
+the records and the warp planes (each warp's longest path, summed); in
+this tree, or with `--parent DIR` in `--rounds` rounds of turns DIR,
+this tree, this tree, DIR.
 
 `--vs-cpu N@S ...` renders a pool scene (`--scene`) at N×N and S spp, at
 its main path's depth, on the card and on the CPU (`device="cpu"`, the
@@ -656,6 +675,42 @@ if not isinstance(route, str):
 
     fused = {"fwd_digest": digest(fwd()),
              "fwd_ms": profiling.graph_ms(fwd, 20)}
+    # The reverse to the table gradient, over a CUDA graph of 20 calls, at
+    # depth 50 and 8, on the step's cotangent of F's radiance against the
+    # target: a tree whose `reverse` returns (rows, g, count) slots runs it
+    # and then G (`table_grad`), and its slots alone are timed as "R"; a
+    # tree whose `reverse` returns the gradient runs that one call.
+    from izpi_tpu_torch.core import vecmath as vm
+    from izpi_tpu_torch.ops import table_grad
+    n_rows = route.n_tex * (2 if route.checker else 1)
+    c0, c1 = cs_p.textures.c0, cs_p.textures.c1
+    for d_rev in (depth, 8):
+        s_rev = path.RenderSettings(max_depth=d_rev)
+        rad, cnt, rec_f, rec_i = diff_trace.forward(
+            route, cs_p, ctx.meta, s_rev, ctx.intersect, *rays)
+        g_rad = torch.where(torch.isfinite(rad), 2.0 * (vm.de_nan(rad) - target)
+                            / float(n * n * 3), torch.zeros((), device="cuda"))
+        g_rad = g_rad.contiguous()
+
+        def bwd():
+            return diff_trace.reverse(route, rec_f, rec_i, cnt, g_rad, c0, c1,
+                                      s_rev)
+
+        slots = isinstance(bwd(), tuple)
+
+        def rev():
+            if not slots:
+                return bwd()
+            rows, g, count = bwd()
+            return table_grad.table_grad(rows, g, (n_rows, 3), count=count)
+
+        tag = "" if d_rev == depth else f"_d{d_rev}"
+        fused["rev_slots" + tag] = slots
+        fused["rev_digest" + tag] = hashlib.sha256(
+            rev().view(torch.int32).cpu().numpy().tobytes()).hexdigest()
+        fused["rev_ms" + tag] = profiling.graph_ms(rev, 20)
+        if slots:
+            fused["r_ms" + tag] = profiling.graph_ms(bwd, 20)
     if hasattr(diff_trace, "probe"):
         probed, summary = diff_trace.probe(route, cs_p, ctx.meta, s, *rays)
         fused["probe"] = summary
@@ -663,7 +718,7 @@ if not isinstance(route, str):
 from izpi_tpu_torch.ops import _build
 usage = _build.ptxas_usage(_build.build().with_suffix(".log").read_text())
 fused["usage"] = {k: list(v) for k, v in usage.items()
-                  if k.startswith("diff_trace_fwd")}
+                  if k.startswith("diff_trace")}
 print(json.dumps({"seconds": seconds, "rays": step.rays,
                   "loss": float(loss), "launches": launches,
                   "runner": type(getattr(step, "runner", None)).__name__,
@@ -706,12 +761,26 @@ def step_turns(scene: str, parent, runs: int, rounds: int) -> None:
                       f"outputs {r['fwd_digest'][:16]}; ptxas (registers, "
                       f"spill stores, loads, smem, stack frame) "
                       f"{r['usage']}", flush=True)
+            if "rev_ms" in r:
+                print(f"step turn {turn} ({name}): the reverse to the table "
+                      f"gradient ({'R then G' if r['rev_slots'] else 'fused'}"
+                      f") {r['rev_ms']:.4f} ms a call (a CUDA graph of 20)"
+                      + (f", R alone {r['r_ms']:.4f}" if "r_ms" in r else "")
+                      + f", table gradient {r['rev_digest'][:16]}; at depth "
+                      f"8 {r['rev_ms_d8']:.4f} ms"
+                      + (f", R alone {r['r_ms_d8']:.4f}" if "r_ms_d8" in r
+                         else ""),
+                      flush=True)
             if "probe" in r:
                 print(f"step turn {turn} ({name}): diff_trace_fwd "
                       f"{step_probe_line(r['probe'])}; the probe's outputs "
                       f"equal the kernel's: {r['probe_same']}", flush=True)
     keys = dict.fromkeys(order)
-    summary = {"step_ms": "step", "fwd_ms": "diff_trace_fwd"}
+    summary = {"step_ms": "step", "fwd_ms": "diff_trace_fwd",
+               "rev_ms": "the reverse to the table gradient",
+               "r_ms": "R alone",
+               "rev_ms_d8": "the reverse at depth 8",
+               "r_ms_d8": "R alone at depth 8"}
     for key, label in summary.items():
         if not all(key in r for v in got.values() for r, _ in v):
             continue
@@ -733,7 +802,8 @@ def step_turns(scene: str, parent, runs: int, rounds: int) -> None:
         print(f"step: {label} median ms {line}", flush=True)
     repeat = {name: all(r["rays"] == v[0][0]["rays"] and all(
         np.array_equal(a[k], v[0][1][k]) for k in a)
-        and r.get("fwd_digest") == v[0][0].get("fwd_digest") for r, a in v)
+        and r.get("fwd_digest") == v[0][0].get("fwd_digest")
+        and r.get("rev_digest") == v[0][0].get("rev_digest") for r, a in v)
         for name, v in got.items()}
     probes = all(r.get("probe_same", True) for v in got.values() for r, _ in v)
     ok = True
@@ -748,19 +818,109 @@ def step_turns(scene: str, parent, runs: int, rounds: int) -> None:
             for k in pa if k != "loss")
         bits = all(np.array_equal(ta[k], pa[k]) for k in pa)
         fwd_bits = pr.get("fwd_digest") == tr.get("fwd_digest")
+        rev_bits = all(pr.get(k) == tr.get(k)
+                       for k in ("rev_digest", "rev_digest_d8"))
         print(f"step: parent vs this tree: rays {pr['rays']} vs {tr['rays']}, "
               f"loss {pr['loss']:.7f} vs {tr['loss']:.7f}, largest gradient "
               f"difference {err:.3e}, within the tolerances {ok}, loss and "
               f"gradients bit for bit {bits}, the forward kernel's outputs "
-              f"bit for bit {fwd_bits}", flush=True)
+              f"bit for bit {fwd_bits}, the reverse's table gradients (depth "
+              f"50 and 8) bit for bit {rev_bits}", flush=True)
         if pr["route"] == tr["route"] == "fused":
-            ok = ok and bits and fwd_bits
+            ok = ok and bits and fwd_bits and rev_bits
     print(f"step: each tree's turns repeat bit for bit {repeat} ({smi()})",
           flush=True)
     if not ok or not repeat["this"] or not probes:
         raise SystemExit("measure_port: the step differs from the parent's, "
                          "this tree's turns differ, or a probe differs from "
                          "its main instance")
+
+
+REVERSE_TURN = r"""
+import json, sys
+import torch
+from izpi_tpu_torch import profiling
+from izpi_tpu_torch.core import rng
+from izpi_tpu_torch.core import vecmath as vm
+from izpi_tpu_torch.integrator import path
+from izpi_tpu_torch.ops import diff_trace, table_grad
+from izpi_tpu_torch.parallel import dist
+from izpi_tpu_torch.render import renderer
+from izpi_tpu_torch.scene.library.cornell import cornell_box
+from izpi_tpu_torch.scene.library.misc import cornell_box_obj
+scene, n, calls = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+ctx = renderer.RenderContext(
+    cornell_box() if scene == "cornell" else cornell_box_obj(), device="cuda")
+route = diff_trace.prepare(ctx.cs, ctx.meta, ctx.intersect)
+params = dist.extract_params(ctx.cs)
+with torch.no_grad():
+    params["tex_c0"] *= 0.7
+cs_p = dist.inject_params(ctx.cs, {k: v.detach() for k, v in params.items()})
+ys = torch.arange(n, device="cuda").repeat_interleave(n)
+xs = torch.arange(n, device="cuda").repeat(n)
+rays = tuple(x.contiguous() for x in renderer.camera_rays(
+    cs_p, rng.render_key(0, device="cuda"), xs, ys, n, n, 0))
+target = torch.full((n * n, 3), 0.25, device="cuda")
+n_rows = route.n_tex * (2 if route.checker else 1)
+c0, c1 = cs_p.textures.c0, cs_p.textures.c1
+out = {}
+for depth in (50, 8):
+    s = path.RenderSettings(max_depth=depth)
+    rad, cnt, rec_f, rec_i = diff_trace.forward(route, cs_p, ctx.meta, s,
+                                                ctx.intersect, *rays)
+    g_rad = torch.where(torch.isfinite(rad), 2.0 * (vm.de_nan(rad) - target)
+                        / float(n * n * 3), torch.zeros((), device="cuda"))
+    g_rad = g_rad.contiguous()
+
+    def rev():
+        o = diff_trace.reverse(route, rec_f, rec_i, cnt, g_rad, c0, c1, s)
+        if isinstance(o, tuple):
+            return table_grad.table_grad(o[0], o[1], (n_rows, 3), count=o[2])
+        return o
+
+    ms = profiling.graph_ms(rev, 20)
+    _, busy, rows = profiling.device_profile(
+        lambda: [rev() for _ in range(calls)])
+    longest = torch.nn.functional.pad(cnt, (0, (-cnt.shape[0]) % 32)).view(
+        -1, 32).amax(1).double()
+    out[depth] = dict(ms=ms, busy_us=busy * 1e6 / calls,
+                      records=int(cnt.sum()),
+                      warp_planes=int(longest.sum()),
+                      kernels=[(name[:70], dt / calls, c / calls)
+                               for dt, name, c in rows])
+print(json.dumps(out))
+"""
+
+
+def reverse_turns(scene: str, parent, rounds: int, runs: int) -> None:
+    """--reverse: the step's reverse alone (R then G in a tree whose
+    `diff_trace.reverse` returns slots) at 256x256, depth 50 and 8, in this
+    tree or in rounds of turns parent, this, this, parent: its ms over a
+    CUDA graph of 20 calls and, from torch.profiler over `runs` calls, each
+    device kernel's µs a call."""
+    here = Path(__file__).resolve().parent
+    order = (("parent", "this", "this", "parent") * rounds if parent
+             else ("this",))
+    trees = {"parent": parent.resolve() if parent else None, "this": here}
+    got = {name: [] for name in set(order)}
+    for turn, name in enumerate(order):
+        r = run_turn(REVERSE_TURN, trees[name], [scene, "256", str(runs)])
+        got[name].append(r)
+        for depth, v in r.items():
+            ks = "; ".join(f"{k} {us:.2f} us x{c:g}" for k, us, c in
+                           v["kernels"])
+            print(f"reverse turn {turn} ({name}, {trees[name]}): {scene} "
+                  f"depth {depth}: {v['ms']:.4f} ms a call (a CUDA graph of "
+                  f"20), busy {v['busy_us']:.2f} us a call under the "
+                  f"profiler, {v['records']} records, {v['warp_planes']} "
+                  f"warp planes (a warp's longest path, summed); {ks}",
+                  flush=True)
+    for depth in ("50", "8"):
+        line = "; ".join(
+            f"{name} {statistics.median(r[depth]['ms'] for r in v):.4f}"
+            for name, v in got.items())
+        print(f"reverse: {scene} depth {depth}: median ms {line} ({smi()})",
+              flush=True)
 
 
 def step_probe_line(p: dict) -> str:
@@ -1018,6 +1178,8 @@ def main() -> None:
                     help="time the pool's deposit against index_add_")
     ap.add_argument("--step", action="store_true",
                     help="time the training step (against --parent)")
+    ap.add_argument("--reverse", action="store_true",
+                    help="time the step's reverse alone (against --parent)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="--step with --parent: rounds of four turns")
     ap.add_argument("--mode", default="wavefront",
@@ -1041,6 +1203,9 @@ def main() -> None:
         return
     if args.deposit:
         deposit_forms(args.runs or 3)
+        return
+    if args.reverse:
+        reverse_turns(args.scene, args.parent, args.rounds, args.runs or 20)
         return
     if args.step:
         if args.scene not in ("cornell", "obj"):

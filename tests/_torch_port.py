@@ -231,6 +231,7 @@ inline const uint32_t* exchange(uint32_t v) {
 }
 inline void __syncwarp(unsigned = 0xffffffffu) { tl_warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { tl_block->arrive_and_wait(); }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline unsigned __ballot_sync(unsigned, int pred) {
   const uint32_t* s = exchange(pred != 0);
   unsigned m = 0;

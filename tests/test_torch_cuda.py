@@ -1019,17 +1019,21 @@ def test_captured_step_matches_eager_step(name, n, route):
     bounces a replay launches the cipher entry 9 times forward and 8 in
     the recompute, the BVH4 kernel 8 + 8 on cornell_box_obj, and the
     gathers' backward kernel; on the fused route (the default) the cipher
-    entry once (the camera), the forward and reverse kernels once each,
-    G once and the BVH4 kernel no time."""
+    entry once (the camera), the forward and reverse kernels once each
+    (the reverse sums the table gradient itself), G and the BVH4 kernel no
+    time."""
     ctx = renderer.RenderContext(
         cornell_box() if name == "cornell_box" else cornell_box_obj(),
         device="cuda")
     graphed, args = _step_and_inputs(ctx, n, 8, route=route)
     eager, _ = _step_and_inputs(ctx, n, 8, runner=loops.Eager(), route=route)
     assert isinstance(graphed.runner, loops.Graphed)
-    tg0 = table_grad.launches
+    tg0, b0 = table_grad.launches, diff_trace.bwd_launches
     loss_e, grads_e = eager(*args)
-    assert table_grad.launches > tg0
+    if route == "checkpoint":
+        assert table_grad.launches > tg0
+    else:
+        assert table_grad.launches == tg0 and diff_trace.bwd_launches == b0 + 1
     loss_g, grads_g = graphed(*args)
     runner = graphed.runner
     assert runner.capture_seconds > 0 and runner.capture_bytes > 0
@@ -1050,7 +1054,7 @@ def test_captured_step_matches_eager_step(name, n, route):
     else:
         assert deltas[("threefry", "launches")] == 1
         assert deltas[("bvh_kernel", "launches")] == 0
-        assert deltas[("table_grad", "launches")] == 1
+        assert deltas[("table_grad", "launches")] == 0
         assert deltas[("diff_trace", "fwd_launches")] == 1
         assert deltas[("diff_trace", "bwd_launches")] == 1
 
@@ -1140,8 +1144,8 @@ def test_table_grad_kernel_matches_plain_on_card(shape, n_index):
 
 @pytest.mark.parametrize("shape,n_index", [((8, 3), 1), ((2, 512, 512, 3), 3)])
 def test_table_grad_counted_rows_on_card(shape, n_index):
-    """With its row count in device memory (the fused route's reverse
-    kernel hands over a buffer sized for every slot and the rows it wrote),
+    """With its row count in device memory (`reverse_reference`'s slots on
+    the card: a buffer sized for every slot and the rows it wrote),
     `izpi_table_grad` adds the first count rows alone, on both paths: the
     same bits as the kernel given those rows alone, with rows out of range
     and NaN cotangents past the count, and inside a CUDA graph whose count
@@ -1231,25 +1235,33 @@ def test_diff_trace_kernels_match_plain_on_card(name):
     radiance within 1e-4, the mean within 0.5%: libdevice and torch's
     division by a scalar round the last ulp otherwise, which can turn a
     rare path), and on the paths whose records take the same branches the
-    records within rtol 1e-4; the reverse kernel on the plain forward's
-    records bit for bit (the same IEEE operations in the same order), one
-    slot a record, its count on the device."""
+    records within rtol 1e-4; the fused reverse on the plain forward's
+    records bit for bit G on the plain version's slots (the same terms,
+    summed in an order that changes no bit)."""
     n = 64
     ctx, scene, s, _, want = _fwd_vs_plain(name, n, 16)
-    b0 = diff_trace.bwd_launches
-    g_rad = torch.randn((n * n, 3), device="cuda",
+    _reverse_vs_g(scene, ctx, s, want)
+
+
+def _reverse_vs_g(scene, ctx, s, want):
+    """The fused reverse (`diff_trace.reverse`, one launch counted) at a
+    random cotangent of the radiance, on the plain forward's records
+    `want`, against G (`table_grad`) on `reverse_reference`'s slots and
+    count, bit for bit."""
+    b0, g0 = diff_trace.bwd_launches, table_grad.launches
+    g_rad = torch.randn((want[1].shape[0], 3), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(1))
     c0, c1 = ctx.cs.textures.c0, ctx.cs.textures.c1
-    rows, g, count = diff_trace.reverse(scene, want[2], want[3], want[1],
-                                        g_rad, c0, c1, s)
-    w_rows, w_g, w_count = diff_trace.reverse_reference(
-        want[2], want[3], want[1], g_rad, c0, c1, s, scene.checker)
+    got = diff_trace.reverse(scene, want[2], want[3], want[1], g_rad, c0, c1, s)
     assert diff_trace.bwd_launches == b0 + 1
-    live_slots = int(want[1].sum())
-    assert int(count) == int(w_count) == live_slots
-    assert torch.equal(rows[:live_slots], w_rows[:live_slots])
-    assert torch.equal(g[:live_slots].view(torch.int32),
-                       w_g[:live_slots].view(torch.int32))
+    rows, g, count = diff_trace.reverse_reference(
+        want[2], want[3], want[1], g_rad, c0, c1, s, scene.checker)
+    assert int(count) == int(want[1].sum())
+    n_rows = scene.n_tex * (2 if scene.checker else 1)
+    via_g = table_grad.table_grad(rows, g, (n_rows, 3), count=count)
+    assert table_grad.launches == g0 + 1
+    assert torch.equal(got.view(torch.int32), via_g.view(torch.int32))
+    assert float(got.abs().max()) > 0
 
 
 def _fwd_vs_plain(name, n, depth):
@@ -1296,7 +1308,9 @@ def test_diff_trace_fwd_full_step_frame_on_card():
     them, run with up to 32 lanes each: against its plain version within
     `_fwd_vs_plain`'s tolerances; its probe instance's outputs equal the
     kernel's bit for bit, each warp's passes are its longest path, and
-    passes ran at every group size, 1 to 32 lanes a path."""
+    passes ran at every group size, 1 to 32 lanes a path; the fused
+    reverse on the plain records equals G on the plain slots bit for
+    bit."""
     ctx, scene, s, rays, want = _fwd_vs_plain("cornell_box", 256, 50)
     got = diff_trace.forward(scene, ctx.cs, ctx.meta, s, ctx.intersect, *rays)
     probed, summary = diff_trace.probe(scene, ctx.cs, ctx.meta, s, *rays)
@@ -1309,6 +1323,7 @@ def test_diff_trace_fwd_full_step_frame_on_card():
     assert int((want[1] == 50).sum()) > 0
     assert summary["passes_equal_longest"]
     assert all(v > 0 for v in summary["passes_by_group"].values())
+    _reverse_vs_g(scene, ctx, s, want)
 
 
 @pytest.mark.parametrize("name,n", [("cornell_box", 32),

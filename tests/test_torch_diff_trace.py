@@ -2,9 +2,9 @@
 on the CPU.
 
 The same pixels, key and parameters go through the fused route (a forward
-path kernel that records each bounce, a reverse kernel that walks the
-record back, one call of the gathers' backward) and through the
-checkpointed bounces (`path.trace(..., route="checkpoint")`); the JAX
+path kernel that records each bounce, a reverse that walks the record
+back and sums the texture rows' gradient in G's fixed point) and through
+the checkpointed bounces (`path.trace(..., route="checkpoint")`); the JAX
 package's step is in tests/test_torch_diff_trace_jax.py. Tolerances:
 - the plain forward against the checkpointed bounce's forward: equal rays,
   the colour bit for bit (it runs `path.bounce_rgb` itself);
@@ -12,9 +12,12 @@ package's step is in tests/test_torch_diff_trace_jax.py. Tolerances:
   each entry within rtol 1e-5 and atol 1e-6·max|g| (G's tolerances,
   tests/test_torch_step.py: the two sum the rows' cotangents in another
   order);
-- `csrc/diff_trace.cu` built as host C++: the reverse kernel equals its
-  plain version bit for bit on the plain forward's records (the same
-  IEEE operations in the same order); the forward kernel's rays, records
+- `csrc/diff_trace.cu` built as host C++: the fused reverse's table
+  gradient equals G's (`csrc/table_grad.cu` as host C++) on the plain
+  version's slots bit for bit (the same IEEE operations in the same order
+  for each cotangent, the same fixed-point terms summed in an order that
+  changes no bit), and G's plain version within G's tolerances; the
+  forward kernel's rays, records
   and radiance agree with the plain version's within rtol 1e-4 on every
   path that takes the same branches, which all but a few do (host libm's
   sin and cos against PyTorch's differ in the last ulp, which moves a
@@ -32,6 +35,7 @@ import pytest
 import torch
 
 from _torch_port import host_kernel, with_absorbing_glass
+from test_torch_step import TABLE_GRAD_ENTRY, _host_grad
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.integrator import path
 from izpi_tpu_torch.ops import bvh_kernel, diff_trace, table_grad
@@ -137,23 +141,31 @@ def _step(cs, meta, intersect, route, params=None, n=N, depth=DEPTH):
 def test_fused_step_equals_checkpointed_step(ctx, monkeypatch):
     """The step's gradients through `DiffTrace` against the checkpointed
     route: equal loss and rays, every gradient within rtol 1e-5 and atol
-    1e-6·max|g|; the fused step calls G once a sample pass, over c0's rows
-    (and c1's after them where a texture is a checker)."""
+    1e-6·max|g|; the fused step calls the fused reverse once a sample pass,
+    which returns the gradient of c0's rows (and c1's after them where a
+    texture is a checker), and G no time; the checkpointed step calls G."""
     name, (cs, meta, intersect) = ctx
-    calls = []
-    original = table_grad.table_grad
+    calls, reverses = [], []
+    original, original_reverse = table_grad.table_grad, diff_trace.reverse
 
     def recording(rows, g, shape, count=None):
         calls.append(tuple(shape))
         return original(rows, g, shape, count=count)
 
+    def recording_reverse(*args, **kwargs):
+        out = original_reverse(*args, **kwargs)
+        reverses.append(tuple(out.shape))
+        return out
+
     monkeypatch.setattr(table_grad, "table_grad", recording)
+    monkeypatch.setattr(diff_trace, "reverse", recording_reverse)
     fused, loss, grads = _step(cs, meta, intersect, None)
     n_tex = cs.textures.c0.shape[0]
     assert isinstance(fused.route, diff_trace.DiffScene)
-    assert calls == [(n_tex * (2 if name == "checker" else 1), 3)]
+    assert reverses == [(n_tex * (2 if name == "checker" else 1), 3)]
+    assert calls == []
     ref, ref_loss, ref_grads = _step(cs, meta, intersect, "checkpoint")
-    assert ref.route == "checkpoint" and len(calls) > 1
+    assert ref.route == "checkpoint" and len(calls) > 1 and len(reverses) == 1
     assert fused.rays == ref.rays and loss == ref_loss
     for k in dist.PARAMS:
         g, w = grads[k].numpy(), ref_grads[k].numpy()
@@ -298,17 +310,28 @@ extern "C" void group_hits(const float* prim_f, const int* prim_i, int n_prims, 
   });
 }
 
+// The fused reverse: its two passes, as izpi_diff_trace_bwd launches them.
 extern "C" void run(const float* rec_f, const int* rec_i, const int* cnt, const float* g_rad,
                     const float* c0, const float* c1, int n_tex, int n, int max_depth,
-                    float bg_r, float bg_g, float bg_b, int* blk, int* total, long long* rows,
-                    float* g) {
-  const izpi::diff::Tex tex{c0, c1, n_tex};
-  const int threads = izpi::diff::kThreads;
-  const int blocks = (n + threads - 1) / threads;
-  run_grid(blocks, threads, [&] { izpi::diff::diff_trace_block_counts(cnt, n, blk); });
-  run_grid(blocks, threads, [&] {
-    izpi::diff::diff_trace_bwd(tex, rec_f, rec_i, cnt, blk, g_rad, n,
-                               izpi::mk(bg_r, bg_g, bg_b), rows, g, total);
+                    float bg_r, float bg_g, float bg_b, int n_rows, void* scratch,
+                    float* keep, float* out) {
+  using namespace izpi::diff;
+  const Tex tex{c0, c1, n_tex};
+  const RevArgs ra{rec_f, rec_i, cnt, g_rad, n, izpi::mk(bg_r, bg_g, bg_b)};
+  const long long elems = 3LL * n_rows;
+  const int blocks = (n + kRevThreads - 1) / kRevThreads;
+  const GradScratch gs = grad_scratch(scratch, elems, blocks);
+  float4* kept = reinterpret_cast<float4*>(keep);
+  run_grid(blocks, kRevThreads, [&] { diff_trace_bwd_stat(tex, ra, gs, elems, kept); });
+  const int path = add_path(elems);
+  run_grid(blocks, kRevThreads, [&] {
+    if (path == kAddLane) {
+      diff_trace_bwd_lane(ra, gs, elems, kept, out);
+    } else if (path == kAddBlock) {
+      diff_trace_bwd_block(ra, gs, elems, kept, out);
+    } else {
+      diff_trace_bwd_global(ra, gs, elems, kept, out);
+    }
   });
 }
 """
@@ -318,7 +341,7 @@ extern "C" void run(const float* rec_f, const int* rec_i, const int* cnt, const 
 def host(tmp_path_factory):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib = host_kernel(tmp_path_factory.mktemp("diff_trace"), "diff_trace.cu",
-                      HOST_ENTRY, [p, p, p, p, p, p, i, i, i, f, f, f, p, p,
+                      HOST_ENTRY, [p, p, p, p, p, p, i, i, i, f, f, f, i, p,
                                    p, p])
     lib.fwd.argtypes = ([p, p, i, p, p, p, p, i, p, p, p, p, i, p, p, p, p, i,
                          i, f, f, f, i] + [p] * 5)
@@ -326,18 +349,60 @@ def host(tmp_path_factory):
     return lib
 
 
-def _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1, background):
-    """The reverse kernel as host C++: (count, rows, g), the slots past the
-    count as the buffers were filled (row -5, NaN)."""
+@pytest.fixture(scope="module")
+def g_host(tmp_path_factory):
+    """G (csrc/table_grad.cu) as host C++: the yardstick of the fused
+    reverse's bits."""
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    return host_kernel(tmp_path_factory.mktemp("table_grad"), "table_grad.cu",
+                       TABLE_GRAD_ENTRY, [p, p, ll, p, i, ll, p, p])
+
+
+def _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1, background, n_rows):
+    """The fused reverse as host C++: the table gradient (n_rows, 3), from a
+    scratch (room for a block's partials and a rank's count a path) and a
+    keep buffer filled
+    with bytes it must not read: it zeroes what it adds into and reads a
+    record's kept cotangent only where pass 1 wrote it."""
     depth, n = rec_i.shape
-    blk = torch.full(((n + 127) // 128,), -1, dtype=torch.int32)
-    total = torch.full((1,), -1, dtype=torch.int32)
-    rows = torch.full((depth * n,), -5, dtype=torch.int64)
-    g = torch.full((depth * n, 3), torch.nan)
+    scratch = torch.full(((36 * n_rows + 12 * n + 4 + 7) // 8,), -3,
+                         dtype=torch.int64)
+    keep = torch.full((depth, n, 4), torch.nan)
+    out = torch.full((n_rows, 3), -7.0)
     host.run(_p(rec_f), _p(rec_i), _p(cnt), _p(g_rad), _p(c0), _p(c1),
-             c0.shape[0], n, depth, *[float(x) for x in background],
-             _p(blk), _p(total), _p(rows), _p(g))
-    return int(total), rows, g
+             c0.shape[0], n, depth, *[float(x) for x in background], n_rows,
+             _p(scratch), _p(keep), _p(out))
+    return out
+
+
+def _reverse_vs_g(host, g_host, rec_f, rec_i, cnt, g_rad, c0, c1, background,
+                  checker):
+    """The fused reverse (host C++) against G's host build on
+    `reverse_reference`'s counted slots: bit for bit
+    (the same terms, summed in an order that changes no bit), and against
+    G's plain version within G's tolerances (rtol 1e-5, atol 1e-6·max|g|;
+    NaN where it is NaN). Returns the gradient."""
+    n_tex = c0.shape[0]
+    n_rows = n_tex * (2 if checker else 1)
+    depth = rec_i.shape[0]
+    rows, g, count = diff_trace.reverse_reference(
+        rec_f, rec_i, cnt, g_rad, c0, c1,
+        path.RenderSettings(max_depth=depth, background=background), checker)
+    live = int(count)
+    assert live == int(cnt.sum())
+    want = _host_grad(g_host, rows[:live].contiguous(), g[:live].contiguous(),
+                      (n_rows, 3))
+    got = _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1, background,
+                        n_rows)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    plain = table_grad.table_grad_reference(rows[:live], g[:live],
+                                            (n_rows, 3))
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    ok = ~torch.isnan(plain)
+    big = float(g[:live][torch.isfinite(g[:live])].abs().max()) if live else 0
+    torch.testing.assert_close(got[ok], plain[ok], rtol=1e-5,
+                               atol=1e-6 * max(big, 1e-30))
+    return got
 
 
 def _p(t):
@@ -368,14 +433,14 @@ def _host_forward(host, scene, cs, meta, settings, o, d, tme, keys,
 
 
 @pytest.mark.parametrize("background", [(0.0, 0.0, 0.0), (0.7, 0.8, 1.0)])
-def test_kernels_on_host_equal_plain(host, ctx, background):
+def test_kernels_on_host_equal_plain(host, g_host, ctx, background):
     """The forward kernel on the step's camera rays (brute force and the
-    BVH form) and the reverse kernel on the plain forward's records, as
+    BVH form) and the fused reverse on the plain forward's records, as
     host C++, against their plain versions (the module docstring's
     tolerances): at most 2% of the paths turn (another ray count or
     record code or row), the others' records and radiance agree within
-    REC_RTOL, REC_ATOL; the reverse kernel's rows and cotangents bit for
-    bit, under a black and a sky background."""
+    REC_RTOL, REC_ATOL; the reverse's table gradient bit for bit G's on
+    the plain version's slots, under a black and a sky background."""
     name, (cs, meta, intersect) = ctx
     scene = diff_trace.prepare(cs, meta, intersect)
     settings = path.RenderSettings(max_depth=DEPTH, background=background)
@@ -395,38 +460,24 @@ def test_kernels_on_host_equal_plain(host, ctx, background):
     rs = np.random.RandomState(7)
     g_rad = torch.as_tensor(rs.randn(N * N, 3).astype(np.float32))
     rec_f, rec_i, cnt = want[2], want[3], want[1]
-    # Slots past a path's records hold what the kernel never reads.
+    assert int(cnt.sum()) < DEPTH * N * N
+    # Past a path's records the planes hold what the kernel never reads.
     rec_f = torch.where(live[..., None], rec_f, torch.nan)
     rec_i = torch.where(live, rec_i, -1)
     c0, c1 = cs.textures.c0.contiguous(), cs.textures.c1.contiguous()
-    count, rows, g = _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1,
-                                   background)
-    w_rows, w_g, w_count = diff_trace.reverse_reference(
-        want[2], want[3], cnt, g_rad, c0, c1, settings, scene.checker)
-    total = int(cnt.sum())
-    assert int(w_count) == count == total < DEPTH * N * N
-    # The live records alone, path after path; nothing written past them.
-    assert torch.equal(rows[:total], w_rows[:total])
-    assert torch.equal(g[:total].view(torch.int32),
-                       w_g[:total].view(torch.int32))
-    assert bool((rows[total:] == -5).all()) and bool(g[total:].isnan().all())
-    assert bool((w_rows[total:] == 0).all()) and bool((w_g[total:] == 0).all())
-    assert float(w_g.abs().max()) > 0
+    grad = _reverse_vs_g(host, g_host, rec_f, rec_i, cnt, g_rad, c0, c1,
+                         background, scene.checker)
+    assert float(grad.abs().max()) > 0
 
 
-@pytest.mark.parametrize("n", [1, 128, 1000, 4100])
-def test_reverse_kernel_places_slots_on_host(host, n):
-    """The reverse kernel's slots over many blocks (one, a whole one, and
-    partial last blocks; blocks and paths with no record): on random
-    records of every code, as host C++, path i's record k at the records
-    of the paths before i plus k, the count their sum, rows and
-    cotangents bit for bit its plain version's, nothing past the count."""
-    depth = 6
-    rs = np.random.RandomState(n)
+def _random_records(n, n_tex, depth=6, seed=None):
+    """Records of every code over n paths of 0 to depth records (a third of
+    the first 300 paths with none), rows of a checker's [c0; c1] table of
+    n_tex rows each, and the radiance's cotangent, from numpy's seed."""
+    rs = np.random.RandomState(n if seed is None else seed)
     cnt = torch.as_tensor(rs.randint(0, depth + 1, size=n).astype(np.int32))
     cnt[: min(n, 300)] = torch.where(torch.arange(min(n, 300)) % 3 == 0, 0,
                                      cnt[: min(n, 300)])
-    n_tex = 5
     codes = rs.randint(0, 5, size=(depth, n))
     rec_i = torch.as_tensor(((rs.randint(0, 2 * n_tex, size=(depth, n))
                               << diff_trace.CODE_BITS) | codes).astype(
@@ -435,18 +486,65 @@ def test_reverse_kernel_places_slots_on_host(host, n):
     g_rad = torch.as_tensor(rs.randn(n, 3).astype(np.float32))
     c0 = torch.as_tensor(rs.rand(n_tex, 3).astype(np.float32))
     c1 = torch.as_tensor(rs.rand(n_tex, 3).astype(np.float32))
-    background = (0.7, 0.8, 1.0)
-    count, rows, g = _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1,
-                                   background)
-    w_rows, w_g, w_count = diff_trace.reverse_reference(
-        rec_f, rec_i, cnt, g_rad, c0, c1,
-        path.RenderSettings(max_depth=depth, background=background), True)
-    total = int(cnt.sum())
-    assert count == int(w_count) == total
-    assert torch.equal(rows[:total], w_rows[:total])
-    assert torch.equal(g[:total].view(torch.int32),
-                       w_g[:total].view(torch.int32))
-    assert bool((rows[total:] == -5).all()) and bool(g[total:].isnan().all())
+    return rec_f, rec_i, cnt, g_rad, c0, c1
+
+
+@pytest.mark.parametrize("n", [1, 128, 1000, 4100])
+def test_reverse_kernel_sums_random_records_on_host(host, g_host, n):
+    """The fused reverse over one block, a whole one and partial last
+    blocks (blocks and paths with no record, n = 1's only path among
+    them), on random records of every
+    code into a checker's 4 rows (12 elements: the lanes' own copies in
+    shared memory), each block's paths sorted by length: the table gradient
+    G gives on the plain version's slots, bit for bit, under a sky
+    background."""
+    rec_f, rec_i, cnt, g_rad, c0, c1 = _random_records(n, 2)
+    assert diff_trace.add_path(4) == "lane"
+    grad = _reverse_vs_g(host, g_host, rec_f, rec_i, cnt, g_rad, c0, c1,
+                         (0.7, 0.8, 1.0), True)
+    # n = 1: its one path has no record, and the gradient is zero.
+    assert bool(torch.isfinite(grad).all())
+    assert (float(grad.abs().max()) > 0) == (int(cnt.sum()) > 0) == (n > 1)
+
+
+@pytest.mark.parametrize("n_tex,path_name", [(100, "shared"),
+                                             (1400, "global")])
+def test_reverse_kernel_table_paths_on_host(host, g_host, n_tex, path_name):
+    """A table of 600 elements (the block's copy in shared memory, its rows
+    staged) and of 8,400 (above 4,096: straight into device memory, its
+    rows read from device memory): bit for bit G's on the plain slots."""
+    rows = 2 * n_tex
+    assert table_grad.path_for((rows, 3)) == path_name
+    assert diff_trace.add_path(rows) == ("block" if path_name == "shared"
+                                         else "global")
+    rec_f, rec_i, cnt, g_rad, c0, c1 = _random_records(300, n_tex, seed=5)
+    grad = _reverse_vs_g(host, g_host, rec_f, rec_i, cnt, g_rad, c0, c1,
+                         (0.0, 0.0, 0.0), True)
+    assert float(grad.abs().max()) > 0
+
+
+def test_reverse_kernel_non_finite_on_host(host, g_host):
+    """NaN, +Inf and -Inf in the radiance's cotangent: each element they
+    reach comes back NaN or ±Inf by G's flags, the others as finite sums,
+    bit for bit G's on the plain slots."""
+    rec_f, rec_i, cnt, g_rad, c0, c1 = _random_records(300, 5, seed=9)
+    live = torch.nonzero(cnt > 0).flatten()
+    g_rad[live[0]] = torch.tensor([float("nan"), 0.5, 0.5])
+    g_rad[live[1], 1] = float("inf")
+    g_rad[live[2], 2] = -float("inf")
+    grad = _reverse_vs_g(host, g_host, rec_f, rec_i, cnt, g_rad, c0, c1,
+                         (0.7, 0.8, 1.0), True)
+    assert bool(torch.isnan(grad).any()) and bool(torch.isfinite(grad).any())
+
+
+def test_reverse_kernel_zero_cotangent_on_host(host, g_host):
+    """An all-zero cotangent of the radiance (no finite |value| above 0,
+    the fixed point's exponent 0): a zero gradient, G's bits."""
+    rec_f, rec_i, cnt, g_rad, c0, c1 = _random_records(100, 5, seed=11)
+    grad = _reverse_vs_g(host, g_host, rec_f, rec_i, cnt,
+                         torch.zeros_like(g_rad), c0, c1, (0.7, 0.8, 1.0),
+                         True)
+    assert bool((grad == 0).all())
 
 
 def _random_rays(n, seed, lo, hi):

@@ -31,7 +31,7 @@ from izpi_tpu.scene.library.cornell import cornell_box as j_cornell
 from izpi_tpu_torch import entry as tentry
 from izpi_tpu_torch.core import rng as trng
 from izpi_tpu_torch.integrator import path as tpath
-from izpi_tpu_torch.ops import table_grad
+from izpi_tpu_torch.ops import diff_trace, table_grad
 from izpi_tpu_torch.parallel import dist as tdist
 from izpi_tpu_torch.render import renderer as trenderer
 from izpi_tpu_torch.scene import compiler as tcompiler
@@ -131,26 +131,36 @@ def test_loss_and_grads_match_jax(cornell, monkeypatch):
     runs the fixed trip of max_depth bounces and whose gathers of tex_c0
     and mat_fuzz have their backward in `ops.table_grad` (its plain
     version on the CPU), and the fused route (the default here,
-    `ops.diff_trace`), whose one call of `table_grad` covers tex_c0."""
+    `ops.diff_trace`), whose one call of the fused reverse returns tex_c0's
+    gradient, with no call of `table_grad`."""
     tcs, tmeta, jparams, want_loss, want = cornell
-    shapes = []
-    original = table_grad.table_grad
+    shapes, reverses = [], []
+    original, original_reverse = table_grad.table_grad, diff_trace.reverse
 
     def recording(rows, g, shape, count=None):
         shapes.append(tuple(shape))
         return original(rows, g, shape, count=count)
 
+    def recording_reverse(*args, **kwargs):
+        out = original_reverse(*args, **kwargs)
+        reverses.append(tuple(out.shape))
+        return out
+
     monkeypatch.setattr(table_grad, "table_grad", recording)
+    monkeypatch.setattr(diff_trace, "reverse", recording_reverse)
     for route in ("checkpoint", None):
         shapes.clear()
+        reverses.clear()
         loss, got, rays = port_step(tcs, tmeta,
                                     tdist.params_from_jax(jparams, "cpu"),
                                     route=route)
-        assert tuple(tcs.textures.c0.shape) in shapes
         if route == "checkpoint":
+            assert tuple(tcs.textures.c0.shape) in shapes
             assert tuple(tcs.materials.fuzz.shape) in shapes
+            assert reverses == []
         else:
-            assert shapes == [tuple(tcs.textures.c0.shape)]
+            assert shapes == []
+            assert reverses == [tuple(tcs.textures.c0.shape)]
         assert rays > N * N
         np.testing.assert_allclose(loss, want_loss, rtol=LOSS_RTOL)
         assert_grads_close(got, want)

@@ -24,7 +24,7 @@ from _torch_port import host_kernel
 from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.core import vecmath as vm
 from izpi_tpu_torch.integrator import path
-from izpi_tpu_torch.ops import bvh_kernel, table_grad
+from izpi_tpu_torch.ops import bvh_kernel, diff_trace, table_grad
 from izpi_tpu_torch.parallel import dist
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene import compiler
@@ -294,34 +294,41 @@ def test_step_runs_eagerly_on_the_cpu(route):
     card: `loops.Graphed` refuses CPU tensors), the rays are read once
     from the device into `step.rays`, and every gather of a trainable
     table the step reaches has its backward in `table_grad`: on the
-    checkpointed bounces each gather of tex_c0 and mat_fuzz, on the fused
-    route (the default for the Cornell box, `ops.diff_trace`) one call
-    over tex_c0's rows a sample pass."""
+    checkpointed bounces each gather of tex_c0 and mat_fuzz; on the fused
+    route (the default for the Cornell box, `ops.diff_trace`) none: its
+    reverse, called once a sample pass, returns tex_c0's gradient itself."""
     cs, meta = compiler.compile_scene(cornell_box(), "cpu")
     step = dist.build_train_step(cs, meta, path.RenderSettings(max_depth=3),
                                  path.make_brute_intersector(cs), 8, 8, spp=2,
                                  route=route)
     assert isinstance(step.runner, loops.Eager)
-    shapes = []
-    original = table_grad.table_grad
+    shapes, reverses = [], []
+    original, original_reverse = table_grad.table_grad, diff_trace.reverse
 
     def recording(rows, g, shape, count=None):
         shapes.append(tuple(shape))
         return original(rows, g, shape, count=count)
 
+    def recording_reverse(*args, **kwargs):
+        out = original_reverse(*args, **kwargs)
+        reverses.append(tuple(out.shape))
+        return out
+
     table_grad.table_grad = recording
+    diff_trace.reverse = recording_reverse
     try:
         xs, ys = _pixels(8, 1)
         loss, grads = step(dist.extract_params(cs), xs, ys,
                            torch.zeros((64, 3)), rng.render_key(0))
     finally:
         table_grad.table_grad = original
+        diff_trace.reverse = original_reverse
     assert isinstance(step.rays, int) and step.rays >= 2 * 64
     assert step.runner.trips == 1 and torch.isfinite(loss)
     if route == "checkpoint":
         for k in ("tex_c0", "mat_fuzz"):   # the tables the Cornell box reaches
             assert tuple(grads[k].shape) in shapes, k
     else:
-        assert shapes == [tuple(grads["tex_c0"].shape)] * 2
+        assert shapes == [] and reverses == [tuple(grads["tex_c0"].shape)] * 2
     with pytest.raises(ValueError, match="CUDA"):
         loops.Graphed().call(lambda x: x + 1, torch.zeros(3))
