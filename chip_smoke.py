@@ -353,6 +353,7 @@ import numpy as np
 import torch
 
 import measure_port
+from h100bench import harness
 from izpi_tpu_torch import camera, entry, ops, profiling
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import loops, rng
@@ -929,8 +930,10 @@ def loop_phase(label: str, ctx, n: int, spp: int, settings, card: str,
         def run(fn=fn, got=got, st=st):
             got["its"] = fn(prof_spp, st)[2]
 
-        wall, busy, rows = profiling.device_profile(run)
-        events = sum(count for _, _, count in rows)
+        wall, records, _ = harness.device_intervals(torch, run)
+        busy = harness.union_seconds(records)
+        rows = profiling.device_rows(records)
+        events = len(records)
         # Each body launches its kernels; the pool's first issue, before
         # the loop, launches the new-sample form once more.
         want = {k: st["trips"] * n + (k == "new_sample_tiles")
@@ -2412,9 +2415,11 @@ def profiled_replay(label: str, step, ctx, n: int, params, target,
     reverse's two passes once each, G no time, and no checkpoint recompute
     ran (no bounce-form cipher kernel)."""
     xs, ys = train_pixels(n, ctx.device)
-    wall, busy, top = profiling.device_profile(lambda: step(
+    wall, recs, _ = harness.device_intervals(torch, lambda: step(
         params, xs, ys, target, rng.render_key(0, device=ctx.device)))
-    records = sum(c for _, _, c in top)
+    busy = harness.union_seconds(recs)
+    top = profiling.device_rows(recs)
+    records = len(recs)
 
     def named(tag):
         return sum(c for _, name, c in top if tag in name)

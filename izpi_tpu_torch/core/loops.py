@@ -37,6 +37,8 @@ import time
 import torch
 from torch.utils import _pytree as pytree
 
+from izpi_tpu_torch import profiling
+
 
 class Eager:
     """Runs each body as a call. `trips` counts the bodies run; it replays
@@ -90,6 +92,10 @@ class Graphed:
     launches: the capture's own ticks are taken back, and each replay adds
     the launches the capture recorded.
 
+    The spans (`profiling.span`): "graph.capture" around a warm-up and its
+    capture; a call's "graph.copy_in", "graph.replay" (the host's launch of
+    the graph) and "graph.clone_out". A loop's replays carry none.
+
     `trips` counts the bodies or calls run (the warm-up and the replays),
     `replays` the replays, `capture_seconds` the host seconds of the
     captures, `capture_bytes` the bytes the last capture added to what
@@ -141,26 +147,29 @@ class Graphed:
         leaves, spec = pytree.tree_flatten(args)
         key = (spec, tuple((x.shape, x.dtype, x.device) for x in leaves))
         if self.graph is None or key != self.key:
-            self.graph = self.static = self.out = None
-            dev = _cuda_device(leaves)
-            _warm_up(lambda: fn(*args), dev)
-            self.trips += 1
-            self.static, out = self._record(
-                dev, lambda: [x.detach().clone() for x in leaves],
-                lambda st: fn(*pytree.tree_unflatten(st, spec)))
-            self.out = pytree.tree_flatten(out)
-            self.key = key
+            with profiling.span("graph.capture"):
+                self.graph = self.static = self.out = None
+                dev = _cuda_device(leaves)
+                _warm_up(lambda: fn(*args), dev)
+                self.trips += 1
+                self.static, out = self._record(
+                    dev, lambda: [x.detach().clone() for x in leaves],
+                    lambda st: fn(*pytree.tree_unflatten(st, spec)))
+                self.out = pytree.tree_flatten(out)
+                self.key = key
         else:
-            with torch.no_grad():
+            with profiling.span("graph.copy_in"), torch.no_grad():
                 for dst, src in zip(self.static, leaves):
                     dst.copy_(src)
-        self.graph.replay()
+        with profiling.span("graph.replay"):
+            self.graph.replay()
         ops.add_launch_counts(self.deltas, 1)
         self.trips += 1
         self.replays += 1
         out_leaves, out_spec = self.out
-        return pytree.tree_unflatten([x.clone() for x in out_leaves],
-                                     out_spec)
+        with profiling.span("graph.clone_out"):
+            return pytree.tree_unflatten([x.clone() for x in out_leaves],
+                                         out_spec)
 
     def _load(self, state):
         leaves, spec = pytree.tree_flatten(state)
@@ -177,24 +186,26 @@ class Graphed:
         return pytree.tree_unflatten(self.static, self.spec)
 
     def _capture(self, body, state):
-        leaves, _ = pytree.tree_flatten(state)
-        dev = _cuda_device(leaves)
-        state = _warm_up(lambda: body(state), dev)
-        self.trips += 1
-        leaves, self.spec = pytree.tree_flatten(state)
+        with profiling.span("graph.capture"):
+            leaves, _ = pytree.tree_flatten(state)
+            dev = _cuda_device(leaves)
+            state = _warm_up(lambda: body(state), dev)
+            self.trips += 1
+            leaves, self.spec = pytree.tree_flatten(state)
 
-        def record(static):
-            out_leaves, out_spec = pytree.tree_flatten(
-                body(pytree.tree_unflatten(static, self.spec)))
-            if out_spec != self.spec:
-                raise ValueError("the body changed the state's structure")
-            for dst, src in zip(static, out_leaves):
-                if dst is not src:
-                    dst.copy_(src)
+            def record(static):
+                out_leaves, out_spec = pytree.tree_flatten(
+                    body(pytree.tree_unflatten(static, self.spec)))
+                if out_spec != self.spec:
+                    raise ValueError("the body changed the state's "
+                                     "structure")
+                for dst, src in zip(static, out_leaves):
+                    if dst is not src:
+                        dst.copy_(src)
 
-        self.static, _ = self._record(
-            dev, lambda: [x.clone() for x in leaves], record)
-        return pytree.tree_unflatten(self.static, self.spec)
+            self.static, _ = self._record(
+                dev, lambda: [x.clone() for x in leaves], record)
+            return pytree.tree_unflatten(self.static, self.spec)
 
     def _record(self, dev, make_static, fn):
         """Capture fn(static) as this runner's graph, static =

@@ -70,6 +70,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from izpi_tpu_torch import camera as camera_mod
+from izpi_tpu_torch import profiling
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.core import vecmath as vm
@@ -365,23 +366,25 @@ def render_slots(cs, meta, settings, nx: int, ny: int, spp: int, key,
     `izpi_megakernel_rgb_bvh`) on the card's layout (`card_min_slots`);
     any failure to build or launch raises. On the CPU it runs
     `render_slots_reference` on the JAX rule's layout, through the plain
-    traversal for the BVH form."""
-    if not (_shaded(meta) if bvh is not None else eligible(cs, meta)):
-        raise NotImplementedError(
-            "scene not eligible for the megakernel; render it through the "
-            "queue pool (render(mode='pool'), integrator.wavefront)")
-    if bvh is not None and bvh.prim_table.shape[0] != meta.n_prims:
-        raise ValueError(f"the tree holds {bvh.prim_table.shape[0]} "
-                         f"primitives, the scene {meta.n_prims}")
-    dev = cs.device
-    if dev.type == "cpu":
-        if draws:
-            raise ValueError("draw counts come from the CUDA kernel")
-        return render_slots_reference(
-            cs, meta, settings, nx, ny, spp, key, offset,
-            intersect=None if bvh is None else bvh_plain_intersector(bvh))
-    return _launch(cs, meta, settings, nx, ny, spp, key, offset, tables,
-                   draws, bvh)
+    traversal for the BVH form. The call is the span "megakernel.launch"
+    (`profiling.span`)."""
+    with profiling.span("megakernel.launch"):
+        if not (_shaded(meta) if bvh is not None else eligible(cs, meta)):
+            raise NotImplementedError(
+                "scene not eligible for the megakernel; render it through "
+                "the queue pool (render(mode='pool'), integrator.wavefront)")
+        if bvh is not None and bvh.prim_table.shape[0] != meta.n_prims:
+            raise ValueError(f"the tree holds {bvh.prim_table.shape[0]} "
+                             f"primitives, the scene {meta.n_prims}")
+        dev = cs.device
+        if dev.type == "cpu":
+            if draws:
+                raise ValueError("draw counts come from the CUDA kernel")
+            return render_slots_reference(
+                cs, meta, settings, nx, ny, spp, key, offset,
+                intersect=None if bvh is None else bvh_plain_intersector(bvh))
+        return _launch(cs, meta, settings, nx, ny, spp, key, offset, tables,
+                       draws, bvh)
 
 
 # The probe instance's counters (csrc/megakernel_rgb.cu ProbeCounter), in

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from izpi_tpu_torch import profiling
 from izpi_tpu_torch.accel import bvh_build, traverse
 from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.geometry import primitives as prim
@@ -889,6 +890,8 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
     replays it, and loss and grads are clones of the graph's outputs; a
     call of other shapes captures again, and a failed capture raises.
     Otherwise, and with `runner=loops.Eager()`, the step runs as calls.
+    Without a group the call is the span "step" (`profiling.span`), and
+    the read of the rays inside it "step.rays_read".
 
     With a process group (`dist.group.WORLD` for all ranks; None keeps one
     device), every rank passes the whole xs, ys and target and renders its
@@ -940,9 +943,12 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
 
     def step(params, xs, ys, target, key):
         if group is None:
-            loss, grads, rays = runner.call(whole, params, xs, ys, target, key)
-            step.rays = int(rays)
-            return loss, dict(zip(PARAMS, grads))
+            with profiling.span("step"):
+                loss, grads, rays = runner.call(whole, params, xs, ys, target,
+                                                key)
+                with profiling.span("step.rays_read"):
+                    step.rays = int(rays)
+                return loss, dict(zip(PARAMS, grads))
         n_total = xs.shape[0] * 3
         xs, ys, target = (torch.tensor_split(x, n)[rank]
                           for x in (xs, ys, target))

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from izpi_tpu_torch import camera as camera_mod
+from izpi_tpu_torch import profiling
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.core import vecmath as vm
 from izpi_tpu_torch.integrator import aov as aov_mod
@@ -241,43 +242,146 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
     mode "simple". checkpoint_path with checkpoint_interval > 0 writes the
     accumulator every checkpoint_interval samples and resumes from a
     matching file; preview_path writes a PNG of the image so far after
-    each chunk; verbose prints progress and the phases."""
+    each chunk; verbose prints progress and the phases.
+
+    Under a recording torch.profiler the call is the span "render"
+    (`profiling.span`): "render.prepare" up to the first chunk, then a
+    chunk's "megakernel.launch" (on the RGB megakernels' route),
+    "render.readback" and "render.accumulate", and the canvas's
+    "render.accumulate"."""
     settings = settings or path_mod.RenderSettings()
     if mode not in ("wavefront", "mega", "pool", "simple"):
         raise ValueError(f"unknown mode {mode!r}")
     if sampler_type not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler_type!r}: one of "
                          f"{SAMPLERS}")
-    dev = _device(device)
-    if context is None:
-        context = RenderContext(scene, use_bvh, device=dev)
-    elif context.device.type != dev.type:
-        raise ValueError(f"context is on {context.device}, not {dev}")
-    cs, meta = context.cs, context.meta
-    dev = context.device
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    base_key = rng.render_key(seed, device=dev)
-    if meta.placeholder_assets and not context._warned_assets:
-        print("NOTE: this render substitutes procedural placeholders for "
-              "missing assets:\n  " + "\n  ".join(meta.placeholder_assets),
-              file=sys.stderr)
-        context._warned_assets = True
+    with profiling.span("render"):
+        with profiling.span("render.prepare"):
+            dev = _device(device)
+            if context is None:
+                context = RenderContext(scene, use_bvh, device=dev)
+            elif context.device.type != dev.type:
+                raise ValueError(f"context is on {context.device}, not {dev}")
+            meta = context.meta
+            dev = context.device
+            name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else "cpu")
+            base_key = rng.render_key(seed, device=dev)
+            if meta.placeholder_assets and not context._warned_assets:
+                print("NOTE: this render substitutes procedural placeholders "
+                      "for missing assets:\n  "
+                      + "\n  ".join(meta.placeholder_assets), file=sys.stderr)
+                context._warned_assets = True
+            spectral = meta.spectral or sampler_type == "spectral"
+            lockstep = sampler_type in AOV_SAMPLERS or (mode == "simple"
+                                                        and not spectral)
+            if not lockstep:
+                run, pool_loop = _chunk_runner(context, settings, nx, ny,
+                                               base_key, spectral, mode)
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
-    if sampler_type in AOV_SAMPLERS:
-        return _render_aov(context, settings, nx, ny, spp, base_key,
-                           sampler_type, ink, name, sync)
-    spectral = meta.spectral or sampler_type == "spectral"
-    if mode == "simple" and not spectral:
-        return _render_simple(context, settings, nx, ny, spp, base_key, name,
-                              sync, row_chunk, verbose)
+        if sampler_type in AOV_SAMPLERS:
+            return _render_aov(context, settings, nx, ny, spp, base_key,
+                               sampler_type, ink, name, sync)
+        if lockstep:
+            return _render_simple(context, settings, nx, ny, spp, base_key,
+                                  name, sync, row_chunk, verbose)
+        fingerprint = None
+        if checkpoint_path:
+            fingerprint = ckpt_mod.config_fingerprint(
+                nx, ny, spp, seed, meta, settings,
+                "spectral" if spectral else "colour")
+        chunk = checkpoint_interval if checkpoint_interval > 0 else spp
+        # Previews and progress need chunks (the reference's live display
+        # and its progress bar, renderer.go:110-121).
+        if preview_path and chunk == spp and spp > 1:
+            chunk = max(1, spp // 8)
+        if verbose and chunk == spp and spp >= 8:
+            chunk = max(1, spp // 8)
+        # float64 host accumulator (renderer.py:369-374): each chunk's
+        # float32 sum is added in float64, so chunks sum as one pass does.
+        acc_total = np.zeros((nx * ny, 3), np.float64)
+        rays = 0
+        start = 0
+        iterations = None
+        if checkpoint_path:
+            resumed = ckpt_mod.load(checkpoint_path, fingerprint)
+            if resumed is not None:
+                acc_total, start, rays = resumed
+                if verbose:
+                    print(f"resumed at sample {start}/{spp}")
 
-    use_mega = mode == "mega" or (mode == "wavefront"
-                                  and context.mega_supported(spectral))
-    if use_mega:
+        sync()
+        t0 = time_mod.perf_counter()
+        first_chunk = None
+        for off in range(start, spp, chunk):
+            n = min(chunk, spp - off)
+            tc = time_mod.perf_counter()
+            acc, nrays, its = run(n, off)
+            with profiling.span("render.readback"):
+                acc = acc.cpu().numpy()
+                nrays = int(nrays)
+            with profiling.span("render.accumulate"):
+                acc_total += acc
+            rays += nrays
+            if its is not None:
+                iterations = (iterations or 0) + its
+            if first_chunk is None:
+                first_chunk = time_mod.perf_counter() - tc
+            done = off + n
+            if checkpoint_path:
+                ckpt_mod.save(checkpoint_path, acc_total, done, rays,
+                              fingerprint)
+            if preview_path:
+                from izpi_tpu_torch.io import output as output_mod
+
+                snap = (acc_total / done).reshape(ny, nx, 3)[::-1]
+                if spectral:
+                    snap = convert.xyz_to_acescg(snap, meta.exposure)
+                output_mod.write_png(preview_path, snap)
+            if verbose:
+                elapsed = time_mod.perf_counter() - t0
+                eta = elapsed / max(done - start, 1) * (spp - done)
+                print(f"samples {done}/{spp} | {rays / 1e6:.1f}M rays | "
+                      f"{rays / max(elapsed, 1e-9) / 1e6:.1f} Mrays/s | "
+                      f"eta {eta:.0f}s", flush=True)
+        sync()
+        seconds = time_mod.perf_counter() - t0
+        phases = {"scene_build": context.build_seconds,
+                  "first_chunk": first_chunk or 0.0, "render": seconds}
+        with profiling.span("render.accumulate"):
+            canvas = np.ascontiguousarray((acc_total / spp).reshape(
+                ny, nx, 3)[::-1].astype(np.float32))
+        if not spectral:
+            if verbose:
+                print(f"phases: {phases}")
+            return RenderResult(image=canvas, rays_traced=rays,
+                                seconds=seconds, device=name,
+                                iterations=iterations, phases=phases,
+                                **pool_loop)
+        # The spectral post-pass (leader.go:216-219): firefly rejection on
+        # XYZ, then XYZ→ACEScg with exposure.
+        tp = time_mod.perf_counter()
+        xyz = convert.firefly_rejection(canvas.astype(np.float64))
+        image = convert.xyz_to_acescg(xyz, meta.exposure).astype(np.float32)
+        phases["postprocess"] = time_mod.perf_counter() - tp
+        if verbose:
+            print(f"phases: {phases}")
+        return RenderResult(image=image, rays_traced=rays, seconds=seconds,
+                            device=name, xyz=xyz.astype(np.float32),
+                            iterations=iterations, phases=phases, **pool_loop)
+
+
+def _chunk_runner(context, settings, nx, ny, base_key, spectral, mode):
+    """The route of a colour or spectral render: (run(n, off) -> (acc, rays,
+    pool iterations or None) of samples [off, off + n), the pool's loop
+    counters that run adds to, or {} for a megakernel)."""
+    cs, meta, dev = context.cs, context.meta, context.device
+    if mode == "mega" or (mode == "wavefront"
+                          and context.mega_supported(spectral)):
         tables = context.tables() if dev.type == "cuda" else None
         if spectral:
             slots = megakernel_spectral.render_slots_spectral
@@ -289,99 +393,21 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
             acc, nrays = slots(cs, meta, settings, nx, ny, n, base_key, off,
                                tables=tables)
             return acc, nrays, None
-    else:
-        loop = dict(trips=0, replays=0, capture_seconds=0.0)
+        return run, {}
+    loop = dict(trips=0, replays=0, capture_seconds=0.0)
 
-        def run(n, off):
-            pool = min(nx * ny * n, POOL_MAX)
-            stats = {}
-            out = wavefront.trace_pool(
-                cs, meta, settings, context.intersect, nx, ny, n, base_key,
-                pool, spectral=spectral,
-                bg_spd_id=meta.spectral_background_spd or 0,
-                sample_offset=off, graphs=context.graphs, stats=stats)
-            for k in loop:
-                loop[k] += stats[k]
-            return out
-
-    fingerprint = None
-    if checkpoint_path:
-        fingerprint = ckpt_mod.config_fingerprint(
-            nx, ny, spp, seed, meta, settings,
-            "spectral" if spectral else "colour")
-    chunk = checkpoint_interval if checkpoint_interval > 0 else spp
-    # Previews and progress need chunks (the reference's live display and
-    # its progress bar, renderer.go:110-121).
-    if preview_path and chunk == spp and spp > 1:
-        chunk = max(1, spp // 8)
-    if verbose and chunk == spp and spp >= 8:
-        chunk = max(1, spp // 8)
-    # float64 host accumulator (renderer.py:369-374): each chunk's float32
-    # sum is added in float64, so chunks sum as one pass does.
-    acc_total = np.zeros((nx * ny, 3), np.float64)
-    rays = 0
-    start = 0
-    iterations = None
-    if checkpoint_path:
-        resumed = ckpt_mod.load(checkpoint_path, fingerprint)
-        if resumed is not None:
-            acc_total, start, rays = resumed
-            if verbose:
-                print(f"resumed at sample {start}/{spp}")
-
-    sync()
-    t0 = time_mod.perf_counter()
-    first_chunk = None
-    for off in range(start, spp, chunk):
-        n = min(chunk, spp - off)
-        tc = time_mod.perf_counter()
-        acc, nrays, its = run(n, off)
-        acc_total += acc.cpu().numpy()
-        rays += int(nrays)
-        if its is not None:
-            iterations = (iterations or 0) + its
-        if first_chunk is None:
-            first_chunk = time_mod.perf_counter() - tc
-        done = off + n
-        if checkpoint_path:
-            ckpt_mod.save(checkpoint_path, acc_total, done, rays, fingerprint)
-        if preview_path:
-            from izpi_tpu_torch.io import output as output_mod
-
-            snap = (acc_total / done).reshape(ny, nx, 3)[::-1]
-            if spectral:
-                snap = convert.xyz_to_acescg(snap, meta.exposure)
-            output_mod.write_png(preview_path, snap)
-        if verbose:
-            elapsed = time_mod.perf_counter() - t0
-            eta = elapsed / max(done - start, 1) * (spp - done)
-            print(f"samples {done}/{spp} | {rays / 1e6:.1f}M rays | "
-                  f"{rays / max(elapsed, 1e-9) / 1e6:.1f} Mrays/s | "
-                  f"eta {eta:.0f}s", flush=True)
-    sync()
-    seconds = time_mod.perf_counter() - t0
-    phases = {"scene_build": context.build_seconds,
-              "first_chunk": first_chunk or 0.0, "render": seconds}
-    pool_loop = {} if use_mega else loop
-    canvas = (acc_total / spp).reshape(ny, nx, 3)[::-1].astype(np.float32)
-    if not spectral:
-        if verbose:
-            print(f"phases: {phases}")
-        return RenderResult(image=np.ascontiguousarray(canvas),
-                            rays_traced=rays, seconds=seconds, device=name,
-                            iterations=iterations, phases=phases,
-                            **pool_loop)
-    # The spectral post-pass (leader.go:216-219): firefly rejection on XYZ,
-    # then XYZ→ACEScg with exposure.
-    tp = time_mod.perf_counter()
-    xyz = convert.firefly_rejection(canvas.astype(np.float64))
-    image = convert.xyz_to_acescg(xyz, meta.exposure).astype(np.float32)
-    phases["postprocess"] = time_mod.perf_counter() - tp
-    if verbose:
-        print(f"phases: {phases}")
-    return RenderResult(image=image, rays_traced=rays, seconds=seconds,
-                        device=name, xyz=xyz.astype(np.float32),
-                        iterations=iterations, phases=phases, **pool_loop)
+    def run(n, off):
+        pool = min(nx * ny * n, POOL_MAX)
+        stats = {}
+        out = wavefront.trace_pool(
+            cs, meta, settings, context.intersect, nx, ny, n, base_key,
+            pool, spectral=spectral,
+            bg_spd_id=meta.spectral_background_spd or 0,
+            sample_offset=off, graphs=context.graphs, stats=stats)
+        for k in loop:
+            loop[k] += stats[k]
+        return out
+    return run, loop
 
 
 def _pixels(nx: int, y0: int, n_rows: int, dev):

@@ -213,6 +213,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from h100bench import harness
 from izpi_tpu_torch import profiling
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.geometry import procedural
@@ -849,6 +850,8 @@ from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene.library.cornell import cornell_box
 from izpi_tpu_torch.scene.library.misc import cornell_box_obj
 scene, n, calls = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+sys.path.append(sys.argv[4])  # the measuring tree, for h100bench
+from h100bench import harness
 ctx = renderer.RenderContext(
     cornell_box() if scene == "cornell" else cornell_box_obj(), device="cuda")
 route = diff_trace.prepare(ctx.cs, ctx.meta, ctx.intersect)
@@ -879,8 +882,15 @@ for depth in (50, 8):
         return o
 
     ms = profiling.graph_ms(rev, 20)
-    _, busy, rows = profiling.device_profile(
-        lambda: [rev() for _ in range(calls)])
+    _, recs, _ = harness.device_intervals(
+        torch, lambda: [rev() for _ in range(calls)])
+    busy = harness.union_seconds(recs)
+    rows = {}
+    for start, end, name in recs:
+        us, count = rows.get(name, (0.0, 0))
+        rows[name] = (us + end - start, count + 1)
+    rows = sorted(((us, name, count) for name, (us, count) in rows.items()),
+                  reverse=True)
     longest = torch.nn.functional.pad(cnt, (0, (-cnt.shape[0]) % 32)).view(
         -1, 32).amax(1).double()
     out[depth] = dict(ms=ms, busy_us=busy * 1e6 / calls,
@@ -904,7 +914,8 @@ def reverse_turns(scene: str, parent, rounds: int, runs: int) -> None:
     trees = {"parent": parent.resolve() if parent else None, "this": here}
     got = {name: [] for name in set(order)}
     for turn, name in enumerate(order):
-        r = run_turn(REVERSE_TURN, trees[name], [scene, "256", str(runs)])
+        r = run_turn(REVERSE_TURN, trees[name],
+                     [scene, "256", str(runs), str(here)])
         got[name].append(r)
         for depth, v in r.items():
             ks = "; ".join(f"{k} {us:.2f} us x{c:g}" for k, us, c in
@@ -1349,8 +1360,10 @@ def main() -> None:
         res = renderer.render(None, n, n, spp, settings, seed=args.seeds[0],
                               mode=args.mode, context=ctx, device="cuda")
 
-    wall, busy, rows = profiling.device_profile(profiled)
-    events = sum(count for _, _, count in rows)
+    wall, records, _ = harness.device_intervals(torch, profiled)
+    busy = harness.union_seconds(records)
+    rows = profiling.device_rows(records)
+    events = len(records)
     per_iter = (f", {events / res.iterations:.1f} per pool iteration"
                 if res.iterations else "")
     print(f"profiled render(): wall {wall:.4f} s, device busy {busy:.4f} s, "

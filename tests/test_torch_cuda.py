@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from _torch_port import with_absorbing_glass
-from izpi_tpu_torch import camera
+from izpi_tpu_torch import camera, profiling
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import loops, rng
 from izpi_tpu_torch.geometry import primitives
@@ -1355,3 +1355,82 @@ def test_fused_step_matches_checkpointed_step_on_card(name, n):
         np.testing.assert_allclose(
             grads_f[k].cpu().numpy(), w, rtol=1e-5,
             atol=1e-6 * max(float(np.abs(w).max()), 1e-30), err_msg=k)
+
+
+def _spans_named(host, name):
+    """(start µs, end µs) of the program's span `name` among a trace's host
+    operations, by start."""
+    return sorted((s, e) for s, e, n in host if n == profiling.PREFIX + name)
+
+
+def _traced_on_host_clock(fn):
+    """fn() traced by the benchmark's reader, between two device writes 5 ms
+    before and after it (so the slice keeps every span of fn whatever the
+    clocks' offset); (fn's device records on the host's clock, host
+    operations)."""
+    import time
+
+    from h100bench import harness, spans
+
+    mark = torch.zeros(1, device="cuda")
+
+    def bracketed():
+        mark.add_(1)
+        time.sleep(0.005)
+        fn()
+        time.sleep(0.005)
+        mark.add_(1)
+
+    _, records, host = harness.device_intervals(torch, bracketed)
+    return spans.on_host_clock(harness.Trace(records, 0.0, {}, {}, host)), host
+
+
+def test_spans_and_device_records_on_one_clock():
+    """The program's spans and the device records of one trace, put on one
+    clock by the benchmark's reader (`h100bench.spans.on_host_clock`: the
+    copies between host and device memory inside the host operations that
+    wait for them; the profiler's device records have lain up to 4.6 ms
+    off the host's): in a trace of two images each `megakernel_rgb`
+    record starts after its image's `megakernel.launch` starts and ends
+    before its `render.readback` ends; in a trace of three replays of the
+    captured step each `diff_trace_fwd` record lies between its step's
+    `graph.replay` start and its `step.rays_read` end. The step's first
+    call, which captures, shows one `graph.capture` (traced on the host
+    alone); the replays show none."""
+    from h100bench import harness
+
+    ctx = renderer.RenderContext(cornell_box(), device="cuda")
+    settings = path.RenderSettings(max_depth=8)
+
+    def two_images():
+        for seed in (1, 2):
+            renderer.render(None, 64, 64, 4, settings, seed=seed,
+                            context=ctx, device="cuda")
+
+    two_images()
+    records, host = _traced_on_host_clock(two_images)
+    kernels = sorted(r for r in records
+                     if harness.kernel_name(r[2]) == "megakernel_rgb")
+    launches = _spans_named(host, "megakernel.launch")
+    reads = _spans_named(host, "render.readback")
+    assert len(kernels) == len(launches) == len(reads) == 2
+    for (k0, k1, _), (l0, _), (_, r1) in zip(kernels, launches, reads):
+        assert l0 <= k0 and k1 <= r1
+
+    step, args = _step_and_inputs(ctx, 32, 8)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(*args)
+    assert [e.name for e in prof.events()].count(
+        profiling.PREFIX + "graph.capture") == 1
+    records, host = _traced_on_host_clock(
+        lambda: [step(*args) for _ in range(3)])
+    assert not _spans_named(host, "graph.capture")
+    fwd = sorted(r for r in records
+                 if harness.kernel_name(r[2]) == "diff_trace_fwd")
+    replays = _spans_named(host, "graph.replay")
+    rays = _spans_named(host, "step.rays_read")
+    assert len(fwd) == len(replays) == len(rays) == 3
+    for (f0, f1, _), (p0, _), (_, q1) in zip(fwd, replays, rays):
+        assert p0 <= f0 and f1 <= q1
+    assert step.runner.replays == 4
