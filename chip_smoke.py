@@ -206,8 +206,20 @@ line of its own:
      after the five steps below step 0's; a replay launches the
      new-sample cipher, the forward kernel and the reverse once each and
      nothing else, G no time (the cipher's bounce form no time: its counter
-     less the new-sample form's); the capture's seconds and the MiB its graph
-     holds; the eager step on the same route in the same call, its
+     less the new-sample form's), the forward's launch carrying one sample
+     pass (`diff_trace.fwd_passes`); the capture's seconds and the MiB its
+     graph holds; the captured step at STEP_SPP samples a pixel, whose
+     replay launches the same kernels once each, the forward's launch
+     carrying its STEP_SPP passes (one launch a step, not one a pass), its
+     seconds, capture seconds and graph MiB, and its rays, loss and
+     gradients bit for bit those of the same step run eagerly a sample
+     pass at a time; the kernels as that step launches them
+     (`merged_kernel_phase`): each pass's slice of the forward's one
+     launch bit for bit the launch on that pass's rays alone and within
+     phase 4's tolerances of the plain version, each pass's table of the
+     reverse's one call bit for bit G's on that pass's plain slots, and
+     the merged launch's and call's ms beside STEP_SPP launches and calls
+     of a pass; the eager step on the same route in the same call, its
      seconds beside the captured step's, two replays bit for bit, and the
      captured step held to the eager one (equal rays, the tolerances of
      tests/test_torch_grad.py); the checkpointed bounces' captured step
@@ -225,7 +237,8 @@ line of its own:
      tolerances above);
  17. the same on `cornell_box_obj` (20,007 primitives) at 256×256, depth
      50, through its BVH4: the forward kernel's BVH form against its plain
-     version through the plain traversal at 64×64 (phase 16's checks;
+     version through the plain traversal at 64×64 (phase 16's checks, the
+     merged kernels' too;
      its bound from the nodes and tests of its traversal, counted by the
      BVH4 kernel on the same rays), the captured fused step (a replay:
      the new-sample cipher, the two kernels once each, G and the BVH4
@@ -1799,6 +1812,7 @@ def texture_phases(card: str, usage: dict) -> dict:
 # 1 spp a step, seed 0, plain gradient descent on every parameter.
 TRAIN_SIZE, TRAIN_DEPTH, TRAIN_TARGET_SPP = 256, 50, 64
 TRAIN_STEPS, TRAIN_LR = 5, 1.0
+STEP_SPP = 4                  # the samples a pixel of phase 16's merged step
 TRAIN_VS_CPU = (32, 8)        # frame and depth of the card-vs-CPU step
 TRAIN_VS_PLAIN = 64           # frame of phase 17's kernel-vs-plain step
 # tests/test_torch_grad.py's tolerances: loss within STEP_LOSS_RTOL, each
@@ -1871,13 +1885,14 @@ def forward_counts(ctx, n: int, depth: int, params, intersect=None,
 
 
 def make_step(ctx, n: int, depth: int, intersect=None, runner=None,
-              route=None):
-    """`dist.build_train_step` on the context's scene at n², 1 spp: by
-    default the captured step (a `loops.Graphed`, `step.runner`) on the
-    route the step picks (the fused one for the Cornell scenes)."""
+              route=None, spp: int = 1):
+    """`dist.build_train_step` on the context's scene at n², spp samples a
+    pixel (1 by default): by default the captured step (a `loops.Graphed`,
+    `step.runner`) on the route the step picks (the fused one for the
+    Cornell scenes)."""
     return dist.build_train_step(ctx.cs, ctx.meta,
                                  path.RenderSettings(max_depth=depth),
-                                 intersect or ctx.intersect, n, n,
+                                 intersect or ctx.intersect, n, n, spp=spp,
                                  runner=runner, route=route)
 
 
@@ -1885,7 +1900,8 @@ def timed_step(step, ctx, n: int, params, target) -> dict:
     """One call of `step`, every launch counter zeroed just before and read
     just after: loss, grads, rays, seconds (CUDA-synchronised), counts,
     the cipher entry's launches in its bounce form (`bounce_cipher`: its
-    counter less the new-sample form's), and the peak memory allocated
+    counter less the new-sample form's), the sample passes the forward
+    kernel's launches carried (`passes`), and the peak memory allocated
     during the call (absolute, and above what was allocated before)."""
     dev = ctx.device
     xs, ys = train_pixels(n, dev)
@@ -1903,6 +1919,7 @@ def timed_step(step, ctx, n: int, params, target) -> dict:
     seconds = time.perf_counter() - t0
     counts = read_counts()
     samples = threefry.sample_launches
+    passes = diff_trace.fwd_passes
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     for k, g in grads.items():
         if not bool(torch.isfinite(g).all()):
@@ -1912,8 +1929,8 @@ def timed_step(step, ctx, n: int, params, target) -> dict:
     return dict(loss=float(loss), grads={k: g.cpu().numpy()
                                          for k, g in grads.items()},
                 rays=step.rays, seconds=seconds, counts=counts,
-                bounce_cipher=counts["threefry"] - samples, peak=peak,
-                peak_above=peak - base if cuda else 0)
+                bounce_cipher=counts["threefry"] - samples, passes=passes,
+                peak=peak, peak_above=peak - base if cuda else 0)
 
 
 def steps_agree(label: str, got: dict, want: dict, card: str) -> float:
@@ -2133,6 +2150,247 @@ def counting_bvh(ctx):
     return intersect
 
 
+def forward_vs_plain(label: str, got, want, depth: int, card: str) -> tuple:
+    """Raise unless the forward kernel's outputs `got` (rad, cnt, rec_f,
+    rec_i) agree with its plain version's `want` on the same rays: the
+    image within phase 4's tolerances, and on the paths that take the
+    plain version's branches (at least PIXEL_SHARE of them) the records
+    within rtol 1e-4. Returns (the largest pixel difference, that share,
+    the kernel's rays, the plain version's)."""
+    rays_k, rays_p = int(got[1].sum()), int(want[1].sum())
+    err = image_close(label, vm.de_nan(got[0]), rays_k, vm.de_nan(want[0]),
+                      rays_p, 1)
+    live = torch.arange(depth, device=got[1].device)[:, None] < want[1][None, :]
+    same = (got[1] == want[1]) & ((got[3] == want[3]) | ~live).all(0)
+    keep = live & same[None, :]
+    rec_err = float(((got[2][keep] - want[2][keep]).abs() / (
+        1e-6 + want[2][keep].abs())).max()) if bool(keep.any()) else 0.0
+    share = float(same.float().mean())
+    rec_ok = bool(torch.allclose(got[2][keep], want[2][keep], rtol=1e-4,
+                                 atol=1e-6))
+    print(f"{label}: diff_trace_fwd records: paths taking the plain "
+          f"version's branches {share:.6f} (tol {PIXEL_SHARE}), their "
+          f"records within rtol 1e-4 {rec_ok} (largest relative difference "
+          f"{rec_err:.3e}); rays equal {rays_k == rays_p} ({card})",
+          flush=True)
+    if not (share >= PIXEL_SHARE and rec_ok):
+        raise AssertionError(f"{label}: the forward kernel's records differ")
+    return err, share, rays_k, rays_p
+
+
+def reverse_vs_g(label: str, scene, want, g_rad, c0, c1, s, card: str,
+                 passes: int = 1) -> list:
+    """Raise unless one call of the fused reverse (`diff_trace.reverse`,
+    one call counted and nothing else) on the plain forward's records
+    `want` of `passes` sample passes at the radiance's cotangent g_rad
+    gives each pass's table gradient bit for bit as G (`table_grad`) on
+    `reverse_reference`'s slots of that pass's paths, one a record (their
+    count on the device equal to the pass's rays). The slots are taken
+    first: the reverse keeps its cotangents in want's records. Returns
+    each pass's slots (rows, g, count)."""
+    n_pass = want[1].shape[0] // passes
+    n_rows = scene.n_tex * (2 if scene.checker else 1)
+    out = []
+    for k in range(passes):
+        own = slice(k * n_pass, (k + 1) * n_pass)
+        out.append(diff_trace.reverse_reference(
+            want[2][:, own], want[3][:, own], want[1][own], g_rad[own], c0, c1,
+            s, scene.checker))
+    zero_counts()
+    grads = diff_trace.reverse(scene, want[2], want[3], want[1], g_rad, c0,
+                               c1, s, passes)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["diff_trace_bwd"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"{label}: the reverse's wrapper launched "
+                             f"{counts}")
+    for k, (rows, g, count) in enumerate(out):
+        own = slice(k * n_pass, (k + 1) * n_pass)
+        via_g = table_grad.table_grad(rows, g, (n_rows, 3), count=count)
+        slots = int(count)
+        bits = slots == int(want[1][own].sum()) and torch.equal(
+            grads[k].view(torch.int32), via_g.view(torch.int32))
+        print(f"{label}, sample pass {k} of {passes}: {slots} slots, one a "
+              f"record, of a buffer of {rows.shape[0]}: the ({n_rows}, 3) "
+              f"table gradient bit for bit {bits} ({card})", flush=True)
+        if not bits:
+            raise AssertionError(f"{label}: the fused reverse differs from G "
+                                 f"in sample pass {k}")
+    return out
+
+
+def restored_ms(fn, records, reps: int = 20) -> float:
+    """ms of fn() over a CUDA graph of reps calls, each after `records`
+    are copied back from a clone taken first, less the copies' own ms:
+    `diff_trace.reverse` keeps its cotangents in the records it reads, so
+    that each timed call reads the forward's records. They are left as
+    they were."""
+    pristine = [r.clone() for r in records]
+
+    def restore():
+        for r, p in zip(records, pristine):
+            r.copy_(p)
+
+    def both():
+        restore()
+        fn()
+
+    ms = profiling.graph_ms(both, reps) - profiling.graph_ms(restore, reps)
+    restore()
+    torch.cuda.synchronize()
+    return ms
+
+
+def merged_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
+                        spp: int, card: str, plain_intersect=None,
+                        plain_n=None) -> dict:
+    """The fused route's kernels as the training step at spp samples a
+    pixel launches them (`renderer.sample_passes`): the camera rays of
+    samples 0..spp-1 (`renderer.sample_rays`) in one launch of the forward
+    kernel, `fwd_passes` counting spp. Each pass's slice of its outputs
+    bit for bit those of the kernel's launch on that pass's rays alone,
+    and at plain_n² (by default n²) within `forward_vs_plain`'s
+    tolerances of `forward_reference` (through `plain_intersect`, by
+    default the context's) on them; one call of the reverse with spp
+    passes on the plain forward's records of every pass, at the cotangent
+    of the passes' mean against `target` (grey where plain_n < n): each
+    pass's table bit for bit G's on that pass's slots (`reverse_vs_g`).
+    Then, at n², the merged launch's and call's ms against spp launches
+    and calls of one pass each (CUDA graphs of 20)."""
+    dev = ctx.device
+    meta = ctx.meta
+    scene = diff_trace.prepare(ctx.cs, meta, ctx.intersect)
+    s = path.RenderSettings(max_depth=depth)
+    cs_p = dist.inject_params(ctx.cs, {k: v.detach()
+                                       for k, v in params.items()})
+    c0, c1 = cs_p.textures.c0, cs_p.textures.c1
+    key = rng.render_key(0, device=dev)
+
+    def fwd(rays, passes=1):
+        return diff_trace.forward(scene, cs_p, meta, s, ctx.intersect, *rays,
+                                  passes)
+
+    def rays_of(m):
+        xs, ys = train_pixels(m, dev)
+        merged = tuple(x.contiguous() for x in renderer.sample_rays(
+            cs_p, key, xs, ys, m, m, spp))
+        own = [tuple(x.contiguous() for x in renderer.camera_rays(
+            cs_p, key, xs, ys, m, m, k)) for k in range(spp)]
+        return merged, own
+
+    m = plain_n or n
+    merged, own = rays_of(m)
+    zero_counts()
+    p0 = diff_trace.fwd_passes
+    got = fwd(merged, spp)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if (counts["diff_trace_fwd"] != 1 or sum(counts.values()) != 1
+            or diff_trace.fwd_passes - p0 != spp):
+        raise AssertionError(f"{label}: the merged forward launched {counts}, "
+                             f"{diff_trace.fwd_passes - p0} passes")
+    plain_int = plain_intersect or ctx.intersect
+    wants, slices_bits = [], []
+    for k, rays in enumerate(own):
+        sl = slice(k * m * m, (k + 1) * m * m)
+        alone = fwd(rays)
+        live = torch.arange(depth, device=dev)[:, None] < alone[1][None, :]
+        bits = (torch.equal(got[0][sl].view(torch.int32),
+                            alone[0].view(torch.int32))
+                and torch.equal(got[1][sl], alone[1])
+                and torch.equal(got[2][:, sl][live].view(torch.int32),
+                                alone[2][live].view(torch.int32))
+                and torch.equal(got[3][:, sl][live], alone[3][live])
+                and all(torch.equal(a[sl], b)
+                        for a, b in zip(merged, rays)))
+        slices_bits.append(bits)
+        print(f"{label}: diff_trace_fwd's merged launch of {spp} passes "
+              f"{m}x{m} depth {depth}, pass {k}: its camera rays, radiance, "
+              f"counts and records bit for bit the launch on the pass's rays "
+              f"alone {bits} ({card})", flush=True)
+        if not bits:
+            raise AssertionError(f"{label}: pass {k}'s slice of the merged "
+                                 f"launch differs from its own launch")
+        want = diff_trace.forward_reference(cs_p, meta, s, plain_int, *rays)
+        forward_vs_plain(f"{label}: diff_trace_fwd's merged launch, pass {k}, "
+                         f"vs its plain version {m}x{m} depth {depth}",
+                         (got[0][sl], got[1][sl], got[2][:, sl],
+                          got[3][:, sl]), want, depth, card)
+        wants.append(want)
+    want = (torch.cat([w[0] for w in wants]), torch.cat([w[1] for w in wants]),
+            torch.cat([w[2] for w in wants], 1).contiguous(),
+            torch.cat([w[3] for w in wants], 1).contiguous())
+    colours = vm.de_nan(want[0]).view(spp, m * m, 3)
+    tgt = target if m == n else torch.full((m * m, 3), 0.25, device=dev)
+    mean = colours.sum(0) / spp
+    g_rad = torch.where(torch.isfinite(want[0]),
+                        (2.0 * (mean - tgt) / float(m * m * 3 * spp)).repeat(
+                            spp, 1),
+                        torch.zeros((), device=dev)).contiguous()
+    reverse_vs_g(f"{label}: diff_trace_bwd (the fused reverse) of {spp} "
+                 f"passes vs G on its plain version's slots ({m}x{m})",
+                 scene, want, g_rad, c0, c1, s, card, spp)
+    del wants, want, got
+
+    # Times at n²: the merged launch and call against spp of one pass.
+    big, big_own = rays_of(n) if m != n else (merged, own)
+    rad, cnt, rec_f, rec_i = fwd(big, spp)
+    g_big = torch.where(torch.isfinite(rad), 2.0 * (vm.de_nan(rad) - 0.25)
+                        / float(n * n * 3 * spp),
+                        torch.zeros((), device=dev)).contiguous()
+    fwd_ms = profiling.graph_ms(lambda: fwd(big, spp), 20)
+    fwd_own_ms = profiling.graph_ms(lambda: [fwd(r) for r in big_own], 20)
+    bwd_ms = restored_ms(lambda: diff_trace.reverse(
+        scene, rec_f, rec_i, cnt, g_big, c0, c1, s, spp), [rec_f])
+    sl = [slice(k * n * n, (k + 1) * n * n) for k in range(spp)]
+    parts = [(rec_f[:, x].contiguous(), rec_i[:, x].contiguous(),
+              cnt[x].contiguous(), g_big[x].contiguous()) for x in sl]
+    bwd_own_ms = restored_ms(lambda: [diff_trace.reverse(
+        scene, *p[:3], p[3], c0, c1, s) for p in parts], [p[0] for p in parts])
+    print(f"{label}: {n}x{n}@{spp} depth {depth}, {int(cnt.sum())} rays: "
+          f"diff_trace_fwd one launch of the {spp} passes {fwd_ms:.4f} ms, "
+          f"{spp} launches of a pass {fwd_own_ms:.4f} ms; the reverse one "
+          f"call of the {spp} passes {bwd_ms:.4f} ms, {spp} calls of a pass "
+          f"{bwd_own_ms:.4f} ms (CUDA graphs of 20; the reverse's each call "
+          f"on the forward's records copied back, the copies' time taken "
+          f"off) ({card})", flush=True)
+    return dict(spp=spp, plain_frame=m, slices_bit_for_bit=slices_bits,
+                fwd_ms=fwd_ms, fwd_own_ms=fwd_own_ms, bwd_ms=bwd_ms,
+                bwd_own_ms=bwd_own_ms, rays=int(cnt.sum()))
+
+
+def loop_step(ctx, n: int, depth: int, spp: int, route):
+    """The training step at n², spp samples a pixel, a sample pass at a
+    time and eagerly, as `dist.build_train_step` ran every route before the
+    fused route traced its passes as one (`renderer.sample_pass` for each
+    sample, the colours added in order): step(params, xs, ys, target, key)
+    -> (loss, grads), its rays in `step.rays`."""
+    settings = path.RenderSettings(max_depth=depth)
+
+    def step(params, xs, ys, target, key):
+        leaves = {k: params[k].detach().requires_grad_(True)
+                  for k in dist.PARAMS}
+        cs_p = dist.inject_params(ctx.cs, leaves)
+        acc = rays = None
+        for k in range(spp):
+            color, nr = renderer.sample_pass(
+                cs_p, ctx.meta, settings, ctx.intersect, n, n, xs, ys, key, k,
+                differentiable=True, route=route)
+            acc = color if acc is None else acc + color
+            rays = nr if rays is None else rays + nr
+        n_total = xs.shape[0] * 3
+        se = torch.sum((acc / spp - target) ** 2)
+        grads = torch.autograd.grad(se / float(n_total),
+                                    [leaves[k] for k in dist.PARAMS],
+                                    allow_unused=True)
+        step.rays = int(rays)
+        return se.detach() / float(n_total), {
+            k: torch.zeros_like(leaves[k]) if g is None else g
+            for k, g in zip(dist.PARAMS, grads)}
+
+    return step
+
+
 def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
                       card: str, plain_intersect=None, plain_n=None,
                       probe: bool = False) -> dict:
@@ -2188,25 +2446,9 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
                              f"launched {counts}")
     plain_int = plain_intersect or ctx.intersect
     want = diff_trace.forward_reference(cs_p, meta, s, plain_int, *small)
-    rays_k, rays_p = int(got[1].sum()), int(want[1].sum())
-    fwd_err = image_close(f"{label}: diff_trace_fwd vs its plain version "
-                          f"{m}x{m} depth {depth}", vm.de_nan(got[0]), rays_k,
-                          vm.de_nan(want[0]), rays_p, 1)
-    live = torch.arange(depth, device=dev)[:, None] < want[1][None, :]
-    same = (got[1] == want[1]) & ((got[3] == want[3]) | ~live).all(0)
-    keep = live & same[None, :]
-    rec_err = float(((got[2][keep] - want[2][keep]).abs() / (
-        1e-6 + want[2][keep].abs())).max()) if bool(keep.any()) else 0.0
-    share = float(same.float().mean())
-    rec_ok = bool(torch.allclose(got[2][keep], want[2][keep], rtol=1e-4,
-                                 atol=1e-6))
-    print(f"{label}: diff_trace_fwd records: paths taking the plain "
-          f"version's branches {share:.6f} (tol {PIXEL_SHARE}), their "
-          f"records within rtol 1e-4 {rec_ok} (largest relative difference "
-          f"{rec_err:.3e}); rays equal {rays_k == rays_p} ({card})",
-          flush=True)
-    if not (share >= PIXEL_SHARE and rec_ok):
-        raise AssertionError(f"{label}: the forward kernel's records differ")
+    fwd_err, share, rays_k, rays_p = forward_vs_plain(
+        f"{label}: diff_trace_fwd vs its plain version {m}x{m} depth {depth}",
+        got, want, depth, card)
 
     # The fused reverse at the step's own cotangent of the radiance,
     # against G on the plain version's slots.
@@ -2215,27 +2457,10 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
     g_rad = torch.where(torch.isfinite(want[0]),
                         2.0 * (color - tgt) / float(m * m * 3),
                         torch.zeros((), device=dev)).contiguous()
-    zero_counts()
-    grad = diff_trace.reverse(scene, want[2], want[3], want[1], g_rad, c0, c1,
-                              s)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    if counts["diff_trace_bwd"] != 1 or sum(counts.values()) != 1:
-        raise AssertionError(f"{label}: the reverse's wrapper launched "
-                             f"{counts}")
-    w_rows, w_g, w_count = diff_trace.reverse_reference(
-        want[2], want[3], want[1], g_rad, c0, c1, s, scene.checker)
     n_rows = scene.n_tex * (2 if scene.checker else 1)
-    via_g = table_grad.table_grad(w_rows, w_g, (n_rows, 3), count=w_count)
-    slots = int(w_count)
-    bwd_bits = slots == rays_p and torch.equal(
-        grad.view(torch.int32), via_g.view(torch.int32))
-    print(f"{label}: diff_trace_bwd (the fused reverse) vs G on its plain "
-          f"version's slots ({m}x{m}, {slots} slots, one a record, of a "
-          f"buffer of {w_rows.shape[0]}): the ({n_rows}, 3) table gradient "
-          f"bit for bit {bwd_bits} ({card})", flush=True)
-    if not bwd_bits:
-        raise AssertionError(f"{label}: the fused reverse differs from G")
+    (w_rows, w_g, w_count), = reverse_vs_g(
+        f"{label}: diff_trace_bwd (the fused reverse) vs G on its plain "
+        f"version's slots ({m}x{m})", scene, want, g_rad, c0, c1, s, card)
     g_tab = table_grad_phase({(n_rows, 3): (w_rows, w_g, 0, w_count)},
                              {(n_rows, 3): "tex_c0" + (
                                  "/tex_c1" if scene.checker else "")}, card,
@@ -2275,8 +2500,8 @@ def diff_kernel_phase(label: str, ctx, n: int, depth: int, params, target,
     g_big = g_big.contiguous()
     # A CUDA graph of 20 calls, as G's time is taken: the wrapper's host
     # cost (its buffers, the ctypes call) is no part of the kernel's.
-    bwd_ms = profiling.graph_ms(lambda: diff_trace.reverse(
-        scene, rec_f, rec_i, cnt, g_big, c0, c1, s), 20)
+    bwd_ms = restored_ms(lambda: diff_trace.reverse(
+        scene, rec_f, rec_i, cnt, g_big, c0, c1, s), [rec_f])
 
     def plain_reverse():
         rows, g, count = diff_trace.reverse_reference(
@@ -2395,16 +2620,18 @@ BWD_KERNELS = {"fwd": ("diff_trace_fwd",),
                "bwd": ("diff_trace_bwd_stat", "diff_trace_bwd_lane")}
 
 
-def fused_replay(label: str, s: dict) -> None:
-    """Raise unless a replay of a fused step launched the new-sample
-    cipher, the forward kernel and the reverse once each, G no time, no
-    bounce-form cipher, and nothing else."""
+def fused_replay(label: str, s: dict, spp: int = 1) -> None:
+    """Raise unless a replay of a fused step at spp samples a pixel
+    launched the new-sample cipher, the forward kernel and the reverse
+    once each, the forward's launch carrying the spp sample passes, G no
+    time, no bounce-form cipher, and nothing else."""
     want = {k: 0 for k in s["counts"]}
     want.update(threefry=1, diff_trace_fwd=1, diff_trace_bwd=1)
-    if s["counts"] != want or s["bounce_cipher"] != 0:
+    if s["counts"] != want or s["bounce_cipher"] != 0 or s["passes"] != spp:
         raise AssertionError(f"{label}: a replay launched {s['counts']} "
                              f"({s['bounce_cipher']} in the cipher's bounce "
-                             f"form), not {want} (none)")
+                             f"form, {s['passes']} sample passes), not "
+                             f"{want} (none, {spp})")
 
 
 def profiled_replay(label: str, step, ctx, n: int, params, target,
@@ -2474,6 +2701,9 @@ def training_phases(card: str) -> dict:
         raise AssertionError("the fused forward did not run its kernel once")
     kernels = diff_kernel_phase("phase 16 cornell_box", ctx, n, depth, params,
                                 target, card, probe=True)
+    merged_kernels = merged_kernel_phase("phase 16 cornell_box", ctx, n,
+                                         depth, params, target, STEP_SPP,
+                                         card)
     step = make_step(ctx, n, depth)
     if not isinstance(step.route, diff_trace.DiffScene):
         raise AssertionError("the Cornell step does not take the fused route")
@@ -2535,6 +2765,50 @@ def training_phases(card: str) -> dict:
           f"({card})", flush=True)
     del ckpt
     torch.cuda.empty_cache()
+    # The step at STEP_SPP samples a pixel: one launch of each kernel, the
+    # forward's carrying every sample pass.
+    multi = make_step(ctx, n, depth, spp=STEP_SPP)
+    m_warm = timed_step(multi, ctx, n, params, target)
+    m_runs = [timed_step(multi, ctx, n, params, target) for _ in range(3)]
+    for r in m_runs:
+        fused_replay(f"phase 16 at {STEP_SPP} spp", r, STEP_SPP)
+    m_s = float(np.median([r["seconds"] for r in m_runs]))
+    # The same step a sample pass at a time, eagerly: the same bits.
+    looped = timed_step(loop_step(ctx, n, depth, STEP_SPP, multi.route), ctx,
+                        n, params, target)
+    got = m_runs[-1]
+    loop_bits = looped["rays"] == got["rays"] and np.float32(
+        looped["loss"]).tobytes() == np.float32(got["loss"]).tobytes() and all(
+        looped["grads"][k].tobytes() == got["grads"][k].tobytes()
+        for k in looped["grads"])
+    print(f"training step cornell_box {n}x{n}@{STEP_SPP} depth {depth}: the "
+          f"captured step (its passes in one launch) vs the eager per-sample "
+          f"loop ({looped['seconds']:.4f} s, launches {looped['counts']}, "
+          f"{looped['passes']} passes): rays, loss and every gradient bit for "
+          f"bit {loop_bits} ({card})", flush=True)
+    if not (loop_bits and looped["counts"]["diff_trace_fwd"] == STEP_SPP
+            and looped["counts"]["diff_trace_bwd"] == STEP_SPP):
+        raise AssertionError(f"phase 16 at {STEP_SPP} spp: the captured step "
+                             f"differs from the per-sample loop")
+    print(f"training step (captured, fused): cornell_box {n}x{n}@{STEP_SPP} "
+          f"depth {depth}: {m_s:.5f} s (median of 3; first call "
+          f"{m_warm['seconds']:.4f} s, capture "
+          f"{multi.runner.capture_seconds:.4f} s, the graph "
+          f"{multi.runner.capture_bytes / 2**20:.1f} MiB), {m_runs[0]['rays']} "
+          f"rays; a replay launches {m_runs[0]['counts']}, the forward's "
+          f"launch carrying {m_runs[0]['passes']} sample passes ({card})",
+          flush=True)
+    multi_out = dict(spp=STEP_SPP, seconds=[r["seconds"] for r in m_runs],
+                     first_call_seconds=m_warm["seconds"],
+                     capture_seconds=multi.runner.capture_seconds,
+                     graph_bytes=multi.runner.capture_bytes,
+                     rays=m_runs[0]["rays"],
+                     launches_per_replay=m_runs[0]["counts"],
+                     passes_per_replay=m_runs[0]["passes"],
+                     loop_bit_for_bit=loop_bits,
+                     loop_seconds=looped["seconds"], kernels=merged_kernels)
+    del multi
+    torch.cuda.empty_cache()
     prof = profiled_replay("training step cornell_box 256 (fused)", step, ctx,
                            n, params, target, card)
     memory = memory_per_bounce(ctx, n, depth, target, step,
@@ -2589,7 +2863,7 @@ def training_phases(card: str) -> dict:
         peak_bytes=[s["peak"] for s in steps], memory=memory,
         kernels=kernels, table_grad=kernels["table_grad"],
         table_grad_launches=c_runs[0]["counts"]["table_grad"],
-        bound_ms=step_bound,
+        bound_ms=step_bound, multi_sample=multi_out,
         vs_cpu=dict(frame=n_c, depth=d_c, max_grad_err=cpu_err))
     del ctx, target, params, step, versus
     torch.cuda.empty_cache()
@@ -2605,6 +2879,9 @@ def training_phases(card: str) -> dict:
     okernels = diff_kernel_phase("phase 17 cornell_box_obj", octx, n, depth,
                                  params, grey, card, plain_intersect=plain,
                                  plain_n=TRAIN_VS_PLAIN)
+    okernels["merged"] = merged_kernel_phase(
+        "phase 17 cornell_box_obj", octx, n, depth, params, grey, STEP_SPP,
+        card, plain_intersect=plain, plain_n=TRAIN_VS_PLAIN)
     ostep = make_step(octx, n, depth)
     if not isinstance(ostep.route, diff_trace.DiffScene) or (
             ostep.route.bvh is None):

@@ -63,29 +63,34 @@
 // spill) and its images at stake.
 //
 // izpi_diff_trace_bwd, the fused reverse: the walk of R and the sum of G
-// in two launches, with no (row, cotangent) slot in device memory. A
-// block takes 256 paths and sorts them by record count (sorted_path), so
-// that a warp's lanes hold paths of about one length; a warp walks its
-// lanes' records plane by plane, from its longest count down, lane l
-// taking record k where k < its count, 8 planes' loads in flight and the
-// texture rows staged in shared memory. A path's walk keeps the order of
-// one thread a path: from ā_thru_D = ā_rad ⊙ (0, 0, 1) when the path
-// reached the cap, each record's albedo cotangent ā_albedo in path.py's
-// order of operations.
+// in two launches, with no (row, cotangent) slot in device memory. The
+// paths come in passes, the training step's sample passes traced in one
+// forward launch (pass s: paths [s·N, (s+1)·N)), and each pass gets a
+// table of its own, summed under its own exponent: the gradient a launch
+// over that pass alone gives, bit for bit. A block takes 256 paths of one
+// pass and sorts them by record count (sorted_path), so that a warp's
+// lanes hold paths of about one length; a warp walks its lanes' records
+// plane by plane, from its longest count down, lane l taking record k
+// where k < its count, 8 planes' loads in flight and the texture rows
+// staged in shared memory. A path's walk keeps the order of one thread a
+// path: from ā_thru_D = ā_rad ⊙ (0, 0, 1) when the path reached the cap,
+// each record's albedo cotangent ā_albedo in path.py's order of
+// operations.
 // - diff_trace_bwd_stat (pass 1) walks, keeps each record's ā_albedo and
-//   row at its path's rank (`keep`, one access a warp's plane), and writes
-//   its block's largest finite |ā_albedo| and records. It zeroes pass 2's
-//   sums.
+//   row in the record's own place in rec_f (a lane writes only what it
+//   has read, so no buffer beside the records), and writes its block's
+//   largest finite |ā_albedo| and records. It zeroes pass 2's sums.
 // - diff_trace_bwd_lane / _block / _global (pass 2) take the fixed point's
-//   exponent from those partials, exactly G's (fixed_point.cuh: the
-//   largest finite value and n = Σ cnt, every record a slot as G counted
-//   R's), and add every kept record's terms, an even run of them a thread
-//   (no walk, no tail): into the lanes' own copies of the table in shared
-//   memory (up to kLaneElems elements), the block's copy (the warp's
-//   same-row sum, up to kSharedElems), or device memory. The last block to
-//   finish (an atomic ticket; no grid barrier) writes the table.
-// So the gradient is G's on R's slots bit for bit: the same terms, and
-// int64 sums that any order and any grouping leave the same.
+//   exponent from the partials of the block's pass, exactly G's
+//   (fixed_point.cuh: the largest finite value and n = Σ cnt, every record
+//   a slot as G counted R's), and add every kept record's terms, an even
+//   run of them a thread (no walk, no tail): into the lanes' own copies of
+//   the table in shared memory (up to kLaneElems elements), the block's
+//   copy (the warp's same-row sum, up to kSharedElems), or device memory.
+//   The last block to finish (an atomic ticket; no grid barrier) writes
+//   every pass's table.
+// So each pass's gradient is G's on R's slots bit for bit: the same terms,
+// and int64 sums that any order and any grouping leave the same.
 //
 // Bound. The forward is the RGB megakernel's work (bound by instruction
 // throughput: the primitive tests or node visits and the Threefry rounds,
@@ -723,28 +728,51 @@ __device__ __forceinline__ RowTable stage_rows(const Tex& tex, float* s) {
 }
 
 // The reverse kernels' inputs: the forward's records and ray counts, the
-// radiance's cotangent g_rad (n, 3), the background.
+// radiance's cotangent g_rad (n, 3), the background; n paths in passes of
+// n_pass (n a multiple of it). rec_f is not __restrict__: pass 1 keeps
+// its cotangents in it.
 struct RevArgs {
-  const float* __restrict__ rec_f;
+  const float* rec_f;
   const int* __restrict__ rec_i;
   const int* __restrict__ cnt;
   const float* __restrict__ g_rad;
   int n;
+  int n_pass;
   V3 bg;
 };
 
+// The blocks of a pass: its paths kRevThreads a block, the last block
+// partial where kRevThreads does not divide n_pass.
+__host__ __device__ __forceinline__ int pass_blocks(int n_pass) {
+  return (n_pass + kRevThreads - 1) / kRevThreads;
+}
+
+// This block's paths [first, end), all of pass `pass`.
+struct BlockPaths {
+  int pass, first, end;
+};
+
+__device__ __forceinline__ BlockPaths block_paths(const RevArgs& a) {
+  const int per = pass_blocks(a.n_pass);
+  const int pass = (int)blockIdx.x / per;
+  const int first = pass * a.n_pass + ((int)blockIdx.x - pass * per) * kRevThreads;
+  const int stop = (pass + 1) * a.n_pass;
+  return BlockPaths{pass, first, first + kRevThreads < stop ? first + kRevThreads : stop};
+}
+
 // The path this thread walks back, and its record count `len`: the
-// block's kRevThreads paths sorted by count, longest first (a counting sort
-// in shared memory, bins: 2·kLenBins ints; paths of one count in any
-// order; a path past n counts 0 records), so that a warp's lanes hold
+// block's paths sorted by count, longest first (a counting sort in shared
+// memory, bins: 2·kLenBins ints; paths of one count in any order; a rank
+// past the block's paths counts 0 records), so that a warp's lanes hold
 // paths of about one length and the warp walks few planes its lanes do not
 // use. Which lane walks which path changes no bit: a path's walk is its
 // own, and the fixed point's sums are taken in any order. Every thread of
 // the block calls it.
-__device__ __forceinline__ int sorted_path(const RevArgs& a, int* bins, int* order, int& len) {
+__device__ __forceinline__ int sorted_path(const RevArgs& a, const BlockPaths& bp, int* bins,
+                                           int* order, int& len) {
   const int t = threadIdx.x;
-  const int first = blockIdx.x * blockDim.x;
-  const int own = first + t < a.n ? a.cnt[first + t] : 0;
+  const int first = bp.first;
+  const int own = first + t < bp.end ? a.cnt[first + t] : 0;
   const int bin = own < kLenBins - 1 ? own : kLenBins - 1;
   for (int j = t; j < 2 * kLenBins; j += blockDim.x) bins[j] = 0;
   __syncthreads();
@@ -759,7 +787,7 @@ __device__ __forceinline__ int sorted_path(const RevArgs& a, int* bins, int* ord
   order[atomicAdd(bins + kLenBins + bin, 1)] = t;
   __syncthreads();
   const int path = first + order[t];
-  len = path < a.n ? a.cnt[path] : 0;
+  len = path < bp.end ? a.cnt[path] : 0;
   return path;
 }
 
@@ -800,7 +828,7 @@ __device__ __forceinline__ void reverse_walk(const RevArgs& a, const RowTable& r
                                              int len, Visit&& visit) {
   const V3 g = i < a.n ? ld3(a.g_rad + 3 * i) : mk(0.0f, 0.0f, 0.0f);
   const int top = __reduce_max_sync(kFull, len);
-  const float4* __restrict__ recs = reinterpret_cast<const float4*>(a.rec_f);
+  const float4* recs = reinterpret_cast<const float4*>(a.rec_f);
   float4 rf[kAhead];
   int word[kAhead];
 #pragma unroll
@@ -841,23 +869,22 @@ __device__ __forceinline__ void reverse_walk(const RevArgs& a, const RowTable& r
 // the sums, flags and ticket that pass 2 adds into, and writes its
 // blocks' partials, which pass 2 reads whole.
 struct GradScratch {
-  unsigned long long* acc;  // the table's int64 sums (elems)
-  unsigned* flags;          // their NaN and ±Inf flags (elems)
+  unsigned long long* acc;  // every pass's table's int64 sums (elems a pass)
+  unsigned* flags;          // their NaN and ±Inf flags
   unsigned* part_max;       // a pass-1 block's largest finite |ā_albedo| (its bits)
   int* part_cnt;            // a pass-1 block's records
   int* ticket;              // pass 2's blocks done
-  int* rank_len;            // the records of a block's path of each rank (n)
 };
 
-__host__ __device__ __forceinline__ GradScratch grad_scratch(void* p, long long elems,
+// all_elems: the elements of every pass's table.
+__host__ __device__ __forceinline__ GradScratch grad_scratch(void* p, long long all_elems,
                                                              int blocks) {
   GradScratch gs;
   gs.acc = (unsigned long long*)p;
-  gs.flags = (unsigned*)(gs.acc + elems);
-  gs.part_max = gs.flags + elems;
+  gs.flags = (unsigned*)(gs.acc + all_elems);
+  gs.part_max = gs.flags + all_elems;
   gs.part_cnt = (int*)(gs.part_max + blocks);
   gs.ticket = gs.part_cnt + blocks;
-  gs.rank_len = gs.ticket + 1;
   return gs;
 }
 
@@ -917,39 +944,37 @@ __device__ __forceinline__ int block_scan(int v, int* ws, int& total) {
 }
 
 // Pass 1: the walk's largest finite |ā_albedo| and its records, a block's
-// into its partials; each record's cotangent and row kept for pass 2 at
-// the path's rank in its block (sorted_path), so that a warp's stores are
-// one access: keep[k·n + first + rank] = (ā_albedo, the row's bits) for
-// record k, and rank_len[first + rank] its records; the sums, flags and
-// ticket of pass 2 zeroed.
+// into its partials; each record's cotangent and row kept for pass 2 in
+// the record's place, keep[k·n + i] = (ā_albedo, the row's bits) for
+// record k of path i, keep being rec_f: the lane that read the record
+// writes it, after reading it; the sums, flags and ticket of pass 2 zeroed
+// (all_elems: every pass's table's).
 __global__ void __launch_bounds__(kRevThreads)
-    diff_trace_bwd_stat(Tex tex, RevArgs ra, GradScratch gs, long long elems,
-                        float4* __restrict__ keep) {
+    diff_trace_bwd_stat(Tex tex, RevArgs ra, GradScratch gs, long long all_elems,
+                        float4* keep) {
   __shared__ float staged[3 * kStageRows];
   __shared__ int bins[2 * kLenBins];
   __shared__ int order[kRevThreads];
   __shared__ float wm[kRevThreads / 32];
   __shared__ long long wc[kRevThreads / 32];
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long e = gid; e < elems; e += (long long)gridDim.x * blockDim.x) {
+  for (long long e = gid; e < all_elems; e += (long long)gridDim.x * blockDim.x) {
     gs.acc[e] = 0ull;
     gs.flags[e] = 0u;
   }
   if (gid == 0) *gs.ticket = 0;
   const RowTable rows = stage_rows(tex, staged);
+  const BlockPaths bp = block_paths(ra);
   int len = 0;
-  const int i = sorted_path(ra, bins, order, len);
+  const int i = sorted_path(ra, bp, bins, order, len);
   float m = 0.0f;
   reverse_walk(ra, rows, i, len, [&](int k, bool live, int row, V3 ga) {
     if (live) {
       m = fmaxf(m, fmaxf(fixed::finite_abs(ga.x),
                          fmaxf(fixed::finite_abs(ga.y), fixed::finite_abs(ga.z))));
-      keep[(size_t)k * ra.n + blockIdx.x * blockDim.x + threadIdx.x] =
-          float4{ga.x, ga.y, ga.z, __int_as_float(row)};
+      keep[(size_t)k * ra.n + i] = float4{ga.x, ga.y, ga.z, __int_as_float(row)};
     }
   });
-  // A rank past the paths holds none: the sort puts them last.
-  if (gid < ra.n) gs.rank_len[gid] = len;
   long long c = len;
   block_max_sum(m, c, wm, wc);
   if (threadIdx.x == 0) {
@@ -958,12 +983,28 @@ __global__ void __launch_bounds__(kRevThreads)
   }
 }
 
-// Pass 2: the exponent from pass 1's partials (the largest |ā_albedo| and
-// n = Σ cnt, G's over the slots of every record), then the block's records
-// from pass 1's keep, rank after rank, an even run of them a thread (no
-// walk: every lane busy to the end), each record's terms added (kPath)
-// into the table's sums; the last block to finish turns the sums into out
-// (elems f32).
+// The fixed point's exponent of pass `pass`, from pass 1's partials of
+// its blocks (the largest |ā_albedo| and n = Σ cnt, G's over the slots of
+// every record of the pass), in every thread of the block (which all call
+// it).
+__device__ __forceinline__ int pass_exponent(const RevArgs& ra, const GradScratch& gs, int pass,
+                                             float* wm, long long* wc) {
+  const int per = pass_blocks(ra.n_pass);
+  float m = 0.0f;
+  long long n = 0;
+  for (int j = threadIdx.x; j < per; j += blockDim.x) {
+    m = fmaxf(m, __uint_as_float(gs.part_max[pass * per + j]));
+    n += gs.part_cnt[pass * per + j];
+  }
+  block_max_sum(m, n, wm, wc);
+  return fixed::exponent(__float_as_uint(m), n);
+}
+
+// Pass 2: the exponent of the block's pass, then the block's records from
+// pass 1's keep, path after path, an even run of them a thread (no walk:
+// every lane busy to the end), each record's terms added (kPath) into its
+// pass's table's sums; the last block to finish turns every pass's sums
+// into out (elems f32 a pass, pass after pass).
 template <int kPath>
 __device__ __forceinline__ void reverse_add(const RevArgs& ra, const GradScratch& gs,
                                             long long elems,
@@ -978,22 +1019,17 @@ __device__ __forceinline__ void reverse_add(const RevArgs& ra, const GradScratch
   __shared__ int last;
   static_assert(kLaneElems * kRevThreads <= kSharedElems, "a lane's copies fit the block's");
   const int t = threadIdx.x;
-  float m = 0.0f;
-  long long n = 0;
-  for (int j = t; j < (int)gridDim.x; j += blockDim.x) {
-    m = fmaxf(m, __uint_as_float(gs.part_max[j]));
-    n += gs.part_cnt[j];
-  }
-  block_max_sum(m, n, wm, wc);
-  const int k = fixed::exponent(__float_as_uint(m), n);
-  const double scale = fixed::scale_of(k);
+  const BlockPaths bp = block_paths(ra);
+  const double scale = fixed::scale_of(pass_exponent(ra, gs, bp.pass, wm, wc));
+  unsigned long long* const acc_pass = gs.acc + bp.pass * elems;
+  unsigned* const flags_pass = gs.flags + bp.pass * elems;
   if constexpr (kPath != kAddGlobal) {
     const long long slots = kPath == kAddLane ? elems * kRevThreads : elems;
     for (long long e = t; e < slots; e += blockDim.x) part[e] = 0ull;
   }
-  // The block's ranks, and the first record of each.
-  const int first = blockIdx.x * blockDim.x;
-  const int len = first + t < ra.n ? gs.rank_len[first + t] : 0;
+  // The block's paths, and the first record of each.
+  const int first = bp.first;
+  const int len = first + t < bp.end ? ra.cnt[first + t] : 0;
   int total = 0;
   lens[t] = len;
   start[t] = block_scan(len, ws, total);
@@ -1006,28 +1042,28 @@ __device__ __forceinline__ void reverse_add(const RevArgs& ra, const GradScratch
       for (int col = 0; col < 3; ++col) {
         unsigned flag = 0u;
         const long long q = fixed::term(x[col], scale, flag);
-        if (flag != 0u) atomicOr(gs.flags + 3 * row + col, flag);
+        if (flag != 0u) atomicOr(flags_pass + 3 * row + col, flag);
         if (q != 0) part[(size_t)(3 * row + col) * kRevThreads + t] += (unsigned long long)q;
       }
     } else {
-      unsigned long long* acc = kPath == kAddBlock ? part : gs.acc;
+      unsigned long long* acc = kPath == kAddBlock ? part : acc_pass;
       const unsigned peers = __match_any_sync(kFull, live ? (long long)row : -1ll);
       const bool leader = live && __ffs(peers) - 1 == (t & 31);
 #pragma unroll
       for (int col = 0; col < 3; ++col) {
         unsigned flag = 0u;
         const long long q = live ? fixed::term(x[col], scale, flag) : 0;
-        if (flag != 0u) atomicOr(gs.flags + 3 * row + col, flag);
+        if (flag != 0u) atomicOr(flags_pass + 3 * row + col, flag);
         fixed::warp_add(peers, leader, q, leader ? acc + 3 * row + col : acc);
       }
     }
   };
-  // Records [r, r_end) of the block, from rank p's record rec.
+  // Records [r, r_end) of the block, from its path p's record rec.
   const int per = (total + kRevThreads - 1) / kRevThreads;
   int r = t * per;
   const int r_end = r + per < total ? r + per : total;
   int p = 0, rec = 0;
-  if (r < r_end) {  // the last rank that starts at or before r
+  if (r < r_end) {  // the last path that starts at or before r
     for (int step = kRevThreads / 2; step > 0; step >>= 1) {
       if (start[p + step] <= r) p += step;
     }
@@ -1065,23 +1101,27 @@ __device__ __forceinline__ void reverse_add(const RevArgs& ra, const GradScratch
       for (int o = 16; o > 0; o >>= 1) {
         sum += (unsigned long long)__shfl_sync(kFull, (long long)sum, lane ^ o);
       }
-      if (lane == 0 && sum != 0ull) atomicAdd(gs.acc + e, sum);
+      if (lane == 0 && sum != 0ull) atomicAdd(acc_pass + e, sum);
     }
   } else if constexpr (kPath == kAddBlock) {
     for (long long e = t; e < elems; e += blockDim.x) {
-      if (part[e] != 0ull) atomicAdd(gs.acc + e, part[e]);
+      if (part[e] != 0ull) atomicAdd(acc_pass + e, part[e]);
     }
   }
-  // The last block to finish reads every block's sums.
+  // The last block to finish reads every block's sums, pass after pass.
   __threadfence();
   __syncthreads();
   if (t == 0) last = atomicAdd(gs.ticket, 1) == (int)gridDim.x - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (long long e = t; e < elems; e += blockDim.x) {
-    out[e] = fixed::value(*(volatile unsigned long long*)(gs.acc + e),
-                          *(volatile unsigned*)(gs.flags + e), k);
+  for (int pass = 0; pass < ra.n / ra.n_pass; ++pass) {
+    const int k = pass_exponent(ra, gs, pass, wm, wc);
+    const long long base = pass * elems;
+    for (long long e = base + t; e < base + elems; e += blockDim.x) {
+      out[e] = fixed::value(*(volatile unsigned long long*)(gs.acc + e),
+                            *(volatile unsigned*)(gs.flags + e), k);
+    }
   }
 }
 
@@ -1174,34 +1214,40 @@ int izpi_diff_trace_fwd_probe(const float* prim_f, const int* prim_i, int n_prim
                     book, rad, cnt, rec_f, rec_i, probe, stream);
 }
 
-// The fused reverse over n paths on `stream`: the forward's records and
-// ray counts, g_rad (n, 3) f32 the radiance's cotangent, c0, c1 as above.
-// Writes out (n_rows, 3) f32, the gradient of the stacked [c0; c1] table's
-// first n_rows rows (n_tex, or 2·n_tex where a texture is a checker): each
-// record's albedo cotangent added at its row in the 64-bit fixed point of
-// fixed_point.cuh, whose exponent counts every record. scratch:
-// izpi_diff_trace_bwd_scratch(n, n_rows) bytes of device memory, not
-// zeroed; keep: (max_depth, n, 4) f32, pass 1's cotangents and rows for
-// pass 2. Two launches. Returns a cudaError_t.
-long long izpi_diff_trace_bwd_scratch(int n, int n_rows) {
-  const long long blocks = (n + izpi::diff::kRevThreads - 1) / izpi::diff::kRevThreads;
-  return 12LL * 3 * n_rows + 8 * blocks + 4 + 4LL * n;
+// The fused reverse over n paths on `stream`, in passes of n_pass paths
+// (n a multiple of n_pass; pass s: paths [s·n_pass, (s+1)·n_pass)): the
+// forward's records and ray counts, g_rad (n, 3) f32 the radiance's
+// cotangent, c0, c1 as above. Writes out (n / n_pass, n_rows, 3) f32, each
+// pass's gradient of the stacked [c0; c1] table's first n_rows rows
+// (n_tex, or 2·n_tex where a texture is a checker): each record of the
+// pass's paths its albedo cotangent added at its row in the 64-bit fixed
+// point of fixed_point.cuh, whose exponent counts every record of the
+// pass. scratch: izpi_diff_trace_bwd_scratch(n, n_pass, n_rows) bytes of
+// device memory, not zeroed. Pass 1 keeps each record's cotangent and row
+// for pass 2 in its place in rec_f, so the records are overwritten. Two
+// launches. Returns a cudaError_t.
+long long izpi_diff_trace_bwd_scratch(int n, int n_pass, int n_rows) {
+  const long long passes = n / n_pass;
+  const long long blocks = passes * izpi::diff::pass_blocks(n_pass);
+  return 12LL * 3 * n_rows * passes + 8 * blocks + 4;
 }
 
-int izpi_diff_trace_bwd(const float* rec_f, const int* rec_i, const int* cnt, const float* g_rad,
-                        const float* c0, const float* c1, int n_tex, int n, int max_depth,
-                        float bg_r, float bg_g, float bg_b, int n_rows, void* scratch,
-                        float* keep, float* out, void* stream) {
-  if (n <= 0 || max_depth <= 0 || n_rows <= 0) return (int)cudaErrorInvalidValue;
+int izpi_diff_trace_bwd(float* rec_f, const int* rec_i, const int* cnt, const float* g_rad,
+                        const float* c0, const float* c1, int n_tex, int n, int n_pass,
+                        int max_depth, float bg_r, float bg_g, float bg_b, int n_rows,
+                        void* scratch, float* out, void* stream) {
+  if (n <= 0 || n_pass <= 0 || n % n_pass != 0 || max_depth <= 0 || n_rows <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   using namespace izpi::diff;
   const Tex tex{c0, c1, n_tex};
-  const RevArgs ra{rec_f, rec_i, cnt, g_rad, n, izpi::mk(bg_r, bg_g, bg_b)};
+  const RevArgs ra{rec_f, rec_i, cnt, g_rad, n, n_pass, izpi::mk(bg_r, bg_g, bg_b)};
   const long long elems = 3LL * n_rows;
-  const int blocks = (n + kRevThreads - 1) / kRevThreads;
-  const GradScratch gs = grad_scratch(scratch, elems, blocks);
+  const int blocks = (n / n_pass) * pass_blocks(n_pass);
+  const GradScratch gs = grad_scratch(scratch, elems * (n / n_pass), blocks);
   cudaStream_t s = (cudaStream_t)stream;
-  float4* kept = reinterpret_cast<float4*>(keep);
-  diff_trace_bwd_stat<<<blocks, kRevThreads, 0, s>>>(tex, ra, gs, elems, kept);
+  float4* kept = reinterpret_cast<float4*>(rec_f);
+  diff_trace_bwd_stat<<<blocks, kRevThreads, 0, s>>>(tex, ra, gs, elems * (n / n_pass), kept);
   const int path = add_path(elems);
   if (path == kAddLane) {
     diff_trace_bwd_lane<<<blocks, kRevThreads, 0, s>>>(ra, gs, elems, kept, out);

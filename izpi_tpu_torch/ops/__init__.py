@@ -5,7 +5,9 @@ adds one to where it launches its kernel (`megakernel` counts its BVH
 form's launches apart, in `bvh_launches`; `diff_trace` its two kernels', in
 `fwd_launches` and `bwd_launches`). `KERNEL_COUNTERS` names each
 kernel's counter; `threefry` also counts its new-sample form's share of
-its launches in `sample_launches`. `LAUNCH_COUNTED` holds them all;
+its launches in `sample_launches`, and `diff_trace` the sample passes its
+forward launches carried in `fwd_passes` (passes a launch: `fwd_passes /
+fwd_launches`). `LAUNCH_COUNTED` holds them all;
 `launch_counts` and `add_launch_counts` read and advance them together (a
 CUDA graph replay launches what its capture recorded: `core.loops.Graphed`).
 """
@@ -24,7 +26,8 @@ KERNEL_COUNTERS = {"bvh_kernel": ("bvh_kernel", "launches"),
                    "table_grad": ("table_grad", "launches"),
                    "diff_trace_fwd": ("diff_trace", "fwd_launches"),
                    "diff_trace_bwd": ("diff_trace", "bwd_launches")}
-LAUNCH_COUNTED = (*KERNEL_COUNTERS.values(), ("threefry", "sample_launches"))
+LAUNCH_COUNTED = (*KERNEL_COUNTERS.values(), ("threefry", "sample_launches"),
+                  ("diff_trace", "fwd_passes"))
 
 
 def _module(name: str):

@@ -99,12 +99,13 @@ _SIGNATURES = {
     "izpi_diff_trace_bwd": [
         _c_void_p, _c_void_p, _c_void_p,       # rec_f, rec_i, cnt
         _c_void_p, _c_void_p, _c_void_p,       # g_rad, c0, c1
-        _c_int, _c_int, _c_int,                # n_tex, n, max_depth
+        _c_int, _c_int, _c_int, _c_int,        # n_tex, n, n_pass, max_depth
         _c_float, _c_float, _c_float,          # background
-        _c_int, _c_void_p, _c_void_p,          # n_rows, scratch, keep
+        _c_int, _c_void_p,                     # n_rows, scratch
         _c_void_p, _c_void_p,                  # out, stream
     ],
-    "izpi_diff_trace_bwd_scratch": [_c_int, _c_int],  # n, n_rows -> bytes
+    # n, n_pass, n_rows -> bytes
+    "izpi_diff_trace_bwd_scratch": [_c_int, _c_int, _c_int],
     "izpi_bvh4_rowstack": [
         _c_void_p, _c_void_p,                  # nodes, blocks
         _c_void_p, _c_void_p, _c_void_p,       # o, d, time

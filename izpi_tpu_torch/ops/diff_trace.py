@@ -21,6 +21,12 @@ that needs no geometry adjoint):
   G (`ops.table_grad`, `csrc/fixed_point.cuh`), whose bits it gives, with
   no (row, cotangent) slot and no call of G.
 
+The training step traces its sample passes in one launch of each: pass s
+is paths [s·N, (s+1)·N) of one forward launch, and the reverse sums each
+pass into a table of its own (`reverse`'s `passes`), so that each pass's
+gradient has the bits a launch over it alone gives; `DiffTrace` adds the
+passes' tables in the order autograd added one call's each.
+
 It takes the scenes where no trainable parameter reaches a ray's origin or
 direction (`eligible_diff`): the RGB megakernel's shading without metal
 and absorbing glass, constant or checker textures, through brute force or
@@ -67,9 +73,11 @@ REC_F = 4  # floats a record: thru (3), ratio
 # table_grad.SHARED_ELEMS in its block's copy, beyond that in device memory.
 LANE_ELEMS = 16
 
-# Launches of the forward and the reverse kernel.
+# Launches of the forward and the reverse kernel (a reverse's two kernels
+# count one), and the sample passes the forward's launches carried.
 fwd_launches = 0
 bwd_launches = 0
+fwd_passes = 0
 
 
 class DiffScene(NamedTuple):
@@ -256,19 +264,24 @@ def _stream(dev):
 
 
 def forward(scene: DiffScene, cs, meta, settings, intersect, o, d, time,
-            keys):
+            keys, passes: int = 1):
     """(rad, cnt, rec_f, rec_i) of the forward kernel (`forward_reference`
     says what each holds; past a path's count the records are not
     written). On a CUDA tensor this launches `izpi_diff_trace_fwd` on the
     current stream; any failure to build or launch raises. On a CPU tensor
-    it runs `forward_reference`."""
+    it runs `forward_reference`. `passes`: the sample passes the paths
+    hold, which `fwd_passes` counts (each path's outputs are its own
+    whatever the launch holds)."""
     dev = o.device
     if dev.type == "cpu":
         return forward_reference(cs, meta, settings, intersect, o, d, time,
                                  keys)
     if dev.type != "cuda":
         raise ValueError(f"diff_trace: unsupported device {dev}")
-    return _launch_fwd(scene, cs, meta, settings, o, d, time, keys)
+    out = _launch_fwd(scene, cs, meta, settings, o, d, time, keys)
+    global fwd_passes
+    fwd_passes += passes
+    return out
 
 
 # Paths a warp of the forward kernel, one a lane (csrc/diff_trace.cu).
@@ -413,27 +426,38 @@ def add_path(n_rows: int) -> str:
     return "block" if elems <= table_grad.SHARED_ELEMS else "global"
 
 
-def reverse(scene: DiffScene, rec_f, rec_i, cnt, g_rad, c0, c1, settings):
-    """The gradient (n_rows, 3) f32 of the stacked [c0; c1] table's first
-    n_rows rows (c0's alone where no texture is a checker) from the
-    forward's records and the radiance's cotangent g_rad: each record's
-    albedo cotangent (`reverse_reference`'s slots) summed at its row as G
-    sums them (`table_grad`: the same bits). On a CUDA tensor this launches
-    `izpi_diff_trace_bwd` on the current stream (two launches; a buffer
-    the size of rec_f keeps each record's cotangent between them), or
-    raises; on a CPU tensor it runs `reverse_reference` and then
-    `table_grad.table_grad_reference` on its counted slots."""
+def reverse(scene: DiffScene, rec_f, rec_i, cnt, g_rad, c0, c1, settings,
+            passes: int = 1):
+    """The gradients (passes, n_rows, 3) f32 of the stacked [c0; c1]
+    table's first n_rows rows (c0's alone where no texture is a checker)
+    from the forward's records and the radiance's cotangent g_rad, one a
+    sample pass (pass s: the paths [s·N, (s+1)·N) of the n = passes·N):
+    each record's albedo cotangent (`reverse_reference`'s slots) summed at
+    its row as G sums a pass's (`table_grad`: the same bits). On a CUDA
+    tensor this launches `izpi_diff_trace_bwd` on the current stream (two
+    launches for every pass, the first keeping each record's cotangent for
+    the second in the record's place: it overwrites rec_f), or raises; on
+    a CPU tensor it runs `reverse_reference` and then
+    `table_grad.table_grad_reference` on each pass's counted slots."""
     n_rows = scene.n_tex * (2 if scene.checker else 1)
     dev = g_rad.device
+    depth_max, n = rec_i.shape
+    if passes < 1 or n % passes:
+        raise ValueError(f"diff_trace: {n} paths in {passes} passes")
+    n_pass = n // passes
     if dev.type == "cpu":
-        rows, g, count = reverse_reference(rec_f, rec_i, cnt, g_rad, c0, c1,
-                                           settings, scene.checker)
-        live = int(count.reshape(()))
-        return table_grad.table_grad_reference(rows[:live], g[:live],
-                                               (n_rows, 3))
+        out = []
+        for s in range(passes):
+            own = slice(s * n_pass, (s + 1) * n_pass)
+            rows, g, count = reverse_reference(
+                rec_f[:, own], rec_i[:, own], cnt[own], g_rad[own], c0, c1,
+                settings, scene.checker)
+            live = int(count.reshape(()))
+            out.append(table_grad.table_grad_reference(
+                rows[:live], g[:live], (n_rows, 3)))
+        return torch.stack(out)
     if dev.type != "cuda":
         raise ValueError(f"diff_trace: unsupported device {dev}")
-    depth_max, n = rec_i.shape
     megakernel.check_tables(dev, [
         ("rec_f", rec_f, (depth_max, n, REC_F), torch.float32),
         ("rec_i", rec_i, (depth_max, n), torch.int32),
@@ -444,18 +468,15 @@ def reverse(scene: DiffScene, rec_f, rec_i, cnt, g_rad, c0, c1, settings):
     from izpi_tpu_torch.ops import _build
 
     lib = _build.load()
-    scratch = torch.empty(((lib.izpi_diff_trace_bwd_scratch(n, n_rows) + 7)
-                           // 8,), dtype=torch.int64, device=dev)
-    # Pass 1's cotangent and row of each record, for pass 2 (written and
-    # read at a path's records alone).
-    keep = torch.empty((depth_max, n, REC_F), dtype=torch.float32, device=dev)
-    out = torch.empty((n_rows, 3), dtype=torch.float32, device=dev)
+    scratch = torch.empty(((lib.izpi_diff_trace_bwd_scratch(n, n_pass, n_rows)
+                            + 7) // 8,), dtype=torch.int64, device=dev)
+    out = torch.empty((passes, n_rows, 3), dtype=torch.float32, device=dev)
     bg = [float(x) for x in settings.background]
     with torch.cuda.device(dev):
         err = lib.izpi_diff_trace_bwd(
             _ptr(rec_f), _ptr(rec_i), _ptr(cnt), _ptr(g_rad), _ptr(c0),
-            _ptr(c1), scene.n_tex, n, depth_max, bg[0], bg[1], bg[2], n_rows,
-            _ptr(scratch), _ptr(keep), _ptr(out), _stream(dev))
+            _ptr(c1), scene.n_tex, n, n_pass, depth_max, bg[0], bg[1], bg[2],
+            n_rows, _ptr(scratch), _ptr(out), _stream(dev))
     if err != 0:
         raise RuntimeError(f"{ENTRY_BWD} launch failed: CUDA error {err}")
     global bwd_launches
@@ -465,18 +486,24 @@ def reverse(scene: DiffScene, rec_f, rec_i, cnt, g_rad, c0, c1, settings):
 
 class DiffTrace(torch.autograd.Function):
     """(rad, rays) of `path.trace(..., differentiable=True)` on an eligible
-    scene, differentiable in the texture colours c0 and c1: the forward
-    kernel, then in the backward the reverse, which sums the stacked [c0;
-    c1] rows' gradient (c0's alone where no texture is a checker) itself.
-    The other tables get no gradient."""
+    scene, differentiable in the texture colours c0 and c1: one launch of
+    the forward kernel over every sample pass's paths, then in the
+    backward one call of the reverse, which sums the stacked [c0; c1]
+    rows' gradient (c0's alone where no texture is a checker) itself, a
+    table a pass. The passes' tables are added last pass first, as
+    autograd added the gradients of one call a pass (the last call's
+    backward runs first), so the sum has those bits. The other tables get
+    no gradient. The reverse keeps its cotangents in the records' memory,
+    so the graph's backward runs once (a second raises, as after a
+    version change of a saved tensor)."""
 
     @staticmethod
     def forward(ctx, args, o, d, time, keys, c0, c1):
-        scene, cs, meta, settings, intersect = args
+        scene, cs, meta, settings, intersect, passes = args
         rad, cnt, rec_f, rec_i = forward(scene, cs, meta, settings, intersect,
-                                         o, d, time, keys)
+                                         o, d, time, keys, passes)
         ctx.save_for_backward(rec_f, rec_i, cnt, c0, c1)
-        ctx.scene, ctx.settings = scene, settings
+        ctx.scene, ctx.settings, ctx.passes = scene, settings, passes
         rays = cnt.sum(dtype=torch.int64)
         ctx.mark_non_differentiable(rays)
         return rad, rays
@@ -486,16 +513,22 @@ class DiffTrace(torch.autograd.Function):
     def backward(ctx, g_rad, _g_rays):
         rec_f, rec_i, cnt, c0, c1 = ctx.saved_tensors
         scene = ctx.scene
-        grad = reverse(scene, rec_f, rec_i, cnt, g_rad.contiguous(), c0, c1,
-                       ctx.settings)
+        tables = reverse(scene, rec_f, rec_i, cnt, g_rad.contiguous(), c0, c1,
+                         ctx.settings, ctx.passes)
+        torch.autograd.graph.increment_version(rec_f)
+        grad = tables[-1]
+        for s in reversed(range(ctx.passes - 1)):
+            grad = grad + tables[s]
         g0 = grad[:scene.n_tex]
         g1 = grad[scene.n_tex:] if scene.checker else None
         return None, None, None, None, None, g0, g1
 
 
-def trace(scene: DiffScene, cs, meta, settings, intersect, o, d, time, keys):
+def trace(scene: DiffScene, cs, meta, settings, intersect, o, d, time, keys,
+          passes: int = 1):
     """`path.trace(..., differentiable=True)`'s (rad (N, 3) not DeNAN'd,
-    rays as a 0-dim int64 tensor) through `DiffTrace`."""
-    return DiffTrace.apply((scene, cs, meta, settings, intersect),
+    rays as a 0-dim int64 tensor) through `DiffTrace`; `passes` sample
+    passes of N / passes paths each, pass after pass."""
+    return DiffTrace.apply((scene, cs, meta, settings, intersect, passes),
                            o.contiguous(), d.contiguous(), time.contiguous(),
                            keys.contiguous(), cs.textures.c0, cs.textures.c1)

@@ -864,19 +864,24 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
                      spp: int = 1, group=None, runner=None, route=None):
     """Returns step(params, xs, ys, target, key) -> (loss, grads).
 
-    The pixels xs, ys (N,) render `spp` samples each through the
-    differentiable `renderer.sample_pass` on the scene with `params`
-    injected; the loss is the mean squared error against `target` (N, 3)
-    over every pixel and channel, and grads holds d loss / d param for each
-    of `PARAMS` (zeros for a parameter the render does not reach). The
+    The pixels xs, ys (N,) render `spp` samples each on the scene with
+    `params` injected: on the fused route as one pass of spp·N paths
+    (`renderer.sample_passes`), on the checkpointed route through the
+    differentiable `renderer.sample_pass` a sample, the two with the same
+    colours, rays and gradients bit for bit; the loss is the mean squared
+    error against `target` (N, 3) over every pixel and channel, and grads
+    holds d loss / d param for each of `PARAMS` (zeros for a parameter the
+    render does not reach). The
     step runs on the device of `cs`. `step.rays` holds the rays its last
     call traced (the forward pass's, not the backward's recompute), read
     once from the device a call.
 
     `route` is `path.trace`'s, decided here, on the host, once: by
-    default the fused route (`ops.diff_trace`: a forward kernel, a reverse
-    kernel and one call of G a sample pass) where
-    `diff_trace.eligible_diff` holds, else "checkpoint"; pass "checkpoint"
+    default the fused route (`ops.diff_trace`: one launch of the forward
+    kernel and one call of the reverse, which does G's work, a step, for
+    all its sample passes) where `diff_trace.eligible_diff` holds, else
+    "checkpoint", which runs its sample passes one after another (merged,
+    they would keep spp times the checkpoints); pass "checkpoint"
     to force the checkpointed bounces. `step.route` holds it (a
     `diff_trace.DiffScene`, or "checkpoint").
 
@@ -921,13 +926,21 @@ def build_train_step(cs, meta, settings, intersect, nx: int, ny: int,
                       else params[k].detach().requires_grad_(True))
                   for k in PARAMS}
         cs_p = inject_params(cs, leaves)
-        acc = rays = None
-        for s in range(spp):
-            color, nr = renderer.sample_pass(cs_p, meta, settings, intersect,
-                                             nx, ny, xs, ys, key, s,
-                                             differentiable=True, route=route)
-            acc = color if acc is None else acc + color
-            rays = nr if rays is None else rays + nr
+        if isinstance(route, diff_trace.DiffScene):
+            colours, rays = renderer.sample_passes(
+                cs_p, meta, settings, intersect, nx, ny, xs, ys, key, spp,
+                route)
+            acc, *rest = colours.unbind(0)
+            for color in rest:
+                acc = acc + color
+        else:
+            acc = rays = None
+            for s in range(spp):
+                color, nr = renderer.sample_pass(
+                    cs_p, meta, settings, intersect, nx, ny, xs, ys, key, s,
+                    differentiable=True, route=route)
+                acc = color if acc is None else acc + color
+                rays = nr if rays is None else rays + nr
         color = acc / spp
         se = torch.sum((color - target) ** 2)
         grads = torch.autograd.grad(se / float(n_total),

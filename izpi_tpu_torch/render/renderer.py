@@ -79,8 +79,8 @@ from izpi_tpu_torch.core import vecmath as vm
 from izpi_tpu_torch.integrator import aov as aov_mod
 from izpi_tpu_torch.integrator import path as path_mod
 from izpi_tpu_torch.integrator import wavefront
-from izpi_tpu_torch.ops import (bvh_kernel, megakernel, megakernel_spectral,
-                                threefry)
+from izpi_tpu_torch.ops import (bvh_kernel, diff_trace, megakernel,
+                                megakernel_spectral, threefry)
 from izpi_tpu_torch.render import checkpoint as ckpt_mod
 from izpi_tpu_torch.scene import types as st
 from izpi_tpu_torch.scene.compiler import compile_scene
@@ -218,6 +218,40 @@ def sample_pass(cs, meta, settings, intersect, nx: int, ny: int, xs, ys,
                                   keys, differentiable=differentiable,
                                   route=route)
     return vm.de_nan(color), nrays
+
+
+def sample_rays(cs, base_key, xs, ys, nx: int, ny: int, spp: int):
+    """Samples 0, ..., spp - 1's camera rays through pixels (xs, ys: (N,)),
+    sample after sample: (o, d, time, path keys) of spp·N paths, sample
+    s's those `camera_rays(..., s)` gives, from one call of the cipher
+    entry (a sample id a path; one sample's rays are `camera_rays`', with
+    no copy of the pixels)."""
+    if spp == 1:
+        return camera_rays(cs, base_key, xs, ys, nx, ny, 0)
+    n = xs.shape[0]
+    pixel = (ys * nx + xs).to(torch.int64)
+    sample = torch.arange(spp, dtype=torch.int64,
+                          device=pixel.device).repeat_interleave(n)
+    keys, cam_u, _ = threefry.new_samples(base_key, pixel.repeat(spp), sample,
+                                          camera_mod.CAMERA_SALT)
+    return (*camera_mod.rays_from_uniforms(cs.camera, cam_u, xs.repeat(spp),
+                                           ys.repeat(spp), nx, ny), keys)
+
+
+def sample_passes(cs, meta, settings, intersect, nx: int, ny: int, xs, ys,
+                  base_key, spp: int, route):
+    """Samples 0, ..., spp - 1 for a batch of pixels (xs, ys: (N,)) as one
+    differentiable pass of spp·N paths on the fused route (`route`, an
+    `ops.diff_trace.DiffScene`), sample after sample: one call of the
+    cipher entry for every path's key and camera uniforms (`sample_rays`),
+    one launch of the forward kernel, and in the backward one call of the
+    reverse. Returns (colours (spp, N, 3) DeNAN'd, sample s's the colour
+    `sample_pass(..., s, differentiable=True, route=route)` gives, bit for
+    bit; rays as a 0-dim int64 tensor, the passes' together)."""
+    o, d, tme, keys = sample_rays(cs, base_key, xs, ys, nx, ny, spp)
+    color, nrays = diff_trace.trace(route, cs, meta, settings, intersect, o, d,
+                                    tme, keys, passes=spp)
+    return vm.de_nan(color).view(spp, xs.shape[0], 3), nrays
 
 
 def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,

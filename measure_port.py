@@ -16,7 +16,7 @@
                             [--size 128] [--spp 4] [--runs 2]
     python3 measure_port.py --deposit [--runs 3]
     python3 measure_port.py --step [--scene cornell|obj] [--parent DIR]
-                            [--rounds 1] [--runs 20]
+                            [--rounds 1] [--runs 20] [--spp 1]
     python3 measure_port.py --reverse [--scene cornell|obj] [--parent DIR]
                             [--rounds 1] [--runs 20]
 
@@ -109,28 +109,35 @@ figures (the lanes' use of the warps' visit and test passes, nodes a call
 a lane against the warp's most, the shares of the lanes' cycles), and its
 render, rays and counts must equal the main instance's.
 
-`--step` times the training step (`parallel.dist.build_train_step`, 1
-spp, seed 0, from tex_c0 at 0.7 of its values against a grey target) on
-`--scene` cornell (brute force, the default) or obj (`cornell_box_obj`
-through the BVH4 kernel) at 256×256, depth 50, on the route
-`build_train_step` picks (the fused one, `ops.diff_trace`, for both; a
-tree without routes runs the checkpointed bounces): one call to warm up
-(on this tree, the warm-up and the capture of its CUDA graph) and
-`--runs` timed calls (host clock to a CUDA sync), in this tree, or with
-`--parent DIR` in `--rounds` rounds of four subprocesses in turns — DIR,
-this tree, this tree, DIR. Each turn prints its calls' ms, their median,
-the first call's, and the launches of its last call; on the fused route
-also the forward kernel alone at the step's camera rays: its ms a launch
-over a CUDA graph of 20 launches (`profiling.graph_ms`: the wrapper's
-host cost untimed), a digest of its outputs (radiance, ray counts, each
-path's records up to its count), its kernels' ptxas registers, spills
-and stack frames, and where the tree has it, its probe instance's
-figures (`diff_trace.probe`, whose outputs must equal the kernel's); and
-the reverse from F's records to the table gradient, at depth 50 and 8,
-over a CUDA graph of 20 calls, with a digest of the gradient: a tree
-whose `diff_trace.reverse` returns slots runs R and then G
-(`table_grad`), and R alone is timed too; a tree whose `reverse`
-returns the gradient runs that call. Each tree's step ms (the median of
+`--step` times the training step (`parallel.dist.build_train_step`,
+`--spp` samples a pixel, 1 by default, seed 0, from tex_c0 at 0.7 of its
+values against a grey target) on `--scene` cornell (brute force, the
+default) or obj (`cornell_box_obj` through the BVH4 kernel) at 256×256,
+depth 50, on the route `build_train_step` picks (the fused one,
+`ops.diff_trace`, for both; a tree without routes runs the checkpointed
+bounces): one call to warm up (on this tree, the warm-up and the capture
+of its CUDA graph) and `--runs` timed calls (host clock to a CUDA sync),
+in this tree, or with `--parent DIR` in `--rounds` rounds of four
+subprocesses in turns — DIR, this tree, this tree, DIR. Each turn prints
+its calls' ms, their median, the first call's, the launches of its last
+call and the sample passes its forward launches carried
+(`diff_trace.fwd_passes`, where the tree counts them); on the fused route
+also the forward kernel alone at the step's camera rays, launched as the
+tree's step launches it (one launch of every pass's paths in a tree with
+`renderer.sample_passes`, else a launch a pass): a step's launches' ms
+over a CUDA graph of 20 steps (`profiling.graph_ms`: the wrapper's host
+cost untimed), a digest of each pass's outputs (radiance, ray counts,
+each path's records up to its count; its slice of a merged launch, or
+its own launch), its kernels' ptxas registers, spills and stack frames,
+and where the tree has it, its probe instance's figures
+(`diff_trace.probe` on the step's first launch, whose outputs must equal
+the kernel's); and the reverse from F's records to the table gradient,
+at depth 50 and 8, a step's calls over a CUDA graph of 20 (each step's
+records first copied back from a clone, the copies' time taken off),
+with a digest of each pass's table: a tree whose `diff_trace.reverse` returns slots
+runs R and then G (`table_grad`), and R alone is timed too; a tree
+whose `reverse` returns the gradient runs that call, one for all the
+passes where the tree merges them. Each tree's step ms (the median of
 its turns' medians), forward kernel ms and reverse ms are printed with
 the range of its turns' figures, and with
 `--parent`, each pair's ratio of DIR's to this tree's, the pairs this
@@ -140,17 +147,18 @@ every gradient within 1e-5 + 1e-3·|DIR's| (a new summation order), and
 each tree's turns must repeat bit for bit, the forward kernel's and the
 reverse's digests too; where both trees take the fused route, the loss,
 every gradient, the forward kernel's outputs and the reverse's table
-gradients must also equal DIR's bit for bit (F's and R's arithmetic is
-one thread a path's, whatever the schedule, and G's fixed point sums in
-any order to the same bits).
+gradients, pass by pass, must also equal DIR's bit for bit (F's and R's
+arithmetic is one thread a path's, whatever the schedule, and G's fixed
+point sums in any order to the same bits).
 
 `--reverse` times the training step's reverse alone (`diff_trace.reverse`
 from F's records to the texture table's gradient; R and then G in a tree
 whose `reverse` returns slots) on `--scene` cornell or obj at 256×256,
 depth 50 and 8, the step's cotangent of F's radiance against a grey
-target: its ms a call over a CUDA graph of 20 calls, and from
-torch.profiler over `--runs` calls each device kernel's µs a call, with
-the records and the warp planes (each warp's longest path, summed); in
+target (each call's records first copied back from a clone, the
+copies' time taken off or left out): its ms a call over a CUDA graph of
+20 calls, and from torch.profiler over `--runs` calls each device
+kernel's µs a call, with the records and the warp planes (each warp's longest path, summed); in
 this tree, or with `--parent DIR` in `--rounds` rounds of turns DIR,
 this tree, this tree, DIR.
 
@@ -622,13 +630,13 @@ from izpi_tpu_torch.parallel import dist
 from izpi_tpu_torch.render import renderer
 from izpi_tpu_torch.scene.library.cornell import cornell_box
 from izpi_tpu_torch.scene.library.misc import cornell_box_obj
-scene, n, depth, runs, out = sys.argv[1:6]
-n, depth, runs = int(n), int(depth), int(runs)
+scene, n, depth, runs, out, spp = sys.argv[1:7]
+n, depth, runs, spp = int(n), int(depth), int(runs), int(spp)
 ctx = renderer.RenderContext(
     cornell_box() if scene == "cornell" else cornell_box_obj(), device="cuda")
 step = dist.build_train_step(ctx.cs, ctx.meta,
                              path.RenderSettings(max_depth=depth),
-                             ctx.intersect, n, n)
+                             ctx.intersect, n, n, spp=spp)
 params = dist.extract_params(ctx.cs)
 with torch.no_grad():
     params["tex_c0"] *= 0.7
@@ -645,17 +653,23 @@ for _ in range(runs + 1):
     torch.cuda.synchronize()
     seconds.append(time.perf_counter() - t0)
 launches = ops.kernel_launches()
-np.savez(out, loss=loss.cpu().numpy(),
-         **{k: g.cpu().numpy() for k, g in grads.items()})
 route = getattr(step, "route", "checkpoint")
 fused = {}
 if not isinstance(route, str):
-    # The forward kernel alone at the step's camera rays: a CUDA graph of 20
-    # launches, the digest of its outputs (a path's records up to its
-    # count), and where the tree has it, its probe instance.
+    from izpi_tpu_torch.ops import diff_trace
+    fused["passes"] = getattr(diff_trace, "fwd_passes", None)
+np.savez(out, loss=loss.cpu().numpy(),
+         **{k: g.cpu().numpy() for k, g in grads.items()})
+if not isinstance(route, str):
+    # F alone on what the step launches, a step's launches over a CUDA
+    # graph of 20 steps: one launch of every pass's camera rays in a tree
+    # that merges the passes (`renderer.sample_passes`), else a launch a
+    # pass; the digest of each pass's outputs (a path's records up to its
+    # count), from its slice of the merged launch or from its own launch;
+    # and where the tree has it, its probe instance on the step's first
+    # launch.
     import hashlib
     from izpi_tpu_torch import profiling
-    from izpi_tpu_torch.ops import diff_trace
 
     def digest(out):
         rad, cnt, rec_f, rec_i = out
@@ -666,56 +680,110 @@ if not isinstance(route, str):
             h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
         return h.hexdigest()
 
+    def passes_of(out):
+        rad, cnt, rec_f, rec_i = out
+        m = n * n
+        return [(rad[k * m:(k + 1) * m], cnt[k * m:(k + 1) * m],
+                 rec_f[:, k * m:(k + 1) * m], rec_i[:, k * m:(k + 1) * m])
+                for k in range(cnt.shape[0] // m)]
+
     cs_p = dist.inject_params(ctx.cs, {k: v.detach() for k, v in params.items()})
-    rays = tuple(x.contiguous() for x in renderer.camera_rays(
-        cs_p, key, xs, ys, n, n, 0))
+    per_pass = [tuple(x.contiguous() for x in renderer.camera_rays(
+        cs_p, key, xs, ys, n, n, k)) for k in range(spp)]
+    merged = hasattr(renderer, "sample_passes")
+    launched = ([tuple(torch.cat(x).contiguous() for x in zip(*per_pass))]
+                if merged else per_pass)
+    fused["fwd_launches_step"] = len(launched)
     s = path.RenderSettings(max_depth=depth)
 
-    def fwd():
-        return diff_trace.forward(route, cs_p, ctx.meta, s, ctx.intersect, *rays)
+    def fwd_at(rays, d_set=s):
+        if merged:
+            return diff_trace.forward(route, cs_p, ctx.meta, d_set,
+                                      ctx.intersect, *rays, len(per_pass))
+        return diff_trace.forward(route, cs_p, ctx.meta, d_set, ctx.intersect,
+                                  *rays)
 
-    fused = {"fwd_digest": digest(fwd()),
-             "fwd_ms": profiling.graph_ms(fwd, 20)}
-    # The reverse to the table gradient, over a CUDA graph of 20 calls, at
-    # depth 50 and 8, on the step's cotangent of F's radiance against the
-    # target: a tree whose `reverse` returns (rows, g, count) slots runs it
+    def fwd():
+        return [fwd_at(rays) for rays in launched]
+
+    fused["fwd_digest"] = [digest(p) for o in fwd() for p in passes_of(o)]
+    fused["fwd_ms"] = profiling.graph_ms(fwd, 20)
+    # The reverse to the table gradient, a step's calls over a CUDA graph
+    # of 20 steps, at depth 50 and 8, on the step's cotangent of F's
+    # radiance against the target, with the digest of each pass's table
+    # from the first calls; each timed step first copies the records back
+    # from a clone (a tree's reverse may keep its cotangents in them), and
+    # a graph of the copies alone is timed and taken off: a
+    # tree whose `reverse` returns (rows, g, count) slots runs it
     # and then G (`table_grad`), and its slots alone are timed as "R"; a
-    # tree whose `reverse` returns the gradient runs that one call.
+    # tree whose `reverse` returns the gradient runs that one call (a call
+    # of all the passes, a table each, where the tree merges them).
     from izpi_tpu_torch.core import vecmath as vm
     from izpi_tpu_torch.ops import table_grad
     n_rows = route.n_tex * (2 if route.checker else 1)
     c0, c1 = cs_p.textures.c0, cs_p.textures.c1
     for d_rev in (depth, 8):
         s_rev = path.RenderSettings(max_depth=d_rev)
-        rad, cnt, rec_f, rec_i = diff_trace.forward(
-            route, cs_p, ctx.meta, s_rev, ctx.intersect, *rays)
-        g_rad = torch.where(torch.isfinite(rad), 2.0 * (vm.de_nan(rad) - target)
-                            / float(n * n * 3), torch.zeros((), device="cuda"))
-        g_rad = g_rad.contiguous()
+        calls = []
+        for rays in launched:
+            rad, cnt, rec_f, rec_i = fwd_at(rays, s_rev)
+            g_rad = torch.where(
+                torch.isfinite(rad),
+                2.0 * (vm.de_nan(rad) - target.repeat(cnt.shape[0] // (n * n), 1))
+                / float(n * n * 3 * spp), torch.zeros((), device="cuda"))
+            calls.append((rec_f, rec_i, cnt, g_rad.contiguous()))
+        pristine = [c[0].clone() for c in calls]
 
-        def bwd():
+        def restore():
+            for c, p in zip(calls, pristine):
+                c[0].copy_(p)
+
+        def bwd(rec_f, rec_i, cnt, g_rad):
+            if merged:
+                return diff_trace.reverse(route, rec_f, rec_i, cnt, g_rad, c0,
+                                          c1, s_rev, len(per_pass))
             return diff_trace.reverse(route, rec_f, rec_i, cnt, g_rad, c0, c1,
                                       s_rev)
 
-        slots = isinstance(bwd(), tuple)
+        def tables_of(outs):
+            tables = []
+            for o in outs:
+                if isinstance(o, tuple):
+                    rows, g, count = o
+                    tables.append(table_grad.table_grad(rows, g, (n_rows, 3),
+                                                        count=count))
+                else:
+                    tables.extend(o.reshape(-1, n_rows, 3).unbind(0))
+            return tables
+
+        first = [bwd(*c) for c in calls]
+        slots = isinstance(first[0], tuple)
 
         def rev():
-            if not slots:
-                return bwd()
-            rows, g, count = bwd()
-            return table_grad.table_grad(rows, g, (n_rows, 3), count=count)
+            restore()
+            return tables_of([bwd(*c) for c in calls])
+
+        def r_only():
+            restore()
+            return [bwd(*c) for c in calls]
+
+        copy_ms = profiling.graph_ms(restore, 20)
 
         tag = "" if d_rev == depth else f"_d{d_rev}"
         fused["rev_slots" + tag] = slots
-        fused["rev_digest" + tag] = hashlib.sha256(
-            rev().view(torch.int32).cpu().numpy().tobytes()).hexdigest()
-        fused["rev_ms" + tag] = profiling.graph_ms(rev, 20)
+        fused["rev_digest" + tag] = [hashlib.sha256(
+            t.contiguous().view(torch.int32).cpu().numpy().tobytes()).hexdigest()
+            for t in tables_of(first)]
+        fused["rev_ms" + tag] = profiling.graph_ms(rev, 20) - copy_ms
         if slots:
-            fused["r_ms" + tag] = profiling.graph_ms(bwd, 20)
+            fused["r_ms" + tag] = profiling.graph_ms(r_only, 20) - copy_ms
+        del calls, pristine
     if hasattr(diff_trace, "probe"):
-        probed, summary = diff_trace.probe(route, cs_p, ctx.meta, s, *rays)
+        probed, summary = diff_trace.probe(route, cs_p, ctx.meta, s,
+                                           *launched[0])
         fused["probe"] = summary
-        fused["probe_same"] = digest(probed) == fused["fwd_digest"]
+        fused["probe_same"] = [digest(p) for p in passes_of(probed)] == (
+            fused["fwd_digest"][:len(passes_of(probed))])
 from izpi_tpu_torch.ops import _build
 usage = _build.ptxas_usage(_build.build().with_suffix(".log").read_text())
 fused["usage"] = {k: list(v) for k, v in usage.items()
@@ -730,10 +798,10 @@ print(json.dumps({"seconds": seconds, "rays": step.rays,
 STEP_LOSS_RTOL, STEP_GRAD_ATOL, STEP_GRAD_RTOL = 1e-4, 1e-5, 1e-3
 
 
-def step_turns(scene: str, parent, runs: int, rounds: int) -> None:
-    """--step: the training step on `scene` at 256x256, depth 50, in this
-    tree, or in `rounds` rounds of turns parent, this, this, parent (the
-    module docstring)."""
+def step_turns(scene: str, parent, runs: int, rounds: int, spp: int) -> None:
+    """--step: the training step on `scene` at 256x256, spp samples a
+    pixel, depth 50, in this tree, or in `rounds` rounds of turns parent,
+    this, this, parent (the module docstring)."""
     here = Path(__file__).resolve().parent
     order = (("parent", "this", "this", "parent") * rounds if parent
              else ("this",))
@@ -743,31 +811,34 @@ def step_turns(scene: str, parent, runs: int, rounds: int) -> None:
         for turn, name in enumerate(order):
             out = Path(tmp) / f"{name}{turn}.npz"
             r = run_turn(STEP_TURN, trees[name],
-                         [scene, "256", "50", str(runs), str(out)])
+                         [scene, "256", "50", str(runs), str(out), str(spp)])
             with np.load(out) as z:
                 arrays = {k: z[k] for k in z.files}
             r["step_ms"] = statistics.median(r["seconds"][1:]) * 1e3
             got[name].append((r, arrays))
             print(f"step turn {turn} ({name}, {trees[name]}): {scene} "
-                  f"256x256@1 depth 50, runner {r['runner']}, route "
+                  f"256x256@{spp} depth 50, runner {r['runner']}, route "
                   f"{r['route']}: first call "
                   f"{r['seconds'][0]:.4f} s, then ms "
                   f"{[round(x * 1e3, 4) for x in r['seconds'][1:]]}, median "
                   f"{r['step_ms']:.4f} ms; rays {r['rays']}, loss "
                   f"{r['loss']:.7f}; launches of the last call "
-                  f"{r['launches']}", flush=True)
+                  f"{r['launches']}, the sample passes its forward launches "
+                  f"carried {r.get('passes')}", flush=True)
             if "fwd_ms" in r:
                 print(f"step turn {turn} ({name}): diff_trace_fwd "
-                      f"{r['fwd_ms']:.4f} ms a launch (a CUDA graph of 20), "
-                      f"outputs {r['fwd_digest'][:16]}; ptxas (registers, "
-                      f"spill stores, loads, smem, stack frame) "
+                      f"{r['fwd_ms']:.4f} ms a step's {r['fwd_launches_step']}"
+                      f" launches (a CUDA graph of 20 steps), each pass's "
+                      f"outputs {[d[:12] for d in r['fwd_digest']]}; ptxas "
+                      f"(registers, spill stores, loads, smem, stack frame) "
                       f"{r['usage']}", flush=True)
             if "rev_ms" in r:
                 print(f"step turn {turn} ({name}): the reverse to the table "
                       f"gradient ({'R then G' if r['rev_slots'] else 'fused'}"
-                      f") {r['rev_ms']:.4f} ms a call (a CUDA graph of 20)"
+                      f") {r['rev_ms']:.4f} ms a step (a CUDA graph of 20)"
                       + (f", R alone {r['r_ms']:.4f}" if "r_ms" in r else "")
-                      + f", table gradient {r['rev_digest'][:16]}; at depth "
+                      + f", each pass's table gradient "
+                      f"{[d[:12] for d in r['rev_digest']]}; at depth "
                       f"8 {r['rev_ms_d8']:.4f} ms"
                       + (f", R alone {r['r_ms_d8']:.4f}" if "r_ms_d8" in r
                          else ""),
@@ -777,8 +848,8 @@ def step_turns(scene: str, parent, runs: int, rounds: int) -> None:
                       f"{step_probe_line(r['probe'])}; the probe's outputs "
                       f"equal the kernel's: {r['probe_same']}", flush=True)
     keys = dict.fromkeys(order)
-    summary = {"step_ms": "step", "fwd_ms": "diff_trace_fwd",
-               "rev_ms": "the reverse to the table gradient",
+    summary = {"step_ms": "step", "fwd_ms": "diff_trace_fwd, a step's",
+               "rev_ms": "the reverse to the table gradient, a step's",
                "r_ms": "R alone",
                "rev_ms_d8": "the reverse at depth 8",
                "r_ms_d8": "R alone at depth 8"}
@@ -825,8 +896,10 @@ def step_turns(scene: str, parent, runs: int, rounds: int) -> None:
               f"loss {pr['loss']:.7f} vs {tr['loss']:.7f}, largest gradient "
               f"difference {err:.3e}, within the tolerances {ok}, loss and "
               f"gradients bit for bit {bits}, the forward kernel's outputs "
-              f"bit for bit {fwd_bits}, the reverse's table gradients (depth "
-              f"50 and 8) bit for bit {rev_bits}", flush=True)
+              f"bit for bit {fwd_bits} (pass by pass: a merged launch's "
+              f"slice against a launch of its own), the reverse's table "
+              f"gradients (depth 50 and 8, pass by pass) bit for bit "
+              f"{rev_bits}", flush=True)
         if pr["route"] == tr["route"] == "fused":
             ok = ok and bits and fwd_bits and rev_bits
     print(f"step: each tree's turns repeat bit for bit {repeat} ({smi()})",
@@ -874,16 +947,20 @@ for depth in (50, 8):
     g_rad = torch.where(torch.isfinite(rad), 2.0 * (vm.de_nan(rad) - target)
                         / float(n * n * 3), torch.zeros((), device="cuda"))
     g_rad = g_rad.contiguous()
+    pristine = rec_f.clone()
 
     def rev():
+        rec_f.copy_(pristine)  # a tree's reverse may keep its cotangents there
         o = diff_trace.reverse(route, rec_f, rec_i, cnt, g_rad, c0, c1, s)
         if isinstance(o, tuple):
             return table_grad.table_grad(o[0], o[1], (n_rows, 3), count=o[2])
         return o
 
-    ms = profiling.graph_ms(rev, 20)
+    ms = profiling.graph_ms(rev, 20) - profiling.graph_ms(
+        lambda: rec_f.copy_(pristine), 20)
     _, recs, _ = harness.device_intervals(
         torch, lambda: [rev() for _ in range(calls)])
+    recs = [r for r in recs if "Memcpy" not in r[2]]
     busy = harness.union_seconds(recs)
     rows = {}
     for start, end, name in recs:
@@ -1222,7 +1299,8 @@ def main() -> None:
         if args.scene not in ("cornell", "obj"):
             raise SystemExit("measure_port: --step takes cornell or obj")
         print(f"smi before: {smi()}", flush=True)
-        step_turns(args.scene, args.parent, args.runs or 20, args.rounds)
+        step_turns(args.scene, args.parent, args.runs or 20, args.rounds,
+                   args.spp or 1)
         return
     if args.vs_cpu:
         vs_cpu(args.scene, args.vs_cpu, args.seeds)

@@ -21,6 +21,36 @@ from izpi_tpu_torch.scene import types as tst
 from izpi_tpu_torch.spectral import spd as tspd
 
 
+def loop_step(cs, meta, settings, intersect, n, spp, route, params, xs, ys,
+              target, key):
+    """The training step a sample pass at a time, as
+    `parallel.dist.build_train_step` ran every route before the fused route
+    merged its passes (`renderer.sample_pass` for each sample of the n×n
+    frame, the colours added in order), eagerly: (loss, grads, rays)."""
+    import torch
+
+    from izpi_tpu_torch.parallel import dist
+    from izpi_tpu_torch.render import renderer
+
+    leaves = {k: params[k].detach().requires_grad_(True) for k in dist.PARAMS}
+    cs_p = dist.inject_params(cs, leaves)
+    acc = rays = None
+    for s in range(spp):
+        color, nr = renderer.sample_pass(cs_p, meta, settings, intersect, n,
+                                         n, xs, ys, key, s,
+                                         differentiable=True, route=route)
+        acc = color if acc is None else acc + color
+        rays = nr if rays is None else rays + nr
+    se = torch.sum((acc / spp - target) ** 2)
+    n_total = xs.shape[0] * 3
+    grads = torch.autograd.grad(se / float(n_total),
+                                [leaves[k] for k in dist.PARAMS],
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+             for k, g in zip(dist.PARAMS, grads)}
+    return se.detach() / float(n_total), grads, int(rays)
+
+
 def _leaf(cs, name):
     for part in name.split("."):
         cs = getattr(cs, part)

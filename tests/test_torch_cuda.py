@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import with_absorbing_glass
+from _torch_port import loop_step, with_absorbing_glass
 from izpi_tpu_torch import camera, profiling
 from izpi_tpu_torch.accel import traverse
 from izpi_tpu_torch.core import loops, rng
@@ -990,14 +990,15 @@ def test_bvh_form_refused_launch_raises(obj_context, monkeypatch):
 
 
 def _step_and_inputs(ctx, n, depth, runner=None, intersect=None,
-                     route=None):
-    """A training step on the card context's scene (1 spp, seed 0, 0.7×
-    tex_c0 against a grey target) and its arguments."""
+                     route=None, spp=1):
+    """A training step on the card context's scene (spp samples a pixel, 1
+    by default, seed 0, 0.7× tex_c0 against a grey target) and its
+    arguments."""
     from izpi_tpu_torch.parallel import dist
 
     step = dist.build_train_step(ctx.cs, ctx.meta,
                                  path.RenderSettings(max_depth=depth),
-                                 intersect or ctx.intersect, n, n,
+                                 intersect or ctx.intersect, n, n, spp=spp,
                                  runner=runner, route=route)
     params = dist.extract_params(ctx.cs)
     with torch.no_grad():
@@ -1051,12 +1052,14 @@ def test_captured_step_matches_eager_step(name, n, route):
             16 if name == "cornell_box_obj" else 0)
         assert deltas[("table_grad", "launches")] >= 2
         assert deltas[("diff_trace", "fwd_launches")] == 0
+        assert deltas[("diff_trace", "fwd_passes")] == 0
     else:
         assert deltas[("threefry", "launches")] == 1
         assert deltas[("bvh_kernel", "launches")] == 0
         assert deltas[("table_grad", "launches")] == 0
         assert deltas[("diff_trace", "fwd_launches")] == 1
         assert deltas[("diff_trace", "bwd_launches")] == 1
+        assert deltas[("diff_trace", "fwd_passes")] == 1
 
 
 def test_captured_step_replays_bit_for_bit():
@@ -1246,16 +1249,17 @@ def test_diff_trace_kernels_match_plain_on_card(name):
 def _reverse_vs_g(scene, ctx, s, want):
     """The fused reverse (`diff_trace.reverse`, one launch counted) at a
     random cotangent of the radiance, on the plain forward's records
-    `want`, against G (`table_grad`) on `reverse_reference`'s slots and
-    count, bit for bit."""
+    `want` (which it overwrites), against G (`table_grad`) on
+    `reverse_reference`'s slots and count, bit for bit."""
     b0, g0 = diff_trace.bwd_launches, table_grad.launches
     g_rad = torch.randn((want[1].shape[0], 3), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(1))
     c0, c1 = ctx.cs.textures.c0, ctx.cs.textures.c1
-    got = diff_trace.reverse(scene, want[2], want[3], want[1], g_rad, c0, c1, s)
-    assert diff_trace.bwd_launches == b0 + 1
     rows, g, count = diff_trace.reverse_reference(
         want[2], want[3], want[1], g_rad, c0, c1, s, scene.checker)
+    got = diff_trace.reverse(scene, want[2], want[3], want[1], g_rad, c0, c1,
+                             s)[0]
+    assert diff_trace.bwd_launches == b0 + 1
     assert int(count) == int(want[1].sum())
     n_rows = scene.n_tex * (2 if scene.checker else 1)
     via_g = table_grad.table_grad(rows, g, (n_rows, 3), count=count)
@@ -1329,16 +1333,18 @@ def test_diff_trace_fwd_full_step_frame_on_card():
 @pytest.mark.parametrize("name,n", [("cornell_box", 32),
                                     ("cornell_box_obj", 16)])
 def test_fused_step_matches_checkpointed_step_on_card(name, n):
-    """Depth 8: the fused captured step (the default) against the
-    checkpointed captured step on the card: equal rays and loss, every
-    gradient within G's tolerances (rtol 1e-5, atol 1e-6·max|g| of its
-    table: the two sum the rows' cotangents in another order); two replays
-    of the fused step bit for bit."""
+    """Depth 8, 2 samples a pixel: the fused captured step (the default:
+    its passes in one launch of the forward kernel and one call of the
+    reverse) against the checkpointed captured step (a pass at a time) on
+    the card: equal rays and loss, every gradient within G's tolerances
+    (rtol 1e-5, atol 1e-6·max|g| of its table: the two sum the rows'
+    cotangents in another order); two replays of the fused step bit for
+    bit."""
     ctx = renderer.RenderContext(
         cornell_box() if name == "cornell_box" else cornell_box_obj(),
         device="cuda")
-    fused, args = _step_and_inputs(ctx, n, 8)
-    ckpt, _ = _step_and_inputs(ctx, n, 8, route="checkpoint")
+    fused, args = _step_and_inputs(ctx, n, 8, spp=2)
+    ckpt, _ = _step_and_inputs(ctx, n, 8, route="checkpoint", spp=2)
     assert isinstance(fused.route, diff_trace.DiffScene)
     assert ckpt.route == "checkpoint"
     loss_f, grads_f = fused(*args)
@@ -1355,6 +1361,47 @@ def test_fused_step_matches_checkpointed_step_on_card(name, n):
         np.testing.assert_allclose(
             grads_f[k].cpu().numpy(), w, rtol=1e-5,
             atol=1e-6 * max(float(np.abs(w).max()), 1e-30), err_msg=k)
+
+
+@pytest.mark.parametrize("name,n", [("cornell_box", 64),
+                                    ("cornell_box_obj", 32)])
+def test_merged_step_equals_per_sample_loop_on_card(name, n):
+    """Depth 50, 4 samples a pixel: the captured fused step (its four
+    sample passes as one pass: a replay launches the new-sample cipher,
+    the forward kernel and the reverse once each, the forward's launch
+    carrying the 4 passes) against the same step run eagerly a sample pass
+    at a time (a forward launch and a reverse call a pass): the loss, the
+    rays and every gradient bit for bit, on the brute-force form and the
+    BVH form."""
+    ctx = renderer.RenderContext(
+        cornell_box() if name == "cornell_box" else cornell_box_obj(),
+        device="cuda")
+    step, args = _step_and_inputs(ctx, n, 50, spp=4)
+    assert isinstance(step.runner, loops.Graphed)
+    assert isinstance(step.route, diff_trace.DiffScene)
+    loss, grads = step(*args)
+    again, grads_a = step(*args)
+    deltas = step.runner.deltas
+    assert deltas[("diff_trace", "fwd_launches")] == 1
+    assert deltas[("diff_trace", "bwd_launches")] == 1
+    assert deltas[("diff_trace", "fwd_passes")] == 4
+    assert deltas[("threefry", "launches")] == 1
+    assert deltas[("table_grad", "launches")] == 0
+    f0, b0 = diff_trace.fwd_launches, diff_trace.bwd_launches
+    p0 = diff_trace.fwd_passes
+    want_loss, want_grads, want_rays = loop_step(
+        ctx.cs, ctx.meta, path.RenderSettings(max_depth=50), ctx.intersect, n,
+        4, step.route, *args)
+    assert diff_trace.fwd_launches - f0 == diff_trace.bwd_launches - b0 == 4
+    assert diff_trace.fwd_passes - p0 == 4
+    assert step.rays == want_rays > 4 * n * n
+    for got_loss, got in ((loss, grads), (again, grads_a)):
+        assert torch.equal(got_loss.view(torch.int32),
+                           want_loss.view(torch.int32))
+        for k, w in want_grads.items():
+            assert torch.equal(got[k].view(torch.int32),
+                               w.view(torch.int32)), k
+    assert float(grads["tex_c0"].abs().max()) > 0
 
 
 def _spans_named(host, name):

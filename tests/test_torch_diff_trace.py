@@ -34,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import host_kernel, with_absorbing_glass
+from _torch_port import host_kernel, loop_step, with_absorbing_glass
 from test_torch_step import TABLE_GRAD_ENTRY, _host_grad
 from izpi_tpu_torch.core import rng
 from izpi_tpu_torch.integrator import path
@@ -127,9 +127,9 @@ def test_plain_forward_equals_checkpointed_bounces(ctx):
         assert bool(((rec_i >> 3) >= cs.textures.c0.shape[0]).any())
 
 
-def _step(cs, meta, intersect, route, params=None, n=N, depth=DEPTH):
+def _step(cs, meta, intersect, route, params=None, n=N, depth=DEPTH, spp=1):
     step = dist.build_train_step(cs, meta, path.RenderSettings(
-        max_depth=depth), intersect, n, n, route=route)
+        max_depth=depth), intersect, n, n, spp=spp, route=route)
     params = params if params is not None else dist.extract_params(cs)
     with torch.no_grad():
         params["tex_c0"] *= 0.7
@@ -140,10 +140,11 @@ def _step(cs, meta, intersect, route, params=None, n=N, depth=DEPTH):
 
 def test_fused_step_equals_checkpointed_step(ctx, monkeypatch):
     """The step's gradients through `DiffTrace` against the checkpointed
-    route: equal loss and rays, every gradient within rtol 1e-5 and atol
-    1e-6·max|g|; the fused step calls the fused reverse once a sample pass,
-    which returns the gradient of c0's rows (and c1's after them where a
-    texture is a checker), and G no time; the checkpointed step calls G."""
+    route, at 2 samples a pixel: equal loss and rays, every gradient within
+    rtol 1e-5 and atol 1e-6·max|g|; the fused step calls the fused reverse
+    once a step, which returns each sample pass's gradient of c0's rows
+    (and c1's after them where a texture is a checker), and G no time; the
+    checkpointed step calls G."""
     name, (cs, meta, intersect) = ctx
     calls, reverses = [], []
     original, original_reverse = table_grad.table_grad, diff_trace.reverse
@@ -159,12 +160,13 @@ def test_fused_step_equals_checkpointed_step(ctx, monkeypatch):
 
     monkeypatch.setattr(table_grad, "table_grad", recording)
     monkeypatch.setattr(diff_trace, "reverse", recording_reverse)
-    fused, loss, grads = _step(cs, meta, intersect, None)
+    fused, loss, grads = _step(cs, meta, intersect, None, spp=2)
     n_tex = cs.textures.c0.shape[0]
     assert isinstance(fused.route, diff_trace.DiffScene)
-    assert reverses == [(n_tex * (2 if name == "checker" else 1), 3)]
+    assert reverses == [(2, n_tex * (2 if name == "checker" else 1), 3)]
     assert calls == []
-    ref, ref_loss, ref_grads = _step(cs, meta, intersect, "checkpoint")
+    ref, ref_loss, ref_grads = _step(cs, meta, intersect, "checkpoint",
+                                     spp=2)
     assert ref.route == "checkpoint" and len(calls) > 1 and len(reverses) == 1
     assert fused.rays == ref.rays and loss == ref_loss
     for k in dist.PARAMS:
@@ -176,6 +178,102 @@ def test_fused_step_equals_checkpointed_step(ctx, monkeypatch):
     assert np.abs(grads["tex_c0"].numpy()).max() > 1e-4
     if name == "checker":
         assert np.abs(grads["tex_c1"].numpy()).max() > 1e-5
+
+
+@pytest.mark.parametrize("spp", [1, 2, 3])
+def test_merged_passes_equal_per_sample_loop(ctx, spp, monkeypatch):
+    """The fused step's sample passes as one pass of spp·N paths
+    (`renderer.sample_passes`, through the plain versions here) against
+    the same step a sample pass at a time: the loss, the rays and every
+    gradient bit for bit, and each pass's camera rays, radiance and
+    records those of its own pass; one call of the fused reverse a step,
+    with each pass's table, and the checkpointed route's step unchanged."""
+    name, (cs, meta, intersect) = ctx
+    settings = path.RenderSettings(max_depth=DEPTH)
+    reverses = []
+    original_reverse = diff_trace.reverse
+
+    def recording_reverse(*args, **kwargs):
+        out = original_reverse(*args, **kwargs)
+        reverses.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(diff_trace, "reverse", recording_reverse)
+    step = dist.build_train_step(cs, meta, settings, intersect, N, N, spp=spp)
+    route = step.route
+    assert isinstance(route, diff_trace.DiffScene)
+    params = dist.extract_params(cs)
+    with torch.no_grad():
+        params["tex_c0"] *= 0.7
+    xs, ys = _pixels()
+    target, key = _target(), rng.render_key(SEED)
+    loss, grads = step(params, xs, ys, target, key)
+    n_rows = route.n_tex * (2 if route.checker else 1)
+    assert reverses == [(spp, n_rows, 3)]
+    want_loss, want_grads, want_rays = loop_step(
+        cs, meta, settings, intersect, N, spp, route, params, xs, ys, target,
+        key)
+    assert len(reverses) == 1 + spp
+    assert step.rays == want_rays
+    assert torch.equal(loss.view(torch.int32), want_loss.view(torch.int32))
+    for k in dist.PARAMS:
+        assert torch.equal(grads[k].view(torch.int32),
+                           want_grads[k].view(torch.int32)), k
+    assert float(grads["tex_c0"].abs().max()) > 0
+
+    # Each pass of the merged forward against its own pass's.
+    colours, rays = renderer.sample_passes(cs, meta, settings, intersect, N,
+                                           N, xs, ys, key, spp, route)
+    assert colours.shape == (spp, N * N, 3) and int(rays) == want_rays
+    merged = renderer.sample_rays(cs, key, xs, ys, N, N, spp)
+    rays_all = [renderer.camera_rays(cs, key, xs, ys, N, N, s)
+                for s in range(spp)]
+    for got, parts in zip(merged, zip(*rays_all)):
+        assert torch.equal(got, torch.cat(parts))
+    out = diff_trace.forward(route, cs, meta, settings, intersect, *merged)
+    for s in range(spp):
+        own = slice(s * N * N, (s + 1) * N * N)
+        rad, cnt, rec_f, rec_i = diff_trace.forward(
+            route, cs, meta, settings, intersect, *rays_all[s])
+        assert torch.equal(out[0][own].view(torch.int32),
+                           rad.view(torch.int32))
+        assert torch.equal(out[1][own], cnt)
+        assert torch.equal(out[2][:, own], rec_f)
+        assert torch.equal(out[3][:, own], rec_i)
+        color, _ = renderer.sample_pass(cs, meta, settings, intersect, N, N,
+                                        xs, ys, key, s, differentiable=True,
+                                        route=route)
+        assert torch.equal(colours[s], color)
+
+    # The checkpointed route keeps its per-sample loop: its step is the loop's.
+    ckpt = dist.build_train_step(cs, meta, settings, intersect, N, N,
+                                 spp=spp, route="checkpoint")
+    c_loss, c_grads = ckpt(params, xs, ys, target, key)
+    w_loss, w_grads, w_rays = loop_step(cs, meta, settings, intersect, N, spp,
+                                        "checkpoint", params, xs, ys, target,
+                                        key)
+    assert ckpt.rays == w_rays and torch.equal(c_loss, w_loss)
+    for k in dist.PARAMS:
+        assert torch.equal(c_grads[k], w_grads[k]), k
+
+
+def test_fused_backward_runs_once():
+    """The reverse keeps its cotangents in the forward's records, so the
+    graph's backward runs once: a second, over a retained graph, raises
+    as after an in-place change of a saved tensor."""
+    cs, meta, intersect = _context("cornell_box")
+    route = diff_trace.prepare(cs, meta, intersect)
+    params = dist.extract_params(cs)
+    cs_p = dist.inject_params(cs, params)
+    xs, ys = _pixels(4)
+    colours, _ = renderer.sample_passes(
+        cs_p, meta, path.RenderSettings(max_depth=4), intersect, 4, 4, xs, ys,
+        rng.render_key(SEED), 2, route)
+    loss = colours.sum()
+    loss.backward(retain_graph=True)
+    assert float(params["tex_c0"].grad.abs().max()) > 0
+    with pytest.raises(RuntimeError, match="inplace operation"):
+        loss.backward()
 
 
 def _with_sphere_material(scene, material):
@@ -311,18 +409,20 @@ extern "C" void group_hits(const float* prim_f, const int* prim_i, int n_prims, 
 }
 
 // The fused reverse: its two passes, as izpi_diff_trace_bwd launches them.
-extern "C" void run(const float* rec_f, const int* rec_i, const int* cnt, const float* g_rad,
-                    const float* c0, const float* c1, int n_tex, int n, int max_depth,
-                    float bg_r, float bg_g, float bg_b, int n_rows, void* scratch,
-                    float* keep, float* out) {
+extern "C" void run(float* rec_f, const int* rec_i, const int* cnt, const float* g_rad,
+                    const float* c0, const float* c1, int n_tex, int n, int n_pass,
+                    int max_depth, float bg_r, float bg_g, float bg_b, int n_rows,
+                    void* scratch, float* out) {
   using namespace izpi::diff;
   const Tex tex{c0, c1, n_tex};
-  const RevArgs ra{rec_f, rec_i, cnt, g_rad, n, izpi::mk(bg_r, bg_g, bg_b)};
+  const RevArgs ra{rec_f, rec_i, cnt, g_rad, n, n_pass, izpi::mk(bg_r, bg_g, bg_b)};
   const long long elems = 3LL * n_rows;
-  const int blocks = (n + kRevThreads - 1) / kRevThreads;
-  const GradScratch gs = grad_scratch(scratch, elems, blocks);
-  float4* kept = reinterpret_cast<float4*>(keep);
-  run_grid(blocks, kRevThreads, [&] { diff_trace_bwd_stat(tex, ra, gs, elems, kept); });
+  const int blocks = (n / n_pass) * pass_blocks(n_pass);
+  const GradScratch gs = grad_scratch(scratch, elems * (n / n_pass), blocks);
+  float4* kept = reinterpret_cast<float4*>(rec_f);
+  run_grid(blocks, kRevThreads, [&] {
+    diff_trace_bwd_stat(tex, ra, gs, elems * (n / n_pass), kept);
+  });
   const int path = add_path(elems);
   run_grid(blocks, kRevThreads, [&] {
     if (path == kAddLane) {
@@ -341,7 +441,7 @@ extern "C" void run(const float* rec_f, const int* rec_i, const int* cnt, const 
 def host(tmp_path_factory):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib = host_kernel(tmp_path_factory.mktemp("diff_trace"), "diff_trace.cu",
-                      HOST_ENTRY, [p, p, p, p, p, p, i, i, i, f, f, f, i, p,
+                      HOST_ENTRY, [p, p, p, p, p, p, i, i, i, i, f, f, f, i,
                                    p, p])
     lib.fwd.argtypes = ([p, p, i, p, p, p, p, i, p, p, p, p, i, p, p, p, p, i,
                          i, f, f, f, i] + [p] * 5)
@@ -358,20 +458,20 @@ def g_host(tmp_path_factory):
                        TABLE_GRAD_ENTRY, [p, p, ll, p, i, ll, p, p])
 
 
-def _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1, background, n_rows):
-    """The fused reverse as host C++: the table gradient (n_rows, 3), from a
-    scratch (room for a block's partials and a rank's count a path) and a
-    keep buffer filled
-    with bytes it must not read: it zeroes what it adds into and reads a
-    record's kept cotangent only where pass 1 wrote it."""
+def _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1, background, n_rows,
+                  passes=1):
+    """The fused reverse as host C++ over `passes` sample passes: each
+    pass's table gradient (passes, n_rows, 3), from a scratch filled with
+    bytes it must not read (room for every pass's table and a block's
+    partials): it zeroes what it adds into. It keeps each record's
+    cotangent in the record's place, overwriting rec_f."""
     depth, n = rec_i.shape
-    scratch = torch.full(((36 * n_rows + 12 * n + 4 + 7) // 8,), -3,
+    scratch = torch.full(((36 * n_rows * passes + 8 * n + 12 + 7) // 8,), -3,
                          dtype=torch.int64)
-    keep = torch.full((depth, n, 4), torch.nan)
-    out = torch.full((n_rows, 3), -7.0)
+    out = torch.full((passes, n_rows, 3), -7.0)
     host.run(_p(rec_f), _p(rec_i), _p(cnt), _p(g_rad), _p(c0), _p(c1),
-             c0.shape[0], n, depth, *[float(x) for x in background], n_rows,
-             _p(scratch), _p(keep), _p(out))
+             c0.shape[0], n, n // passes, depth,
+             *[float(x) for x in background], n_rows, _p(scratch), _p(out))
     return out
 
 
@@ -392,8 +492,8 @@ def _reverse_vs_g(host, g_host, rec_f, rec_i, cnt, g_rad, c0, c1, background,
     assert live == int(cnt.sum())
     want = _host_grad(g_host, rows[:live].contiguous(), g[:live].contiguous(),
                       (n_rows, 3))
-    got = _host_reverse(host, rec_f, rec_i, cnt, g_rad, c0, c1, background,
-                        n_rows)
+    got = _host_reverse(host, rec_f.clone(), rec_i, cnt, g_rad, c0, c1,
+                        background, n_rows)[0]
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     plain = table_grad.table_grad_reference(rows[:live], g[:live],
                                             (n_rows, 3))
@@ -521,6 +621,38 @@ def test_reverse_kernel_table_paths_on_host(host, g_host, n_tex, path_name):
     grad = _reverse_vs_g(host, g_host, rec_f, rec_i, cnt, g_rad, c0, c1,
                          (0.0, 0.0, 0.0), True)
     assert float(grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("passes,n,n_tex", [(2, 300, 2), (3, 128, 100),
+                                            (4, 257, 1400)])
+def test_reverse_kernel_passes_on_host(host, g_host, passes, n, n_tex):
+    """The fused reverse over `passes` sample passes of n paths each (the
+    lanes' copies, the block's and device memory; a pass's last block
+    partial where 256 does not divide n): each pass's table bit for bit
+    the reverse's over that pass alone, which is G's on the pass's plain
+    slots, though the passes' largest cotangents, and so their exponents,
+    differ; the live records hold their kept cotangents after it."""
+    rec_f, rec_i, cnt, g_rad, c0, c1 = _random_records(passes * n, n_tex,
+                                                       seed=13)
+    g_rad = g_rad * (4.0 ** torch.arange(passes)).repeat_interleave(n)[:, None]
+    n_rows, background = 2 * n_tex, (0.7, 0.8, 1.0)
+    want = []
+    for s in range(passes):
+        own = slice(s * n, (s + 1) * n)
+        want.append(_reverse_vs_g(
+            host, g_host, rec_f[:, own].contiguous(),
+            rec_i[:, own].contiguous(), cnt[own].contiguous(),
+            g_rad[own].contiguous(), c0, c1, background, True))
+    records = rec_f.clone()
+    got = _host_reverse(host, records, rec_i, cnt, g_rad, c0, c1, background,
+                        n_rows, passes)
+    for s in range(passes):
+        assert torch.equal(got[s].view(torch.int32),
+                           want[s].view(torch.int32)), s
+    live = torch.arange(rec_f.shape[0])[:, None] < cnt[None, :]
+    assert torch.equal(records[~live], rec_f[~live])
+    assert not torch.equal(records[live], rec_f[live])
+    assert len({float(w.abs().max()) for w in want}) == passes
 
 
 def test_reverse_kernel_non_finite_on_host(host, g_host):

@@ -3,8 +3,10 @@ package's (izpi_tpu/parallel/dist.py:572-643), on one device.
 
 The same 8×8 pixels, key and parameters (the JAX `extract_params` leaves,
 carried over with `params_from_jax`) go through both packages' step: the
-mean squared error of one differentiable sample per pixel against a seeded
-target, and its gradient in each of the six parameters. Tolerances:
+mean squared error of one differentiable sample per pixel (or of the mean
+of spp samples, JAX's `fori_loop` over its sample passes as its
+`parallel.dist.build_train_step` runs them) against a seeded target, and
+its gradient in each of the six parameters. Tolerances:
 - loss within LOSS_RTOL relative;
 - each gradient entry within GRAD_ATOL + GRAD_RTOL·|reference|: the two
   packages' libm and XLA's fused multiply-adds differ in the last ulps;
@@ -56,9 +58,10 @@ def _target():
     return (np.random.RandomState(1).rand(N * N, 3) * 0.3).astype(np.float32)
 
 
-def jax_step(scene, eager: bool, depth: int = DEPTH):
+def jax_step(scene, eager: bool, depth: int = DEPTH, spp: int = 1):
     """(cs, meta, params, loss, grads), as numpy, of the JAX package's
-    differentiable step."""
+    differentiable step: sample 0, or the mean of samples 0..spp-1 added
+    in a `fori_loop` (izpi_tpu/parallel/dist.py's `local_loss`)."""
     cs, meta = jcompiler.compile_scene(scene)
     intersect = jpath.make_brute_intersector(cs)
     settings = jpath.RenderSettings(max_depth=depth)
@@ -66,9 +69,19 @@ def jax_step(scene, eager: bool, depth: int = DEPTH):
     target = jnp.asarray(_target())
 
     def loss_fn(params):
-        color, _ = jrenderer.sample_pass(
-            jdist.inject_params(cs, params), meta, settings, intersect, N, N,
-            xs, ys, jrng.render_key(SEED), 0, differentiable=True)
+        cs_p = jdist.inject_params(cs, params)
+
+        def body(s, acc):
+            color, _ = jrenderer.sample_pass(
+                cs_p, meta, settings, intersect, N, N, xs, ys,
+                jrng.render_key(SEED), s, differentiable=True)
+            return acc + color
+
+        if spp == 1:
+            color = body(0, 0.0)
+        else:
+            color = jax.lax.fori_loop(
+                0, spp, body, jnp.zeros((N * N, 3), jnp.float32)) / spp
         return jnp.sum((color - target) ** 2) / jnp.float32(N * N * 3)
 
     params = jdist.extract_params(cs)
@@ -82,12 +95,13 @@ def jax_step(scene, eager: bool, depth: int = DEPTH):
             float(loss), {k: np.asarray(v) for k, v in grads.items()})
 
 
-def port_step(cs, meta, params, use_bvh=None, depth=DEPTH, route=None):
-    """The port's step through brute force, or through a traversal's
-    intersector: "bvh4" (`ops.bvh_kernel`) or "row" (`ops.bvh_rowkernel`),
-    each running its plain traversal on the CPU; `route` is
-    `build_train_step`'s (by default the fused route where the scene takes
-    it, `ops.diff_trace`)."""
+def port_step(cs, meta, params, use_bvh=None, depth=DEPTH, route=None,
+              spp=1):
+    """The port's step at spp samples a pixel through brute force, or
+    through a traversal's intersector: "bvh4" (`ops.bvh_kernel`) or "row"
+    (`ops.bvh_rowkernel`), each running its plain traversal on the CPU;
+    `route` is `build_train_step`'s (by default the fused route where the
+    scene takes it, `ops.diff_trace`)."""
     intersect = tpath.make_brute_intersector(cs)
     if use_bvh == "bvh4":
         from izpi_tpu_torch.ops import bvh_kernel
@@ -98,7 +112,7 @@ def port_step(cs, meta, params, use_bvh=None, depth=DEPTH, route=None):
 
         cs, intersect = bvh_rowkernel.attach(cs)
     step = tdist.build_train_step(cs, meta, tpath.RenderSettings(
-        max_depth=depth), intersect, N, N, route=route)
+        max_depth=depth), intersect, N, N, spp=spp, route=route)
     xs, ys = (torch.as_tensor(a) for a in _pixels())
     loss, grads = step(params, xs, ys, torch.as_tensor(_target()),
                        trng.render_key(SEED))
@@ -132,8 +146,29 @@ def test_loss_and_grads_match_jax(cornell, monkeypatch):
     and mat_fuzz have their backward in `ops.table_grad` (its plain
     version on the CPU), and the fused route (the default here,
     `ops.diff_trace`), whose one call of the fused reverse returns tex_c0's
-    gradient, with no call of `table_grad`."""
-    tcs, tmeta, jparams, want_loss, want = cornell
+    gradient (a table for the one sample pass), with no call of
+    `table_grad`."""
+    _match_jax(*cornell, 1, monkeypatch)
+
+
+@pytest.mark.parametrize("spp", [2, 4])
+@pytest.mark.parametrize("glass", ["glass", "no_glass"])
+def test_loss_and_grads_match_jax_at_spp(glass, spp, monkeypatch):
+    """As `test_loss_and_grads_match_jax`, at spp samples a pixel: JAX's
+    sample passes in its `fori_loop`, against the port's checkpointed
+    route (a sample pass at a time) and its fused route (every pass in one
+    launch of the forward kernel and one call of the fused reverse, which
+    returns a table a pass), at the same tolerances."""
+    jcs, jmeta, jparams, want_loss, want = jax_step(
+        j_cornell(with_glass_sphere=glass == "glass"), eager=False, spp=spp)
+    tcs, tmeta = tcompiler.from_jax_arrays(jax_leaves(jcs), "cpu", jmeta)
+    _match_jax(tcs, tmeta, jparams, want_loss, want, spp, monkeypatch)
+
+
+def _match_jax(tcs, tmeta, jparams, want_loss, want, spp, monkeypatch):
+    """The port's step at spp samples a pixel on both routes against JAX's
+    loss and gradients, and the calls of G and the fused reverse each
+    route makes."""
     shapes, reverses = [], []
     original, original_reverse = table_grad.table_grad, diff_trace.reverse
 
@@ -153,15 +188,15 @@ def test_loss_and_grads_match_jax(cornell, monkeypatch):
         reverses.clear()
         loss, got, rays = port_step(tcs, tmeta,
                                     tdist.params_from_jax(jparams, "cpu"),
-                                    route=route)
+                                    route=route, spp=spp)
         if route == "checkpoint":
             assert tuple(tcs.textures.c0.shape) in shapes
             assert tuple(tcs.materials.fuzz.shape) in shapes
             assert reverses == []
         else:
             assert shapes == []
-            assert reverses == [tuple(tcs.textures.c0.shape)]
-        assert rays > N * N
+            assert reverses == [(spp, *tcs.textures.c0.shape)]
+        assert rays > spp * N * N
         np.testing.assert_allclose(loss, want_loss, rtol=LOSS_RTOL)
         assert_grads_close(got, want)
         assert np.abs(got["tex_c0"]).max() > 1e-3

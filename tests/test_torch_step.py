@@ -296,7 +296,8 @@ def test_step_runs_eagerly_on_the_cpu(route):
     table the step reaches has its backward in `table_grad`: on the
     checkpointed bounces each gather of tex_c0 and mat_fuzz; on the fused
     route (the default for the Cornell box, `ops.diff_trace`) none: its
-    reverse, called once a sample pass, returns tex_c0's gradient itself."""
+    reverse, called once a step, returns tex_c0's gradient itself, a table
+    for each of the step's two sample passes."""
     cs, meta = compiler.compile_scene(cornell_box(), "cpu")
     step = dist.build_train_step(cs, meta, path.RenderSettings(max_depth=3),
                                  path.make_brute_intersector(cs), 8, 8, spp=2,
@@ -329,6 +330,6 @@ def test_step_runs_eagerly_on_the_cpu(route):
         for k in ("tex_c0", "mat_fuzz"):   # the tables the Cornell box reaches
             assert tuple(grads[k].shape) in shapes, k
     else:
-        assert shapes == [] and reverses == [tuple(grads["tex_c0"].shape)] * 2
+        assert shapes == [] and reverses == [(2, *grads["tex_c0"].shape)]
     with pytest.raises(ValueError, match="CUDA"):
         loops.Graphed().call(lambda x: x + 1, torch.zeros(3))
